@@ -1,0 +1,203 @@
+"""Shared-candidate pairwise evaluation: the plain PyTorch version and the
+wrapper of the hand-written CUDA kernel (csrc/shared_fused.cu).
+
+Semantics, for tile c, target i (position t_i, index ti_i) and shared
+source j (position s_j, mass m_j, index si_j):
+
+    d = s_j - t_i,  r2 = |d|^2 + eps^2
+    inv_r = 0 if si_j == ti_i or r2 <= 0, else r2^(-1/2)
+    w = m_j * mask[c, j] * inv_r
+    pot_i = -G * sum_j w,  acc_i = G * sum_j w * inv_r^2 * d
+
+Padding sources sit far away (1e30 or the traversal's 4*box sentinel)
+with mass 0; r2 may overflow to inf there and inv_r is then 0, never NaN.
+mode "acc" / "pot" skips the other sum and returns it as zeros.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .. import scan_utils as su
+
+_MODES = {"both": 0, "acc": 1, "pot": 2}
+
+
+def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
+                      eps, G, mode: str = "both", block: int = 1024):
+    """Plain version (counterpart of `rakau_tpu.kernels.xla.eval_shared`,
+    monopole path): loops over source blocks with [C, T, B] panels.
+
+    tgt_pos [C, T, D], tgt_idx [C, T], src_pos [S, D], src_mass [S],
+    src_idx [S], mask [C, S] bool -> acc [C, T, D], pot [C, T]."""
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {tuple(_MODES)}")
+    C, T, D = tgt_pos.shape
+    S = src_pos.shape[0]
+    dtype = tgt_pos.dtype
+    eps2 = torch.full((), eps, dtype=dtype, device=tgt_pos.device) ** 2
+    acc = torch.zeros_like(tgt_pos)
+    pot = torch.zeros_like(tgt_pos[..., 0])
+    mk = mask.to(dtype)
+    for s in range(0, S, block):
+        sp = src_pos[s:s + block]
+        m = src_mass[s:s + block][None, None, :] * mk[:, None, s:s + block]
+        dds = [sp[None, None, :, d] - tgt_pos[:, :, None, d]
+               for d in range(D)]
+        r2 = eps2 + sum(dd * dd for dd in dds)
+        inv_r = torch.rsqrt(r2)
+        dead = (src_idx[s:s + block][None, None, :] == tgt_idx[:, :, None]) \
+            | (r2 <= 0)
+        inv_r = torch.where(dead, 0.0, inv_r)
+        w = m * inv_r
+        if mode in ("both", "acc"):
+            w3 = w * inv_r * inv_r
+            acc += torch.stack([(w3 * dd).sum(-1) for dd in dds], dim=-1)
+        if mode in ("both", "pot"):
+            pot -= w.sum(-1)
+    return G * acc, G * pot
+
+
+# ---------------------------------------------------------------- kernel
+# Source-block granularity of the kernel's active-block lists: each CUDA
+# block stages this many sources (x, y, z, m*mask as float4 + idx as
+# int32: 20 bytes each, 20 KB at 1024) in shared memory per step. This
+# is the single source of the block plan; the kernel's kBlock must equal
+# it (checked when the library loads).
+BLOCK = 1024
+launches = 0          # kernel launches (the main path's proof of use)
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "shared_fused.cu"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
+    return found
+
+
+def build_library() -> Path:
+    """Compile csrc/shared_fused.cu for sm_90a into _build/ (keyed by the
+    source's hash) unless it is there already. Raises on a failed build."""
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src).hexdigest()[:16]
+    out = _BUILD_DIR / f"libshared_fused_{tag}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", str(tmp), str(_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    (_BUILD_DIR / f"{out.stem}.ptxas.txt").write_text(res.stderr)
+    return out
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        fn = lib.rakau_shared_fused
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        lib.rakau_shared_fused_block.restype = ctypes.c_int
+        if lib.rakau_shared_fused_block() != BLOCK:
+            raise RuntimeError(
+                f"kernel block {lib.rakau_shared_fused_block()} != "
+                f"BLOCK {BLOCK}")
+        lib.rakau_cuda_error_string.restype = ctypes.c_char_p
+        lib.rakau_cuda_error_string.argtypes = [ctypes.c_int]
+        _lib = lib
+    return _lib
+
+
+def active_blocks(mask: torch.Tensor):
+    """Per-tile compacted lists of the BLOCK-sized source blocks with any
+    live mask entry: (ids [C, NB] int32, padded with NB; counts [C]
+    int32). The last block may be ragged (the kernel bounds-checks it)."""
+    C, S = mask.shape
+    nb = max(1, -(-S // BLOCK))
+    pad = nb * BLOCK - S
+    if pad:
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    blk_any = mask.reshape(C, nb, BLOCK).any(-1)
+    ids, cnt = su.compact_indices(blk_any, nb)
+    return ids.to(torch.int32), cnt.to(torch.int32)
+
+
+def _check(name, t, dtype, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
+                      eps, G, mode: str = "both"):
+    """The CUDA kernel (replaces `rakau_tpu.kernels.pallas.
+    eval_shared_fused` in its monopole fp32 form). Same arguments and
+    results as eval_shared_plain; float32 tensors, int64 indices, bool
+    mask, all on one CUDA device. Launches on the current stream."""
+    global launches
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {tuple(_MODES)}")
+    C, T, D = tgt_pos.shape
+    S = src_pos.shape[0]
+    if D != 3:
+        raise NotImplementedError("the CUDA kernel is 3-D only")
+    _check("tgt_pos", tgt_pos, torch.float32, (C, T, 3))
+    _check("tgt_idx", tgt_idx, torch.int64, (C, T))
+    _check("src_pos", src_pos, torch.float32, (S, 3))
+    _check("src_mass", src_mass, torch.float32, (S,))
+    _check("src_idx", src_idx, torch.int64, (S,))
+    _check("mask", mask, torch.bool, (C, S))
+    if max(C * T, S, C * S) >= 2 ** 31:
+        raise ValueError("the CUDA kernel takes sizes below 2^31")
+    dev = tgt_pos.device
+    for name, t in (("tgt_idx", tgt_idx), ("src_pos", src_pos),
+                    ("src_mass", src_mass), ("src_idx", src_idx),
+                    ("mask", mask)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, targets on {dev}")
+    acc = torch.empty((C, T, 3), dtype=torch.float32, device=dev)
+    pot = torch.empty((C, T), dtype=torch.float32, device=dev)
+    if C == 0 or T == 0:
+        return acc, pot
+    ids, cnt = active_blocks(mask)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    eps2 = float(torch.tensor(eps, dtype=torch.float32) ** 2)
+    with torch.cuda.device(dev):
+        err = lib.rakau_shared_fused(
+            tgt_pos.data_ptr(), tgt_idx.data_ptr(), src_pos.data_ptr(),
+            src_mass.data_ptr(), src_idx.data_ptr(), mask.data_ptr(),
+            ids.data_ptr(), cnt.data_ptr(), acc.data_ptr(), pot.data_ptr(),
+            C, T, S, ids.shape[1], _MODES[mode], eps2, stream)
+    if err != 0:
+        raise RuntimeError("shared_fused kernel launch failed: "
+                           + lib.rakau_cuda_error_string(err).decode())
+    launches += 1
+    return G * acc, G * pot
