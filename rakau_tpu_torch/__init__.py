@@ -2,8 +2,10 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 Ported so far: the shared-candidate traversal with the "local", "m2p"
-and "grid" far fields (monopole, fp32 accumulation), the Morton build,
-the `Tree` `_u`/`_o` API with updates, and the direct-sum oracles. The
+and "grid" far fields, fp32 or compensated accumulation, the quadrupole
+with "m2p"; the Morton build; the `Tree` `_u`/`_o` API with updates; the
+leapfrog harness (`integrate`), checkpoints and the direct-sum oracles.
+Entry points run on the CUDA card unless given `device="cpu"`. The
 pairwise kernel runs as CUDA C++ on CUDA tensors and as plain PyTorch on
 CPU tensors. Importing the package compiles nothing: the kernel is built
 with nvcc at its first launch.
@@ -11,6 +13,7 @@ with nvcc at its first launch.
 from .config import MAC_BH, MAC_BH_GEOM, TreeConfig
 from .direct import direct_acc_pot, direct_acc_pot_np
 from .tree import Tree, octree, quadtree
+from . import checkpoint, integrate
 
 __version__ = "0.1.0"
 

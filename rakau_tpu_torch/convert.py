@@ -1,4 +1,5 @@
-"""Carry state across from the JAX package: the config and a built tree.
+"""Carry state across from the JAX package: the config, a built tree and
+an integration state.
 
 For an N-body engine the "parameters" are the configuration and the
 tree. These helpers take the JAX objects' plain data (a dataclass, numpy
@@ -14,6 +15,7 @@ import torch
 
 from .build import TreeData
 from .config import TreeConfig
+from .integrate import NBodyState
 
 
 def config_from_jax(cfg) -> TreeConfig:
@@ -39,3 +41,10 @@ def treedata_from_numpy(arrays: dict, device) -> TreeData:
             v = v.astype(np.int64)
         out[name] = torch.from_numpy(np.array(v)).to(device)
     return TreeData(**out)
+
+
+def nbody_state_from_numpy(pos, vel, mass, device):
+    """(pos [N, D], vel [N, D], mass [N]) numpy arrays, e.g. the fields of a
+    JAX `NBodyState` -> `integrate.NBodyState` on `device`, dtypes kept."""
+    return NBodyState(*(torch.from_numpy(np.array(a)).to(device)
+                        for a in (pos, vel, mass)))

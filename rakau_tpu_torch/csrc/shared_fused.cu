@@ -1,38 +1,66 @@
-// Shared-candidate pairwise kernel (monopole, fp32) for NVIDIA Hopper.
+// Shared-candidate pairwise kernel (fp32) for NVIDIA Hopper, in four forms.
 //
 // Replaces the TPU kernel rakau_tpu/kernels/pallas.py:_shared_fused_kernel
-// in its monopole fp32 form (no compensation, no cell test, no quadrupole,
-// no subblock selection). All C tiles of a chunk share one source row of S
-// entries; a per-tile mask [C, S] selects which sources act on which tile.
-// For tile c, target i and source j:
+// with the options the shared path uses: monopole fp32 (K1a),
+// `compensated=True` (K1b), `quad=6` (K1d) and both together. Not here:
+// the grid2 cell test (`grid_sep`) and subblock selection. All C tiles of
+// a chunk share one source row of S entries; a per-tile mask [C, S]
+// selects which sources act on which tile. For tile c, target i and
+// source j:
 //
 //     d = s_j - t_i, r2 = |d|^2 + eps^2
 //     inv_r = 0 if idx_j == idx_i or r2 <= 0, else rsqrt(r2)
 //     w = m_j * mask[c, j] * inv_r
 //     pot_i -= w, acc_i += w * inv_r^2 * d          (G applied by the caller)
 //
-// What bounds it on this card: arithmetic. Each pair costs ~20 fp32
-// operations and one MUFU rsqrt against 20 bytes of source data that every
-// target of the tile reuses, so device memory is not the limit; the rsqrt
-// rate and the number of warps in flight are.
+// QUAD (node rows with raw second moments Q_j, 6 planes xx xy xz yy yz zz):
+// a masked-out pair is dead too (inv_r = 0), so that a masked-out node on
+// top of a target starts every power chain from an exact zero instead of
+// giving mask * inv_r^7 = 0 * inf = NaN (pallas.py:686-694). With
+// Qd = Q_j d, dQd = d.Qd, tr = tr Q_j:
+//
+//     pot_i -= 1.5 dQd inv_r^5 - 0.5 tr inv_r^3
+//     acc_i += -3 Qd inv_r^5 + (7.5 dQd inv_r^7 - 1.5 tr inv_r^5) d
+//
+// (d = s - t, the negative of the t - s frame of the derivation, so the
+// odd-order terms carry the signs of pallas.py:733-746.)
+//
+// COMP: each thread sums one staged source block into fp32 partials, then
+// adds each partial into its running sum with Knuth's TwoSum and keeps the
+// error terms, written as sum + err at the end: the TPU kernel's per-block
+// structure (pallas.py:751-773). A skipped dead block adds nothing, as a
+// zero partial would. TwoSum has no products, so nvcc's FMA contraction
+// cannot change it; built without fast math, nothing reassociates it.
+//
+// What bounds it on this card: arithmetic. A monopole pair costs ~20 fp32
+// operations and one MUFU rsqrt, a quadrupole pair ~60, against 20 (44)
+// bytes of source data that every target of the tile reuses from shared
+// memory, so device memory is not the limit; the issue rate and the warps
+// in flight are. TwoSum adds ~24 operations per source block, not per
+// pair, so the compensated forms cost what the fp32 ones do.
 //
 // Design: grid (C, ceil(T/128)), one thread per target, its position and
 // index in registers. Each CUDA block walks its tile's compacted list of
 // active source blocks (built by the wrapper from the mask, as the TPU
 // kernel's scalar-prefetched ids), so dead blocks cost nothing. Per block
 // the threads stage x, y, z, m*mask (float4) and idx (int32) in shared
-// memory; every thread then reads the same entry at a time (a broadcast,
-// no bank conflicts) and accumulates in fp32 registers. The last block of
-// the row may be ragged: entries past S are staged as far, massless
-// padding and not visited. The TPU kernel held the whole row in VMEM and
-// had to segment rows past its VMEM budget; this one streams blocks and
-// takes any S. With 32 tiles of 512 targets a chunk fills 128 CUDA blocks
-// of 4 warps, about one per SM: occupancy, not the rsqrt rate, is the
-// first limit, and splitting the source loop across blocks is later work.
+// memory, and in the QUAD form the 6 second-moment planes; a masked-out
+// source's staged idx is kMaskedIdx, which no target carries, so the QUAD
+// dead gate needs no extra plane. Every thread then reads the same entry
+// at a time (a broadcast, no bank conflicts) and accumulates in fp32
+// registers. The last block of the row may be ragged: entries past S are
+// staged as far, massless padding and not visited. The TPU kernel held the
+// whole row in VMEM and had to segment rows past its VMEM budget; this one
+// streams blocks and takes any S. With 32 tiles of 512 targets a chunk
+// fills 128 CUDA blocks of 4 warps, about one per SM: occupancy, not the
+// issue rate, is the first limit, and splitting the source loop across
+// blocks is later work.
 //
 // Padding sources sit at 1e30 (or the traversal's 4*box) with mass 0:
-// r2 overflows to inf, rsqrtf(inf) = 0, and w = 0, never NaN. Built
-// without --use_fast_math to keep that.
+// r2 overflows to inf, rsqrtf(inf) = 0, and w = 0, never NaN. The QUAD
+// terms multiply Q (0 on padding) into d before d again (Qd, then d.Qd),
+// so no 1e30 * 1e30 = inf meets a zero. Built without --use_fast_math to
+// keep that.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,14 +68,27 @@
 namespace {
 
 constexpr int kThreads = 128;   // targets per CUDA block, one per thread
-// Sources staged per step: float4 (x, y, z, m*mask) + int32 idx, 20 KB.
-// Must equal kernels/shared.py:BLOCK, which the wrapper checks at load.
+// Sources staged per step: float4 (x, y, z, m*mask) + int32 idx, 20 KB,
+// plus 6 float planes (24 KB) in the QUAD form. Must equal
+// kernels/shared.py:BLOCK, which the wrapper checks at load.
 constexpr int kBlock = 1024;
-static_assert(kBlock * (sizeof(float4) + sizeof(int)) <= 48 * 1024,
-              "the source panel must fit in static shared memory");
+constexpr int kQuad = 6;
+static_assert(kBlock * (sizeof(float4) + sizeof(int) + kQuad * sizeof(float))
+                  <= 48 * 1024,
+              "the largest source panel must fit in static shared memory");
+constexpr int kMaskedIdx = INT32_MIN;   // staged idx of a masked-out source
 enum Mode { kBoth = 0, kAcc = 1, kPot = 2 };
 
-template <int MODE>
+// Knuth TwoSum: s + e == a + b exactly; a becomes s, e is added to err.
+__device__ __forceinline__ void two_sum_into(float& a, float b, float& err)
+{
+    const float s = a + b;
+    const float bb = s - a;
+    err += (a - (s - bb)) + (b - bb);
+    a = s;
+}
+
+template <int MODE, bool COMP, bool QUAD>
 __global__ void __launch_bounds__(kThreads)
 shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                     const int64_t* __restrict__ tgt_idx,  // [C, T]
@@ -55,6 +96,7 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                     const float* __restrict__ mass,       // [S]
                     const int64_t* __restrict__ src_idx,  // [S]
                     const uint8_t* __restrict__ mask,     // [C, S]
+                    const float* __restrict__ quad,       // [S, 6] (QUAD)
                     const int32_t* __restrict__ ids,      // [C, NB]
                     const int32_t* __restrict__ cnt,      // [C]
                     float* __restrict__ acc,              // [C, T, 3]
@@ -63,6 +105,7 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
 {
     __shared__ float4 s_pm[kBlock];
     __shared__ int s_idx[kBlock];
+    __shared__ float s_q[QUAD ? kQuad : 1][QUAD ? kBlock : 1];
 
     const int c = blockIdx.x;
     const int t = blockIdx.y * kThreads + threadIdx.x;
@@ -80,7 +123,8 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
     const uint8_t* my_mask = mask + static_cast<size_t>(c) * S;
     const int nblk = cnt[c];
 
-    float ax = 0.f, ay = 0.f, az = 0.f, pp = 0.f;
+    float ax = 0.f, ay = 0.f, az = 0.f, pp = 0.f;   // running sums
+    float ex = 0.f, ey = 0.f, ez = 0.f, ep = 0.f;   // TwoSum errors (COMP)
     for (int k = 0; k < nblk; ++k) {
         const int base = my_ids[k] * kBlock;
         __syncthreads();            // the previous panel is consumed
@@ -90,17 +134,26 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
             int id = -1;
             if (s < S) {
                 const size_t s3 = 3 * static_cast<size_t>(s);
+                const bool on = my_mask[s] != 0;
                 v.x = src[s3];
                 v.y = src[s3 + 1];
                 v.z = src[s3 + 2];
-                v.w = my_mask[s] ? mass[s] : 0.f;
+                v.w = on ? mass[s] : 0.f;
                 id = static_cast<int>(src_idx[s]);
+                if (QUAD && !on) id = kMaskedIdx;
             }
             s_pm[j] = v;
             s_idx[j] = id;
+            if (QUAD) {
+                const size_t s6 = kQuad * static_cast<size_t>(s);
+#pragma unroll
+                for (int q = 0; q < kQuad; ++q)
+                    s_q[q][j] = s < S ? quad[s6 + q] : 0.f;
+            }
         }
         __syncthreads();
         const int nj = min(kBlock, S - base);
+        float bx = 0.f, by = 0.f, bz = 0.f, bp = 0.f;   // this block's sums
 #pragma unroll 4
         for (int j = 0; j < nj; ++j) {
             const float4 v = s_pm[j];
@@ -109,37 +162,87 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
             const float dz = v.z - tz;
             const float r2 = dx * dx + dy * dy + dz * dz + eps2;
             float inv_r = rsqrtf(r2);
-            if (s_idx[j] == ti || r2 <= 0.f) inv_r = 0.f;
+            const int sid = s_idx[j];
+            bool dead = sid == ti || r2 <= 0.f;
+            if (QUAD) dead = dead || sid == kMaskedIdx;
+            if (dead) inv_r = 0.f;
             const float w = v.w * inv_r;
-            if (MODE != kPot) {
-                const float w3 = w * inv_r * inv_r;
-                ax += w3 * dx;
-                ay += w3 * dy;
-                az += w3 * dz;
+            const float inv2 = inv_r * inv_r;
+            float g = w * inv2;            // the factor of d in acc
+            float qx = 0.f, qy = 0.f, qz = 0.f;
+            if (QUAD) {
+                const float qxx = s_q[0][j], qxy = s_q[1][j], qxz = s_q[2][j];
+                const float qyy = s_q[3][j], qyz = s_q[4][j], qzz = s_q[5][j];
+                qx = qxx * dx + qxy * dy + qxz * dz;      // Qd
+                qy = qxy * dx + qyy * dy + qyz * dz;
+                qz = qxz * dx + qyz * dy + qzz * dz;
+                const float dqd = dx * qx + dy * qy + dz * qz;
+                const float tr = qxx + qyy + qzz;
+                const float inv3 = inv2 * inv_r;
+                const float inv5 = inv3 * inv2;
+                if (MODE != kPot) {
+                    g += 7.5f * dqd * (inv5 * inv2) - 1.5f * tr * inv5;
+                    qx *= -3.f * inv5;
+                    qy *= -3.f * inv5;
+                    qz *= -3.f * inv5;
+                }
+                if (MODE != kAcc) bp -= 1.5f * dqd * inv5 - 0.5f * tr * inv3;
             }
-            if (MODE != kAcc) pp -= w;
+            if (MODE != kPot) {
+                bx += g * dx + qx;
+                by += g * dy + qy;
+                bz += g * dz + qz;
+            }
+            if (MODE != kAcc) bp -= w;
+        }
+        if (COMP) {
+            if (MODE != kPot) {
+                two_sum_into(ax, bx, ex);
+                two_sum_into(ay, by, ey);
+                two_sum_into(az, bz, ez);
+            }
+            if (MODE != kAcc) two_sum_into(pp, bp, ep);
+        } else {
+            ax += bx;
+            ay += by;
+            az += bz;
+            pp += bp;
         }
     }
     if (live) {
-        acc[3 * tc] = ax;
-        acc[3 * tc + 1] = ay;
-        acc[3 * tc + 2] = az;
-        pot[tc] = pp;
+        acc[3 * tc] = ax + ex;
+        acc[3 * tc + 1] = ay + ey;
+        acc[3 * tc + 2] = az + ez;
+        pot[tc] = pp + ep;
     }
 }
 
-template <int MODE>
-cudaError_t launch(const float* tgt, const int64_t* tgt_idx, const float* src,
-                   const float* mass, const int64_t* src_idx,
-                   const uint8_t* mask, const int32_t* ids,
-                   const int32_t* cnt, float* acc, float* pot, int C, int T,
-                   int S, int NB, float eps2, cudaStream_t stream)
+struct Args {
+    const float* tgt; const int64_t* tgt_idx; const float* src;
+    const float* mass; const int64_t* src_idx; const uint8_t* mask;
+    const float* quad; const int32_t* ids; const int32_t* cnt;
+    float* acc; float* pot; int C, T, S, NB; float eps2;
+};
+
+template <int MODE, bool COMP, bool QUAD>
+cudaError_t launch(const Args& a, cudaStream_t stream)
 {
-    const dim3 grid(C, (T + kThreads - 1) / kThreads);
-    shared_fused_kernel<MODE><<<grid, kThreads, 0, stream>>>(
-        tgt, tgt_idx, src, mass, src_idx, mask, ids, cnt, acc, pot,
-        T, S, NB, eps2);
+    const dim3 grid(a.C, (a.T + kThreads - 1) / kThreads);
+    shared_fused_kernel<MODE, COMP, QUAD><<<grid, kThreads, 0, stream>>>(
+        a.tgt, a.tgt_idx, a.src, a.mass, a.src_idx, a.mask, a.quad, a.ids,
+        a.cnt, a.acc, a.pot, a.T, a.S, a.NB, a.eps2);
     return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_form(const Args& a, bool comp, cudaStream_t stream)
+{
+    const bool quad = a.quad != nullptr;
+    if (comp)
+        return quad ? launch<MODE, true, true>(a, stream)
+                    : launch<MODE, true, false>(a, stream);
+    return quad ? launch<MODE, false, true>(a, stream)
+                : launch<MODE, false, false>(a, stream);
 }
 
 }  // namespace
@@ -150,30 +253,26 @@ extern "C" int rakau_shared_fused_block() { return kBlock; }
 
 // Launches on `stream` and returns cudaGetLastError() of the launch
 // (0 = accepted). mode: 0 both, 1 acc only (pot written as 0), 2 pot only
-// (acc written as 0).
+// (acc written as 0). quad: [S, 6] second moments, or null for the
+// monopole forms. comp: nonzero for the compensated (TwoSum) sums.
 extern "C" int rakau_shared_fused(const float* tgt, const int64_t* tgt_idx,
                                   const float* src, const float* mass,
                                   const int64_t* src_idx, const uint8_t* mask,
-                                  const int32_t* ids, const int32_t* cnt,
-                                  float* acc, float* pot, int C, int T, int S,
-                                  int NB, int mode, float eps2,
-                                  void* stream)
+                                  const float* quad, const int32_t* ids,
+                                  const int32_t* cnt, float* acc, float* pot,
+                                  int C, int T, int S, int NB, int mode,
+                                  int comp, float eps2, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
     if (S < 0 || NB <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const Args a{tgt, tgt_idx, src, mass, src_idx, mask, quad, ids, cnt,
+                 acc, pot, C, T, S, NB, eps2};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (mode) {
-    case kBoth:
-        return static_cast<int>(launch<kBoth>(tgt, tgt_idx, src, mass, src_idx, mask, ids,
-                                              cnt, acc, pot, C, T, S, NB, eps2, st));
-    case kAcc:
-        return static_cast<int>(launch<kAcc>(tgt, tgt_idx, src, mass, src_idx, mask, ids,
-                                             cnt, acc, pot, C, T, S, NB, eps2, st));
-    case kPot:
-        return static_cast<int>(launch<kPot>(tgt, tgt_idx, src, mass, src_idx, mask, ids,
-                                             cnt, acc, pot, C, T, S, NB, eps2, st));
-    default:
-        return static_cast<int>(cudaErrorInvalidValue);
+    case kBoth: return static_cast<int>(launch_form<kBoth>(a, comp != 0, st));
+    case kAcc:  return static_cast<int>(launch_form<kAcc>(a, comp != 0, st));
+    case kPot:  return static_cast<int>(launch_form<kPot>(a, comp != 0, st));
+    default:    return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 

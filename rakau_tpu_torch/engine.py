@@ -23,17 +23,22 @@ from .kernels import dispatch
 
 
 def check_supported(cfg: TreeConfig):
-    """Raise NotImplementedError for modes outside the ported slice."""
+    """Raise NotImplementedError for modes outside the ported slice.
+
+    Ported: the shared traversal with the "local", "m2p" and "grid" far
+    fields, fp32 or compensated accumulation, and the quadrupole with
+    "m2p". The quadrupole with "local"/"grid" (RAKAU_DIAG_MODES=1 only)
+    runs on the reference's lists path, which is not ported."""
     if cfg.traversal_mode != "shared":
         raise NotImplementedError(
             f"traversal_mode={cfg.traversal_mode!r} is not ported "
             "(only 'shared')")
     if cfg.farfield == "grid2":
         raise NotImplementedError("farfield='grid2' is not ported")
-    if cfg.multipole_order == 2:
-        raise NotImplementedError("multipole_order=2 is not ported")
-    if cfg.accum == "compensated":
-        raise NotImplementedError("accum='compensated' is not ported")
+    if cfg.multipole_order == 2 and cfg.farfield != "m2p":
+        raise NotImplementedError(
+            "multipole_order=2 is ported with farfield='m2p' only (the "
+            "reference runs it on the unported lists path otherwise)")
 
 
 def _gather_tiles(td: TreeData, cfg: TreeConfig):
@@ -124,7 +129,8 @@ def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
     src, mask, acc_l, pot_l = _chunk_sources(
         td, cfg, theta, eps, G, tpos, tidx, blo, bhi, tables, tcell, Lgrid)
     acc, pot = dispatch.eval_shared(cfg, tpos, tidx, src.pos, src.mass,
-                                    src.idx, mask, eps, G, mode=mode)
+                                    src.idx, mask, eps, G, mode=mode,
+                                    src_quad=src.quad)
     if acc_l is not None:
         acc = acc + acc_l
         pot = pot + pot_l
@@ -197,13 +203,14 @@ def live_chunks(td: TreeData, cfg: TreeConfig) -> int:
 
 def kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps, chunk: int):
     """The pairwise kernel's arguments for chunk `chunk` of a query:
-    (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask), exactly as
-    acc_pot_u_host hands them to kernels.dispatch.eval_shared."""
+    (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, src_quad),
+    exactly as acc_pot_u_host hands them to kernels.dispatch.eval_shared
+    (src_quad [m2p_cap, Q] with multipole_order=2, else None)."""
     tiles, tables, Lgrid = _query_state(td, cfg, eps)
     tpos, tidx, blo, bhi, tcell = (t[chunk] for t in tiles)
     src, mask, _, _ = _chunk_sources(td, cfg, theta, eps, 1.0, tpos, tidx,
                                      blo, bhi, tables, tcell, Lgrid)
-    return tpos, tidx, src.pos, src.mass, src.idx, mask
+    return tpos, tidx, src.pos, src.mass, src.idx, mask, src.quad
 
 
 def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,

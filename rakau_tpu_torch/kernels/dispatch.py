@@ -2,25 +2,51 @@
 `rakau_tpu.kernels.dispatch.eval_shared`.
 
 The device of the tensors decides: CUDA tensors go to the hand-written
-kernel (or raise), CPU tensors to the plain PyTorch version. Nothing
-falls back from one to the other.
+kernel in the asked form (or raise), CPU tensors to the plain PyTorch
+version. Nothing falls back from one to the other.
 """
 from __future__ import annotations
+
+import torch
 
 from ..config import TreeConfig
 from . import shared
 
 
+def _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
+          mode, compensated, src_quad=None):
+    fn = shared.eval_shared_fused if tgt_pos.is_cuda \
+        else shared.eval_shared_plain
+    return fn(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
+              mode=mode, compensated=compensated, src_quad=src_quad)
+
+
 def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
-                src_idx, mask, eps, G, mode: str = "both"):
+                src_idx, mask, eps, G, mode: str = "both", src_quad=None):
     """Shared-candidate evaluation: sources [S, ...] common to the chunk's
     C tiles, per-tile mask [C, S]. mode: "both" | "acc" | "pot" (the
-    skipped output is returned as zeros). Returns acc [C, T, D],
-    pot [C, T]."""
-    if cfg.accum != "fp32":
-        raise NotImplementedError("accum='compensated' is not ported")
-    if tgt_pos.is_cuda:
-        return shared.eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass,
-                                        src_idx, mask, eps, G, mode=mode)
-    return shared.eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass,
-                                    src_idx, mask, eps, G, mode=mode)
+    skipped output is returned as zeros); cfg.accum == "compensated"
+    selects the TwoSum block sums. Returns acc [C, T, D], pot [C, T].
+
+    src_quad [U, Q] (multipole_order=2): second moments of the FIRST U
+    source rows (the traversal's M2P node rows). Two launches, the
+    quadrupole form on rows [0, U) and the monopole form on rows [U, S),
+    so the quadrupole's ~3x work per pair is paid on the node rows only;
+    their results are summed."""
+    comp = cfg.accum == "compensated"
+    if src_pos.shape[0] == 0:
+        C, T, D = tgt_pos.shape
+        return (torch.zeros_like(tgt_pos),
+                torch.zeros((C, T), dtype=tgt_pos.dtype,
+                            device=tgt_pos.device))
+    if src_quad is None:
+        return _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
+                     eps, G, mode, comp)
+    U = src_quad.shape[0]
+    a1, p1 = eval_shared(cfg, tgt_pos, tgt_idx, src_pos[U:], src_mass[U:],
+                         src_idx[U:], mask[:, U:].contiguous(), eps, G,
+                         mode=mode)
+    a2, p2 = _eval(tgt_pos, tgt_idx, src_pos[:U], src_mass[:U],
+                   src_idx[:U], mask[:, :U].contiguous(), eps, G, mode,
+                   comp, src_quad)
+    return a1 + a2, p1 + p2

@@ -12,6 +12,18 @@ source j (position s_j, mass m_j, index si_j):
 Padding sources sit far away (1e30 or the traversal's 4*box sentinel)
 with mass 0; r2 may overflow to inf there and inv_r is then 0, never NaN.
 mode "acc" / "pot" skips the other sum and returns it as zeros.
+
+Two options, as in the reference kernel:
+  * compensated: each BLOCK-sized source block's partial sum enters the
+    running sum through Knuth's TwoSum; the error terms are added at the
+    end;
+  * src_quad [S, Q] (Q = D(D+1)/2 raw second moments about each source's
+    COM, multipole node rows): adds the quadrupole correction
+        pot_i -= G * sum_j (1.5 dQd inv_r^5 - 0.5 tr(Q) inv_r^3)
+        acc_i += G * sum_j (-3 (Qd) inv_r^5 - 1.5 tr(Q) d inv_r^5
+                            + 7.5 dQd d inv_r^7)
+    with mask[c, j] == 0 folded into the dead gate (inv_r = 0), so that a
+    masked-out node on top of a target gives zeros, not 0 * inf = NaN.
 """
 from __future__ import annotations
 
@@ -27,15 +39,68 @@ import torch
 from .. import scan_utils as su
 
 _MODES = {"both": 0, "acc": 1, "pot": 2}
+# Source-block granularity of the kernel's active-block lists: each CUDA
+# block stages this many sources in shared memory per step (x, y, z,
+# m*mask as float4 + idx as int32: 20 KB at 1024; the quadrupole form
+# adds its 6 second-moment planes, 24 KB). This is the single source of
+# the block plan for every form; the kernel's kBlock must equal it
+# (checked when the library loads). The plain version sums by the same
+# blocks unless told otherwise.
+BLOCK = 1024
+
+
+def quad_pairs(ndim: int):
+    """Index pairs (a, b), a <= b, in the order of the Q columns."""
+    return [(a, b) for a in range(ndim) for b in range(a, ndim)]
+
+
+def _two_sum(a, b):
+    """Knuth TwoSum: s + e == a + b exactly."""
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    return s, e
+
+
+def _quad_terms(dds, q, mk, inv_r, mode):
+    """Quadrupole correction of one source block: dds D panels [C, T, B]
+    (d = s - t), q [B, Q], mk [C, 1, B], inv_r [C, T, B] (0 on dead
+    pairs). Returns (dacc list of D panels or None, dpot panel or None),
+    not yet summed over the sources."""
+    D = len(dds)
+    qd = [None] * D                       # (Q d)_a
+    trq = 0.0
+    for ci, (a, b) in enumerate(quad_pairs(D)):
+        qc = q[:, ci]
+        qd[a] = qc * dds[b] if qd[a] is None else qd[a] + qc * dds[b]
+        if a == b:
+            trq = trq + qc
+        else:
+            qd[b] = qc * dds[a] if qd[b] is None else qd[b] + qc * dds[a]
+    dqd = sum(dd * x for dd, x in zip(dds, qd))
+    inv2 = inv_r * inv_r
+    inv3 = inv2 * inv_r
+    inv5 = inv3 * inv2
+    dpot = dacc = None
+    if mode in ("both", "pot"):
+        dpot = mk * (1.5 * dqd * inv5 - 0.5 * trq * inv3)
+    if mode in ("both", "acc"):
+        f5 = mk * inv5
+        f7 = mk * dqd * inv5 * inv2
+        dacc = [-3.0 * qd[d] * f5 - 1.5 * trq * dds[d] * f5
+                + 7.5 * dds[d] * f7 for d in range(D)]
+    return dacc, dpot
 
 
 def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                      eps, G, mode: str = "both", block: int = 1024):
-    """Plain version (counterpart of `rakau_tpu.kernels.xla.eval_shared`,
-    monopole path): loops over source blocks with [C, T, B] panels.
+                      eps, G, mode: str = "both", block: int = BLOCK,
+                      compensated: bool = False, src_quad=None):
+    """Plain version (counterpart of `rakau_tpu.kernels.xla.eval_shared`):
+    loops over source blocks with [C, T, B] panels.
 
     tgt_pos [C, T, D], tgt_idx [C, T], src_pos [S, D], src_mass [S],
-    src_idx [S], mask [C, S] bool -> acc [C, T, D], pot [C, T]."""
+    src_idx [S], mask [C, S] bool (+ src_quad [S, Q]) -> acc [C, T, D],
+    pot [C, T]."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
     C, T, D = tgt_pos.shape
@@ -44,34 +109,69 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     eps2 = torch.full((), eps, dtype=dtype, device=tgt_pos.device) ** 2
     acc = torch.zeros_like(tgt_pos)
     pot = torch.zeros_like(tgt_pos[..., 0])
+    acc_c = torch.zeros_like(acc)
+    pot_c = torch.zeros_like(pot)
     mk = mask.to(dtype)
     for s in range(0, S, block):
+        if not bool(mask[:, s:s + block].any()):
+            continue    # no tile takes this block: it adds exact zeros
         sp = src_pos[s:s + block]
-        m = src_mass[s:s + block][None, None, :] * mk[:, None, s:s + block]
+        mkb = mk[:, None, s:s + block]
+        m = src_mass[s:s + block][None, None, :] * mkb
         dds = [sp[None, None, :, d] - tgt_pos[:, :, None, d]
                for d in range(D)]
         r2 = eps2 + sum(dd * dd for dd in dds)
         inv_r = torch.rsqrt(r2)
         dead = (src_idx[s:s + block][None, None, :] == tgt_idx[:, :, None]) \
             | (r2 <= 0)
+        if src_quad is not None:
+            dead = dead | (mkb <= 0)
         inv_r = torch.where(dead, 0.0, inv_r)
         w = m * inv_r
+        dacc = dpot = None
         if mode in ("both", "acc"):
             w3 = w * inv_r * inv_r
-            acc += torch.stack([(w3 * dd).sum(-1) for dd in dds], dim=-1)
+            dacc = [w3 * dd for dd in dds]
         if mode in ("both", "pot"):
-            pot -= w.sum(-1)
+            dpot = -w
+        if src_quad is not None:
+            qa, qp = _quad_terms(dds, src_quad[s:s + block], mkb, inv_r,
+                                 mode)
+            if dacc is not None:
+                dacc = [a + b for a, b in zip(dacc, qa)]
+            if dpot is not None:
+                dpot = dpot - qp
+        if dacc is not None:
+            dacc = torch.stack([x.sum(-1) for x in dacc], dim=-1)
+            if compensated:
+                acc, e = _two_sum(acc, dacc)
+                acc_c += e
+            else:
+                acc += dacc
+        if dpot is not None:
+            dpot = dpot.sum(-1)
+            if compensated:
+                pot, e = _two_sum(pot, dpot)
+                pot_c += e
+            else:
+                pot += dpot
+    if compensated:
+        acc = acc + acc_c
+        pot = pot + pot_c
     return G * acc, G * pot
 
 
 # ---------------------------------------------------------------- kernel
-# Source-block granularity of the kernel's active-block lists: each CUDA
-# block stages this many sources (x, y, z, m*mask as float4 + idx as
-# int32: 20 bytes each, 20 KB at 1024) in shared memory per step. This
-# is the single source of the block plan; the kernel's kBlock must equal
-# it (checked when the library loads).
-BLOCK = 1024
-launches = 0          # kernel launches (the main path's proof of use)
+# Kernel launches per form (the main path's proof of use): "mono" is K1a,
+# "mono_comp" K1b, "quad" K1d and "quad_comp" K1d with K1b's sums.
+FORMS = ("mono", "mono_comp", "quad", "quad_comp")
+launches = dict.fromkeys(FORMS, 0)
+
+
+def reset_launches():
+    for k in FORMS:
+        launches[k] = 0
+
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "shared_fused.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -116,7 +216,7 @@ def _library():
         lib = ctypes.CDLL(str(build_library()))
         fn = lib.rakau_shared_fused
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
         lib.rakau_shared_fused_block.restype = ctypes.c_int
         if lib.rakau_shared_fused_block() != BLOCK:
@@ -156,12 +256,13 @@ def _check(name, t, dtype, shape):
 
 
 def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                      eps, G, mode: str = "both"):
+                      eps, G, mode: str = "both", compensated: bool = False,
+                      src_quad=None):
     """The CUDA kernel (replaces `rakau_tpu.kernels.pallas.
-    eval_shared_fused` in its monopole fp32 form). Same arguments and
-    results as eval_shared_plain; float32 tensors, int64 indices, bool
-    mask, all on one CUDA device. Launches on the current stream."""
-    global launches
+    eval_shared_fused` in its fp32 and compensated forms, monopole or
+    with src_quad [S, 6]). Same arguments and results as
+    eval_shared_plain; float32 tensors, int64 indices, bool mask, all on
+    one CUDA device. Launches on the current stream."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
     C, T, D = tgt_pos.shape
@@ -174,12 +275,15 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     _check("src_mass", src_mass, torch.float32, (S,))
     _check("src_idx", src_idx, torch.int64, (S,))
     _check("mask", mask, torch.bool, (C, S))
+    named = [("tgt_idx", tgt_idx), ("src_pos", src_pos),
+             ("src_mass", src_mass), ("src_idx", src_idx), ("mask", mask)]
+    if src_quad is not None:
+        _check("src_quad", src_quad, torch.float32, (S, 6))
+        named.append(("src_quad", src_quad))
     if max(C * T, S, C * S) >= 2 ** 31:
         raise ValueError("the CUDA kernel takes sizes below 2^31")
     dev = tgt_pos.device
-    for name, t in (("tgt_idx", tgt_idx), ("src_pos", src_pos),
-                    ("src_mass", src_mass), ("src_idx", src_idx),
-                    ("mask", mask)):
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, targets on {dev}")
     acc = torch.empty((C, T, 3), dtype=torch.float32, device=dev)
@@ -194,10 +298,14 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
         err = lib.rakau_shared_fused(
             tgt_pos.data_ptr(), tgt_idx.data_ptr(), src_pos.data_ptr(),
             src_mass.data_ptr(), src_idx.data_ptr(), mask.data_ptr(),
+            None if src_quad is None else src_quad.data_ptr(),
             ids.data_ptr(), cnt.data_ptr(), acc.data_ptr(), pot.data_ptr(),
-            C, T, S, ids.shape[1], _MODES[mode], eps2, stream)
+            C, T, S, ids.shape[1], _MODES[mode], int(compensated), eps2,
+            stream)
     if err != 0:
         raise RuntimeError("shared_fused kernel launch failed: "
                            + lib.rakau_cuda_error_string(err).decode())
-    launches += 1
+    form = ("quad" if src_quad is not None else "mono") \
+        + ("_comp" if compensated else "")
+    launches[form] += 1
     return G * acc, G * pot

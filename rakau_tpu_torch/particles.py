@@ -1,10 +1,13 @@
-"""Box handling, discretization, API-boundary validation and the Plummer
-sample. Counterpart of `rakau_tpu.particles`.
+"""Box handling, discretization, API-boundary validation and the sample
+generators (Plummer, uniform cube, cold sphere, disk galaxy).
+Counterpart of `rakau_tpu.particles`.
 
 The domain box is centred on the origin. Validation runs once at the API
 boundary (one host sync), never inside the query.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -97,3 +100,54 @@ def plummer(n: int, *, generator: torch.Generator, ndim: int = 3,
     pos = (vec * r[:, None]).to(dtype)
     mass = torch.full((n,), 1.0 / n, dtype=dtype, device=dev)
     return pos, mass
+
+
+def uniform_cube(n: int, *, generator: torch.Generator, ndim: int = 3,
+                 dtype: torch.dtype = torch.float32, box: float = 1.0):
+    """n equal-mass particles (total mass 1) uniform in the cube of side
+    0.999 * box centred on the origin (benchmark config #1)."""
+    dev = generator.device
+    half = box / 2 * 0.999
+    u = torch.rand(n, ndim, generator=generator, device=dev,
+                   dtype=torch.float32)
+    pos = (u * (2 * half) - half).to(dtype)
+    mass = torch.full((n,), 1.0 / n, dtype=dtype, device=dev)
+    return pos, mass
+
+
+def cold_sphere(n: int, *, generator: torch.Generator, ndim: int = 3,
+                dtype: torch.dtype = torch.float32, radius: float = 1.0):
+    """Uniform-density sphere of n equal-mass particles (total mass 1),
+    the cold collapse of benchmark config #2."""
+    dev = generator.device
+    vec = torch.randn(n, ndim, generator=generator, device=dev,
+                      dtype=torch.float32)
+    vec = vec / torch.linalg.norm(vec, dim=1, keepdim=True)
+    r = radius * torch.rand(n, generator=generator, device=dev,
+                            dtype=torch.float32) ** (1.0 / ndim)
+    pos = (vec * r[:, None]).to(dtype)
+    mass = torch.full((n,), 1.0 / n, dtype=dtype, device=dev)
+    return pos, mass
+
+
+def disk_galaxy(n: int, *, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32, rscale: float = 1.0,
+                zscale: float = 0.05):
+    """Exponential disk of n equal-mass particles (total mass 1), 3-D
+    (benchmark config #3): radius from the gamma(2) inverse CDF as a sum
+    of two exponentials, cut at 20 rscale; uniform azimuth; Gaussian
+    height of scale zscale."""
+    dev = generator.device
+
+    def u01():
+        return torch.rand(n, generator=generator, device=dev,
+                          dtype=torch.float32) * (1.0 - 2e-6) + 1e-6
+    r = -rscale * (torch.log(u01()) + torch.log(u01()))
+    r = torch.clamp(r, max=20.0 * rscale)
+    phi = torch.rand(n, generator=generator, device=dev,
+                     dtype=torch.float32) * (2 * math.pi)
+    z = zscale * torch.randn(n, generator=generator, device=dev,
+                             dtype=torch.float32)
+    pos = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=1)
+    mass = torch.full((n,), 1.0 / n, dtype=dtype, device=dev)
+    return pos.to(dtype), mass

@@ -38,12 +38,17 @@ class SharedSources(NamedTuple):
     overflow: torch.Tensor   # [4] bool, aligned with config.OVF_FIELDS
     maxima: torch.Tensor     # [4] int64 (union nodes, total sources,
                              # frontier, p2p leaves)
+    quad: torch.Tensor = None  # [m2p_cap, Q] raw second moments of the
+                               # M2P node rows (multipole_order=2 only;
+                               # zero on invalid rows)
 
 
 class TraversalTables(NamedTuple):
     """Node and particle fields packed for row gathers.
 
-    ff [M, 6] float: com (padded to 3), mass, size, bh_geom delta (or 0).
+    ff [M, 6(+Q)] float: com (padded to 3), mass, size, bh_geom delta
+        (or 0), and with multipole_order=2 the Q = D(D+1)/2 raw second
+        moments (node_quad), which the M2P materialisation gathers.
     fi [M, 5] int64: level, leaf flag, child_begin, child_count, packed
         effective cell (cell coords at min(level, L0), D fields of L0
         bits each).
@@ -77,6 +82,8 @@ def make_tables(td: TreeData, cfg: TreeConfig) -> TraversalTables:
     cols = [td.node_com[:, d] for d in range(D)] + [zeros] * (3 - D)
     cols += [td.node_mass, size,
              td.node_delta if cfg.mac == MAC_BH_GEOM else zeros]
+    if cfg.multipole_order >= 2:
+        cols += list(td.node_quad.unbind(1))
     ff = torch.stack(cols, dim=1)
     fi = torch.stack([td.node_level, td.node_is_leaf.to(I64),
                       td.node_child_begin, td.node_child_count, cpack], dim=1)
@@ -233,6 +240,9 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
     m_mass = torch.where(uvalid, m_row[:, 3], 0.0)
     m_idx = torch.full((ucap,), -1, dtype=I64, device=dev)
     m_mask = m2p_flat[uidx_c] & uvalid[:, None]          # [ucap, C]
+    m_quad = None
+    if cfg.multipole_order >= 2:
+        m_quad = torch.where(uvalid[:, None], m_row[:, 6:], 0.0)
 
     # P2P rows: leaves opened by >= 1 tile (same stable spatial sort),
     # expanded to their particles
@@ -280,4 +290,5 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
         count=torch.clamp(ucnt, max=ucap) + torch.clamp(total_p, max=pcap),
         overflow=torch.stack([ucnt > ucap, lcnt > lcap, total_p > pcap,
                               ovf_frontier]),
-        maxima=torch.stack([ucnt, ucnt + total_p, f_max, lcnt]))
+        maxima=torch.stack([ucnt, ucnt + total_p, f_max, lcnt]),
+        quad=m_quad)

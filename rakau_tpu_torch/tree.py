@@ -6,10 +6,11 @@ reference's kwargs (box_size, max_leaf_n, ncrit, ...), queried through
 updated through `update_positions_u/o` / `update_masses_u/o` with
 permutation composition; `exact_*` are the direct-sum oracles.
 
-Every tensor lives on the tree's `device` (the device of `coords` when
-it is a tensor and no device is given, else the CPU). Interaction-list
-capacities are static; a query that overflows one grows it and runs
-again, never truncates.
+Every tensor lives on the tree's `device`: the CUDA card unless the
+caller passes `device="cpu"` (or another device), whatever the type of
+the input. With no card and no device given, the constructor raises.
+Interaction-list capacities are static; a query that overflows one
+grows it and runs again, never truncates.
 """
 from __future__ import annotations
 
@@ -48,6 +49,19 @@ def _stack_coords(coords, x_coords, y_coords, z_coords, ndim, dtype,
     return torch.stack([_as_tensor(c, dtype, device) for c in comps], dim=1)
 
 
+def resolve_device(device) -> torch.device:
+    """`device`, or the CUDA card when it is None. Raises when None is
+    given and there is no card: the entry points never fall back to the
+    CPU on their own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: rakau_tpu_torch runs on the card by default; "
+            "pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def _inverse(perm: torch.Tensor) -> torch.Tensor:
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
@@ -65,9 +79,7 @@ class Tree:
                  config: Optional[TreeConfig] = None,
                  max_retries: int = 6, **cfg_kwargs):
         probe = coords if coords is not None else x_coords
-        if device is None:
-            device = probe.device if isinstance(probe, torch.Tensor) else "cpu"
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         if config is not None:
             cfg = config
         else:

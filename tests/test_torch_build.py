@@ -13,6 +13,10 @@ from rakau_tpu.config import TreeConfig as JaxConfig
 from rakau_tpu_torch import build
 from rakau_tpu_torch.convert import config_from_jax
 
+# pytest-xdist runs one worker per core; torch's own intra-op pool in
+# every worker would oversubscribe the cores (tens of times slower).
+torch.set_num_threads(1)
+
 N = 2048
 # one XLA compile per config instead of hundreds of eager op compiles
 jax_build = jax.jit(jbuild.build_tree, static_argnames=("cfg",))

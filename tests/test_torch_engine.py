@@ -1,9 +1,11 @@
 """The whole ported slice: rakau_tpu_torch.engine and the Tree API against
-rakau_tpu on the same tree (per-particle relative force RMS <= 1e-5, the
-overflow flags and maxima exactly equal), and against the float64
-direct-sum oracle with the bounds of tests/test_fast_smoke.py (force RMS
-< 8e-3, potential RMS < 4e-3 at theta=0.75); plus the u/o duality, the
-update-versus-rebuild check and the overflow contract."""
+rakau_tpu on the same tree (per-particle relative force and potential RMS
+<= 1e-5, the overflow flags and maxima exactly equal), for the monopole
+fp32 far fields and for the compensated and quadrupole modes, and against
+the float64 direct-sum oracle with the bounds of tests/test_fast_smoke.py
+(force RMS < 8e-3, potential RMS < 4e-3 at theta=0.75); plus the u/o
+duality, the update-versus-rebuild check, the overflow contract and the
+default device."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,10 @@ from rakau_tpu.config import TreeConfig as JaxConfig
 from rakau_tpu_torch import Tree, build, engine, quadtree
 from rakau_tpu_torch.convert import config_from_jax, treedata_from_numpy
 from rakau_tpu_torch.direct import direct_acc_pot_np
+
+# pytest-xdist runs one worker per core; torch's own intra-op pool in
+# every worker would oversubscribe the cores (tens of times slower).
+torch.set_num_threads(1)
 
 N = 2048
 THETA = 0.75
@@ -56,12 +62,12 @@ def _rms(acc, ref):
     return float(np.sqrt(np.mean(rel ** 2)))
 
 
-def _jax_query(farfield):
+def _jax_query(**kw):
     """JAX-built tree, JAX results on it (Morton order), cached."""
-    key = ("jax", farfield)
+    key = ("jax",) + tuple(sorted(kw.items()))
     if key not in _STATE:
         pos, mass, _, _ = _data()
-        jc = _cfg(farfield=farfield)
+        jc = _cfg(**kw)
         jtd = jax_build(jnp.asarray(pos), jnp.asarray(mass), jc)
         a, p, o, m = jengine.acc_pot_u_host(jtd, jc, jnp.float32(THETA),
                                             jnp.float32(0.0), 1.0)
@@ -72,7 +78,7 @@ def _jax_query(farfield):
 
 @pytest.mark.parametrize("farfield", ["grid", "local", "m2p"])
 def test_query_matches_jax_on_the_same_tree(farfield):
-    jc, jtd, a_j, p_j, o_j, m_j = _jax_query(farfield)
+    jc, jtd, a_j, p_j, o_j, m_j = _jax_query(farfield=farfield)
     td = treedata_from_numpy(
         {k: np.asarray(v) for k, v in jtd._asdict().items()}, "cpu")
     a, p, o, m = engine.acc_pot_u_host(td, config_from_jax(jc), THETA,
@@ -87,8 +93,9 @@ def test_query_matches_jax_on_the_same_tree(farfield):
 @pytest.mark.parametrize("farfield", ["grid", "local", "m2p"])
 def test_tree_api_matches_jax_and_oracle(farfield):
     pos, mass, acc_o, pot_o = _data()
-    jc, jtd, a_j, p_j, _, _ = _jax_query(farfield)
-    t = Tree(coords=pos, masses=mass, config=config_from_jax(jc))
+    jc, jtd, a_j, p_j, _, _ = _jax_query(farfield=farfield)
+    t = Tree(coords=pos, masses=mass, config=config_from_jax(jc),
+             device="cpu")
     acc, pot = t.accs_pots_o(THETA)
     inv = np.asarray(jtd.inv_perm)
     assert _rms(acc, a_j[inv]) <= 1e-5
@@ -119,7 +126,7 @@ def test_port_build_and_query_vs_oracle():
 def test_tree_uo_duality_and_update_vs_rebuild():
     pos, mass, _, _ = _data()
     cfg = config_from_jax(_cfg(farfield="grid"))
-    t = Tree(coords=pos, masses=mass, config=cfg)
+    t = Tree(coords=pos, masses=mass, config=cfg, device="cpu")
     acc_o_view, _ = t.accs_pots_o(THETA)
     acc_u, _ = t.accs_pots_u(THETA)
     perm = t.perm.numpy()               # Morton slot -> user index
@@ -130,7 +137,8 @@ def test_tree_uo_duality_and_update_vs_rebuild():
     p2[:64] += 0.01
     t.update_positions_o(p2)
     a2, _ = t.accs_pots_o(THETA)
-    a2f, _ = Tree(coords=p2, masses=mass, config=cfg).accs_pots_o(THETA)
+    a2f, _ = Tree(coords=p2, masses=mass, config=cfg,
+                  device="cpu").accs_pots_o(THETA)
     dev = np.max(np.linalg.norm(a2.numpy() - a2f.numpy(), axis=1))
     scale = np.max(np.linalg.norm(a2f.numpy(), axis=1))
     assert dev / scale < 2e-5, f"update vs rebuild dev {dev / scale:.2e}"
@@ -145,7 +153,8 @@ def test_tree_uo_duality_and_update_vs_rebuild():
 
 def test_exact_sums_match_oracle():
     pos, mass, acc_o, pot_o = _data()
-    t = Tree(coords=pos, masses=mass, config=config_from_jax(_cfg()))
+    t = Tree(coords=pos, masses=mass, config=config_from_jax(_cfg()),
+             device="cpu")
     acc, pot = t.exact_accs_pots_o()
     assert _rms(acc, acc_o) < 1e-5
     assert _rms(pot, pot_o) < 1e-5
@@ -158,11 +167,11 @@ def test_small_caps_flag_overflow_and_the_tree_grows_them():
     td = build.build_tree(torch.as_tensor(pos), torch.as_tensor(mass), cfg)
     _, _, ovf, _ = engine.acc_pot_u_host(td, cfg, 0.3, 0.0, 1.0)
     assert ovf[:3].all(), "tiny caps must overflow, never truncate silently"
-    t = Tree(coords=pos, masses=mass, config=cfg)
+    t = Tree(coords=pos, masses=mass, config=cfg, device="cpu")
     acc, _ = t.accs_pots_o(0.3)
     assert t.config.p2p_src_cap > 128 and t.config.m2p_cap > 128
-    ref, _ = Tree(coords=pos, masses=mass,
-                  config=config_from_jax(_cfg())).accs_pots_o(0.3)
+    ref, _ = Tree(coords=pos, masses=mass, config=config_from_jax(_cfg()),
+                  device="cpu").accs_pots_o(0.3)
     assert _rms(acc, ref) < 1e-5
 
 
@@ -175,7 +184,7 @@ def test_quadtree_from_xy_matches_jax_and_tune_caps():
                    tile_chunk=8, m2p_cap=1024, p2p_leaf_cap=256,
                    p2p_src_cap=2048, frontier_cap=256, farfield="local")
     t = quadtree(x_coords=pos[:, 0], y_coords=pos[:, 1], masses=mass,
-                 config=config_from_jax(jc))
+                 config=config_from_jax(jc), device="cpu")
     acc, pot = t.accs_pots_o(THETA)
     jtd = jax_build(jnp.asarray(pos), jnp.asarray(mass), jc)
     a_j, p_j, _, _ = jengine.acc_pot_u_host(jtd, jc, jnp.float32(THETA),
@@ -194,7 +203,7 @@ def test_float64_tree_on_cpu():
     pos, mass, acc_o, pot_o = _data()
     cfg = config_from_jax(_cfg(farfield="grid", dtype="float64"))
     t = Tree(coords=pos.astype(np.float64), masses=mass.astype(np.float64),
-             config=cfg)
+             config=cfg, device="cpu")
     acc, pot = t.accs_pots_o(THETA)
     assert acc.dtype == torch.float64
     assert _rms(acc, acc_o) < 8e-3
@@ -203,12 +212,74 @@ def test_float64_tree_on_cpu():
 
 @pytest.mark.parametrize("kw", [dict(traversal_mode="lmac"),
                                 dict(traversal_mode="gwalk", farfield="m2p"),
-                                dict(farfield="grid2"),
-                                dict(multipole_order=2, farfield="m2p"),
-                                dict(accum="compensated")])
+                                dict(farfield="grid2")])
 def test_modes_outside_the_slice_raise_at_query(kw):
     pos, mass, _, _ = _data()
     t = Tree(coords=pos[:256], masses=mass[:256], config=config_from_jax(
-        _cfg(**kw)))
+        _cfg(**kw)), device="cpu")
     with pytest.raises(NotImplementedError):
         t.accs_pots_o(THETA)
+
+
+MODES = {
+    "m2p-quad": dict(farfield="m2p", multipole_order=2),
+    "grid-comp": dict(farfield="grid", accum="compensated"),
+    "local-comp": dict(farfield="local", accum="compensated"),
+    "m2p-comp": dict(farfield="m2p", accum="compensated"),
+    "m2p-quad-comp": dict(farfield="m2p", multipole_order=2,
+                          accum="compensated"),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_mode_matches_jax_on_the_same_tree(mode):
+    """engine.acc_pot_u_host on the JAX-built tree: the quadrupole rows and
+    the compensated sums give the reference's answer."""
+    jc, jtd, a_j, p_j, o_j, m_j = _jax_query(**MODES[mode])
+    td = treedata_from_numpy(
+        {k: np.asarray(v) for k, v in jtd._asdict().items()}, "cpu")
+    a, p, o, m = engine.acc_pot_u_host(td, config_from_jax(jc), THETA,
+                                       0.0, 1.0)
+    assert not o_j.any()
+    np.testing.assert_array_equal(o.numpy(), o_j)
+    np.testing.assert_array_equal(m.numpy(), m_j)
+    assert _rms(a, a_j) <= 1e-5
+    assert _rms(p, p_j) <= 1e-5
+
+
+def test_quad_comp_tree_api_matches_jax_and_beats_monopole():
+    """Tree.accs_pots_o with the energy configuration (m2p, quadrupole,
+    compensated): the reference's answer on its tree, and closer to the
+    oracle than the monopole at the same theta."""
+    pos, mass, acc_o, pot_o = _data()
+    jc, jtd, a_j, p_j, _, _ = _jax_query(**MODES["m2p-quad-comp"])
+    t = Tree(coords=pos, masses=mass, config=config_from_jax(jc),
+             device="cpu")
+    acc, pot = t.accs_pots_o(THETA)
+    inv = np.asarray(jtd.inv_perm)
+    assert _rms(acc, a_j[inv]) <= 1e-5
+    assert _rms(pot, p_j[inv]) <= 1e-5
+    mono = Tree(coords=pos, masses=mass, config=config_from_jax(
+        _cfg(farfield="m2p")), device="cpu")
+    a0, p0 = mono.accs_pots_o(THETA)
+    assert _rms(acc, acc_o) < _rms(a0, acc_o)
+    assert _rms(pot, pot_o) < _rms(p0, pot_o)
+
+
+def test_quad_with_tile_expansions_is_the_unported_lists_path(monkeypatch):
+    monkeypatch.setenv("RAKAU_DIAG_MODES", "1")
+    with pytest.raises(NotImplementedError, match="m2p"):
+        engine.check_supported(config_from_jax(
+            _cfg(farfield="local", multipole_order=2)))
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no device given the tree goes to the card, whatever the input
+    type; with no card it raises instead of running on the CPU."""
+    pos, mass, _, _ = _data()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for coords in (pos[:64], torch.as_tensor(pos[:64])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Tree(coords=coords, masses=mass[:64])
+    t = Tree(coords=pos[:64], masses=mass[:64], device="cpu")
+    assert t.device == torch.device("cpu")

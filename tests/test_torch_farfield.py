@@ -20,6 +20,10 @@ from rakau_tpu.config import TreeConfig as JaxConfig
 from rakau_tpu_torch import build, expansion, grid
 from rakau_tpu_torch.convert import config_from_jax
 
+# pytest-xdist runs one worker per core; torch's own intra-op pool in
+# every worker would oversubscribe the cores (tens of times slower).
+torch.set_num_threads(1)
+
 TOL = {np.float64: dict(rtol=1e-10, atol=1e-12),
        np.float32: dict(rtol=1e-5, atol=1e-6)}
 jax_build = jax.jit(jbuild.build_tree, static_argnames=("cfg",))

@@ -1,8 +1,9 @@
 """The shared-candidate pairwise evaluation of rakau_tpu_torch on CPU
 tensors (the plain PyTorch version, directly and through dispatch)
 against rakau_tpu's Pallas kernel in interpret mode and its XLA
-reference, on the same float32 inputs. Tolerance rtol 2e-4, atol 2e-5:
-the bound tests/test_pallas.py holds the Pallas kernel to.
+reference, on the same float32 inputs, in the monopole, compensated and
+quadrupole forms. Tolerance rtol 2e-4, atol 2e-5: the bound
+tests/test_pallas.py holds the Pallas kernel to.
 
 The CUDA kernel itself runs only on a card; chip_smoke.py holds it
 against the plain version there. Here: its wrapper's input checks and
@@ -12,10 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from rakau_tpu.config import TreeConfig as JaxConfig
+from rakau_tpu.kernels import dispatch as jdispatch
 from rakau_tpu.kernels import pallas as pk
 from rakau_tpu.kernels import xla as xk
 from rakau_tpu_torch.config import TreeConfig
 from rakau_tpu_torch.kernels import dispatch, shared
+
+# pytest-xdist runs one worker per core; torch's own intra-op pool in
+# every worker would oversubscribe the cores (tens of times slower).
+torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -112,13 +119,6 @@ def test_fused_wrapper_rejects_cpu_tensors():
         shared.eval_shared_fused(*targs, 0.0, 1.0)
 
 
-def test_dispatch_refuses_compensated_accumulation():
-    targs = _torch_args(make_case(4))
-    with pytest.raises(NotImplementedError):
-        dispatch.eval_shared(TreeConfig(accum="compensated"), *targs,
-                             0.0, 1.0)
-
-
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     """A host with no CUDA toolkit gets an error, not a fallback."""
     if shared.Path("/usr/local/cuda/bin/nvcc").exists():
@@ -128,3 +128,132 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(shared, "_BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         shared.build_library()
+
+
+def make_quad_case(seed, C=4, T=32, S=192, eps=0.01):
+    """Node rows (idx -1) near the targets with plausible raw second
+    moments Q = m d d^T, a dead 64-block, and one masked-out node row
+    1e-9 from a target, where inv_r^5 overflows fp32 at eps = 0."""
+    rng = np.random.default_rng(seed)
+    n = 2000
+    tpos = rng.standard_normal((C, T, 3)).astype(np.float32)
+    tidx = rng.choice(n, size=(C, T), replace=False).astype(np.int32)
+    spos = (2.0 + rng.standard_normal((S, 3))).astype(np.float32)
+    smass = rng.uniform(0.1, 1, S).astype(np.float32)
+    sidx = np.full(S, -1, np.int32)
+    mask = rng.uniform(size=(C, S)) < 0.4
+    mask[:, 64:128] = False
+    d = rng.standard_normal((S, 3)) * 0.1
+    quad = (np.stack([d[:, a] * d[:, b] for a, b in shared.quad_pairs(3)],
+                     1) * smass[:, None]).astype(np.float32)
+    tpos[1, 3] = (1e-3, -2e-3, 5e-4)
+    spos[5] = tpos[1, 3] + np.float32(1e-9)  # on a target, masked out
+    mask[1, 5] = False
+    mask[0, 5] = True
+    return (tpos, tidx, spos, smass, sidx, mask, eps), quad
+
+
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+@pytest.mark.parametrize("comp", [False, True])
+def test_plain_quad_matches_pallas_and_xla(mode, comp):
+    case, quad = make_quad_case(5)
+    eps = case[-1]
+    targs, jargs = _torch_args(case), _jax_args(case)
+    got = shared.eval_shared_plain(*targs, 0.0, 1.5, mode=mode, block=64,
+                                   compensated=comp,
+                                   src_quad=torch.as_tensor(quad))
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
+                                   compensated=comp,
+                                   src_quad=torch.as_tensor(quad))
+    jq = jnp.asarray(quad)
+    want_p = pk.eval_shared_fused(*jargs, eps, 1.5, block=64, mode=mode,
+                                  interpret=True, compensated=comp,
+                                  src_quad=jq)
+    want_x = xk.eval_shared(*jargs, eps, 1.5, block=64, mode=mode,
+                            compensated=comp, src_quad=jq)
+    _close(got, want_p)
+    _close(got, want_x)
+    # the quadrupole correction changes the answer
+    mono = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
+                                    compensated=comp)
+    k = 1 if mode == "pot" else 0
+    assert (got[k] - mono[k]).abs().max() > 1e-6
+
+
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+def test_plain_compensated_matches_pallas_and_xla(mode):
+    case = make_case(6)
+    eps = case[-1]
+    targs, jargs = _torch_args(case), _jax_args(case)
+    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
+                                   compensated=True)
+    _close(got, pk.eval_shared_fused(*jargs, eps, 1.5, block=64, mode=mode,
+                                     interpret=True, compensated=True))
+    _close(got, xk.eval_shared(*jargs, eps, 1.5, block=64, mode=mode,
+                               compensated=True))
+
+
+def test_compensated_sum_is_closer_to_float64():
+    """A long, cancellation-heavy source row (far shell, masses over seven
+    decades): the TwoSum block sums land at least as close to the float64
+    sum as the plain fp32 ones, and agree with the reference's."""
+    rng = np.random.default_rng(8)
+    C, T, S = 1, 8, 4096
+    tpos = (rng.standard_normal((C, T, 3)) * 0.01).astype(np.float32)
+    tidx = np.arange(T, dtype=np.int32)[None]
+    dirs = rng.standard_normal((S, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    src = dirs * rng.uniform(5.0, 50.0, (S, 1))
+    mass = rng.uniform(1e-6, 10.0, S)
+    case = (tpos, tidx, src.astype(np.float32), mass.astype(np.float32),
+            np.full(S, -1, np.int32), np.ones((C, S), bool), 0.0)
+    d = src[None, None] - tpos.astype(np.float64)[:, :, None]
+    pot_ref = -(mass[None, None] / np.linalg.norm(d, axis=-1)).sum(-1)
+    errs = {}
+    for comp in (False, True):
+        _, p = shared.eval_shared_plain(*_torch_args(case), 0.0, 1.0,
+                                        mode="pot", block=128,
+                                        compensated=comp)
+        _, pj = xk.eval_shared(*_jax_args(case), 0.0, 1.0, block=128,
+                               mode="pot", compensated=comp)
+        np.testing.assert_allclose(p.numpy(), np.asarray(pj), rtol=1e-6)
+        errs[comp] = np.abs(p.numpy().astype(np.float64) - pot_ref).max()
+    assert errs[True] <= errs[False]
+
+
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+@pytest.mark.parametrize("accum", ["fp32", "compensated"])
+def test_dispatch_splits_quad_and_particle_rows_like_jax(mode, accum):
+    """dispatch.eval_shared with src_quad for the first U rows: the
+    quadrupole form on [0, U), the monopole form on [U, S), summed."""
+    case = make_case(9, S=320)
+    qcase, quad = make_quad_case(9, S=128)
+    # node rows first, then particle rows, one mask row per tile
+    case = tuple(np.concatenate([q, c], axis=-1 if k == 5 else 0)
+                 if k in (2, 3, 4, 5) else c
+                 for k, (q, c) in enumerate(zip(qcase, case)))
+    eps = case[-1]
+    cfg = TreeConfig(accum=accum)
+    got = dispatch.eval_shared(cfg, *_torch_args(case), eps, 1.5, mode=mode,
+                               src_quad=torch.as_tensor(quad))
+    want = jdispatch.eval_shared(JaxConfig(accum=accum), *_jax_args(case),
+                                 eps, 1.5, mode=mode,
+                                 src_quad=jnp.asarray(quad))
+    _close(got, want)
+
+
+def test_dispatch_returns_zeros_for_an_empty_source_row():
+    tpos, tidx, spos, smass, sidx, mask, _ = make_case(10)
+    empty = (tpos, tidx, spos[:0], smass[:0], sidx[:0], mask[:, :0], 0.0)
+    acc, pot = dispatch.eval_shared(TreeConfig(accum="compensated"),
+                                    *_torch_args(empty), 0.0, 1.0)
+    assert acc.shape == tpos.shape and pot.shape == tpos.shape[:2]
+    assert not acc.any() and not pot.any()
+
+
+def test_fused_wrapper_checks_the_quad_operand():
+    targs = _torch_args(make_case(11))
+    with pytest.raises(ValueError, match="CUDA"):
+        shared.eval_shared_fused(*targs, 0.0, 1.0, compensated=True,
+                                 src_quad=torch.zeros(384, 6))

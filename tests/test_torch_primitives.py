@@ -22,6 +22,10 @@ from rakau_tpu_torch import scan_utils as su
 from rakau_tpu_torch.config import TreeConfig, fit_caps, grow_overflowed
 from rakau_tpu_torch.convert import config_from_jax
 
+# pytest-xdist runs one worker per core; torch's own intra-op pool in
+# every worker would oversubscribe the cores (tens of times slower).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

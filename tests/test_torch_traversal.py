@@ -16,6 +16,10 @@ from rakau_tpu.config import TreeConfig as JaxConfig
 from rakau_tpu_torch import traversal2
 from rakau_tpu_torch.convert import config_from_jax, treedata_from_numpy
 
+# pytest-xdist runs one worker per core; torch's own intra-op pool in
+# every worker would oversubscribe the cores (tens of times slower).
+torch.set_num_threads(1)
+
 N = 2048
 THETA = 0.6
 jax_build = jax.jit(jbuild.build_tree, static_argnames=("cfg",))
@@ -105,3 +109,44 @@ def test_small_caps_set_the_overflow_flags_like_jax():
     np.testing.assert_array_equal(got.maxima.numpy(),
                                   np.asarray(want.maxima))
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+
+
+@pytest.mark.parametrize("mac", ["bh", "bh_geom"])
+def test_quad_rows_match_jax(mac):
+    """multipole_order=2 with farfield='m2p': the M2P node rows carry
+    their second moments (SharedSources.quad) in the same stable order as
+    pos and mass, zero on invalid rows; masks, indices and counts stay
+    exactly equal to the reference's."""
+    kw = dict(max_depth=10, max_leaf_n=16, ncrit=64, tile_chunk=8,
+              m2p_cap=1024, p2p_leaf_cap=256, p2p_src_cap=4096,
+              frontier_cap=512, mac=mac, farfield="m2p", multipole_order=2)
+    jc = JaxConfig(**kw)
+    cfg = config_from_jax(jc)
+    pos, mass = plummer_np(N, 23)
+    jtd = jax_build(jnp.asarray(pos), jnp.asarray(mass), jc)
+    td = treedata_from_numpy(
+        {k: np.asarray(v) for k, v in jtd._asdict().items()}, "cpu")
+    jtiles = jengine._gather_tiles(jtd, jc)
+    jtables = jt2.make_tables(jtd, jc)
+    tables = traversal2.make_tables(td, cfg)
+    jwalk = jax.jit(
+        lambda blo, bhi, tvalid: jt2.build_shared_sources(
+            jtd, jc, jnp.float32(THETA), blo, bhi, tables=jtables,
+            tile_valid=tvalid))
+    n_live = -(-int(jtd.n_tiles) // jc.tile_chunk)
+    for ch in range(0, n_live, max(1, n_live // 4)):
+        tpos, tidx, blo, bhi, _ = (np.asarray(a[ch]) for a in jtiles)
+        tvalid = tidx[:, 0] < N
+        want = jwalk(jnp.asarray(blo), jnp.asarray(bhi), jnp.asarray(tvalid))
+        got = traversal2.build_shared_sources(
+            td, cfg, THETA, torch.as_tensor(blo), torch.as_tensor(bhi),
+            tables=tables, tile_valid=torch.as_tensor(tvalid))
+        assert got.quad.shape == (cfg.m2p_cap, 6)
+        np.testing.assert_array_equal(got.quad.numpy(), np.asarray(want.quad))
+        np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+        np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx))
+        np.testing.assert_array_equal(got.pos.numpy(), np.asarray(want.pos))
+        assert int(got.count) == int(want.count)
+        ucnt = int(want.maxima[0])
+        assert np.asarray(want.quad)[:ucnt].any()
+        assert not got.quad[ucnt:].any()
