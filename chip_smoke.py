@@ -5,14 +5,20 @@
 
 Phases, each printing one JSON line:
   1. device:   the card (nvidia-smi name and power limit), torch and CUDA;
-  2. build:    nvcc builds the pairwise kernel from csrc/ (timed);
+  2. build:    nvcc builds both kernel libraries from csrc/ at once, one
+               process each (timed; ptxas registers and spills);
   3. edge:     kernel vs plain PyTorch on small random cases in every form
                (K1a monopole, K1b compensated, K1d quadrupole, K1d with
                K1b's sums) and mode (self pairs, far padding, an empty
                tile, ragged T and S, a masked-out node row on top of a
                target); on a long cancellation-heavy row the compensated
                kernel's error against a float64 sum must be < the fp32
-               kernel's (equal errors would mean fp32 sums);
+               kernel's (equal errors would mean fp32 sums); then the same
+               for the pool kernel K2 (edge_pool): every form and mode on
+               synthetic pools with self pairs, a node row on top of a
+               target at eps = 0, an empty tile, tiles in two windows,
+               ragged T, pool_block 128 and 512, and a cancellation-heavy
+               segment;
   4. main:     a Plummer sphere of N particles (default 1,048,576) from a
                seeded CUDA generator, octree(...) with the headline
                shared+grid configuration, accs_pots_o(theta=0.75) once
@@ -29,6 +35,27 @@ Phases, each printing one JSON line:
                mode, rtol 2e-4 and atol 2e-5*max|plain|, both timed;
   8. accuracy: 256 sampled targets against the float64 NumPy direct sum:
                RMS relative force error < 5e-3, potential < 2e-3;
+  g. gwalk:    the same particles through bench.py's gwalk configuration
+               (bench.py:47-85 and 103-140: global caps 3n/n/16n/n//4,
+               tile_cap fitted to the built tiles, caps and per-round
+               caps from engine.tune_gwalk), accs_pots_o(theta=0.75) once
+               cold and three times warm: one K2 launch per warm query and
+               no K1 launch, sampled force RMS < 5e-3 and potential
+               < 2e-3 (the shared query's beside them); then gwalk_layers
+               (walk, pool build, K2 call, far field, each between device
+               syncs) and gwalk_profile (as phase 6);
+     gwalk_quad: the same particles with farfield "m2p": monopole fp32,
+               then quadrupole + compensated sums (pool_window 131072),
+               each tuned by tune_gwalk, plus the monopole compensated and
+               quadrupole fp32 forms on those configurations: one launch
+               of each K2 form, quadrupole force RMS < 0.6 x monopole's,
+               and both force RMS within 1 % of the shared engine's on
+               the same particles (see QUAD_RMS_RATIO);
+     kernel:   K2 against plain PyTorch on the real pools: monopole on the
+               gwalk+grid query's, every form on the quadrupole query's;
+               mode "both" on every tile (plain run in groups of tiles),
+               "acc" and "pot" on a stated subset; rtol 2e-4 and atol
+               2e-5*max|plain|, both timed; segment lengths reported;
   9. leapfrog: BASELINE config #2 (benchmarks/configs.py:90-114) through
                rakau_tpu_torch.integrate: a cold sphere of N particles
                (--n, default 1,048,576), zero velocities, 3 steps of
@@ -92,6 +119,38 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 FLOPS_MONO, FLOPS_QUAD, FLOPS_TWOSUM = 20, 64, 24
 SRC = "rakau_tpu_torch/csrc/shared_fused.cu"
 REPLACES = "rakau_tpu/kernels/pallas.py:566"
+POOL_SRC = "rakau_tpu_torch/csrc/pool.cu"
+POOL_REPLACES = "rakau_tpu/kernels/pallas.py:974"
+# kernel sources under rakau_tpu_torch/csrc/ and their kernels (template
+# instantiations: mode x compensated x quadrupole)
+LIBRARIES = {"shared_fused": 12, "pool": 12}
+MODES = ("both", "acc", "pot")
+# the plain pool version runs over this many tiles at a time ([tiles, T,
+# pool_block] panels), and modes acc/pot are checked on this many tiles
+PLAIN_TILES, SUBSET_TILES = 128, 256
+# The quadrupole's force RMS over the monopole's: the reference's bound
+# for its gwalk quadrupole headline (tests/test_gwalk.py:102-117; 0.5 at
+# 4096 particles and theta 0.7, :120-130). At theta 0.75 the ratio grows
+# with N (0.39 at 65,536 particles, 0.53 at 1M, on an H100), and the
+# shared engine on the same particles gives the same errors, so the
+# gwalk errors are also held to the shared engine's, within
+# SHARED_RMS_RTOL.
+QUAD_RMS_RATIO, SHARED_RMS_RTOL = 0.6, 0.01
+# the shared engine's starting caps there (its Tree grows them)
+SHARED_M2P_CAPS = dict(m2p_cap=16384, p2p_leaf_cap=8192, p2p_src_cap=131072,
+                       frontier_cap=4096)
+# the quadrupole's pool window in bench.py's gwalk run (bench.py:81-85)
+QUAD_POOL_WINDOW = 131072
+
+
+def gwalk_kw(n: int) -> dict:
+    """bench.py's gwalk configuration (bench.py:47-85 with
+    RAKAU_BENCH_TRAVERSAL=gwalk): its global caps start from per-particle
+    ratios."""
+    return dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32,
+                traversal_mode="gwalk", m2p_cap=3 * n, p2p_leaf_cap=n,
+                p2p_src_cap=16 * n, frontier_cap=n // 4, pool_block=512,
+                pool_window=262144, pool_group=8)
 
 
 def emit(phase: str, **kw):
@@ -104,6 +163,37 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def build_kernels() -> dict:
+    """Build every kernel library from csrc/, one nvcc process each, all
+    started together. Returns the wall seconds and per library its ptxas
+    registers and spill bytes per kernel; raises on a failed build or a
+    spill."""
+    from concurrent.futures import ThreadPoolExecutor
+    from rakau_tpu_torch.kernels import shared
+
+    def one(name):
+        t0 = time.perf_counter()
+        path = shared.build_library(name)
+        return name, path, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        built = list(ex.map(one, LIBRARIES))
+    out = {"seconds": time.perf_counter() - t0, "libraries": {}}
+    for name, path, secs in built:
+        ptxas = path.with_name(path.stem + ".ptxas.txt").read_text()
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)]
+        out["libraries"][name] = dict(seconds=secs, library=path.name,
+                                      kernels=len(regs), registers=regs,
+                                      spill_bytes=spills)
+        if len(regs) != LIBRARIES[name] or any(spills):
+            raise AssertionError(f"ptxas, {name}: {len(regs)} kernels "
+                                 f"(want {LIBRARIES[name]}), spills {spills}")
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -140,26 +230,29 @@ def synced(module, name: str, totals: dict):
         setattr(module, name, orig)
 
 
-def layer_ms(tree) -> dict:
-    """One warm query through the entry point, split by layer: the walk
-    (traversal2.build_shared_sources), the tile far field (engine.
-    _chunk_sources less the walk) and the kernel call (dispatch.
-    eval_shared: active-block lists, K1a, the G scale). The rest is
-    tile gathers, assembly, the overflow read and the inverse
-    permutation. The syncs add to the total, which is reported too."""
-    from rakau_tpu_torch import engine, traversal2
-    from rakau_tpu_torch.kernels import dispatch
+def synced_layers(tree, layers) -> tuple:
+    """One warm query through the entry point with each (module, name) of
+    `layers` timed between device syncs. Returns (ms per name, synced
+    query ms); the syncs add to the total."""
     t: dict = {}
     with ExitStack() as stack:
-        for mod, name in ((traversal2, "build_shared_sources"),
-                          (engine, "_chunk_sources"),
-                          (dispatch, "eval_shared")):
+        for mod, name in layers:
             stack.enter_context(synced(mod, name, t))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tree.accs_pots_o(THETA)
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
+        _, total = synced_ms(lambda: tree.accs_pots_o(THETA))
+    return t, total
+
+
+def layer_ms(tree) -> dict:
+    """The shared query split by layer: the walk (traversal2.
+    build_shared_sources), the tile far field (engine._chunk_sources less
+    the walk) and the kernel call (dispatch.eval_shared: active-block
+    lists, K1a, the G scale). The rest is tile gathers, assembly, the
+    overflow read and the inverse permutation."""
+    from rakau_tpu_torch import engine, traversal2
+    from rakau_tpu_torch.kernels import dispatch
+    t, total = synced_layers(tree, ((traversal2, "build_shared_sources"),
+                                    (engine, "_chunk_sources"),
+                                    (dispatch, "eval_shared")))
     walk, walk_ff = t["build_shared_sources"], t["_chunk_sources"]
     kernel = t["eval_shared"]
     return {"walk_ms": walk, "farfield_ms": walk_ff - walk,
@@ -167,10 +260,32 @@ def layer_ms(tree) -> dict:
             "synced_query_ms": total}
 
 
-def device_profile(tree) -> dict:
+def gwalk_layer_ms(tree) -> dict:
+    """The gwalk query split by layer: the global walk (traversal4.
+    build_global_incidences), the pool build (traversal4.build_pool), the
+    K2 call (dispatch.eval_pool) and the dense far field handed down to
+    the tiles (engine._gwalk_farfield). The rest is the schedule, the
+    overflow read, assembly and the inverse permutation."""
+    from rakau_tpu_torch import engine, traversal4
+    from rakau_tpu_torch.kernels import dispatch
+    t, total = synced_layers(tree, ((traversal4, "build_global_incidences"),
+                                    (traversal4, "build_pool"),
+                                    (dispatch, "eval_pool"),
+                                    (engine, "_gwalk_farfield")))
+    out = {"walk_ms": t["build_global_incidences"],
+           "pool_build_ms": t["build_pool"],
+           "kernel_call_ms": t["eval_pool"],
+           "farfield_ms": t.get("_gwalk_farfield", 0.0)}
+    out["rest_ms"] = total - sum(out.values())
+    out["synced_query_ms"] = total
+    return out
+
+
+def device_profile(tree, kernel: str, key: str) -> dict:
     """One warm query under torch.profiler with CUDA activity only: the
     number of device ops (kernels, copies, sets), the device-busy ms as
-    the union of their intervals, and K1a's share of it."""
+    the union of their intervals, and the share of the kernels whose name
+    holds `kernel` (reported as `key`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
@@ -180,13 +295,13 @@ def device_profile(tree) -> dict:
         tree.accs_pots_o(THETA)
         stop.record()
         stop.synchronize()
-    spans, k1a_us = [], 0.0
+    spans, k_us = [], 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        if "shared_fused_kernel" in e.name:
-            k1a_us += e.time_range.end - e.time_range.start
+        if kernel in e.name:
+            k_us += e.time_range.end - e.time_range.start
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -194,7 +309,14 @@ def device_profile(tree) -> dict:
             end = b
     return {"profiled_query_ms": start.elapsed_time(stop),
             "device_ops": len(spans), "device_busy_ms": busy_us / 1e3,
-            "k1a_device_ms": k1a_us / 1e3}
+            key: k_us / 1e3}
+
+
+def profile_record(prof: dict, warm_ms: float) -> dict:
+    return dict(prof, warm_query_ms=warm_ms,
+                idle_share=1 - prof["device_busy_ms"] / warm_ms,
+                idle_share_profiled=1 - prof["device_busy_ms"]
+                / prof["profiled_query_ms"])
 
 
 def compare(got, want):
@@ -331,6 +453,233 @@ def bound(inputs, n, quad=False, comp=False):
                                         else "operations")
 
 
+def pool_case(rng, T, block, sched, n=10000):
+    """A synthetic pool of len(sched) tiles over two windows of 4 blocks:
+    node blocks first (second moments Q = m d d^T, idx -1), then particle
+    blocks, each segment ending in padding rows (mass 0, idx -1, at the
+    4 * box sentinel); self pairs (a particle row that is a target of its
+    tile) and a node row exactly on a target in tile 0; the last 5
+    targets of each tile are padding (index n)."""
+    from rakau_tpu_torch.kernels.shared import quad_pairs
+    G = len(sched)
+    window = 4 * block
+    P = 2 * window
+    tpos = rng.standard_normal((G, T, 3)).astype(np.float32)
+    tidx = rng.choice(n, size=(G, T), replace=False).astype(np.int64)
+    tidx[:, -5:] = n
+    ppos = np.full((P, 3), 40.0, np.float32)
+    pmass = np.zeros(P, np.float32)
+    pidx = np.full(P, -1, np.int64)
+    pquad = np.zeros((P, 6), np.float32)
+    for g, (w, s, m, p) in enumerate(sched):
+        r0 = (w * 4 + s) * block
+        for seg, nb in ((0, m), (1, p)):
+            rows = np.arange(r0, r0 + nb * block)[:max(0, nb * block - 7)]
+            r0 += nb * block
+            ppos[rows] = (1.5 * rng.standard_normal((len(rows), 3))
+                          ).astype(np.float32)
+            pmass[rows] = rng.uniform(0.1, 1, len(rows))
+            if seg == 0:
+                d = rng.standard_normal((len(rows), 3)) * 0.1
+                pquad[rows] = np.stack([d[:, a] * d[:, b] for a, b in
+                                        quad_pairs(3)], 1) \
+                    * pmass[rows, None]
+            elif len(rows) > 4:
+                pidx[rows] = rng.choice(n, len(rows), replace=False)
+                k = rows[:4]                  # self pairs
+                pidx[k] = tidx[g, :4]
+                ppos[k] = tpos[g, :4]
+    w, s, m, _ = sched[0]
+    ppos[(w * 4 + s) * block + 1] = tpos[0, 7]   # node row on a target
+    return ([torch.as_tensor(a) for a in (tpos, tidx, ppos, pmass, pidx,
+                                          np.asarray(sched, np.int64))],
+            window, torch.as_tensor(pquad))
+
+
+def pool_edge_cases(dev):
+    """K2 vs plain on synthetic pools that hit every branch of the kernel,
+    in every form and mode, and the cancellation check. Returns the worst
+    |kernel - plain| per form and the cancellation errors."""
+    from rakau_tpu_torch.kernels import pool
+    rng = np.random.default_rng(11)
+    worst = dict.fromkeys(pool.FORMS, 0.0)
+    # (window, start block, node blocks, particle blocks); tile 3 is empty
+    sched = [[0, 0, 1, 2], [0, 3, 0, 1], [1, 0, 2, 1], [0, 0, 0, 0],
+             [1, 3, 1, 0]]
+    for T, block, eps in ((300, 128, 0.0), (77, 512, 0.0), (512, 128, 0.01),
+                          (256, 512, 0.0)):
+        args, window, quad = pool_case(rng, T, block, sched)
+        args = [a.to(dev) for a in args]
+        for q in (None, quad.to(dev)):
+            for comp in (False, True):
+                form = pool._form(q is not None, comp)
+                for mode in MODES:
+                    kw = dict(compensated=comp, mode=mode, pool_quad=q)
+                    got = pool.eval_pool_fused(*args, window, eps, 1.5,
+                                               block, **kw)
+                    want = pool.eval_pool_plain(*args, window, eps, 1.5,
+                                                block, **kw)
+                    worst[form] = max(worst[form], compare(got, want))
+                    if bool(got[0][3].any() | got[1][3].any()):
+                        raise AssertionError(f"K2 {form}: the empty tile "
+                                             "got a nonzero result")
+    # one tile of 64 blocks of a cancellation-heavy shell (masses over
+    # seven decades); the quadrupole forms take it as node blocks with
+    # zero second moments. TwoSum must beat fp32: the kernel sums in a
+    # fixed order, so an equal error means it ran fp32 sums
+    T, block, nb = 8, 512, 64
+    P = nb * block
+    tpos = (rng.standard_normal((1, T, 3)) * 0.01).astype(np.float32)
+    dirs = rng.standard_normal((P, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    src = dirs * rng.uniform(5.0, 50.0, (P, 1))
+    mass = rng.uniform(1e-6, 10.0, P)
+    dd = src[None, None] - tpos.astype(np.float64)[:, :, None]
+    pot_ref = -(mass[None, None] / np.linalg.norm(dd, axis=-1)).sum(-1)
+    args = [torch.as_tensor(a, device=dev) for a in
+            (tpos, np.arange(T, dtype=np.int64)[None],
+             src.astype(np.float32), mass.astype(np.float32),
+             np.full(P, -1, np.int64))]
+    errs = {}
+    for quad in (False, True):
+        s = torch.tensor([[0, 0, nb, 0] if quad else [0, 0, 0, nb]],
+                         device=dev)
+        q = torch.zeros((P, 6), device=dev) if quad else None
+        for comp in (False, True):
+            form = pool._form(quad, comp)
+            kw = dict(compensated=comp, pool_quad=q)
+            for mode in MODES:
+                got = pool.eval_pool_fused(*args, s, P, 0.0, 1.0, block,
+                                           mode=mode, **kw)
+                want = pool.eval_pool_plain(*args, s, P, 0.0, 1.0, block,
+                                            mode=mode, **kw)
+                worst[form] = max(worst[form], compare(got, want))
+                if mode == "pot":
+                    errs[form] = float(np.abs(
+                        got[1].double().cpu().numpy() - pot_ref).max())
+    for f in ("mono", "quad"):
+        if not errs[f + "_comp"] < errs[f]:
+            raise AssertionError(f"K2 {f}: compensated error "
+                                 f"{errs[f + '_comp']:.3e} >= fp32 error "
+                                 f"{errs[f]:.3e}")
+    return worst, errs
+
+
+def pool_segments(inputs, n: int, window: int, block: int) -> dict:
+    """Blocks per real tile (min / median / max / mean) of a pool's
+    schedule, node and particle segments apart."""
+    tidx, sched = inputs[1], inputs[5].long()
+    s = sched[tidx[:, 0] < n].double()
+    out = {"tiles": int(s.shape[0]), "window": window, "block": block,
+           "rows": int((s[:, 2] + s[:, 3]).sum()) * block}
+    for key, v in (("blocks", s[:, 2] + s[:, 3]), ("node_blocks", s[:, 2]),
+                   ("particle_blocks", s[:, 3])):
+        out[key] = {"min": float(v.min()), "median": float(v.median()),
+                    "max": float(v.max()), "mean": float(v.mean())}
+    return out
+
+
+def pool_bound(inputs, n: int, window: int, block: int, quad: bool,
+               comp: bool):
+    """(bound_ms, bound_by) of one K2 call: the larger of the bytes it must
+    move (each tile's own segment of pool rows read once, with the second
+    moments on node rows for the quadrupole; targets, indices and the
+    schedule read once; outputs written once) over the HBM rate, and the
+    operations its live pairs need over the fp32 peak: real targets x
+    rows with mass > 0 of the tile's segment (self pairs, at most one a
+    target, are counted), x 64 on node rows with the quadrupole and 20
+    otherwise, and TwoSum per target and block."""
+    tpos, tidx, ppos, pmass, pidx, sched, pquad = inputs
+    G, T, _ = tpos.shape
+    s = sched.long()
+    base = (s[:, 0] * (window // block) + s[:, 1]) * block
+    mid = base + s[:, 2] * block
+    end = mid + s[:, 3] * block
+    live = torch.nn.functional.pad(torch.cumsum((pmass > 0).long(), 0),
+                                   (1, 0))
+    ntgt = (tidx < n).sum(1)
+    row_bytes = (ppos.element_size() * 3 + pmass.element_size()
+                 + pidx.element_size())
+    nbytes = int((end - base).sum()) * row_bytes
+    if quad:
+        nbytes += int((mid - base).sum()) * 6 * pquad.element_size()
+    nbytes += (tpos.numel() * tpos.element_size()
+               + tidx.numel() * tidx.element_size()
+               + sched.numel() * sched.element_size() + G * T * 4 * 4)
+    node = float((ntgt * (live[mid] - live[base])).sum())
+    part = float((ntgt * (live[end] - live[mid])).sum())
+    flops = node * (FLOPS_QUAD if quad else FLOPS_MONO) + part * FLOPS_MONO
+    if comp:
+        flops += FLOPS_TWOSUM * float((ntgt * (s[:, 2] + s[:, 3])).sum())
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                        else "operations")
+
+
+def plain_pool(inputs, tiles, window, block, **kw):
+    """The plain K2 version on the given tiles of a query's pool, run over
+    PLAIN_TILES tiles at a time (each tile's sum depends on its own
+    targets and segment only)."""
+    from rakau_tpu_torch.kernels import pool
+    tpos, tidx, ppos, pmass, pidx, sched, pquad = inputs
+    if not kw.pop("quad"):
+        pquad = None
+    accs, pots = [], []
+    for c in tiles.split(PLAIN_TILES):
+        a, p = pool.eval_pool_plain(tpos[c], tidx[c], ppos, pmass, pidx,
+                                    sched[c], window, 0.0, 1.0, block,
+                                    pool_quad=pquad, **kw)
+        accs.append(a)
+        pots.append(p)
+    return torch.cat(accs), torch.cat(pots)
+
+
+def pool_kernels(inputs, n: int, window: int, block: int, forms) -> dict:
+    """K2 against its plain version on a query's real pool, per form: mode
+    "both" on every tile (plain run in groups of PLAIN_TILES, timed once
+    after one warm-up group), "acc" and "pot" on SUBSET_TILES tiles spread
+    over the real ones; the kernel timed over the whole pool. Returns per
+    form (worst error, ms, plain_ms, bound_ms, bound_by) and the modes."""
+    from rakau_tpu_torch.kernels import pool
+    G = inputs[0].shape[0]
+    dev = inputs[0].device
+    every = torch.arange(G, device=dev)
+    real = torch.nonzero(inputs[1][:, 0] < n).squeeze(1)
+    subset = real[torch.linspace(0, len(real) - 1, min(SUBSET_TILES,
+                                                       len(real)),
+                                 device=dev).long()]
+    out = {}
+    for form in forms:
+        quad, comp = form.startswith("quad"), form.endswith("comp")
+        kw = dict(compensated=comp,
+                  pool_quad=inputs[6] if quad else None)
+        modes = {}
+        for mode in MODES:
+            got = pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0, block,
+                                       mode=mode, **kw)
+            pkw = dict(compensated=comp, mode=mode, quad=quad)
+            if mode == "both":
+                plain_pool(inputs, subset[:PLAIN_TILES], window, block,
+                           **pkw)
+                want, pm = synced_ms(lambda: plain_pool(
+                    inputs, every, window, block, **pkw))
+                err = compare(got, want)
+            else:
+                pm = None
+                want = plain_pool(inputs, subset, window, block, **pkw)
+                err = compare((got[0][subset], got[1][subset]), want)
+            km = cuda_ms(lambda: pool.eval_pool_fused(
+                *inputs[:6], window, 0.0, 1.0, block, mode=mode, **kw), 10)
+            modes[mode] = {"ms": km, "plain_ms": pm, "max_abs_err": err}
+        b_ms, b_by = pool_bound(inputs, n, window, block, quad, comp)
+        out[form] = dict(max_abs_err=max(v["max_abs_err"]
+                                         for v in modes.values()),
+                         ms=modes["both"]["ms"],
+                         plain_ms=modes["both"]["plain_ms"],
+                         bound_ms=b_ms, bound_by=b_by, modes=modes)
+    return out
+
+
 def sampled_rms(acc, pot, acc_o, pot_o, samp, dev):
     """RMS relative force and potential errors at the sampled targets
     (acc may be None)."""
@@ -351,6 +700,189 @@ def synced_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def event_ms(fn):
+    """(fn(), device ms between CUDA events recorded around the call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def counted(fn):
+    """(fn(), launches per kernel form of K1 and K2) with every count set
+    to 0 just before the call and read just after."""
+    from rakau_tpu_torch.kernels import pool, shared
+    shared.reset_launches()
+    pool.reset_launches()
+    out = fn()
+    return out, {"K1": dict(shared.launches), "K2": dict(pool.launches)}
+
+
+def gwalk_tree(pos, mass, cfg):
+    """A Tree sized as bench.py sizes its gwalk run: tile_cap fitted to
+    1.1x the built tile count, rounded up to 256 (bench.py:103-111), then
+    the global and per-round caps from engine.tune_gwalk
+    (bench.py:130-140). Returns the tree and its sizing record."""
+    from rakau_tpu_torch import Tree, engine
+    from rakau_tpu_torch.config import OVF_FIELDS
+    n = pos.shape[0]
+    tree = Tree(coords=pos, masses=mass, config=cfg)
+    tiles = int(tree.tree_data.n_tiles)
+    fitted = -(-int(tiles * 1.1) // 256) * 256
+    if fitted < tree.config.tile_capacity(n):
+        tree = Tree(coords=pos, masses=mass,
+                    config=tree.config.with_(tile_cap=fitted))
+    tuned, tune_ms = synced_ms(lambda: engine.tune_gwalk(
+        tree.tree_data, tree.config, THETA, 0.0))
+    del tree
+    tree = Tree(coords=pos, masses=mass, config=tuned)
+    return tree, {"n_tiles": tiles, "tile_cap": tuned.tile_capacity(n),
+                  "tune_ms": tune_ms,
+                  "caps": {f: getattr(tuned, f) for f in OVF_FIELDS},
+                  "round_caps": list(tuned.gwalk_round_caps),
+                  "pool_window": tuned.pool_window}
+
+
+def one_launch(counts: dict, form: str, what: str):
+    """Raise unless `counts` (from counted) shows exactly one K2 launch,
+    of `form`, and no other launch."""
+    want = {"K1": dict.fromkeys(counts["K1"], 0),
+            "K2": {f: int(f == form) for f in counts["K2"]}}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, want one K2 "
+                             f"{form} and nothing else")
+
+
+def gwalk_main(pos, mass, oracle, shared_rms, dev):
+    """The gwalk+grid query (phase g) and its layers and profile. Returns
+    the tree, the warm queries' launches and the record."""
+    from rakau_tpu_torch.config import TreeConfig
+    n = pos.shape[0]
+    (tree, rec), sizing_ms = synced_ms(lambda: gwalk_tree(
+        pos, mass, TreeConfig(farfield="grid", **gwalk_kw(n))))
+    _, cold_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+    warm, per_query = [], []
+    for _ in range(WARM_REPS):
+        ((acc, pot), ms), counts = counted(
+            lambda: event_ms(lambda: tree.accs_pots_o(THETA)))
+        warm.append(ms)
+        per_query.append(counts["K2"]["mono"])
+        one_launch(counts, "mono", "gwalk warm query")
+    if acc.shape != (n, 3) or pot.shape != (n,):
+        raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
+    if not (torch.isfinite(acc).all() and torch.isfinite(pot).all()):
+        raise AssertionError("non-finite gwalk accelerations or potentials")
+    f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
+    warm_ms = statistics.median(warm)
+    rec.update(n=n, theta=THETA, farfield="grid", sizing_ms=sizing_ms,
+               cold_query_ms=cold_ms, warm_query_ms=warm_ms,
+               warm_query_ms_all=warm,
+               warm_spread=(max(warm) - min(warm)) / warm_ms,
+               k2_launches_per_warm_query=per_query,
+               evals_per_s=n / (warm_ms / 1e3), force_rms=f_rms,
+               pot_rms=p_rms, shared_force_rms=shared_rms[0],
+               shared_pot_rms=shared_rms[1])
+    emit("gwalk", **rec)
+    if not (f_rms < FORCE_RMS_MAX and p_rms < POT_RMS_MAX):
+        raise AssertionError(f"gwalk accuracy: force rms {f_rms:.3e}, pot "
+                             f"rms {p_rms:.3e}")
+    emit("gwalk_layers", warm_query_ms=warm_ms, **gwalk_layer_ms(tree))
+    emit("gwalk_profile", **profile_record(
+        device_profile(tree, "pool_kernel", "k2_device_ms"), warm_ms))
+    return tree, per_query[0], rec
+
+
+def gwalk_quad(pos, mass, oracle, dev):
+    """Phase gwalk_quad: farfield "m2p" monopole fp32, then quadrupole +
+    compensated (pool_window 131072, bench.py:81-85), each sized by
+    gwalk_tree; each configuration queried again with the other
+    accumulation, so that every K2 form runs once in a real query.
+    Returns the quadrupole + compensated tree and the launches per form."""
+    from rakau_tpu_torch import Tree
+    from rakau_tpu_torch.config import TreeConfig
+    n = pos.shape[0]
+    mono = TreeConfig(farfield="m2p", **gwalk_kw(n))
+    rec, launches, rms = {"n": n, "theta": THETA}, {}, {}
+    qtree = None
+    for form, other, cfg in (
+            ("mono", "mono_comp", mono),
+            ("quad_comp", "quad", mono.with_(
+                multipole_order=2, accum="compensated",
+                pool_window=QUAD_POOL_WINDOW))):
+        (tree, sizing), sizing_ms = synced_ms(lambda: gwalk_tree(pos, mass,
+                                                                 cfg))
+        _, cold_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+        ((acc, pot), warm_ms), counts = counted(
+            lambda: event_ms(lambda: tree.accs_pots_o(THETA)))
+        one_launch(counts, form, f"gwalk m2p {form} query")
+        launches[form] = counts["K2"][form]
+        rms[form] = sampled_rms(acc, pot, *oracle, dev)
+        acc_cfg = tree.config.with_(
+            accum="fp32" if cfg.accum == "compensated" else "compensated")
+        otree = Tree(coords=pos, masses=mass, config=acc_cfg)
+        ((acc2, pot2), other_ms), counts = counted(
+            lambda: event_ms(lambda: otree.accs_pots_o(THETA)))
+        one_launch(counts, other, f"gwalk m2p {other} query")
+        launches[other] = counts["K2"][other]
+        rms[other] = sampled_rms(acc2, pot2, *oracle, dev)
+        for t in (acc, pot, acc2, pot2):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError("non-finite gwalk m2p result")
+        rec[form] = dict(sizing, sizing_ms=sizing_ms, cold_query_ms=cold_ms,
+                         warm_query_ms=warm_ms, force_rms=rms[form][0],
+                         pot_rms=rms[form][1])
+        rec[other] = dict(warm_query_ms=other_ms, force_rms=rms[other][0],
+                          pot_rms=rms[other][1])
+        del otree
+        if form == "quad_comp":
+            qtree = tree
+        del tree
+    # the shared engine on the same particles and far field, beside it
+    shared_cfg = mono.with_(traversal_mode="shared", **SHARED_M2P_CAPS)
+    for form, cfg in (("mono", shared_cfg),
+                      ("quad_comp", shared_cfg.with_(
+                          multipole_order=2, accum="compensated"))):
+        stree = Tree(coords=pos, masses=mass, config=cfg)
+        (acc, pot), ms = synced_ms(lambda: stree.accs_pots_o(THETA))
+        rms["shared_" + form] = sampled_rms(acc, pot, *oracle, dev)
+        rec["shared_" + form] = dict(query_ms=ms,
+                                     force_rms=rms["shared_" + form][0],
+                                     pot_rms=rms["shared_" + form][1])
+        del stree
+    ratio = rms["quad_comp"][0] / rms["mono"][0]
+    emit("gwalk_quad", **rec, force_rms_ratio=ratio, launches=launches)
+    if not ratio < QUAD_RMS_RATIO:
+        raise AssertionError(f"gwalk quadrupole force rms "
+                             f"{rms['quad_comp'][0]:.3e} is not below "
+                             f"{QUAD_RMS_RATIO} x the monopole's "
+                             f"{rms['mono'][0]:.3e}")
+    for form in ("mono", "quad_comp"):
+        g, s = rms[form][0], rms["shared_" + form][0]
+        if not abs(g - s) < SHARED_RMS_RTOL * s:
+            raise AssertionError(f"gwalk {form} force rms {g:.6e} is not "
+                                 f"within {SHARED_RMS_RTOL} of the shared "
+                                 f"engine's {s:.6e}")
+    return qtree, launches
+
+
+def pool_kernel_phase(tree, forms, label: str) -> dict:
+    """Phase kernel for K2 on the pool of `tree`'s gwalk query."""
+    from rakau_tpu_torch import engine
+    td, cfg = tree.tree_data, tree.config
+    n = int(td.pos.shape[0])
+    inputs = engine.pool_inputs(td, cfg, THETA, 0.0)
+    out = pool_kernels(inputs, n, cfg.pool_window, cfg.pool_block, forms)
+    emit("kernel", config=label, G=int(inputs[0].shape[0]),
+         T=int(inputs[0].shape[1]), P=int(inputs[2].shape[0]),
+         subset_tiles=SUBSET_TILES,
+         segments=pool_segments(inputs, n, cfg.pool_window, cfg.pool_block),
+         forms=out)
+    return out
 
 
 def leapfrog(n: int, seed: int, dev):
@@ -544,7 +1076,7 @@ def main(argv=None) -> int:
         return 2
     from rakau_tpu_torch import direct_acc_pot_np, octree, particles
     from rakau_tpu_torch import engine
-    from rakau_tpu_torch.kernels import shared
+    from rakau_tpu_torch.kernels import pool, shared
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -554,20 +1086,12 @@ def main(argv=None) -> int:
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    t0 = time.perf_counter()
-    lib_path = shared.build_library()
-    build_s = time.perf_counter() - t0
-    ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt").read_text()
-    regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)]
-    emit("build", seconds=build_s, library=lib_path.name,
-         kernels=len(regs), registers=regs, spill_bytes=spills)
-    if not regs or any(spills):
-        raise AssertionError(f"ptxas: {len(regs)} kernels, spills {spills}")
+    emit("build", **build_kernels())
 
     edge_err, cancel = edge_cases(shared, dev)
     emit("edge", max_abs_err=edge_err, cancellation_err=cancel)
+    edge_err, cancel = pool_edge_cases(dev)
+    emit("edge_pool", max_abs_err=edge_err, cancellation_err=cancel)
 
     # ---- main path -----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -622,11 +1146,9 @@ def main(argv=None) -> int:
 
     # ---- where a warm query's time goes ---------------------------------
     emit("layers", warm_query_ms=warm_ms, **layer_ms(tree))
-    prof = device_profile(tree)
-    emit("profile", **prof, warm_query_ms=warm_ms,
-         idle_share=1 - prof["device_busy_ms"] / warm_ms,
-         idle_share_profiled=1 - prof["device_busy_ms"]
-         / prof["profiled_query_ms"])
+    emit("profile", **profile_record(
+        device_profile(tree, "shared_fused_kernel", "k1a_device_ms"),
+        warm_ms))
 
     # ---- kernel vs plain at the main path's chunk shapes ----------------
     worst, k_ms, p_ms, b_ms, per_mode = 0.0, [], [], [], {}
@@ -661,16 +1183,28 @@ def main(argv=None) -> int:
     acc_o, pot_o = direct_acc_pot_np(pos_np, mass.double().cpu().numpy(),
                                      targets=samp)
     a = acc[torch.as_tensor(samp, device=dev)].double().cpu().numpy()
-    p = pot[torch.as_tensor(samp, device=dev)].double().cpu().numpy()
     f_rel = np.linalg.norm(a - acc_o, axis=1) / np.linalg.norm(acc_o, axis=1)
-    p_rel = np.abs(p - pot_o) / np.abs(pot_o)
-    f_rms = float(np.sqrt(np.mean(f_rel ** 2)))
-    p_rms = float(np.sqrt(np.mean(p_rel ** 2)))
+    f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
     emit("accuracy", samples=256, force_rms=f_rms, pot_rms=p_rms,
          force_max=float(f_rel.max()))
     if not f_rms < FORCE_RMS_MAX or not p_rms < POT_RMS_MAX:
         raise AssertionError(f"accuracy: force rms {f_rms:.3e}, "
                              f"pot rms {p_rms:.3e}")
+    del tree, td, acc, pot
+    torch.cuda.empty_cache()
+
+    # ---- the gwalk engine: one walk, one pool, one K2 launch -------------
+    oracle = (acc_o, pot_o, samp)
+    gtree, g_launches, _ = gwalk_main(pos, mass, oracle, (f_rms, p_rms),
+                                      dev)
+    k2 = pool_kernel_phase(gtree, ("mono",), "gwalk+grid")
+    del gtree
+    qtree, q_launches = gwalk_quad(pos, mass, oracle, dev)
+    k2.update({f: v for f, v in pool_kernel_phase(
+        qtree, pool.FORMS, "gwalk+m2p quadrupole compensated").items()
+        if f != "mono"})
+    del qtree
+    torch.cuda.empty_cache()
 
     # ---- BASELINE config #2: the leapfrog harness -----------------------
     lf, etree, ecfg = leapfrog(args.n, args.seed + 2, dev)
@@ -694,6 +1228,17 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": SRC,
                         "replaces": REPLACES, "launches": n_launch,
                         **forms[form], "library_ms": None})
+    for form, name, n_launch in (
+            ("mono", "K2 pool (monopole, fp32)", g_launches),
+            ("mono_comp", "K2 pool (monopole, compensated)",
+             q_launches["mono_comp"]),
+            ("quad", "K2 pool (quadrupole, fp32)", q_launches["quad"]),
+            ("quad_comp", "K2 pool (quadrupole, compensated)",
+             q_launches["quad_comp"])):
+        kernels.append({"name": name, "route": "cuda", "source": POOL_SRC,
+                        "replaces": POOL_REPLACES, "launches": n_launch,
+                        **{k: v for k, v in k2[form].items()
+                           if k != "modes"}, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

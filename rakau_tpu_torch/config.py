@@ -6,8 +6,12 @@ validation (product-mode matrix included), so that
 The per-call theta/eps/G stay call arguments.
 
 The engine (engine.py) runs the shared traversal with the "local", "m2p"
-and "grid" far fields, monopole, fp32 accumulation; it raises
-NotImplementedError for every other mode this config accepts.
+and "grid" far fields and the gwalk traversal with "m2p" and "grid"; it
+raises NotImplementedError for every other mode this config accepts. In
+gwalk mode the four growable capacities have global meaning: m2p_cap is
+the total of (tile, node) M2P incidences, p2p_leaf_cap of opened (tile,
+leaf) incidences, p2p_src_cap the pool rows, frontier_cap the peak
+global frontier of (tile, node) pairs.
 """
 from __future__ import annotations
 
@@ -212,3 +216,17 @@ def fit_caps(cfg: TreeConfig, maxima, slack: float = 1.25,
         p2p_src_cap=fit(p2p_max, 2 * quantum),
         p2p_leaf_cap=max(256, fit(leaf_max, 256)),
         frontier_cap=max(256, fit(f_max, 256)))
+
+
+def fit_round_caps(round_counts, slack: float = 1.3,
+                   quantum: int = 256) -> tuple:
+    """Per-round frontier capacities for the unrolled gwalk walk from the
+    open pairs after each round that a dynamic walk measured
+    (traversal4.GlobalLists.round_counts), with `slack` and rounded up to
+    `quantum`. Trailing zero rounds are dropped: the unrolled walk does
+    not run them."""
+    counts = [int(c) for c in round_counts]
+    while counts and counts[-1] == 0:
+        counts.pop()
+    return tuple(max(quantum, -(-int(c * slack) // quantum) * quantum)
+                 for c in counts)

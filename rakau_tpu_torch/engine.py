@@ -1,13 +1,20 @@
 """Query engine: tree + per-call (theta, eps, G) -> accelerations and
-potentials. Counterpart of `rakau_tpu.engine`, shared traversal only.
+potentials. Counterpart of `rakau_tpu.engine`, shared and gwalk
+traversals.
 
-Target tiles are processed in chunks of `tile_chunk` (chunking bounds the
-peak memory of the padded source rows): per chunk, the union walk
-(traversal2) builds one shared source row with per-tile masks; accepted
-nodes far from a tile go to its local Taylor expansion, together with
-the dense grid far field handed down to the tile (farfield="grid"); the
-rest goes through the pairwise kernel (kernels.dispatch). Results come
-back in internal Morton order (the `_u` view).
+Shared: target tiles are processed in chunks of `tile_chunk` (chunking
+bounds the peak memory of the padded source rows): per chunk, the union
+walk (traversal2) builds one shared source row with per-tile masks;
+accepted nodes far from a tile go to its local Taylor expansion,
+together with the dense grid far field handed down to the tile
+(farfield="grid"); the rest goes through the pairwise kernel
+(kernels.dispatch).
+
+gwalk: one global (tile, node) walk and one block-aligned source pool
+for all tiles (traversal4), one launch of the pool kernel, and with
+farfield="grid" the dense far field handed down to every tile.
+
+Results come back in internal Morton order (the `_u` view).
 """
 from __future__ import annotations
 
@@ -16,9 +23,10 @@ import torch.nn.functional as F
 
 from . import expansion
 from . import grid as gridmod
-from . import traversal2
-from .build import TreeData
-from .config import TreeConfig
+from . import traversal2, traversal4
+from .build import TreeData, _quad_dim
+from .config import OVF_FIELDS, TreeConfig, fit_caps, fit_round_caps
+from .grid2 import particle_cells
 from .kernels import dispatch
 
 
@@ -26,13 +34,14 @@ def check_supported(cfg: TreeConfig):
     """Raise NotImplementedError for modes outside the ported slice.
 
     Ported: the shared traversal with the "local", "m2p" and "grid" far
-    fields, fp32 or compensated accumulation, and the quadrupole with
-    "m2p". The quadrupole with "local"/"grid" (RAKAU_DIAG_MODES=1 only)
-    runs on the reference's lists path, which is not ported."""
-    if cfg.traversal_mode != "shared":
+    fields and the gwalk traversal with "m2p" and "grid", each with fp32
+    or compensated accumulation, and the quadrupole with "m2p". The
+    quadrupole with "local"/"grid" (RAKAU_DIAG_MODES=1 only) runs on the
+    reference's lists path, which is not ported."""
+    if cfg.traversal_mode not in ("shared", "gwalk"):
         raise NotImplementedError(
             f"traversal_mode={cfg.traversal_mode!r} is not ported "
-            "(only 'shared')")
+            "(only 'shared' and 'gwalk')")
     if cfg.farfield == "grid2":
         raise NotImplementedError("farfield='grid2' is not ported")
     if cfg.multipole_order == 2 and cfg.farfield != "m2p":
@@ -185,8 +194,9 @@ def _query_state(td, cfg, eps):
     # id() can be reused after GC; verify the cached tree is the caller's
     if hit is not None and hit[0] is td.pos and hit[1] is td.mass:
         return hit[2]
-    state = (_gather_tiles(td, cfg), traversal2.make_tables(td, cfg),
-             _grid_farfield(td, cfg, eps))
+    tables = (traversal2.make_tables(td, cfg)
+              if cfg.traversal_mode == "shared" else None)
+    state = (_gather_tiles(td, cfg), tables, _grid_farfield(td, cfg, eps))
     while len(_QUERY_STATE_CACHE) >= 2:
         _QUERY_STATE_CACHE.pop(next(iter(_QUERY_STATE_CACHE)))
     _QUERY_STATE_CACHE[key] = (td.pos, td.mass, state)
@@ -213,14 +223,147 @@ def kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps, chunk: int):
     return tpos, tidx, src.pos, src.mass, src.idx, mask, src.quad
 
 
+def _gwalk_sources(td: TreeData, cfg: TreeConfig, theta, tiles):
+    """The gwalk walk and pool for all tiles. Returns the flat tiles
+    (tpos [G, T, D], tidx [G, T], lo, hi, cell [G, D], valid [G]), the
+    GlobalLists, the GlobalPool and the kernel's schedule sched [G, 4]
+    (window, start block in it, node blocks, particle blocks)."""
+    n, ndim = td.pos.shape
+    flat = tuple(t.reshape((-1,) + t.shape[2:]) for t in tiles)
+    tpos, tidx, blo, bhi, tcell = flat
+    tvalid = tidx[:, 0] < n
+    G0 = tpos.shape[0]
+    use_grid = cfg.farfield == "grid"
+    kw = dict(tcell_lo=tcell, tcell_hi=tcell) if use_grid else {}
+    gl = traversal4.build_global_incidences(td, cfg, theta, blo, bhi,
+                                            tile_valid=tvalid, **kw)
+    block = cfg.pool_block
+    W = cfg.pool_window
+    Wb = W // block
+    # a whole number of windows, as the reference sizes it
+    pool_cap = -(-cfg.p2p_src_cap // W) * W
+    pkw = {}
+    L0 = traversal2._grid_l0(cfg, n) if use_grid else 0
+    if L0 > 0:
+        pkw = dict(pcell=particle_cells(td.pos, td.box_size, cfg.max_depth,
+                                        L0),
+                   tcell_lo=tcell, tcell_hi=tcell,
+                   sep=traversal2._grid_sep(cfg))
+    qd = _quad_dim(ndim) if cfg.multipole_order >= 2 else 0
+    pool = traversal4.build_pool(td, gl, G0, block, pool_cap,
+                                 window_blocks=Wb, quad_dim=qd,
+                                 group=cfg.pool_group, **pkw)
+    # overflow-safe clamps: an overflowed pool is flagged and the query
+    # retried; the clamped schedule keeps the kernel's reads in the pool
+    NW = pool_cap // W
+    win = torch.clamp(pool.m2p_blk // Wb, 0, NW - 1)
+    start = torch.clamp(pool.m2p_blk - win * Wb, 0, Wb - 1)
+    m_nb = torch.minimum(torch.clamp(pool.m2p_nblk, min=0),
+                         torch.clamp(Wb - start, min=0))
+    p_nb = torch.minimum(torch.clamp(pool.p2p_nblk, min=0),
+                         torch.clamp(Wb - start - m_nb, min=0))
+    sched = torch.stack([win, start, m_nb, p_nb], dim=1)
+    return flat + (tvalid,), gl, pool, sched
+
+
+def _gwalk_farfield(td: TreeData, cfg: TreeConfig, G, flat, Lgrid, acc,
+                    pot, mode):
+    """Add the dense grid far field, handed down to every valid tile
+    (L2L from its leaf-grid cell, then L2P), to the tiles' kernel sums."""
+    n, ndim = td.pos.shape
+    tpos, _, blo, bhi, tcell, tvalid = flat
+    order = cfg.local_order
+    L0 = gridmod.effective_grid_level(cfg, n)
+    Lg = Lgrid[gridmod.rowmajor_cell_index(tcell, ndim, L0)]
+    s0 = td.box_size * 2.0 ** -L0
+    ccenter = (tcell.to(td.pos.dtype) + 0.5) * s0 - td.box_size / 2
+    center = 0.5 * (blo + bhi)
+    tv = tvalid[:, None]
+    shift = torch.where(tv, center - ccenter, 0.0)
+    L = torch.where(tv, expansion.l2l(Lg, shift, order), 0.0)
+    acc_l, pot_l = expansion.l2p(L, center, tpos, G, order)
+    if mode in ("both", "acc"):
+        acc = acc + torch.where(tv[..., None], acc_l, 0.0)
+    if mode in ("both", "pot"):
+        pot = pot + torch.where(tv, pot_l, 0.0)
+    return acc, pot
+
+
+def _gwalk_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, tiles,
+                Lgrid, mode: str = "both"):
+    """gwalk query: one global walk, one pool, one kernel launch; with
+    farfield="grid" the dense far field on top (no local_gamma gate: every
+    accepted node goes through the kernel). Returns (acc_u, pot_u,
+    overflow [4], maxima [4], round_counts); the flags and maxima are in
+    the standard cap order, maxima (m2p incidences, pool rows, frontier
+    peak, leaf incidences)."""
+    flat, gl, pool, sched = _gwalk_sources(td, cfg, theta, tiles)
+    acc, pot = dispatch.eval_pool(
+        cfg, flat[0], flat[1], pool.pos, pool.mass, pool.idx, sched,
+        cfg.pool_window, cfg.pool_block, eps, G, mode=mode,
+        pool_quad=pool.quad)
+    if Lgrid is not None:
+        acc, pot = _gwalk_farfield(td, cfg, G, flat, Lgrid, acc, pot, mode)
+    acc_u, pot_u = _assemble_impl(td, cfg, acc, pot)
+    ovf = torch.stack([gl.overflow[0], gl.overflow[1], pool.overflow,
+                       gl.overflow[3]])
+    mx = torch.stack([gl.maxima[0], pool.total_rows, gl.maxima[3],
+                      gl.maxima[1]])
+    return acc_u, pot_u, ovf, mx, gl.round_counts
+
+
+def pool_inputs(td: TreeData, cfg: TreeConfig, theta, eps):
+    """The pool kernel's arguments in a gwalk query: (tgt_pos, tgt_idx,
+    pool_pos, pool_mass, pool_idx, sched, pool_quad), exactly as
+    acc_pot_u_host hands them to kernels.dispatch.eval_pool (pool_quad
+    None for the monopole)."""
+    check_supported(cfg)
+    tiles, _, _ = _query_state(td, cfg, eps)
+    flat, _, pool, sched = _gwalk_sources(td, cfg, theta, tiles)
+    return (flat[0], flat[1], pool.pos, pool.mass, pool.idx, sched,
+            pool.quad)
+
+
+def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
+               max_retries: int = 6) -> TreeConfig:
+    """Fit the gwalk global caps and the per-round frontier caps from a
+    dynamic-walk query (repeated with grown caps while one overflows).
+    Returns the fitted config, gwalk_round_caps set: later queries run the
+    unrolled walk at the measured frontier sizes."""
+    check_supported(cfg)
+    cfg_dyn = cfg.with_(gwalk_round_caps=None)
+    for _ in range(max_retries):
+        tiles, _, Lgrid = _query_state(td, cfg_dyn, eps)
+        _, _, ovf, mx, rcnt = _gwalk_impl(td, cfg_dyn, theta, eps, G,
+                                          tiles, Lgrid)
+        flags = ovf.cpu().tolist()
+        mx = mx.cpu().tolist()
+        if not any(flags):
+            break
+        if flags[2] and mx[1] <= cfg_dyn.p2p_src_cap:
+            # the pool flag with the rows under their cap: a group of
+            # tiles straddled a window, and a wider window is the fix
+            cfg_dyn = cfg_dyn.with_(pool_window=2 * cfg_dyn.pool_window)
+            flags[2] = False
+        cfg_dyn = cfg_dyn.with_(**{f: 2 * getattr(cfg_dyn, f)
+                                   for f, hit in zip(OVF_FIELDS, flags)
+                                   if hit})
+    fitted = fit_caps(cfg_dyn, mx)
+    return fitted.with_(gwalk_round_caps=fit_round_caps(rcnt.cpu()))
+
+
 def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
                    mode: str = "both"):
     """Accelerations [N, D] and potentials [N] in Morton order, plus the
     overflow flags [4] and maxima [4] (aligned with config.OVF_FIELDS)
-    of the query. A Python loop over the chunks that hold real tiles;
-    theta, eps and G are Python numbers."""
+    of the query. Shared: a Python loop over the chunks that hold real
+    tiles; gwalk: one walk, pool and kernel launch for all tiles. theta,
+    eps and G are Python numbers."""
     check_supported(cfg)
     tiles, tables, Lgrid = _query_state(td, cfg, eps)
+    if cfg.traversal_mode == "gwalk":
+        return _gwalk_impl(td, cfg, theta, eps, G, tiles, Lgrid,
+                           mode=mode)[:4]
     tpos, tidx, blo, bhi, tcell = tiles
     dev = td.pos.device
     ovf = torch.zeros(4, dtype=torch.bool, device=dev)

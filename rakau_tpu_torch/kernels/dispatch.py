@@ -1,5 +1,6 @@
-"""Kernel dispatch for the shared-candidate evaluation. Counterpart of
-`rakau_tpu.kernels.dispatch.eval_shared`.
+"""Kernel dispatch for the shared-candidate and the gwalk pool
+evaluations. Counterpart of `rakau_tpu.kernels.dispatch.eval_shared` and
+`eval_pool`.
 
 The device of the tensors decides: CUDA tensors go to the hand-written
 kernel in the asked form (or raise), CPU tensors to the plain PyTorch
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..config import TreeConfig
-from . import shared
+from . import pool, shared
 
 
 def _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
@@ -50,3 +51,18 @@ def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
                    src_idx[:U], mask[:, :U].contiguous(), eps, G, mode,
                    comp, src_quad)
     return a1 + a2, p1 + p2
+
+
+def eval_pool(cfg: TreeConfig, tgt_pos, tgt_idx, pool_pos, pool_mass,
+              pool_idx, sched, window: int, block: int, eps, G,
+              mode: str = "both", pool_quad=None):
+    """gwalk pool evaluation (kernels/pool.py): tile g of tgt_pos
+    [G, T, D] sums its scheduled pool segment (sched [G, 4]); one launch
+    for the whole query. cfg.accum == "compensated" selects the TwoSum
+    block sums, in the monopole form too. Returns acc [G, T, D],
+    pot [G, T]."""
+    fn = pool.eval_pool_fused if tgt_pos.is_cuda else pool.eval_pool_plain
+    return fn(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
+              window, eps, G, block,
+              compensated=cfg.accum == "compensated", mode=mode,
+              pool_quad=pool_quad)

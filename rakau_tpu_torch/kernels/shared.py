@@ -64,14 +64,14 @@ def _two_sum(a, b):
 
 def _quad_terms(dds, q, mk, inv_r, mode):
     """Quadrupole correction of one source block: dds D panels [C, T, B]
-    (d = s - t), q [B, Q], mk [C, 1, B], inv_r [C, T, B] (0 on dead
-    pairs). Returns (dacc list of D panels or None, dpot panel or None),
-    not yet summed over the sources."""
+    (d = s - t), q [B, Q] (or [C, 1, B, Q], per tile), mk [C, 1, B],
+    inv_r [C, T, B] (0 on dead pairs). Returns (dacc list of D panels or
+    None, dpot panel or None), not yet summed over the sources."""
     D = len(dds)
     qd = [None] * D                       # (Q d)_a
     trq = 0.0
     for ci, (a, b) in enumerate(quad_pairs(D)):
-        qc = q[:, ci]
+        qc = q[..., ci]
         qd[a] = qc * dds[b] if qd[a] is None else qd[a] + qc * dds[b]
         if a == b:
             trq = trq + qc
@@ -173,7 +173,7 @@ def reset_launches():
         launches[k] = 0
 
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "shared_fused.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _lib = None
 
@@ -188,19 +188,21 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> Path:
-    """Compile csrc/shared_fused.cu for sm_90a into _build/ (keyed by the
-    source's hash) unless it is there already. Raises on a failed build."""
-    src = _SRC.read_bytes()
+def build_library(name: str = "shared_fused") -> Path:
+    """Compile csrc/<name>.cu for sm_90a into _build/lib<name>_<hash>.so
+    (keyed by the source's hash) unless it is there already; the ptxas
+    report goes beside it. Raises on a failed build."""
+    path = _CSRC / f"{name}.cu"
+    src = path.read_bytes()
     tag = hashlib.sha256(src).hexdigest()[:16]
-    out = _BUILD_DIR / f"libshared_fused_{tag}.so"
+    out = _BUILD_DIR / f"lib{name}_{tag}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
+           "-o", str(tmp), str(path)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(

@@ -67,6 +67,11 @@ def _grid_l0(cfg: TreeConfig, n: int) -> int:
     return 0
 
 
+def _grid_sep(cfg: TreeConfig) -> int:
+    """Cell separation from which the grid far field covers a pair."""
+    return cfg.grid_sep if cfg.farfield == "grid2" else 3
+
+
 def make_tables(td: TreeData, cfg: TreeConfig) -> TraversalTables:
     dtype = td.pos.dtype
     M = td.node_level.shape[0]
@@ -127,7 +132,7 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
         tables = make_tables(td, cfg)
     L0 = _grid_l0(cfg, n)
     use_grid = L0 > 0
-    S_sep = 3
+    S_sep = _grid_sep(cfg)
     if tile_valid is None:
         tile_valid = torch.ones(C, dtype=torch.bool, device=dev)
 

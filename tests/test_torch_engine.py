@@ -211,14 +211,16 @@ def test_float64_tree_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [dict(traversal_mode="lmac"),
-                                dict(traversal_mode="gwalk", farfield="m2p"),
+                                dict(traversal_mode="gwalk", farfield="grid2"),
                                 dict(farfield="grid2")])
 def test_modes_outside_the_slice_raise_at_query(kw):
+    """gwalk with grid2 raises already in the build: its tiles would need
+    grid2's cell clipping."""
     pos, mass, _, _ = _data()
-    t = Tree(coords=pos[:256], masses=mass[:256], config=config_from_jax(
-        _cfg(**kw)), device="cpu")
+    cfg = config_from_jax(_cfg(**kw))
     with pytest.raises(NotImplementedError):
-        t.accs_pots_o(THETA)
+        Tree(coords=pos[:256], masses=mass[:256], config=cfg,
+             device="cpu").accs_pots_o(THETA)
 
 
 MODES = {
