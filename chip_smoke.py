@@ -18,7 +18,11 @@ Phases, each printing one JSON line:
                synthetic pools with self pairs, a node row on top of a
                target at eps = 0, an empty tile, tiles in two windows,
                ragged T, pool_block 128 and 512, and a cancellation-heavy
-               segment;
+               segment; then the cell-separation forms K1c (edge_cell):
+               every form and mode with random leaf cells on both sides
+               of grid_sep 2 and 3, exempt rows (cell -1), self pairs that
+               are covered too, ragged T and S, an empty tile and, in the
+               quadrupole forms, the masked-out node on a target;
   4. main:     a Plummer sphere of N particles (default 1,048,576) from a
                seeded CUDA generator, octree(...) with the headline
                shared+grid configuration, accs_pots_o(theta=0.75) once
@@ -35,6 +39,29 @@ Phases, each printing one JSON line:
                mode, rtol 2e-4 and atol 2e-5*max|plain|, both timed;
   8. accuracy: 256 sampled targets against the float64 NumPy direct sum:
                RMS relative force error < 5e-3, potential < 2e-3;
+  s. grid2:    the same particles through the shared traversal with
+               farfield "grid2" (local_order 4, grid_sep 3, the level from
+               grid_occupancy 32: 5 at 1M), caps grown by the Tree and
+               fitted by tune_caps; once cold, three times warm: K1c
+               (mono_cell) launches per warm query = chunks and no other K1
+               form, finite results, force RMS < 5e-3, potential < 2e-3;
+               then local_order 6 with the quadrupole and compensated sums
+               (quad_comp_cell and mono_comp_cell launches = chunks each),
+               whose force RMS must be below the order-4 monopole's, and
+               the same with fp32 sums (quad_cell);
+     grid2_layers: a warm query split between device syncs (walk, kernel
+               call, L2P, rest) and the leaf locals a tree keeps: pyramid,
+               M2L kernels and convolutions per level (the port's form and
+               the same through cuDNN), L2L chain;
+     grid2_tf32: order 6, grid2.far_field in float32 against the same in
+               float64 on the card, with both global TF32 switches turned
+               ON for the duration: relative difference < 1e-4 of the
+               field's maximum, which holds only because grid2 guards its
+               own convolutions and products;
+     kernel:   K1c against plain PyTorch on the first two chunks of the
+               grid2 query (mono_cell, every mode) and on the first chunk
+               of the quadrupole + compensated one (quad_comp_cell and
+               quad_cell on node rows, mono_comp_cell on particle rows);
   g. gwalk:    the same particles through bench.py's gwalk configuration
                (bench.py:47-85 and 103-140: global caps 3n/n/16n/n//4,
                tile_cap fitted to the built tiles, caps and per-round
@@ -56,6 +83,16 @@ Phases, each printing one JSON line:
                mode "both" on every tile (plain run in groups of tiles),
                "acc" and "pot" on a stated subset; rtol 2e-4 and atol
                2e-5*max|plain|, both timed; segment lengths reported;
+     gwalk_grid2: gwalk with farfield "grid2" (local_order 4, grid_sep 3,
+               tiles clipped at its level, sized as phase g): one K2 launch
+               per warm query and no K1 launch, force RMS < 5e-3, potential
+               < 2e-3 and within 1 % of the shared engine's with grid2 at
+               gwalk's grid level (3 at 1M; the shared run's own level is
+               5 and its error lower, reported beside it: the reference
+               holds the two within 15 % at one set level,
+               tests/test_gwalk.py:78-99); then the
+               quadrupole (pool_window 131072): force RMS < 0.6 x the
+               monopole's;
   9. leapfrog: BASELINE config #2 (benchmarks/configs.py:90-114) through
                rakau_tpu_torch.integrate: a cold sphere of N particles
                (--n, default 1,048,576), zero velocities, 3 steps of
@@ -117,13 +154,18 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # kernel's inner loop (csrc/shared_fused.cu); TwoSum adds 6 operations
 # per sum per target and active source block
 FLOPS_MONO, FLOPS_QUAD, FLOPS_TWOSUM = 20, 64, 24
+# integer operations of K1c's cell test on every mask-true pair (on the
+# packed cell word: 2 adds, 2 logic operations, 2 compares;
+# csrc/shared_fused.cu); the 20 (64) fp32 operations are then counted on
+# the pairs it leaves
+OPS_CELL = 6
 SRC = "rakau_tpu_torch/csrc/shared_fused.cu"
 REPLACES = "rakau_tpu/kernels/pallas.py:566"
 POOL_SRC = "rakau_tpu_torch/csrc/pool.cu"
 POOL_REPLACES = "rakau_tpu/kernels/pallas.py:974"
 # kernel sources under rakau_tpu_torch/csrc/ and their kernels (template
-# instantiations: mode x compensated x quadrupole)
-LIBRARIES = {"shared_fused": 12, "pool": 12}
+# instantiations: mode x compensated x quadrupole, and x cell test in K1)
+LIBRARIES = {"shared_fused": 24, "pool": 12}
 MODES = ("both", "acc", "pot")
 # the plain pool version runs over this many tiles at a time ([tiles, T,
 # pool_block] panels), and modes acc/pot are checked on this many tiles
@@ -141,6 +183,13 @@ SHARED_M2P_CAPS = dict(m2p_cap=16384, p2p_leaf_cap=8192, p2p_src_cap=131072,
                        frontier_cap=4096)
 # the quadrupole's pool window in bench.py's gwalk run (bench.py:81-85)
 QUAD_POOL_WINDOW = 131072
+# grid2 on both traversals: order 4 and a separation of 3 cells; the
+# accuracy variant raises the order to 6 with quadrupole node rows and
+# compensated sums (the reference's accuracy shape, tests/test_gwalk.py)
+GRID2_KW = dict(farfield="grid2", local_order=4, grid_sep=3)
+GRID2_QUAD_KW = dict(local_order=6, multipole_order=2, accum="compensated")
+# the float32 far field against float64 under TF32 switches turned on
+TF32_REL_MAX = 1e-4
 
 
 def gwalk_kw(n: int) -> dict:
@@ -264,18 +313,20 @@ def gwalk_layer_ms(tree) -> dict:
     """The gwalk query split by layer: the global walk (traversal4.
     build_global_incidences), the pool build (traversal4.build_pool), the
     K2 call (dispatch.eval_pool) and the dense far field handed down to
-    the tiles (engine._gwalk_farfield). The rest is the schedule, the
+    the tiles (engine._gwalk_farfield; with "grid2" the per-particle L2P,
+    engine._add_grid2). The rest is the schedule, the
     overflow read, assembly and the inverse permutation."""
     from rakau_tpu_torch import engine, traversal4
     from rakau_tpu_torch.kernels import dispatch
     t, total = synced_layers(tree, ((traversal4, "build_global_incidences"),
                                     (traversal4, "build_pool"),
                                     (dispatch, "eval_pool"),
-                                    (engine, "_gwalk_farfield")))
+                                    (engine, "_gwalk_farfield"),
+                                    (engine, "_add_grid2")))
     out = {"walk_ms": t["build_global_incidences"],
            "pool_build_ms": t["build_pool"],
            "kernel_call_ms": t["eval_pool"],
-           "farfield_ms": t.get("_gwalk_farfield", 0.0)}
+           "farfield_ms": t.get("_gwalk_farfield", 0.0) + t["_add_grid2"]}
     out["rest_ms"] = total - sum(out.values())
     out["synced_query_ms"] = total
     return out
@@ -340,7 +391,7 @@ def edge_cases(shared, dev):
     """Kernel vs plain on small cases that hit every branch of the kernel,
     in every form. Returns the worst |kernel - plain| per form."""
     rng = np.random.default_rng(7)
-    worst = dict.fromkeys(shared.FORMS, 0.0)
+    worst = {f: 0.0 for f in shared.FORMS if not f.endswith("_cell")}
 
     def check(args, eps, quad=None, empty_tile=False):
         for comp in (False, True):
@@ -429,21 +480,111 @@ def edge_cases(shared, dev):
     return worst, {"fp32": errs[False], "compensated": errs[True]}
 
 
-def bound(inputs, n, quad=False, comp=False):
+def cell_edge_cases(shared, dev):
+    """K1c vs plain on small cases, every form and mode: random leaf cells
+    on both sides of grid_sep 2 and 3, exempt rows (cell -1), self pairs
+    that are covered too, a stretch of sources all covered, ragged T and
+    S, an empty tile, int32 and int64 cells, and in the quadrupole forms a
+    masked-out node 1e-9 from a target at eps = 0. Returns the worst
+    |kernel - plain| per form."""
+    rng = np.random.default_rng(13)
+    worst = {f: 0.0 for f in shared.FORMS if f.endswith("_cell")}
+    for C, T, S, sep, eps, itype in (
+            (3, 200, 3000, 2, 0.0, np.int64), (2, 130, 1100, 3, 0.01,
+                                               np.int32),
+            (2, 512, 70, 3, 0.0, np.int64)):
+        tpos = rng.standard_normal((C, T, 3)).astype(np.float32)
+        tidx = rng.choice(10000, size=(C, T), replace=False).astype(np.int64)
+        tidx[:, -5:] = 10000                  # padding targets
+        spos = (0.5 + rng.standard_normal((S, 3))).astype(np.float32)
+        smass = rng.uniform(0.1, 1, S).astype(np.float32)
+        sidx = rng.integers(-1, 10000, S).astype(np.int64)
+        tcell = rng.integers(0, 8, (C, T, 3)).astype(itype)
+        scell = rng.integers(0, 8, (S, 3)).astype(itype)
+        k = min(8, S // 4, T)
+        spos[:k] = tpos[0, :k]                # self pairs ...
+        sidx[:k] = tidx[0, :k]
+        scell[:k // 2] = (tcell[0, :k // 2] + 5) % 8   # ... covered too
+        scell[k // 2:k] = tcell[0, k // 2:k]
+        scell[S // 2:S // 2 + 20] = -1        # exempt rows
+        scell[-30:] = 127                     # a covered stretch
+        d = rng.standard_normal((S, 3)) * 0.1
+        quad = (np.stack([d[:, a] * d[:, b] for a, b in shared.quad_pairs(3)],
+                         1) * smass[:, None]).astype(np.float32)
+        mask = rng.uniform(size=(C, S)) < 0.5
+        mask[:, S // 3:S // 2] = False        # a dead stretch
+        mask[-1] = False                      # an empty tile
+        tpos[0, 9] = (1e-3, -2e-3, 5e-4)      # a masked-out node on a target
+        spos[S // 4] = tpos[0, 9] + np.float32(1e-9)
+        scell[S // 4] = tcell[0, 9]
+        mask[0, S // 4] = False
+        args = [torch.as_tensor(a, device=dev) for a in
+                (tpos, tidx, spos, smass, sidx, mask)]
+        ckw = dict(src_cell=torch.as_tensor(scell, device=dev),
+                   tgt_cell=torch.as_tensor(tcell, device=dev), grid_sep=sep)
+        for q in (None, torch.as_tensor(quad, device=dev)):
+            for comp in (False, True):
+                form = shared.form_name(q is not None, comp, True)
+                for mode in MODES:
+                    kw = dict(mode=mode, compensated=comp, src_quad=q, **ckw)
+                    got = shared.eval_shared_fused(*args, eps, 1.5, **kw)
+                    want = shared.eval_shared_plain(*args, eps, 1.5, **kw)
+                    worst[form] = max(worst[form], compare(got, want))
+                    if bool(got[0][-1].any() | got[1][-1].any()):
+                        raise AssertionError(f"{form}: empty tile got a "
+                                             "nonzero result")
+                    free = shared.eval_shared_fused(
+                        *args, eps, 1.5, mode=mode, compensated=comp,
+                        src_quad=q)
+                    k = 1 if mode == "pot" else 0
+                    if not bool((got[k] - free[k]).abs().max() > 1e-3):
+                        raise AssertionError(f"{form}: the cell test "
+                                             "removed nothing")
+    return worst
+
+
+def surviving_pairs(inputs, cells, n):
+    """Pairs (real target, mask-true source) that K1c's cell test leaves
+    alive, counted in source blocks of 1024."""
+    tidx, mask = inputs[1], inputs[5]
+    src_cell, tgt_cell, sep = cells
+    real = (tidx < n)[:, :, None]
+    tc = tgt_cell.to(torch.int32)
+    total = 0
+    for s0 in range(0, mask.shape[1], 1024):
+        sc = src_cell[s0:s0 + 1024].to(torch.int32)
+        csep = (sc[None, None, :, 0] - tc[:, :, None, 0]).abs()
+        for d in (1, 2):
+            csep = torch.maximum(
+                csep, (sc[None, None, :, d] - tc[:, :, None, d]).abs())
+        alive = (csep < sep) | (sc[None, None, :, 0] < 0)
+        total += int((alive & mask[:, None, s0:s0 + 1024] & real).sum())
+    return total
+
+
+def bound(inputs, n, quad=False, comp=False, cells=None):
     """(bound_ms, bound_by): the least time the card could take for one
     call at these inputs, the larger of the bytes it must move (each input
     read once, each output written once) over the HBM rate and the
     operations its live pairs (mask-true sources x real targets of the
     n-particle tree, and TwoSum per active source block) need over the
-    fp32 peak."""
+    fp32 peak. cells (src_cell, tgt_cell, grid_sep) for K1c: the two cell
+    tensors are read too, every mask-true pair costs the OPS_CELL
+    operations of the cell test, and only the pairs the test leaves alive
+    cost the 20 (64) fp32 operations."""
     tpos, tidx, spos, smass, sidx, mask = inputs[:6]
     C, T, _ = tpos.shape
     nbytes = sum(t.numel() * t.element_size() for t in inputs[:6]
-                 + ((inputs[6],) if quad else ()))
+                 + ((inputs[6],) if quad else ())
+                 + (tuple(cells[:2]) if cells else ()))
     nbytes += C * T * 4 * 4                     # acc [C, T, 3] + pot
     ntgt = (tidx < n).sum(1).double()          # padding targets carry n
     pairs = float((mask.sum(1).double() * ntgt).sum())
-    flops = pairs * (FLOPS_QUAD if quad else FLOPS_MONO)
+    per_pair = FLOPS_QUAD if quad else FLOPS_MONO
+    if cells:
+        flops = pairs * OPS_CELL + surviving_pairs(inputs, cells, n) * per_pair
+    else:
+        flops = pairs * per_pair
     if comp:
         from rakau_tpu_torch.kernels import shared
         flops += FLOPS_TWOSUM * float(
@@ -885,6 +1026,345 @@ def pool_kernel_phase(tree, forms, label: str) -> dict:
     return out
 
 
+def finite(what: str, *tensors):
+    for t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite {what}")
+
+
+def k1_launches(counts: dict, chunks: int, forms, what: str):
+    """Raise unless `counts` (from counted) shows `chunks` launches of each
+    K1 form in `forms` and no other launch of K1 or K2."""
+    want = {"K1": {f: chunks * int(f in forms) for f in counts["K1"]},
+            "K2": dict.fromkeys(counts["K2"], 0)}
+    if counts != want or chunks <= 0:
+        raise AssertionError(f"{what}: launches {counts}, want {chunks} of "
+                             f"each of {forms} and nothing else")
+
+
+def grid2_shared(pos, mass, oracle, shared_rms, dev):
+    """Phase grid2: the shared traversal with the conv-M2L far field.
+    Returns the order-4 monopole tree, the quadrupole + compensated tree,
+    the launches per K1c form in one warm query of each, and the record."""
+    from rakau_tpu_torch import Tree, engine, grid2
+    from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
+    n = pos.shape[0]
+    cfg0 = TreeConfig(**{**TREE_KW, **GRID2_KW})
+    (tree, build_ms) = synced_ms(lambda: Tree(coords=pos, masses=mass,
+                                              config=cfg0))
+    # the first query grows what overflows; tune_caps then fits the caps
+    _, cold_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+    grown = {f: getattr(tree.config, f) for f in OVF_FIELDS}
+    tree.tune_caps()
+    _, settle_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+    td, cfg = tree.tree_data, tree.config
+    chunks = engine.live_chunks(td, cfg)
+    warm, per_query = [], []
+    for _ in range(WARM_REPS):
+        ((acc, pot), ms), counts = counted(
+            lambda: event_ms(lambda: tree.accs_pots_o(THETA)))
+        warm.append(ms)
+        per_query.append(counts["K1"]["mono_cell"])
+        k1_launches(counts, chunks, ("mono_cell",), "grid2 warm query")
+    if acc.shape != (n, 3) or pot.shape != (n,):
+        raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
+    finite("grid2 accelerations or potentials", acc, pot)
+    f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
+    warm_ms = statistics.median(warm)
+    launches = {"mono_cell": per_query[0]}
+    rec = dict(n=n, theta=THETA, **GRID2_KW,
+               grid_level=grid2.effective_grid_level(cfg, n),
+               build_ms=build_ms, cold_query_ms=cold_ms, caps_grown=grown,
+               caps={f: getattr(cfg, f) for f in OVF_FIELDS},
+               first_query_after_tune_ms=settle_ms, warm_query_ms=warm_ms,
+               warm_query_ms_all=warm,
+               warm_spread=(max(warm) - min(warm)) / warm_ms,
+               n_tiles=int(td.n_tiles), chunks=chunks,
+               launches_per_warm_query=per_query,
+               evals_per_s=n / (warm_ms / 1e3), force_rms=f_rms,
+               pot_rms=p_rms, shared_grid_force_rms=shared_rms[0],
+               shared_grid_pot_rms=shared_rms[1])
+
+    # the accuracy shape: order 6, quadrupole node rows, compensated sums;
+    # then the same with fp32 sums, so that every K1c form runs in a query
+    qtree = None
+    for key, kw, forms in (
+            ("quad_comp", GRID2_QUAD_KW, ("quad_comp_cell",
+                                          "mono_comp_cell")),
+            ("quad_fp32", dict(GRID2_QUAD_KW, accum="fp32"),
+             ("quad_cell", "mono_cell"))):
+        t2 = Tree(coords=pos, masses=mass, config=cfg.with_(**kw))
+        _, q_cold = event_ms(lambda: t2.accs_pots_o(THETA))
+        ((qacc, qpot), q_ms), counts = counted(
+            lambda: event_ms(lambda: t2.accs_pots_o(THETA)))
+        k1_launches(counts, engine.live_chunks(t2.tree_data, t2.config),
+                    forms, f"grid2 {key} query")
+        finite(f"grid2 {key} result", qacc, qpot)
+        qf, qp = sampled_rms(qacc, qpot, *oracle, dev)
+        rec[key] = dict(kw, cold_query_ms=q_cold, warm_query_ms=q_ms,
+                        force_rms=qf, pot_rms=qp,
+                        force_rms_ratio=qf / f_rms,
+                        caps={f: getattr(t2.config, f) for f in OVF_FIELDS})
+        for f in forms:
+            launches.setdefault(f, counts["K1"][f])
+        if key == "quad_comp":
+            qtree = t2
+    emit("grid2", **rec)
+    if not (f_rms < FORCE_RMS_MAX and p_rms < POT_RMS_MAX):
+        raise AssertionError(f"grid2 accuracy: force rms {f_rms:.3e}, pot "
+                             f"rms {p_rms:.3e}")
+    for key in ("quad_comp", "quad_fp32"):
+        if not rec[key]["force_rms"] < f_rms:
+            raise AssertionError(
+                f"grid2 {key} force rms {rec[key]['force_rms']:.3e} is not "
+                f"below the order-4 monopole's {f_rms:.3e}")
+    return tree, qtree, launches, rec
+
+
+def grid2_layer_ms(tree, warm_ms: float) -> dict:
+    """Phase grid2_layers. A warm shared+grid2 query split between device
+    syncs: the walk, the kernel call (active-block lists, K1c, the G
+    scale), the L2P of the kept leaf locals, the rest. Then what the tree
+    keeps between queries, built anew: the pyramid, and per level of the
+    M2L pass the kernels W and the convolutions (the port's form, and the
+    same through cuDNN beside it), and the L2L chain with the rest of
+    dense_far_field."""
+    from rakau_tpu_torch import engine, grid2, traversal2
+    from rakau_tpu_torch.kernels import dispatch
+    tree.accs_pots_o(THETA)     # the tree's state back into the engine's
+    #                             two-tree cache, after the other trees
+    t, total = synced_layers(tree, ((traversal2, "build_shared_sources"),
+                                    (engine, "_chunk_sources"),
+                                    (dispatch, "eval_shared"),
+                                    (grid2, "l2p_particles")))
+    out = {"warm_query_ms": warm_ms, "walk_ms": t["build_shared_sources"],
+           "chunk_rest_ms": t["_chunk_sources"] - t["build_shared_sources"],
+           "kernel_call_ms": t["eval_shared"], "l2p_ms": t["l2p_particles"],
+           "synced_query_ms": total}
+    out["rest_ms"] = total - t["_chunk_sources"] - t["eval_shared"] \
+        - t["l2p_particles"]
+
+    td, cfg = tree.tree_data, tree.config
+    L0 = grid2.effective_grid_level(cfg, td.pos.shape[0])
+    p, q = grid2.grid_orders(cfg)
+    pyr, out["pyramid_ms"] = synced_ms(
+        lambda: grid2.build_pyramid(td, cfg, L0, q))
+    lt: dict = {}
+    with ExitStack() as stack:
+        for name in ("m2l_kernels", "_parity_conv"):
+            stack.enter_context(synced(grid2, name, lt))
+        _, dense_ms = synced_ms(lambda: grid2.dense_far_field(
+            pyr, cfg, L0, td.box_size, 0.0, p, q, cfg.grid_sep))
+    W = grid2.m2l_kernels(3, p, q, cfg.grid_sep, 1.0, 0.0, torch.float32,
+                          td.pos.device)
+    levels = {}
+    for lvl in range(2, L0 + 1):
+        M = pyr.mom[lvl]
+        own = cuda_ms(lambda: grid2._parity_conv(M, W, 3, 1 << lvl), 3)
+        cudnn = cuda_ms(lambda: grid2._parity_conv(M, W, 3, 1 << lvl,
+                                                   cudnn=True), 3)
+        a = grid2._parity_conv(M, W, 3, 1 << lvl)
+        b = grid2._parity_conv(M, W, 3, 1 << lvl, cudnn=True)
+        ref = grid2._parity_conv(M.double(), W.double(), 3, 1 << lvl)
+        scale = float(ref.abs().max())
+        levels[lvl] = {"conv_ms": own, "conv_cudnn_ms": cudnn,
+                       "rel_err": float((a - ref).abs().max()) / scale,
+                       "rel_err_cudnn": float((b - ref).abs().max()) / scale}
+    out.update(grid_level=L0, local_order=p, grid_multipole_order=q,
+               grid_sep=cfg.grid_sep, dense_far_field_ms=dense_ms,
+               m2l_kernels_ms=lt["m2l_kernels"],
+               m2l_conv_ms=lt["_parity_conv"],
+               l2l_and_rest_ms=dense_ms - lt["m2l_kernels"]
+               - lt["_parity_conv"], conv_levels=levels,
+               kernel_bytes=W.numel() * W.element_size())
+    return out
+
+
+def grid2_tf32(tree, dev) -> dict:
+    """Phase grid2_tf32: the order-6 far field in float32 against the same
+    in float64 on the card, with both global TF32 switches turned on for
+    the duration. A particle that the float64 cell map puts into another
+    leaf cell than the float32 one (a position on a cell face) is left
+    out: its two fields are expansions about different centres."""
+    from rakau_tpu_torch import grid2
+    td = tree.tree_data
+    cfg = tree.config.with_(local_order=6)
+    L0 = grid2.effective_grid_level(cfg, td.pos.shape[0])
+    td64 = td._replace(pos=td.pos.double(), mass=td.mass.double(),
+                       box_size=td.box_size.double())
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        (acc, pot), ms32 = synced_ms(lambda: grid2.far_field(td, cfg, 0.0,
+                                                             1.0))
+        (acc64, pot64), ms64 = synced_ms(lambda: grid2.far_field(
+            td64, cfg, 0.0, 1.0))
+        switches_on = (torch.backends.cuda.matmul.allow_tf32
+                       and torch.backends.cudnn.allow_tf32)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    same = (grid2.particle_cells(td.pos, td.box_size, cfg.max_depth, L0)
+            == grid2.particle_cells(td64.pos, td64.box_size, cfg.max_depth,
+                                    L0)).all(1)
+    a_rel = float((acc.double() - acc64)[same].abs().max()
+                  / acc64.abs().max())
+    p_rel = float((pot.double() - pot64)[same].abs().max()
+                  / pot64.abs().max())
+    rec = dict(local_order=6, grid_sep=cfg.grid_sep, grid_level=L0,
+               tf32_switches_on=bool(switches_on), acc_rel=a_rel,
+               pot_rel=p_rel, left_out=int((~same).sum()),
+               far_field_fp32_ms=ms32, far_field_fp64_ms=ms64)
+    emit("grid2_tf32", **rec)
+    if not switches_on:
+        raise AssertionError("grid2 left the global TF32 switches changed")
+    if not (a_rel < TF32_REL_MAX and p_rel < TF32_REL_MAX):
+        raise AssertionError(f"grid2 far field float32 vs float64: acc "
+                             f"{a_rel:.3e}, pot {p_rel:.3e}")
+    return rec
+
+
+def cell_kernels(tree, qtree, n: int) -> dict:
+    """Phase kernel for K1c: mono_cell on the first two chunks of the
+    shared+grid2 query; on the first chunk of the quadrupole + compensated
+    one, quad_comp_cell and quad_cell on the node rows [0, U) and
+    mono_comp_cell on the particle rows [U, S); against plain PyTorch in
+    every mode, both timed. Returns per form (worst error, ms, plain_ms,
+    bound_ms, bound_by of mode both; means over the chunks)."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.kernels import shared
+    runs = []
+    td, cfg = tree.tree_data, tree.config
+    for ch in range(min(2, engine.live_chunks(td, cfg))):
+        inp = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)
+        runs.append(("mono_cell", f"grid2 chunk {ch}", inp[:6], {},
+                     (inp[7], inp[8], cfg.grid_sep)))
+    td, cfg = qtree.tree_data, qtree.config
+    inp = engine.kernel_inputs(td, cfg, THETA, 0.0, 0)
+    quad, scell, tcell = inp[6:9]
+    U = quad.shape[0]
+    mask = inp[5]
+    nodes = inp[:2] + tuple(t[:U] for t in inp[2:5]) \
+        + (mask[:, :U].contiguous(),)
+    parts = inp[:2] + tuple(t[U:] for t in inp[2:5]) \
+        + (mask[:, U:].contiguous(),)
+    sep = cfg.grid_sep
+    runs += [("quad_comp_cell", "grid2 quad chunk 0 nodes", nodes,
+              dict(compensated=True, src_quad=quad), (scell[:U], tcell, sep)),
+             ("quad_cell", "grid2 quad chunk 0 nodes", nodes,
+              dict(src_quad=quad), (scell[:U], tcell, sep)),
+             ("mono_comp_cell", "grid2 quad chunk 0 particles", parts,
+              dict(compensated=True), (scell[U:], tcell, sep))]
+    per_form: dict = {}
+    for form, label, args, kw, cells in runs:
+        ckw = dict(src_cell=cells[0], tgt_cell=cells[1], grid_sep=cells[2])
+        modes = {}
+        for mode in MODES:
+            got = shared.eval_shared_fused(*args, 0.0, 1.0, mode=mode, **kw,
+                                           **ckw)
+            want = shared.eval_shared_plain(*args, 0.0, 1.0, mode=mode, **kw,
+                                            **ckw)
+            err = compare(got, want)
+            km = cuda_ms(lambda: shared.eval_shared_fused(
+                *args, 0.0, 1.0, mode=mode, **kw, **ckw), 10)
+            pm = cuda_ms(lambda: shared.eval_shared_plain(
+                *args, 0.0, 1.0, mode=mode, **kw, **ckw), 1)
+            modes[mode] = {"ms": km, "plain_ms": pm, "max_abs_err": err}
+        # the same rows without the cell test, beside it
+        free_ms = cuda_ms(lambda: shared.eval_shared_fused(
+            *args, 0.0, 1.0, **kw), 10)
+        quad_form = "src_quad" in kw
+        b_ms, b_by = bound(args + ((quad,) if quad_form else ()), n,
+                           quad=quad_form, comp=kw.get("compensated", False),
+                           cells=cells)
+        C, T, _ = args[0].shape
+        live = float((args[5].sum(1).double()
+                      * (args[1] < n).sum(1).double()).sum())
+        emit("kernel", config=label, form=form, C=C, T=T,
+             S=int(args[2].shape[0]),
+             active_blocks=int(shared.active_blocks(args[5])[1].sum()),
+             mask_true_pairs=live,
+             surviving_pairs=surviving_pairs(args, cells, n), modes=modes,
+             ms_without_cell_test=free_ms, bound_ms=b_ms, bound_by=b_by)
+        per_form.setdefault(form, []).append(dict(
+            max_abs_err=max(v["max_abs_err"] for v in modes.values()),
+            ms=modes["both"]["ms"], plain_ms=modes["both"]["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by))
+    return {form: dict(
+        max_abs_err=max(r["max_abs_err"] for r in rs),
+        ms=float(np.mean([r["ms"] for r in rs])),
+        plain_ms=float(np.mean([r["plain_ms"] for r in rs])),
+        bound_ms=float(np.mean([r["bound_ms"] for r in rs])),
+        bound_by=max((r["bound_ms"], r["bound_by"]) for r in rs)[1])
+        for form, rs in per_form.items()}
+
+
+def gwalk_grid2(pos, mass, oracle, grid2_rms, dev) -> dict:
+    """Phase gwalk_grid2: gwalk with the conv-M2L far field, monopole then
+    quadrupole (pool_window 131072), each sized by gwalk_tree: one K2
+    launch per warm query and no K1 launch. gwalk's leaf grid tracks the
+    tile size (level 3 at 1M) where the shared traversal's tracks the
+    occupancy (level 5), so its error is held to the shared engine's at
+    gwalk's level, queried here on the same particles; the shared run at
+    its own level is reported beside it."""
+    from rakau_tpu_torch import Tree, grid2
+    from rakau_tpu_torch.config import TreeConfig
+    n = pos.shape[0]
+    mono = TreeConfig(**{**gwalk_kw(n), **GRID2_KW})
+    L0 = grid2.effective_grid_level(mono, n)
+    stree = Tree(coords=pos, masses=mass, config=mono.with_(
+        traversal_mode="shared", grid_level=L0, **SHARED_M2P_CAPS))
+    (sacc, spot), s_ms = synced_ms(lambda: stree.accs_pots_o(THETA))
+    same_level = sampled_rms(sacc, spot, *oracle, dev)
+    del stree, sacc, spot
+    rec = {"n": n, "theta": THETA, **GRID2_KW, "grid_level": L0,
+           "shared_grid2_same_level_force_rms": same_level[0],
+           "shared_grid2_same_level_pot_rms": same_level[1],
+           "shared_grid2_same_level_query_ms": s_ms,
+           "shared_grid2_force_rms": grid2_rms[0],
+           "shared_grid2_pot_rms": grid2_rms[1]}
+    rms = {}
+    for form, cfg in (("mono", mono),
+                      ("quad", mono.with_(multipole_order=2,
+                                          pool_window=QUAD_POOL_WINDOW))):
+        (tree, sizing), sizing_ms = synced_ms(lambda: gwalk_tree(pos, mass,
+                                                                 cfg))
+        _, cold_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+        warm = []
+        for _ in range(WARM_REPS if form == "mono" else 1):
+            ((acc, pot), ms), counts = counted(
+                lambda: event_ms(lambda: tree.accs_pots_o(THETA)))
+            one_launch(counts, form, f"gwalk grid2 {form} warm query")
+            warm.append(ms)
+        finite(f"gwalk grid2 {form} result", acc, pot)
+        rms[form] = sampled_rms(acc, pot, *oracle, dev)
+        layers = gwalk_layer_ms(tree) if form == "mono" else None
+        rec[form] = dict(sizing, sizing_ms=sizing_ms, cold_query_ms=cold_ms,
+                         warm_query_ms=statistics.median(warm),
+                         warm_query_ms_all=warm, force_rms=rms[form][0],
+                         pot_rms=rms[form][1], layers=layers)
+        del tree
+    ratio = rms["quad"][0] / rms["mono"][0]
+    emit("gwalk_grid2", **rec, force_rms_ratio=ratio)
+    f_rms, p_rms = rms["mono"]
+    if not (f_rms < FORCE_RMS_MAX and p_rms < POT_RMS_MAX):
+        raise AssertionError(f"gwalk grid2 accuracy: force rms {f_rms:.3e}, "
+                             f"pot rms {p_rms:.3e}")
+    if not abs(f_rms - same_level[0]) < SHARED_RMS_RTOL * same_level[0]:
+        raise AssertionError(f"gwalk grid2 force rms {f_rms:.3e} is not "
+                             f"within {SHARED_RMS_RTOL} of the shared "
+                             f"engine's at the same grid level, "
+                             f"{same_level[0]:.3e}")
+    if not ratio < QUAD_RMS_RATIO:
+        raise AssertionError(f"gwalk grid2 quadrupole force rms "
+                             f"{rms['quad'][0]:.3e} is not below "
+                             f"{QUAD_RMS_RATIO} x the monopole's "
+                             f"{f_rms:.3e}")
+    return rec
+
+
 def leapfrog(n: int, seed: int, dev):
     """BASELINE config #2 on the card through rakau_tpu_torch.integrate
     (phase 9). Returns the phase's record and the energy tree and config
@@ -1092,6 +1572,7 @@ def main(argv=None) -> int:
     emit("edge", max_abs_err=edge_err, cancellation_err=cancel)
     edge_err, cancel = pool_edge_cases(dev)
     emit("edge_pool", max_abs_err=edge_err, cancellation_err=cancel)
+    emit("edge_cell", max_abs_err=cell_edge_cases(shared, dev))
 
     # ---- main path -----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1193,8 +1674,17 @@ def main(argv=None) -> int:
     del tree, td, acc, pot
     torch.cuda.empty_cache()
 
-    # ---- the gwalk engine: one walk, one pool, one K2 launch -------------
+    # ---- grid2: the conv-M2L far field on the shared traversal ----------
     oracle = (acc_o, pot_o, samp)
+    g2tree, g2qtree, c_launches, g2 = grid2_shared(pos, mass, oracle,
+                                                   (f_rms, p_rms), dev)
+    emit("grid2_layers", **grid2_layer_ms(g2tree, g2["warm_query_ms"]))
+    grid2_tf32(g2tree, dev)
+    c_forms = cell_kernels(g2tree, g2qtree, args.n)
+    del g2tree, g2qtree
+    torch.cuda.empty_cache()
+
+    # ---- the gwalk engine: one walk, one pool, one K2 launch -------------
     gtree, g_launches, _ = gwalk_main(pos, mass, oracle, (f_rms, p_rms),
                                       dev)
     k2 = pool_kernel_phase(gtree, ("mono",), "gwalk+grid")
@@ -1204,6 +1694,8 @@ def main(argv=None) -> int:
         qtree, pool.FORMS, "gwalk+m2p quadrupole compensated").items()
         if f != "mono"})
     del qtree
+    torch.cuda.empty_cache()
+    gwalk_grid2(pos, mass, oracle, (g2["force_rms"], g2["pot_rms"]), dev)
     torch.cuda.empty_cache()
 
     # ---- BASELINE config #2: the leapfrog harness -----------------------
@@ -1228,6 +1720,17 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": SRC,
                         "replaces": REPLACES, "launches": n_launch,
                         **forms[form], "library_ms": None})
+    for form, name in (
+            ("mono_cell", "K1c shared_fused (monopole, fp32, cell test)"),
+            ("mono_comp_cell",
+             "K1c+K1b shared_fused (monopole, compensated, cell test)"),
+            ("quad_cell", "K1c+K1d shared_fused (quadrupole, fp32, cell "
+             "test)"),
+            ("quad_comp_cell", "K1c+K1d+K1b shared_fused (quadrupole, "
+             "compensated, cell test)")):
+        kernels.append({"name": name, "route": "cuda", "source": SRC,
+                        "replaces": REPLACES, "launches": c_launches[form],
+                        **c_forms[form], "library_ms": None})
     for form, name, n_launch in (
             ("mono", "K2 pool (monopole, fp32)", g_launches),
             ("mono_comp", "K2 pool (monopole, compensated)",

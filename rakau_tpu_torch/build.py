@@ -66,8 +66,9 @@ class TreeData(NamedTuple):
     overflow: torch.Tensor          # [] bool node or tile capacity exceeded
     box_size: torch.Tensor          # [] dtype
     # target tiles: ncrit-wide Morton slices within each deepest >ncrit
-    # node; with farfield="grid" also clipped at leaf-grid cell
-    # boundaries, so every tile lies in exactly one grid cell
+    # node; with farfield="grid" (and gwalk with "grid2") also clipped at
+    # leaf-grid cell boundaries, so every tile lies in exactly one grid
+    # cell
     tile_begin: torch.Tensor        # [TC] first particle
     tile_cnt: torch.Tensor          # [TC] particle count (0 = padding)
     tile_cell: torch.Tensor         # [TC, D] leaf-grid cell coords
@@ -91,7 +92,11 @@ def _tile_grid_level(cfg: TreeConfig, n: int) -> int:
         from .grid import effective_grid_level
         return effective_grid_level(cfg, n)
     if cfg.farfield == "grid2" and cfg.traversal_mode == "gwalk":
-        raise NotImplementedError("gwalk with farfield='grid2' is not ported")
+        # gwalk has no per-pair coverage test in its kernel; single-cell
+        # tiles make the pool's per-row drop exact per pair, so its
+        # tiles are clipped as with farfield="grid"
+        from .grid2 import effective_grid_level
+        return effective_grid_level(cfg, n)
     return 0
 
 

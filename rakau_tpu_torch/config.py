@@ -5,8 +5,8 @@ validation (product-mode matrix included), so that
 `TreeConfig(**dataclasses.asdict(jax_cfg))` builds the same configuration.
 The per-call theta/eps/G stay call arguments.
 
-The engine (engine.py) runs the shared traversal with the "local", "m2p"
-and "grid" far fields and the gwalk traversal with "m2p" and "grid"; it
+The engine (engine.py) runs the shared and the gwalk traversal with the
+"m2p", "grid" and "grid2" far fields (shared also with "local"); it
 raises NotImplementedError for every other mode this config accepts. In
 gwalk mode the four growable capacities have global meaning: m2p_cap is
 the total of (tile, node) M2P incidences, p2p_leaf_cap of opened (tile,
@@ -178,8 +178,9 @@ class TreeConfig:
             from .grid import effective_grid_level
             L0 = effective_grid_level(self, n_particles)
         elif self.farfield == "grid2" and self.traversal_mode == "gwalk":
-            raise NotImplementedError(
-                "gwalk with farfield='grid2' is not ported")
+            # gwalk clips its tiles at grid2's cells too (build.py)
+            from .grid2 import effective_grid_level
+            L0 = effective_grid_level(self, n_particles)
         if L0 > 0:
             cap += min((1 << L0) ** self.ndim, n_particles)
         return cap

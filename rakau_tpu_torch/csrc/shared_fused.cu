@@ -1,9 +1,10 @@
-// Shared-candidate pairwise kernel (fp32) for NVIDIA Hopper, in four forms.
+// Shared-candidate pairwise kernel (fp32) for NVIDIA Hopper, in eight forms.
 //
 // Replaces the TPU kernel rakau_tpu/kernels/pallas.py:_shared_fused_kernel
 // with the options the shared path uses: monopole fp32 (K1a),
-// `compensated=True` (K1b), `quad=6` (K1d) and both together. Not here:
-// the grid2 cell test (`grid_sep`) and subblock selection. All C tiles of
+// `compensated=True` (K1b), `quad=6` (K1d) and both together, and each of
+// the four with the grid2 cell test `grid_sep > 0` (K1c). Not here:
+// subblock selection. All C tiles of
 // a chunk share one source row of S entries; a per-tile mask [C, S]
 // selects which sources act on which tile. For tile c, target i and
 // source j:
@@ -24,6 +25,29 @@
 //
 // (d = s - t, the negative of the t - s frame of the derivation, so the
 // odd-order terms carry the signs of pallas.py:733-746.)
+//
+// CELL (farfield "grid2", tiles spanning several leaf-grid cells): every
+// source row and every target carries its leaf-grid cell, and a pair whose
+// Chebyshev cell separation max_d |sc_d - tc_d| is >= sep belongs to the
+// dense far field: it is dead here, through the same gate as the self
+// pair, so every power of inv_r starts from an exact zero
+// (pallas.py:676-695). Source rows whose first cell coordinate is negative
+// are exempt from the test. The TPU kernel packs the D coordinates of
+// either side into one f32 plane to keep its resident row small; here the
+// cells arrive as int32 triples, and a source's cell is packed at staging
+// into one int32 (-1 for an exempt row), because three more ints per
+// source would take the QUAD panel past the 48 KB of static shared memory.
+// Integer operations run at half the fp32 rate on this card, so the test
+// is not done per coordinate (3 extractions, 3 differences, 3 absolute
+// values, 2 maxima: measured 3x the monopole kernel's time) but on the
+// packed word at once. The three coordinates sit in fields of kFieldBits
+// = 10 bits, and the thread adds its own constant, per field
+// 512 + sep - 1 - tc_d, so that each field holds
+//     v_d = sc_d - tc_d + sep - 1 + 512  in (0, 1024): no carry crosses,
+// and the pair is near in dimension d iff 512 <= v_d <= 512 + 2 sep - 2:
+// the field's top bit is set, and its low 9 bits plus 513 - 2 sep do not
+// reach the top bit. One add, one and, one add, one three-input logic
+// operation and two compares a pair.
 //
 // COMP: each thread sums one staged source block into fp32 partials, then
 // adds each partial into its running sum with Knuth's TwoSum and keeps the
@@ -69,13 +93,33 @@ namespace {
 
 constexpr int kThreads = 128;   // targets per CUDA block, one per thread
 // Sources staged per step: float4 (x, y, z, m*mask) + int32 idx, 20 KB,
-// plus 6 float planes (24 KB) in the QUAD form. Must equal
+// plus 6 float planes (24 KB) in the QUAD form and one packed int32 cell
+// (4 KB) in the CELL form: 48 KB with both. Must equal
 // kernels/shared.py:BLOCK, which the wrapper checks at load.
 constexpr int kBlock = 1024;
 constexpr int kQuad = 6;
-static_assert(kBlock * (sizeof(float4) + sizeof(int) + kQuad * sizeof(float))
+static_assert(kBlock * (sizeof(float4) + sizeof(int) + kQuad * sizeof(float)
+                        + sizeof(int))
                   <= 48 * 1024,
               "the largest source panel must fit in static shared memory");
+// Cell coordinates lie below 2^kCellBits (kernels/shared.py:CELL_BITS:
+// grid2's leaf grids end at level 7), and sep at or below it. A packed cell
+// holds them in three fields of kFieldBits bits; kTopMask has each field's
+// top bit, kLowMask the bits below it.
+constexpr int kCellBits = 7;
+constexpr int kFieldBits = 10;
+constexpr int kFieldTop = 1 << (kFieldBits - 1);
+
+__host__ __device__ constexpr int pack3(int a, int b, int c)
+{
+    return (a << (2 * kFieldBits)) | (b << kFieldBits) | c;
+}
+
+constexpr int kTopMask = pack3(kFieldTop, kFieldTop, kFieldTop);
+constexpr int kLowMask = pack3(kFieldTop - 1, kFieldTop - 1, kFieldTop - 1);
+static_assert((1 << kCellBits) + (1 << kCellBits) + kFieldTop
+                  <= (1 << kFieldBits),
+              "a field must hold coordinate + sep + 512 without a carry");
 constexpr int kMaskedIdx = INT32_MIN;   // staged idx of a masked-out source
 enum Mode { kBoth = 0, kAcc = 1, kPot = 2 };
 
@@ -88,7 +132,7 @@ __device__ __forceinline__ void two_sum_into(float& a, float b, float& err)
     a = s;
 }
 
-template <int MODE, bool COMP, bool QUAD>
+template <int MODE, bool COMP, bool QUAD, bool CELL>
 __global__ void __launch_bounds__(kThreads)
 shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                     const int64_t* __restrict__ tgt_idx,  // [C, T]
@@ -97,15 +141,18 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                     const int64_t* __restrict__ src_idx,  // [S]
                     const uint8_t* __restrict__ mask,     // [C, S]
                     const float* __restrict__ quad,       // [S, 6] (QUAD)
+                    const int32_t* __restrict__ src_cell, // [S, 3] (CELL)
+                    const int32_t* __restrict__ tgt_cell, // [C, T, 3] (CELL)
                     const int32_t* __restrict__ ids,      // [C, NB]
                     const int32_t* __restrict__ cnt,      // [C]
                     float* __restrict__ acc,              // [C, T, 3]
                     float* __restrict__ pot,              // [C, T]
-                    int T, int S, int NB, float eps2)
+                    int T, int S, int NB, int sep, float eps2)
 {
     __shared__ float4 s_pm[kBlock];
     __shared__ int s_idx[kBlock];
     __shared__ float s_q[QUAD ? kQuad : 1][QUAD ? kBlock : 1];
+    __shared__ int s_cell[CELL ? kBlock : 1];
 
     const int c = blockIdx.x;
     const int t = blockIdx.y * kThreads + threadIdx.x;
@@ -113,12 +160,22 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
     const size_t tc = static_cast<size_t>(c) * T + t;
     float tx = 0.f, ty = 0.f, tz = 0.f;
     int ti = -2;   // matches no source index (nodes carry -1)
+    int tk = 0;    // per field 512 + sep - 1 - the target's coordinate (CELL)
     if (live) {
         tx = tgt[3 * tc];
         ty = tgt[3 * tc + 1];
         tz = tgt[3 * tc + 2];
         ti = static_cast<int>(tgt_idx[tc]);
+        if (CELL) {
+            const int bias = kFieldTop + sep - 1;
+            tk = pack3(bias - tgt_cell[3 * tc], bias - tgt_cell[3 * tc + 1],
+                       bias - tgt_cell[3 * tc + 2]);
+        }
     }
+    // per field 511 - (2 sep - 2): carries a field's low bits into its top
+    // bit exactly when they exceed 2 sep - 2
+    const int over = kFieldTop + 1 - 2 * sep;
+    const int cb = CELL ? pack3(over, over, over) : 0;
     const int32_t* my_ids = ids + static_cast<size_t>(c) * NB;
     const uint8_t* my_mask = mask + static_cast<size_t>(c) * S;
     const int nblk = cnt[c];
@@ -144,6 +201,16 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
             }
             s_pm[j] = v;
             s_idx[j] = id;
+            if (CELL) {
+                int pc = -1;       // padding past S: exempt, and massless
+                if (s < S) {
+                    const size_t s3 = 3 * static_cast<size_t>(s);
+                    const int c0 = src_cell[s3];
+                    if (c0 >= 0)
+                        pc = pack3(c0, src_cell[s3 + 1], src_cell[s3 + 2]);
+                }
+                s_cell[j] = pc;
+            }
             if (QUAD) {
                 const size_t s6 = kQuad * static_cast<size_t>(s);
 #pragma unroll
@@ -165,6 +232,12 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
             const int sid = s_idx[j];
             bool dead = sid == ti || r2 <= 0.f;
             if (QUAD) dead = dead || sid == kMaskedIdx;
+            if (CELL) {
+                const int pc = s_cell[j];
+                const int v = pc + tk;
+                const int x = (v & kLowMask) + cb;
+                dead = dead || (pc >= 0 && ((~v | x) & kTopMask) != 0);
+            }
             if (dead) inv_r = 0.f;
             const float w = v.w * inv_r;
             const float inv2 = inv_r * inv_r;
@@ -220,29 +293,39 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
 struct Args {
     const float* tgt; const int64_t* tgt_idx; const float* src;
     const float* mass; const int64_t* src_idx; const uint8_t* mask;
-    const float* quad; const int32_t* ids; const int32_t* cnt;
-    float* acc; float* pot; int C, T, S, NB; float eps2;
+    const float* quad; const int32_t* src_cell; const int32_t* tgt_cell;
+    const int32_t* ids; const int32_t* cnt;
+    float* acc; float* pot; int C, T, S, NB, sep; float eps2;
 };
 
-template <int MODE, bool COMP, bool QUAD>
+template <int MODE, bool COMP, bool QUAD, bool CELL>
 cudaError_t launch(const Args& a, cudaStream_t stream)
 {
     const dim3 grid(a.C, (a.T + kThreads - 1) / kThreads);
-    shared_fused_kernel<MODE, COMP, QUAD><<<grid, kThreads, 0, stream>>>(
-        a.tgt, a.tgt_idx, a.src, a.mass, a.src_idx, a.mask, a.quad, a.ids,
-        a.cnt, a.acc, a.pot, a.T, a.S, a.NB, a.eps2);
+    shared_fused_kernel<MODE, COMP, QUAD, CELL>
+        <<<grid, kThreads, 0, stream>>>(
+            a.tgt, a.tgt_idx, a.src, a.mass, a.src_idx, a.mask, a.quad,
+            a.src_cell, a.tgt_cell, a.ids, a.cnt, a.acc, a.pot, a.T, a.S,
+            a.NB, a.sep, a.eps2);
     return cudaGetLastError();
+}
+
+template <int MODE, bool COMP>
+cudaError_t launch_opts(const Args& a, cudaStream_t stream)
+{
+    const bool quad = a.quad != nullptr;
+    if (a.sep > 0)
+        return quad ? launch<MODE, COMP, true, true>(a, stream)
+                    : launch<MODE, COMP, false, true>(a, stream);
+    return quad ? launch<MODE, COMP, true, false>(a, stream)
+                : launch<MODE, COMP, false, false>(a, stream);
 }
 
 template <int MODE>
 cudaError_t launch_form(const Args& a, bool comp, cudaStream_t stream)
 {
-    const bool quad = a.quad != nullptr;
-    if (comp)
-        return quad ? launch<MODE, true, true>(a, stream)
-                    : launch<MODE, true, false>(a, stream);
-    return quad ? launch<MODE, false, true>(a, stream)
-                : launch<MODE, false, false>(a, stream);
+    return comp ? launch_opts<MODE, true>(a, stream)
+                : launch_opts<MODE, false>(a, stream);
 }
 
 }  // namespace
@@ -251,22 +334,33 @@ cudaError_t launch_form(const Args& a, bool comp, cudaStream_t stream)
 // of this size).
 extern "C" int rakau_shared_fused_block() { return kBlock; }
 
+// Bits per coordinate of a packed source cell: the cells handed to the
+// cell forms must lie below 2^this.
+extern "C" int rakau_shared_fused_cell_bits() { return kCellBits; }
+
 // Launches on `stream` and returns cudaGetLastError() of the launch
 // (0 = accepted). mode: 0 both, 1 acc only (pot written as 0), 2 pot only
 // (acc written as 0). quad: [S, 6] second moments, or null for the
-// monopole forms. comp: nonzero for the compensated (TwoSum) sums.
+// monopole forms. comp: nonzero for the compensated (TwoSum) sums. sep > 0
+// with src_cell [S, 3] and tgt_cell [C, T, 3] (coordinates below
+// 2^kCellBits, sep at most 2^kCellBits; a negative first source coordinate
+// exempts the row) selects the cell-separation forms; sep = 0 ignores the
+// cells.
 extern "C" int rakau_shared_fused(const float* tgt, const int64_t* tgt_idx,
                                   const float* src, const float* mass,
                                   const int64_t* src_idx, const uint8_t* mask,
-                                  const float* quad, const int32_t* ids,
+                                  const float* quad, const int32_t* src_cell,
+                                  const int32_t* tgt_cell, const int32_t* ids,
                                   const int32_t* cnt, float* acc, float* pot,
                                   int C, int T, int S, int NB, int mode,
-                                  int comp, float eps2, void* stream)
+                                  int comp, int sep, float eps2, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
-    if (S < 0 || NB <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    const Args a{tgt, tgt_idx, src, mass, src_idx, mask, quad, ids, cnt,
-                 acc, pot, C, T, S, NB, eps2};
+    if (S < 0 || NB <= 0 || sep < 0 || sep > (1 << kCellBits)
+        || (sep > 0 && (src_cell == nullptr || tgt_cell == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Args a{tgt, tgt_idx, src, mass, src_idx, mask, quad, src_cell,
+                 tgt_cell, ids, cnt, acc, pot, C, T, S, NB, sep, eps2};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (mode) {
     case kBoth: return static_cast<int>(launch_form<kBoth>(a, comp != 0, st));

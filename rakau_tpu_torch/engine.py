@@ -14,6 +14,13 @@ gwalk: one global (tile, node) walk and one block-aligned source pool
 for all tiles (traversal4), one launch of the pool kernel, and with
 farfield="grid" the dense far field handed down to every tile.
 
+farfield="grid2" (either traversal): the conv-M2L far field of grid2.py,
+evaluated per particle and added once per query; the near field is
+closed per pair, in the shared path by the kernel's cell-separation test
+(tiles span several leaf-grid cells), in gwalk by cell-clipped tiles and
+the pool's per-row drop. The normalized leaf locals depend on the tree
+and eps only and are kept with the query state; the L2P runs per query.
+
 Results come back in internal Morton order (the `_u` view).
 """
 from __future__ import annotations
@@ -23,31 +30,30 @@ import torch.nn.functional as F
 
 from . import expansion
 from . import grid as gridmod
-from . import traversal2, traversal4
+from . import grid2, traversal2, traversal4
 from .build import TreeData, _quad_dim
 from .config import OVF_FIELDS, TreeConfig, fit_caps, fit_round_caps
-from .grid2 import particle_cells
 from .kernels import dispatch
 
 
 def check_supported(cfg: TreeConfig):
     """Raise NotImplementedError for modes outside the ported slice.
 
-    Ported: the shared traversal with the "local", "m2p" and "grid" far
-    fields and the gwalk traversal with "m2p" and "grid", each with fp32
-    or compensated accumulation, and the quadrupole with "m2p". The
-    quadrupole with "local"/"grid" (RAKAU_DIAG_MODES=1 only) runs on the
-    reference's lists path, which is not ported."""
+    Ported: the shared traversal with the "local", "m2p", "grid" and
+    "grid2" far fields and the gwalk traversal with "m2p", "grid" and
+    "grid2", each with fp32 or compensated accumulation, and the
+    quadrupole with "m2p" and "grid2". The quadrupole with
+    "local"/"grid" (RAKAU_DIAG_MODES=1 only) runs on the reference's
+    lists path, which is not ported."""
     if cfg.traversal_mode not in ("shared", "gwalk"):
         raise NotImplementedError(
             f"traversal_mode={cfg.traversal_mode!r} is not ported "
             "(only 'shared' and 'gwalk')")
-    if cfg.farfield == "grid2":
-        raise NotImplementedError("farfield='grid2' is not ported")
-    if cfg.multipole_order == 2 and cfg.farfield != "m2p":
+    if cfg.multipole_order == 2 and cfg.farfield not in ("m2p", "grid2"):
         raise NotImplementedError(
-            "multipole_order=2 is ported with farfield='m2p' only (the "
-            "reference runs it on the unported lists path otherwise)")
+            "multipole_order=2 is ported with farfield='m2p' or 'grid2' "
+            "only (the reference runs it on the unported lists path "
+            "otherwise)")
 
 
 def _gather_tiles(td: TreeData, cfg: TreeConfig):
@@ -57,7 +63,13 @@ def _gather_tiles(td: TreeData, cfg: TreeConfig):
 
     Padding targets get index N (never a source index; dropped at
     assembly). Empty tiles get an inverted AABB and are left out of the
-    walk through tile_valid."""
+    walk through tile_valid.
+
+    With the shared traversal and farfield="grid2" three more arrays
+    follow: the targets' leaf-grid cells [nc, CH, T, D] (the kernel's
+    per-pair coverage operand) and each tile's cell range lo/hi
+    [nc, CH, D] (the walk's drop test): tiles are not clipped at cell
+    boundaries there. gwalk's tiles are, so tile_cell carries its test."""
     n, ndim = td.pos.shape
     T = cfg.ncrit
     TC = td.tile_begin.shape[0]
@@ -76,24 +88,45 @@ def _gather_tiles(td: TreeData, cfg: TreeConfig):
     thi = torch.where(mask[..., None], tiles_pos, -big).amax(1)
     tcell = F.pad(td.tile_cell, (0, 0, 0, pad))
     shape = (n_chunks, CH)
-    return (tiles_pos.reshape(shape + (T, ndim)),
-            tiles_idx.reshape(shape + (T,)),
-            tlo.reshape(shape + (ndim,)),
-            thi.reshape(shape + (ndim,)),
-            tcell.reshape(shape + (ndim,)))
+    out = (tiles_pos.reshape(shape + (T, ndim)),
+           tiles_idx.reshape(shape + (T,)),
+           tlo.reshape(shape + (ndim,)),
+           thi.reshape(shape + (ndim,)),
+           tcell.reshape(shape + (ndim,)))
+    if cfg.farfield == "grid2" and cfg.traversal_mode != "gwalk":
+        L0 = grid2.effective_grid_level(cfg, n)
+        tpc = grid2.particle_cells(td.pos, td.box_size, cfg.max_depth,
+                                   L0)[torch.where(mask, idx, 0)]
+        clo = torch.where(mask[..., None], tpc, 1 << 30).amin(1)
+        chi = torch.where(mask[..., None], tpc, -1).amax(1)
+        out += (tpc.reshape(shape + (T, ndim)),
+                clo.reshape(shape + (ndim,)),
+                chi.reshape(shape + (ndim,)))
+    return out
+
+
+def _chunk_tiles(tiles, chunk: int):
+    """Chunk `chunk` of the gathered tiles: the five base arrays and the
+    grid2 extras (tgt_cell, tcell_lo, tcell_hi), or None without them."""
+    sl = tuple(t[chunk] for t in tiles)
+    return sl[:5], (sl[5:] if len(sl) > 5 else None)
 
 
 def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
-                   tpos, tidx, blo, bhi, tables, tcell, Lgrid):
+                   tpos, tidx, blo, bhi, tables, tcell, Lgrid, tcells=None):
     """Walk + far field for one chunk of C tiles. Returns (src, mask,
     acc_l, pot_l): the shared sources, the per-tile kernel mask [C, S]
-    and the local-expansion field at the targets (None with "m2p")."""
+    and the local-expansion field at the targets (None with "m2p" and
+    "grid2"). tcells (grid2): the chunk's (tgt_cell, tcell_lo,
+    tcell_hi); the walk's drop test then takes the tile's cell range."""
     n, ndim = td.pos.shape
     dtype = td.pos.dtype
     tvalid = tidx[:, 0] < n
+    ckw = dict(tile_cell=tcell)
+    if tcells is not None:
+        ckw = dict(tcell_lo=tcells[1], tcell_hi=tcells[2])
     src = traversal2.build_shared_sources(
-        td, cfg, theta, blo, bhi, tables=tables, tile_cell=tcell,
-        tile_valid=tvalid)
+        td, cfg, theta, blo, bhi, tables=tables, tile_valid=tvalid, **ckw)
     mask = src.mask
     acc_l = pot_l = None
     if cfg.farfield in ("local", "grid"):
@@ -132,14 +165,18 @@ def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
 
 
 def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
-                tpos, tidx, blo, bhi, tables, tcell, Lgrid, mode="both"):
+                tpos, tidx, blo, bhi, tables, tcell, Lgrid, mode="both",
+                tcells=None):
     """Walk + far field + kernel for one chunk of C tiles. Returns
-    (acc [C, T, D], pot [C, T], overflow [4], maxima [4])."""
+    (acc [C, T, D], pot [C, T], overflow [4], maxima [4]). The grid2 far
+    field is not added here: it is per particle, once per query."""
     src, mask, acc_l, pot_l = _chunk_sources(
-        td, cfg, theta, eps, G, tpos, tidx, blo, bhi, tables, tcell, Lgrid)
-    acc, pot = dispatch.eval_shared(cfg, tpos, tidx, src.pos, src.mass,
-                                    src.idx, mask, eps, G, mode=mode,
-                                    src_quad=src.quad)
+        td, cfg, theta, eps, G, tpos, tidx, blo, bhi, tables, tcell, Lgrid,
+        tcells)
+    acc, pot = dispatch.eval_shared(
+        cfg, tpos, tidx, src.pos, src.mass, src.idx, mask, eps, G,
+        mode=mode, src_quad=src.quad, src_cell=src.cell,
+        tgt_cell=None if tcells is None else tcells[0])
     if acc_l is not None:
         acc = acc + acc_l
         pot = pot + pot_l
@@ -147,7 +184,11 @@ def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
 
 
 def _grid_farfield(td, cfg, eps):
-    """Dense stencil far field (grid.py) when enabled; else None."""
+    """Dense stencil far field (grid.py) when enabled; else None. With
+    "grid2": what grid2.leaf_locals returns (the normalized leaf locals
+    and the particles' leaf cells), for _add_grid2."""
+    if cfg.farfield == "grid2":
+        return grid2.leaf_locals(td, cfg, eps)
     if cfg.farfield != "grid":
         return None
     n, ndim = td.pos.shape
@@ -177,6 +218,16 @@ def _assemble_impl(td, cfg, acc_tiles, pot_tiles):
     off = p - tb_padded[torch.clamp(t_of_p, 0, TC - 1)]
     off = torch.clamp(off, 0, T - 1)
     return acc_flat[t_of_p, off], pot_flat[t_of_p, off]
+
+
+def _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u):
+    """Add grid2's per-particle far field (L2P of the kept leaf locals)
+    to a query's Morton-order sums, whatever its mode, as the reference
+    does."""
+    if cfg.farfield != "grid2":
+        return acc_u, pot_u
+    acc_f, pot_f = grid2.far_field(td, cfg, eps, G, locals_=Lgrid)
+    return acc_u + acc_f, pot_u + pot_f
 
 
 # Derived per-tree query state (tiles gather + traversal tables + grid far
@@ -213,14 +264,17 @@ def live_chunks(td: TreeData, cfg: TreeConfig) -> int:
 
 def kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps, chunk: int):
     """The pairwise kernel's arguments for chunk `chunk` of a query:
-    (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, src_quad),
-    exactly as acc_pot_u_host hands them to kernels.dispatch.eval_shared
-    (src_quad [m2p_cap, Q] with multipole_order=2, else None)."""
+    (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, src_quad,
+    src_cell, tgt_cell), exactly as acc_pot_u_host hands them to
+    kernels.dispatch.eval_shared (src_quad [m2p_cap, Q] with
+    multipole_order=2, src_cell [S, D] and tgt_cell [C, T, D] with
+    farfield="grid2", else None)."""
     tiles, tables, Lgrid = _query_state(td, cfg, eps)
-    tpos, tidx, blo, bhi, tcell = (t[chunk] for t in tiles)
+    (tpos, tidx, blo, bhi, tcell), tcells = _chunk_tiles(tiles, chunk)
     src, mask, _, _ = _chunk_sources(td, cfg, theta, eps, 1.0, tpos, tidx,
-                                     blo, bhi, tables, tcell, Lgrid)
-    return tpos, tidx, src.pos, src.mass, src.idx, mask, src.quad
+                                     blo, bhi, tables, tcell, Lgrid, tcells)
+    return (tpos, tidx, src.pos, src.mass, src.idx, mask, src.quad,
+            src.cell, None if tcells is None else tcells[0])
 
 
 def _gwalk_sources(td: TreeData, cfg: TreeConfig, theta, tiles):
@@ -233,7 +287,7 @@ def _gwalk_sources(td: TreeData, cfg: TreeConfig, theta, tiles):
     tpos, tidx, blo, bhi, tcell = flat
     tvalid = tidx[:, 0] < n
     G0 = tpos.shape[0]
-    use_grid = cfg.farfield == "grid"
+    use_grid = cfg.farfield in ("grid", "grid2")
     kw = dict(tcell_lo=tcell, tcell_hi=tcell) if use_grid else {}
     gl = traversal4.build_global_incidences(td, cfg, theta, blo, bhi,
                                             tile_valid=tvalid, **kw)
@@ -245,8 +299,8 @@ def _gwalk_sources(td: TreeData, cfg: TreeConfig, theta, tiles):
     pkw = {}
     L0 = traversal2._grid_l0(cfg, n) if use_grid else 0
     if L0 > 0:
-        pkw = dict(pcell=particle_cells(td.pos, td.box_size, cfg.max_depth,
-                                        L0),
+        pkw = dict(pcell=grid2.particle_cells(td.pos, td.box_size,
+                                              cfg.max_depth, L0),
                    tcell_lo=tcell, tcell_hi=tcell,
                    sep=traversal2._grid_sep(cfg))
     qd = _quad_dim(ndim) if cfg.multipole_order >= 2 else 0
@@ -293,7 +347,10 @@ def _gwalk_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, tiles,
                 Lgrid, mode: str = "both"):
     """gwalk query: one global walk, one pool, one kernel launch; with
     farfield="grid" the dense far field on top (no local_gamma gate: every
-    accepted node goes through the kernel). Returns (acc_u, pot_u,
+    accepted node goes through the kernel). With "grid2" the tiles are
+    cell-clipped at its level, so the walk's drop and the pool's per-row
+    drop at cfg.grid_sep are exact per pair; its far field is added by
+    the caller (acc_pot_u_host). Returns (acc_u, pot_u,
     overflow [4], maxima [4], round_counts); the flags and maxima are in
     the standard cap order, maxima (m2p incidences, pool rows, frontier
     peak, leaf incidences)."""
@@ -302,7 +359,7 @@ def _gwalk_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, tiles,
         cfg, flat[0], flat[1], pool.pos, pool.mass, pool.idx, sched,
         cfg.pool_window, cfg.pool_block, eps, G, mode=mode,
         pool_quad=pool.quad)
-    if Lgrid is not None:
+    if Lgrid is not None and cfg.farfield == "grid":
         acc, pot = _gwalk_farfield(td, cfg, G, flat, Lgrid, acc, pot, mode)
     acc_u, pot_u = _assemble_impl(td, cfg, acc, pot)
     ovf = torch.stack([gl.overflow[0], gl.overflow[1], pool.overflow,
@@ -362,20 +419,22 @@ def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     check_supported(cfg)
     tiles, tables, Lgrid = _query_state(td, cfg, eps)
     if cfg.traversal_mode == "gwalk":
-        return _gwalk_impl(td, cfg, theta, eps, G, tiles, Lgrid,
-                           mode=mode)[:4]
-    tpos, tidx, blo, bhi, tcell = tiles
+        acc_u, pot_u, ovf, mx = _gwalk_impl(td, cfg, theta, eps, G, tiles,
+                                            Lgrid, mode=mode)[:4]
+        acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
+        return acc_u, pot_u, ovf, mx
     dev = td.pos.device
     ovf = torch.zeros(4, dtype=torch.bool, device=dev)
     mx = torch.zeros(4, dtype=torch.int64, device=dev)
     accs, pots = [], []
     for i in range(live_chunks(td, cfg)):
-        a, p, o, m = _eval_chunk(td, cfg, theta, eps, G, tpos[i], tidx[i],
-                                 blo[i], bhi[i], tables, tcell[i], Lgrid,
-                                 mode=mode)
+        base, tcells = _chunk_tiles(tiles, i)
+        a, p, o, m = _eval_chunk(td, cfg, theta, eps, G, *base[:4], tables,
+                                 base[4], Lgrid, mode=mode, tcells=tcells)
         accs.append(a)
         pots.append(p)
         ovf = ovf | o
         mx = torch.maximum(mx, m)
     acc_u, pot_u = _assemble_impl(td, cfg, torch.cat(accs), torch.cat(pots))
+    acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
     return acc_u, pot_u, ovf, mx

@@ -15,26 +15,33 @@ from . import pool, shared
 
 
 def _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
-          mode, compensated, src_quad=None):
+          mode, compensated, src_quad=None, src_cell=None, tgt_cell=None,
+          grid_sep=0):
     fn = shared.eval_shared_fused if tgt_pos.is_cuda \
         else shared.eval_shared_plain
     return fn(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
-              mode=mode, compensated=compensated, src_quad=src_quad)
+              mode=mode, compensated=compensated, src_quad=src_quad,
+              src_cell=src_cell, tgt_cell=tgt_cell, grid_sep=grid_sep)
 
 
 def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
-                src_idx, mask, eps, G, mode: str = "both", src_quad=None):
+                src_idx, mask, eps, G, mode: str = "both", src_quad=None,
+                src_cell=None, tgt_cell=None):
     """Shared-candidate evaluation: sources [S, ...] common to the chunk's
     C tiles, per-tile mask [C, S]. mode: "both" | "acc" | "pot" (the
     skipped output is returned as zeros); cfg.accum == "compensated"
     selects the TwoSum block sums. Returns acc [C, T, D], pot [C, T].
 
+    src_cell [S, D] / tgt_cell [C, T, D] (farfield "grid2"): the per-pair
+    leaf-grid coverage test at separation cfg.grid_sep.
+
     src_quad [U, Q] (multipole_order=2): second moments of the FIRST U
     source rows (the traversal's M2P node rows). Two launches, the
     quadrupole form on rows [0, U) and the monopole form on rows [U, S),
     so the quadrupole's ~3x work per pair is paid on the node rows only;
-    their results are summed."""
+    their results are summed. The cells are split with the rows."""
     comp = cfg.accum == "compensated"
+    sep = cfg.grid_sep if src_cell is not None else 0
     if src_pos.shape[0] == 0:
         C, T, D = tgt_pos.shape
         return (torch.zeros_like(tgt_pos),
@@ -42,14 +49,17 @@ def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
                             device=tgt_pos.device))
     if src_quad is None:
         return _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                     eps, G, mode, comp)
+                     eps, G, mode, comp, None, src_cell, tgt_cell, sep)
     U = src_quad.shape[0]
+    cell_n = cell_p = None
+    if src_cell is not None:
+        cell_n, cell_p = src_cell[:U], src_cell[U:]
     a1, p1 = eval_shared(cfg, tgt_pos, tgt_idx, src_pos[U:], src_mass[U:],
                          src_idx[U:], mask[:, U:].contiguous(), eps, G,
-                         mode=mode)
+                         mode=mode, src_cell=cell_p, tgt_cell=tgt_cell)
     a2, p2 = _eval(tgt_pos, tgt_idx, src_pos[:U], src_mass[:U],
                    src_idx[:U], mask[:, :U].contiguous(), eps, G, mode,
-                   comp, src_quad)
+                   comp, src_quad, cell_n, tgt_cell, sep)
     return a1 + a2, p1 + p2
 
 

@@ -13,7 +13,7 @@ Padding sources sit far away (1e30 or the traversal's 4*box sentinel)
 with mass 0; r2 may overflow to inf there and inv_r is then 0, never NaN.
 mode "acc" / "pot" skips the other sum and returns it as zeros.
 
-Two options, as in the reference kernel:
+Three options, as in the reference kernel:
   * compensated: each BLOCK-sized source block's partial sum enters the
     running sum through Knuth's TwoSum; the error terms are added at the
     end;
@@ -23,7 +23,12 @@ Two options, as in the reference kernel:
         acc_i += G * sum_j (-3 (Qd) inv_r^5 - 1.5 tr(Q) d inv_r^5
                             + 7.5 dQd d inv_r^7)
     with mask[c, j] == 0 folded into the dead gate (inv_r = 0), so that a
-    masked-out node on top of a target gives zeros, not 0 * inf = NaN.
+    masked-out node on top of a target gives zeros, not 0 * inf = NaN;
+  * src_cell [S, D], tgt_cell [C, T, D] and grid_sep > 0 (farfield
+    "grid2"): leaf-grid cells of the sources and the targets. A pair
+    whose Chebyshev cell separation max_d |src_cell_d - tgt_cell_d| is
+    >= grid_sep belongs to the dense far field and is dead here; source
+    rows with src_cell[:, 0] < 0 are exempt from the test.
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ _MODES = {"both": 0, "acc": 1, "pot": 2}
 # Source-block granularity of the kernel's active-block lists: each CUDA
 # block stages this many sources in shared memory per step (x, y, z,
 # m*mask as float4 + idx as int32: 20 KB at 1024; the quadrupole form
-# adds its 6 second-moment planes, 24 KB). This is the single source of
+# adds its 6 second-moment planes, 24 KB, the cell forms one packed int32
+# cell, 4 KB: 48 KB with both). This is the single source of
 # the block plan for every form; the kernel's kBlock must equal it
 # (checked when the library loads). The plain version sums by the same
 # blocks unless told otherwise.
@@ -94,15 +100,21 @@ def _quad_terms(dds, q, mk, inv_r, mode):
 
 def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
                       eps, G, mode: str = "both", block: int = BLOCK,
-                      compensated: bool = False, src_quad=None):
+                      compensated: bool = False, src_quad=None,
+                      src_cell=None, tgt_cell=None, grid_sep: int = 0):
     """Plain version (counterpart of `rakau_tpu.kernels.xla.eval_shared`):
     loops over source blocks with [C, T, B] panels.
 
     tgt_pos [C, T, D], tgt_idx [C, T], src_pos [S, D], src_mass [S],
-    src_idx [S], mask [C, S] bool (+ src_quad [S, Q]) -> acc [C, T, D],
+    src_idx [S], mask [C, S] bool (+ src_quad [S, Q]; + integer
+    src_cell [S, D], tgt_cell [C, T, D] and grid_sep) -> acc [C, T, D],
     pot [C, T]."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
+    if src_cell is None:
+        grid_sep = 0
+    elif tgt_cell is None or grid_sep < 1:
+        raise ValueError("src_cell needs tgt_cell and grid_sep >= 1")
     C, T, D = tgt_pos.shape
     S = src_pos.shape[0]
     dtype = tgt_pos.dtype
@@ -124,6 +136,13 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
         inv_r = torch.rsqrt(r2)
         dead = (src_idx[s:s + block][None, None, :] == tgt_idx[:, :, None]) \
             | (r2 <= 0)
+        if grid_sep:
+            scb = src_cell[s:s + block]
+            csep = None
+            for d in range(D):
+                cd = (scb[None, None, :, d] - tgt_cell[:, :, None, d]).abs()
+                csep = cd if csep is None else torch.maximum(csep, cd)
+            dead = dead | ((csep >= grid_sep) & (scb[None, None, :, 0] >= 0))
         if src_quad is not None:
             dead = dead | (mkb <= 0)
         inv_r = torch.where(dead, 0.0, inv_r)
@@ -163,9 +182,21 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
 
 # ---------------------------------------------------------------- kernel
 # Kernel launches per form (the main path's proof of use): "mono" is K1a,
-# "mono_comp" K1b, "quad" K1d and "quad_comp" K1d with K1b's sums.
-FORMS = ("mono", "mono_comp", "quad", "quad_comp")
+# "mono_comp" K1b, "quad" K1d and "quad_comp" K1d with K1b's sums; the
+# "_cell" forms are K1c, each of them with the cell-separation test.
+FORMS = ("mono", "mono_comp", "quad", "quad_comp", "mono_cell",
+         "mono_comp_cell", "quad_cell", "quad_comp_cell")
+# The kernel packs a source's cell into one int32 and takes coordinates
+# below 2^CELL_BITS (its kCellBits, checked when the library loads), which
+# grid2's level cap of 7 in 3-D guarantees, and grid_sep up to 2^CELL_BITS.
+CELL_BITS = 7
 launches = dict.fromkeys(FORMS, 0)
+
+
+def form_name(quad: bool, compensated: bool, cell: bool = False) -> str:
+    """The key of a kernel form in `launches`."""
+    return (("quad" if quad else "mono") + ("_comp" if compensated else "")
+            + ("_cell" if cell else ""))
 
 
 def reset_launches():
@@ -218,13 +249,18 @@ def _library():
         lib = ctypes.CDLL(str(build_library()))
         fn = lib.rakau_shared_fused
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         lib.rakau_shared_fused_block.restype = ctypes.c_int
         if lib.rakau_shared_fused_block() != BLOCK:
             raise RuntimeError(
                 f"kernel block {lib.rakau_shared_fused_block()} != "
                 f"BLOCK {BLOCK}")
+        lib.rakau_shared_fused_cell_bits.restype = ctypes.c_int
+        if lib.rakau_shared_fused_cell_bits() != CELL_BITS:
+            raise RuntimeError(
+                f"kernel cell bits {lib.rakau_shared_fused_cell_bits()} != "
+                f"CELL_BITS {CELL_BITS}")
         lib.rakau_cuda_error_string.restype = ctypes.c_char_p
         lib.rakau_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -259,14 +295,23 @@ def _check(name, t, dtype, shape):
 
 def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
                       eps, G, mode: str = "both", compensated: bool = False,
-                      src_quad=None):
+                      src_quad=None, src_cell=None, tgt_cell=None,
+                      grid_sep: int = 0):
     """The CUDA kernel (replaces `rakau_tpu.kernels.pallas.
     eval_shared_fused` in its fp32 and compensated forms, monopole or
-    with src_quad [S, 6]). Same arguments and results as
-    eval_shared_plain; float32 tensors, int64 indices, bool mask, all on
-    one CUDA device. Launches on the current stream."""
+    with src_quad [S, 6], each with or without the cell-separation test
+    of src_cell [S, 3] / tgt_cell [C, T, 3] / grid_sep). Same arguments
+    and results as eval_shared_plain; float32 tensors, int64 indices
+    (the cells int64 or int32, coordinates below 2^CELL_BITS: the grid2
+    levels end at 7), bool mask, all on one CUDA device. Launches on the
+    current stream."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
+    if src_cell is None:
+        grid_sep = 0
+    elif tgt_cell is None or not 1 <= grid_sep <= 2 ** CELL_BITS:
+        raise ValueError("src_cell needs tgt_cell and grid_sep in "
+                         f"[1, {2 ** CELL_BITS}]")
     C, T, D = tgt_pos.shape
     S = src_pos.shape[0]
     if D != 3:
@@ -282,6 +327,14 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     if src_quad is not None:
         _check("src_quad", src_quad, torch.float32, (S, 6))
         named.append(("src_quad", src_quad))
+    if grid_sep:
+        for name, t, shape in (("src_cell", src_cell, (S, 3)),
+                               ("tgt_cell", tgt_cell, (C, T, 3))):
+            if t.dtype not in (torch.int32, torch.int64):
+                raise TypeError(f"{name} must be int32 or int64, got "
+                                f"{t.dtype}")
+            _check(name, t, t.dtype, shape)
+            named.append((name, t))
     if max(C * T, S, C * S) >= 2 ** 31:
         raise ValueError("the CUDA kernel takes sizes below 2^31")
     dev = tgt_pos.device
@@ -293,6 +346,9 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     if C == 0 or T == 0:
         return acc, pot
     ids, cnt = active_blocks(mask)
+    if grid_sep:
+        src_cell = src_cell.to(torch.int32)
+        tgt_cell = tgt_cell.to(torch.int32)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     eps2 = float(torch.tensor(eps, dtype=torch.float32) ** 2)
@@ -301,13 +357,14 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
             tgt_pos.data_ptr(), tgt_idx.data_ptr(), src_pos.data_ptr(),
             src_mass.data_ptr(), src_idx.data_ptr(), mask.data_ptr(),
             None if src_quad is None else src_quad.data_ptr(),
+            src_cell.data_ptr() if grid_sep else None,
+            tgt_cell.data_ptr() if grid_sep else None,
             ids.data_ptr(), cnt.data_ptr(), acc.data_ptr(), pot.data_ptr(),
-            C, T, S, ids.shape[1], _MODES[mode], int(compensated), eps2,
-            stream)
+            C, T, S, ids.shape[1], _MODES[mode], int(compensated),
+            int(grid_sep), eps2, stream)
     if err != 0:
         raise RuntimeError("shared_fused kernel launch failed: "
                            + lib.rakau_cuda_error_string(err).decode())
-    form = ("quad" if src_quad is not None else "mono") \
-        + ("_comp" if compensated else "")
-    launches[form] += 1
+    launches[form_name(src_quad is not None, compensated,
+                       bool(grid_sep))] += 1
     return G * acc, G * pot

@@ -19,10 +19,10 @@ from typing import NamedTuple
 
 import torch
 
-from . import particles as pmod
 from . import scan_utils as su
 from .build import TreeData
 from .config import MAC_BH_GEOM, TreeConfig
+from .grid2 import particle_cells
 
 I64 = torch.int64
 
@@ -41,6 +41,9 @@ class SharedSources(NamedTuple):
     quad: torch.Tensor = None  # [m2p_cap, Q] raw second moments of the
                                # M2P node rows (multipole_order=2 only;
                                # zero on invalid rows)
+    cell: torch.Tensor = None  # [S, D] int64 leaf-grid cell (grid2 only):
+                               # the kernel's per-pair coverage operand;
+                               # -1 marks rows exempt from the test
 
 
 class TraversalTables(NamedTuple):
@@ -63,7 +66,8 @@ def _grid_l0(cfg: TreeConfig, n: int) -> int:
         from .grid import effective_grid_level
         return effective_grid_level(cfg, n)
     if cfg.farfield == "grid2":
-        raise NotImplementedError("farfield='grid2' is not ported")
+        from .grid2 import effective_grid_level
+        return effective_grid_level(cfg, n)
     return 0
 
 
@@ -108,15 +112,21 @@ def _point_dist2(lo, hi, p):
 def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
                          box_lo, box_hi,
                          tables: TraversalTables = None,
-                         tile_cell=None, tile_valid=None) -> SharedSources:
+                         tile_cell=None, tile_valid=None,
+                         tcell_lo=None, tcell_hi=None) -> SharedSources:
     """One chunk's union walk. box_lo/hi: [C, D] tile AABBs.
 
-    With cfg.farfield == "grid", candidates covered by the dense stencil
-    far field are dropped and nodes above the leaf-grid level are never
-    MAC-accepted. Tiles are cell-clipped in that mode, so the drop test
-    is against the tile's own leaf-grid cell tile_cell [C, D]: a node is
-    dropped iff its separation from that cell is >= 3. tile_valid [C]
-    masks padding tiles out of the walk.
+    With cfg.farfield in ("grid", "grid2"), candidates covered by the
+    dense stencil far field are dropped and nodes above the leaf-grid
+    level are never MAC-accepted. The drop test is against the tile's
+    leaf-grid cell RANGE [tcell_lo, tcell_hi] ([C, D] each): a node is
+    dropped iff its interval separation from it is >= S, i.e. every
+    particle of the tile has that pair covered by the stencil. With
+    "grid" the tiles are cell-clipped, lo == hi == tile_cell, and S = 3;
+    with "grid2" S = cfg.grid_sep, the tiles span several cells, and the
+    sources carry their leaf cells (SharedSources.cell) for the kernel's
+    exact per-pair test. tile_valid [C] masks padding tiles out of the
+    walk.
 
     The walk runs all max_depth+1 rounds and never syncs with the host:
     a round whose frontier is empty changes nothing, and stopping early
@@ -132,7 +142,12 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
         tables = make_tables(td, cfg)
     L0 = _grid_l0(cfg, n)
     use_grid = L0 > 0
+    emit_cells = use_grid and cfg.farfield == "grid2"
     S_sep = _grid_sep(cfg)
+    if tcell_lo is None:
+        tcell_lo = tile_cell
+    if tcell_hi is None:
+        tcell_hi = tile_cell
     if tile_valid is None:
         tile_valid = torch.ones(C, dtype=torch.bool, device=dev)
 
@@ -160,15 +175,17 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
         use = par_active_kc.T & valid[None, :]          # [C, K]
         if use_grid:
             cp = irow[:, 4]                             # packed eff cell
-            # node cell is at min(level, L0); shift the tile cell down
-            # when the node is shallower
+            # node cell is at min(level, L0); shift the tile cell range
+            # down when the node is shallower
             sh_t = torch.clamp(L0 - lvl, min=0)         # [K]
             fmask = (1 << L0) - 1
             sep = torch.zeros((C, K), dtype=I64, device=dev)
             for d in range(D):
                 ncell = (cp >> (d * L0)) & fmask        # [K]
-                tc = tile_cell[:, None, d] >> sh_t[None, :]
-                sep = torch.maximum(sep, (ncell[None, :] - tc).abs())
+                tl = tcell_lo[:, None, d] >> sh_t[None, :]
+                th = tcell_hi[:, None, d] >> sh_t[None, :]
+                sep = torch.maximum(sep, torch.maximum(
+                    ncell[None, :] - th, tl - ncell[None, :]))
             use = use & (sep < S_sep)                   # covered -> drop
             acc = acc & (lvl >= L0)[None, :]            # never accept above
         # zero-mass nodes source nothing: never accept and never open
@@ -248,6 +265,14 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
     m_quad = None
     if cfg.multipole_order >= 2:
         m_quad = torch.where(uvalid[:, None], m_row[:, 6:], 0.0)
+    m_cell = None
+    if emit_cells:
+        # accepted nodes have level >= L0, so the packed effective cell
+        # is the leaf-grid cell (padding rows read node 0: cell 0)
+        cp = tables.fi[un_ids, 4]
+        fmask = (1 << L0) - 1
+        m_cell = torch.stack([(cp >> (d * L0)) & fmask for d in range(D)],
+                             dim=1)                      # [ucap, D]
 
     # P2P rows: leaves opened by >= 1 tile (same stable spatial sort),
     # expanded to their particles
@@ -281,10 +306,15 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
     if use_grid:
         # leaves above the grid level span several leaf-grid cells; their
         # particles in stencil-covered cells are already in the dense far
-        # field: filter them per particle against the tile's cell
-        pcell = (pmod.discretize(p_pos, td.box_size, cfg.max_depth)
-                 >> (cfg.max_depth - L0))                 # [pcap, D]
-        psep = (pcell[:, None, :] - tile_cell[None, :, :]).abs().amax(-1)
+        # field: filter them per particle against the tile's cell range
+        # (grid2 closes the per-pair remainder in the kernel). The cells
+        # come from the gathered positions through the one cell map;
+        # padding rows sit at the 4 * box sentinel, which it clamps to
+        # the last cell of every dimension.
+        pcell = particle_cells(p_pos, td.box_size, cfg.max_depth, L0)
+        psep = torch.maximum(pcell[:, None, :] - tcell_hi[None, :, :],
+                             tcell_lo[None, :, :] - pcell[:, None, :]
+                             ).amax(-1)                   # [pcap, C]
         p_mask = p_mask & (psep < S_sep)
 
     return SharedSources(
@@ -296,4 +326,5 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
         overflow=torch.stack([ucnt > ucap, lcnt > lcap, total_p > pcap,
                               ovf_frontier]),
         maxima=torch.stack([ucnt, ucnt + total_p, f_max, lcnt]),
-        quad=m_quad)
+        quad=m_quad,
+        cell=torch.cat([m_cell, pcell], 0) if emit_cells else None)

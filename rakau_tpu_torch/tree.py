@@ -1,7 +1,9 @@
 """User-facing Tree API. Counterpart of `rakau_tpu.tree`.
 
 `octree` / `quadtree` are built from coordinate and mass arrays with the
-reference's kwargs (box_size, max_leaf_n, ncrit, ...), queried through
+reference's kwargs (box_size, max_leaf_n, ncrit, ..., and every other
+TreeConfig field, the grid2 knobs local_order, grid_multipole_order,
+grid_sep, grid_level and grid_occupancy among them), queried through
 `accs_u/o`, `pots_u/o`, `accs_pots_u/o` with per-call theta/eps/G, and
 updated through `update_positions_u/o` / `update_masses_u/o` with
 permutation composition; `exact_*` are the direct-sum oracles.

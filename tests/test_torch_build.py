@@ -1,7 +1,8 @@
 """rakau_tpu_torch.build against rakau_tpu.build on the same float32
 inputs: every integer field of the tree (codes, permutations, node
-topology, cells, tile table, counts, overflow) exactly equal; node
-mass/COM and the geometric fields to fp32 rounding."""
+topology, cells, tile table, counts, overflow) exactly equal, the
+gwalk+grid2 tile table clipped at grid2's cells included; node mass/COM
+and the geometric fields to fp32 rounding."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +53,14 @@ def _both(pos, mass, **kw):
     dict(ndim=2, max_depth=10, max_leaf_n=8, ncrit=64, farfield="m2p"),
     dict(max_depth=10, max_leaf_n=16, ncrit=64, farfield="m2p",
          multipole_order=2),
+    # gwalk clips its tiles at grid2's cells (set level, and the auto
+    # level that tracks n/ncrit); the shared traversal does not
+    dict(max_depth=10, max_leaf_n=16, ncrit=64, farfield="grid2",
+         traversal_mode="gwalk", grid_level=3),
+    dict(max_depth=10, max_leaf_n=16, ncrit=64, farfield="grid2",
+         traversal_mode="gwalk", multipole_order=2),
+    dict(max_depth=10, max_leaf_n=16, ncrit=64, farfield="grid2",
+         grid_level=3),
 ])
 def test_build_matches_jax(kw):
     ndim = kw.get("ndim", 3)
@@ -67,6 +76,8 @@ def test_build_matches_jax(kw):
             getattr(ttd, f).numpy(), np.asarray(getattr(jtd, f)),
             err_msg=f)
     assert not bool(ttd.overflow)
+    jc = JaxConfig(**kw)
+    assert config_from_jax(jc).tile_capacity(N) == jc.tile_capacity(N)
     np.testing.assert_array_equal(ttd.pos.numpy(), np.asarray(jtd.pos))
     np.testing.assert_array_equal(ttd.mass.numpy(), np.asarray(jtd.mass))
     box = float(ttd.box_size)

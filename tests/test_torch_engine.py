@@ -1,7 +1,8 @@
 """The whole ported slice: rakau_tpu_torch.engine and the Tree API against
 rakau_tpu on the same tree (per-particle relative force and potential RMS
 <= 1e-5, the overflow flags and maxima exactly equal), for the monopole
-fp32 far fields and for the compensated and quadrupole modes, and against
+fp32 far fields, for the compensated and quadrupole modes and for grid2
+(monopole and quadrupole, fp32 and compensated), and against
 the float64 direct-sum oracle with the bounds of tests/test_fast_smoke.py
 (force RMS < 8e-3, potential RMS < 4e-3 at theta=0.75); plus the u/o
 duality, the update-versus-rebuild check, the overflow contract and the
@@ -51,6 +52,10 @@ def _cfg(**kw):
     d.update(kw)
     if d.get("farfield") == "grid":
         d.setdefault("grid_level", 3)
+    if d.get("farfield") == "grid2":
+        # low order and a narrow stencil keep the reference's trace short
+        for k, v in dict(grid_level=3, local_order=3, grid_sep=2).items():
+            d.setdefault(k, v)
     return JaxConfig(**d)
 
 
@@ -211,11 +216,9 @@ def test_float64_tree_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [dict(traversal_mode="lmac"),
-                                dict(traversal_mode="gwalk", farfield="grid2"),
-                                dict(farfield="grid2")])
+                                dict(traversal_mode="lmac",
+                                     farfield="grid2")])
 def test_modes_outside_the_slice_raise_at_query(kw):
-    """gwalk with grid2 raises already in the build: its tiles would need
-    grid2's cell clipping."""
     pos, mass, _, _ = _data()
     cfg = config_from_jax(_cfg(**kw))
     with pytest.raises(NotImplementedError):
@@ -230,6 +233,11 @@ MODES = {
     "m2p-comp": dict(farfield="m2p", accum="compensated"),
     "m2p-quad-comp": dict(farfield="m2p", multipole_order=2,
                           accum="compensated"),
+    "grid2": dict(farfield="grid2"),
+    "grid2-comp": dict(farfield="grid2", accum="compensated"),
+    "grid2-quad": dict(farfield="grid2", multipole_order=2),
+    "grid2-quad-comp": dict(farfield="grid2", multipole_order=2,
+                            accum="compensated"),
 }
 
 
@@ -266,6 +274,135 @@ def test_quad_comp_tree_api_matches_jax_and_beats_monopole():
     a0, p0 = mono.accs_pots_o(THETA)
     assert _rms(acc, acc_o) < _rms(a0, acc_o)
     assert _rms(pot, pot_o) < _rms(p0, pot_o)
+
+
+def _gauss(n, ndim=3, seed=4):
+    rng = np.random.default_rng(seed)
+    pos = np.clip(rng.normal(size=(n, ndim)) * 0.3, -1.4, 1.4)
+    return (pos.astype(np.float32),
+            rng.uniform(0.5, 1.5, size=n).astype(np.float32))
+
+
+GRID2_KW = dict(max_leaf_n=16, ncrit=64, tile_chunk=8, m2p_cap=2048,
+                p2p_leaf_cap=512, p2p_src_cap=4096, frontier_cap=512,
+                farfield="grid2", grid_level=3)
+
+
+def test_grid2_tree_api_vs_oracle():
+    """tests/test_grid2.py:246-275 at a size that fits here: order 4
+    inside the theta = 0.75 envelope (tiles of 64 span several of the
+    512 leaf cells), the quadrupole closer, and order 6 at theta = 0.3
+    close to the oracle."""
+    pos, mass = _gauss(2048)
+    acc_o, _ = direct_acc_pot_np(pos, mass)
+    t = Tree(coords=pos, masses=mass, device="cpu", local_order=4,
+             **GRID2_KW)
+    acc, pot = t.accs_pots_o(THETA)
+    rms4 = _rms(acc, acc_o)
+    assert rms4 < 5.5e-3, rms4
+    np.testing.assert_allclose(t.accs_o(THETA).numpy(), acc.numpy(),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(t.pots_o(THETA).numpy(), pot.numpy(),
+                               rtol=1e-6, atol=1e-7)
+    tq = Tree(coords=pos, masses=mass, device="cpu", local_order=6,
+              multipole_order=2, accum="compensated", **GRID2_KW)
+    assert _rms(tq.accs_pots_o(THETA)[0], acc_o) < 0.6 * rms4
+    t6 = Tree(coords=pos, masses=mass, device="cpu", local_order=6,
+              **GRID2_KW)
+    rms6 = _rms(t6.accs_pots_o(0.3)[0], acc_o)
+    assert rms6 < 4e-4, rms6
+
+
+def test_grid2_tune_caps_and_auto_level():
+    """The occupancy-targeted level (n / 32 particles a cell: level 2 at
+    2048), caps grown by the Tree and fitted by tune_caps."""
+    pos, mass = _gauss(2048)
+    acc_o, _ = direct_acc_pot_np(pos, mass)
+    kw = dict(GRID2_KW, grid_level=None, m2p_cap=256, p2p_src_cap=1024)
+    t = Tree(coords=pos, masses=mass, device="cpu", local_order=4, **kw)
+    acc, _ = t.accs_pots_o(THETA)
+    assert t.config.p2p_src_cap > 1024
+    assert _rms(acc, acc_o) < 5.5e-3
+    tuned = t.tune_caps()
+    acc2, _ = t.accs_pots_o(THETA)
+    assert t.config == tuned, "the fitted caps must hold the same query"
+    assert _rms(acc2, acc) < 1e-5
+
+
+def test_grid2_eps_and_G_thread_through():
+    """tests/test_grid2.py:299-318: softening and G reach the far field."""
+    pos, mass = _gauss(1024, seed=6)
+    t = Tree(coords=pos, masses=mass, device="cpu", local_order=5,
+             **dict(GRID2_KW, grid_level=2))
+    acc, pot = t.accs_pots_o(0.4, eps=0.08, G=2.5)
+    acc_o, pot_o = direct_acc_pot_np(pos, mass, eps=0.08, G=2.5)
+    assert _rms(acc, acc_o) < 1e-3
+    assert _rms(pot, pot_o) < 1e-3
+
+
+def test_grid2_quadtree_and_float64():
+    pos, mass = _gauss(1024, ndim=2, seed=7)
+    acc_o, pot_o = direct_acc_pot_np(pos, mass)
+    t = quadtree(x_coords=pos[:, 0], y_coords=pos[:, 1], masses=mass,
+                 device="cpu", local_order=4, **GRID2_KW)
+    acc, pot = t.accs_pots_o(0.5)
+    assert acc.shape == (1024, 2)
+    assert _rms(acc, acc_o) < 5e-3
+    assert _rms(pot, pot_o) < 5e-3
+    pos3, mass3 = _gauss(1024, seed=8)
+    acc_o, _ = direct_acc_pot_np(pos3, mass3)
+    t64 = Tree(coords=pos3.astype(np.float64), masses=mass3.astype(np.float64),
+               device="cpu", local_order=6, **GRID2_KW)
+    a64, _ = t64.accs_pots_o(0.3)
+    assert a64.dtype == torch.float64
+    assert _rms(a64, acc_o) < 4e-4
+
+
+_EVERY = {}
+
+
+@pytest.mark.parametrize("order,accum", [(0, "fp32"), (2, "compensated")])
+@pytest.mark.parametrize("mode", ["shared", "gwalk"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_grid2_runs_in_every_mode(ndim, dtype, mode, order, accum):
+    """farfield='grid2' through the Tree API on both traversals, with the
+    monopole or the quadrupole, fp32 or compensated sums, in 2-D and 3-D,
+    float32 and float64: inside the oracle bound at theta = 0.6, and the
+    float64 tree agrees with the float32 one."""
+    pos, mass = _gauss(1024, ndim=ndim, seed=9)
+    caps = dict(m2p_cap=2048, p2p_leaf_cap=512, p2p_src_cap=4096,
+                frontier_cap=512)
+    if mode == "gwalk":
+        caps = dict(m2p_cap=16384, p2p_leaf_cap=12288, p2p_src_cap=131072,
+                    frontier_cap=2048, pool_window=32768, pool_block=128,
+                    pool_group=2)
+    t = Tree(coords=pos.astype(dtype), masses=mass.astype(dtype), ndim=ndim,
+             device="cpu", max_leaf_n=16, ncrit=64, tile_chunk=8,
+             farfield="grid2", grid_level=3, local_order=4, grid_sep=2,
+             traversal_mode=mode, multipole_order=order, accum=accum, **caps)
+    acc, pot = t.accs_pots_o(0.6)
+    assert str(acc.dtype) == "torch." + dtype and acc.shape == (1024, ndim)
+    acc_o, pot_o = direct_acc_pot_np(pos, mass)
+    assert _rms(acc, acc_o) < 8e-3 and _rms(pot, pot_o) < 4e-3
+    other = _EVERY.setdefault((ndim, mode, order), acc.double())
+    assert _rms(acc.double(), other.numpy()) < 1e-5
+
+
+def test_kernel_inputs_carry_the_cells():
+    """engine.kernel_inputs hands out what a grid2 query passes to
+    dispatch.eval_shared, cells included."""
+    pos, mass, _, _ = _data()
+    cfg = config_from_jax(_cfg(farfield="grid2", multipole_order=2))
+    td = build.build_tree(torch.as_tensor(pos), torch.as_tensor(mass), cfg)
+    out = engine.kernel_inputs(td, cfg, THETA, 0.0, 1)
+    assert len(out) == 9
+    S = cfg.m2p_cap + cfg.p2p_src_cap
+    assert out[6].shape == (cfg.m2p_cap, 6)
+    assert out[7].shape == (S, 3) and out[7].dtype == torch.int64
+    assert out[8].shape == (cfg.tile_chunk, cfg.ncrit, 3)
+    assert engine.kernel_inputs(td, cfg.with_(farfield="m2p"), THETA, 0.0,
+                                1)[7:] == (None, None)
 
 
 def test_quad_with_tile_expansions_is_the_unported_lists_path(monkeypatch):

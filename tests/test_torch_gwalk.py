@@ -1,7 +1,8 @@
 """The gwalk engine of rakau_tpu_torch (engine.acc_pot_u_host with
 traversal_mode="gwalk", tune_gwalk and the Tree API) against
-rakau_tpu.engine on the same JAX-built tree, for the "m2p" and "grid" far
-fields and the quadrupole with compensated sums: the overflow flags and
+rakau_tpu.engine on the same JAX-built tree, for the "m2p", "grid" and
+"grid2" far fields and the quadrupole with compensated sums (with "m2p"
+and "grid2"): the overflow flags and
 maxima exactly equal, accelerations and potentials to a per-particle
 relative RMS <= 1e-5 (the reference's own gwalk test allows 1e-4 against
 the shared engine), the fitted config equal; plus the grow-and-retry and
@@ -36,6 +37,13 @@ MODES = {
     "grid": dict(farfield="grid", grid_level=3),
     "m2p-quad-comp": dict(farfield="m2p", multipole_order=2,
                           accum="compensated"),
+    # tiles clipped at grid2's cells; low order and a narrow stencil keep
+    # the reference's trace short
+    "grid2": dict(farfield="grid2", grid_level=3, local_order=3,
+                  grid_sep=2),
+    "grid2-quad-comp": dict(farfield="grid2", grid_level=3, local_order=3,
+                            grid_sep=2, multipole_order=2,
+                            accum="compensated"),
 }
 jax_build = jax.jit(jbuild.build_tree, static_argnames=("cfg",))
 _STATE = {}
@@ -122,7 +130,7 @@ def test_pool_inputs_are_what_the_query_hands_the_kernel(monkeypatch):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("mode", ["m2p", "grid"])
+@pytest.mark.parametrize("mode", ["m2p", "grid", "grid2"])
 def test_tune_gwalk_matches_jax(mode):
     """tune_gwalk fits the same caps and round caps as the reference, and
     the unrolled walk it selects gives exactly the dynamic walk's query
@@ -195,3 +203,47 @@ def test_quadrupole_beats_monopole():
                   config=cfg.with_(multipole_order=2,
                                    accum="compensated")).accs_pots_o(THETA)
     assert _rms(a_q, acc_o) < 0.5 * _rms(a_m, acc_o)
+
+
+def test_tree_api_gwalk_grid2_matches_jax_and_oracle():
+    """tests/test_gwalk.py:78-117 and tests/test_fast_smoke.py:80-95 at
+    n = 2048: the Tree API with gwalk + grid2 gives the reference's answer
+    on its tree, stays inside the oracle bounds, and the quadrupole +
+    compensated form is closer to the oracle than the monopole."""
+    pos, mass, acc_o, pot_o = _data()
+    rms = {}
+    for mode in ("grid2", "grid2-quad-comp"):
+        jc, jtd, _, (a_j, p_j, _, _) = _jax_case(mode)
+        t = Tree(coords=pos, masses=mass, config=config_from_jax(jc),
+                 device="cpu")
+        acc, pot = t.accs_pots_o(THETA)
+        inv = np.asarray(jtd.inv_perm)
+        assert _rms(acc, a_j[inv]) <= 1e-5
+        assert _rms(pot, p_j[inv]) <= 1e-5
+        assert _rms(acc, acc_o) < 8e-3
+        assert _rms(pot, pot_o) < 4e-3
+        rms[mode] = _rms(acc, acc_o)
+    assert rms["grid2-quad-comp"] < rms["grid2"]
+
+
+def test_gwalk_grid2_auto_level_order_4_and_the_shared_engine():
+    """The auto level of gwalk + grid2 tracks n / ncrit (level 1 at 2048
+    particles in tiles of 64: no stencil level, all near), a set level 3
+    at order 4 and grid_sep 3 stays inside the oracle bounds and within
+    15 % of the shared engine's error with the same far field
+    (tests/test_gwalk.py:78-99)."""
+    pos, mass, acc_o, pot_o = _data()
+    cfg = config_from_jax(JaxConfig(**BASE, farfield="grid2",
+                                    local_order=4))
+    t = Tree(coords=pos, masses=mass, config=cfg, device="cpu")
+    assert engine.grid2.effective_grid_level(cfg, N) == 1
+    acc, pot = t.accs_pots_o(THETA)
+    assert _rms(acc, acc_o) < 8e-3 and _rms(pot, pot_o) < 4e-3
+    g = Tree(coords=pos, masses=mass, device="cpu",
+             config=cfg.with_(grid_level=3)).accs_pots_o(THETA)[0]
+    s = Tree(coords=pos, masses=mass, device="cpu", config=cfg.with_(
+        grid_level=3, traversal_mode="shared", m2p_cap=2048,
+        p2p_leaf_cap=512, p2p_src_cap=4096, frontier_cap=512)
+    ).accs_pots_o(THETA)[0]
+    assert _rms(g, acc_o) < 8e-3
+    assert abs(_rms(g, acc_o) - _rms(s, acc_o)) < 0.15 * _rms(s, acc_o)

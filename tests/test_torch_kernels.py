@@ -2,8 +2,9 @@
 tensors (the plain PyTorch version, directly and through dispatch)
 against rakau_tpu's Pallas kernel in interpret mode and its XLA
 reference, on the same float32 inputs, in the monopole, compensated and
-quadrupole forms. Tolerance rtol 2e-4, atol 2e-5: the bound
-tests/test_pallas.py holds the Pallas kernel to.
+quadrupole forms, each also with the grid2 cell-separation test (K1c).
+Tolerance rtol 2e-4, atol 2e-5: the bound tests/test_pallas.py holds the
+Pallas kernel to.
 
 The CUDA kernel itself runs only on a card; chip_smoke.py holds it
 against the plain version there. Here: its wrapper's input checks and
@@ -257,3 +258,140 @@ def test_fused_wrapper_checks_the_quad_operand():
     with pytest.raises(ValueError, match="CUDA"):
         shared.eval_shared_fused(*targs, 0.0, 1.0, compensated=True,
                                  src_quad=torch.zeros(384, 6))
+
+
+# ------------------------------------------- K1c: the cell-separation test
+def make_cells(seed, C, T, S, G=8):
+    """Leaf-grid cells for a case: pairs on both sides of grid_sep 2 and
+    3, exempt source rows (-1), and a planted self pair that is covered
+    too (targets 0..7 of tile 0 are also sources 0..7)."""
+    rng = np.random.default_rng(seed)
+    tcell = rng.integers(0, G, (C, T, 3)).astype(np.int32)
+    scell = rng.integers(0, G, (S, 3)).astype(np.int32)
+    scell[20:40] = -1                                   # exempt rows
+    scell[:4] = (tcell[0, :4] + 5) % G                  # covered self pairs
+    return scell, tcell
+
+
+def _brute_cell_mask(mask, scell, tcell, sep):
+    """[C, T, S] mask with the covered pairs taken out
+    (tests/test_pallas.py:222-237)."""
+    csep = np.abs(scell[None, None].astype(np.int64)
+                  - tcell[:, :, None].astype(np.int64)).max(-1)
+    covered = (csep >= sep) & (scell[None, None, :, 0] >= 0)
+    return mask[:, None, :] & ~covered
+
+
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+@pytest.mark.parametrize("sep", [2, 3])
+@pytest.mark.parametrize("comp", [False, True])
+def test_plain_cells_match_pallas_xla_and_bruteforce(mode, sep, comp):
+    case = make_case(20 + sep, S=333, eps=0.01)
+    eps = case[-1]
+    C, T, S = case[0].shape[0], case[0].shape[1], case[2].shape[0]
+    scell, tcell = make_cells(sep, C, T, S)
+    targs, jargs = _torch_args(case), _jax_args(case)
+    tkw = dict(src_cell=torch.as_tensor(scell).long(),
+               tgt_cell=torch.as_tensor(tcell).long(), grid_sep=sep)
+    jkw = dict(src_cell=jnp.asarray(scell), tgt_cell=jnp.asarray(tcell),
+               grid_sep=sep)
+    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
+                                   compensated=comp, **tkw)
+    _close(got, pk.eval_shared_fused(*jargs, eps, 1.5, block=128, mode=mode,
+                                     interpret=True, compensated=comp,
+                                     **jkw))
+    _close(got, xk.eval_shared(*jargs, eps, 1.5, block=64, mode=mode,
+                               compensated=comp, **jkw))
+    # int32 cells give the same sums as int64 ones
+    got32 = shared.eval_shared_plain(
+        *targs, eps, 1.5, mode=mode, block=64, compensated=comp,
+        src_cell=torch.as_tensor(scell), tgt_cell=torch.as_tensor(tcell),
+        grid_sep=sep)
+    assert torch.equal(got[0], got32[0]) and torch.equal(got[1], got32[1])
+    # brute force: every target its own tile, the covered pairs masked out
+    tpos, tidx, spos, smass, sidx, mask, _ = case
+    pm = _brute_cell_mask(mask, scell, tcell, sep).reshape(C * T, S)
+    flat = (torch.as_tensor(tpos.reshape(C * T, 1, 3)),
+            torch.as_tensor(tidx.reshape(C * T, 1).astype(np.int64)),
+            targs[2], targs[3], targs[4], torch.as_tensor(pm))
+    want = shared.eval_shared_plain(*flat, eps, 1.5, mode=mode, block=64,
+                                    compensated=comp)
+    _close((got[0].reshape(C * T, 1, 3), got[1].reshape(C * T, 1)), want)
+    # the test removes pairs: the answer differs from the untested sum
+    free = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64)
+    k = 1 if mode == "pot" else 0
+    assert (got[k] - free[k]).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+@pytest.mark.parametrize("comp", [False, True])
+def test_plain_quad_cells_match_pallas_and_xla(mode, comp):
+    case, quad = make_quad_case(31)
+    eps = case[-1]
+    C, T, S = case[0].shape[0], case[0].shape[1], case[2].shape[0]
+    scell, tcell = make_cells(31, C, T, S)
+    targs, jargs = _torch_args(case), _jax_args(case)
+    tkw = dict(src_cell=torch.as_tensor(scell).long(),
+               tgt_cell=torch.as_tensor(tcell).long(), grid_sep=2,
+               src_quad=torch.as_tensor(quad))
+    jkw = dict(src_cell=jnp.asarray(scell), tgt_cell=jnp.asarray(tcell),
+               grid_sep=2, src_quad=jnp.asarray(quad))
+    # the masked-out node on a target at eps = 0 stays finite
+    got = shared.eval_shared_plain(*targs, 0.0, 1.5, mode=mode, block=64,
+                                   compensated=comp, **tkw)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
+                                   compensated=comp, **tkw)
+    _close(got, pk.eval_shared_fused(*jargs, eps, 1.5, block=128, mode=mode,
+                                     interpret=True, compensated=comp,
+                                     **jkw))
+    _close(got, xk.eval_shared(*jargs, eps, 1.5, block=64, mode=mode,
+                               compensated=comp, **jkw))
+
+
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+@pytest.mark.parametrize("accum", ["fp32", "compensated"])
+def test_dispatch_with_cells_and_quad_split_like_jax(mode, accum):
+    """dispatch.eval_shared with cells: alone, and with src_quad for the
+    first U rows, where src_cell[:U] goes with the node rows and
+    src_cell[U:] with the particle rows."""
+    case = make_case(40, S=320)
+    qcase, quad = make_quad_case(40, S=128)
+    both = tuple(np.concatenate([q, c], axis=-1 if k == 5 else 0)
+                 if k in (2, 3, 4, 5) else c
+                 for k, (q, c) in enumerate(zip(qcase, case)))
+    eps = case[-1]
+    for cs, q in ((case, None), (both, quad)):
+        C, T, S = cs[0].shape[0], cs[0].shape[1], cs[2].shape[0]
+        scell, tcell = make_cells(41, C, T, S)
+        got = dispatch.eval_shared(
+            TreeConfig(accum=accum, farfield="grid2", grid_sep=2),
+            *_torch_args(cs), eps, 1.5, mode=mode,
+            src_quad=None if q is None else torch.as_tensor(q),
+            src_cell=torch.as_tensor(scell).long(),
+            tgt_cell=torch.as_tensor(tcell).long())
+        want = jdispatch.eval_shared(
+            JaxConfig(accum=accum, farfield="grid2", grid_sep=2),
+            *_jax_args(cs), eps, 1.5, mode=mode,
+            src_quad=None if q is None else jnp.asarray(q),
+            src_cell=jnp.asarray(scell), tgt_cell=jnp.asarray(tcell))
+        _close(got, want)
+
+
+def test_cell_operands_are_checked():
+    targs = _torch_args(make_case(12))
+    scell, tcell = make_cells(1, 4, 32, 384)
+    with pytest.raises(ValueError, match="tgt_cell"):
+        shared.eval_shared_plain(*targs, 0.0, 1.0, grid_sep=2,
+                                 src_cell=torch.as_tensor(scell))
+    with pytest.raises(ValueError, match="grid_sep"):
+        shared.eval_shared_fused(*targs, 0.0, 1.0,
+                                 src_cell=torch.as_tensor(scell),
+                                 tgt_cell=torch.as_tensor(tcell))
+    with pytest.raises(ValueError, match="CUDA"):
+        shared.eval_shared_fused(*targs, 0.0, 1.0, grid_sep=2,
+                                 src_cell=torch.as_tensor(scell),
+                                 tgt_cell=torch.as_tensor(tcell))
+    assert set(shared.FORMS) == {
+        shared.form_name(q, c, g) for q in (False, True)
+        for c in (False, True) for g in (False, True)}

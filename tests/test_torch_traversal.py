@@ -2,7 +2,9 @@
 JAX-built tree handed over through rakau_tpu_torch.convert: per chunk,
 the shared source row (positions, masses, indices), the per-tile masks,
 the counts, overflow flags and maxima must be exactly equal, for the bh
-and bh_geom MACs with the local and grid far fields."""
+and bh_geom MACs with the local and grid far fields, and with grid2 (the
+drop test against the tile's cell range, the emitted source cells and the
+quadrupole rows beside them)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,3 +152,74 @@ def test_quad_rows_match_jax(mac):
         ucnt = int(want.maxima[0])
         assert np.asarray(want.quad)[:ucnt].any()
         assert not got.quad[ucnt:].any()
+
+
+@pytest.mark.parametrize("sep", [2, 3])
+@pytest.mark.parametrize("order", [0, 2])
+def test_grid2_sources_and_cells_match_jax(sep, order):
+    """farfield='grid2': tiles span several leaf-grid cells, so the walk
+    drops a node only when the tile's whole cell range is covered, and
+    every source row carries its leaf cell. mask, idx, cell, quad, counts,
+    flags and maxima exactly equal. cell on every row, padding included:
+    node padding reads node 0 (cell 0), particle padding sits at the
+    4 * box sentinel, which the cell map clamps to the last cell."""
+    kw = dict(max_depth=10, max_leaf_n=16, ncrit=64, tile_chunk=8,
+              m2p_cap=1024, p2p_leaf_cap=512, p2p_src_cap=4096,
+              frontier_cap=512, farfield="grid2", grid_level=3,
+              grid_sep=sep, local_order=3, multipole_order=order)
+    jc = JaxConfig(**kw)
+    cfg = config_from_jax(jc)
+    pos, mass = plummer_np(N, 24)
+    jtd = jax_build(jnp.asarray(pos), jnp.asarray(mass), jc)
+    td = treedata_from_numpy(
+        {k: np.asarray(v) for k, v in jtd._asdict().items()}, "cpu")
+    jtiles = jengine._gather_tiles(jtd, jc)
+    assert len(jtiles) == 8
+    from rakau_tpu_torch import engine
+    tiles = engine._gather_tiles(td, cfg)
+    assert len(tiles) == 8
+    for got, want in zip(tiles, jtiles):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    jtables = jt2.make_tables(jtd, jc)
+    tables = traversal2.make_tables(td, cfg)
+    jwalk = jax.jit(
+        lambda blo, bhi, tvalid, clo, chi: jt2.build_shared_sources(
+            jtd, jc, jnp.float32(THETA), blo, bhi, tables=jtables,
+            tile_valid=tvalid, tcell_lo=clo, tcell_hi=chi))
+    n_live = -(-int(jtd.n_tiles) // jc.tile_chunk)
+    spans = 0
+    for ch in range(0, n_live, max(1, n_live // 4)):
+        _, tidx, blo, bhi, _, _, clo, chi = (np.asarray(a[ch])
+                                             for a in jtiles)
+        tvalid = tidx[:, 0] < N
+        spans += int(((chi > clo).any(1) & tvalid).sum())
+        want = jwalk(jnp.asarray(blo), jnp.asarray(bhi), jnp.asarray(tvalid),
+                     jnp.asarray(clo), jnp.asarray(chi))
+        got = traversal2.build_shared_sources(
+            td, cfg, THETA, torch.as_tensor(blo), torch.as_tensor(bhi),
+            tables=tables, tile_valid=torch.as_tensor(tvalid),
+            tcell_lo=torch.as_tensor(clo).long(),
+            tcell_hi=torch.as_tensor(chi).long())
+        assert got.cell.shape == (cfg.m2p_cap + cfg.p2p_src_cap, 3)
+        np.testing.assert_array_equal(got.cell.numpy(), np.asarray(want.cell))
+        np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+        np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx))
+        np.testing.assert_array_equal(got.pos.numpy(), np.asarray(want.pos))
+        np.testing.assert_array_equal(got.mass.numpy(),
+                                      np.asarray(want.mass))
+        assert int(got.count) == int(want.count)
+        np.testing.assert_array_equal(got.overflow.numpy(),
+                                      np.asarray(want.overflow))
+        np.testing.assert_array_equal(got.maxima.numpy(),
+                                      np.asarray(want.maxima))
+        if order:
+            np.testing.assert_array_equal(got.quad.numpy(),
+                                          np.asarray(want.quad))
+            assert got.quad[:int(want.maxima[0])].any()
+        else:
+            assert got.quad is None
+        assert got.mask.any()
+        # particle padding rows: the clamped cell of the sentinel
+        pad = ~got.mask.any(0)[cfg.m2p_cap:] & (got.idx[cfg.m2p_cap:] < 0)
+        assert (got.cell[cfg.m2p_cap:][pad] == 7).all() and pad.any()
+    assert spans > 0, "no tile spanned several cells"
