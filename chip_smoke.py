@@ -5,8 +5,8 @@
 
 Phases, each printing one JSON line:
   1. device:   the card (nvidia-smi name and power limit), torch and CUDA;
-  2. build:    nvcc builds both kernel libraries from csrc/ at once, one
-               process each (timed; ptxas registers and spills);
+  2. build:    nvcc builds the four kernel libraries from csrc/ at once,
+               one process each (timed; ptxas registers and spills);
   3. edge:     kernel vs plain PyTorch on small random cases in every form
                (K1a monopole, K1b compensated, K1d quadrupole, K1d with
                K1b's sums) and mode (self pairs, far padding, an empty
@@ -22,7 +22,13 @@ Phases, each printing one JSON line:
                every form and mode with random leaf cells on both sides
                of grid_sep 2 and 3, exempt rows (cell -1), self pairs that
                are covered too, ragged T and S, an empty tile and, in the
-               quadrupole forms, the masked-out node on a target;
+               quadrupole forms, the masked-out node on a target; then the
+               tensor-core form K6 (edge_mma: every mode and precision,
+               with and without the cell test: a source exactly on a
+               target, an all-masked tile, a ragged last block, S < 128, a
+               tile whose only active block is the last, exempt cells) and
+               the split-source form K5 (edge_blocks: the same rows at
+               several splits, two launches bit for bit equal);
   4. main:     a Plummer sphere of N particles (default 1,048,576) from a
                seeded CUDA generator, octree(...) with the headline
                shared+grid configuration, accs_pots_o(theta=0.75) once
@@ -39,6 +45,17 @@ Phases, each printing one JSON line:
                mode, rtol 2e-4 and atol 2e-5*max|plain|, both timed;
   8. accuracy: 256 sampled targets against the float64 NumPy direct sum:
                RMS relative force error < 5e-3, potential < 2e-3;
+  v. variants: the same query whole under dispatch.shared_variant: "mma"
+               at bf16, x3 and highest, and "blocks": launches of the
+               variant = chunks and no K1a launch; x3, highest and K5
+               within 1 % of K1a's force RMS and under the bounds, one bf16
+               pass under 5e-2 (see BF16_FORCE_RMS_MAX);
+     kernel:   K6 (each precision and mode) and K5 against their plain
+               versions on the first two chunks, timed beside K1a on the
+               same rows, with bounds; K5's split and CUDA blocks;
+     metrics:  metrics.collect_shared_density on the query; its processed
+               pairs must equal what the kernel wrapper's active-block
+               lists give for the same chunks;
   s. grid2:    the same particles through the shared traversal with
                farfield "grid2" (local_order 4, grid_sep 3, the level from
                grid_occupancy 32: 5 at 1M), caps grown by the Tree and
@@ -62,6 +79,30 @@ Phases, each printing one JSON line:
                grid2 query (mono_cell, every mode) and on the first chunk
                of the quadrupole + compensated one (quad_comp_cell and
                quad_cell on node rows, mono_comp_cell on particle rows);
+  l. lmac_cpu_cuda: a 65,536-particle tree: the slice's candidate table
+               and chunk 0's sources from traversal3 on the card and on the
+               CPU, every field exactly equal;
+     lmac:     the same particles through the reference's lmac1m
+               configuration (the lmac1m stage of the reference's stage
+               list under benchmarks/, on bench.py:54-78: lmac + grid2
+               order 4 / sep 2, caps 9728 / 5888 / 47104, frontier_cap
+               65536 for the slice's candidate table), caps grown by the
+               Tree and fitted by tune_caps; once cold, three times warm:
+               K1c launches = chunks and no other form, the group table's
+               rows (maxima slot 2) above 0 and under their cap, force RMS
+               < 5e-3, potential < 2e-3, and force RMS at most 1.1 x the
+               shared engine's with the same far field, level and theta;
+               then lmac_layers (group pre-filter, predicate and
+               materialisation, kernel call, L2P, rest between device
+               syncs), lmac_profile (as phase 6), variants ("mma" at each
+               precision: mma_cell launches = chunks), kernel (K6 with the
+               cell test beside K1c) and metrics (density);
+     lmac_gate: the reference's accuracy gate at 65,536 particles (lmac +
+               grid2 order 6 / sep 3, quadrupole, compensated, theta 0.5):
+               force RMS <= 2e-4; quad_comp_cell and mono_comp_cell
+               launches = chunks each;
+     metrics:  metrics.measure_kernel_roof at 262,144 sources, pairs/s:
+               K1a, K1c, K6 x3 (with and without cells), K5;
   g. gwalk:    the same particles through bench.py's gwalk configuration
                (bench.py:47-85 and 103-140: global caps 3n/n/16n/n//4,
                tile_cap fitted to the built tiles, caps and per-round
@@ -165,7 +206,26 @@ POOL_SRC = "rakau_tpu_torch/csrc/pool.cu"
 POOL_REPLACES = "rakau_tpu/kernels/pallas.py:974"
 # kernel sources under rakau_tpu_torch/csrc/ and their kernels (template
 # instantiations: mode x compensated x quadrupole, and x cell test in K1)
-LIBRARIES = {"shared_fused": 24, "pool": 12}
+LIBRARIES = {"shared_fused": 24, "pool": 12, "shared_mma": 18,
+             "shared_blocks": 2}
+MMA_SRC = "rakau_tpu_torch/csrc/shared_mma.cu"
+MMA_REPLACES = "rakau_tpu/kernels/pallas.py:395"
+BLOCKS_SRC = "rakau_tpu_torch/csrc/shared_blocks.cu"
+BLOCKS_REPLACES = "rakau_tpu/kernels/pallas.py:283"
+PRECS = ("bf16", "x3", "highest")
+# K6 in one bf16 pass against its own bf16 plain version: the two round the
+# same w3 to bfloat16, but their w3 differ in the last fp32 bits (the order
+# of the sums feeding them does not; rsqrt and the products do), so a pair
+# near a rounding boundary lands on either side: 2^-8 of that pair's term
+# w3 |s'|, which the cancellation Y - ysum t' can leave several times larger
+# than the pair's force
+BF16_RTOL, BF16_ATOL_REL = 2e-2, 1e-2
+# K6 at x3 and highest against its plain version: both compute the same
+# w3 bit for bit, but acc = Y - ysum t' cancels (|Y| is 10-100x |acc| in a
+# tile whose first target, the origin, lies a tile's width from the
+# target), so the fp32 rounding of two orders of summation shows at ~1e-4
+# of the largest result where K1's d = s - t form shows 1e-6
+MMA_ATOL_REL = 5e-4
 MODES = ("both", "acc", "pot")
 # the plain pool version runs over this many tiles at a time ([tiles, T,
 # pool_block] panels), and modes acc/pot are checked on this many tiles
@@ -190,6 +250,38 @@ GRID2_KW = dict(farfield="grid2", local_order=4, grid_sep=3)
 GRID2_QUAD_KW = dict(local_order=6, multipole_order=2, accum="compensated")
 # the float32 far field against float64 under TF32 switches turned on
 TF32_REL_MAX = 1e-4
+# the reference's lmac1m run (the stage of that name in its stage list
+# under benchmarks/, on bench.py:54-78): lmac + grid2 order 4 / sep 2,
+# monopole; frontier_cap holds the slice's candidate table
+LMAC_KW = dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32,
+               traversal_mode="lmac", farfield="grid2", local_order=4,
+               grid_sep=2, m2p_cap=9728, p2p_leaf_cap=5888,
+               p2p_src_cap=47104, frontier_cap=65536)
+# lmac's force RMS over the shared engine's with the same far field, level
+# and theta (tests/test_lmac.py:108-122)
+LMAC_SHARED_RATIO = 1.1
+# the reference's accuracy gate (the gate65k stage of the same list,
+# tests/test_lmac.py:171-186): 65,536 particles, order 6 / sep 3,
+# quadrupole, compensated, theta 0.5
+GATE_N, GATE_THETA, GATE_FORCE_RMS_MAX = 65536, 0.5, 2e-4
+GATE_KW = dict(LMAC_KW, local_order=6, grid_sep=3, multipole_order=2,
+               accum="compensated")
+# K6's fp32 operations a live pair as the reference counts them
+# (pallas.py:415-420; csrc/shared_mma.cu spends ~16, its r2n without
+# FMAs), the useful operations of its tensor-core product (W3 [T, B] x
+# X [B, 3]: 6 a pair and pass) and the card's dense bf16 peak
+FLOPS_MMA, TENSOR_FLOPS, PEAK_BF16 = 13, 6, 989e12
+MMA_PASSES = {"bf16": 1, "x3": 3, "highest": 0}
+# x3 and highest against the fused kernel's force RMS in a whole query
+VARIANT_RMS_RTOL = 0.01
+# One bf16 pass rounds w3 and s' to 8 bits: 2^-9 of |w3 s'| a pair, which
+# Y - ysum t' leaves several times larger than a near pair's force. The
+# reference has no test of its own for this precision; a whole query read
+# 1.6e-2 force RMS at 65,536 particles on an H100, so it is held to 5e-2
+# (an error of the arithmetic, not of the kernel: the plain version gives
+# the same), the potential (no bf16 in it) to the usual bound.
+BF16_FORCE_RMS_MAX = 5e-2
+ROOF_SOURCES, ROOF_REPS = 262144, 8
 
 
 def gwalk_kw(n: int) -> dict:
@@ -370,7 +462,7 @@ def profile_record(prof: dict, warm_ms: float) -> dict:
                 / prof["profiled_query_ms"])
 
 
-def compare(got, want):
+def compare(got, want, rtol=RTOL, atol_rel=ATOL_REL):
     """Max |got - want| over (acc, pot); raises past the tolerance."""
     worst = 0.0
     for g, w in zip(got, want):
@@ -378,12 +470,131 @@ def compare(got, want):
             raise AssertionError("kernel output is not finite")
         err = (g - w).abs()
         scale = float(w.abs().max())
-        bound = RTOL * w.abs() + ATOL_REL * scale
+        bound = rtol * w.abs() + atol_rel * scale
         if bool((err > bound).any()):
             raise AssertionError(
                 f"kernel vs plain: max err {float(err.max()):.3e} past "
-                f"rtol {RTOL} + atol {ATOL_REL}*{scale:.3e}")
+                f"rtol {rtol} + atol {atol_rel}*{scale:.3e}")
         worst = max(worst, float(err.max()))
+    return worst
+
+
+def mma_tol(prec: str) -> dict:
+    """compare()'s tolerance for K6 at `prec` against its plain version."""
+    if prec == "bf16":
+        return dict(rtol=BF16_RTOL, atol_rel=BF16_ATOL_REL)
+    return dict(atol_rel=MMA_ATOL_REL)
+
+
+def row_case(rng, C, T, S, only_last_block=False):
+    """A made shared row for K5 and K6: a source exactly on a target with
+    the target's index (and one with another index), far massless padding
+    at the end, a dead stretch of blocks, an all-masked last tile, padding
+    targets, leaf cells 0..7 with exempt rows (-1) and a covered stretch.
+    Source indices are -1 except on the planted self pairs, so that the
+    index rule and the relative-distance rule drop the same pairs.
+    only_last_block: tile 0 takes sources of the last block only."""
+    n = 10000
+    tpos = rng.standard_normal((C, T, 3)).astype(np.float32)
+    tidx = rng.choice(n, size=(C, T), replace=False).astype(np.int64)
+    tidx[:, -5:] = n
+    spos = rng.standard_normal((S, 3)).astype(np.float32)
+    smass = rng.uniform(0.1, 1, S).astype(np.float32)
+    sidx = np.full(S, -1, np.int64)
+    k = min(8, S // 4, T)
+    spos[:k] = tpos[0, :k]                    # self pairs
+    sidx[:k] = tidx[0, :k]
+    spos[-4:] = 1e30                          # far, massless padding
+    smass[-4:] = 0.0
+    mask = rng.uniform(size=(C, S)) < 0.4
+    mask[0, :k] = True
+    mask[:, S // 3:S // 2] = False            # a dead stretch of blocks
+    if C > 1:
+        mask[-1] = False                      # an all-masked tile
+    if only_last_block:
+        mask[0, :(S - 1) // 1024 * 1024] = False
+        spos[-8:-4] = tpos[0, :4]             # coincident, in that block
+        mask[0, -8:-4] = True
+    tcell = rng.integers(0, 8, (C, T, 3)).astype(np.int64)
+    scell = rng.integers(0, 8, (S, 3)).astype(np.int64)
+    scell[:k] = tcell[0, :k]                  # the self pairs are near
+    scell[S // 2:S // 2 + 20] = -1            # exempt rows
+    scell[-30:-8] = 127                       # a covered stretch
+    return (tpos, tidx, spos, smass, sidx, mask), (scell, tcell)
+
+
+EDGE_SHAPES = ((3, 200, 3000, 0.0, False), (2, 64, 1024, 0.01, False),
+               (1, 512, 70, 0.0, False), (2, 130, 2500, 0.0, True))
+
+
+def mma_edge_cases(shared, dev):
+    """K6 vs its plain version on made rows (row_case: S ragged, S < 128, a
+    tile whose only active block is the last), with and without the cell
+    test (grid_sep 2 and 3), every mode and precision. The source planted
+    on target (0, 0) must add nothing there: with its mask switched off
+    that target's result stays the same bit for bit. Returns the worst
+    |kernel - plain| per form and precision."""
+    rng = np.random.default_rng(17)
+    worst = {f"{f}/{p}": 0.0 for f in ("mma", "mma_cell") for p in PRECS}
+    for i, (C, T, S, eps, last) in enumerate(EDGE_SHAPES):
+        row, (scell, tcell) = row_case(rng, C, T, S, last)
+        args = [torch.as_tensor(a, device=dev) for a in row]
+        off = args[5].clone()
+        off[0, 0] = False
+        if last:
+            off[0, -8] = False
+        cells = dict(src_cell=torch.as_tensor(scell, device=dev),
+                     tgt_cell=torch.as_tensor(tcell, device=dev),
+                     grid_sep=2 + i % 2)
+        for form, ckw in (("mma", {}), ("mma_cell", cells)):
+            for prec in PRECS:
+                for mode in MODES:
+                    kw = dict(mode=mode, prec=prec, **ckw)
+                    got = shared.eval_shared_mma(*args, eps, 1.5, **kw)
+                    want = shared.eval_shared_mma_plain(*args, eps, 1.5, **kw)
+                    key = f"{form}/{prec}"
+                    worst[key] = max(worst[key], compare(got, want,
+                                                         **mma_tol(prec)))
+                    if C > 1 and bool(got[0][-1].any() | got[1][-1].any()):
+                        raise AssertionError(f"K6 {key}: the all-masked "
+                                             "tile got a nonzero result")
+                    bare = shared.eval_shared_mma(*args[:5], off, eps, 1.5,
+                                                  **kw)
+                    if not all(torch.equal(a[0, 0], b[0, 0])
+                               for a, b in zip(got, bare)):
+                        raise AssertionError(f"K6 {key} {mode}: a source on "
+                                             "a target added something")
+            if ckw:
+                free = shared.eval_shared_mma(*args, eps, 1.5)
+                if not bool((got[1] - free[1]).abs().max() > 1e-3):
+                    raise AssertionError("K6: the cell test removed nothing")
+    return worst
+
+
+def blocks_edge_cases(shared, dev):
+    """K5 vs its plain version on the same made rows, at the default split
+    and at 1, 2 and one span a block; two launches must agree bit for bit.
+    Returns the worst |kernel - plain|."""
+    rng = np.random.default_rng(19)
+    worst = 0.0
+    for C, T, S, eps, last in EDGE_SHAPES:
+        row, _ = row_case(rng, C, T, S, last)
+        args = [torch.as_tensor(a, device=dev) for a in row]
+        nb = -(-S // shared.BLOCK)
+        for nsplit in sorted({None, 1, min(2, nb), nb}, key=str):
+            got = shared.eval_shared_blocks(*args, eps, 1.5, nsplit=nsplit)
+            again = shared.eval_shared_blocks(*args, eps, 1.5, nsplit=nsplit)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K5 nsplit {nsplit}: two launches "
+                                     "differ")
+            want = shared.eval_shared_blocks_plain(
+                *args, eps, 1.5, nsplit=nsplit or shared.blocks_nsplit(
+                    C, T, nb, torch.cuda.get_device_properties(dev)
+                    .multi_processor_count))
+            worst = max(worst, compare(got, want))
+            if C > 1 and bool(got[0][-1].any() | got[1][-1].any()):
+                raise AssertionError("K5: the all-masked tile got a nonzero "
+                                     "result")
     return worst
 
 
@@ -391,7 +602,8 @@ def edge_cases(shared, dev):
     """Kernel vs plain on small cases that hit every branch of the kernel,
     in every form. Returns the worst |kernel - plain| per form."""
     rng = np.random.default_rng(7)
-    worst = {f: 0.0 for f in shared.FORMS if not f.endswith("_cell")}
+    worst = {f: 0.0 for f in shared.FORMS
+             if f.startswith(("mono", "quad")) and not f.endswith("_cell")}
 
     def check(args, eps, quad=None, empty_tile=False):
         for comp in (False, True):
@@ -488,7 +700,8 @@ def cell_edge_cases(shared, dev):
     masked-out node 1e-9 from a target at eps = 0. Returns the worst
     |kernel - plain| per form."""
     rng = np.random.default_rng(13)
-    worst = {f: 0.0 for f in shared.FORMS if f.endswith("_cell")}
+    worst = {f: 0.0 for f in shared.FORMS
+             if f.startswith(("mono", "quad")) and f.endswith("_cell")}
     for C, T, S, sep, eps, itype in (
             (3, 200, 3000, 2, 0.0, np.int64), (2, 130, 1100, 3, 0.01,
                                                np.int32),
@@ -562,7 +775,8 @@ def surviving_pairs(inputs, cells, n):
     return total
 
 
-def bound(inputs, n, quad=False, comp=False, cells=None):
+def bound(inputs, n, quad=False, comp=False, cells=None, per_pair=None,
+          extra_bytes=0, tensor_flops=0):
     """(bound_ms, bound_by): the least time the card could take for one
     call at these inputs, the larger of the bytes it must move (each input
     read once, each output written once) over the HBM rate and the
@@ -571,25 +785,28 @@ def bound(inputs, n, quad=False, comp=False, cells=None):
     fp32 peak. cells (src_cell, tgt_cell, grid_sep) for K1c: the two cell
     tensors are read too, every mask-true pair costs the OPS_CELL
     operations of the cell test, and only the pairs the test leaves alive
-    cost the 20 (64) fp32 operations."""
+    cost the 20 (64) fp32 operations. per_pair replaces the 20 (K6: 13);
+    extra_bytes are added (K5: its scratch, written and read);
+    tensor_flops a surviving pair run at the bf16 tensor-core peak (K6)
+    and bound the call if that takes longest, reported as operations."""
     tpos, tidx, spos, smass, sidx, mask = inputs[:6]
     C, T, _ = tpos.shape
     nbytes = sum(t.numel() * t.element_size() for t in inputs[:6]
                  + ((inputs[6],) if quad else ())
                  + (tuple(cells[:2]) if cells else ()))
-    nbytes += C * T * 4 * 4                     # acc [C, T, 3] + pot
+    nbytes += C * T * 4 * 4 + extra_bytes       # acc [C, T, 3] + pot
     ntgt = (tidx < n).sum(1).double()          # padding targets carry n
     pairs = float((mask.sum(1).double() * ntgt).sum())
-    per_pair = FLOPS_QUAD if quad else FLOPS_MONO
-    if cells:
-        flops = pairs * OPS_CELL + surviving_pairs(inputs, cells, n) * per_pair
-    else:
-        flops = pairs * per_pair
+    if per_pair is None:
+        per_pair = FLOPS_QUAD if quad else FLOPS_MONO
+    alive = surviving_pairs(inputs, cells, n) if cells else pairs
+    flops = alive * per_pair + (pairs * OPS_CELL if cells else 0)
     if comp:
         from rakau_tpu_torch.kernels import shared
         flops += FLOPS_TWOSUM * float(
             (shared.active_blocks(mask)[1].double() * ntgt).sum())
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(flops / PEAK_FP32, alive * tensor_flops / PEAK_BF16)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                         else "operations")
 
@@ -1365,6 +1582,370 @@ def gwalk_grid2(pos, mass, oracle, grid2_rms, dev) -> dict:
     return rec
 
 
+def warm_counted(tree, reps: int, theta: float = THETA):
+    """`reps` warm queries through the entry point, each with every launch
+    count set to 0 just before and read just after. Returns the last
+    (acc, pot), the device ms of each and the counts of each."""
+    ms_all, counts_all = [], []
+    for _ in range(reps):
+        ((acc, pot), ms), counts = counted(
+            lambda: event_ms(lambda: tree.accs_pots_o(theta)))
+        ms_all.append(ms)
+        counts_all.append(counts)
+    return (acc, pot), ms_all, counts_all
+
+
+def variant_queries(tree, oracle, fused_rms, form: str, dev) -> tuple:
+    """Phase variants: the whole query of `tree` under
+    dispatch.shared_variant: "mma" at each precision and, where `form` is
+    "mma" (no cells), "blocks". Each must launch its own kernel once a live
+    chunk and no other; x3, highest and K5 must give the fused kernel's
+    force RMS within VARIANT_RMS_RTOL and meet the accuracy bounds; one
+    bf16 pass is held to BF16_FORCE_RMS_MAX.
+    Returns the record and the launches per variant."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.kernels import dispatch
+    chunks = engine.live_chunks(tree.tree_data, tree.config)
+    runs = [("mma", prec, form) for prec in PRECS]
+    if form == "mma":
+        runs.append(("blocks", "x3", "blocks"))
+    rec, launches = {"chunks": chunks, "fused_force_rms": fused_rms[0],
+                     "fused_pot_rms": fused_rms[1]}, {}
+    for name, prec, key in runs:
+        label = f"{name}/{prec}" if name == "mma" else name
+        with dispatch.shared_variant(name, prec):
+            (acc, pot), ms, counts = warm_counted(tree, 2)
+        k1_launches(counts[-1], chunks, (key,), f"variant {label} query")
+        finite(f"variant {label} result", acc, pot)
+        f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
+        rec[label] = dict(warm_query_ms=ms, force_rms=f_rms, pot_rms=p_rms,
+                          launches=counts[-1]["K1"][key])
+        launches[label] = counts[-1]["K1"][key]
+        f_max = BF16_FORCE_RMS_MAX if prec == "bf16" else FORCE_RMS_MAX
+        if not (f_rms < f_max and p_rms < POT_RMS_MAX):
+            raise AssertionError(f"variant {label}: force rms {f_rms:.3e}, "
+                                 f"pot rms {p_rms:.3e}")
+        if prec != "bf16" and not abs(f_rms - fused_rms[0]) \
+                < VARIANT_RMS_RTOL * fused_rms[0]:
+            raise AssertionError(
+                f"variant {label}: force rms {f_rms:.6e} is not within "
+                f"{VARIANT_RMS_RTOL} of the fused kernel's "
+                f"{fused_rms[0]:.6e}")
+    return rec, launches
+
+
+def variant_kernels(tree, n: int, label: str, dev) -> dict:
+    """Phase kernel for K6 (and, on rows without cells, K5) on chunks 0 and
+    1 of `tree`'s query: every precision and mode against the plain
+    version, CUDA-event ms per call beside the fused kernel's on the same
+    rows, the bound, the plain version's ms; K5 also twice for bit-equal
+    results, with its split. Returns per form (worst error, ms, plain_ms,
+    bound_ms, bound_by; means over the chunks)."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.kernels import shared
+    td, cfg = tree.tree_data, tree.config
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_form: dict = {}
+    for ch in range(min(2, engine.live_chunks(td, cfg))):
+        inp = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)
+        args = inp[:6]
+        cells = (inp[7], inp[8], cfg.grid_sep) if inp[7] is not None else None
+        ckw = dict(src_cell=cells[0], tgt_cell=cells[1],
+                   grid_sep=cells[2]) if cells else {}
+        C, T, _ = args[0].shape
+        S = int(args[2].shape[0])
+        fused_ms = cuda_ms(lambda: shared.eval_shared_fused(
+            *args, 0.0, 1.0, **ckw), 10)
+        rec = dict(config=label, chunk=ch, C=C, T=T, S=S,
+                   active_blocks=int(shared.active_blocks(args[5])[1].sum()),
+                   fused_ms=fused_ms, forms={})
+        for prec in PRECS:
+            modes = {}
+            for mode in MODES:
+                kw = dict(mode=mode, prec=prec, **ckw)
+                got = shared.eval_shared_mma(*args, 0.0, 1.0, **kw)
+                want = shared.eval_shared_mma_plain(*args, 0.0, 1.0, **kw)
+                err = compare(got, want, **mma_tol(prec))
+                km = cuda_ms(lambda: shared.eval_shared_mma(
+                    *args, 0.0, 1.0, **kw), 10)
+                pm = cuda_ms(lambda: shared.eval_shared_mma_plain(
+                    *args, 0.0, 1.0, **kw), 1) if mode == "both" else None
+                modes[mode] = {"ms": km, "plain_ms": pm, "max_abs_err": err}
+            b_ms, b_by = bound(args, n, cells=cells, per_pair=FLOPS_MMA + (
+                TENSOR_FLOPS if prec == "highest" else 0),
+                tensor_flops=TENSOR_FLOPS * MMA_PASSES[prec])
+            form = ("mma_cell/" if cells else "mma/") + prec
+            rec["forms"][form] = dict(modes=modes, bound_ms=b_ms,
+                                      bound_by=b_by)
+            per_form.setdefault(form, []).append(dict(
+                max_abs_err=max(v["max_abs_err"] for v in modes.values()),
+                ms=modes["both"]["ms"], plain_ms=modes["both"]["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by))
+        if not cells:
+            nb = -(-S // shared.BLOCK)
+            nsplit = shared.blocks_nsplit(C, T, nb, sms)
+            got = shared.eval_shared_blocks(*args, 0.0, 1.0)
+            again = shared.eval_shared_blocks(*args, 0.0, 1.0)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("K5: two launches differ")
+            want = shared.eval_shared_blocks_plain(*args, 0.0, 1.0,
+                                                   nsplit=nsplit)
+            err = compare(got, want)
+            km = cuda_ms(lambda: shared.eval_shared_blocks(*args, 0.0, 1.0),
+                         10)
+            pm = cuda_ms(lambda: shared.eval_shared_blocks_plain(
+                *args, 0.0, 1.0, nsplit=nsplit), 1)
+            b_ms, b_by = bound(args, n, extra_bytes=2 * nsplit * C * T * 16)
+            rec["forms"]["blocks"] = dict(
+                ms=km, plain_ms=pm, max_abs_err=err, bound_ms=b_ms,
+                bound_by=b_by, nsplit=nsplit, source_blocks=nb,
+                cuda_blocks=C * -(-T // 128) * nsplit, sms=sms,
+                fused_cuda_blocks=C * -(-T // 128))
+            per_form.setdefault("blocks", []).append(dict(
+                max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b_ms,
+                bound_by=b_by))
+        emit("kernel", **rec)
+    return {form: dict(
+        max_abs_err=max(r["max_abs_err"] for r in rs),
+        ms=float(np.mean([r["ms"] for r in rs])),
+        plain_ms=float(np.mean([r["plain_ms"] for r in rs])),
+        bound_ms=float(np.mean([r["bound_ms"] for r in rs])),
+        bound_by=max((r["bound_ms"], r["bound_by"]) for r in rs)[1])
+        for form, rs in per_form.items()}
+
+
+def density(tree, label: str) -> dict:
+    """Phase metrics, first half: metrics.collect_shared_density on
+    `tree`'s query, and the check that its processed pairs are what the
+    kernel wrapper's own active-block lists give for the engine's masks on
+    the same chunks."""
+    from rakau_tpu_torch import engine, metrics
+    from rakau_tpu_torch.kernels import shared
+    td, cfg = tree.tree_data, tree.config
+    stats, ms = synced_ms(lambda: metrics.collect_shared_density(
+        td, cfg, THETA, max_chunks=8))
+    n_live = engine.live_chunks(td, cfg)
+    sample = metrics.sample_chunks(n_live, 8)
+    blocks = sum(int(shared.active_blocks(engine.kernel_inputs(
+        td, cfg, THETA, 0.0, ch)[5])[1].sum()) for ch in sample)
+    replay = float(blocks * shared.BLOCK * cfg.ncrit) \
+        * (n_live / len(sample))
+    emit("metrics", config=label, collect_ms=ms, chunks=n_live,
+         sampled=sample, kernel_plan_pairs=replay, **stats.as_dict())
+    if stats.processed_pairs != replay:
+        raise AssertionError(f"{label}: processed pairs "
+                             f"{stats.processed_pairs} != the kernel plan's "
+                             f"{replay}")
+    return stats.as_dict()
+
+
+def kernel_roofs(grid_cfg, cell_cfg) -> dict:
+    """Phase metrics, second half: metrics.measure_kernel_roof, the dense
+    ceiling in pairs/s at ROOF_SOURCES sources (all-on mask, every pair
+    alive), of K1a, K5 and K6 (x3) at the shared+grid configuration and
+    K1c and K6 with cells (x3) at the lmac+grid2 one."""
+    from rakau_tpu_torch import metrics
+    from rakau_tpu_torch.kernels import shared
+    out = {}
+    for key, cfg, variant, form in (
+            ("K1a", grid_cfg, "fused", "mono"),
+            ("K1c", cell_cfg, "fused", "mono_cell"),
+            ("K6 x3", grid_cfg, "mma", "mma"),
+            ("K6 x3 cell", cell_cfg, "mma", "mma_cell"),
+            ("K5", grid_cfg, "blocks", "blocks")):
+        shared.reset_launches()
+        out[key] = metrics.measure_kernel_roof(
+            cfg, n_src=ROOF_SOURCES, reps=ROOF_REPS, variant=variant)
+        if shared.launches[form] != ROOF_REPS + 1:
+            raise AssertionError(f"roof {key}: launches {shared.launches}")
+    emit("metrics", roofs_pairs_per_s=out, sources=ROOF_SOURCES,
+         reps=ROOF_REPS, C=grid_cfg.tile_chunk, T=grid_cfg.ncrit)
+    return out
+
+
+def lmac_cpu_cuda(seed: int, dev) -> dict:
+    """Phase lmac_cpu_cuda: on a 65,536-particle tree, the first slice's
+    candidate table and chunk 0's sources from traversal3 on the card
+    against the same calls on the CPU, on the same tree: every field
+    exactly equal. The acceptance test compares d^2 with R^2 in float32; a
+    product and sum contracted on one device alone would flip a node on
+    the boundary."""
+    from rakau_tpu_torch import Tree, engine, particles, traversal3
+    from rakau_tpu_torch.config import TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(GATE_N, generator=gen)
+    tree = Tree(coords=pos, masses=mass, config=TreeConfig(**LMAC_KW))
+    cfg = tree.config
+    out = {}
+    for where in ("cuda", "cpu"):
+        td = type(tree.tree_data)(*(t.to(where) for t in tree.tree_data))
+        tiles = engine._gather_tiles(td, cfg)
+        tables = traversal3.make_tables(td, cfg)
+        _, start, K = engine._slices(engine.live_chunks(td, cfg),
+                                     cfg.tile_chunk)[0]
+        cand = engine._slice_cand(td, cfg, THETA, tiles, tables, start, K)
+        (tpos, tidx, blo, bhi, tcell), tcells = engine._chunk_tiles(tiles, 0)
+        src = traversal3.build_shared_sources(
+            td, cfg, THETA, blo, bhi, tables=tables,
+            tile_valid=tidx[:, 0] < GATE_N, tcell_lo=tcells[1],
+            tcell_hi=tcells[2], cand=cand)
+        out[where] = {**{"cand." + f: getattr(cand, f).cpu()
+                         for f in cand._fields},
+                      **{f: getattr(src, f).cpu() for f in src._fields
+                         if getattr(src, f) is not None}}
+    differ = [f for f in out["cuda"]
+              if not torch.equal(out["cuda"][f], out["cpu"][f])]
+    rec = dict(n=GATE_N, fields=sorted(out["cuda"]), differ=differ,
+               group_rows=int(out["cuda"]["cand.count"]),
+               sources=int(out["cuda"]["count"]),
+               mask_true=int(out["cuda"]["mask"].sum()))
+    emit("lmac_cpu_cuda", **rec)
+    if differ or rec["mask_true"] <= 0:
+        raise AssertionError(f"lmac sources differ between the card and the "
+                             f"CPU in {differ}")
+    return rec
+
+
+def lmac_layer_ms(tree, warm_ms: float) -> dict:
+    """Phase lmac_layers: a warm lmac+grid2 query split between device
+    syncs: the slices' group pre-filter, the chunks' predicate and
+    materialisation, the kernel call (active-block lists, K1c, the G
+    scale), the L2P of the kept leaf locals, the rest."""
+    from rakau_tpu_torch import engine, grid2, traversal3
+    from rakau_tpu_torch.kernels import dispatch
+    tree.accs_pots_o(THETA)     # the tree's state back into the engine's
+    #                             two-tree cache, after the other trees
+    t, total = synced_layers(tree, ((traversal3, "build_group_candidates"),
+                                    (traversal3, "build_shared_sources"),
+                                    (engine, "_chunk_sources"),
+                                    (dispatch, "eval_shared"),
+                                    (grid2, "l2p_particles")))
+    out = {"warm_query_ms": warm_ms,
+           "group_prefilter_ms": t["build_group_candidates"],
+           "predicate_ms": t["build_shared_sources"],
+           "chunk_rest_ms": t["_chunk_sources"] - t["build_shared_sources"],
+           "kernel_call_ms": t["eval_shared"], "l2p_ms": t["l2p_particles"],
+           "synced_query_ms": total}
+    out["rest_ms"] = total - t["build_group_candidates"] \
+        - t["_chunk_sources"] - t["eval_shared"] - t["l2p_particles"]
+    return out
+
+
+def lmac_main(pos, mass, oracle, dev):
+    """Phase lmac: the reference's lmac1m configuration (LMAC_KW), caps
+    grown by the Tree and fitted by tune_caps; once cold, WARM_REPS times
+    warm: K1c (mono_cell) launches = live chunks and no other form; the
+    group table's row count (maxima slot 2) above 0 and under its cap;
+    the accuracy bounds, and force RMS at most LMAC_SHARED_RATIO x the
+    shared engine's with the same far field, level and theta on the same
+    particles. Then its layers, profile, variants, K6's cell forms on its
+    chunks and its density. Returns the tree's config, the K6 cell forms
+    and launches, and the record."""
+    from rakau_tpu_torch import Tree, engine, grid2
+    from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
+    n = pos.shape[0]
+    cfg0 = TreeConfig(**LMAC_KW)
+    tree, build_ms = synced_ms(lambda: Tree(coords=pos, masses=mass,
+                                            config=cfg0))
+    _, cold_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+    grown = {f: getattr(tree.config, f) for f in OVF_FIELDS}
+    tree.tune_caps()
+    _, settle_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+    td, cfg = tree.tree_data, tree.config
+    chunks = engine.live_chunks(td, cfg)
+    (acc, pot), warm, counts = warm_counted(tree, WARM_REPS)
+    for c in counts:
+        k1_launches(c, chunks, ("mono_cell",), "lmac warm query")
+    if acc.shape != (n, 3) or pot.shape != (n,):
+        raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
+    finite("lmac accelerations or potentials", acc, pot)
+    f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
+    _, _, ovf, mx = engine.acc_pot_u_host(td, cfg, THETA, 0.0)
+    ovf, mx = ovf.cpu().tolist(), mx.cpu().tolist()
+    warm_ms = statistics.median(warm)
+    rec = dict(n=n, theta=THETA, farfield="grid2", local_order=4, grid_sep=2,
+               grid_level=grid2.effective_grid_level(cfg, n),
+               build_ms=build_ms, cold_query_ms=cold_ms, caps_grown=grown,
+               caps={f: getattr(cfg, f) for f in OVF_FIELDS},
+               first_query_after_tune_ms=settle_ms, warm_query_ms=warm_ms,
+               warm_query_ms_all=warm,
+               warm_spread=(max(warm) - min(warm)) / warm_ms,
+               n_tiles=int(td.n_tiles), chunks=chunks,
+               slices=engine._slices(chunks, cfg.tile_chunk),
+               launches_per_warm_query=[c["K1"]["mono_cell"]
+                                        for c in counts],
+               maxima=mx, overflow=ovf, evals_per_s=n / (warm_ms / 1e3),
+               force_rms=f_rms, pot_rms=p_rms)
+
+    # the shared engine beside it: same far field, level and theta
+    stree = Tree(coords=pos, masses=mass, config=cfg0.with_(
+        traversal_mode="shared", frontier_cap=TREE_KW["frontier_cap"]))
+    (sacc, spot), s_ms = synced_ms(lambda: stree.accs_pots_o(THETA))
+    s_f, s_p = sampled_rms(sacc, spot, *oracle, dev)
+    rec.update(shared_force_rms=s_f, shared_pot_rms=s_p,
+               shared_first_query_ms=s_ms, shared_grid_level=
+               grid2.effective_grid_level(stree.config, n),
+               force_rms_over_shared=f_rms / s_f)
+    del stree, sacc, spot
+    emit("lmac", **rec)
+    if any(ovf) or not 0 < mx[2] < cfg.frontier_cap:
+        raise AssertionError(f"lmac group table: maxima {mx}, overflow "
+                             f"{ovf}, cap {cfg.frontier_cap}")
+    if not (f_rms < FORCE_RMS_MAX and p_rms < POT_RMS_MAX):
+        raise AssertionError(f"lmac accuracy: force rms {f_rms:.3e}, pot "
+                             f"rms {p_rms:.3e}")
+    if not f_rms <= LMAC_SHARED_RATIO * s_f:
+        raise AssertionError(f"lmac force rms {f_rms:.3e} above "
+                             f"{LMAC_SHARED_RATIO} x the shared engine's "
+                             f"{s_f:.3e}")
+    emit("lmac_layers", **lmac_layer_ms(tree, warm_ms))
+    emit("lmac_profile", **profile_record(
+        device_profile(tree, "shared_fused_kernel", "k1c_device_ms"),
+        warm_ms))
+    vrec, v_launches = variant_queries(tree, oracle, (f_rms, p_rms),
+                                       "mma_cell", dev)
+    emit("variants", config="lmac+grid2", **vrec)
+    forms = variant_kernels(tree, n, "lmac+grid2", dev)
+    density(tree, "lmac+grid2")
+    return cfg, forms, v_launches, rec
+
+
+def lmac_gate(seed: int, dev) -> dict:
+    """Phase lmac_gate: the reference's accuracy gate (GATE_KW at GATE_N
+    particles, theta GATE_THETA): sampled force RMS at most
+    GATE_FORCE_RMS_MAX against the float64 direct sum; per chunk one
+    launch of the quadrupole cell form (node rows) and one of the monopole
+    cell form (particle rows), both compensated."""
+    from rakau_tpu_torch import Tree, direct_acc_pot_np, engine, particles
+    from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(GATE_N, generator=gen)
+    samp = np.sort(np.random.default_rng(seed + 1).choice(GATE_N, 256,
+                                                          replace=False))
+    acc_o, pot_o = direct_acc_pot_np(pos.double().cpu().numpy(),
+                                     mass.double().cpu().numpy(),
+                                     targets=samp)
+    tree = Tree(coords=pos, masses=mass, config=TreeConfig(**GATE_KW))
+    _, cold_ms = event_ms(lambda: tree.accs_pots_o(GATE_THETA))
+    (acc, pot), ms, counts = warm_counted(tree, 1, GATE_THETA)
+    chunks = engine.live_chunks(tree.tree_data, tree.config)
+    k1_launches(counts[0], chunks, ("quad_comp_cell", "mono_comp_cell"),
+                "lmac gate query")
+    finite("lmac gate result", acc, pot)
+    f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
+    rec = dict(n=GATE_N, theta=GATE_THETA, local_order=6, grid_sep=3,
+               multipole_order=2, accum="compensated", chunks=chunks,
+               caps={f: getattr(tree.config, f) for f in OVF_FIELDS},
+               cold_query_ms=cold_ms, warm_query_ms=ms[0], force_rms=f_rms,
+               pot_rms=p_rms, launches={f: v for f, v in
+                                        counts[0]["K1"].items() if v})
+    emit("lmac_gate", **rec)
+    if not f_rms <= GATE_FORCE_RMS_MAX:
+        raise AssertionError(f"lmac gate: force rms {f_rms:.3e} above "
+                             f"{GATE_FORCE_RMS_MAX}")
+    return rec
+
+
 def leapfrog(n: int, seed: int, dev):
     """BASELINE config #2 on the card through rakau_tpu_torch.integrate
     (phase 9). Returns the phase's record and the energy tree and config
@@ -1573,6 +2154,8 @@ def main(argv=None) -> int:
     edge_err, cancel = pool_edge_cases(dev)
     emit("edge_pool", max_abs_err=edge_err, cancellation_err=cancel)
     emit("edge_cell", max_abs_err=cell_edge_cases(shared, dev))
+    emit("edge_mma", max_abs_err=mma_edge_cases(shared, dev))
+    emit("edge_blocks", max_abs_err=blocks_edge_cases(shared, dev))
 
     # ---- main path -----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1600,8 +2183,7 @@ def main(argv=None) -> int:
         shared.reset_launches()
         (acc, pot), ms = query()
         per_query.append(shared.launches["mono"])
-        if any(shared.launches[f] for f in ("mono_comp", "quad",
-                                            "quad_comp")):
+        if any(v for f, v in shared.launches.items() if f != "mono"):
             raise AssertionError(f"main path launches {shared.launches}")
         warm.append(ms)
     launches = per_query[0]
@@ -1671,17 +2253,31 @@ def main(argv=None) -> int:
     if not f_rms < FORCE_RMS_MAX or not p_rms < POT_RMS_MAX:
         raise AssertionError(f"accuracy: force rms {f_rms:.3e}, "
                              f"pot rms {p_rms:.3e}")
+    # ---- the row's other evaluators on the same query: K6 and K5 --------
+    oracle = (acc_o, pot_o, samp)
+    vrec, v_launches = variant_queries(tree, oracle, (f_rms, p_rms), "mma",
+                                       dev)
+    emit("variants", config="shared+grid", **vrec)
+    v_forms = variant_kernels(tree, args.n, "shared+grid", dev)
+    density(tree, "shared+grid")
     del tree, td, acc, pot
     torch.cuda.empty_cache()
 
     # ---- grid2: the conv-M2L far field on the shared traversal ----------
-    oracle = (acc_o, pot_o, samp)
     g2tree, g2qtree, c_launches, g2 = grid2_shared(pos, mass, oracle,
                                                    (f_rms, p_rms), dev)
     emit("grid2_layers", **grid2_layer_ms(g2tree, g2["warm_query_ms"]))
     grid2_tf32(g2tree, dev)
     c_forms = cell_kernels(g2tree, g2qtree, args.n)
     del g2tree, g2qtree
+    torch.cuda.empty_cache()
+
+    # ---- the lmac engine: no walk, one predicate panel a chunk -----------
+    lmac_cpu_cuda(args.seed + 3, dev)
+    lmac_cfg, lv_forms, lv_launches, _ = lmac_main(pos, mass, oracle, dev)
+    torch.cuda.empty_cache()
+    lmac_gate(args.seed + 4, dev)
+    kernel_roofs(cfg, lmac_cfg)
     torch.cuda.empty_cache()
 
     # ---- the gwalk engine: one walk, one pool, one K2 launch -------------
@@ -1742,6 +2338,20 @@ def main(argv=None) -> int:
                         "replaces": POOL_REPLACES, "launches": n_launch,
                         **{k: v for k, v in k2[form].items()
                            if k != "modes"}, "library_ms": None})
+    for forms_, launches_, cell in ((v_forms, v_launches, ""),
+                                    (lv_forms, lv_launches, "_cell")):
+        for prec in PRECS:
+            kernels.append({
+                "name": f"K6 shared_mma ({prec}"
+                        + (", cell test)" if cell else ")"),
+                "route": "cuda", "source": MMA_SRC, "replaces": MMA_REPLACES,
+                "launches": launches_[f"mma/{prec}"],
+                **forms_[f"mma{cell}/{prec}"], "library_ms": None})
+    kernels.append({"name": "K5 shared_blocks (monopole, fp32)",
+                    "route": "cuda", "source": BLOCKS_SRC,
+                    "replaces": BLOCKS_REPLACES,
+                    "launches": v_launches["blocks"], **v_forms["blocks"],
+                    "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Carry state across from the JAX package: the config, a built tree,
-the gwalk incidence lists and an integration state.
+the gwalk incidence lists, the lmac tables and an integration state.
 
 For an N-body engine the "parameters" are the configuration and the
 tree. These helpers take the JAX objects' plain data (a dataclass, numpy
@@ -17,6 +17,7 @@ import torch
 from .build import TreeData
 from .config import TreeConfig
 from .integrate import NBodyState
+from .traversal3 import GroupCand, LmacTables
 from .traversal4 import GlobalLists
 
 
@@ -54,6 +55,39 @@ def global_lists_from_numpy(arrays: dict, device) -> GlobalLists:
     traversal4.GlobalLists on `device`, integer arrays as int64."""
     return GlobalLists(**{k: _tensor(arrays[k], device)
                           for k in GlobalLists._fields})
+
+
+def _split_lm(lm: np.ndarray, ndim: int, device):
+    """The reference's packed lmac node rows [K, 3D+6(+Q)] (floats, with
+    level + 64 * leaf flag, parent level and packed cell stored as
+    floats) -> the port's (ff [K, 3D+3(+Q)] float, fi [K, 4] int64)."""
+    D = ndim
+    lm = np.asarray(lm)
+    lvl_leaf = lm[:, 2 * D + 1].astype(np.int64)
+    fi = np.stack([lvl_leaf & 63, (lvl_leaf >= 64).astype(np.int64),
+                   lm[:, 2 * D + 2].astype(np.int64),
+                   lm[:, 2 * D + 5].astype(np.int64)], axis=1)
+    ff = np.concatenate([lm[:, :2 * D + 1], lm[:, 2 * D + 3:2 * D + 5],
+                         lm[:, 2 * D + 6:]], axis=1)
+    return _tensor(ff, device), _tensor(fi, device)
+
+
+def lmac_tables_from_numpy(lm, pm, ndim: int, L0: int, device) -> LmacTables:
+    """The fields of a JAX `traversal3.LmacTables` (lm, pm as numpy
+    arrays, ndim, L0) -> traversal3.LmacTables on `device`."""
+    ff, fi = _split_lm(lm, ndim, device)
+    return LmacTables(ff=ff, fi=fi, pm=_tensor(pm, device), L0=int(L0))
+
+
+def group_cand_from_numpy(lm, begin, end, overflow, count, ndim: int,
+                          device) -> GroupCand:
+    """The fields of a JAX `traversal3.GroupCand` as numpy arrays ->
+    traversal3.GroupCand on `device`."""
+    ff, fi = _split_lm(lm, ndim, device)
+    return GroupCand(ff=ff, fi=fi, begin=_tensor(begin, device),
+                     end=_tensor(end, device),
+                     overflow=_tensor(np.asarray(overflow, bool), device),
+                     count=_tensor(np.asarray(count), device))
 
 
 def nbody_state_from_numpy(pos, vel, mass, device):

@@ -37,17 +37,7 @@
 // cells arrive as int32 triples, and a source's cell is packed at staging
 // into one int32 (-1 for an exempt row), because three more ints per
 // source would take the QUAD panel past the 48 KB of static shared memory.
-// Integer operations run at half the fp32 rate on this card, so the test
-// is not done per coordinate (3 extractions, 3 differences, 3 absolute
-// values, 2 maxima: measured 3x the monopole kernel's time) but on the
-// packed word at once. The three coordinates sit in fields of kFieldBits
-// = 10 bits, and the thread adds its own constant, per field
-// 512 + sep - 1 - tc_d, so that each field holds
-//     v_d = sc_d - tc_d + sep - 1 + 512  in (0, 1024): no carry crosses,
-// and the pair is near in dimension d iff 512 <= v_d <= 512 + 2 sep - 2:
-// the field's top bit is set, and its low 9 bits plus 513 - 2 sep do not
-// reach the top bit. One add, one and, one add, one three-input logic
-// operation and two compares a pair.
+// The test runs on the packed word at once (cell_test.cuh).
 //
 // COMP: each thread sums one staged source block into fp32 partials, then
 // adds each partial into its running sum with Knuth's TwoSum and keeps the
@@ -89,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cell_test.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;   // targets per CUDA block, one per thread
@@ -102,24 +94,6 @@ static_assert(kBlock * (sizeof(float4) + sizeof(int) + kQuad * sizeof(float)
                         + sizeof(int))
                   <= 48 * 1024,
               "the largest source panel must fit in static shared memory");
-// Cell coordinates lie below 2^kCellBits (kernels/shared.py:CELL_BITS:
-// grid2's leaf grids end at level 7), and sep at or below it. A packed cell
-// holds them in three fields of kFieldBits bits; kTopMask has each field's
-// top bit, kLowMask the bits below it.
-constexpr int kCellBits = 7;
-constexpr int kFieldBits = 10;
-constexpr int kFieldTop = 1 << (kFieldBits - 1);
-
-__host__ __device__ constexpr int pack3(int a, int b, int c)
-{
-    return (a << (2 * kFieldBits)) | (b << kFieldBits) | c;
-}
-
-constexpr int kTopMask = pack3(kFieldTop, kFieldTop, kFieldTop);
-constexpr int kLowMask = pack3(kFieldTop - 1, kFieldTop - 1, kFieldTop - 1);
-static_assert((1 << kCellBits) + (1 << kCellBits) + kFieldTop
-                  <= (1 << kFieldBits),
-              "a field must hold coordinate + sep + 512 without a carry");
 constexpr int kMaskedIdx = INT32_MIN;   // staged idx of a masked-out source
 enum Mode { kBoth = 0, kAcc = 1, kPot = 2 };
 
@@ -166,16 +140,9 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
         ty = tgt[3 * tc + 1];
         tz = tgt[3 * tc + 2];
         ti = static_cast<int>(tgt_idx[tc]);
-        if (CELL) {
-            const int bias = kFieldTop + sep - 1;
-            tk = pack3(bias - tgt_cell[3 * tc], bias - tgt_cell[3 * tc + 1],
-                       bias - tgt_cell[3 * tc + 2]);
-        }
+        if (CELL) tk = cell_target_word(tgt_cell + 3 * tc, sep);
     }
-    // per field 511 - (2 sep - 2): carries a field's low bits into its top
-    // bit exactly when they exceed 2 sep - 2
-    const int over = kFieldTop + 1 - 2 * sep;
-    const int cb = CELL ? pack3(over, over, over) : 0;
+    const int cb = CELL ? cell_over_word(sep) : 0;
     const int32_t* my_ids = ids + static_cast<size_t>(c) * NB;
     const uint8_t* my_mask = mask + static_cast<size_t>(c) * S;
     const int nblk = cnt[c];
@@ -202,14 +169,9 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
             s_pm[j] = v;
             s_idx[j] = id;
             if (CELL) {
-                int pc = -1;       // padding past S: exempt, and massless
-                if (s < S) {
-                    const size_t s3 = 3 * static_cast<size_t>(s);
-                    const int c0 = src_cell[s3];
-                    if (c0 >= 0)
-                        pc = pack3(c0, src_cell[s3 + 1], src_cell[s3 + 2]);
-                }
-                s_cell[j] = pc;
+                // padding past S: exempt, and massless
+                s_cell[j] = s < S ? cell_source_word(
+                    src_cell + 3 * static_cast<size_t>(s)) : -1;
             }
             if (QUAD) {
                 const size_t s6 = kQuad * static_cast<size_t>(s);
@@ -233,10 +195,7 @@ shared_fused_kernel(const float* __restrict__ tgt,        // [C, T, 3]
             bool dead = sid == ti || r2 <= 0.f;
             if (QUAD) dead = dead || sid == kMaskedIdx;
             if (CELL) {
-                const int pc = s_cell[j];
-                const int v = pc + tk;
-                const int x = (v & kLowMask) + cb;
-                dead = dead || (pc >= 0 && ((~v | x) & kTopMask) != 0);
+                dead = dead || cell_far(s_cell[j], tk, cb);
             }
             if (dead) inv_r = 0.f;
             const float w = v.w * inv_r;

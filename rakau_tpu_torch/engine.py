@@ -1,20 +1,23 @@
 """Query engine: tree + per-call (theta, eps, G) -> accelerations and
-potentials. Counterpart of `rakau_tpu.engine`, shared and gwalk
+potentials. Counterpart of `rakau_tpu.engine`, shared, lmac and gwalk
 traversals.
 
-Shared: target tiles are processed in chunks of `tile_chunk` (chunking
-bounds the peak memory of the padded source rows): per chunk, the union
-walk (traversal2) builds one shared source row with per-tile masks;
-accepted nodes far from a tile go to its local Taylor expansion,
-together with the dense grid far field handed down to the tile
-(farfield="grid"); the rest goes through the pairwise kernel
-(kernels.dispatch).
+Shared and lmac: target tiles are processed in chunks of `tile_chunk`
+(chunking bounds the peak memory of the padded source rows): per chunk,
+the union walk (traversal2) or the walk-free local-MAC predicate
+(traversal3) builds one shared source row with per-tile masks; accepted
+nodes far from a tile go to its local Taylor expansion, together with the
+dense grid far field handed down to the tile (farfield="grid"); the rest
+goes through the pairwise kernel (kernels.dispatch). lmac runs the chunks
+in slices: each slice first filters the node table against its bounding
+box (traversal3.build_group_candidates), and its chunks run their
+predicate over that candidate table.
 
 gwalk: one global (tile, node) walk and one block-aligned source pool
 for all tiles (traversal4), one launch of the pool kernel, and with
 farfield="grid" the dense far field handed down to every tile.
 
-farfield="grid2" (either traversal): the conv-M2L far field of grid2.py,
+farfield="grid2" (every traversal): the conv-M2L far field of grid2.py,
 evaluated per particle and added once per query; the near field is
 closed per pair, in the shared path by the kernel's cell-separation test
 (tiles span several leaf-grid cells), in gwalk by cell-clipped tiles and
@@ -30,7 +33,7 @@ import torch.nn.functional as F
 
 from . import expansion
 from . import grid as gridmod
-from . import grid2, traversal2, traversal4
+from . import grid2, traversal2, traversal3, traversal4
 from .build import TreeData, _quad_dim
 from .config import OVF_FIELDS, TreeConfig, fit_caps, fit_round_caps
 from .kernels import dispatch
@@ -39,21 +42,31 @@ from .kernels import dispatch
 def check_supported(cfg: TreeConfig):
     """Raise NotImplementedError for modes outside the ported slice.
 
-    Ported: the shared traversal with the "local", "m2p", "grid" and
-    "grid2" far fields and the gwalk traversal with "m2p", "grid" and
-    "grid2", each with fp32 or compensated accumulation, and the
-    quadrupole with "m2p" and "grid2". The quadrupole with
-    "local"/"grid" (RAKAU_DIAG_MODES=1 only) runs on the reference's
-    lists path, which is not ported."""
-    if cfg.traversal_mode not in ("shared", "gwalk"):
+    Ported: the shared and the lmac traversal with the "local", "m2p",
+    "grid" and "grid2" far fields and the gwalk traversal with "m2p",
+    "grid" and "grid2", each with fp32 or compensated accumulation, and
+    the quadrupole with "m2p" and "grid2". The lists traversal and the
+    quadrupole with "local"/"grid" (both RAKAU_DIAG_MODES=1 only) run on
+    the reference's lists path, which is not ported."""
+    if cfg.traversal_mode not in ("shared", "lmac", "gwalk"):
         raise NotImplementedError(
             f"traversal_mode={cfg.traversal_mode!r} is not ported "
-            "(only 'shared' and 'gwalk')")
+            "(only 'shared', 'lmac' and 'gwalk')")
     if cfg.multipole_order == 2 and cfg.farfield not in ("m2p", "grid2"):
         raise NotImplementedError(
             "multipole_order=2 is ported with farfield='m2p' or 'grid2' "
             "only (the reference runs it on the unported lists path "
             "otherwise)")
+
+
+def _use_shared(cfg: TreeConfig) -> bool:
+    """The query runs on shared source rows: the "shared" union walk or
+    the "lmac" local MAC, both of which give SharedSources."""
+    return cfg.traversal_mode in ("shared", "lmac")
+
+
+def _traversal_mod(cfg: TreeConfig):
+    return traversal3 if cfg.traversal_mode == "lmac" else traversal2
 
 
 def _gather_tiles(td: TreeData, cfg: TreeConfig):
@@ -113,19 +126,23 @@ def _chunk_tiles(tiles, chunk: int):
 
 
 def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
-                   tpos, tidx, blo, bhi, tables, tcell, Lgrid, tcells=None):
-    """Walk + far field for one chunk of C tiles. Returns (src, mask,
+                   tpos, tidx, blo, bhi, tables, tcell, Lgrid, tcells=None,
+                   cand=None):
+    """Traversal + far field for one chunk of C tiles. Returns (src, mask,
     acc_l, pot_l): the shared sources, the per-tile kernel mask [C, S]
     and the local-expansion field at the targets (None with "m2p" and
     "grid2"). tcells (grid2): the chunk's (tgt_cell, tcell_lo,
-    tcell_hi); the walk's drop test then takes the tile's cell range."""
+    tcell_hi); the drop test then takes the tile's cell range. cand
+    (lmac): the candidate table of the chunk's slice."""
     n, ndim = td.pos.shape
     dtype = td.pos.dtype
     tvalid = tidx[:, 0] < n
     ckw = dict(tile_cell=tcell)
     if tcells is not None:
         ckw = dict(tcell_lo=tcells[1], tcell_hi=tcells[2])
-    src = traversal2.build_shared_sources(
+    if cand is not None:
+        ckw["cand"] = cand
+    src = _traversal_mod(cfg).build_shared_sources(
         td, cfg, theta, blo, bhi, tables=tables, tile_valid=tvalid, **ckw)
     mask = src.mask
     acc_l = pot_l = None
@@ -166,13 +183,13 @@ def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
 
 def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
                 tpos, tidx, blo, bhi, tables, tcell, Lgrid, mode="both",
-                tcells=None):
-    """Walk + far field + kernel for one chunk of C tiles. Returns
+                tcells=None, cand=None):
+    """Traversal + far field + kernel for one chunk of C tiles. Returns
     (acc [C, T, D], pot [C, T], overflow [4], maxima [4]). The grid2 far
     field is not added here: it is per particle, once per query."""
     src, mask, acc_l, pot_l = _chunk_sources(
         td, cfg, theta, eps, G, tpos, tidx, blo, bhi, tables, tcell, Lgrid,
-        tcells)
+        tcells, cand)
     acc, pot = dispatch.eval_shared(
         cfg, tpos, tidx, src.pos, src.mass, src.idx, mask, eps, G,
         mode=mode, src_quad=src.quad, src_cell=src.cell,
@@ -245,8 +262,8 @@ def _query_state(td, cfg, eps):
     # id() can be reused after GC; verify the cached tree is the caller's
     if hit is not None and hit[0] is td.pos and hit[1] is td.mass:
         return hit[2]
-    tables = (traversal2.make_tables(td, cfg)
-              if cfg.traversal_mode == "shared" else None)
+    tables = (_traversal_mod(cfg).make_tables(td, cfg)
+              if _use_shared(cfg) else None)
     state = (_gather_tiles(td, cfg), tables, _grid_farfield(td, cfg, eps))
     while len(_QUERY_STATE_CACHE) >= 2:
         _QUERY_STATE_CACHE.pop(next(iter(_QUERY_STATE_CACHE)))
@@ -262,6 +279,33 @@ def live_chunks(td: TreeData, cfg: TreeConfig) -> int:
     return min(max(1, -(-int(td.n_tiles) // CH)), -(-TC // CH))
 
 
+def _slices(n_live: int, tile_chunk: int, slice_chunks=None):
+    """The slices of a query's live chunks, as (first new chunk, first
+    chunk, chunks) each: `slice_chunks` chunks a slice (default about
+    1024 tiles, at least 32 chunks), the last one moved back to end at
+    n_live, so that every slice has the same number of chunks; its chunks
+    before `first new chunk` belong to the slice before."""
+    if slice_chunks is None:
+        slice_chunks = max(32, 1024 // max(tile_chunk, 1))
+    K = min(slice_chunks, n_live)
+    return [(s, min(s, n_live - K), K) for s in range(0, n_live, K)]
+
+
+def _slice_cand(td: TreeData, cfg: TreeConfig, theta, tiles, tables,
+                start: int, K: int):
+    """The lmac candidate table of chunks [start, start + K): one
+    relevance pass and compaction over the whole node table against the
+    slice's bounding box, so that each chunk's predicate runs over
+    frontier_cap candidate rows instead of every node."""
+    n, ndim = td.pos.shape
+    flat = [t[start:start + K].reshape((-1,) + t.shape[2:]) for t in tiles]
+    # grid2: each tile's cell range; "grid": cell-clipped tiles, one cell
+    clo, chi = (flat[6], flat[7]) if len(flat) > 5 else (flat[4], flat[4])
+    return traversal3.build_group_candidates(
+        td, cfg, theta, flat[2], flat[3], tables,
+        tile_valid=flat[1][:, 0] < n, tcell_lo=clo, tcell_hi=chi)
+
+
 def kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps, chunk: int):
     """The pairwise kernel's arguments for chunk `chunk` of a query:
     (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, src_quad,
@@ -271,8 +315,15 @@ def kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps, chunk: int):
     farfield="grid2", else None)."""
     tiles, tables, Lgrid = _query_state(td, cfg, eps)
     (tpos, tidx, blo, bhi, tcell), tcells = _chunk_tiles(tiles, chunk)
+    cand = None
+    if cfg.traversal_mode == "lmac":
+        _, start, K = [sl for sl in _slices(live_chunks(td, cfg),
+                                            cfg.tile_chunk)
+                       if sl[0] <= chunk][-1]
+        cand = _slice_cand(td, cfg, theta, tiles, tables, start, K)
     src, mask, _, _ = _chunk_sources(td, cfg, theta, eps, 1.0, tpos, tidx,
-                                     blo, bhi, tables, tcell, Lgrid, tcells)
+                                     blo, bhi, tables, tcell, Lgrid, tcells,
+                                     cand)
     return (tpos, tidx, src.pos, src.mass, src.idx, mask, src.quad,
             src.cell, None if tcells is None else tcells[0])
 
@@ -410,12 +461,14 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
 
 
 def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
-                   mode: str = "both"):
+                   slice_chunks: int = None, mode: str = "both"):
     """Accelerations [N, D] and potentials [N] in Morton order, plus the
     overflow flags [4] and maxima [4] (aligned with config.OVF_FIELDS)
-    of the query. Shared: a Python loop over the chunks that hold real
-    tiles; gwalk: one walk, pool and kernel launch for all tiles. theta,
-    eps and G are Python numbers."""
+    of the query. Shared and lmac: a Python loop over the chunks that hold
+    real tiles, with lmac in slices of `slice_chunks` chunks (_slices),
+    each with its candidate table, whose overflow and row count ride the
+    frontier slots (flag 3, maximum 2); gwalk: one walk, pool and kernel
+    launch for all tiles. theta, eps and G are Python numbers."""
     check_supported(cfg)
     tiles, tables, Lgrid = _query_state(td, cfg, eps)
     if cfg.traversal_mode == "gwalk":
@@ -427,14 +480,22 @@ def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     ovf = torch.zeros(4, dtype=torch.bool, device=dev)
     mx = torch.zeros(4, dtype=torch.int64, device=dev)
     accs, pots = [], []
-    for i in range(live_chunks(td, cfg)):
-        base, tcells = _chunk_tiles(tiles, i)
-        a, p, o, m = _eval_chunk(td, cfg, theta, eps, G, *base[:4], tables,
-                                 base[4], Lgrid, mode=mode, tcells=tcells)
-        accs.append(a)
-        pots.append(p)
-        ovf = ovf | o
-        mx = torch.maximum(mx, m)
+    n_live = live_chunks(td, cfg)
+    for s, start, K in _slices(n_live, cfg.tile_chunk, slice_chunks):
+        cand = None
+        if cfg.traversal_mode == "lmac":
+            cand = _slice_cand(td, cfg, theta, tiles, tables, start, K)
+            ovf[3] |= cand.overflow
+            mx[2] = torch.maximum(mx[2], cand.count)
+        for i in range(s, start + K):
+            base, tcells = _chunk_tiles(tiles, i)
+            a, p, o, m = _eval_chunk(td, cfg, theta, eps, G, *base[:4],
+                                     tables, base[4], Lgrid, mode=mode,
+                                     tcells=tcells, cand=cand)
+            accs.append(a)
+            pots.append(p)
+            ovf = ovf | o
+            mx = torch.maximum(mx, m)
     acc_u, pot_u = _assemble_impl(td, cfg, torch.cat(accs), torch.cat(pots))
     acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
     return acc_u, pot_u, ovf, mx

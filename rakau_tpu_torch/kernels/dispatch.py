@@ -5,8 +5,18 @@ evaluations. Counterpart of `rakau_tpu.kernels.dispatch.eval_shared` and
 The device of the tensors decides: CUDA tensors go to the hand-written
 kernel in the asked form (or raise), CPU tensors to the plain PyTorch
 version. Nothing falls back from one to the other.
+
+The shared row has three evaluators. The default is the fused kernel
+(kernels.shared.eval_shared_fused, every form). `shared_variant` selects,
+for the calls made inside it, the tensor-core form ("mma", at a precision)
+or the split-source form ("blocks"); it is a diagnostic switch, read at
+call time, and no TreeConfig field. (The reference reaches its matrix-unit
+kernel by two environment variables read at trace time, and its
+split-source kernel by no engine route.)
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -14,13 +24,53 @@ from ..config import TreeConfig
 from . import pool, shared
 
 
+VARIANTS = ("fused", "mma", "blocks")
+# the selected evaluator of the shared row and the "mma" precision
+_variant = ("fused", "x3")
+
+
+@contextmanager
+def shared_variant(name: str, prec: str = "x3"):
+    """Inside the block, eval_shared evaluates the shared row by `name`:
+    "fused" (the default), "mma" (the tensor-core form at precision
+    `prec`, "bf16" | "x3" | "highest"; a compensated or a quadrupole
+    launch still goes to the fused kernel, which alone has those forms) or
+    "blocks" (the split-source form: monopole fp32, mode "both", no cells;
+    anything else raises ValueError at the call)."""
+    global _variant
+    if name not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
+    if prec not in shared.PRECS:
+        raise ValueError(f"prec must be one of {tuple(shared.PRECS)}")
+    saved = _variant
+    _variant = (name, prec)
+    try:
+        yield
+    finally:
+        _variant = saved
+
+
 def _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
           mode, compensated, src_quad=None, src_cell=None, tgt_cell=None,
           grid_sep=0):
-    fn = shared.eval_shared_fused if tgt_pos.is_cuda \
-        else shared.eval_shared_plain
-    return fn(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
-              mode=mode, compensated=compensated, src_quad=src_quad,
+    name, prec = _variant
+    cuda = tgt_pos.is_cuda
+    row = (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G)
+    if name == "blocks":
+        if (compensated or src_quad is not None or src_cell is not None
+                or mode != "both"):
+            raise ValueError(
+                "shared_variant('blocks') evaluates the monopole in fp32 "
+                "sums, mode 'both', without cells only")
+        fn = shared.eval_shared_blocks if cuda \
+            else shared.eval_shared_blocks_plain
+        return fn(*row)
+    if name == "mma" and not compensated and src_quad is None:
+        fn = shared.eval_shared_mma if cuda else shared.eval_shared_mma_plain
+        return fn(*row, mode=mode, prec=prec, src_cell=src_cell,
+                  tgt_cell=tgt_cell, grid_sep=grid_sep)
+    fn = shared.eval_shared_fused if cuda else shared.eval_shared_plain
+    return fn(*row, mode=mode, compensated=compensated, src_quad=src_quad,
               src_cell=src_cell, tgt_cell=tgt_cell, grid_sep=grid_sep)
 
 

@@ -22,11 +22,12 @@ import ctypes
 
 import torch
 
-from .shared import _MODES, FORMS, _check, _quad_terms, _two_sum
+from .shared import _MODES, _check, _quad_terms, _two_sum
 from . import shared
 
 # Kernel launches per form, counted where the wrapper launches (the main
 # path's proof of use).
+FORMS = ("mono", "mono_comp", "quad", "quad_comp")
 launches = dict.fromkeys(FORMS, 0)
 
 

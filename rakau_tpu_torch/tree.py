@@ -140,6 +140,14 @@ class Tree:
     # ------------------------------------------------------------ queries
     def _query(self, theta, eps, G, mode="both"):
         cfg = self._cfg
+        if (cfg.traversal_mode == "lmac" and cfg.mac == "bh_geom"
+                and float(theta) > 2.0 / cfg.ndim ** 0.5):
+            # lmac's partition argument needs A(t, parent) => A(t, child);
+            # with bh_geom's delta that holds for theta <= 2/sqrt(D)
+            raise ValueError(
+                f"traversal_mode='lmac' with mac='bh_geom' requires "
+                f"theta <= {2.0 / cfg.ndim ** 0.5:.3f} "
+                f"(monotonicity bound); got {float(theta)}")
         for _ in range(self._max_retries):
             with phase_timer("traverse+eval"):
                 acc, pot, ovf, mx = _engine.acc_pot_u_host(

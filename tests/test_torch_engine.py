@@ -215,10 +215,13 @@ def test_float64_tree_on_cpu():
     assert _rms(pot, pot_o) < 4e-3
 
 
-@pytest.mark.parametrize("kw", [dict(traversal_mode="lmac"),
-                                dict(traversal_mode="lmac",
-                                     farfield="grid2")])
-def test_modes_outside_the_slice_raise_at_query(kw):
+@pytest.mark.parametrize("kw", [dict(traversal_mode="lists"),
+                                dict(farfield="grid", multipole_order=2)])
+def test_modes_outside_the_slice_raise_at_query(kw, monkeypatch):
+    """The lists traversal and the quadrupole with tile expansions (both
+    diagnostic modes of the reference, on its lists path) are not
+    ported."""
+    monkeypatch.setenv("RAKAU_DIAG_MODES", "1")
     pos, mass, _, _ = _data()
     cfg = config_from_jax(_cfg(**kw))
     with pytest.raises(NotImplementedError):

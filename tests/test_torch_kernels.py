@@ -6,9 +6,15 @@ quadrupole forms, each also with the grid2 cell-separation test (K1c).
 Tolerance rtol 2e-4, atol 2e-5: the bound tests/test_pallas.py holds the
 Pallas kernel to.
 
-The CUDA kernel itself runs only on a card; chip_smoke.py holds it
-against the plain version there. Here: its wrapper's input checks and
-its active-block plan."""
+The two other evaluators of the row likewise: the plain tensor-core form
+(K6) against the reference's matrix-unit kernel in interpret mode at each
+of its precisions (x3 and highest at the same tolerance, one bf16 pass at
+rtol 2e-2: 2^-8 a pair), the plain split-source form (K5) against
+`pallas.eval_shared` and the XLA reference, and dispatch's selector.
+
+The CUDA kernels themselves run only on a card; chip_smoke.py holds them
+against the plain versions there. Here: the wrappers' input checks and
+the active-block plan."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -392,6 +398,232 @@ def test_cell_operands_are_checked():
         shared.eval_shared_fused(*targs, 0.0, 1.0, grid_sep=2,
                                  src_cell=torch.as_tensor(scell),
                                  tgt_cell=torch.as_tensor(tcell))
+    # every fused form has its name; the row's other two evaluators theirs
     assert set(shared.FORMS) == {
         shared.form_name(q, c, g) for q in (False, True)
-        for c in (False, True) for g in (False, True)}
+        for c in (False, True) for g in (False, True)} | {
+            "mma", "mma_cell", "blocks"}
+
+
+# ------------------------------------------------- K6, the tensor-core form
+def make_mma_case(seed, C=4, T=32, S=384):
+    """make_case with source indices that mark the planted self pairs
+    only: the matrix-unit form drops pairs by distance, not by index, so a
+    random index that happens to equal a target's would be dropped by the
+    fused form alone. The softening is 0.25: the norm trick leaves a
+    rounding residue of ~2^-24 (|t'|^2 + |s'|^2) in r^2, which two
+    implementations round differently, and on these unclustered points
+    (local coordinates up to ~5) a pair at r ~ 0.05 would turn it into
+    ~1e-3 of its force; with r^2 + eps^2 >= 0.06 it stays under 1e-4."""
+    tpos, tidx, spos, smass, sidx, mask, _ = make_case(seed, C=C, T=T, S=S)
+    sidx[8:] = -1
+    return tpos, tidx, spos, smass, sidx, mask, 0.25
+
+
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+@pytest.mark.parametrize("cells", [False, True])
+@pytest.mark.parametrize("prec", ["bf16", "x3", "highest"])
+def test_plain_mma_matches_the_pallas_mxu_kernel(monkeypatch, prec, cells,
+                                                 mode):
+    case = make_mma_case(61, S=333)
+    eps = case[-1]
+    targs, jargs = _torch_args(case), _jax_args(case)
+    tkw, jkw = {}, {}
+    if cells:
+        scell, tcell = make_cells(62, 4, 32, 333)
+        tkw = dict(src_cell=torch.as_tensor(scell).long(),
+                   tgt_cell=torch.as_tensor(tcell).long(), grid_sep=2)
+        jkw = dict(src_cell=jnp.asarray(scell), tgt_cell=jnp.asarray(tcell),
+                   grid_sep=2)
+    monkeypatch.setenv("RAKAU_PALLAS_MXU", "1")
+    monkeypatch.setenv("RAKAU_MXU_PREC", prec)
+    want = pk.eval_shared_fused(*jargs, eps, 1.5, block=64, interpret=True,
+                                mode=mode, **jkw)
+    got = shared.eval_shared_mma_plain(*targs, eps, 1.5, mode=mode,
+                                       prec=prec, block=64, **tkw)
+    rtol = 2e-2 if prec == "bf16" else RTOL
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol,
+                                   atol=ATOL if prec != "bf16" else 2e-2)
+    assert not got[0][2].any() and not got[1][2].any()      # empty tile
+    # the planted self pairs (tile 0, targets 0..7) add nothing: without
+    # them target (0, 0) keeps its sums bit for bit
+    off = targs[5].clone()
+    off[0, 0] = False
+    bare = shared.eval_shared_mma_plain(*targs[:5], off, eps, 1.5, mode=mode,
+                                        prec=prec, block=64, **tkw)
+    assert torch.equal(bare[0][0, 0], got[0][0, 0])
+    assert torch.equal(bare[1][0, 0], got[1][0, 0])
+
+
+@pytest.mark.parametrize("prec,tol", [("highest", 1e-4), ("x3", 1e-4),
+                                      ("bf16", 5e-2)])
+def test_plain_mma_agrees_with_the_fused_form_on_a_tile(prec, tol):
+    """Another arithmetic, the same physics: on a compact tile with its
+    sources around it (where the norm trick's noise stays at rounding
+    level) the tensor-core form gives the fused form's sums."""
+    rng = np.random.default_rng(63)
+    C, T, S = 2, 48, 300
+    tpos = (rng.uniform(-0.5, 0.5, (C, T, 3))
+            + np.array([3.0, -2.0, 1.0])).astype(np.float32)
+    tidx = np.arange(C * T).reshape(C, T)
+    spos = (rng.uniform(-2, 2, (S, 3))
+            + np.array([3.0, -2.0, 1.0])).astype(np.float32)
+    spos[:T] = tpos[0]                                    # tile 0 itself
+    sidx = np.full(S, -1)
+    sidx[:T] = tidx[0]
+    args = (torch.as_tensor(tpos), torch.as_tensor(tidx),
+            torch.as_tensor(spos),
+            torch.as_tensor(rng.uniform(0.1, 1, S).astype(np.float32)),
+            torch.as_tensor(sidx), torch.as_tensor(
+                rng.uniform(size=(C, S)) < 0.7))
+    want = shared.eval_shared_plain(*args, 0.05, 1.0)
+    got = shared.eval_shared_mma_plain(*args, 0.05, 1.0, prec=prec)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) < tol
+
+
+def test_mma_operands_are_checked():
+    targs = _torch_args(make_mma_case(64))
+    with pytest.raises(ValueError, match="prec"):
+        shared.eval_shared_mma_plain(*targs, 0.0, 1.0, prec="tf32")
+    with pytest.raises(ValueError, match="mode"):
+        shared.eval_shared_mma_plain(*targs, 0.0, 1.0, mode="force")
+    with pytest.raises(ValueError, match="tgt_cell"):
+        shared.eval_shared_mma_plain(
+            *targs, 0.0, 1.0, src_cell=torch.zeros((384, 3),
+                                                   dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        shared.eval_shared_mma(*targs, 0.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        shared.eval_shared_blocks(*targs, 0.0, 1.0)
+
+
+# ----------------------------------------------- K5, the split-source form
+@pytest.mark.parametrize("nsplit", [1, 2, 6])
+def test_plain_blocks_matches_pallas_shared_and_xla(nsplit):
+    case = make_case(65)
+    eps = case[-1]
+    targs, jargs = _torch_args(case), _jax_args(case)
+    got = shared.eval_shared_blocks_plain(*targs, eps, 1.5, block=64,
+                                          nsplit=nsplit)
+    want_p = pk.eval_shared(*jargs, eps, 1.5, block=64, interpret=True)
+    want_x = xk.eval_shared(*jargs, eps, 1.5, block=64)
+    _close(got, want_p)
+    _close(got, want_x)
+    assert not got[0][2].any() and not got[1][2].any()      # empty tile
+    # the spans only regroup the per-block sums
+    one = shared.eval_shared_plain(*targs, eps, 1.5, block=64)
+    for g, w in zip(got, one):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    with pytest.raises(ValueError, match="nsplit"):
+        shared.eval_shared_blocks_plain(*targs, eps, 1.5, block=64,
+                                        nsplit=7)
+
+
+def test_blocks_nsplit_rule():
+    """As many spans as bring the launch to BLOCKS_PER_SM CUDA blocks a SM,
+    between 1 and one span a block."""
+    assert shared.BLOCKS_PER_SM == 8
+    assert shared.blocks_nsplit(32, 512, 57, 132) == 9      # 1152 blocks
+    assert shared.blocks_nsplit(32, 512, 4, 132) == 4       # one a block
+    assert shared.blocks_nsplit(64, 4096, 57, 132) == 1     # full already
+    assert shared.blocks_nsplit(1, 1, 1, 132) == 1
+
+
+def test_block_any_is_the_plan_of_every_form():
+    mask = torch.zeros((3, 2500), dtype=torch.bool)
+    mask[0, 5] = mask[0, 2050] = mask[1, 1024] = True
+    any_ = shared.block_any(mask)
+    assert any_.tolist() == [[True, False, True], [False, True, False],
+                             [False, False, False]]
+    ids, cnt = shared.active_blocks(mask)
+    assert cnt.tolist() == any_.sum(1).tolist()
+    assert ids[0, :2].tolist() == [0, 2] and ids[1, 0] == 1
+
+
+# ------------------------------------------------------------ the selector
+SEL_CFG = TreeConfig(farfield="m2p")
+
+
+def test_selector_routes_cpu_tensors_to_the_selected_plain_version():
+    case = make_mma_case(66)
+    eps = case[-1]
+    targs = _torch_args(case)
+    fused = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0)
+    with dispatch.shared_variant("mma", prec="bf16"):
+        got = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0, mode="acc")
+        want = shared.eval_shared_mma_plain(*targs, eps, 1.0, mode="acc",
+                                            prec="bf16")
+        assert torch.equal(got[0], want[0]) and not got[1].any()
+        assert not torch.equal(got[0], fused[0])
+        with dispatch.shared_variant("blocks"):
+            got = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0)
+            want = shared.eval_shared_blocks_plain(*targs, eps, 1.0)
+            assert torch.equal(got[0], want[0])
+        # the outer selection is back
+        again = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0, mode="acc")
+        assert torch.equal(again[0], shared.eval_shared_mma_plain(
+            *targs, eps, 1.0, mode="acc", prec="bf16")[0])
+    back = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0)
+    assert torch.equal(back[0], fused[0]) and torch.equal(back[1], fused[1])
+    # the default precision is x3
+    with dispatch.shared_variant("mma"):
+        got = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0)
+    want = shared.eval_shared_mma_plain(*targs, eps, 1.0, prec="x3")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_selector_mma_leaves_compensated_and_quadrupole_to_the_fused_form():
+    case, quad = make_quad_case(67)
+    eps = case[-1]
+    targs = _torch_args(case)
+    comp_cfg = TreeConfig(farfield="m2p", accum="compensated")
+    quad_cfg = TreeConfig(farfield="m2p", multipole_order=2)
+    U = 64
+    q = torch.as_tensor(quad[:U])
+    want_c = dispatch.eval_shared(comp_cfg, *targs, eps, 1.0)
+    want_q = dispatch.eval_shared(quad_cfg, *targs, eps, 1.0, src_quad=q)
+    with dispatch.shared_variant("mma", prec="highest"):
+        got_c = dispatch.eval_shared(comp_cfg, *targs, eps, 1.0)
+        got_q = dispatch.eval_shared(quad_cfg, *targs, eps, 1.0, src_quad=q)
+    # compensated: the fused form, bit for bit
+    assert torch.equal(got_c[0], want_c[0]) and torch.equal(got_c[1],
+                                                            want_c[1])
+    # quadrupole: the node rows [0, U) stay fused, the particle rows go to
+    # the tensor-core form
+    a_n, p_n = shared.eval_shared_plain(
+        *targs[:2], *(t[:U] for t in targs[2:5]),
+        targs[5][:, :U].contiguous(), eps, 1.0, src_quad=q)
+    a_p, p_p = shared.eval_shared_mma_plain(
+        *targs[:2], *(t[U:] for t in targs[2:5]),
+        targs[5][:, U:].contiguous(), eps, 1.0, prec="highest")
+    assert torch.equal(got_q[0], a_p + a_n) and torch.equal(got_q[1],
+                                                            p_p + p_n)
+    _close(got_q, [w.numpy() for w in want_q])
+
+
+def test_selector_refuses_what_a_variant_does_not_compute():
+    case = make_mma_case(68)
+    eps = case[-1]
+    targs = _torch_args(case)
+    scell, tcell = make_cells(69, 4, 32, 384)
+    cells = dict(src_cell=torch.as_tensor(scell).long(),
+                 tgt_cell=torch.as_tensor(tcell).long())
+    with pytest.raises(ValueError, match="variant"):
+        with dispatch.shared_variant("mxu"):
+            pass
+    with pytest.raises(ValueError, match="prec"):
+        with dispatch.shared_variant("mma", prec="tf32"):
+            pass
+    with dispatch.shared_variant("blocks"):
+        for cfg, kw in ((SEL_CFG, dict(mode="acc")),
+                        (TreeConfig(farfield="m2p", accum="compensated"), {}),
+                        (TreeConfig(farfield="grid2", local_order=3), cells),
+                        (TreeConfig(farfield="m2p", multipole_order=2),
+                         dict(src_quad=torch.zeros((64, 6))))):
+            with pytest.raises(ValueError, match="blocks"):
+                dispatch.eval_shared(cfg, *targs, eps, 1.0, **kw)
+    # a failed call inside the block leaves the default selected
+    assert dispatch._variant == ("fused", "x3")
