@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line:
   1. device:   the card (nvidia-smi name and power limit), torch and CUDA;
-  2. build:    nvcc builds the four kernel libraries from csrc/ at once,
-               one process each (timed; ptxas registers and spills);
+  2. build:    nvcc builds the five kernel libraries from csrc/ and the
+               float64 builds of three (shared_fused, pool, tiles) at
+               once, one process each (timed; ptxas registers and spills);
   3. edge:     kernel vs plain PyTorch on small random cases in every form
                (K1a monopole, K1b compensated, K1d quadrupole, K1d with
                K1b's sums) and mode (self pairs, far padding, an empty
@@ -28,7 +29,15 @@ Phases, each printing one JSON line:
                target, an all-masked tile, a ragged last block, S < 128, a
                tile whose only active block is the last, exempt cells) and
                the split-source form K5 (edge_blocks: the same rows at
-               several splits, two launches bit for bit equal);
+               several splits, two launches bit for bit equal); the
+               float64 builds (edge_f64: every K1 form, K1c and K2 form
+               and mode against the float64 plain versions at rtol 1e-9,
+               and the staircase() check of the compensated forms); and
+               the tile kernels K3 and K4 in float32 and float64
+               (edge_tiles: counts of 0, of the whole row and not multiples
+               of the block, self pairs, a node on a target at eps = 0,
+               eps 0 and 0.05, ragged T, padding at 1e30 and at 4 * box, a
+               2-D case; K3 against K4, K4 bit-repeatable);
   4. main:     a Plummer sphere of N particles (default 1,048,576) from a
                seeded CUDA generator, octree(...) with the headline
                shared+grid configuration, accs_pots_o(theta=0.75) once
@@ -134,6 +143,30 @@ Phases, each printing one JSON line:
                tests/test_gwalk.py:78-99); then the
                quadrupole (pool_window 131072): force RMS < 0.6 x the
                monopole's;
+  t. lists:    the same particles through the lists path (per-tile
+               interaction lists, traversal.py, and K3; farfield "m2p",
+               the caps of TREE_KW grown by the Tree), once cold and three
+               times warm: K3 launches per warm query = chunks and no
+               other launch, force RMS < 5e-3 and potential < 2e-3 beside
+               the shared engine's; lists_layers (walk, gather, kernel
+               call, rest between device syncs), lists_profile (as phase
+               6), lists_split (the whole query on K4: 2 launches a chunk,
+               force RMS within 1 % of K3's), kernel (K3 and K4 against
+               their plain versions on chunks 0 and 1, with the CUDA blocks
+               against the SMs);
+     lists_quad: 262,144 particles: the lists monopole (K3), the
+               quadrupole with farfield "local" on the lists path (the
+               reference's plain-op route, no kernel: xla_quad = chunks),
+               and shared+m2p with the quadrupole (K1d, K1a): the lists
+               quadrupole's force RMS below the lists monopole's and
+               within 10 % of the shared quadrupole's;
+     f1:       65,536 particles: a quadtree (2-D, shared, theta 0.5: K1a
+               launches all "d2", force and potential RMS < 2e-2) and a
+               float64 octree from NumPy float64 arrays (theta 0.4: K1a
+               "f64", force RMS < 2e-3), the same float64 particles
+               through gwalk (K2 "f64") and the lists path (K3 "f64"),
+               each with every plain version made to raise; the float64
+               kernels against their plain versions on chunk 0;
   9. leapfrog: BASELINE config #2 (benchmarks/configs.py:90-114) through
                rakau_tpu_torch.integrate: a cold sphere of N particles
                (--n, default 1,048,576), zero velocities, 3 steps of
@@ -150,8 +183,9 @@ Phases, each printing one JSON line:
  10. kernel:   K1d+K1b on the node rows [0, U) and K1b on the particle
                rows [U, S) of the energy query's first chunk (and K1d on
                the node rows) against plain PyTorch, every mode, timed.
-Then the kernels' summary line (time, plain time and bound of every form),
-the card line, and as the last line {"ok": true, "device": {...}}. Any
+Then the whole command's seconds (phase total), the kernels' summary line
+(time, plain time and bound of every form), the card line, and as the
+last line {"ok": true, "device": {...}}. Any
 failure raises (non-zero exit) before that line. Needs a CUDA card; JAX
 is not used.
 """
@@ -204,10 +238,39 @@ SRC = "rakau_tpu_torch/csrc/shared_fused.cu"
 REPLACES = "rakau_tpu/kernels/pallas.py:566"
 POOL_SRC = "rakau_tpu_torch/csrc/pool.cu"
 POOL_REPLACES = "rakau_tpu/kernels/pallas.py:974"
-# kernel sources under rakau_tpu_torch/csrc/ and their kernels (template
-# instantiations: mode x compensated x quadrupole, and x cell test in K1)
-LIBRARIES = {"shared_fused": 24, "pool": 12, "shared_mma": 18,
-             "shared_blocks": 2}
+# kernel sources under rakau_tpu_torch/csrc/, each with its float64 build or
+# not, and their kernels (template instantiations: mode x compensated x
+# quadrupole, and x cell test in K1; K3, K4 in two forms and its reduction)
+LIBRARIES = {("shared_fused", False): 36, ("pool", False): 12,
+             ("shared_mma", False): 27, ("shared_blocks", False): 2,
+             ("tiles", False): 4, ("shared_fused", True): 36,
+             ("pool", True): 12, ("tiles", True): 4}
+TILES_SRC = "rakau_tpu_torch/csrc/tiles.cu"
+K3_REPLACES = "rakau_tpu/kernels/pallas.py:149"
+K4_REPLACES = "rakau_tpu/kernels/pallas.py:42"
+# the card's fp64 peak outside the tensor cores (H100 SXM, NVIDIA's data
+# sheet), for the bounds of the float64 builds
+PEAK_FP64 = 34e12
+# a float64 kernel against its float64 plain version: the two sum in other
+# orders (~1e-13 of the largest sum); a float32 kernel would be 1e-7 off
+F64_RTOL, F64_ATOL_REL = 1e-9, 1e-10
+# the lists path: the main phase's tree and caps (grown by the Tree), the
+# M2P far field (the lists path reads no other)
+LISTS_KW = dict(TREE_KW, traversal_mode="lists", farfield="m2p")
+# the quadrupole on the lists path (plain-op route): particles, and its
+# force RMS against shared+m2p with the quadrupole on the same particles
+# (tests/test_engine.py:124-141)
+LISTS_QUAD_N, LISTS_QUAD_RTOL = 262144, 0.1
+# F1: 2-D and float64 trees on the card, at this size, with the bounds of
+# tests/test_engine.py:83-93 (2-D, theta 0.5) and :181-190 (fp64, 0.4)
+F1_N = 65536
+F1_2D_THETA, F1_2D_MAX = 0.5, 2e-2
+# ... and the 2-D shared+grid2 query at grid2's 2-D level cap, 10: leaf
+# cells up to 1023, past what three 10-bit fields of the packed cell test
+# hold (csrc/cell_test.cuh packs 2-D cells in two 15-bit fields)
+F1_2D_GRID2_KW = dict(farfield="grid2", grid_level=10, local_order=4,
+                      grid_sep=2)
+F1_F64_THETA, F1_F64_FORCE_MAX = 0.4, 2e-3
 MMA_SRC = "rakau_tpu_torch/csrc/shared_mma.cu"
 MMA_REPLACES = "rakau_tpu/kernels/pallas.py:395"
 BLOCKS_SRC = "rakau_tpu_torch/csrc/shared_blocks.cu"
@@ -307,33 +370,38 @@ def card_line() -> str:
 
 
 def build_kernels() -> dict:
-    """Build every kernel library from csrc/, one nvcc process each, all
-    started together. Returns the wall seconds and per library its ptxas
-    registers and spill bytes per kernel; raises on a failed build or a
-    spill."""
+    """Build every kernel library from csrc/ (and the float64 builds), one
+    nvcc process each, all started together. Returns the wall seconds and
+    per library its ptxas registers and spill bytes per kernel; raises on
+    a failed build or a spill in any kernel."""
     from concurrent.futures import ThreadPoolExecutor
     from rakau_tpu_torch.kernels import shared
 
-    def one(name):
+    def one(key):
         t0 = time.perf_counter()
-        path = shared.build_library(name)
-        return name, path, time.perf_counter() - t0
+        path = shared.build_library(*key)
+        return key, path, time.perf_counter() - t0
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as ex:
         built = list(ex.map(one, LIBRARIES))
     out = {"seconds": time.perf_counter() - t0, "libraries": {}}
-    for name, path, secs in built:
+    for key, path, secs in built:
+        name = key[0] + ("_f64" if key[1] else "")
         ptxas = path.with_name(path.stem + ".ptxas.txt").read_text()
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
         spills = [int(a) + int(b) for a, b in re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)]
-        out["libraries"][name] = dict(seconds=secs, library=path.name,
-                                      kernels=len(regs), registers=regs,
-                                      spill_bytes=spills)
-        if len(regs) != LIBRARIES[name] or any(spills):
+        rec = dict(seconds=secs, library=path.name, kernels=len(regs),
+                   registers=regs, spill_bytes=spills)
+        if any(spills):
+            rec["spilling"] = [f for f, b in zip(re.findall(
+                r"Compiling entry function '([^']+)'", ptxas), spills) if b]
+        out["libraries"][name] = rec
+        if len(regs) != LIBRARIES[key] or any(spills):
             raise AssertionError(f"ptxas, {name}: {len(regs)} kernels "
-                                 f"(want {LIBRARIES[name]}), spills {spills}")
+                                 f"(want {LIBRARIES[key]}), spills {spills}"
+                                 f" in {rec.get('spilling')}")
     return out
 
 
@@ -460,6 +528,21 @@ def profile_record(prof: dict, warm_ms: float) -> dict:
                 idle_share=1 - prof["device_busy_ms"] / warm_ms,
                 idle_share_profiled=1 - prof["device_busy_ms"]
                 / prof["profiled_query_ms"])
+
+
+def on_card(arrays, dev, dtype=torch.float32):
+    """numpy arrays -> tensors on dev, the floating ones in dtype."""
+    return [torch.as_tensor(a, device=dev).to(dtype)
+            if np.asarray(a).dtype.kind == "f"
+            else torch.as_tensor(a, device=dev) for a in arrays]
+
+
+def tol(dtype) -> dict:
+    """compare()'s tolerance for a kernel in dtype against its plain
+    version."""
+    if dtype == torch.float64:
+        return dict(rtol=F64_RTOL, atol_rel=F64_ATOL_REL)
+    return {}
 
 
 def compare(got, want, rtol=RTOL, atol_rel=ATOL_REL):
@@ -598,9 +681,11 @@ def blocks_edge_cases(shared, dev):
     return worst
 
 
-def edge_cases(shared, dev):
+def edge_cases(shared, dev, dtype=torch.float32):
     """Kernel vs plain on small cases that hit every branch of the kernel,
-    in every form. Returns the worst |kernel - plain| per form."""
+    in every form, in dtype (the float64 build with float64); the
+    cancellation check in float32 (float64 has staircase()). Returns the
+    worst |kernel - plain| per form and the cancellation errors."""
     rng = np.random.default_rng(7)
     worst = {f: 0.0 for f in shared.FORMS
              if f.startswith(("mono", "quad")) and not f.endswith("_cell")}
@@ -613,7 +698,8 @@ def edge_cases(shared, dev):
                 kw = dict(mode=mode, compensated=comp, src_quad=quad)
                 got = shared.eval_shared_fused(*args, eps, 1.5, **kw)
                 want = shared.eval_shared_plain(*args, eps, 1.5, **kw)
-                worst[form] = max(worst[form], compare(got, want))
+                worst[form] = max(worst[form],
+                                  compare(got, want, **tol(dtype)))
                 if empty_tile and bool(got[0][-1].any() | got[1][-1].any()):
                     raise AssertionError(f"{form}: empty tile got a "
                                          "nonzero result")
@@ -638,8 +724,7 @@ def edge_cases(shared, dev):
         mask[:, S // 3:S // 2] = False        # a dead stretch of blocks
         if C > 1:
             mask[-1] = False                  # an empty tile
-        args = [torch.as_tensor(a, device=dev) for a in
-                (tpos, tidx, spos, smass, sidx, mask)]
+        args = on_card((tpos, tidx, spos, smass, sidx, mask), dev, dtype)
         check(args, eps, empty_tile=C > 1)
 
     # node rows with second moments Q = m d d^T: ragged S, a dead stretch,
@@ -660,10 +745,11 @@ def edge_cases(shared, dev):
         tpos[0, 3] = (1e-3, -2e-3, 5e-4)
         spos[7] = tpos[0, 3] + np.float32(1e-9)
         mask[0, 7] = False
-        args = [torch.as_tensor(a, device=dev) for a in
-                (tpos, tidx, spos, smass, sidx, mask)]
-        check(args, 0.0, quad=torch.as_tensor(quad, device=dev),
+        args = on_card((tpos, tidx, spos, smass, sidx, mask), dev, dtype)
+        check(args, 0.0, quad=on_card((quad,), dev, dtype)[0],
               empty_tile=True)
+    if dtype != torch.float32:
+        return worst, staircase(dev, dtype, "K1")
 
     # a long, cancellation-heavy row (far shell, masses over seven
     # decades, 64 source blocks): TwoSum must beat fp32; the kernel sums in
@@ -692,7 +778,7 @@ def edge_cases(shared, dev):
     return worst, {"fp32": errs[False], "compensated": errs[True]}
 
 
-def cell_edge_cases(shared, dev):
+def cell_edge_cases(shared, dev, dtype=torch.float32):
     """K1c vs plain on small cases, every form and mode: random leaf cells
     on both sides of grid_sep 2 and 3, exempt rows (cell -1), self pairs
     that are covered too, a stretch of sources all covered, ragged T and
@@ -731,18 +817,18 @@ def cell_edge_cases(shared, dev):
         spos[S // 4] = tpos[0, 9] + np.float32(1e-9)
         scell[S // 4] = tcell[0, 9]
         mask[0, S // 4] = False
-        args = [torch.as_tensor(a, device=dev) for a in
-                (tpos, tidx, spos, smass, sidx, mask)]
+        args = on_card((tpos, tidx, spos, smass, sidx, mask), dev, dtype)
         ckw = dict(src_cell=torch.as_tensor(scell, device=dev),
                    tgt_cell=torch.as_tensor(tcell, device=dev), grid_sep=sep)
-        for q in (None, torch.as_tensor(quad, device=dev)):
+        for q in (None, on_card((quad,), dev, dtype)[0]):
             for comp in (False, True):
                 form = shared.form_name(q is not None, comp, True)
                 for mode in MODES:
                     kw = dict(mode=mode, compensated=comp, src_quad=q, **ckw)
                     got = shared.eval_shared_fused(*args, eps, 1.5, **kw)
                     want = shared.eval_shared_plain(*args, eps, 1.5, **kw)
-                    worst[form] = max(worst[form], compare(got, want))
+                    worst[form] = max(worst[form],
+                                      compare(got, want, **tol(dtype)))
                     if bool(got[0][-1].any() | got[1][-1].any()):
                         raise AssertionError(f"{form}: empty tile got a "
                                              "nonzero result")
@@ -753,6 +839,71 @@ def cell_edge_cases(shared, dev):
                     if not bool((got[k] - free[k]).abs().max() > 1e-3):
                         raise AssertionError(f"{form}: the cell test "
                                              "removed nothing")
+    return worst
+
+
+def wide_cell_cases(shared, dev) -> dict:
+    """K1c's four forms and K6 with cells (x3) against their plain versions
+    on cells that fill the packed fields: D = 2 and 3, leaf coordinates up
+    to 2^CELL_BITS[D] - 1 (13 and 8 bits, past grid2's level caps of 10
+    and 7) with target clusters at both ends of the range, each source's
+    cell within sep + 1 of some target's, exempt rows, grid_sep 2, 5 and
+    2^CELL_BITS[D]; at 2 and 5 the cell test must remove pairs. eps 0.05
+    (0.25 for K6), so that no near-coincident pair of the made rows
+    dominates the tolerance. Returns the worst |kernel - plain| per D and
+    form."""
+    rng = np.random.default_rng(29)
+    C, T, S = 2, 160, 2100
+    worst = {}
+    for D in (2, 3):
+        top = 1 << shared.CELL_BITS[D]
+        for sep in (2, 5, top):
+            tpos = rng.standard_normal((C, T, D)).astype(np.float32)
+            tidx = rng.choice(10000, size=(C, T),
+                              replace=False).astype(np.int64)
+            spos = (0.5 + rng.standard_normal((S, D))).astype(np.float32)
+            smass = rng.uniform(0.1, 1, S).astype(np.float32)
+            sidx = np.full(S, -1, np.int64)
+            centers = rng.integers(0, top, (C, 4, D))
+            centers[0, 0], centers[0, 1] = 0, top - 1
+            tcell = np.clip(centers[np.arange(C)[:, None],
+                                    rng.integers(0, 4, (C, T))]
+                            + rng.integers(-2, 3, (C, T, D)), 0, top - 1)
+            near = tcell[rng.integers(0, C, S), rng.integers(0, T, S)]
+            scell = np.clip(near + rng.integers(-sep - 1, sep + 2, (S, D)),
+                            0, top - 1)
+            scell[-40:] = rng.integers(0, top, (40, D))
+            scell[S // 2:S // 2 + 20] = -1    # exempt rows
+            d = rng.standard_normal((S, D)) * 0.1
+            quad = (np.stack([d[:, a] * d[:, b]
+                              for a, b in shared.quad_pairs(D)], 1)
+                    * smass[:, None]).astype(np.float32)
+            mask = rng.uniform(size=(C, S)) < 0.6
+            args = on_card((tpos, tidx, spos, smass, sidx, mask), dev)
+            ckw = dict(src_cell=torch.as_tensor(scell, device=dev),
+                       tgt_cell=torch.as_tensor(tcell, device=dev),
+                       grid_sep=sep)
+            for q in (None, on_card((quad,), dev)[0]):
+                for comp in (False, True):
+                    form = shared.form_name(q is not None, comp, True)
+                    kw = dict(compensated=comp, src_quad=q, **ckw)
+                    got = shared.eval_shared_fused(*args, 0.05, 1.5, **kw)
+                    want = shared.eval_shared_plain(*args, 0.05, 1.5, **kw)
+                    key = f"{D}d/{form}"
+                    worst[key] = max(worst.get(key, 0.0), compare(got, want))
+                    free = shared.eval_shared_fused(*args, 0.05, 1.5,
+                                                    compensated=comp,
+                                                    src_quad=q)
+                    if sep < top and not bool(
+                            (got[1] - free[1]).abs().max() > 1e-3):
+                        raise AssertionError(f"{key} sep {sep}: the cell "
+                                             "test removed nothing")
+            kw = dict(prec="x3", **ckw)
+            got = shared.eval_shared_mma(*args, 0.25, 1.5, **kw)
+            want = shared.eval_shared_mma_plain(*args, 0.25, 1.5, **kw)
+            key = f"{D}d/mma_cell"
+            worst[key] = max(worst.get(key, 0.0),
+                             compare(got, want, **mma_tol("x3")))
     return worst
 
 
@@ -782,10 +933,10 @@ def bound(inputs, n, quad=False, comp=False, cells=None, per_pair=None,
     read once, each output written once) over the HBM rate and the
     operations its live pairs (mask-true sources x real targets of the
     n-particle tree, and TwoSum per active source block) need over the
-    fp32 peak. cells (src_cell, tgt_cell, grid_sep) for K1c: the two cell
-    tensors are read too, every mask-true pair costs the OPS_CELL
-    operations of the cell test, and only the pairs the test leaves alive
-    cost the 20 (64) fp32 operations. per_pair replaces the 20 (K6: 13);
+    fp32 peak (fp64 for float64 operands). cells (src_cell, tgt_cell,
+    grid_sep) for K1c: the two cell tensors are read too, every mask-true
+    pair costs the OPS_CELL operations of the cell test, and only the
+    pairs the test leaves alive cost the 20 (64) fp32 operations. per_pair replaces the 20 (K6: 13);
     extra_bytes are added (K5: its scratch, written and read);
     tensor_flops a surviving pair run at the bf16 tensor-core peak (K6)
     and bound the call if that takes longest, reported as operations."""
@@ -794,7 +945,7 @@ def bound(inputs, n, quad=False, comp=False, cells=None, per_pair=None,
     nbytes = sum(t.numel() * t.element_size() for t in inputs[:6]
                  + ((inputs[6],) if quad else ())
                  + (tuple(cells[:2]) if cells else ()))
-    nbytes += C * T * 4 * 4 + extra_bytes       # acc [C, T, 3] + pot
+    nbytes += C * T * 4 * tpos.element_size() + extra_bytes  # acc, pot
     ntgt = (tidx < n).sum(1).double()          # padding targets carry n
     pairs = float((mask.sum(1).double() * ntgt).sum())
     if per_pair is None:
@@ -806,7 +957,8 @@ def bound(inputs, n, quad=False, comp=False, cells=None, per_pair=None,
         flops += FLOPS_TWOSUM * float(
             (shared.active_blocks(mask)[1].double() * ntgt).sum())
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(flops / PEAK_FP32, alive * tensor_flops / PEAK_BF16)
+    peak = PEAK_FP64 if tpos.dtype == torch.float64 else PEAK_FP32
+    t_ops = max(flops / peak, alive * tensor_flops / PEAK_BF16)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                         else "operations")
 
@@ -854,10 +1006,11 @@ def pool_case(rng, T, block, sched, n=10000):
             window, torch.as_tensor(pquad))
 
 
-def pool_edge_cases(dev):
+def pool_edge_cases(dev, dtype=torch.float32):
     """K2 vs plain on synthetic pools that hit every branch of the kernel,
-    in every form and mode, and the cancellation check. Returns the worst
-    |kernel - plain| per form and the cancellation errors."""
+    in every form and mode, in dtype, and the cancellation check (in
+    float64 the staircase). Returns the worst |kernel - plain| per form
+    and the cancellation errors."""
     from rakau_tpu_torch.kernels import pool
     rng = np.random.default_rng(11)
     worst = dict.fromkeys(pool.FORMS, 0.0)
@@ -867,8 +1020,9 @@ def pool_edge_cases(dev):
     for T, block, eps in ((300, 128, 0.0), (77, 512, 0.0), (512, 128, 0.01),
                           (256, 512, 0.0)):
         args, window, quad = pool_case(rng, T, block, sched)
-        args = [a.to(dev) for a in args]
-        for q in (None, quad.to(dev)):
+        args = [a.to(dev, dtype) if a.is_floating_point() else a.to(dev)
+                for a in args]
+        for q in (None, quad.to(dev, dtype)):
             for comp in (False, True):
                 form = pool._form(q is not None, comp)
                 for mode in MODES:
@@ -877,10 +1031,13 @@ def pool_edge_cases(dev):
                                                block, **kw)
                     want = pool.eval_pool_plain(*args, window, eps, 1.5,
                                                 block, **kw)
-                    worst[form] = max(worst[form], compare(got, want))
+                    worst[form] = max(worst[form],
+                                      compare(got, want, **tol(dtype)))
                     if bool(got[0][3].any() | got[1][3].any()):
                         raise AssertionError(f"K2 {form}: the empty tile "
                                              "got a nonzero result")
+    if dtype != torch.float32:
+        return worst, staircase(dev, dtype, "K2")
     # one tile of 64 blocks of a cancellation-heavy shell (masses over
     # seven decades); the quadrupole forms take it as node blocks with
     # zero second moments. TwoSum must beat fp32: the kernel sums in a
@@ -943,10 +1100,10 @@ def pool_bound(inputs, n: int, window: int, block: int, quad: bool,
     move (each tile's own segment of pool rows read once, with the second
     moments on node rows for the quadrupole; targets, indices and the
     schedule read once; outputs written once) over the HBM rate, and the
-    operations its live pairs need over the fp32 peak: real targets x
-    rows with mass > 0 of the tile's segment (self pairs, at most one a
-    target, are counted), x 64 on node rows with the quadrupole and 20
-    otherwise, and TwoSum per target and block."""
+    operations its live pairs need over the fp32 (fp64) peak: real
+    targets x rows with mass > 0 of the tile's segment (self pairs, at
+    most one a target, are counted), x 64 on node rows with the
+    quadrupole and 20 otherwise, and TwoSum per target and block."""
     tpos, tidx, ppos, pmass, pidx, sched, pquad = inputs
     G, T, _ = tpos.shape
     s = sched.long()
@@ -963,13 +1120,15 @@ def pool_bound(inputs, n: int, window: int, block: int, quad: bool,
         nbytes += int((mid - base).sum()) * 6 * pquad.element_size()
     nbytes += (tpos.numel() * tpos.element_size()
                + tidx.numel() * tidx.element_size()
-               + sched.numel() * sched.element_size() + G * T * 4 * 4)
+               + sched.numel() * sched.element_size()
+               + G * T * 4 * tpos.element_size())
     node = float((ntgt * (live[mid] - live[base])).sum())
     part = float((ntgt * (live[end] - live[mid])).sum())
     flops = node * (FLOPS_QUAD if quad else FLOPS_MONO) + part * FLOPS_MONO
     if comp:
         flops += FLOPS_TWOSUM * float((ntgt * (s[:, 2] + s[:, 3])).sum())
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    peak = PEAK_FP64 if tpos.dtype == torch.float64 else PEAK_FP32
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                         else "operations")
 
@@ -1072,20 +1231,31 @@ def event_ms(fn):
 
 
 def counted(fn):
-    """(fn(), launches per kernel form of K1 and K2) with every count set
-    to 0 just before the call and read just after."""
-    from rakau_tpu_torch.kernels import pool, shared
+    """(fn(), launches per kernel form of K1 (with K5, K6), K2 and the
+    tile kernels K3/K4 ("tiles")) with every count set to 0 just before
+    the call and read just after."""
+    from rakau_tpu_torch.kernels import pool, shared, tiles
     shared.reset_launches()
     pool.reset_launches()
+    tiles.reset_launches()
     out = fn()
-    return out, {"K1": dict(shared.launches), "K2": dict(pool.launches)}
+    return out, {"K1": dict(shared.launches), "K2": dict(pool.launches),
+                 "tiles": dict(tiles.launches)}
 
 
-def gwalk_tree(pos, mass, cfg):
+def launched(counts: dict, want: dict) -> dict:
+    """counts (from counted) as they should be: every count 0 but those
+    of `want`, {module key: {form: launches}}."""
+    return {k: {f: want.get(k, {}).get(f, 0) for f in v}
+            for k, v in counts.items()}
+
+
+def gwalk_tree(pos, mass, cfg, theta: float = THETA):
     """A Tree sized as bench.py sizes its gwalk run: tile_cap fitted to
     1.1x the built tile count, rounded up to 256 (bench.py:103-111), then
     the global and per-round caps from engine.tune_gwalk
-    (bench.py:130-140). Returns the tree and its sizing record."""
+    (bench.py:130-140), tuned at theta. Returns the tree and its sizing
+    record."""
     from rakau_tpu_torch import Tree, engine
     from rakau_tpu_torch.config import OVF_FIELDS
     n = pos.shape[0]
@@ -1096,7 +1266,7 @@ def gwalk_tree(pos, mass, cfg):
         tree = Tree(coords=pos, masses=mass,
                     config=tree.config.with_(tile_cap=fitted))
     tuned, tune_ms = synced_ms(lambda: engine.tune_gwalk(
-        tree.tree_data, tree.config, THETA, 0.0))
+        tree.tree_data, tree.config, theta, 0.0))
     del tree
     tree = Tree(coords=pos, masses=mass, config=tuned)
     return tree, {"n_tiles": tiles, "tile_cap": tuned.tile_capacity(n),
@@ -1109,8 +1279,7 @@ def gwalk_tree(pos, mass, cfg):
 def one_launch(counts: dict, form: str, what: str):
     """Raise unless `counts` (from counted) shows exactly one K2 launch,
     of `form`, and no other launch."""
-    want = {"K1": dict.fromkeys(counts["K1"], 0),
-            "K2": {f: int(f == form) for f in counts["K2"]}}
+    want = launched(counts, {"K2": {form: 1}})
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, want one K2 "
                              f"{form} and nothing else")
@@ -1252,8 +1421,7 @@ def finite(what: str, *tensors):
 def k1_launches(counts: dict, chunks: int, forms, what: str):
     """Raise unless `counts` (from counted) shows `chunks` launches of each
     K1 form in `forms` and no other launch of K1 or K2."""
-    want = {"K1": {f: chunks * int(f in forms) for f in counts["K1"]},
-            "K2": dict.fromkeys(counts["K2"], 0)}
+    want = launched(counts, {"K1": {f: chunks for f in forms}})
     if counts != want or chunks <= 0:
         raise AssertionError(f"{what}: launches {counts}, want {chunks} of "
                              f"each of {forms} and nothing else")
@@ -2126,11 +2294,546 @@ def energy_kernels(etree, ecfg):
     return out
 
 
+def staircase(dev, dtype, kernel: str) -> dict:
+    """The compensated forms of K1 or K2 in dtype on a row whose fp sums
+    round the same way at every block: four targets at the origin, one
+    source of mass 1 at distance 1 in the first block, then one of mass
+    0.75 u (u: the spacing of dtype above 1) in each of the next 63 blocks,
+    all at distance 1 along x (inv_r = 1; every other row massless). The
+    exact sums are -(1 + 47.25 u) (potential) and 1 + 47.25 u (x
+    acceleration): fp sums round up by a quarter u at each block (error
+    15.75 u), TwoSum keeps the remainders (0.25 u after the last
+    rounding). Raises unless every compensated error is at most 2 u and
+    below a quarter of the fp one. Returns the errors in units of u, per
+    form (monopole, and the quadrupole forms with zero moments)."""
+    from fractions import Fraction
+    from rakau_tpu_torch.kernels import pool, shared
+    u = torch.finfo(dtype).eps
+    block = shared.BLOCK if kernel == "K1" else 512
+    S, T = 64 * block, 4
+    tgt = torch.zeros((1, T, 3), dtype=dtype, device=dev)
+    tidx = torch.arange(T, device=dev)[None]
+    src = torch.zeros((S, 3), dtype=dtype, device=dev)
+    src[:, 0] = 1
+    mass = torch.zeros(S, dtype=dtype, device=dev)
+    mass[block::block] = 0.75 * u
+    mass[0] = 1
+    sidx = torch.full((S,), -1, dtype=torch.int64, device=dev)
+    exact = 1 + Fraction(189, 4) * Fraction(u)
+    errs = {}
+    for quad in (False, True):
+        q = torch.zeros((S, 6), dtype=dtype, device=dev) if quad else None
+        for comp in (False, True):
+            if kernel == "K1":
+                acc, pot = shared.eval_shared_fused(
+                    tgt, tidx, src, mass, sidx,
+                    torch.ones((1, S), dtype=torch.bool, device=dev), 0.0,
+                    1.0, compensated=comp, src_quad=q)
+            else:
+                sched = torch.tensor([[0, 0, 64, 0] if quad else
+                                      [0, 0, 0, 64]], device=dev)
+                acc, pot = pool.eval_pool_fused(
+                    tgt, tidx, src, mass, sidx, sched, S, 0.0, 1.0, block,
+                    compensated=comp, pool_quad=q)
+            err = max(abs(Fraction(float(acc[0, 0, 0])) - exact),
+                      abs(Fraction(float(pot[0, 0])) + exact))
+            errs[("quad" if quad else "mono") + ("_comp" if comp else "")] \
+                = float(err / Fraction(u))
+        f = "quad" if quad else "mono"
+        if not (errs[f + "_comp"] <= 2
+                and errs[f + "_comp"] < errs[f] / 4):
+            raise AssertionError(f"{kernel} {f} {dtype}: compensated error "
+                                 f"{errs[f + '_comp']} u, fp sums "
+                                 f"{errs[f]} u")
+    return errs
+
+
+def tiles_case(rng, C, T, Sm, Sp, ndim, pad, n=10000):
+    """Rows for K3 and K4: per tile an M2P row and a P2P row with counts
+    (tile 0: the whole rows; tile 1, where C > 1: 0 and 0; the others
+    random, as a rule not multiples of BLOCK), padding past the counts at
+    `pad` (1e30, or a 4 * box sentinel) with mass 0 and index -1, self
+    pairs planted at the head of each P2P row, the last 5 targets padding
+    (index n), and node 1 of tile 0 exactly on target 2."""
+    tpos = rng.standard_normal((C, T, ndim)).astype(np.float32)
+    tidx = rng.choice(n, size=(C, T), replace=False).astype(np.int64)
+    tidx[:, -5:] = n
+    mpos = (3 * rng.standard_normal((C, Sm, ndim))).astype(np.float32)
+    mmass = rng.uniform(0.1, 1, (C, Sm)).astype(np.float32)
+    ppos = rng.standard_normal((C, Sp, ndim)).astype(np.float32)
+    pmass = rng.uniform(0.1, 1, (C, Sp)).astype(np.float32)
+    pidx = rng.integers(0, n, (C, Sp)).astype(np.int64)
+    mcnt = rng.integers(1, Sm + 1, C).astype(np.int64)
+    pcnt = rng.integers(1, Sp + 1, C).astype(np.int64)
+    mcnt[0], pcnt[0] = Sm, Sp
+    if C > 1:
+        mcnt[1] = pcnt[1] = 0
+    k = min(4, Sp)
+    ppos[:, :k] = tpos[:, :k]
+    pidx[:, :k] = tidx[:, :k]
+    mpos[0, min(1, Sm - 1)] = tpos[0, 2]
+    for pos, mass, cnt, idx in ((mpos, mmass, mcnt, None),
+                                (ppos, pmass, pcnt, pidx)):
+        dead = np.arange(pos.shape[1])[None] >= cnt[:, None]
+        pos[dead] = pad
+        mass[dead] = 0
+        if idx is not None:
+            idx[dead] = -1
+    return (tpos, tidx, mpos, mmass, mcnt, ppos, pmass, pidx, pcnt)
+
+
+def k3(args, eps, G, plain=False):
+    """K3 (or its plain version) on (tgt_pos, tgt_idx, m2p_pos, m2p_mass,
+    m2p_cnt, p2p_pos, p2p_mass, p2p_idx, p2p_cnt)."""
+    from rakau_tpu_torch.kernels import tiles
+    tp, ti, mp, mm, mc, pp, pm, pi, pc = args
+    fn = tiles.eval_tiles_plain if plain else tiles.eval_tiles_fused
+    return fn(tp, ti, mp, mm, pp, pm, pi, eps, G, m2p_cnt=mc, p2p_cnt=pc)
+
+
+def k4(args, eps, G, plain=False):
+    """K4 as `pallas.eval_tiles(fused=False)` runs it: one launch a row
+    (M2P without, P2P with the index test), the sums added and times G;
+    with plain, the plain versions of the same on the same tensors."""
+    from rakau_tpu_torch.kernels import tiles
+    tp, ti, mp, mm, mc, pp, pm, pi, pc = args
+    fn = tiles.eval_pairwise_plain if plain else tiles.eval_pairwise
+    am, pmo = fn(tp, ti, mp, mm, None, eps, False, cnt=mc)
+    ap, ppo = fn(tp, ti, pp, pm, pi, eps, True, cnt=pc)
+    return G * (am + ap), G * (pmo + ppo)
+
+
+TILES_EDGE = ((4, 200, 3000, 2500, 3, 0.0, 1e30),
+              (3, 77, 1024, 2048, 3, 0.05, 40.0),
+              (2, 512, 700, 5000, 3, 0.0, 40.0),
+              (2, 130, 10, 1, 3, 0.0, 1e30),
+              (3, 100, 1500, 1200, 2, 0.01, 1e30))
+
+
+def tiles_edge_cases(dev, dtype) -> dict:
+    """K3 and K4 against their plain versions in dtype on made rows
+    (tiles_case: counts of 0, of the whole row and not multiples of
+    BLOCK, self pairs in the P2P row, a node on a target at eps = 0,
+    eps 0 and 0.05, ragged T, padding at 1e30 and at 4 * box, and a 2-D
+    case), K3 against K4, K4 twice bit for bit; a tile whose counts are 0
+    gets exact zeros from K3, and the node on the target adds nothing.
+    Returns the worst |kernel - plain| of each and of K3 - K4."""
+    rng = np.random.default_rng(23)
+    worst = {"K3": 0.0, "K4": 0.0, "K3_vs_K4": 0.0}
+    for C, T, Sm, Sp, ndim, eps, pad in TILES_EDGE:
+        args = on_card(tiles_case(rng, C, T, Sm, Sp, ndim, pad), dev, dtype)
+        got3 = k3(args, eps, 1.5)
+        worst["K3"] = max(worst["K3"], compare(got3, k3(args, eps, 1.5, True),
+                                               **tol(dtype)))
+        got4 = k4(args, eps, 1.5)
+        worst["K4"] = max(worst["K4"], compare(got4, k4(args, eps, 1.5, True),
+                                               **tol(dtype)))
+        worst["K3_vs_K4"] = max(worst["K3_vs_K4"],
+                                compare(got4, got3, **tol(dtype)))
+        if not all(torch.equal(a, b) for a, b in zip(got4,
+                                                     k4(args, eps, 1.5))):
+            raise AssertionError("K4: two launches differ")
+        if C > 1 and bool(got3[0][1].any() | got3[1][1].any()):
+            raise AssertionError("K3: a tile with empty rows got a nonzero "
+                                 "result")
+        if eps == 0.0:
+            off = list(args)
+            off[3] = args[3].clone()
+            off[3][0, min(1, Sm - 1)] = 0
+            for fn in (k3, k4):
+                a, b = fn(args, eps, 1.5), fn(off, eps, 1.5)
+                if not (torch.equal(a[0][0, 2], b[0][0, 2])
+                        and torch.equal(a[1][0, 2], b[1][0, 2])):
+                    raise AssertionError(f"{fn.__name__}: a node on a "
+                                         "target added something")
+    return worst
+
+
+def tiles_bound(args, n: int):
+    """(bound_ms, bound_by) of one evaluation of the tile lists (K3, or
+    K4's two launches: the same function): the bytes it must move (the
+    targets and their indices, the counts, and of each row only the
+    entries within its tile's count, read once; the outputs written once)
+    over the HBM rate, and the operations of its live pairs (real targets
+    x the entries within each tile's counts, 20 each) over the peak of the
+    type (fp32 or fp64 outside the tensor cores). Entries past the counts
+    are padding that the function need not read."""
+    tp, ti, mp, mm, mc, pp, pm, pi, pc = args
+    C, T, D = tp.shape
+    real = tp.element_size()
+    lm = mc.clamp(0, mp.shape[1]).double()
+    lp = pc.clamp(0, pp.shape[1]).double()
+    nbytes = (C * T * (D * real + ti.element_size())       # targets
+              + mc.numel() * mc.element_size() + pc.numel() * pc.element_size()
+              + float(lm.sum()) * (D + 1) * real           # pos, mass
+              + float(lp.sum()) * ((D + 1) * real + pi.element_size())
+              + C * T * (D + 1) * real)                    # acc, pot
+    ntgt = (ti < n).sum(1).double()
+    flops = float((ntgt * (lm + lp)).sum()) * FLOPS_MONO
+    peak = PEAK_FP64 if tp.dtype == torch.float64 else PEAK_FP32
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                        else "operations")
+
+
+def tile_kernels(tree, n: int, label: str, theta: float, nchunks: int = 2,
+                 with_k4: bool = True) -> dict:
+    """Phase kernel for K3 (and K4) on the first `nchunks` chunks of
+    `tree`'s lists query (engine.tile_kernel_inputs): each against its
+    plain version and K4 against K3, CUDA-event ms per call beside the
+    plain version's, the bound, the CUDA blocks against the SMs. Returns
+    per kernel (worst error, mean ms, plain_ms, bound_ms, bound_by)."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.kernels import shared, tiles
+    td, cfg = tree.tree_data, tree.config
+    dev = td.pos.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per: dict = {}
+    for ch in range(min(nchunks, engine.live_chunks(td, cfg))):
+        inp = engine.tile_kernel_inputs(td, cfg, theta, 0.0, ch)
+        args = (inp[0], inp[1], inp[2], inp[3], inp[8], inp[5], inp[6],
+                inp[7], inp[9])
+        dt = args[0].dtype
+        C, T, _ = args[0].shape
+        Sm, Sp = int(args[2].shape[1]), int(args[5].shape[1])
+        b_ms, b_by = tiles_bound(args, n)
+        rec = dict(config=label, chunk=ch, C=C, T=T, Sm=Sm, Sp=Sp,
+                   dtype=str(dt).replace("torch.", ""),
+                   m2p_count_mean=float(args[4].double().mean()),
+                   p2p_count_mean=float(args[8].double().mean()),
+                   bound_ms=b_ms, bound_by=b_by, sms=sms)
+        runs = [("K3", k3, C * -(-T // 128))]
+        if with_k4:
+            runs.append(("K4", k4, C * -(-T // 128) * sum(
+                shared.blocks_nsplit(C, T, -(-S // min(tiles.BLOCK, S)), sms)
+                for S in (Sm, Sp))))
+        got3 = None
+        for name, fn, cuda_blocks in runs:
+            got = fn(args, 0.0, 1.0)
+            want = fn(args, 0.0, 1.0, True)
+            err = compare(got, want, **tol(dt))
+            if got3 is None:
+                got3 = got
+            else:
+                rec["K4_vs_K3_max_abs_err"] = compare(got, got3, **tol(dt))
+            km = cuda_ms(lambda: fn(args, 0.0, 1.0), 10)
+            pm = cuda_ms(lambda: fn(args, 0.0, 1.0, True), 1)
+            rec[name] = dict(ms=km, plain_ms=pm, max_abs_err=err,
+                             cuda_blocks=cuda_blocks,
+                             fill=cuda_blocks / sms)
+            per.setdefault(name, []).append(dict(
+                max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b_ms,
+                bound_by=b_by))
+        emit("kernel", **rec)
+    return {name: dict(
+        max_abs_err=max(r["max_abs_err"] for r in rs),
+        ms=float(np.mean([r["ms"] for r in rs])),
+        plain_ms=float(np.mean([r["plain_ms"] for r in rs])),
+        bound_ms=float(np.mean([r["bound_ms"] for r in rs])),
+        bound_by=max((r["bound_ms"], r["bound_by"]) for r in rs)[1])
+        for name, rs in per.items()}
+
+
+@contextmanager
+def diag_modes():
+    """RAKAU_DIAG_MODES=1 for the duration: the lists path and the
+    quadrupole on it are diagnostic modes of the configuration, as in the
+    reference."""
+    import os
+    prev = os.environ.get("RAKAU_DIAG_MODES")
+    os.environ["RAKAU_DIAG_MODES"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("RAKAU_DIAG_MODES", None)
+        else:
+            os.environ["RAKAU_DIAG_MODES"] = prev
+
+
+def lists_layer_ms(tree) -> dict:
+    """The lists query split by layer between device syncs: the walk
+    (traversal.build_interaction_lists), the gather of the tiles' rows
+    (engine._gather_sources) and the kernel call (dispatch.eval_tiles:
+    K3 and the G scale). The rest is tile gathers, assembly, the overflow
+    read and the inverse permutation."""
+    from rakau_tpu_torch import engine, traversal
+    from rakau_tpu_torch.kernels import dispatch
+    t, total = synced_layers(tree, ((traversal, "build_interaction_lists"),
+                                    (engine, "_gather_sources"),
+                                    (dispatch, "eval_tiles")))
+    out = {"walk_ms": t["build_interaction_lists"],
+           "gather_ms": t["_gather_sources"],
+           "kernel_call_ms": t["eval_tiles"]}
+    out["rest_ms"] = total - sum(out.values())
+    out["synced_query_ms"] = total
+    return out
+
+
+def lists_main(pos, mass, oracle, shared_rms, dev):
+    """Phase lists: the main phase's particles through the lists path
+    (LISTS_KW: the caps of TREE_KW, grown by the Tree's overflow retry),
+    once cold and three times warm: K3 launches per warm query = live
+    chunks and no other launch, force RMS < 5e-3 and potential < 2e-3
+    beside the shared engine's; then lists_layers, lists_profile, the
+    whole query once more on K4 (lists_split: 2 launches a chunk, no K3,
+    force RMS within VARIANT_RMS_RTOL of K3's) and the kernel phase on
+    chunks 0 and 1. Returns the launches of each and the kernels'
+    records."""
+    from rakau_tpu_torch import Tree, engine
+    from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
+    from rakau_tpu_torch.kernels import dispatch
+    n = pos.shape[0]
+    tree, build_ms = synced_ms(lambda: Tree(coords=pos, masses=mass,
+                                            config=TreeConfig(**LISTS_KW)))
+    _, cold_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+    td, cfg = tree.tree_data, tree.config
+    chunks = engine.live_chunks(td, cfg)
+    (acc, pot), warm, counts = warm_counted(tree, WARM_REPS)
+    for c in counts:
+        if c != launched(c, {"tiles": {"fused": chunks}}):
+            raise AssertionError(f"lists warm query: launches {c}, want "
+                                 f"{chunks} K3 and nothing else")
+    if acc.shape != (n, 3) or pot.shape != (n,):
+        raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
+    finite("lists result", acc, pot)
+    f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
+    warm_ms = statistics.median(warm)
+    rec = dict(n=n, theta=THETA, farfield="m2p", build_ms=build_ms,
+               caps_start={f: LISTS_KW[f] for f in OVF_FIELDS},
+               caps={f: getattr(cfg, f) for f in OVF_FIELDS},
+               maxima=tree._last_stats, cold_query_ms=cold_ms,
+               warm_query_ms=warm_ms, warm_query_ms_all=warm,
+               warm_spread=(max(warm) - min(warm)) / warm_ms, chunks=chunks,
+               k3_launches_per_warm_query=[c["tiles"]["fused"]
+                                           for c in counts],
+               evals_per_s=n / (warm_ms / 1e3), force_rms=f_rms,
+               pot_rms=p_rms, shared_force_rms=shared_rms[0],
+               shared_pot_rms=shared_rms[1])
+    emit("lists", **rec)
+    if not (f_rms < FORCE_RMS_MAX and p_rms < POT_RMS_MAX):
+        raise AssertionError(f"lists accuracy: force rms {f_rms:.3e}, pot "
+                             f"rms {p_rms:.3e}")
+    emit("lists_layers", warm_query_ms=warm_ms, **lists_layer_ms(tree))
+    emit("lists_profile", **profile_record(
+        device_profile(tree, "tiles_fused_kernel", "k3_device_ms"), warm_ms))
+    with dispatch.tiles_variant("split"):
+        (acc4, pot4), ms4, c4 = warm_counted(tree, 1)
+    if c4[-1] != launched(c4[-1], {"tiles": {"split": 2 * chunks}}):
+        raise AssertionError(f"lists split query: launches {c4[-1]}, want "
+                             f"{2 * chunks} K4 and nothing else")
+    finite("lists split result", acc4, pot4)
+    f4, p4 = sampled_rms(acc4, pot4, *oracle, dev)
+    diff = float((acc4 - acc).abs().max() / acc.abs().max())
+    emit("lists_split", warm_query_ms=ms4[-1],
+         k4_launches=c4[-1]["tiles"]["split"], force_rms=f4, pot_rms=p4,
+         max_rel_diff_to_k3=diff)
+    if not abs(f4 - f_rms) < VARIANT_RMS_RTOL * f_rms:
+        raise AssertionError(f"lists on K4: force rms {f4:.6e} is not "
+                             f"within {VARIANT_RMS_RTOL} of K3's {f_rms:.6e}")
+    forms = tile_kernels(tree, n, "lists", THETA)
+    return {"K3": counts[-1]["tiles"]["fused"],
+            "K4": c4[-1]["tiles"]["split"]}, forms, rec
+
+
+def lists_quad(seed: int, dev) -> dict:
+    """Phase lists_quad: LISTS_QUAD_N particles of a seeded Plummer sphere
+    through the lists monopole (K3: launches = chunks), the quadrupole
+    with farfield "local" (the lists path; its M2P row takes the
+    reference's plain-op route: tiles.launches["xla_quad"] = chunks and no
+    kernel launch), and shared+m2p with the quadrupole (K1d on the node
+    rows, K1a on the particle rows). The lists quadrupole's force RMS must
+    be below the lists monopole's and within LISTS_QUAD_RTOL of the shared
+    quadrupole's."""
+    from rakau_tpu_torch import Tree, direct_acc_pot_np, engine, particles
+    from rakau_tpu_torch.config import TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(LISTS_QUAD_N, generator=gen)
+    samp = np.sort(np.random.default_rng(seed).choice(LISTS_QUAD_N, 256,
+                                                      replace=False))
+    acc_o, pot_o = direct_acc_pot_np(pos.double().cpu().numpy(),
+                                     mass.double().cpu().numpy(),
+                                     targets=samp)
+    rec, rms = {"n": LISTS_QUAD_N, "theta": THETA}, {}
+    for key, kw in (("lists_mono", LISTS_KW),
+                    ("lists_quad", dict(TREE_KW, farfield="local",
+                                        multipole_order=2)),
+                    ("shared_quad", dict(TREE_KW, farfield="m2p",
+                                         multipole_order=2))):
+        tree = Tree(coords=pos, masses=mass, config=TreeConfig(**kw))
+        tree.accs_pots_o(THETA)
+        (acc, pot), ms, counts = warm_counted(tree, 1)
+        chunks = engine.live_chunks(tree.tree_data, tree.config)
+        want = {"lists_mono": {"tiles": {"fused": chunks}},
+                "lists_quad": {"tiles": {"xla_quad": chunks}},
+                "shared_quad": {"K1": {"quad": chunks, "mono": chunks}}}[key]
+        if counts[-1] != launched(counts[-1], want):
+            raise AssertionError(f"{key}: launches {counts[-1]}, want {want}")
+        finite(key, acc, pot)
+        rms[key] = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
+        rec[key] = dict(warm_query_ms=ms[-1], chunks=chunks,
+                        force_rms=rms[key][0], pot_rms=rms[key][1],
+                        launches=want)
+        del tree
+    e_q, e_m, e_s = (rms[k][0] for k in ("lists_quad", "lists_mono",
+                                         "shared_quad"))
+    emit("lists_quad", **rec, quad_over_mono=e_q / e_m,
+         quad_vs_shared=abs(e_q - e_s) / e_s)
+    if not (e_q < e_m and abs(e_q - e_s) < LISTS_QUAD_RTOL * e_s):
+        raise AssertionError(f"lists quadrupole force rms {e_q:.4e}: lists "
+                             f"monopole {e_m:.4e}, shared quadrupole "
+                             f"{e_s:.4e}")
+    return rec
+
+
+@contextmanager
+def plain_forbidden():
+    """Every plain version of a kernel raises for the duration: a query
+    that runs inside it went through the kernels alone."""
+    from rakau_tpu_torch.kernels import pool, shared, tiles
+    names = ((shared, "eval_shared_plain"), (shared, "eval_shared_mma_plain"),
+             (shared, "eval_shared_blocks_plain"), (pool, "eval_pool_plain"),
+             (tiles, "eval_tiles_plain"), (tiles, "eval_pairwise_plain"))
+    saved = [getattr(m, f) for m, f in names]
+
+    def refuse(name):
+        def fn(*a, **kw):
+            raise AssertionError(f"the plain version {name} ran")
+        return fn
+
+    for m, f in names:
+        setattr(m, f, refuse(f))
+    try:
+        yield
+    finally:
+        for (m, f), orig in zip(names, saved):
+            setattr(m, f, orig)
+
+
+def f1(seed: int, dev) -> tuple:
+    """Phase f1: 2-D and float64 trees queried on the card, every launch
+    on the kernels' 2-D (padded) or float64 forms, no plain version run
+    (plain_forbidden), each against the float64 direct sum on 256
+    sampled targets:
+      2-D: quadtree(...) of F1_N particles uniform in a square, the shared
+        engine with its default far field, theta 0.5: K1a launches =
+        chunks, every one "d2"; force and potential RMS < 2e-2; the same
+        with grid2 at level 10 (F1_2D_GRID2_KW): K1c launches = chunks,
+        every one "d2", the same bounds, and K1c against its plain
+        version on the last chunk, whose cells reach past 2^9;
+      float64: octree(...) of F1_N Plummer particles given as NumPy
+        float64 arrays (no dtype, no device), theta 0.4: K1a launches =
+        chunks, every one "f64"; force RMS < 2e-3; then the same particles
+        through gwalk (farfield "m2p", bench.py's gwalk caps tuned by
+        tune_gwalk): one K2 launch, "f64"; and through the lists path
+        (farfield "m2p"): K3 launches = chunks, "f64"; force RMS < 2e-3
+        each.
+    Returns the record, the launches of each float64 form and their
+    kernel records on chunk 0 (against the plain version)."""
+    from rakau_tpu_torch import (Tree, direct_acc_pot_np, engine, octree,
+                                 particles, quadtree)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rec, launches = {"n": F1_N}, {}
+    samp = np.sort(np.random.default_rng(seed).choice(F1_N, 256,
+                                                      replace=False))
+    kw = dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32)
+
+    def run(key, tree, theta, want, bounds):
+        tree.accs_pots_o(theta)
+        with plain_forbidden():
+            (acc, pot), ms, counts = warm_counted(tree, 1, theta)
+        chunks = engine.live_chunks(tree.tree_data, tree.config)
+        want = want(chunks)
+        if counts[-1] != launched(counts[-1], want):
+            raise AssertionError(f"f1 {key}: launches {counts[-1]}, want "
+                                 f"{want}")
+        finite(f"f1 {key}", acc, pot)
+        pos_o = tree.positions_o.double().cpu().numpy()
+        acc_o, pot_o = direct_acc_pot_np(pos_o, tree.masses_o.double().cpu()
+                                         .numpy(), targets=samp)
+        f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
+        rec[key] = dict(theta=theta, dtype=str(acc.dtype), chunks=chunks,
+                        warm_query_ms=ms[-1], force_rms=f_rms, pot_rms=p_rms,
+                        launches=want)
+        if not (f_rms < bounds[0] and (bounds[1] is None
+                                       or p_rms < bounds[1])):
+            raise AssertionError(f"f1 {key}: force rms {f_rms:.3e}, pot rms "
+                                 f"{p_rms:.3e}, bounds {bounds}")
+        return want
+
+    p2, m2 = particles.uniform_cube(F1_N, generator=gen, ndim=2)
+    tree = quadtree(coords=p2, masses=m2, **kw)
+    run("quadtree", tree, F1_2D_THETA,
+        lambda c: {"K1": {"mono": c, "d2": c}}, (F1_2D_MAX, F1_2D_MAX))
+    del tree
+    from rakau_tpu_torch.kernels import pool, shared
+    tree = quadtree(coords=p2, masses=m2, **F1_2D_GRID2_KW, **kw)
+    run("quadtree_grid2", tree, F1_2D_THETA,
+        lambda c: {"K1": {"mono_cell": c, "d2": c}}, (F1_2D_MAX, F1_2D_MAX))
+    td, cfg = tree.tree_data, tree.config
+    inp = engine.kernel_inputs(td, cfg, F1_2D_THETA, 0.0,
+                               engine.live_chunks(td, cfg) - 1)
+    ckw = dict(src_cell=inp[7], tgt_cell=inp[8], grid_sep=cfg.grid_sep)
+    top = int(max(inp[7].max(), inp[8].max()))
+    if top < 1 << 9:
+        raise AssertionError(f"f1 quadtree_grid2: cells reach {top} only")
+    err = compare(shared.eval_shared_fused(*inp[:6], 0.0, 1.0, **ckw),
+                  shared.eval_shared_plain(*inp[:6], 0.0, 1.0, **ckw))
+    rec["quadtree_grid2"].update(grid_level=F1_2D_GRID2_KW["grid_level"],
+                                 max_cell=top, last_chunk_max_abs_err=err)
+    del tree
+    p64, m64 = particles.plummer(F1_N, generator=gen, dtype=torch.float64)
+    p64, m64 = p64.cpu().numpy(), m64.cpu().numpy()
+    tree = octree(coords=p64, masses=m64, **kw)
+    launches["K1a"] = run("octree_f64", tree, F1_F64_THETA,
+                          lambda c: {"K1": {"mono": c, "f64": c}},
+                          (F1_F64_FORCE_MAX, None))["K1"]["f64"]
+    td, cfg = tree.tree_data, tree.config
+    inp = engine.kernel_inputs(td, cfg, F1_F64_THETA, 0.0, 0)[:6]
+    got = shared.eval_shared_fused(*inp, 0.0, 1.0)
+    err = compare(got, shared.eval_shared_plain(*inp, 0.0, 1.0),
+                  **tol(torch.float64))
+    b_ms, b_by = bound(inp, F1_N)
+    forms = {"K1a": dict(
+        max_abs_err=err, ms=cuda_ms(lambda: shared.eval_shared_fused(
+            *inp, 0.0, 1.0), 10),
+        plain_ms=cuda_ms(lambda: shared.eval_shared_plain(*inp, 0.0, 1.0),
+                         1), bound_ms=b_ms, bound_by=b_by)}
+    emit("kernel", config="octree_f64", chunk=0, **forms["K1a"])
+    del tree
+    from rakau_tpu_torch.config import TreeConfig
+    gcfg = TreeConfig(farfield="m2p", dtype="float64", **gwalk_kw(F1_N))
+    gtree, sizing = gwalk_tree(p64, m64, gcfg, F1_F64_THETA)
+    launches["K2"] = run("gwalk_f64", gtree, F1_F64_THETA,
+                         lambda c: {"K2": {"mono": 1, "f64": 1}},
+                         (F1_F64_FORCE_MAX, None))["K2"]["f64"]
+    rec["gwalk_f64"]["sizing"] = sizing
+    gcfg_t = gtree.config
+    inputs = engine.pool_inputs(gtree.tree_data, gcfg_t, F1_F64_THETA, 0.0)
+    k2 = pool_kernels(inputs, F1_N, gcfg_t.pool_window, gcfg_t.pool_block,
+                      ("mono",))["mono"]
+    forms["K2"] = {k: v for k, v in k2.items() if k != "modes"}
+    emit("kernel", config="gwalk_f64", **forms["K2"])
+    del gtree
+    with diag_modes():
+        ltree = Tree(coords=p64, masses=m64,
+                     config=TreeConfig(dtype="float64", **LISTS_KW))
+        launches["K3"] = run("lists_f64", ltree, F1_F64_THETA,
+                             lambda c: {"tiles": {"fused": c, "f64": c}},
+                             (F1_F64_FORCE_MAX, None))["tiles"]["f64"]
+        forms["K3"] = tile_kernels(ltree, F1_N, "lists_f64", F1_F64_THETA,
+                                   nchunks=1, with_k4=False)["K3"]
+    del ltree
+    emit("f1", **rec)
+    return rec, launches, forms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -2153,9 +2856,19 @@ def main(argv=None) -> int:
     emit("edge", max_abs_err=edge_err, cancellation_err=cancel)
     edge_err, cancel = pool_edge_cases(dev)
     emit("edge_pool", max_abs_err=edge_err, cancellation_err=cancel)
-    emit("edge_cell", max_abs_err=cell_edge_cases(shared, dev))
+    emit("edge_cell", max_abs_err=cell_edge_cases(shared, dev),
+         wide_cells_max_abs_err=wide_cell_cases(shared, dev))
     emit("edge_mma", max_abs_err=mma_edge_cases(shared, dev))
     emit("edge_blocks", max_abs_err=blocks_edge_cases(shared, dev))
+    f64 = torch.float64
+    k1_err, k1_stair = edge_cases(shared, dev, f64)
+    k2_err, k2_stair = pool_edge_cases(dev, f64)
+    emit("edge_f64", max_abs_err={
+        "K1": k1_err, "K1c": cell_edge_cases(shared, dev, f64), "K2": k2_err},
+        staircase_err_u={"K1": k1_stair, "K2": k2_stair})
+    emit("edge_tiles", max_abs_err={
+        "float32": tiles_edge_cases(dev, torch.float32),
+        "float64": tiles_edge_cases(dev, f64)})
 
     # ---- main path -----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2294,6 +3007,18 @@ def main(argv=None) -> int:
     gwalk_grid2(pos, mass, oracle, (g2["force_rms"], g2["pot_rms"]), dev)
     torch.cuda.empty_cache()
 
+    # ---- the lists path: per-tile lists and K3 (K4 beside it) -----------
+    with diag_modes():
+        t_launches, t_forms, _ = lists_main(pos, mass, oracle,
+                                            (f_rms, p_rms), dev)
+        torch.cuda.empty_cache()
+        lists_quad(args.seed + 5, dev)
+    torch.cuda.empty_cache()
+
+    # ---- F1: 2-D and float64 trees on the card --------------------------
+    _, f64_launches, f64_forms = f1(args.seed + 6, dev)
+    torch.cuda.empty_cache()
+
     # ---- BASELINE config #2: the leapfrog harness -----------------------
     lf, etree, ecfg = leapfrog(args.n, args.seed + 2, dev)
     forms = energy_kernels(etree, ecfg)
@@ -2352,6 +3077,24 @@ def main(argv=None) -> int:
                     "replaces": BLOCKS_REPLACES,
                     "launches": v_launches["blocks"], **v_forms["blocks"],
                     "library_ms": None})
+    for key, name, replaces in (
+            ("K3", "K3 tiles (fused rows, monopole, fp32)", K3_REPLACES),
+            ("K4", "K4 tiles_split (one launch a row, monopole, fp32)",
+             K4_REPLACES)):
+        kernels.append({"name": name, "route": "cuda", "source": TILES_SRC,
+                        "replaces": replaces, "launches": t_launches[key],
+                        **t_forms[key], "library_ms": None})
+    for key, name, source, replaces in (
+            ("K1a", "K1a shared_fused (monopole, fp64 build)", SRC,
+             REPLACES),
+            ("K2", "K2 pool (monopole, fp64 build)", POOL_SRC,
+             POOL_REPLACES),
+            ("K3", "K3 tiles (fused rows, monopole, fp64 build)", TILES_SRC,
+             K3_REPLACES)):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": f64_launches[key],
+                        **f64_forms[key], "library_ms": None})
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

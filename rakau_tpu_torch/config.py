@@ -5,11 +5,11 @@ validation (product-mode matrix included), so that
 `TreeConfig(**dataclasses.asdict(jax_cfg))` builds the same configuration.
 The per-call theta/eps/G stay call arguments.
 
-The engine (engine.py) runs the shared, the lmac and the gwalk traversal
-with the "m2p", "grid" and "grid2" far fields (shared and lmac also with
-"local"); it raises NotImplementedError for every other mode this config
-accepts. In lmac mode frontier_cap is the capacity of a slice's candidate
-table. In gwalk mode the four growable capacities have global meaning: m2p_cap is
+The engine (engine.py) runs every mode this config accepts: the shared,
+lmac, gwalk and lists traversals. In lists mode (and for the quadrupole
+with "local" or "grid", which runs there) the caps are per tile. In lmac
+mode frontier_cap is the capacity of a slice's candidate table. In gwalk
+mode the four growable capacities have global meaning: m2p_cap is
 the total of (tile, node) M2P incidences, p2p_leaf_cap of opened (tile,
 leaf) incidences, p2p_src_cap the pool rows, frontier_cap the peak
 global frontier of (tile, node) pairs.

@@ -1,68 +1,98 @@
 // The packed-word leaf-cell separation test of the grid2 forms, shared by
 // the kernels of the shared row (shared_fused.cu, shared_mma.cu).
 //
-// A source's three cell coordinates sit in one int32, in fields of
-// kFieldBits = 10 bits (-1 for a row exempt from the test). The target
-// thread adds its own constant, per field 512 + sep - 1 - tc_d, so that
-// each field holds
-//     v_d = sc_d - tc_d + sep - 1 + 512  in (0, 1024): no carry crosses,
-// and the pair is near in dimension d iff 512 <= v_d <= 512 + 2 sep - 2:
-// the field's top bit is set, and its low 9 bits plus 513 - 2 sep do not
+// A source's cell coordinates sit in one int32, in `dims` fields of
+// 30 / dims bits each (-1 for a row exempt from the test): three fields of
+// 10 bits for 3-D cells, two of 15 bits for 2-D ones (a 2-D call arrives
+// padded to 3-D, and its zero z coordinate is not packed; the launch's
+// cell_dims selects the kernel of its packing). With
+// top = 2^(bits - 1), the target thread adds its own constant, per field
+// top + sep - 1 - tc_d, so that each field holds
+//     v_d = sc_d - tc_d + sep - 1 + top  in (0, 2^bits): no carry crosses,
+// and the pair is near in dimension d iff top <= v_d <= top + 2 sep - 2:
+// the field's top bit is set, and its low bits plus top + 1 - 2 sep do not
 // reach the top bit. One add, one and, one add, one three-input logic
 // operation and two compares a pair, where the test per coordinate
 // (3 extractions, 3 differences, 3 absolute values, 2 maxima) measured 3x
 // the monopole kernel's time: integer operations run at half the fp32 rate
 // on this card.
+//
+// The fields hold it when the coordinates lie below 2^(bits - 2) and sep
+// is at most that: cell_coord_bits(dims), 8 in 3-D and 13 in 2-D
+// (kernels/shared.py:CELL_BITS, checked when the library loads). The grid2
+// levels that the configuration admits end at 7 in 3-D and 10 in 2-D.
 #pragma once
 
 #include <stdint.h>
 
-// Cell coordinates lie below 2^kCellBits (kernels/shared.py:CELL_BITS:
-// grid2's leaf grids end at level 7), and sep at or below it. A packed cell
-// holds them in three fields of kFieldBits bits; kTopMask has each field's
-// top bit, kLowMask the bits below it.
-constexpr int kCellBits = 7;
-constexpr int kFieldBits = 10;
-constexpr int kFieldTop = 1 << (kFieldBits - 1);
-
-__host__ __device__ constexpr int pack3(int a, int b, int c)
+__host__ __device__ constexpr int cell_field_bits(int dims)
 {
-    return (a << (2 * kFieldBits)) | (b << kFieldBits) | c;
+    return 30 / dims;
 }
 
-constexpr int kTopMask = pack3(kFieldTop, kFieldTop, kFieldTop);
-constexpr int kLowMask = pack3(kFieldTop - 1, kFieldTop - 1, kFieldTop - 1);
-static_assert((1 << kCellBits) + (1 << kCellBits) + kFieldTop
-                  <= (1 << kFieldBits),
-              "a field must hold coordinate + sep + 512 without a carry");
+__host__ __device__ constexpr int cell_coord_bits(int dims)
+{
+    return cell_field_bits(dims) - 2;
+}
 
-// A target's constant: per field 512 + sep - 1 - its coordinate.
+static_assert((1 << cell_coord_bits(3)) * 2 + (1 << (cell_field_bits(3) - 1))
+                  <= (1 << cell_field_bits(3)),
+              "a field must hold coordinate + sep + top without a carry");
+static_assert((1 << cell_coord_bits(2)) * 2 + (1 << (cell_field_bits(2) - 1))
+                  <= (1 << cell_field_bits(2)),
+              "a field must hold coordinate + sep + top without a carry");
+
+// The packing of DIMS-dimensional cells, at compile time: the kernels
+// take it as a template parameter (their CELL: 0 for no test, 2 or 3), so
+// the masks are immediates, as in a kernel written for one packing.
+template <int DIMS>
+struct CellPack {
+    static_assert(DIMS == 2 || DIMS == 3, "cells are 2-D or 3-D");
+    static constexpr int kBits = cell_field_bits(DIMS);   // bits a field
+    static constexpr int kTop = 1 << (kBits - 1);          // a field's top bit
+
+    // the fields (a, b[, c]) in one word; c is not packed in 2-D
+    __host__ __device__ static constexpr int pack(int a, int b, int c)
+    {
+        return DIMS == 3 ? (((a << kBits) | b) << kBits) | c
+                         : (a << kBits) | b;
+    }
+
+    static constexpr int kTopMask = pack(kTop, kTop, kTop);
+    static constexpr int kLowMask = pack(kTop - 1, kTop - 1, kTop - 1);
+};
+
+// A target's constant: per field top + sep - 1 - its coordinate.
+template <int DIMS>
 __device__ __forceinline__ int cell_target_word(const int32_t* tc, int sep)
 {
-    const int bias = kFieldTop + sep - 1;
-    return pack3(bias - tc[0], bias - tc[1], bias - tc[2]);
+    const int bias = CellPack<DIMS>::kTop + sep - 1;
+    return CellPack<DIMS>::pack(bias - tc[0], bias - tc[1], bias - tc[2]);
 }
 
-// Per field 511 - (2 sep - 2): carries a field's low bits into its top bit
+// Per field top + 1 - 2 sep: carries a field's low bits into its top bit
 // exactly when they exceed 2 sep - 2.
+template <int DIMS>
 __device__ __forceinline__ int cell_over_word(int sep)
 {
-    const int over = kFieldTop + 1 - 2 * sep;
-    return pack3(over, over, over);
+    const int over = CellPack<DIMS>::kTop + 1 - 2 * sep;
+    return CellPack<DIMS>::pack(over, over, over);
 }
 
-// A source's packed cell from its three coordinates; -1 when the first is
+// A source's packed cell from its coordinates; -1 when the first is
 // negative (a row exempt from the test).
+template <int DIMS>
 __device__ __forceinline__ int cell_source_word(const int32_t* sc)
 {
-    return sc[0] >= 0 ? pack3(sc[0], sc[1], sc[2]) : -1;
+    return sc[0] >= 0 ? CellPack<DIMS>::pack(sc[0], sc[1], sc[2]) : -1;
 }
 
 // The pair (source word pc, target word tk) belongs to the dense far field:
 // separated by sep cells or more in some dimension, and not exempt.
+template <int DIMS>
 __device__ __forceinline__ bool cell_far(int pc, int tk, int cb)
 {
     const int v = pc + tk;
-    const int x = (v & kLowMask) + cb;
-    return pc >= 0 && ((~v | x) & kTopMask) != 0;
+    const int x = (v & CellPack<DIMS>::kLowMask) + cb;
+    return pc >= 0 && ((~v | x) & CellPack<DIMS>::kTopMask) != 0;
 }

@@ -1,4 +1,4 @@
-// gwalk pool kernel (K2, fp32) for NVIDIA Hopper, in four forms.
+// gwalk pool kernel (K2; fp32, or fp64 in the float64 build) for NVIDIA Hopper, in four forms.
 //
 // Replaces the TPU kernel rakau_tpu/kernels/pallas.py:_pool_kernel in its
 // forms: monopole, compensated, quadrupole, and both (modes both/acc/pot).
@@ -25,7 +25,7 @@
 // dead gate zeroes inv_r before any power of it is formed, so a node row
 // exactly on a target at eps = 0 adds 0, not 0 * inf = NaN.
 //
-// COMP: each thread sums one pool block (`block` rows) into fp32 partials
+// COMP: each thread sums one pool block (`block` rows) into partials
 // and adds each partial into its running sum with Knuth's TwoSum, keeping
 // the error terms, written as sum + err at the end (the TPU kernel's
 // per-block structure, pallas.py:1092-1101). TwoSum has no products, so
@@ -46,7 +46,7 @@
 // Design: one CUDA block per tile, kThreads threads, one thread per target
 // (a tile of more than kThreads targets is done in passes of kThreads,
 // each streaming the segment again). The segment is streamed through
-// shared memory kStage rows at a time: pos + mass as float4 and idx as
+// shared memory kStage rows at a time: pos + mass as real4 and idx as
 // int32, and the 6 second-moment planes while in the node blocks. Every
 // thread then reads the same staged row at a time (a broadcast) and
 // accumulates in registers. A pool block may hold any number of rows (a
@@ -54,25 +54,48 @@
 // offsets are int64 (at 8M the pool holds 16n = 134M rows, and row * 6
 // planes passes 2^31). Indices are compared as int32 (particle counts
 // stay below 2^31).
+//
+// Scalar type: `real` is RAKAU_REAL, float unless the library is built
+// with -DRAKAU_REAL=double (kernels/shared.py:build_library(f64=True)),
+// which gives the same kernels in float64 for float64 trees (the staged
+// rows then take 21 KB of shared memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifdef RAKAU_REAL
+// The float64 build: at most two resident blocks a SM bound the registers.
+// Under the thread bound alone ptxas held the double forms near 64
+// registers and spilled in four of them; with this bound they take 78-96
+// and none spills.
+#define RAKAU_POOL_BOUNDS __launch_bounds__(kThreads, 2)
+#else
+#define RAKAU_REAL float
+#define RAKAU_POOL_BOUNDS __launch_bounds__(kThreads)
+#endif
+
 namespace {
+
+using real = RAKAU_REAL;
+struct alignas(4 * sizeof(real)) real4 { real x, y, z, w; };
+__device__ __forceinline__ float rsqrt_r(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_r(double x) { return rsqrt(x); }
 
 constexpr int kThreads = 256;   // targets per pass, one per thread
 constexpr int kStage = 256;     // pool rows staged per step
 constexpr int kQuad = 6;
-static_assert(kStage * (sizeof(float4) + sizeof(int) + kQuad * sizeof(float))
+// rows unrolled in the inner loop
+constexpr int kUnroll = sizeof(real) == 8 ? 2 : 4;
+static_assert(kStage * (sizeof(real4) + sizeof(int) + kQuad * sizeof(real))
                   <= 48 * 1024,
               "the staged rows must fit in static shared memory");
 enum Mode { kBoth = 0, kAcc = 1, kPot = 2 };
 
 // Knuth TwoSum: s + e == a + b exactly; a becomes s, e is added to err.
-__device__ __forceinline__ void two_sum_into(float& a, float b, float& err)
+__device__ __forceinline__ void two_sum_into(real& a, real b, real& err)
 {
-    const float s = a + b;
-    const float bb = s - a;
+    const real s = a + b;
+    const real bb = s - a;
     err += (a - (s - bb)) + (b - bb);
     a = s;
 }
@@ -80,41 +103,42 @@ __device__ __forceinline__ void two_sum_into(float& a, float b, float& err)
 // Adds the staged rows [0, nj) to one target's block partials.
 template <int MODE, bool QUAD>
 __device__ __forceinline__ void accumulate(
-    const float4* __restrict__ s_pm, const int* __restrict__ s_idx,
-    const float* __restrict__ s_q, int nj, float tx, float ty, float tz,
-    int ti, float eps2, float& bx, float& by, float& bz, float& bp)
+    const real4* __restrict__ s_pm, const int* __restrict__ s_idx,
+    const real* __restrict__ s_q, int nj, real tx, real ty, real tz,
+    int ti, real eps2, real& bx, real& by, real& bz, real& bp)
 {
-#pragma unroll 4
+#pragma unroll (kUnroll)
     for (int j = 0; j < nj; ++j) {
-        const float4 v = s_pm[j];
-        const float dx = v.x - tx;
-        const float dy = v.y - ty;
-        const float dz = v.z - tz;
-        const float r2 = dx * dx + dy * dy + dz * dz + eps2;
-        float inv_r = rsqrtf(r2);
-        if (s_idx[j] == ti || r2 <= 0.f) inv_r = 0.f;
-        const float w = v.w * inv_r;
-        const float inv2 = inv_r * inv_r;
-        float g = w * inv2;                // the factor of d in acc
-        float qx = 0.f, qy = 0.f, qz = 0.f;
+        const real4 v = s_pm[j];
+        const real dx = v.x - tx;
+        const real dy = v.y - ty;
+        const real dz = v.z - tz;
+        const real r2 = dx * dx + dy * dy + dz * dz + eps2;
+        real inv_r = rsqrt_r(r2);
+        if (s_idx[j] == ti || r2 <= real(0)) inv_r = 0;
+        const real w = v.w * inv_r;
+        const real inv2 = inv_r * inv_r;
+        real g = w * inv2;                 // the factor of d in acc
+        real qx = 0, qy = 0, qz = 0;
         if (QUAD) {
-            const float qxx = s_q[0 * kStage + j], qxy = s_q[1 * kStage + j];
-            const float qxz = s_q[2 * kStage + j], qyy = s_q[3 * kStage + j];
-            const float qyz = s_q[4 * kStage + j], qzz = s_q[5 * kStage + j];
+            const real qxx = s_q[0 * kStage + j], qxy = s_q[1 * kStage + j];
+            const real qxz = s_q[2 * kStage + j], qyy = s_q[3 * kStage + j];
+            const real qyz = s_q[4 * kStage + j], qzz = s_q[5 * kStage + j];
             qx = qxx * dx + qxy * dy + qxz * dz;          // Qd
             qy = qxy * dx + qyy * dy + qyz * dz;
             qz = qxz * dx + qyz * dy + qzz * dz;
-            const float dqd = dx * qx + dy * qy + dz * qz;
-            const float tr = qxx + qyy + qzz;
-            const float inv3 = inv2 * inv_r;
-            const float inv5 = inv3 * inv2;
+            const real dqd = dx * qx + dy * qy + dz * qz;
+            const real tr = qxx + qyy + qzz;
+            const real inv3 = inv2 * inv_r;
+            const real inv5 = inv3 * inv2;
             if (MODE != kPot) {
-                g += 7.5f * dqd * (inv5 * inv2) - 1.5f * tr * inv5;
-                qx *= -3.f * inv5;
-                qy *= -3.f * inv5;
-                qz *= -3.f * inv5;
+                g += real(7.5) * dqd * (inv5 * inv2) - real(1.5) * tr * inv5;
+                qx *= real(-3) * inv5;
+                qy *= real(-3) * inv5;
+                qz *= real(-3) * inv5;
             }
-            if (MODE != kAcc) bp -= 1.5f * dqd * inv5 - 0.5f * tr * inv3;
+            if (MODE != kAcc)
+                bp -= real(1.5) * dqd * inv5 - real(0.5) * tr * inv3;
         }
         if (MODE != kPot) {
             bx += g * dx + qx;
@@ -126,21 +150,21 @@ __device__ __forceinline__ void accumulate(
 }
 
 template <int MODE, bool COMP, bool QUAD>
-__global__ void __launch_bounds__(kThreads)
-pool_kernel(const float* __restrict__ tgt,         // [G, T, 3]
+__global__ void RAKAU_POOL_BOUNDS
+pool_kernel(const real* __restrict__ tgt,          // [G, T, 3]
             const int64_t* __restrict__ tgt_idx,   // [G, T]
-            const float* __restrict__ pos,         // [P, 3]
-            const float* __restrict__ mass,        // [P]
+            const real* __restrict__ pos,          // [P, 3]
+            const real* __restrict__ mass,         // [P]
             const int64_t* __restrict__ idx,       // [P]
-            const float* __restrict__ quad,        // [P, 6] (QUAD)
+            const real* __restrict__ quad,         // [P, 6] (QUAD)
             const int32_t* __restrict__ sched,     // [G, 4]
-            float* __restrict__ acc,               // [G, T, 3]
-            float* __restrict__ pot,               // [G, T]
-            int T, int Wb, int block, float eps2)
+            real* __restrict__ acc,                // [G, T, 3]
+            real* __restrict__ pot,                // [G, T]
+            int T, int Wb, int block, real eps2)
 {
-    __shared__ float4 s_pm[kStage];
+    __shared__ real4 s_pm[kStage];
     __shared__ int s_idx[kStage];
-    __shared__ float s_q[QUAD ? kQuad * kStage : 1];
+    __shared__ real s_q[QUAD ? kQuad * kStage : 1];
 
     const int64_t g = blockIdx.x;
     const int32_t* sg = sched + 4 * g;
@@ -152,7 +176,7 @@ pool_kernel(const float* __restrict__ tgt,         // [G, T, 3]
         const int t = t0 + static_cast<int>(threadIdx.x);
         const bool live = t < T;
         const int64_t tg = g * T + t;
-        float tx = 0.f, ty = 0.f, tz = 0.f;
+        real tx = 0, ty = 0, tz = 0;
         int ti = -2;   // matches no row index (nodes and padding carry -1)
         if (live) {
             tx = tgt[3 * tg];
@@ -160,19 +184,19 @@ pool_kernel(const float* __restrict__ tgt,         // [G, T, 3]
             tz = tgt[3 * tg + 2];
             ti = static_cast<int>(tgt_idx[tg]);
         }
-        float ax = 0.f, ay = 0.f, az = 0.f, pp = 0.f;   // running sums
-        float ex = 0.f, ey = 0.f, ez = 0.f, ep = 0.f;   // TwoSum errors
+        real ax = 0, ay = 0, az = 0, pp = 0;   // running sums
+        real ex = 0, ey = 0, ez = 0, ep = 0;   // TwoSum errors
         for (int b = 0; b < nblk; ++b) {
             const bool with_quad = QUAD && b < m_nb;    // uniform per block
             const int64_t brow = row0 + static_cast<int64_t>(b) * block;
-            float bx = 0.f, by = 0.f, bz = 0.f, bp = 0.f;   // block partials
+            real bx = 0, by = 0, bz = 0, bp = 0;   // block partials
             for (int s0 = 0; s0 < block; s0 += kStage) {
                 const int nj = min(kStage, block - s0);
                 __syncthreads();        // the previous stage is consumed
                 for (int j = threadIdx.x; j < nj; j += kThreads) {
                     const int64_t r = brow + s0 + j;
-                    s_pm[j] = make_float4(pos[3 * r], pos[3 * r + 1],
-                                          pos[3 * r + 2], mass[r]);
+                    s_pm[j] = real4{pos[3 * r], pos[3 * r + 1],
+                                    pos[3 * r + 2], mass[r]};
                     s_idx[j] = static_cast<int>(idx[r]);
                     if constexpr (QUAD) {
                         if (with_quad) {
@@ -217,10 +241,10 @@ pool_kernel(const float* __restrict__ tgt,         // [G, T, 3]
 }
 
 struct Args {
-    const float* tgt; const int64_t* tgt_idx; const float* pos;
-    const float* mass; const int64_t* idx; const float* quad;
-    const int32_t* sched; float* acc; float* pot;
-    int G, T, Wb, block; float eps2;
+    const real* tgt; const int64_t* tgt_idx; const real* pos;
+    const real* mass; const int64_t* idx; const real* quad;
+    const int32_t* sched; real* acc; real* pot;
+    int G, T, Wb, block; real eps2;
 };
 
 template <int MODE, bool COMP, bool QUAD>
@@ -249,13 +273,14 @@ cudaError_t launch_form(const Args& a, bool comp, cudaStream_t stream)
 // (0 = accepted). mode: 0 both, 1 acc only (pot written as 0), 2 pot only
 // (acc written as 0). quad: [P, 6] second moments, or null for the
 // monopole forms. comp: nonzero for the compensated (TwoSum) sums. Wb:
-// blocks per window; block: rows per pool block.
-extern "C" int rakau_pool(const float* tgt, const int64_t* tgt_idx,
-                          const float* pos, const float* mass,
-                          const int64_t* idx, const float* quad,
-                          const int32_t* sched, float* acc, float* pot,
+// blocks per window; block: rows per pool block. Every real pointer and
+// eps2 are of the library's scalar type.
+extern "C" int rakau_pool(const real* tgt, const int64_t* tgt_idx,
+                          const real* pos, const real* mass,
+                          const int64_t* idx, const real* quad,
+                          const int32_t* sched, real* acc, real* pot,
                           int G, int T, int Wb, int block, int mode, int comp,
-                          float eps2, void* stream)
+                          real eps2, void* stream)
 {
     if (G <= 0 || T <= 0) return 0;
     if (Wb <= 0 || block <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -270,7 +295,10 @@ extern "C" int rakau_pool(const float* tgt, const int64_t* tgt_idx,
     }
 }
 
-extern "C" const char* rakau_pool_error_string(int err)
+// Bytes of the scalar type the library was built for (4 or 8).
+extern "C" int rakau_pool_real_bytes() { return static_cast<int>(sizeof(real)); }
+
+extern "C" const char* rakau_cuda_error_string(int err)
 {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

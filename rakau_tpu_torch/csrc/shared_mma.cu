@@ -132,7 +132,7 @@ __device__ __forceinline__ float quad_sum(float v)
     return v;
 }
 
-template <int MODE, bool CELL, int PREC>
+template <int MODE, int CELL, int PREC>
 __global__ void __launch_bounds__(kThreads)
 shared_mma_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                   const float* __restrict__ src,        // [S, 3]
@@ -146,6 +146,7 @@ shared_mma_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                   float* __restrict__ pot,              // [C, T]
                   int T, int S, int NB, int sep, float eps2)
 {
+    constexpr int DIMS = CELL ? CELL : 3;   // the cell packing (CELL)
     constexpr bool kMma = PREC != kHighest && MODE != kPot;
     __shared__ float4 s_pm[kBlock];                     // s', m * mask
     __shared__ float s_ss[kBlock];                      // |s'|^2
@@ -179,11 +180,12 @@ shared_mma_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                 ty[m][r] = tgt[3 * (c0 + t) + 1] - py;
                 tz[m][r] = tgt[3 * (c0 + t) + 2] - pz;
                 if (CELL)
-                    tk[m][r] = cell_target_word(tgt_cell + 3 * (c0 + t), sep);
+                    tk[m][r] = cell_target_word<DIMS>(
+                        tgt_cell + 3 * (c0 + t), sep);
             }
             tts[m][r] = norm2(tx[m][r], ty[m][r], tz[m][r]);
         }
-    const int cb = CELL ? cell_over_word(sep) : 0;
+    const int cb = CELL ? cell_over_word<DIMS>(sep) : 0;
     const int32_t* my_ids = ids + static_cast<size_t>(c) * NB;
     const uint8_t* my_mask = mask + static_cast<size_t>(c) * S;
     const int nblk = cnt[c];
@@ -216,7 +218,7 @@ shared_mma_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                 v.y = src[s3 + 1] - py;
                 v.z = src[s3 + 2] - pz;
                 v.w = my_mask[s] != 0 ? mass[s] : 0.f;
-                if (CELL) pc = cell_source_word(src_cell + s3);
+                if (CELL) pc = cell_source_word<DIMS>(src_cell + s3);
             }
             s_pm[j] = v;
             s_ss[j] = norm2(v.x, v.y, v.z);
@@ -270,7 +272,8 @@ shared_mma_kernel(const float* __restrict__ tgt,        // [C, T, 3]
                         const float r2n = __fadd_rn(
                             __fsub_rn(tts[m][r], __fmul_rn(2.f, dot)), ss[i]);
                         bool dead = r2n <= 0x1p-21f * (tts[m][r] + ss[i]);
-                        if (CELL) dead = dead || cell_far(pc[i], tk[m][r], cb);
+                        if (CELL)
+                            dead = dead || cell_far<DIMS>(pc[i], tk[m][r], cb);
                         const float inv_r = dead ? 0.f : rsqrtf(r2n + eps2);
                         const float w = sv[i].w * inv_r;
                         if (MODE != kAcc) pp[m][r] -= w;
@@ -351,10 +354,10 @@ struct Args {
     const float* tgt; const float* src; const float* mass;
     const uint8_t* mask; const int32_t* src_cell; const int32_t* tgt_cell;
     const int32_t* ids; const int32_t* cnt;
-    float* acc; float* pot; int C, T, S, NB, sep; float eps2;
+    float* acc; float* pot; int C, T, S, NB, sep, cell_dims; float eps2;
 };
 
-template <int MODE, bool CELL, int PREC>
+template <int MODE, int CELL, int PREC>
 cudaError_t launch(const Args& a, cudaStream_t stream)
 {
     const dim3 grid(a.C, (a.T + kTargets - 1) / kTargets);
@@ -364,7 +367,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream)
     return cudaGetLastError();
 }
 
-template <int MODE, bool CELL>
+template <int MODE, int CELL>
 cudaError_t launch_prec(const Args& a, int prec, cudaStream_t stream)
 {
     switch (prec) {
@@ -378,8 +381,10 @@ cudaError_t launch_prec(const Args& a, int prec, cudaStream_t stream)
 template <int MODE>
 cudaError_t launch_form(const Args& a, int prec, cudaStream_t stream)
 {
-    return a.sep > 0 ? launch_prec<MODE, true>(a, prec, stream)
-                     : launch_prec<MODE, false>(a, prec, stream);
+    if (a.sep > 0)
+        return a.cell_dims == 2 ? launch_prec<MODE, 2>(a, prec, stream)
+                                : launch_prec<MODE, 3>(a, prec, stream);
+    return launch_prec<MODE, 0>(a, prec, stream);
 }
 
 }  // namespace
@@ -387,29 +392,35 @@ cudaError_t launch_form(const Args& a, int prec, cudaStream_t stream)
 // Source entries per block of the active-block lists.
 extern "C" int rakau_shared_mma_block() { return kBlock; }
 
-// Bits per coordinate of a packed source cell.
-extern "C" int rakau_shared_mma_cell_bits() { return kCellBits; }
+// Bits per coordinate of a packed source cell of `dims` dimensions.
+extern "C" int rakau_shared_mma_cell_bits(int dims)
+{
+    return cell_coord_bits(dims);
+}
 
 // Launches on `stream` and returns cudaGetLastError() of the launch
 // (0 = accepted). mode: 0 both, 1 acc only (pot written as 0), 2 pot only
 // (acc written as 0). prec: 0 bf16, 1 x3, 2 highest. sep > 0 with src_cell
-// [S, 3] and tgt_cell [C, T, 3] (coordinates below 2^kCellBits, sep at most
-// 2^kCellBits; a negative first source coordinate exempts the row) selects
-// the cell-separation form; sep = 0 ignores the cells.
+// [S, 3] and tgt_cell [C, T, 3] of cell_dims (2 or 3) dimensions (as in
+// rakau_shared_fused) selects the cell-separation form; sep = 0 ignores the
+// cells.
 extern "C" int rakau_shared_mma(const float* tgt, const float* src,
                                 const float* mass, const uint8_t* mask,
                                 const int32_t* src_cell,
                                 const int32_t* tgt_cell, const int32_t* ids,
                                 const int32_t* cnt, float* acc, float* pot,
                                 int C, int T, int S, int NB, int mode,
-                                int prec, int sep, float eps2, void* stream)
+                                int prec, int sep, int cell_dims, float eps2,
+                                void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
-    if (S < 0 || NB <= 0 || sep < 0 || sep > (1 << kCellBits)
-        || (sep > 0 && (src_cell == nullptr || tgt_cell == nullptr)))
+    if (S < 0 || NB <= 0 || sep < 0
+        || (sep > 0 && (src_cell == nullptr || tgt_cell == nullptr
+                        || (cell_dims != 2 && cell_dims != 3)
+                        || sep > (1 << cell_coord_bits(cell_dims)))))
         return static_cast<int>(cudaErrorInvalidValue);
     const Args a{tgt, src, mass, mask, src_cell, tgt_cell, ids, cnt,
-                 acc, pot, C, T, S, NB, sep, eps2};
+                 acc, pot, C, T, S, NB, sep, cell_dims, eps2};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (mode) {
     case kBoth: return static_cast<int>(launch_form<kBoth>(a, prec, st));

@@ -1,6 +1,6 @@
 """Query engine: tree + per-call (theta, eps, G) -> accelerations and
-potentials. Counterpart of `rakau_tpu.engine`, shared, lmac and gwalk
-traversals.
+potentials. Counterpart of `rakau_tpu.engine`: the shared, lmac, gwalk
+and lists traversals.
 
 Shared and lmac: target tiles are processed in chunks of `tile_chunk`
 (chunking bounds the peak memory of the padded source rows): per chunk,
@@ -17,7 +17,14 @@ gwalk: one global (tile, node) walk and one block-aligned source pool
 for all tiles (traversal4), one launch of the pool kernel, and with
 farfield="grid" the dense far field handed down to every tile.
 
-farfield="grid2" (every traversal): the conv-M2L far field of grid2.py,
+lists (the reference's diagnostic mode, RAKAU_DIAG_MODES=1; also the
+route of the quadrupole with the "local" and "grid" far fields, see
+_use_shared): per chunk, per-tile interaction lists (traversal.py), their
+sources gathered into dense rows, and the per-tile list kernel
+(kernels.dispatch.eval_tiles). Its far field is the M2P rows alone: the
+tile expansions and the grid far field are not built there.
+
+farfield="grid2" (shared, lmac, gwalk): the conv-M2L far field of grid2.py,
 evaluated per particle and added once per query; the near field is
 closed per pair, in the shared path by the kernel's cell-separation test
 (tiles span several leaf-grid cells), in gwalk by cell-clipped tiles and
@@ -33,36 +40,22 @@ import torch.nn.functional as F
 
 from . import expansion
 from . import grid as gridmod
-from . import grid2, traversal2, traversal3, traversal4
+from . import grid2, traversal, traversal2, traversal3, traversal4
 from .build import TreeData, _quad_dim
 from .config import OVF_FIELDS, TreeConfig, fit_caps, fit_round_caps
-from .kernels import dispatch
-
-
-def check_supported(cfg: TreeConfig):
-    """Raise NotImplementedError for modes outside the ported slice.
-
-    Ported: the shared and the lmac traversal with the "local", "m2p",
-    "grid" and "grid2" far fields and the gwalk traversal with "m2p",
-    "grid" and "grid2", each with fp32 or compensated accumulation, and
-    the quadrupole with "m2p" and "grid2". The lists traversal and the
-    quadrupole with "local"/"grid" (both RAKAU_DIAG_MODES=1 only) run on
-    the reference's lists path, which is not ported."""
-    if cfg.traversal_mode not in ("shared", "lmac", "gwalk"):
-        raise NotImplementedError(
-            f"traversal_mode={cfg.traversal_mode!r} is not ported "
-            "(only 'shared', 'lmac' and 'gwalk')")
-    if cfg.multipole_order == 2 and cfg.farfield not in ("m2p", "grid2"):
-        raise NotImplementedError(
-            "multipole_order=2 is ported with farfield='m2p' or 'grid2' "
-            "only (the reference runs it on the unported lists path "
-            "otherwise)")
+from .kernels import dispatch, shared
 
 
 def _use_shared(cfg: TreeConfig) -> bool:
     """The query runs on shared source rows: the "shared" union walk or
-    the "lmac" local MAC, both of which give SharedSources."""
-    return cfg.traversal_mode in ("shared", "lmac")
+    the "lmac" local MAC, both of which give SharedSources. The
+    quadrupole rides them with the "m2p" and "grid2" far fields (the M2P
+    node rows carry their second moments into the kernel); with "local"
+    and "grid" the tile expansions are monopole-sourced, so it goes to the
+    per-tile lists instead, as in the reference."""
+    if cfg.traversal_mode not in ("shared", "lmac"):
+        return False
+    return cfg.multipole_order < 2 or cfg.farfield in ("m2p", "grid2")
 
 
 def _traversal_mod(cfg: TreeConfig):
@@ -108,6 +101,9 @@ def _gather_tiles(td: TreeData, cfg: TreeConfig):
            tcell.reshape(shape + (ndim,)))
     if cfg.farfield == "grid2" and cfg.traversal_mode != "gwalk":
         L0 = grid2.effective_grid_level(cfg, n)
+        if td.pos.is_cuda and _use_shared(cfg):
+            # the kernels' packed cell test bounds the leaf-grid level
+            shared.check_cell_level(L0, ndim)
         tpc = grid2.particle_cells(td.pos, td.box_size, cfg.max_depth,
                                    L0)[torch.where(mask, idx, 0)]
         clo = torch.where(mask[..., None], tpc, 1 << 30).amin(1)
@@ -181,12 +177,51 @@ def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
     return src, mask, acc_l, pot_l
 
 
+def _gather_sources(td: TreeData, cfg: TreeConfig,
+                    il: traversal.InteractionLists):
+    """Interaction lists -> the tiles' dense padded rows: (m_pos [C, Sm, D],
+    m_mass, m_quad [C, Sm, Q] with multipole_order=2 else None, p_pos
+    [C, Sp, D], p_mass, p_idx). M2P entries are node COMs and masses (and
+    second moments), P2P entries particles with their Morton indices;
+    padding sits at the 4 * box_size sentinel with mass 0 and index -1,
+    and adds nothing."""
+    sentinel = 4.0 * td.box_size
+    mvalid = il.m2p_nodes >= 0
+    mns = torch.where(mvalid, il.m2p_nodes, 0)
+    m_pos = torch.where(mvalid[..., None], td.node_com[mns], sentinel)
+    m_mass = torch.where(mvalid, td.node_mass[mns], 0.0)
+    m_quad = None
+    if cfg.multipole_order >= 2:
+        m_quad = torch.where(mvalid[..., None], td.node_quad[mns], 0.0)
+    pvalid = il.p2p_src >= 0
+    pns = torch.where(pvalid, il.p2p_src, 0)
+    p_pos = torch.where(pvalid[..., None], td.pos[pns], sentinel)
+    p_mass = torch.where(pvalid, td.mass[pns], 0.0)
+    p_idx = torch.where(pvalid, il.p2p_src, -1)
+    return m_pos, m_mass, m_quad, p_pos, p_mass, p_idx
+
+
+def _tile_sources(td: TreeData, cfg: TreeConfig, theta, blo, bhi):
+    """The lists traversal of one chunk and its gathered rows: (lists,
+    the dispatch.eval_tiles source arguments)."""
+    il = traversal.build_interaction_lists(td, cfg, theta, blo, bhi)
+    return il, _gather_sources(td, cfg, il)
+
+
 def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
                 tpos, tidx, blo, bhi, tables, tcell, Lgrid, mode="both",
                 tcells=None, cand=None):
     """Traversal + far field + kernel for one chunk of C tiles. Returns
     (acc [C, T, D], pot [C, T], overflow [4], maxima [4]). The grid2 far
-    field is not added here: it is per particle, once per query."""
+    field is not added here: it is per particle, once per query. The
+    lists path computes both outputs whatever the mode, as the
+    reference's."""
+    if not _use_shared(cfg):
+        il, rows = _tile_sources(td, cfg, theta, blo, bhi)
+        acc, pot = dispatch.eval_tiles(cfg, tpos, tidx, *rows, eps, G,
+                                       m2p_cnt=il.m2p_count,
+                                       p2p_cnt=il.p2p_count)
+        return acc, pot, il.overflow, il.maxima
     src, mask, acc_l, pot_l = _chunk_sources(
         td, cfg, theta, eps, G, tpos, tidx, blo, bhi, tables, tcell, Lgrid,
         tcells, cand)
@@ -203,10 +238,13 @@ def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
 def _grid_farfield(td, cfg, eps):
     """Dense stencil far field (grid.py) when enabled; else None. With
     "grid2": what grid2.leaf_locals returns (the normalized leaf locals
-    and the particles' leaf cells), for _add_grid2."""
+    and the particles' leaf cells), for _add_grid2. The lists path and
+    the quadrupole read no grid far field (rakau_tpu/engine.py:488-493),
+    so none is built for them."""
     if cfg.farfield == "grid2":
         return grid2.leaf_locals(td, cfg, eps)
-    if cfg.farfield != "grid":
+    if (cfg.farfield != "grid" or cfg.traversal_mode == "lists"
+            or cfg.multipole_order >= 2):
         return None
     n, ndim = td.pos.shape
     L0 = gridmod.effective_grid_level(cfg, n)
@@ -328,6 +366,22 @@ def kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps, chunk: int):
             src.cell, None if tcells is None else tcells[0])
 
 
+def tile_kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps,
+                       chunk: int):
+    """The per-tile list kernel's arguments for chunk `chunk` of a lists
+    query: (tgt_pos, tgt_idx, m2p_pos, m2p_mass, m2p_quad, p2p_pos,
+    p2p_mass, p2p_idx, m2p_cnt, p2p_cnt), exactly as acc_pot_u_host hands
+    them to kernels.dispatch.eval_tiles (m2p_quad [C, Sm, Q] with
+    multipole_order=2, else None)."""
+    if _use_shared(cfg):
+        raise ValueError("tile_kernel_inputs takes a query on the lists "
+                         "path")
+    tiles, _, _ = _query_state(td, cfg, eps)
+    (tpos, tidx, blo, bhi, _), _ = _chunk_tiles(tiles, chunk)
+    il, rows = _tile_sources(td, cfg, theta, blo, bhi)
+    return (tpos, tidx) + rows + (il.m2p_count, il.p2p_count)
+
+
 def _gwalk_sources(td: TreeData, cfg: TreeConfig, theta, tiles):
     """The gwalk walk and pool for all tiles. Returns the flat tiles
     (tpos [G, T, D], tidx [G, T], lo, hi, cell [G, D], valid [G]), the
@@ -425,7 +479,6 @@ def pool_inputs(td: TreeData, cfg: TreeConfig, theta, eps):
     pool_pos, pool_mass, pool_idx, sched, pool_quad), exactly as
     acc_pot_u_host hands them to kernels.dispatch.eval_pool (pool_quad
     None for the monopole)."""
-    check_supported(cfg)
     tiles, _, _ = _query_state(td, cfg, eps)
     flat, _, pool, sched = _gwalk_sources(td, cfg, theta, tiles)
     return (flat[0], flat[1], pool.pos, pool.mass, pool.idx, sched,
@@ -438,7 +491,6 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     dynamic-walk query (repeated with grown caps while one overflows).
     Returns the fitted config, gwalk_round_caps set: later queries run the
     unrolled walk at the measured frontier sizes."""
-    check_supported(cfg)
     cfg_dyn = cfg.with_(gwalk_round_caps=None)
     for _ in range(max_retries):
         tiles, _, Lgrid = _query_state(td, cfg_dyn, eps)
@@ -463,13 +515,15 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
 def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
                    slice_chunks: int = None, mode: str = "both"):
     """Accelerations [N, D] and potentials [N] in Morton order, plus the
-    overflow flags [4] and maxima [4] (aligned with config.OVF_FIELDS)
-    of the query. Shared and lmac: a Python loop over the chunks that hold
-    real tiles, with lmac in slices of `slice_chunks` chunks (_slices),
-    each with its candidate table, whose overflow and row count ride the
-    frontier slots (flag 3, maximum 2); gwalk: one walk, pool and kernel
-    launch for all tiles. theta, eps and G are Python numbers."""
-    check_supported(cfg)
+    overflow flags [4], in the order of config.OVF_FIELDS (m2p,
+    p2p_leaf, p2p_src, frontier), and the maxima [4], in the order that
+    config.fit_caps reads (m2p, p2p_src, frontier, p2p_leaf), of the
+    query. Shared, lmac and lists: a Python loop over the chunks that
+    hold real tiles, with lmac in slices of `slice_chunks` chunks
+    (_slices), each with its candidate table, whose overflow and row
+    count ride the frontier slots (flag 3, maximum 2); gwalk: one walk,
+    pool and kernel launch for all tiles. theta, eps and G are Python
+    numbers."""
     tiles, tables, Lgrid = _query_state(td, cfg, eps)
     if cfg.traversal_mode == "gwalk":
         acc_u, pot_u, ovf, mx = _gwalk_impl(td, cfg, theta, eps, G, tiles,
@@ -483,7 +537,7 @@ def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     n_live = live_chunks(td, cfg)
     for s, start, K in _slices(n_live, cfg.tile_chunk, slice_chunks):
         cand = None
-        if cfg.traversal_mode == "lmac":
+        if cfg.traversal_mode == "lmac" and _use_shared(cfg):
             cand = _slice_cand(td, cfg, theta, tiles, tables, start, K)
             ovf[3] |= cand.overflow
             mx[2] = torch.maximum(mx[2], cand.count)

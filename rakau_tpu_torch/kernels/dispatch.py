@@ -1,6 +1,6 @@
-"""Kernel dispatch for the shared-candidate and the gwalk pool
-evaluations. Counterpart of `rakau_tpu.kernels.dispatch.eval_shared` and
-`eval_pool`.
+"""Kernel dispatch for the shared-candidate, the gwalk pool and the
+per-tile list evaluations. Counterpart of
+`rakau_tpu.kernels.dispatch.eval_shared`, `eval_pool` and `eval_tiles`.
 
 The device of the tensors decides: CUDA tensors go to the hand-written
 kernel in the asked form (or raise), CPU tensors to the plain PyTorch
@@ -12,7 +12,9 @@ for the calls made inside it, the tensor-core form ("mma", at a precision)
 or the split-source form ("blocks"); it is a diagnostic switch, read at
 call time, and no TreeConfig field. (The reference reaches its matrix-unit
 kernel by two environment variables read at trace time, and its
-split-source kernel by no engine route.)
+split-source kernel by no engine route.) The per-tile lists have two:
+the fused kernel K3 (the default) and, inside `tiles_variant("split")`,
+the split form K4 (the reference's `pallas.eval_tiles(fused=False)`).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from contextlib import contextmanager
 import torch
 
 from ..config import TreeConfig
-from . import pool, shared
+from . import pool, shared, tiles
 
 
 VARIANTS = ("fused", "mma", "blocks")
@@ -48,6 +50,27 @@ def shared_variant(name: str, prec: str = "x3"):
         yield
     finally:
         _variant = saved
+
+
+TILE_VARIANTS = ("fused", "split")
+_tiles_fused = True
+
+
+@contextmanager
+def tiles_variant(name: str):
+    """Inside the block, eval_tiles evaluates the monopole tile lists by
+    `name`: "fused" (K3, the default) or "split" (K4, one launch a row,
+    as `rakau_tpu.kernels.pallas.eval_tiles(fused=False)`); a diagnostic
+    switch read at call time."""
+    global _tiles_fused
+    if name not in TILE_VARIANTS:
+        raise ValueError(f"variant must be one of {TILE_VARIANTS}")
+    saved = _tiles_fused
+    _tiles_fused = name == "fused"
+    try:
+        yield
+    finally:
+        _tiles_fused = saved
 
 
 def _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
@@ -126,3 +149,31 @@ def eval_pool(cfg: TreeConfig, tgt_pos, tgt_idx, pool_pos, pool_mass,
               window, eps, G, block,
               compensated=cfg.accum == "compensated", mode=mode,
               pool_quad=pool_quad)
+
+
+def eval_tiles(cfg: TreeConfig, tgt_pos, tgt_idx, m2p_pos, m2p_mass,
+               m2p_quad, p2p_pos, p2p_mass, p2p_idx, eps, G, m2p_cnt=None,
+               p2p_cnt=None):
+    """Far-field (M2P) plus near-field (P2P) sums of the per-tile lists
+    (rows [C, Sm] and [C, Sp], counts [C]). Returns acc [C, T, D],
+    pot [C, T].
+
+    The monopole goes to kernels.tiles.eval_tiles: CUDA tensors to K3 (K4
+    under tiles_variant("split")), CPU tensors to their plain versions.
+    With m2p_quad [C, Sm, Q] the reference has no kernel (its Pallas tile
+    kernels are monopole-only, `pallas.eval_tiles` raises) and takes its
+    plain-op route, `xla.eval_m2p` + `xla.eval_p2p`, on whatever device
+    the tensors lie on; so does the port (tiles.eval_m2p + eval_p2p),
+    counted in tiles.launches["xla_quad"]. cfg is not read: the lists
+    kernels have no modes, compensated sums or cells."""
+    if m2p_quad is not None:
+        tiles.launches["xla_quad"] += 1
+        am, pm = tiles.eval_m2p(tgt_pos, m2p_pos, m2p_mass, eps, G,
+                                src_quad=m2p_quad)
+        ap, pp = tiles.eval_p2p(tgt_pos, tgt_idx, p2p_pos, p2p_mass,
+                                p2p_idx, eps, G)
+        return am + ap, pm + pp
+    return tiles.eval_tiles(tgt_pos, tgt_idx, m2p_pos, m2p_mass, None,
+                            p2p_pos, p2p_mass, p2p_idx, eps, G,
+                            m2p_cnt=m2p_cnt, p2p_cnt=p2p_cnt,
+                            fused=_tiles_fused)

@@ -18,8 +18,6 @@ returns the other output as zeros. Padding tiles have m = p = 0.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .shared import _MODES, _check, _quad_terms, _two_sum
@@ -28,11 +26,12 @@ from . import shared
 # Kernel launches per form, counted where the wrapper launches (the main
 # path's proof of use).
 FORMS = ("mono", "mono_comp", "quad", "quad_comp")
-launches = dict.fromkeys(FORMS, 0)
+# and, as in kernels/shared.py, the 2-D ("d2") and float64 ("f64") launches
+launches = dict.fromkeys(FORMS + shared.COUNTERS, 0)
 
 
 def reset_launches():
-    for k in FORMS:
+    for k in launches:
         launches[k] = 0
 
 
@@ -111,44 +110,28 @@ def eval_pool_plain(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
 
 
 # ---------------------------------------------------------------- kernel
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(shared.build_library("pool")))
-        fn = lib.rakau_pool
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        lib.rakau_pool_error_string.restype = ctypes.c_char_p
-        lib.rakau_pool_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-    return _lib
-
-
 def eval_pool_fused(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
                     window: int, eps, G, block: int,
                     compensated: bool = False, mode: str = "both",
                     pool_quad=None):
     """The CUDA kernel (replaces `rakau_tpu.kernels.pallas.eval_pool` in
-    its four forms). Same arguments and results as eval_pool_plain;
-    float32 tensors, int64 indices, all on one CUDA device; sched [G, 4]
-    of any integer type. Launches on the current stream."""
+    its four forms). Same arguments and results as eval_pool_plain; 2-D
+    (padded to 3-D) or 3-D float32 or float64 tensors, int64 indices, all
+    on one CUDA device; sched [G, 4] of any integer type. Launches on the
+    current stream."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
-    Gt, T, D = tgt_pos.shape
+    D, f64 = shared.check_real(tgt_pos)
+    Gt, T, _ = tgt_pos.shape
     P = pool_pos.shape[0]
-    if D != 3:
-        raise NotImplementedError("the CUDA kernel is 3-D only")
     if block <= 0 or window % block:
         raise ValueError(f"window {window} is not a multiple of block "
                          f"{block}")
-    _check("tgt_pos", tgt_pos, torch.float32, (Gt, T, 3))
+    real = tgt_pos.dtype
+    _check("tgt_pos", tgt_pos, real, (Gt, T, D))
     _check("tgt_idx", tgt_idx, torch.int64, (Gt, T))
-    _check("pool_pos", pool_pos, torch.float32, (P, 3))
-    _check("pool_mass", pool_mass, torch.float32, (P,))
+    _check("pool_pos", pool_pos, real, (P, D))
+    _check("pool_mass", pool_mass, real, (P,))
     _check("pool_idx", pool_idx, torch.int64, (P,))
     if not sched.is_cuda or tuple(sched.shape) != (Gt, 4):
         raise ValueError(f"sched must be a CUDA tensor of shape ({Gt}, 4)")
@@ -156,22 +139,22 @@ def eval_pool_fused(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
              ("pool_mass", pool_mass), ("pool_idx", pool_idx),
              ("sched", sched)]
     if pool_quad is not None:
-        _check("pool_quad", pool_quad, torch.float32, (P, 6))
+        _check("pool_quad", pool_quad, real, (P, D * (D + 1) // 2))
         named.append(("pool_quad", pool_quad))
     if Gt >= 2 ** 31 or T >= 2 ** 31:
         raise ValueError("the CUDA kernel takes fewer than 2^31 tiles")
+    shared.check_devices(tgt_pos, named)
+    if D == 2:
+        (tgt_pos, pool_pos), pool_quad = shared.pad_to_3d(
+            tgt_pos, pool_pos, quad=pool_quad)
     dev = tgt_pos.device
-    for name, t in named:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, targets on {dev}")
-    acc = torch.empty((Gt, T, 3), dtype=torch.float32, device=dev)
-    pot = torch.empty((Gt, T), dtype=torch.float32, device=dev)
+    acc = torch.empty((Gt, T, 3), dtype=real, device=dev)
+    pot = torch.empty((Gt, T), dtype=real, device=dev)
     if Gt == 0 or T == 0:
-        return acc, pot
+        return G * acc[..., :D], G * pot
     sched32 = sched.to(torch.int32).contiguous()
-    lib = _library()
+    lib = shared._library("pool", f64)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    eps2 = float(torch.tensor(eps, dtype=torch.float32) ** 2)
     with torch.cuda.device(dev):
         err = lib.rakau_pool(
             tgt_pos.data_ptr(), tgt_idx.data_ptr(), pool_pos.data_ptr(),
@@ -179,9 +162,8 @@ def eval_pool_fused(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
             None if pool_quad is None else pool_quad.data_ptr(),
             sched32.data_ptr(), acc.data_ptr(), pot.data_ptr(),
             Gt, T, window // block, block, _MODES[mode], int(compensated),
-            eps2, stream)
-    if err != 0:
-        raise RuntimeError("pool kernel launch failed: "
-                           + lib.rakau_pool_error_string(err).decode())
-    launches[_form(pool_quad is not None, compensated)] += 1
-    return G * acc, G * pot
+            shared.eps2_arg(eps, real), stream)
+    shared.raise_on(err, lib, "pool")
+    shared.count_launch(launches, _form(pool_quad is not None, compensated),
+                        D == 2, f64)
+    return G * acc[..., :D], G * pot

@@ -32,6 +32,11 @@ Three options, as in the reference kernel:
     whose Chebyshev cell separation max_d |src_cell_d - tgt_cell_d| is
     >= grid_sep belongs to the dense far field and is dead here; source
     rows with src_cell[:, 0] < 0 are exempt from the test.
+
+The CUDA wrappers take 2-D and 3-D operands, float32 or float64 (K6 and K5
+float32 only): a 2-D call is padded to 3-D by pad_to_3d, which is exact,
+and a float64 call runs the same source built with -DRAKAU_REAL=double
+(build_library(f64=True)).
 """
 from __future__ import annotations
 
@@ -316,11 +321,17 @@ def eval_shared_blocks_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
 FORMS = ("mono", "mono_comp", "quad", "quad_comp", "mono_cell",
          "mono_comp_cell", "quad_cell", "quad_comp_cell", "mma", "mma_cell",
          "blocks")
-# The kernel packs a source's cell into one int32 and takes coordinates
-# below 2^CELL_BITS (its kCellBits, checked when the library loads), which
-# grid2's level cap of 7 in 3-D guarantees, and grid_sep up to 2^CELL_BITS.
-CELL_BITS = 7
-launches = dict.fromkeys(FORMS, 0)
+# The kernel packs a source's D-dimensional cell into one int32 (fields of
+# 30 // D bits) and takes coordinates below 2^CELL_BITS[D] (its
+# cell_coord_bits, checked when the library loads) and grid_sep up to
+# 2^CELL_BITS[D]. Every grid2 level that TreeConfig admits (up to 7 in
+# 3-D, 10 in 2-D) lies inside; check_cell_level refuses a deeper grid.
+CELL_BITS = {2: 13, 3: 8}
+# Besides the forms, `launches` counts the launches made for 2-D operands
+# padded to 3-D ("d2") and those of the float64 build ("f64"); each such
+# launch counts under its form too.
+COUNTERS = ("d2", "f64")
+launches = dict.fromkeys(FORMS + COUNTERS, 0)
 
 
 def form_name(quad: bool, compensated: bool, cell: bool = False) -> str:
@@ -330,8 +341,35 @@ def form_name(quad: bool, compensated: bool, cell: bool = False) -> str:
 
 
 def reset_launches():
-    for k in FORMS:
+    for k in launches:
         launches[k] = 0
+
+
+def count_launch(counts: dict, form: str, d2: bool, f64: bool):
+    """Add one launch of `form` to `counts` (a module's `launches`), and
+    to its "d2" and "f64" counters where they apply."""
+    counts[form] += 1
+    counts["d2"] += int(d2)
+    counts["f64"] += int(f64)
+
+
+def pad_to_3d(*tensors, quad=None):
+    """The operands of a 2-D kernel call as 3-D ones, for the 3-D kernels:
+    each tensor [..., 2] (positions, leaf cells; None passes through) gets
+    a zero z column, and the second moments quad [..., 3] (the columns of
+    quad_pairs(2): xx, xy, yy) go to [..., 6] in the columns of
+    quad_pairs(3), xz, yz and zz zero. Exact: every pair gains dz = 0, and
+    the quadrupole terms read Q d, d.Q d and tr Q, which zeros leave as
+    they were. Returns (list of the padded tensors, padded quad)."""
+    out = [None if t is None
+           else torch.nn.functional.pad(t, (0, 1)).contiguous()
+           for t in tensors]
+    if quad is not None:
+        q6 = quad.new_zeros(quad.shape[:-1] + (6,))
+        slots = [quad_pairs(3).index(p) for p in quad_pairs(2)]
+        q6[..., slots] = quad
+        quad = q6
+    return out, quad
 
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -349,23 +387,26 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(name: str = "shared_fused") -> Path:
+def build_library(name: str = "shared_fused", f64: bool = False) -> Path:
     """Compile csrc/<name>.cu for sm_90a into _build/lib<name>_<hash>.so
-    (keyed by the hash of the source and of the headers beside it) unless
-    it is there already; the ptxas report goes beside it. Raises on a
-    failed build."""
+    (keyed by the hash of the source, of the headers beside it and of the
+    macros) unless it is there already; the ptxas report goes beside it.
+    f64: the same source with -DRAKAU_REAL=double, into
+    _build/lib<name>_f64_<hash>.so. Raises on a failed build."""
     path = _CSRC / f"{name}.cu"
+    macros = ["-DRAKAU_REAL=double"] if f64 else []
     src = path.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh"))) \
+        + " ".join(macros).encode()
     tag = hashlib.sha256(src).hexdigest()[:16]
-    out = _BUILD_DIR / f"lib{name}_{tag}.so"
+    out = _BUILD_DIR / f"lib{name}{'_f64' if f64 else ''}_{tag}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(path)]
+           *macros, "-o", str(tmp), str(path)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
@@ -376,37 +417,60 @@ def build_library(name: str = "shared_fused") -> Path:
 
 
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
-# per library: the launch function's argument types, and the constants it
-# must report equal to this module's
+_REAL = object()    # the library's scalar type: c_float, or c_double in f64
+# per library: its launch functions' argument types, and the constants it
+# must report equal to this module's ("real_bytes": its scalar type's)
 _LIBRARIES = {
-    "shared_fused": ([_VOIDP] * 13 + [_INT] * 7 + [ctypes.c_float, _VOIDP],
-                     ("block", "cell_bits")),
-    "shared_mma": ([_VOIDP] * 10 + [_INT] * 7 + [ctypes.c_float, _VOIDP],
-                   ("block", "cell_bits")),
-    "shared_blocks": ([_VOIDP] * 10 + [_INT] * 5 + [ctypes.c_float, _VOIDP],
-                      ("block",)),
+    "shared_fused": ({"rakau_shared_fused": [_VOIDP] * 13 + [_INT] * 8
+                      + [_REAL, _VOIDP]},
+                     ("block", "cell_bits", "real_bytes")),
+    "shared_mma": ({"rakau_shared_mma": [_VOIDP] * 10 + [_INT] * 8
+                    + [_REAL, _VOIDP]}, ("block", "cell_bits")),
+    "shared_blocks": ({"rakau_shared_blocks": [_VOIDP] * 10 + [_INT] * 5
+                       + [_REAL, _VOIDP]}, ("block",)),
+    "pool": ({"rakau_pool": [_VOIDP] * 9 + [_INT] * 6 + [_REAL, _VOIDP]},
+             ("real_bytes",)),
+    "tiles": ({"rakau_tiles": [_VOIDP] * 11 + [_INT] * 5 + [_REAL, _VOIDP],
+               "rakau_tiles_split": [_VOIDP] * 9 + [_INT] * 5
+               + [_REAL, _VOIDP]}, ("real_bytes",)),
 }
+# the libraries that have a float64 build
+F64_LIBRARIES = ("shared_fused", "pool", "tiles")
 
 
-def _library(name: str = "shared_fused"):
-    """The built and loaded library csrc/<name>.cu (built at first use)."""
-    if name not in _libs:
-        argtypes, consts = _LIBRARIES[name]
-        lib = ctypes.CDLL(str(build_library(name)))
-        fn = getattr(lib, f"rakau_{name}")
-        fn.restype = _INT
-        fn.argtypes = argtypes
-        for const, want in (("block", BLOCK), ("cell_bits", CELL_BITS)):
+def _library(name: str = "shared_fused", f64: bool = False):
+    """The built and loaded library csrc/<name>.cu (built at first use),
+    in its float64 build with f64."""
+    key = (name, f64)
+    if key not in _libs:
+        if f64 and name not in F64_LIBRARIES:
+            raise ValueError(f"{name} has no float64 build")
+        fns, consts = _LIBRARIES[name]
+        real = ctypes.c_double if f64 else ctypes.c_float
+        lib = ctypes.CDLL(str(build_library(name, f64)))
+        for fname, argtypes in fns.items():
+            fn = getattr(lib, fname)
+            fn.restype = _INT
+            fn.argtypes = [real if a is _REAL else a for a in argtypes]
+        checks = [("block", (), BLOCK), ("real_bytes", (), 8 if f64 else 4)]
+        checks += [("cell_bits", (d,), b) for d, b in CELL_BITS.items()]
+        for const, args, want in checks:
             if const in consts:
                 get = getattr(lib, f"rakau_{name}_{const}")
                 get.restype = _INT
-                if get() != want:
-                    raise RuntimeError(f"{name}: kernel {const} {get()} != "
-                                       f"{want}")
+                get.argtypes = [_INT] * len(args)
+                if get(*args) != want:
+                    raise RuntimeError(f"{name}: kernel {const}{args} "
+                                       f"{get(*args)} != {want}")
         lib.rakau_cuda_error_string.restype = ctypes.c_char_p
         lib.rakau_cuda_error_string.argtypes = [_INT]
-        _libs[name] = lib
-    return _libs[name]
+        _libs[key] = lib
+    return _libs[key]
+
+
+def eps2_arg(eps, dtype):
+    """eps^2 in the kernels' scalar type, as the float handed to ctypes."""
+    return float(torch.tensor(eps, dtype=dtype) ** 2)
 
 
 def block_any(mask: torch.Tensor) -> torch.Tensor:
@@ -444,41 +508,80 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_cells(src_cell, tgt_cell, grid_sep: int) -> int:
+def check_real(tgt_pos, f32_only: bool = False):
+    """(D, float64?) of a kernel call from its targets [..., D]: the CUDA
+    kernels take D = 2 (padded to 3-D) or 3, float32 or (where a float64
+    build exists) float64; anything else raises."""
+    D = tgt_pos.shape[-1]
+    if D not in (2, 3):
+        raise NotImplementedError(
+            f"the CUDA kernels take 2-D or 3-D positions, got D = {D}")
+    reals = (torch.float32,) if f32_only else (torch.float32, torch.float64)
+    if tgt_pos.dtype not in reals:
+        if f32_only and tgt_pos.dtype == torch.float64:
+            raise ValueError("this kernel is float32 only (no float64 "
+                             "build)")
+        raise TypeError(f"tgt_pos must be one of {reals}, got "
+                        f"{tgt_pos.dtype}")
+    return D, tgt_pos.dtype == torch.float64
+
+
+def check_devices(tgt_pos, named):
+    """Raise unless every (name, tensor) of `named` lies on tgt_pos's
+    device."""
+    for name, t in named:
+        if t.device != tgt_pos.device:
+            raise ValueError(f"{name} is on {t.device}, targets on "
+                             f"{tgt_pos.device}")
+
+
+def check_cell_level(level: int, D: int):
+    """Raise ValueError unless the packed cell test of the CUDA kernels
+    takes the cells of a D-dimensional leaf grid at `level` (coordinates
+    below 2^level)."""
+    if D not in CELL_BITS or level > CELL_BITS[D]:
+        raise ValueError(
+            f"the CUDA cell test takes {D}-D leaf-grid levels up to "
+            f"{CELL_BITS.get(D)}, got grid level {level}")
+
+
+def _check_cells(src_cell, tgt_cell, grid_sep: int, D: int) -> int:
     """grid_sep, or 0 without cells; raises on cells without their
-    partner or a separation the packed test does not take."""
+    partner or a separation the packed test of D-dimensional cells does
+    not take (a D without kernels is left to _check_row)."""
     if src_cell is None:
         return 0
-    if tgt_cell is None or not 1 <= grid_sep <= 2 ** CELL_BITS:
-        raise ValueError("src_cell needs tgt_cell and grid_sep in "
-                         f"[1, {2 ** CELL_BITS}]")
+    top = 2 ** CELL_BITS.get(D, 30)
+    if tgt_cell is None or not 1 <= grid_sep <= top:
+        raise ValueError(f"src_cell needs tgt_cell and grid_sep in [1, {top}]")
     return grid_sep
 
 
 def _check_row(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-               src_quad=None, src_cell=None, tgt_cell=None):
-    """The checks every kernel form makes on its arguments: float32
-    tensors, int64 indices, bool mask (and int32 or int64 cells), the
-    stated shapes, contiguous, on one CUDA device, 3-D, sizes below 2^31.
-    Returns (C, T, S)."""
-    C, T, D = tgt_pos.shape
+               src_quad=None, src_cell=None, tgt_cell=None,
+               f32_only: bool = False):
+    """The checks every kernel form makes on its arguments: 2-D or 3-D
+    float32 (or float64) tensors of one type, int64 indices, bool mask
+    (and int32 or int64 cells), the stated shapes, contiguous, on one CUDA
+    device, sizes below 2^31. Returns (C, T, S, D, float64?)."""
+    D, f64 = check_real(tgt_pos, f32_only)
+    C, T, _ = tgt_pos.shape
     S = src_pos.shape[0]
-    if D != 3:
-        raise NotImplementedError("the CUDA kernel is 3-D only")
-    _check("tgt_pos", tgt_pos, torch.float32, (C, T, 3))
+    real = tgt_pos.dtype
+    _check("tgt_pos", tgt_pos, real, (C, T, D))
     _check("tgt_idx", tgt_idx, torch.int64, (C, T))
-    _check("src_pos", src_pos, torch.float32, (S, 3))
-    _check("src_mass", src_mass, torch.float32, (S,))
+    _check("src_pos", src_pos, real, (S, D))
+    _check("src_mass", src_mass, real, (S,))
     _check("src_idx", src_idx, torch.int64, (S,))
     _check("mask", mask, torch.bool, (C, S))
     named = [("tgt_idx", tgt_idx), ("src_pos", src_pos),
              ("src_mass", src_mass), ("src_idx", src_idx), ("mask", mask)]
     if src_quad is not None:
-        _check("src_quad", src_quad, torch.float32, (S, 6))
+        _check("src_quad", src_quad, real, (S, D * (D + 1) // 2))
         named.append(("src_quad", src_quad))
     if src_cell is not None:
-        for name, t, shape in (("src_cell", src_cell, (S, 3)),
-                               ("tgt_cell", tgt_cell, (C, T, 3))):
+        for name, t, shape in (("src_cell", src_cell, (S, D)),
+                               ("tgt_cell", tgt_cell, (C, T, D))):
             if t.dtype not in (torch.int32, torch.int64):
                 raise TypeError(f"{name} must be int32 or int64, got "
                                 f"{t.dtype}")
@@ -486,21 +589,18 @@ def _check_row(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
             named.append((name, t))
     if max(C * T, S, C * S) >= 2 ** 31:
         raise ValueError("the CUDA kernel takes sizes below 2^31")
-    for name, t in named:
-        if t.device != tgt_pos.device:
-            raise ValueError(f"{name} is on {t.device}, targets on "
-                             f"{tgt_pos.device}")
-    return C, T, S
+    check_devices(tgt_pos, named)
+    return C, T, S, D, f64
 
 
 def _outputs(tgt_pos):
     C, T, _ = tgt_pos.shape
-    return (torch.empty((C, T, 3), dtype=torch.float32,
+    return (torch.empty((C, T, 3), dtype=tgt_pos.dtype,
                         device=tgt_pos.device),
-            torch.empty((C, T), dtype=torch.float32, device=tgt_pos.device))
+            torch.empty((C, T), dtype=tgt_pos.dtype, device=tgt_pos.device))
 
 
-def _raise_on(err: int, lib, what: str):
+def raise_on(err: int, lib, what: str):
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
                            + lib.rakau_cuda_error_string(err).decode())
@@ -512,28 +612,32 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
                       grid_sep: int = 0):
     """The CUDA kernel (replaces `rakau_tpu.kernels.pallas.
     eval_shared_fused` in its fp32 and compensated forms, monopole or
-    with src_quad [S, 6], each with or without the cell-separation test
-    of src_cell [S, 3] / tgt_cell [C, T, 3] / grid_sep). Same arguments
-    and results as eval_shared_plain; float32 tensors, int64 indices
-    (the cells int64 or int32, coordinates below 2^CELL_BITS: the grid2
-    levels end at 7), bool mask, all on one CUDA device. Launches on the
-    current stream."""
+    with src_quad [S, Q], each with or without the cell-separation test
+    of src_cell [S, D] / tgt_cell [C, T, D] / grid_sep). Same arguments
+    and results as eval_shared_plain; 2-D or 3-D float32 or float64
+    tensors, int64 indices (the cells int64 or int32, coordinates below
+    2^CELL_BITS[D], see check_cell_level), bool mask, all on one CUDA
+    device. Launches on the current stream."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
-    grid_sep = _check_cells(src_cell, tgt_cell, grid_sep)
-    C, T, S = _check_row(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                         src_quad, src_cell if grid_sep else None, tgt_cell)
+    grid_sep = _check_cells(src_cell, tgt_cell, grid_sep, tgt_pos.shape[-1])
+    C, T, S, D, f64 = _check_row(tgt_pos, tgt_idx, src_pos, src_mass,
+                                 src_idx, mask, src_quad,
+                                 src_cell if grid_sep else None, tgt_cell)
+    if D == 2:
+        (tgt_pos, src_pos, src_cell, tgt_cell), src_quad = pad_to_3d(
+            tgt_pos, src_pos, src_cell if grid_sep else None,
+            tgt_cell if grid_sep else None, quad=src_quad)
     acc, pot = _outputs(tgt_pos)
     if C == 0 or T == 0:
-        return acc, pot
+        return G * acc[..., :D], G * pot
     ids, cnt = active_blocks(mask)
     if grid_sep:
         src_cell = src_cell.to(torch.int32)
         tgt_cell = tgt_cell.to(torch.int32)
-    lib = _library("shared_fused")
+    lib = _library("shared_fused", f64)
     dev = tgt_pos.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    eps2 = float(torch.tensor(eps, dtype=torch.float32) ** 2)
     with torch.cuda.device(dev):
         err = lib.rakau_shared_fused(
             tgt_pos.data_ptr(), tgt_idx.data_ptr(), src_pos.data_ptr(),
@@ -543,11 +647,11 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
             tgt_cell.data_ptr() if grid_sep else None,
             ids.data_ptr(), cnt.data_ptr(), acc.data_ptr(), pot.data_ptr(),
             C, T, S, ids.shape[1], _MODES[mode], int(compensated),
-            int(grid_sep), eps2, stream)
-    _raise_on(err, lib, "shared_fused")
-    launches[form_name(src_quad is not None, compensated,
-                       bool(grid_sep))] += 1
-    return G * acc, G * pot
+            int(grid_sep), D, eps2_arg(eps, tgt_pos.dtype), stream)
+    raise_on(err, lib, "shared_fused")
+    count_launch(launches, form_name(src_quad is not None, compensated,
+                                     bool(grid_sep)), D == 2, f64)
+    return G * acc[..., :D], G * pot
 
 
 def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
@@ -557,18 +661,24 @@ def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     `rakau_tpu.kernels.pallas._shared_fused_kernel_mxu`): monopole, fp32
     sums, with or without the cell-separation test, at precision `prec`
     ("bf16" | "x3" | "highest"). Same arguments and results as
-    eval_shared_mma_plain, same tensor types as eval_shared_fused; the
-    indices are checked and not read. Launches on the current stream."""
+    eval_shared_mma_plain, same tensor types as eval_shared_fused but
+    float32 only (float64 raises ValueError); the indices are checked and
+    not read. Launches on the current stream."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
     if prec not in PRECS:
         raise ValueError(f"prec must be one of {tuple(PRECS)}")
-    grid_sep = _check_cells(src_cell, tgt_cell, grid_sep)
-    C, T, S = _check_row(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                         None, src_cell if grid_sep else None, tgt_cell)
+    grid_sep = _check_cells(src_cell, tgt_cell, grid_sep, tgt_pos.shape[-1])
+    C, T, S, D, _ = _check_row(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
+                               mask, None, src_cell if grid_sep else None,
+                               tgt_cell, f32_only=True)
+    if D == 2:
+        (tgt_pos, src_pos, src_cell, tgt_cell), _ = pad_to_3d(
+            tgt_pos, src_pos, src_cell if grid_sep else None,
+            tgt_cell if grid_sep else None)
     acc, pot = _outputs(tgt_pos)
     if C == 0 or T == 0:
-        return acc, pot
+        return G * acc[..., :D], G * pot
     ids, cnt = active_blocks(mask)
     if grid_sep:
         src_cell = src_cell.to(torch.int32)
@@ -576,18 +686,17 @@ def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     lib = _library("shared_mma")
     dev = tgt_pos.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    eps2 = float(torch.tensor(eps, dtype=torch.float32) ** 2)
     with torch.cuda.device(dev):
         err = lib.rakau_shared_mma(
             tgt_pos.data_ptr(), src_pos.data_ptr(), src_mass.data_ptr(),
             mask.data_ptr(), src_cell.data_ptr() if grid_sep else None,
             tgt_cell.data_ptr() if grid_sep else None, ids.data_ptr(),
             cnt.data_ptr(), acc.data_ptr(), pot.data_ptr(), C, T, S,
-            ids.shape[1], _MODES[mode], PRECS[prec], int(grid_sep), eps2,
-            stream)
-    _raise_on(err, lib, "shared_mma")
-    launches["mma_cell" if grid_sep else "mma"] += 1
-    return G * acc, G * pot
+            ids.shape[1], _MODES[mode], PRECS[prec], int(grid_sep), D,
+            eps2_arg(eps, torch.float32), stream)
+    raise_on(err, lib, "shared_mma")
+    count_launch(launches, "mma_cell" if grid_sep else "mma", D == 2, False)
+    return G * acc[..., :D], G * pot
 
 
 # CUDA blocks per SM that eval_shared_blocks aims at when it splits the row
@@ -613,12 +722,16 @@ def eval_shared_blocks(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     [nsplit, C, T, 4]; a second kernel adds the spans in order, so two
     launches on the same inputs agree bit for bit. nsplit defaults to
     blocks_nsplit for the tensors' device. Same arguments and results as
-    eval_shared_blocks_plain, same tensor types as eval_shared_fused.
-    Launches on the current stream."""
-    C, T, S = _check_row(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask)
+    eval_shared_blocks_plain, same tensor types as eval_shared_fused but
+    float32 only (float64 raises ValueError). Launches on the current
+    stream."""
+    C, T, S, D, _ = _check_row(tgt_pos, tgt_idx, src_pos, src_mass,
+                               src_idx, mask, f32_only=True)
+    if D == 2:
+        (tgt_pos, src_pos), _ = pad_to_3d(tgt_pos, src_pos)
     acc, pot = _outputs(tgt_pos)
     if C == 0 or T == 0:
-        return acc, pot
+        return G * acc[..., :D], G * pot
     dev = tgt_pos.device
     blk = block_any(mask).to(torch.uint8).contiguous()
     nb = blk.shape[1]
@@ -631,13 +744,13 @@ def eval_shared_blocks(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     scratch = torch.empty((nsplit, C, T, 4), dtype=torch.float32, device=dev)
     lib = _library("shared_blocks")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    eps2 = float(torch.tensor(eps, dtype=torch.float32) ** 2)
     with torch.cuda.device(dev):
         err = lib.rakau_shared_blocks(
             tgt_pos.data_ptr(), tgt_idx.data_ptr(), src_pos.data_ptr(),
             src_mass.data_ptr(), src_idx.data_ptr(), mask.data_ptr(),
             blk.data_ptr(), scratch.data_ptr(), acc.data_ptr(),
-            pot.data_ptr(), C, T, S, nb, nsplit, eps2, stream)
-    _raise_on(err, lib, "shared_blocks")
-    launches["blocks"] += 1
-    return G * acc, G * pot
+            pot.data_ptr(), C, T, S, nb, nsplit,
+            eps2_arg(eps, torch.float32), stream)
+    raise_on(err, lib, "shared_blocks")
+    count_launch(launches, "blocks", D == 2, False)
+    return G * acc[..., :D], G * pot

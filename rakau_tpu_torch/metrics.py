@@ -1,5 +1,6 @@
-"""Per-query metrics: useful-pair density of the shared-row kernels, their
-measured dense roof, and cap fitting. Counterpart of `rakau_tpu.metrics`.
+"""Per-query metrics: list occupancy of the per-tile lists, useful-pair
+density of the shared-row kernels, their measured dense roof, and cap
+fitting. Counterpart of `rakau_tpu.metrics`.
 
 Static capacities against actual list sizes, and the kernel's processed
 pairs against the pairs the physics needs, are the numbers that say
@@ -12,7 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from . import engine
+from . import engine, traversal
 from .build import TreeData
 from .config import TreeConfig
 from .kernels import dispatch, shared
@@ -45,13 +46,47 @@ class QueryStats:
 def collect_query_stats(td: TreeData, cfg: TreeConfig, theta,
                         max_chunks: int = 16) -> QueryStats:
     """List occupancy statistics of the per-tile lists traversal
-    (`rakau_tpu.traversal.build_interaction_lists`), which is not ported:
-    raises NotImplementedError. The shared, lmac and gwalk engines size
-    their caps from their own query maxima (Tree.tune_caps,
-    engine.tune_gwalk)."""
-    raise NotImplementedError(
-        "collect_query_stats runs the lists traversal, which is not "
-        "ported (ROADMAP.md item 17)")
+    (traversal.build_interaction_lists) over the first
+    min(chunks, max_chunks) tile chunks, whatever cfg's own traversal:
+    the per-tile list sizes are the padding-waste diagnostic (the shared,
+    lmac and gwalk engines size their caps from their own query maxima).
+    The interaction totals are extrapolated to all chunks. Runs the walk
+    only, no kernel; the counts are read on the host."""
+    import os
+    # the lists config is diagnostic: allow it for this call only
+    prev = os.environ.get("RAKAU_DIAG_MODES")
+    os.environ["RAKAU_DIAG_MODES"] = "1"
+    try:
+        cfg = cfg.with_(traversal_mode="lists")
+    finally:
+        if prev is None:
+            os.environ.pop("RAKAU_DIAG_MODES", None)
+        else:
+            os.environ["RAKAU_DIAG_MODES"] = prev
+    tiles = engine._gather_tiles(td, cfg)
+    blo, bhi = tiles[2], tiles[3]
+    nch = tiles[0].shape[0]
+    m2p, p2p = [], []
+    for c in range(min(nch, max_chunks)):
+        il = traversal.build_interaction_lists(td, cfg, theta, blo[c], bhi[c])
+        m2p.append(il.m2p_count)
+        p2p.append(il.p2p_count)
+    m2p = torch.cat(m2p).cpu().numpy().astype(np.float64)
+    p2p = torch.cat(p2p).cpu().numpy().astype(np.float64)
+    n_tiles = int(td.n_tiles)
+    tc = td.tile_cnt[:n_tiles].cpu().numpy().astype(np.float64)
+    scale = nch / max(1, min(nch, max_chunks))
+    return QueryStats(
+        n=int(td.pos.shape[0]), n_nodes=int(td.n_nodes), n_tiles=n_tiles,
+        tile_fill=float(tc.mean() / cfg.ncrit) if n_tiles else 0.0,
+        m2p_mean=float(m2p.mean()), m2p_p95=float(np.percentile(m2p, 95)),
+        m2p_max=int(m2p.max()), m2p_cap=cfg.m2p_cap,
+        p2p_mean=float(p2p.mean()), p2p_p95=float(np.percentile(p2p, 95)),
+        p2p_max=int(p2p.max()), p2p_src_cap=cfg.p2p_src_cap,
+        m2p_waste=float(1.0 - m2p.mean() / cfg.m2p_cap),
+        p2p_waste=float(1.0 - p2p.mean() / cfg.p2p_src_cap),
+        interactions_m2p=float(m2p.sum() * cfg.ncrit * scale),
+        interactions_p2p=float(p2p.sum() * cfg.ncrit * scale))
 
 
 @dataclass
@@ -112,7 +147,6 @@ def collect_shared_density(td: TreeData, cfg: TreeConfig, theta, eps=0.0,
     if not engine._use_shared(cfg):
         raise ValueError("density stats require the shared or the lmac "
                          "traversal")
-    engine.check_supported(cfg)
     n = int(td.pos.shape[0])
     n_live = engine.live_chunks(td, cfg)
     CH = min(cfg.tile_chunk, td.tile_begin.shape[0])

@@ -215,20 +215,6 @@ def test_float64_tree_on_cpu():
     assert _rms(pot, pot_o) < 4e-3
 
 
-@pytest.mark.parametrize("kw", [dict(traversal_mode="lists"),
-                                dict(farfield="grid", multipole_order=2)])
-def test_modes_outside_the_slice_raise_at_query(kw, monkeypatch):
-    """The lists traversal and the quadrupole with tile expansions (both
-    diagnostic modes of the reference, on its lists path) are not
-    ported."""
-    monkeypatch.setenv("RAKAU_DIAG_MODES", "1")
-    pos, mass, _, _ = _data()
-    cfg = config_from_jax(_cfg(**kw))
-    with pytest.raises(NotImplementedError):
-        Tree(coords=pos[:256], masses=mass[:256], config=cfg,
-             device="cpu").accs_pots_o(THETA)
-
-
 MODES = {
     "m2p-quad": dict(farfield="m2p", multipole_order=2),
     "grid-comp": dict(farfield="grid", accum="compensated"),
@@ -406,13 +392,6 @@ def test_kernel_inputs_carry_the_cells():
     assert out[8].shape == (cfg.tile_chunk, cfg.ncrit, 3)
     assert engine.kernel_inputs(td, cfg.with_(farfield="m2p"), THETA, 0.0,
                                 1)[7:] == (None, None)
-
-
-def test_quad_with_tile_expansions_is_the_unported_lists_path(monkeypatch):
-    monkeypatch.setenv("RAKAU_DIAG_MODES", "1")
-    with pytest.raises(NotImplementedError, match="m2p"):
-        engine.check_supported(config_from_jax(
-            _cfg(farfield="local", multipole_order=2)))
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -405,6 +405,74 @@ def test_cell_operands_are_checked():
             "mma", "mma_cell", "blocks"}
 
 
+def _packed_far(scell, tcell, sep, D):
+    """The packed cell test of csrc/cell_test.cuh in int64 NumPy: [S, T],
+    source s and target t belong to the dense far field. D fields of
+    30 // D bits; a negative first source coordinate exempts the row."""
+    bits = 30 // D
+    top = 1 << (bits - 1)
+
+    def pack(cols):
+        w = np.zeros(np.shape(cols[0]), np.int64)
+        for c in cols:
+            w = (w << bits) | c
+        return w
+
+    pc = np.where(scell[:, 0] >= 0, pack([scell[:, d] for d in range(D)]),
+                  -1)
+    tk = pack([top + sep - 1 - tcell[:, d] for d in range(D)])
+    cb = pack([np.int64(top + 1 - 2 * sep)] * D)
+    v = pc[:, None] + tk[None]
+    x = (v & pack([np.int64(top - 1)] * D)) + cb
+    return (pc[:, None] >= 0) & (((~v | x) & pack([np.int64(top)] * D)) != 0)
+
+
+def _grid2_level_cap(D):
+    """The deepest grid2 grid_level that TreeConfig admits in D dims."""
+    level = 0
+    while True:
+        try:
+            TreeConfig(ndim=D, farfield="grid2", grid_level=level + 1)
+        except ValueError:
+            return level
+        level += 1
+
+
+@pytest.mark.parametrize("D", [2, 3])
+def test_packed_cell_test_holds_every_grid2_level(D):
+    """The kernels' packed cell test (two 15-bit fields in 2-D, three
+    10-bit ones in 3-D) agrees with the Chebyshev separation on every
+    coordinate below 2^CELL_BITS[D], which covers every grid2 level the
+    configuration admits (10 in 2-D, 7 in 3-D); a deeper grid, or a wider
+    separation, is refused before any launch."""
+    bits = shared.CELL_BITS[D]
+    assert _grid2_level_cap(D) <= bits
+    shared.check_cell_level(bits, D)
+    with pytest.raises(ValueError, match="leaf-grid levels"):
+        shared.check_cell_level(bits + 1, D)
+    rng = np.random.default_rng(31 + D)
+    top = 1 << bits
+    for sep in (2, 3, 7, top // 2, top):
+        tcell = rng.integers(0, top, (256, D))
+        tcell[0], tcell[1] = 0, top - 1          # both ends of the range
+        near = tcell[rng.integers(0, 256, 2048)]
+        scell = np.clip(near + rng.integers(-sep - 1, sep + 2, (2048, D)), 0,
+                        top - 1)
+        scell[-64:] = rng.integers(0, top, (64, D))
+        scell[100:120] = -1
+        cheb = np.abs(scell[:, None] - tcell[None]).max(-1)
+        want = (cheb >= sep) & (scell[:, None, 0] >= 0)
+        got = _packed_far(scell, tcell, sep, D)
+        np.testing.assert_array_equal(got, want)
+        if sep < top:
+            assert want.any() and (~want).any()
+    sc = torch.zeros((4, D), dtype=torch.int32)
+    tc = torch.zeros((1, 2, D), dtype=torch.int32)
+    assert shared._check_cells(sc, tc, top, D) == top
+    with pytest.raises(ValueError, match="grid_sep"):
+        shared._check_cells(sc, tc, top + 1, D)
+
+
 # ------------------------------------------------- K6, the tensor-core form
 def make_mma_case(seed, C=4, T=32, S=384):
     """make_case with source indices that mark the planted self pairs

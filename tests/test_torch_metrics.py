@@ -117,11 +117,8 @@ def test_fitted_caps_match_jax():
 
 
 def test_query_stats_and_roof_raise_where_they_cannot_run():
+    """The roof times the CUDA kernels and refuses a CPU device
+    (collect_query_stats runs anywhere: tests/test_torch_lists.py)."""
     cfg = config_from_jax(JaxConfig(**BASE))
-    pos, mass = particles_np(256)
-    from rakau_tpu_torch import build
-    td = build.build_tree(torch.as_tensor(pos), torch.as_tensor(mass), cfg)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        metrics.collect_query_stats(td, cfg, THETA)
     with pytest.raises(ValueError, match="CUDA"):
         metrics.measure_kernel_roof(cfg, n_src=1024, device="cpu")
