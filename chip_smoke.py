@@ -12,7 +12,12 @@ Phases, each printing one JSON line:
                (K1a monopole, K1b compensated, K1d quadrupole, K1d with
                K1b's sums) and mode (self pairs, far padding, an empty
                tile, ragged T and S, a masked-out node row on top of a
-               target); on a long cancellation-heavy row the compensated
+               target), and on rows made for K1's plan (k1_structure_cases:
+               a list of every granule beside a tile with none, scattered
+               live granules, lists not a multiple of the span, S ending
+               inside a granule that is a tile's only live one; two
+               launches bit for bit equal; the same in the cell forms and
+               in float64); on a long cancellation-heavy row the compensated
                kernel's error against a float64 sum must be < the fp32
                kernel's (equal errors would mean fp32 sums); then the same
                for the pool kernel K2 (edge_pool): every form and mode on
@@ -51,7 +56,10 @@ Phases, each printing one JSON line:
                intervals), the kernel's device ms and the idle share;
   7. kernel:   kernel vs plain PyTorch on the first two chunks of that
                query (the same targets, shared sources and masks), every
-               mode, rtol 2e-4 and atol 2e-5*max|plain|, both timed;
+               mode, rtol 2e-4 and atol 2e-5*max|plain|, both timed, with
+               K1's launch shape (granules, spans, work items, CUDA
+               blocks, warps a SM: k1_shape) and its share of the bound,
+               as every K1 kernel phase below prints them;
   8. accuracy: 256 sampled targets against the float64 NumPy direct sum:
                RMS relative force error < 5e-3, potential < 2e-3;
   v. variants: the same query whole under dispatch.shared_variant: "mma"
@@ -63,8 +71,8 @@ Phases, each printing one JSON line:
                versions on the first two chunks, timed beside K1a on the
                same rows, with bounds; K5's split and CUDA blocks;
      metrics:  metrics.collect_shared_density on the query; its processed
-               pairs must equal what the kernel wrapper's active-block
-               lists give for the same chunks;
+               pairs must equal what K1's plan (shared.fused_plan: active
+               granules) gives for the same chunks;
   s. grid2:    the same particles through the shared traversal with
                farfield "grid2" (local_order 4, grid_sep 3, the level from
                grid_occupancy 32: 5 at 1M), caps grown by the Tree and
@@ -227,7 +235,8 @@ LF_FORCE_RMS_MAX, LF_POT_RMS_MAX = 1.5e-2, 2e-3
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # fp32 operations per live (source, target) pair, counted from the
 # kernel's inner loop (csrc/shared_fused.cu); TwoSum adds 6 operations
-# per sum per target and active source block
+# per sum per target and staged granule, and per target and span in K1's
+# span reduction
 FLOPS_MONO, FLOPS_QUAD, FLOPS_TWOSUM = 20, 64, 24
 # integer operations of K1c's cell test on every mask-true pair (on the
 # packed cell word: 2 adds, 2 logic operations, 2 compares;
@@ -240,10 +249,12 @@ POOL_SRC = "rakau_tpu_torch/csrc/pool.cu"
 POOL_REPLACES = "rakau_tpu/kernels/pallas.py:974"
 # kernel sources under rakau_tpu_torch/csrc/, each with its float64 build or
 # not, and their kernels (template instantiations: mode x compensated x
-# quadrupole, and x cell test in K1; K3, K4 in two forms and its reduction)
-LIBRARIES = {("shared_fused", False): 36, ("pool", False): 12,
+# quadrupole, and x cell test in K1, whose launch adds the three kernels
+# of its plan, its row packing and its span reduction in two forms; K3, K4
+# in two forms and its reduction)
+LIBRARIES = {("shared_fused", False): 42, ("pool", False): 12,
              ("shared_mma", False): 27, ("shared_blocks", False): 2,
-             ("tiles", False): 4, ("shared_fused", True): 36,
+             ("tiles", False): 4, ("shared_fused", True): 42,
              ("pool", True): 12, ("tiles", True): 4}
 TILES_SRC = "rakau_tpu_torch/csrc/tiles.cu"
 K3_REPLACES = "rakau_tpu/kernels/pallas.py:149"
@@ -394,6 +405,8 @@ def build_kernels() -> dict:
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)]
         rec = dict(seconds=secs, library=path.name, kernels=len(regs),
                    registers=regs, spill_bytes=spills)
+        if key[0] == "shared_fused":
+            rec["registers_by_kernel"] = k1_registers(ptxas)
         if any(spills):
             rec["spilling"] = [f for f, b in zip(re.findall(
                 r"Compiling entry function '([^']+)'", ptxas), spills) if b]
@@ -405,11 +418,65 @@ def build_kernels() -> dict:
     return out
 
 
+def k1_registers(ptxas: str) -> dict:
+    """Registers of each kernel of a shared_fused build's ptxas report, by
+    a short name: shared_fused_kernel<mode,comp,quad,cell> (template
+    arguments from the mangled name), the reduction <comp>, the plan and
+    the packing kernels."""
+    out = {}
+    for name, regs in re.findall(
+            r"Compiling entry function '([^']+)'.*?Used (\d+) registers",
+            ptxas, flags=re.S):
+        base = re.search(r"shared_fused_\w*?kernel", name)
+        targs = re.search(r"kernel(I.*?E)E", name)
+        vals = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
+        key = (base.group(0) if base else name) \
+            + (f"<{','.join(vals)}>" if vals else "")
+        out[key] = int(regs)
+    return out
+
+
+def k1_shape(args, comp=False, quad=False, cells=None,
+             mode: str = "both") -> dict:
+    """K1's launch shape on these rows: the granules and spans of the
+    wrapper's plan (shared.fused_plan), its work items, the CUDA blocks of
+    its persistent grid, the blocks of this form that fit an SM and the
+    warps an SM holds on average (4 a block, over the blocks that find an
+    item)."""
+    from rakau_tpu_torch.kernels import shared
+    tpos, mask = args[0], args[5]
+    C, T, D = tpos.shape
+    S = int(args[2].shape[0])
+    lib = shared._library("shared_fused", tpos.dtype == torch.float64)
+    plan = shared.fused_plan(mask)
+    sms = shared.multiprocessors(tpos.device)
+    sep = cells[2] if cells else 0
+    m = MODES.index(mode)
+    grid = lib.rakau_shared_fused_grid(C, T, S, shared.SPAN, m, int(comp),
+                                       int(quad), sep, D, sms)
+    fit = lib.rakau_shared_fused_blocks_per_sm(m, int(comp), int(quad), sep,
+                                               D)
+    tpt = lib.rakau_shared_fused_targets_per_thread()
+    items = int(plan.n_work[0]) * -(-T // (128 * tpt))
+    return dict(granules=int(plan.cnt.sum()), spans=int(plan.n_work[0]),
+                work_items=items, cuda_blocks=grid, blocks_per_sm_fit=fit,
+                warps_per_sm=4 * min(grid, items) / sms, sms=sms)
+
+
+# device cycles that cuda_ms keeps the card busy for before it times, so
+# that the host enqueues the timed calls meanwhile (~10 ms)
+PRIME_CYCLES = 20_000_000
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls (after one warm-up)."""
+    """Mean device time of fn() over reps calls (after one warm-up): the
+    card first spins PRIME_CYCLES while the host enqueues the calls, so a
+    call that takes the host longer than the card (K1's wrapper) is timed
+    by the card's work, not by the host's launch rate."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(PRIME_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -681,6 +748,87 @@ def blocks_edge_cases(shared, dev):
     return worst
 
 
+def same_plan(a, b) -> bool:
+    """Two K1 plans (shared.FusedPlan) equal in every field."""
+    return a.zmax == b.zmax and all(torch.equal(x, y) for x, y in
+                                    zip(a[:4], b[:4]))
+
+
+def k1_structure_cases(shared, dev, dtype=torch.float32, cells=False):
+    """K1 against its plain version on rows made for its plan, in dtype,
+    every form (with cells: the four cell forms, leaf cells 0..7 on both
+    sides of grid_sep 2 and 3 and exempt rows) and mode: one tile whose
+    list holds every granule of the row beside a tile with none; live
+    granules scattered through the row; lists of SPAN + 1 and 2 SPAN - 1
+    entries (not multiples of the span); S ending inside a granule, whose
+    ragged last granule is a tile's only live one; T past one target
+    group; self pairs and far padding inside the row. The plan that K1's
+    kernels build must equal fused_plan's, two launches on the same inputs
+    must agree bit for bit, and the tile with no list must get zeros.
+    Returns the worst |kernel - plain| per form."""
+    G, span = shared.GRANULE, shared.SPAN
+    rng = np.random.default_rng(23)
+    worst = {}
+    for C, T, ng, tail, eps, sep in ((6, 300, 5 * span + 2, 37, 0.0, 2),
+                                     (3, 64, 3, 5, 0.01, 3)):
+        S = ng * G + tail
+        n = 10000
+        tpos = rng.standard_normal((C, T, 3))
+        tidx = rng.choice(n, size=(C, T), replace=False).astype(np.int64)
+        tidx[:, -3:] = n                      # padding targets
+        spos = rng.standard_normal((S, 3)) + 0.3
+        smass = rng.uniform(0.1, 1, S)
+        sidx = rng.integers(-1, n, S).astype(np.int64)
+        spos[:6] = tpos[0, :6]                # self pairs
+        sidx[:6] = tidx[0, :6]
+        spos[S // 2:S // 2 + 4] = 1e30        # far, massless padding
+        smass[S // 2:S // 2 + 4] = 0.0
+        sidx[S // 2:S // 2 + 4] = -1
+        mask = np.zeros((C, S), bool)
+        mask[0] = rng.uniform(size=S) < 0.5   # every granule: a long list
+        mask[0, ::G] = True
+        # tile 1 has no list
+        mask[2, S - tail:] = True             # only the ragged last one
+        if C > 3:
+            for g in rng.choice(ng, ng // 3, replace=False):  # scattered
+                mask[3, g * G + rng.integers(0, G, 2)] = True
+            for c, k in ((4, span + 1), (5, 2 * span - 1)):
+                for g in np.sort(rng.choice(ng, k, replace=False)):
+                    mask[c, g * G + rng.integers(0, G)] = True
+        d = rng.standard_normal((S, 3)) * 0.1
+        quad = np.stack([d[:, a] * d[:, b] for a, b in shared.quad_pairs(3)],
+                        1) * smass[:, None]
+        args = on_card((tpos, tidx, spos, smass, sidx, mask), dev, dtype)
+        if not same_plan(shared.fused_device_plan(args[5]),
+                         shared.fused_plan(args[5])):
+            raise AssertionError("K1: the kernels' plan differs from "
+                                 "fused_plan's")
+        ckw = {}
+        if cells:
+            scell = rng.integers(0, 8, (S, 3))
+            scell[S // 3:S // 3 + 20] = -1    # exempt rows
+            ckw = dict(src_cell=torch.as_tensor(scell, device=dev),
+                       tgt_cell=torch.as_tensor(rng.integers(0, 8, (C, T, 3)),
+                                                device=dev), grid_sep=sep)
+        for q in (None, on_card((quad,), dev, dtype)[0]):
+            for comp in (False, True):
+                form = shared.form_name(q is not None, comp, cells)
+                for mode in MODES:
+                    kw = dict(mode=mode, compensated=comp, src_quad=q, **ckw)
+                    got = shared.eval_shared_fused(*args, eps, 1.5, **kw)
+                    again = shared.eval_shared_fused(*args, eps, 1.5, **kw)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"K1 {form} {mode}: two launches "
+                                             "differ")
+                    if bool(got[0][1].any() | got[1][1].any()):
+                        raise AssertionError(f"K1 {form}: the tile with no "
+                                             "list got a nonzero result")
+                    want = shared.eval_shared_plain(*args, eps, 1.5, **kw)
+                    worst[form] = max(worst.get(form, 0.0),
+                                      compare(got, want, **tol(dtype)))
+    return worst
+
+
 def edge_cases(shared, dev, dtype=torch.float32):
     """Kernel vs plain on small cases that hit every branch of the kernel,
     in every form, in dtype (the float64 build with float64); the
@@ -748,6 +896,8 @@ def edge_cases(shared, dev, dtype=torch.float32):
         args = on_card((tpos, tidx, spos, smass, sidx, mask), dev, dtype)
         check(args, 0.0, quad=on_card((quad,), dev, dtype)[0],
               empty_tile=True)
+    for form, err in k1_structure_cases(shared, dev, dtype).items():
+        worst[form] = max(worst[form], err)
     if dtype != torch.float32:
         return worst, staircase(dev, dtype, "K1")
 
@@ -839,6 +989,8 @@ def cell_edge_cases(shared, dev, dtype=torch.float32):
                     if not bool((got[k] - free[k]).abs().max() > 1e-3):
                         raise AssertionError(f"{form}: the cell test "
                                              "removed nothing")
+    for form, err in k1_structure_cases(shared, dev, dtype, True).items():
+        worst[form] = max(worst[form], err)
     return worst
 
 
@@ -932,7 +1084,7 @@ def bound(inputs, n, quad=False, comp=False, cells=None, per_pair=None,
     call at these inputs, the larger of the bytes it must move (each input
     read once, each output written once) over the HBM rate and the
     operations its live pairs (mask-true sources x real targets of the
-    n-particle tree, and TwoSum per active source block) need over the
+    n-particle tree, and TwoSum per staged granule and span) need over the
     fp32 peak (fp64 for float64 operands). cells (src_cell, tgt_cell,
     grid_sep) for K1c: the two cell tensors are read too, every mask-true
     pair costs the OPS_CELL operations of the cell test, and only the
@@ -954,8 +1106,9 @@ def bound(inputs, n, quad=False, comp=False, cells=None, per_pair=None,
     flops = alive * per_pair + (pairs * OPS_CELL if cells else 0)
     if comp:
         from rakau_tpu_torch.kernels import shared
+        cnt = shared.fused_plan(mask).cnt.double()
         flops += FLOPS_TWOSUM * float(
-            (shared.active_blocks(mask)[1].double() * ntgt).sum())
+            ((cnt + (cnt / shared.SPAN).ceil()) * ntgt).sum())
     t_bytes = nbytes / PEAK_BYTES
     peak = PEAK_FP64 if tpos.dtype == torch.float64 else PEAK_FP32
     t_ops = max(flops / peak, alive * tensor_flops / PEAK_BF16)
@@ -1669,10 +1822,12 @@ def cell_kernels(tree, qtree, n: int) -> dict:
                       * (args[1] < n).sum(1).double()).sum())
         emit("kernel", config=label, form=form, C=C, T=T,
              S=int(args[2].shape[0]),
-             active_blocks=int(shared.active_blocks(args[5])[1].sum()),
+             **k1_shape(args, kw.get("compensated", False), quad_form,
+                        cells),
              mask_true_pairs=live,
              surviving_pairs=surviving_pairs(args, cells, n), modes=modes,
-             ms_without_cell_test=free_ms, bound_ms=b_ms, bound_by=b_by)
+             ms_without_cell_test=free_ms, bound_ms=b_ms, bound_by=b_by,
+             pct_of_bound=100 * b_ms / modes["both"]["ms"])
         per_form.setdefault(form, []).append(dict(
             max_abs_err=max(v["max_abs_err"] for v in modes.values()),
             ms=modes["both"]["ms"], plain_ms=modes["both"]["plain_ms"],
@@ -1885,8 +2040,9 @@ def variant_kernels(tree, n: int, label: str, dev) -> dict:
 def density(tree, label: str) -> dict:
     """Phase metrics, first half: metrics.collect_shared_density on
     `tree`'s query, and the check that its processed pairs are what the
-    kernel wrapper's own active-block lists give for the engine's masks on
-    the same chunks."""
+    plan that K1's kernels build on the card (shared.fused_device_plan:
+    active granules) gives for the engine's masks on the same chunks,
+    where that plan must equal shared.fused_plan's lists."""
     from rakau_tpu_torch import engine, metrics
     from rakau_tpu_torch.kernels import shared
     td, cfg = tree.tree_data, tree.config
@@ -1894,9 +2050,15 @@ def density(tree, label: str) -> dict:
         td, cfg, THETA, max_chunks=8))
     n_live = engine.live_chunks(td, cfg)
     sample = metrics.sample_chunks(n_live, 8)
-    blocks = sum(int(shared.active_blocks(engine.kernel_inputs(
-        td, cfg, THETA, 0.0, ch)[5])[1].sum()) for ch in sample)
-    replay = float(blocks * shared.BLOCK * cfg.ncrit) \
+    granules = 0
+    for ch in sample:
+        mask = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)[5]
+        plan = shared.fused_device_plan(mask)
+        if not same_plan(plan, shared.fused_plan(mask)):
+            raise AssertionError(f"{label} chunk {ch}: the kernels' plan "
+                                 "differs from fused_plan's")
+        granules += int(plan.cnt.sum())
+    replay = float(granules * shared.GRANULE * cfg.ncrit) \
         * (n_live / len(sample))
     emit("metrics", config=label, collect_ms=ms, chunks=n_live,
          sampled=sample, kernel_plan_pairs=replay, **stats.as_dict())
@@ -2068,7 +2230,7 @@ def lmac_main(pos, mass, oracle, dev):
                              f"{s_f:.3e}")
     emit("lmac_layers", **lmac_layer_ms(tree, warm_ms))
     emit("lmac_profile", **profile_record(
-        device_profile(tree, "shared_fused_kernel", "k1c_device_ms"),
+        device_profile(tree, "shared_fused_", "k1c_device_ms"),
         warm_ms))
     vrec, v_launches = variant_queries(tree, oracle, (f_rms, p_rms),
                                        "mma_cell", dev)
@@ -2262,7 +2424,7 @@ def energy_kernels(etree, ecfg):
         "mono_comp": (inputs[:2] + parts + (mask[:, U:].contiguous(),),
                       dict(compensated=True)),
     }
-    out, modes = {}, {}
+    out, modes, shapes = {}, {}, {}
     for form, (args, kw) in segs.items():
         worst = 0.0
         for mode in ("both", "acc", "pot"):
@@ -2283,14 +2445,12 @@ def energy_kernels(etree, ecfg):
         out[form] = dict(max_abs_err=worst, ms=modes[form]["both"]["ms"],
                          plain_ms=modes[form]["both"]["plain_ms"],
                          bound_ms=b_ms, bound_by=b_by)
+        shapes[form] = dict(k1_shape(args, "comp" in form, "quad" in form),
+                            pct_of_bound=100 * b_ms / out[form]["ms"])
     C, T, _ = inputs[0].shape
     emit("kernel", config="energy", chunk=0, C=C, T=T, U=U,
-         S=int(inputs[2].shape[0]),
-         active_blocks={"nodes": int(shared.active_blocks(
-             mask[:, :U])[1].sum()), "particles": int(shared.active_blocks(
-                 mask[:, U:].contiguous())[1].sum())},
-         modes=modes, bounds={f: (v["bound_ms"], v["bound_by"])
-                              for f, v in out.items()})
+         S=int(inputs[2].shape[0]), shapes=shapes, modes=modes,
+         bounds={f: (v["bound_ms"], v["bound_by"]) for f, v in out.items()})
     return out
 
 
@@ -2298,18 +2458,19 @@ def staircase(dev, dtype, kernel: str) -> dict:
     """The compensated forms of K1 or K2 in dtype on a row whose fp sums
     round the same way at every block: four targets at the origin, one
     source of mass 1 at distance 1 in the first block, then one of mass
-    0.75 u (u: the spacing of dtype above 1) in each of the next 63 blocks,
-    all at distance 1 along x (inv_r = 1; every other row massless). The
-    exact sums are -(1 + 47.25 u) (potential) and 1 + 47.25 u (x
-    acceleration): fp sums round up by a quarter u at each block (error
-    15.75 u), TwoSum keeps the remainders (0.25 u after the last
-    rounding). Raises unless every compensated error is at most 2 u and
+    0.75 u (u: the spacing of dtype above 1) in each of the next 63 blocks
+    (K1: spans of SPAN granules, whose sums its reduction adds; K2: pool
+    blocks of 512), all at distance 1 along x (inv_r = 1; every other row
+    massless). The exact sums are -(1 + 47.25 u) (potential) and
+    1 + 47.25 u (x acceleration): fp sums round up by a quarter u at each
+    block (error 15.75 u), TwoSum keeps the remainders (0.25 u after the
+    last rounding). Raises unless every compensated error is at most 2 u and
     below a quarter of the fp one. Returns the errors in units of u, per
     form (monopole, and the quadrupole forms with zero moments)."""
     from fractions import Fraction
     from rakau_tpu_torch.kernels import pool, shared
     u = torch.finfo(dtype).eps
-    block = shared.BLOCK if kernel == "K1" else 512
+    block = shared.GRANULE * shared.SPAN if kernel == "K1" else 512
     S, T = 64 * block, 4
     tgt = torch.zeros((1, T, 3), dtype=dtype, device=dev)
     tidx = torch.arange(T, device=dev)[None]
@@ -2799,7 +2960,9 @@ def f1(seed: int, dev) -> tuple:
             *inp, 0.0, 1.0), 10),
         plain_ms=cuda_ms(lambda: shared.eval_shared_plain(*inp, 0.0, 1.0),
                          1), bound_ms=b_ms, bound_by=b_by)}
-    emit("kernel", config="octree_f64", chunk=0, **forms["K1a"])
+    emit("kernel", config="octree_f64", form="mono", chunk=0,
+         **forms["K1a"], **k1_shape(inp),
+         pct_of_bound=100 * b_ms / forms["K1a"]["ms"])
     del tree
     from rakau_tpu_torch.config import TreeConfig
     gcfg = TreeConfig(farfield="m2p", dtype="float64", **gwalk_kw(F1_N))
@@ -2923,7 +3086,7 @@ def main(argv=None) -> int:
     # ---- where a warm query's time goes ---------------------------------
     emit("layers", warm_query_ms=warm_ms, **layer_ms(tree))
     emit("profile", **profile_record(
-        device_profile(tree, "shared_fused_kernel", "k1a_device_ms"),
+        device_profile(tree, "shared_fused_", "k1a_device_ms"),
         warm_ms))
 
     # ---- kernel vs plain at the main path's chunk shapes ----------------
@@ -2947,10 +3110,11 @@ def main(argv=None) -> int:
         C, T, _ = inputs[0].shape
         b, b_by = bound(inputs, args.n)
         b_ms.append((b, b_by))
-        emit("kernel", chunk=ch, C=C, T=T, S=int(inputs[2].shape[0]),
-             active_blocks=int(shared.active_blocks(inputs[5])[1].sum()),
+        emit("kernel", form="mono", chunk=ch, C=C, T=T,
+             S=int(inputs[2].shape[0]), **k1_shape(inputs),
              modes={m: v[-1] for m, v in per_mode.items()},
-             bound_ms=b, bound_by=b_by)
+             bound_ms=b, bound_by=b_by,
+             pct_of_bound=100 * b / per_mode["both"][-1]["ms"])
 
     # ---- accuracy against the float64 oracle ----------------------------
     samp = np.sort(np.random.default_rng(args.seed + 1).choice(

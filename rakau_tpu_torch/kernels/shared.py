@@ -37,6 +37,11 @@ The CUDA wrappers take 2-D and 3-D operands, float32 or float64 (K6 and K5
 float32 only): a 2-D call is padded to 3-D by pad_to_3d, which is exact,
 and a float64 call runs the same source built with -DRAKAU_REAL=double
 (build_library(f64=True)).
+
+The plans: K1 (csrc/shared_fused.cu) compacts each tile's mask at GRANULE
+sources and cuts each tile's list into spans of SPAN entries (fused_plan);
+K5 and K6 take whole blocks of BLOCK sources (active_blocks). PLAN_BLOCK
+names each evaluator's unit; metrics.processed_pairs replays them.
 """
 from __future__ import annotations
 
@@ -46,21 +51,28 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from .. import scan_utils as su
 
 _MODES = {"both": 0, "acc": 1, "pot": 2}
-# Source-block granularity of the kernel's active-block lists: each CUDA
-# block stages this many sources in shared memory per step (x, y, z,
-# m*mask as float4 + idx as int32: 20 KB at 1024; the quadrupole form
-# adds its 6 second-moment planes, 24 KB, the cell forms one packed int32
-# cell, 4 KB: 48 KB with both). This is the single source of
-# the block plan for every form; the kernel's kBlock must equal it
-# (checked when the library loads). The plain version sums by the same
-# blocks unless told otherwise.
+# Source-block granularity of the active-block lists of K5 and K6: each
+# CUDA block stages this many sources per step. Their kBlock must equal it
+# (checked when each library loads).
 BLOCK = 1024
+# K1's plan: each tile's list of active granules of GRANULE sources (the
+# reference's `subblock` selection; the unit of one staging step), cut
+# into spans of SPAN consecutive entries, one work item a span and target
+# group. The kernel's kGranule must equal GRANULE (checked when the
+# library loads); SPAN is handed to each launch. The plain version follows
+# the same plan unless told otherwise.
+GRANULE = 128
+SPAN = 2
+# the unit of each evaluator's plan: the sources a processed (tile, entry)
+# pair of its lists computes for every target
+PLAN_BLOCK = {"fused": GRANULE, "mma": BLOCK, "blocks": BLOCK}
 
 
 def quad_pairs(ndim: int):
@@ -107,11 +119,17 @@ def _quad_terms(dds, q, mk, inv_r, mode):
 
 
 def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                      eps, G, mode: str = "both", block: int = BLOCK,
+                      eps, G, mode: str = "both", block: int = GRANULE,
                       compensated: bool = False, src_quad=None,
-                      src_cell=None, tgt_cell=None, grid_sep: int = 0):
-    """Plain version (counterpart of `rakau_tpu.kernels.xla.eval_shared`):
-    loops over source blocks with [C, T, B] panels.
+                      src_cell=None, tgt_cell=None, grid_sep: int = 0,
+                      span: int = SPAN):
+    """Plain version (counterpart of `rakau_tpu.kernels.xla.eval_shared`),
+    in K1's structure: each tile's list of active granules of `block`
+    sources (active_blocks(mask, block)) is cut into spans of `span`
+    consecutive entries (0: one span, the whole list). A granule's
+    [C, T, block] panel is summed over its sources and added into its
+    span's sum; the spans' sums are added in span order. compensated:
+    TwoSum at both levels, the error terms added at the end.
 
     tgt_pos [C, T, D], tgt_idx [C, T], src_pos [S, D], src_mass [S],
     src_idx [S], mask [C, S] bool (+ src_quad [S, Q]; + integer
@@ -123,69 +141,100 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
         grid_sep = 0
     elif tgt_cell is None or grid_sep < 1:
         raise ValueError("src_cell needs tgt_cell and grid_sep >= 1")
+    if span < 0:
+        raise ValueError("span must be >= 0")
     C, T, D = tgt_pos.shape
     S = src_pos.shape[0]
     dtype = tgt_pos.dtype
-    eps2 = torch.full((), eps, dtype=dtype, device=tgt_pos.device) ** 2
-    acc = torch.zeros_like(tgt_pos)
-    pot = torch.zeros_like(tgt_pos[..., 0])
-    acc_c = torch.zeros_like(acc)
-    pot_c = torch.zeros_like(pot)
-    mk = mask.to(dtype)
-    for s in range(0, S, block):
-        if not bool(mask[:, s:s + block].any()):
-            continue    # no tile takes this block: it adds exact zeros
-        sp = src_pos[s:s + block]
-        mkb = mk[:, None, s:s + block]
-        m = src_mass[s:s + block][None, None, :] * mkb
-        dds = [sp[None, None, :, d] - tgt_pos[:, :, None, d]
-               for d in range(D)]
+    dev = tgt_pos.device
+    eps2 = torch.full((), eps, dtype=dtype, device=dev) ** 2
+    ids, cnt = active_blocks(mask, block)
+    NG = ids.shape[1]
+    pad = NG * block - S
+    # the row padded to whole granules with masked-out entries
+    fpad = torch.nn.functional.pad
+    pos_p = fpad(src_pos, (0, 0, 0, pad))
+    mass_p = fpad(src_mass, (0, pad))
+    idx_p = fpad(src_idx, (0, pad), value=-1)
+    mask_p = fpad(mask, (0, pad))
+    quad_p = None if src_quad is None else fpad(src_quad, (0, 0, 0, pad))
+    cell_p = fpad(src_cell, (0, 0, 0, pad), value=-1) if grid_sep else None
+    outs = []                 # per output: acc [C, T, D], pot [C, T]
+    if mode in ("both", "acc"):
+        outs.append("acc")
+    if mode in ("both", "pot"):
+        outs.append("pot")
+    zero = {"acc": torch.zeros_like(tgt_pos),
+            "pot": torch.zeros_like(tgt_pos[..., 0])}
+    tot = dict(zero)          # the spans added so far
+    tot_e = dict(zero)        # their TwoSum errors
+    run = dict(zero)          # the current span's sum
+    run_e = dict(zero)        # its TwoSum errors
+    nmax = int(cnt.max()) if C else 0
+    lane = torch.arange(block, device=dev)
+    for k in range(nmax):
+        take = k < cnt                                     # [C]
+        end = take & (k + 1 == cnt)
+        if span:
+            end = end | (take & ((k + 1) % span == 0))
+        sl = ids[:, k].clamp(max=NG - 1).long()[:, None] * block + lane
+        mkb = torch.gather(mask_p, 1, sl)[:, None, :]      # [C, 1, B]
+        sp = pos_p[sl]                                     # [C, B, D]
+        dds = [sp[:, None, :, d] - tgt_pos[:, :, None, d] for d in range(D)]
         r2 = eps2 + sum(dd * dd for dd in dds)
         inv_r = torch.rsqrt(r2)
-        dead = (src_idx[s:s + block][None, None, :] == tgt_idx[:, :, None]) \
-            | (r2 <= 0)
+        dead = (idx_p[sl][:, None, :] == tgt_idx[:, :, None]) | (r2 <= 0) \
+            | ~mkb
         if grid_sep:
-            scb = src_cell[s:s + block]
+            scb = cell_p[sl]                               # [C, B, D]
             csep = None
             for d in range(D):
-                cd = (scb[None, None, :, d] - tgt_cell[:, :, None, d]).abs()
+                cd = (scb[:, None, :, d] - tgt_cell[:, :, None, d]).abs()
                 csep = cd if csep is None else torch.maximum(csep, cd)
-            dead = dead | ((csep >= grid_sep) & (scb[None, None, :, 0] >= 0))
-        if src_quad is not None:
-            dead = dead | (mkb <= 0)
+            dead = dead | ((csep >= grid_sep) & (scb[:, None, :, 0] >= 0))
         inv_r = torch.where(dead, 0.0, inv_r)
-        w = m * inv_r
-        dacc = dpot = None
-        if mode in ("both", "acc"):
+        w = mass_p[sl][:, None, :] * inv_r
+        part = {}
+        if "acc" in outs:
             w3 = w * inv_r * inv_r
-            dacc = [w3 * dd for dd in dds]
-        if mode in ("both", "pot"):
-            dpot = -w
-        if src_quad is not None:
-            qa, qp = _quad_terms(dds, src_quad[s:s + block], mkb, inv_r,
-                                 mode)
-            if dacc is not None:
-                dacc = [a + b for a, b in zip(dacc, qa)]
-            if dpot is not None:
-                dpot = dpot - qp
-        if dacc is not None:
-            dacc = torch.stack([x.sum(-1) for x in dacc], dim=-1)
-            if compensated:
-                acc, e = _two_sum(acc, dacc)
-                acc_c += e
+            part["acc"] = [w3 * dd for dd in dds]
+        if "pot" in outs:
+            part["pot"] = -w
+        if quad_p is not None:
+            qa, qp = _quad_terms(dds, quad_p[sl][:, None], mkb.to(dtype),
+                                 inv_r, mode)
+            if "acc" in part:
+                part["acc"] = [a + b for a, b in zip(part["acc"], qa)]
+            if "pot" in part:
+                part["pot"] = part["pot"] - qp
+        for o in outs:
+            p = part[o]
+            if o == "acc":
+                p = torch.stack([x.sum(-1) for x in p], dim=-1)
+                tk = take[:, None, None]
+                ek = end[:, None, None]
             else:
-                acc += dacc
-        if dpot is not None:
-            dpot = dpot.sum(-1)
+                p = p.sum(-1)
+                tk = take[:, None]
+                ek = end[:, None]
             if compensated:
-                pot, e = _two_sum(pot, dpot)
-                pot_c += e
+                s, e = _two_sum(run[o], p)
+                run_e[o] = torch.where(tk, run_e[o] + e, run_e[o])
             else:
-                pot += dpot
+                s = run[o] + p
+            run[o] = torch.where(tk, s, run[o])
+            if compensated:
+                s, e = _two_sum(tot[o], run[o])
+                tot_e[o] = torch.where(ek, (tot_e[o] + e) + run_e[o],
+                                       tot_e[o])
+                run_e[o] = torch.where(ek, 0.0, run_e[o])
+            else:
+                s = tot[o] + run[o]
+            tot[o] = torch.where(ek, s, tot[o])
+            run[o] = torch.where(ek, 0.0, run[o])
     if compensated:
-        acc = acc + acc_c
-        pot = pot + pot_c
-    return G * acc, G * pot
+        tot = {o: tot[o] + tot_e[o] for o in tot}
+    return G * tot["acc"], G * tot["pot"]
 
 PRECS = {"bf16": 0, "x3": 1, "highest": 2}
 
@@ -306,7 +355,7 @@ def eval_shared_blocks_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
             src_mass[z * per * block:(z + 1) * per * block],
             src_idx[z * per * block:(z + 1) * per * block],
             mask[:, z * per * block:(z + 1) * per * block], eps, 1.0,
-            block=block)
+            block=block, span=0)
         acc += a
         pot += p
     return G * acc, G * pot
@@ -387,14 +436,17 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(name: str = "shared_fused", f64: bool = False) -> Path:
+def build_library(name: str = "shared_fused", f64: bool = False,
+                  macros=()) -> Path:
     """Compile csrc/<name>.cu for sm_90a into _build/lib<name>_<hash>.so
     (keyed by the hash of the source, of the headers beside it and of the
     macros) unless it is there already; the ptxas report goes beside it.
     f64: the same source with -DRAKAU_REAL=double, into
-    _build/lib<name>_f64_<hash>.so. Raises on a failed build."""
+    _build/lib<name>_f64_<hash>.so; `macros`: more -D flags (a build that
+    the package itself never loads, such as another granule for a
+    sweep). Raises on a failed build."""
     path = _CSRC / f"{name}.cu"
-    macros = ["-DRAKAU_REAL=double"] if f64 else []
+    macros = (["-DRAKAU_REAL=double"] if f64 else []) + list(macros)
     src = path.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(_CSRC.glob("*.cuh"))) \
         + " ".join(macros).encode()
@@ -418,12 +470,20 @@ def build_library(name: str = "shared_fused", f64: bool = False) -> Path:
 
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 _REAL = object()    # the library's scalar type: c_float, or c_double in f64
-# per library: its launch functions' argument types, and the constants it
-# must report equal to this module's ("real_bytes": its scalar type's)
+# per library: its functions' argument types, and the constants it must
+# report equal to this module's ("real_bytes": its scalar type's)
 _LIBRARIES = {
-    "shared_fused": ({"rakau_shared_fused": [_VOIDP] * 13 + [_INT] * 8
-                      + [_REAL, _VOIDP]},
-                     ("block", "cell_bits", "real_bytes")),
+    "shared_fused": ({"rakau_shared_fused_plan": [_VOIDP] * 6 + [_INT] * 3
+                      + [_VOIDP],
+                      "rakau_shared_fused_pack": [_VOIDP] * 6 + [_INT] * 6
+                      + [_VOIDP],
+                      "rakau_shared_fused": [_VOIDP] * 10 + [_INT] * 10
+                      + [_REAL, _REAL, _VOIDP],
+                      "rakau_shared_fused_workspace": [_INT] * 7,
+                      "rakau_shared_fused_grid": [_INT] * 10,
+                      "rakau_shared_fused_blocks_per_sm": [_INT] * 5,
+                      "rakau_shared_fused_targets_per_thread": []},
+                     ("granule", "cell_bits", "real_bytes")),
     "shared_mma": ({"rakau_shared_mma": [_VOIDP] * 10 + [_INT] * 8
                     + [_REAL, _VOIDP]}, ("block", "cell_bits")),
     "shared_blocks": ({"rakau_shared_blocks": [_VOIDP] * 10 + [_INT] * 5
@@ -434,8 +494,25 @@ _LIBRARIES = {
                "rakau_tiles_split": [_VOIDP] * 9 + [_INT] * 5
                + [_REAL, _VOIDP]}, ("real_bytes",)),
 }
+# functions that return something else than an int
+_RESTYPES = {"rakau_shared_fused_workspace": ctypes.c_size_t}
 # the libraries that have a float64 build
 F64_LIBRARIES = ("shared_fused", "pool", "tiles")
+
+
+def bind_library(path, name: str = "shared_fused", f64: bool = False):
+    """Load the built library at `path` (of csrc/<name>.cu, its float64
+    build with f64) and declare its functions' argument and result
+    types."""
+    real = ctypes.c_double if f64 else ctypes.c_float
+    lib = ctypes.CDLL(str(path))
+    for fname, argtypes in _LIBRARIES[name][0].items():
+        fn = getattr(lib, fname)
+        fn.restype = _RESTYPES.get(fname, _INT)
+        fn.argtypes = [real if a is _REAL else a for a in argtypes]
+    lib.rakau_cuda_error_string.restype = ctypes.c_char_p
+    lib.rakau_cuda_error_string.argtypes = [_INT]
+    return lib
 
 
 def _library(name: str = "shared_fused", f64: bool = False):
@@ -445,14 +522,10 @@ def _library(name: str = "shared_fused", f64: bool = False):
     if key not in _libs:
         if f64 and name not in F64_LIBRARIES:
             raise ValueError(f"{name} has no float64 build")
-        fns, consts = _LIBRARIES[name]
-        real = ctypes.c_double if f64 else ctypes.c_float
-        lib = ctypes.CDLL(str(build_library(name, f64)))
-        for fname, argtypes in fns.items():
-            fn = getattr(lib, fname)
-            fn.restype = _INT
-            fn.argtypes = [real if a is _REAL else a for a in argtypes]
-        checks = [("block", (), BLOCK), ("real_bytes", (), 8 if f64 else 4)]
+        consts = _LIBRARIES[name][1]
+        lib = bind_library(build_library(name, f64), name, f64)
+        checks = [("block", (), BLOCK), ("granule", (), GRANULE),
+                  ("real_bytes", (), 8 if f64 else 4)]
         checks += [("cell_bits", (d,), b) for d, b in CELL_BITS.items()]
         for const, args, want in checks:
             if const in consts:
@@ -462,8 +535,6 @@ def _library(name: str = "shared_fused", f64: bool = False):
                 if get(*args) != want:
                     raise RuntimeError(f"{name}: kernel {const}{args} "
                                        f"{get(*args)} != {want}")
-        lib.rakau_cuda_error_string.restype = ctypes.c_char_p
-        lib.rakau_cuda_error_string.argtypes = [_INT]
         _libs[key] = lib
     return _libs[key]
 
@@ -473,27 +544,55 @@ def eps2_arg(eps, dtype):
     return float(torch.tensor(eps, dtype=dtype) ** 2)
 
 
-def block_any(mask: torch.Tensor) -> torch.Tensor:
+def block_any(mask: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     """[C, NB] bool: tile c has a live mask entry in source block j of
-    BLOCK entries. The one place where a mask [C, S] becomes the kernels'
-    block plan: every form computes exactly the (tile, block) pairs that
-    are true here, BLOCK x T pairs each, and metrics.collect_shared_density
-    counts them from here. The last block may be ragged (the kernels
-    bounds-check it)."""
+    `block` entries. The one place where a mask [C, S] becomes a kernel's
+    plan: each form computes exactly the (tile, block) pairs that are true
+    here at its own unit (PLAN_BLOCK: GRANULE for K1, BLOCK for K5 and
+    K6), block x T pairs each, and metrics.processed_pairs counts them from
+    here. The last block may be ragged (the kernels pad or bounds-check
+    it)."""
     C, S = mask.shape
-    nb = max(1, -(-S // BLOCK))
-    pad = nb * BLOCK - S
+    nb = max(1, -(-S // block))
+    pad = nb * block - S
     if pad:
         mask = torch.nn.functional.pad(mask, (0, pad))
-    return mask.reshape(C, nb, BLOCK).any(-1)
+    return mask.reshape(C, nb, block).any(-1)
 
 
-def active_blocks(mask: torch.Tensor):
-    """Per-tile compacted lists of the blocks of block_any(mask):
-    (ids [C, NB] int32, padded with NB; counts [C] int32)."""
-    blk_any = block_any(mask)
+def active_blocks(mask: torch.Tensor, block: int = BLOCK):
+    """Per-tile compacted lists of the blocks of block_any(mask, block), in
+    row order: (ids [C, NB] int32, padded with NB; counts [C] int32)."""
+    blk_any = block_any(mask, block)
     ids, cnt = su.compact_indices(blk_any, blk_any.shape[1])
     return ids.to(torch.int32), cnt.to(torch.int32)
+
+
+class FusedPlan(NamedTuple):
+    """K1's plan of one launch. ids [C, NG] int32, cnt [C] int32: every
+    tile's active granules (active_blocks(mask, GRANULE)). work [C * zmax]
+    int32: the spans, tile * zmax + span index in tile-major order, span z
+    of tile c the list entries [z * span, min((z + 1) * span, cnt[c]));
+    n_work [1] int32 of them are live (the rest padding). zmax =
+    ceil(NG / span), the most spans a tile can have."""
+    ids: torch.Tensor
+    cnt: torch.Tensor
+    work: torch.Tensor
+    n_work: torch.Tensor
+    zmax: int
+
+
+def fused_plan(mask: torch.Tensor, span: int = SPAN,
+               granule: int = GRANULE) -> FusedPlan:
+    """K1's plan for a mask [C, S], on the mask's device, with no host
+    sync: each tile's active granules, cut into spans of `span` entries."""
+    ids, cnt = active_blocks(mask, granule)
+    zmax = -(-ids.shape[1] // span)
+    nspan = (cnt.long() + span - 1) // span
+    live = torch.arange(zmax, device=mask.device)[None, :] < nspan[:, None]
+    work, n_work = su.compact_indices(live.reshape(1, -1), live.numel())
+    return FusedPlan(ids, cnt, work[0].to(torch.int32),
+                     n_work.to(torch.int32), zmax)
 
 
 def _check(name, t, dtype, shape):
@@ -606,6 +705,45 @@ def raise_on(err: int, lib, what: str):
                            + lib.rakau_cuda_error_string(err).decode())
 
 
+def multiprocessors(dev) -> int:
+    """The streaming multiprocessors of CUDA device dev."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _device_plan(lib, mask, ws, stream) -> FusedPlan:
+    """fused_plan(mask) built by K1's kernels on the card into new
+    tensors, the mask bits and flags into the workspace ws."""
+    C, S = mask.shape
+    ng = max(1, -(-S // GRANULE))
+    zmax = -(-ng // SPAN)
+    dev = mask.device
+    plan = FusedPlan(torch.empty((C, ng), dtype=torch.int32, device=dev),
+                     torch.empty((C,), dtype=torch.int32, device=dev),
+                     torch.empty((C * zmax,), dtype=torch.int32, device=dev),
+                     torch.empty((1,), dtype=torch.int32, device=dev), zmax)
+    err = lib.rakau_shared_fused_plan(
+        mask.data_ptr(), ws.data_ptr(), plan.ids.data_ptr(),
+        plan.cnt.data_ptr(), plan.work.data_ptr(), plan.n_work.data_ptr(),
+        C, S, SPAN, stream)
+    raise_on(err, lib, "shared_fused (plan)")
+    return plan
+
+
+def fused_device_plan(mask: torch.Tensor) -> FusedPlan:
+    """K1's plan as its kernels build it from a bool mask [C, S] on a CUDA
+    device, which must equal fused_plan(mask) in every field (a check of
+    the kernels, not a step of the path)."""
+    _check("mask", mask, torch.bool, mask.shape)
+    lib = _library("shared_fused")
+    C, S = mask.shape
+    ws = torch.empty(lib.rakau_shared_fused_workspace(C, 1, S, SPAN, 0, 0,
+                                                      0),
+                     dtype=torch.uint8, device=mask.device)
+    with torch.cuda.device(mask.device):
+        return _device_plan(lib, mask, ws, torch.cuda.current_stream(
+            mask.device).cuda_stream)
+
+
 def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
                       eps, G, mode: str = "both", compensated: bool = False,
                       src_quad=None, src_cell=None, tgt_cell=None,
@@ -614,10 +752,12 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     eval_shared_fused` in its fp32 and compensated forms, monopole or
     with src_quad [S, Q], each with or without the cell-separation test
     of src_cell [S, D] / tgt_cell [C, T, D] / grid_sep). Same arguments
-    and results as eval_shared_plain; 2-D or 3-D float32 or float64
-    tensors, int64 indices (the cells int64 or int32, coordinates below
-    2^CELL_BITS[D], see check_cell_level), bool mask, all on one CUDA
-    device. Launches on the current stream."""
+    and results as eval_shared_plain at its default plan (fused_plan);
+    2-D or 3-D float32 or float64 tensors, int64 indices (the cells int64
+    or int32, coordinates below 2^CELL_BITS[D], see check_cell_level),
+    bool mask, all on one CUDA device. On the current stream, with no
+    host sync: the plan and the packed row into a workspace, then the
+    kernel and its span reduction."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
     grid_sep = _check_cells(src_cell, tgt_cell, grid_sep, tgt_pos.shape[-1])
@@ -630,28 +770,38 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
             tgt_cell if grid_sep else None, quad=src_quad)
     acc, pot = _outputs(tgt_pos)
     if C == 0 or T == 0:
-        return G * acc[..., :D], G * pot
-    ids, cnt = active_blocks(mask)
+        return acc[..., :D], pot
     if grid_sep:
         src_cell = src_cell.to(torch.int32)
         tgt_cell = tgt_cell.to(torch.int32)
     lib = _library("shared_fused", f64)
     dev = tgt_pos.device
+    quad = src_quad is not None
+    ws = torch.empty(lib.rakau_shared_fused_workspace(
+        C, T, S, SPAN, int(quad), int(bool(grid_sep)), int(compensated)),
+        dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        plan = _device_plan(lib, mask, ws, stream)
+        err = lib.rakau_shared_fused_pack(
+            src_pos.data_ptr(), src_mass.data_ptr(), src_idx.data_ptr(),
+            src_quad.data_ptr() if quad else None,
+            src_cell.data_ptr() if grid_sep else None, ws.data_ptr(), C, T,
+            S, SPAN, int(compensated), D if grid_sep else 0, stream)
+        raise_on(err, lib, "shared_fused (row packing)")
         err = lib.rakau_shared_fused(
-            tgt_pos.data_ptr(), tgt_idx.data_ptr(), src_pos.data_ptr(),
-            src_mass.data_ptr(), src_idx.data_ptr(), mask.data_ptr(),
-            None if src_quad is None else src_quad.data_ptr(),
-            src_cell.data_ptr() if grid_sep else None,
-            tgt_cell.data_ptr() if grid_sep else None,
-            ids.data_ptr(), cnt.data_ptr(), acc.data_ptr(), pot.data_ptr(),
-            C, T, S, ids.shape[1], _MODES[mode], int(compensated),
-            int(grid_sep), D, eps2_arg(eps, tgt_pos.dtype), stream)
+            tgt_pos.data_ptr(), tgt_idx.data_ptr(),
+            tgt_cell.data_ptr() if grid_sep else None, plan.ids.data_ptr(),
+            plan.cnt.data_ptr(), plan.work.data_ptr(),
+            plan.n_work.data_ptr(), ws.data_ptr(), acc.data_ptr(),
+            pot.data_ptr(),
+            C, T, S, SPAN, _MODES[mode], int(compensated), int(quad),
+            int(grid_sep), D, multiprocessors(dev),
+            eps2_arg(eps, tgt_pos.dtype), float(G), stream)
     raise_on(err, lib, "shared_fused")
-    count_launch(launches, form_name(src_quad is not None, compensated,
-                                     bool(grid_sep)), D == 2, f64)
-    return G * acc[..., :D], G * pot
+    count_launch(launches, form_name(quad, compensated, bool(grid_sep)),
+                 D == 2, f64)
+    return (acc if D == 3 else acc[..., :D].contiguous()), pot
 
 
 def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,

@@ -94,13 +94,14 @@ class SharedDensityStats:
     """Useful-pair density of the shared-row kernels.
 
     `useful_pairs` counts (valid target, mask-on source) pairs, the
-    physics the query needs. `processed_pairs` counts the pairs a kernel
-    computes after the per-tile active-block plan (active blocks x BLOCK x
-    T per tile), the work it does; every form of the row follows that one
-    plan (kernels.shared.block_any). `density` is their ratio.
-    `slot_pairs` is the uncompacted S * T * C slot count. Pairs that
-    grid2's per-pair cell test kills inside the kernel count as useful:
-    they are mask-on, and block compaction cannot skip them."""
+    physics the query needs. `processed_pairs` counts the pairs the
+    selected evaluator of the row computes after its per-tile plan
+    (active entries x its unit x T per tile, processed_pairs), the work it
+    does. `density` is their ratio. `slot_pairs` is the uncompacted
+    S * T * C slot count. Pairs that grid2's per-pair cell test kills
+    inside the kernel count as useful: they are mask-on, and compaction
+    cannot skip them. `block` is the unit of the plan of the particle
+    rows (kernels.shared.PLAN_BLOCK: K1's granule by default)."""
     useful_pairs: float
     processed_pairs: float
     slot_pairs: float
@@ -109,7 +110,7 @@ class SharedDensityStats:
     pairs_per_particle: float     # useful / N
     chunks_sampled: int
     block: int
-    subblock: int                 # always 0: the kernels take whole blocks
+    subblock: int                 # always 0: a plan entry is one block
 
     def as_dict(self) -> Dict:
         return self.__dict__.copy()
@@ -124,16 +125,35 @@ def sample_chunks(n_live: int, max_chunks: int):
     return sorted({int((i + 0.5) * n_live / take) for i in range(take)})
 
 
-def processed_pairs(cfg: TreeConfig, mask: torch.Tensor) -> torch.Tensor:
+def _plan_block(cfg: TreeConfig, quad: bool, variant: str = None) -> int:
+    """The unit of the plan that evaluates one launch of `cfg`'s row
+    (quad: the node rows of a quadrupole query) under the shared variant
+    `variant` (default: the one selected now): K1's granule unless the
+    variant takes the launch, which K6 and K5 do only for the monopole in
+    fp32 sums (kernels.dispatch._eval)."""
+    name = dispatch._variant[0] if variant is None else variant
+    if quad or cfg.accum == "compensated":
+        name = "fused"
+    return shared.PLAN_BLOCK[name]
+
+
+def processed_pairs(cfg: TreeConfig, mask: torch.Tensor,
+                    variant: str = None) -> torch.Tensor:
     """Pairs the kernels compute for one chunk's mask [C, S], from the
-    kernels' own block plan (0-d tensor). With the quadrupole the node
-    rows [0, m2p_cap) and the particle rows are two launches, each with
-    its own plan, as kernels.dispatch.eval_shared splits them."""
+    plan of the evaluator that takes each launch (_plan_block; 0-d
+    tensor): active entries x unit x T. With the quadrupole the node rows
+    [0, m2p_cap) and the particle rows are two launches, each with its own
+    plan, as kernels.dispatch.eval_shared splits them."""
     U = cfg.m2p_cap
-    segs = [mask[:, :U], mask[:, U:]] if cfg.multipole_order >= 2 else [mask]
-    blocks = sum(shared.active_blocks(m.contiguous())[1].sum()
-                 for m in segs if m.shape[1])
-    return blocks * shared.BLOCK * cfg.ncrit
+    segs = ([(mask[:, :U], True), (mask[:, U:], False)]
+            if cfg.multipole_order >= 2 else [(mask, False)])
+    total = torch.zeros((), dtype=torch.int64, device=mask.device)
+    for m, quad in segs:
+        if m.shape[1]:
+            blk = _plan_block(cfg, quad, variant)
+            total = total + shared.active_blocks(
+                m.contiguous(), blk)[1].sum() * blk
+    return total * cfg.ncrit
 
 
 def collect_shared_density(td: TreeData, cfg: TreeConfig, theta, eps=0.0,
@@ -143,7 +163,8 @@ def collect_shared_density(td: TreeData, cfg: TreeConfig, theta, eps=0.0,
     mask is the one the engine hands to the kernel
     (engine.kernel_inputs: the traversal, the lmac candidate table of the
     chunk's slice and the far/near gate), and the processed pairs replay
-    the kernels' block plan (processed_pairs); no kernel is launched."""
+    the plan of the evaluator selected now (processed_pairs: K1's
+    granules by default); no kernel is launched."""
     if not engine._use_shared(cfg):
         raise ValueError("density stats require the shared or the lmac "
                          "traversal")
@@ -170,7 +191,8 @@ def collect_shared_density(td: TreeData, cfg: TreeConfig, theta, eps=0.0,
         density=useful / max(processed, 1.0),
         slot_density=useful / max(slots, 1.0),
         pairs_per_particle=useful / max(n, 1),
-        chunks_sampled=len(sample), block=shared.BLOCK, subblock=0)
+        chunks_sampled=len(sample), block=_plan_block(cfg, False),
+        subblock=0)
 
 
 def measure_kernel_roof(cfg: TreeConfig, n_src: int = 262144, reps: int = 8,

@@ -92,13 +92,27 @@ def test_plain_matches_pallas_and_xla(mode, S, eps):
     _close(disp, want_x)
 
 
-def test_plain_block_size_does_not_change_the_sums():
-    targs = _torch_args(make_case(1))
-    a = shared.eval_shared_plain(*targs, 0.01, 1.0, block=64)
-    b = shared.eval_shared_plain(*targs, 0.01, 1.0, block=1000)
-    for x, y in zip(a, b):
-        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-5,
-                                   atol=1e-6)
+@pytest.mark.parametrize("quad", [False, True])
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+def test_plain_block_size_does_not_change_the_sums(mode, quad):
+    """Neither the granule nor the span length (K1's plan) changes the
+    sums beyond rounding, in every mode, monopole or quadrupole (the
+    compensated forms: tests/test_torch_k1_plan.py)."""
+    kw = dict(mode=mode)
+    if quad:
+        case, q = make_quad_case(1)
+        kw["src_quad"] = torch.as_tensor(q)
+    else:
+        case = make_case(1)
+    targs = _torch_args(case)
+    a = shared.eval_shared_plain(*targs, 0.01, 1.0, block=64, **kw)
+    for block, span in ((1000, shared.SPAN), (64, 0), (32, 1),
+                        (shared.GRANULE, shared.SPAN), (256, 3)):
+        b = shared.eval_shared_plain(*targs, 0.01, 1.0, block=block,
+                                     span=span, **kw)
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-5,
+                                       atol=1e-6)
 
 
 def test_active_blocks_lists_live_blocks_in_order():
@@ -601,14 +615,25 @@ def test_blocks_nsplit_rule():
 
 
 def test_block_any_is_the_plan_of_every_form():
+    """K5 and K6 plan at BLOCK; K1 at GRANULE (fused_plan)."""
     mask = torch.zeros((3, 2500), dtype=torch.bool)
     mask[0, 5] = mask[0, 2050] = mask[1, 1024] = True
+    assert shared.PLAN_BLOCK["mma"] == shared.PLAN_BLOCK["blocks"] \
+        == shared.BLOCK
     any_ = shared.block_any(mask)
     assert any_.tolist() == [[True, False, True], [False, True, False],
                              [False, False, False]]
     ids, cnt = shared.active_blocks(mask)
     assert cnt.tolist() == any_.sum(1).tolist()
     assert ids[0, :2].tolist() == [0, 2] and ids[1, 0] == 1
+    G = shared.GRANULE
+    assert shared.PLAN_BLOCK["fused"] == G
+    k1 = shared.fused_plan(mask)
+    assert k1.ids.shape == (3, -(-2500 // G))
+    assert k1.cnt.tolist() == shared.block_any(mask, G).sum(1).tolist() \
+        == [2, 1, 0]
+    assert k1.ids[0, :2].tolist() == [0, 2050 // G]
+    assert k1.ids[1, 0] == 1024 // G
 
 
 # ------------------------------------------------------------ the selector

@@ -2,10 +2,11 @@
 tree handed over through rakau_tpu_torch.convert: the useful, processed
 and slot pair counts of the shared and the lmac query (to 1e-6: the
 reference sums them in float32), with the reference's kernel block set to
-the port's (RAKAU_PALLAS_BLOCK) and row caps of at least one block (below
-it the reference shrinks its block to the row, the port does not). The
-processed pairs must be the count that the kernel wrapper's own
-active-block plan gives for the engine's masks on the same chunks."""
+the port's K1 granule (RAKAU_PALLAS_BLOCK) and row caps of at least one
+block (below it the reference shrinks its block to the row, the port does
+not). The processed pairs must be the count that the kernel wrapper's own
+plan (K1's active granules) gives for the engine's masks on the same
+chunks."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -56,7 +57,7 @@ def test_shared_density_matches_jax_and_the_kernels_plan(case, monkeypatch):
     jtd = jax_build(jnp.asarray(pos), jnp.asarray(mass), jc)
     td = treedata_from_numpy(
         {k: np.asarray(v) for k, v in jtd._asdict().items()}, "cpu")
-    monkeypatch.setenv("RAKAU_PALLAS_BLOCK", str(shared.BLOCK))
+    monkeypatch.setenv("RAKAU_PALLAS_BLOCK", str(shared.GRANULE))
     want = jmetrics.collect_shared_density(jtd, jc, THETA, max_chunks=3)
     got = metrics.collect_shared_density(td, cfg, THETA, max_chunks=3)
     for f in ("useful_pairs", "processed_pairs", "slot_pairs", "density",
@@ -64,10 +65,10 @@ def test_shared_density_matches_jax_and_the_kernels_plan(case, monkeypatch):
         np.testing.assert_allclose(getattr(got, f), getattr(want, f),
                                    rtol=1e-6, err_msg=f)
     assert got.chunks_sampled == want.chunks_sampled == 3
-    assert got.block == want.block == shared.BLOCK and got.subblock == 0
+    assert got.block == want.block == shared.GRANULE and got.subblock == 0
     assert 0 < got.density <= 1 and got.useful_pairs > 0
 
-    # the replay is the kernel's own plan: what the wrapper's active-block
+    # the replay is the kernel's own plan: what the wrapper's granule
     # lists give for the masks the engine hands it, on the same chunks
     n_live = engine.live_chunks(td, cfg)
     sample = metrics.sample_chunks(n_live, 3)
@@ -76,15 +77,16 @@ def test_shared_density_matches_jax_and_the_kernels_plan(case, monkeypatch):
         inp = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)
         mask, quad = inp[5], inp[6]
         if quad is None:
-            blocks += int(shared.active_blocks(mask)[1].sum())
+            blocks += int(shared.fused_plan(mask).cnt.sum())
         else:       # two launches: node rows, particle rows
             U = quad.shape[0]
-            blocks += int(shared.active_blocks(
-                mask[:, :U].contiguous())[1].sum())
-            blocks += int(shared.active_blocks(
-                mask[:, U:].contiguous())[1].sum())
+            blocks += int(shared.fused_plan(
+                mask[:, :U].contiguous()).cnt.sum())
+            blocks += int(shared.fused_plan(
+                mask[:, U:].contiguous()).cnt.sum())
     assert got.processed_pairs == pytest.approx(
-        blocks * shared.BLOCK * cfg.ncrit * n_live / len(sample), rel=1e-12)
+        blocks * shared.GRANULE * cfg.ncrit * n_live / len(sample),
+        rel=1e-12)
 
 
 def test_density_needs_a_shared_row():
