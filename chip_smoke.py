@@ -23,8 +23,12 @@ Phases, each printing one JSON line:
                for the pool kernel K2 (edge_pool): every form and mode on
                synthetic pools with self pairs, a node row on top of a
                target at eps = 0, an empty tile, tiles in two windows,
-               ragged T, pool_block 128 and 512, and a cancellation-heavy
-               segment; then the cell-separation forms K1c (edge_cell):
+               ragged T, pool_block 128, 512 and 200 (ragged granules), a
+               segment far longer than the rest, padding at 4 * box and at
+               1e30, 2-D operands (the plan K2's kernel builds equal to
+               pool_plan's, two launches bit for bit equal), and a
+               cancellation-heavy segment; then the cell-separation forms
+               K1c (edge_cell):
                every form and mode with random leaf cells on both sides
                of grid_sep 2 and 3, exempt rows (cell -1), self pairs that
                are covered too, ragged T and S, an empty tile and, in the
@@ -40,9 +44,11 @@ Phases, each printing one JSON line:
                and the staircase() check of the compensated forms); and
                the tile kernels K3 and K4 in float32 and float64
                (edge_tiles: counts of 0, of the whole row and not multiples
-               of the block, self pairs, a node on a target at eps = 0,
-               eps 0 and 0.05, ragged T, padding at 1e30 and at 4 * box, a
-               2-D case; K3 against K4, K4 bit-repeatable);
+               of the granule or the block, self pairs, a node on a target
+               at eps = 0, eps 0 and 0.05, ragged T, padding at 1e30 and at
+               4 * box, a 2-D case; K3 against K4, K3 and K4
+               bit-repeatable, the plan K3's kernel builds equal to
+               tiles_plan's);
   4. main:     a Plummer sphere of N particles (default 1,048,576) from a
                seeded CUDA generator, octree(...) with the headline
                shared+grid configuration, accs_pots_o(theta=0.75) once
@@ -140,7 +146,10 @@ Phases, each printing one JSON line:
                gwalk+grid query's, every form on the quadrupole query's;
                mode "both" on every tile (plain run in groups of tiles),
                "acc" and "pot" on a stated subset; rtol 2e-4 and atol
-               2e-5*max|plain|, both timed; segment lengths reported;
+               2e-5*max|plain|, both timed; two launches bit for bit
+               equal, the card's plan equal to pool_plan's; segment
+               lengths and the launch shape (granules, spans, work items,
+               CUDA blocks, warps a SM, registers: pool_shape) reported;
      gwalk_grid2: gwalk with farfield "grid2" (local_order 4, grid_sep 3,
                tiles clipped at its level, sized as phase g): one K2 launch
                per warm query and no K1 launch, force RMS < 5e-3, potential
@@ -160,8 +169,9 @@ Phases, each printing one JSON line:
                call, rest between device syncs), lists_profile (as phase
                6), lists_split (the whole query on K4: 2 launches a chunk,
                force RMS within 1 % of K3's), kernel (K3 and K4 against
-               their plain versions on chunks 0 and 1, with the CUDA blocks
-               against the SMs);
+               their plain versions on chunks 0 and 1, each bit-repeatable,
+               K3's plan equal to tiles_plan's, with the CUDA blocks
+               against the SMs and K3's launch shape: tiles_shape);
      lists_quad: 262,144 particles: the lists monopole (K3), the
                quadrupole with farfield "local" on the lists path (the
                reference's plain-op route, no kernel: xla_quad = chunks),
@@ -250,12 +260,13 @@ POOL_REPLACES = "rakau_tpu/kernels/pallas.py:974"
 # kernel sources under rakau_tpu_torch/csrc/, each with its float64 build or
 # not, and their kernels (template instantiations: mode x compensated x
 # quadrupole, and x cell test in K1, whose launch adds the three kernels
-# of its plan, its row packing and its span reduction in two forms; K3, K4
-# in two forms and its reduction)
-LIBRARIES = {("shared_fused", False): 42, ("pool", False): 12,
+# of its plan, its row packing and its span reduction in two forms; K2's
+# launch adds its work list and its reduction in two forms; K3 is three
+# kernels (work list, kernel, reduction), K4 two forms and its reduction)
+LIBRARIES = {("shared_fused", False): 42, ("pool", False): 15,
              ("shared_mma", False): 27, ("shared_blocks", False): 2,
-             ("tiles", False): 4, ("shared_fused", True): 42,
-             ("pool", True): 12, ("tiles", True): 4}
+             ("tiles", False): 6, ("shared_fused", True): 42,
+             ("pool", True): 15, ("tiles", True): 6}
 TILES_SRC = "rakau_tpu_torch/csrc/tiles.cu"
 K3_REPLACES = "rakau_tpu/kernels/pallas.py:149"
 K4_REPLACES = "rakau_tpu/kernels/pallas.py:42"
@@ -405,8 +416,9 @@ def build_kernels() -> dict:
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)]
         rec = dict(seconds=secs, library=path.name, kernels=len(regs),
                    registers=regs, spill_bytes=spills)
-        if key[0] == "shared_fused":
-            rec["registers_by_kernel"] = k1_registers(ptxas)
+        if key[0] in ("shared_fused", "pool", "tiles"):
+            rec["registers_by_kernel"] = REGISTERS[name] = \
+                kernel_registers(ptxas)
         if any(spills):
             rec["spilling"] = [f for f, b in zip(re.findall(
                 r"Compiling entry function '([^']+)'", ptxas), spills) if b]
@@ -418,22 +430,41 @@ def build_kernels() -> dict:
     return out
 
 
-def k1_registers(ptxas: str) -> dict:
-    """Registers of each kernel of a shared_fused build's ptxas report, by
-    a short name: shared_fused_kernel<mode,comp,quad,cell> (template
-    arguments from the mangled name), the reduction <comp>, the plan and
-    the packing kernels."""
+# registers of each kernel of K1's, K2's and K3's builds (build_kernels),
+# by library ("pool", "pool_f64", ...) and kernel_registers' short name
+REGISTERS: dict = {}
+
+
+def kernel_registers(ptxas: str) -> dict:
+    """Registers of each kernel of a build's ptxas report, by a short name:
+    the kernel's name and its integer template arguments from the mangled
+    name (shared_fused_kernel<mode,comp,quad,cell>, pool_kernel<mode,comp,
+    quad>, rows_reduce_kernel<comp>, tiles_fused_kernel, ...)."""
     out = {}
     for name, regs in re.findall(
             r"Compiling entry function '([^']+)'.*?Used (\d+) registers",
             ptxas, flags=re.S):
-        base = re.search(r"shared_fused_\w*?kernel", name)
-        targs = re.search(r"kernel(I.*?E)E", name)
+        base, rest = entry_name(name)
+        targs = re.match(r"I(.*?E)E", rest)
         vals = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
-        key = (base.group(0) if base else name) \
-            + (f"<{','.join(vals)}>" if vals else "")
-        out[key] = int(regs)
+        out[base + (f"<{','.join(vals)}>" if vals else "")] = int(regs)
     return out
+
+
+def entry_name(mangled: str) -> tuple:
+    """(the kernel's name, the mangled text after it) of a mangled entry
+    function: the first identifier, given by its length prefix, that ends
+    in "kernel" or "reduce" (a length prefix may follow the digits of a
+    namespace's hash, so every tail of a run of digits is tried)."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):
+            n, at = int(digits[i:]), m.end()
+            ident = mangled[at:at + n]
+            if (len(ident) == n and re.fullmatch(r"[A-Za-z_]\w*", ident)
+                    and ident.endswith(("kernel", "reduce"))):
+                return ident, mangled[at + n:]
+    return mangled, ""
 
 
 def k1_shape(args, comp=False, quad=False, cells=None,
@@ -466,6 +497,8 @@ def k1_shape(args, comp=False, quad=False, cells=None,
 # device cycles that cuda_ms keeps the card busy for before it times, so
 # that the host enqueues the timed calls meanwhile (~10 ms)
 PRIME_CYCLES = 20_000_000
+# the measured keys of a kernel's row in the summary line
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -559,11 +592,18 @@ def gwalk_layer_ms(tree) -> dict:
     return out
 
 
-def device_profile(tree, kernel: str, key: str) -> dict:
+# the kernels of K2's and K3's launches (their plan and span reduction
+# beside the main kernel), for device_profile
+K2_KERNELS = ("pool_kernel", "rows_work_kernel", "rows_reduce_kernel")
+K3_KERNELS = ("tiles_fused_kernel", "rows_work_kernel", "rows_reduce_kernel")
+
+
+def device_profile(tree, kernel, key: str) -> dict:
     """One warm query under torch.profiler with CUDA activity only: the
     number of device ops (kernels, copies, sets), the device-busy ms as
     the union of their intervals, and the share of the kernels whose name
-    holds `kernel` (reported as `key`)."""
+    holds `kernel` (a string, or a tuple of them) (reported as `key`)."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
@@ -578,7 +618,7 @@ def device_profile(tree, kernel: str, key: str) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        if kernel in e.name:
+        if any(k in e.name for k in names):
             k_us += e.time_range.end - e.time_range.start
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted(spans):
@@ -1116,26 +1156,27 @@ def bound(inputs, n, quad=False, comp=False, cells=None, per_pair=None,
                                         else "operations")
 
 
-def pool_case(rng, T, block, sched, n=10000):
-    """A synthetic pool of len(sched) tiles over two windows of 4 blocks:
+def pool_case(rng, T, block, sched, wb=4, pad=40.0, n=10000):
+    """A synthetic pool of len(sched) tiles over two windows of wb blocks:
     node blocks first (second moments Q = m d d^T, idx -1), then particle
-    blocks, each segment ending in padding rows (mass 0, idx -1, at the
-    4 * box sentinel); self pairs (a particle row that is a target of its
-    tile) and a node row exactly on a target in tile 0; the last 5
-    targets of each tile are padding (index n)."""
+    blocks, each segment ending in padding rows (mass 0, idx -1, at `pad`:
+    the 4 * box sentinel or 1e30), the rows no tile visits padding too;
+    self pairs (a particle row that is a target of its tile) and a node
+    row exactly on a target in tile 0; the last 5 targets of each tile
+    are padding (index n)."""
     from rakau_tpu_torch.kernels.shared import quad_pairs
     G = len(sched)
-    window = 4 * block
+    window = wb * block
     P = 2 * window
     tpos = rng.standard_normal((G, T, 3)).astype(np.float32)
     tidx = rng.choice(n, size=(G, T), replace=False).astype(np.int64)
     tidx[:, -5:] = n
-    ppos = np.full((P, 3), 40.0, np.float32)
+    ppos = np.full((P, 3), pad, np.float32)
     pmass = np.zeros(P, np.float32)
     pidx = np.full(P, -1, np.int64)
     pquad = np.zeros((P, 6), np.float32)
     for g, (w, s, m, p) in enumerate(sched):
-        r0 = (w * 4 + s) * block
+        r0 = (w * wb + s) * block
         for seg, nb in ((0, m), (1, p)):
             rows = np.arange(r0, r0 + nb * block)[:max(0, nb * block - 7)]
             r0 += nb * block
@@ -1153,42 +1194,98 @@ def pool_case(rng, T, block, sched, n=10000):
                 pidx[k] = tidx[g, :4]
                 ppos[k] = tpos[g, :4]
     w, s, m, _ = sched[0]
-    ppos[(w * 4 + s) * block + 1] = tpos[0, 7]   # node row on a target
+    ppos[(w * wb + s) * block + 1] = tpos[0, 7]   # node row on a target
     return ([torch.as_tensor(a) for a in (tpos, tidx, ppos, pmass, pidx,
                                           np.asarray(sched, np.int64))],
             window, torch.as_tensor(pquad))
 
 
+def same_rows_plan(a, b) -> bool:
+    """Two plans of K2 or K3 (rows.RowsPlan) equal in every field."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# (window, start block, node blocks, particle blocks); tile 3 is empty
+POOL_SCHED = [[0, 0, 1, 2], [0, 3, 0, 1], [1, 0, 2, 1], [0, 0, 0, 0],
+              [1, 3, 1, 0]]
+# one segment of 36 blocks beside segments of 1-2 (windows of 40 blocks)
+POOL_SCHED_LONG = [[0, 0, 6, 30], [0, 36, 0, 1], [1, 0, 1, 1], [0, 0, 0, 0],
+                   [1, 2, 0, 2], [1, 4, 2, 0]]
+# (T, pool block, eps, blocks a window, padding, schedule, dimensions):
+# pool blocks of 128, 512 and 200 (not a multiple of the granule), ragged
+# T, the padding at the 4 * box sentinel and at 1e30, a segment far longer
+# than the rest, and 2-D operands (padded to 3-D by the wrapper)
+POOL_EDGE = ((300, 128, 0.0, 4, 40.0, POOL_SCHED, (3,)),
+             (77, 512, 0.0, 4, 1e30, POOL_SCHED, (3, 2)),
+             (512, 128, 0.01, 4, 40.0, POOL_SCHED, (3,)),
+             (256, 512, 0.0, 4, 40.0, POOL_SCHED, (3,)),
+             (200, 200, 0.0, 4, 1e30, POOL_SCHED, (3, 2)),
+             (130, 128, 0.0, 40, 40.0, POOL_SCHED_LONG, (3,)))
+
+
+def pool_2d(args, quad):
+    """A pool case's operands in 2-D: x and y of the positions, and the
+    xx, xy, yy second moments (quad_pairs(2)'s columns of quad_pairs(3))."""
+    from rakau_tpu_torch.kernels.shared import quad_pairs
+    cols = [quad_pairs(3).index(p) for p in quad_pairs(2)]
+    out = list(args)
+    out[0] = args[0][..., :2].contiguous()
+    out[2] = args[2][:, :2].contiguous()
+    return out, quad[:, cols].contiguous()
+
+
+def pool_forms(args, quad, window, eps, block, dtype, worst):
+    """K2 vs plain on one synthetic pool in every form and mode: two
+    launches bit for bit equal, the empty tile (3) zeros; the worst
+    |kernel - plain| of each form into `worst`."""
+    from rakau_tpu_torch.kernels import pool
+    for q in (None, quad):
+        for comp in (False, True):
+            form = pool._form(q is not None, comp)
+            for mode in MODES:
+                kw = dict(compensated=comp, mode=mode, pool_quad=q)
+                got = pool.eval_pool_fused(*args, window, eps, 1.5, block,
+                                           **kw)
+                again = pool.eval_pool_fused(*args, window, eps, 1.5, block,
+                                             **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"K2 {form} {mode}: two launches "
+                                         "differ")
+                want = pool.eval_pool_plain(*args, window, eps, 1.5, block,
+                                            **kw)
+                worst[form] = max(worst[form],
+                                  compare(got, want, **tol(dtype)))
+                if bool(got[0][3].any() | got[1][3].any()):
+                    raise AssertionError(f"K2 {form}: the empty tile got a "
+                                         "nonzero result")
+
+
 def pool_edge_cases(dev, dtype=torch.float32):
-    """K2 vs plain on synthetic pools that hit every branch of the kernel,
-    in every form and mode, in dtype, and the cancellation check (in
-    float64 the staircase). Returns the worst |kernel - plain| per form
-    and the cancellation errors."""
+    """K2 vs plain on synthetic pools that hit every branch of the kernel
+    and of its plan (POOL_EDGE, 3-D and 2-D), in every form and mode, in
+    dtype (pool_forms): the plan K2's kernel builds must equal
+    pool_plan's, two launches must agree bit for bit, the empty tile must
+    get zeros; then the cancellation check (in float64 the staircase).
+    Returns the worst |kernel - plain| per form and the cancellation
+    errors."""
     from rakau_tpu_torch.kernels import pool
     rng = np.random.default_rng(11)
     worst = dict.fromkeys(pool.FORMS, 0.0)
-    # (window, start block, node blocks, particle blocks); tile 3 is empty
-    sched = [[0, 0, 1, 2], [0, 3, 0, 1], [1, 0, 2, 1], [0, 0, 0, 0],
-             [1, 3, 1, 0]]
-    for T, block, eps in ((300, 128, 0.0), (77, 512, 0.0), (512, 128, 0.01),
-                          (256, 512, 0.0)):
-        args, window, quad = pool_case(rng, T, block, sched)
-        args = [a.to(dev, dtype) if a.is_floating_point() else a.to(dev)
-                for a in args]
-        for q in (None, quad.to(dev, dtype)):
-            for comp in (False, True):
-                form = pool._form(q is not None, comp)
-                for mode in MODES:
-                    kw = dict(compensated=comp, mode=mode, pool_quad=q)
-                    got = pool.eval_pool_fused(*args, window, eps, 1.5,
-                                               block, **kw)
-                    want = pool.eval_pool_plain(*args, window, eps, 1.5,
-                                                block, **kw)
-                    worst[form] = max(worst[form],
-                                      compare(got, want, **tol(dtype)))
-                    if bool(got[0][3].any() | got[1][3].any()):
-                        raise AssertionError(f"K2 {form}: the empty tile "
-                                             "got a nonzero result")
+    for T, block, eps, wb, pad, sched, dims in POOL_EDGE:
+        args3, window, quad3 = pool_case(rng, T, block, sched, wb, pad)
+        args3 = [a.to(dev, dtype) if a.is_floating_point() else a.to(dev)
+                 for a in args3]
+        quad3 = quad3.to(dev, dtype)
+        P = args3[2].shape[0]
+        if not same_rows_plan(pool.pool_device_plan(args3[5], window, block,
+                                                    P),
+                              pool.pool_plan(args3[5], window, block, P)):
+            raise AssertionError("K2: the kernel's plan differs from "
+                                 "pool_plan's")
+        for d in dims:
+            args, quad = ((args3, quad3) if d == 3
+                          else pool_2d(args3, quad3))
+            pool_forms(args, quad, window, eps, block, dtype, worst)
     if dtype != torch.float32:
         return worst, staircase(dev, dtype, "K2")
     # one tile of 64 blocks of a cancellation-heavy shell (masses over
@@ -1256,7 +1353,9 @@ def pool_bound(inputs, n: int, window: int, block: int, quad: bool,
     operations its live pairs need over the fp32 (fp64) peak: real
     targets x rows with mass > 0 of the tile's segment (self pairs, at
     most one a target, are counted), x 64 on node rows with the
-    quadrupole and 20 otherwise, and TwoSum per target and block."""
+    quadrupole and 20 otherwise, and TwoSum per target and granule and
+    per target and span (pool.pool_plan's)."""
+    from rakau_tpu_torch.kernels import pool
     tpos, tidx, ppos, pmass, pidx, sched, pquad = inputs
     G, T, _ = tpos.shape
     s = sched.long()
@@ -1279,7 +1378,9 @@ def pool_bound(inputs, n: int, window: int, block: int, quad: bool,
     part = float((ntgt * (live[end] - live[mid])).sum())
     flops = node * (FLOPS_QUAD if quad else FLOPS_MONO) + part * FLOPS_MONO
     if comp:
-        flops += FLOPS_TWOSUM * float((ntgt * (s[:, 2] + s[:, 3])).sum())
+        ngran = (s[:, 2] + s[:, 3]) * pool.granules_per_block(block)
+        nspan = -(-ngran // pool.form_span(quad))
+        flops += FLOPS_TWOSUM * float((ntgt * (ngran + nspan)).sum())
     peak = PEAK_FP64 if tpos.dtype == torch.float64 else PEAK_FP32
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
@@ -1304,12 +1405,43 @@ def plain_pool(inputs, tiles, window, block, **kw):
     return torch.cat(accs), torch.cat(pots)
 
 
+def pool_shape(inputs, window: int, block: int, quad: bool, comp: bool,
+               mode: str = "both") -> dict:
+    """K2's launch shape on a pool: the granules and spans of its plan
+    (pool.pool_plan), its work items, the CUDA blocks of its persistent
+    grid, the blocks of this form that fit an SM, the warps an SM holds on
+    average (4 a block, over the blocks that find an item) and the
+    registers of the form's kernel (ptxas, build phase)."""
+    from rakau_tpu_torch.kernels import pool, shared
+    tpos, sched = inputs[0], inputs[5]
+    T, P = tpos.shape[1], int(inputs[2].shape[0])
+    f64 = tpos.dtype == torch.float64
+    lib = shared._library("pool", f64)
+    span = pool.form_span(quad)
+    plan = pool.pool_plan(sched, window, block, P, span)
+    sms = shared.multiprocessors(tpos.device)
+    m, c, q = MODES.index(mode), int(comp), int(quad)
+    grid = lib.rakau_pool_grid(plan.work.shape[0], T, m, c, q, sms)
+    items = int(plan.n_work[0]) * -(-T // (
+        128 * lib.rakau_pool_targets_per_thread()))
+    granules = pool.pool_granules(sched, window, block, P).clamp(min=0)
+    return dict(granules=int(granules.sum()), span=span,
+                spans=int(plan.n_work[0]), work_items=items,
+                cuda_blocks=grid,
+                blocks_per_sm_fit=lib.rakau_pool_blocks_per_sm(m, c, q),
+                warps_per_sm=4 * min(grid, items) / sms, sms=sms,
+                registers=REGISTERS.get("pool_f64" if f64 else "pool", {})
+                .get(f"pool_kernel<{m},{c},{q}>"))
+
+
 def pool_kernels(inputs, n: int, window: int, block: int, forms) -> dict:
     """K2 against its plain version on a query's real pool, per form: mode
     "both" on every tile (plain run in groups of PLAIN_TILES, timed once
     after one warm-up group), "acc" and "pot" on SUBSET_TILES tiles spread
-    over the real ones; the kernel timed over the whole pool. Returns per
-    form (worst error, ms, plain_ms, bound_ms, bound_by) and the modes."""
+    over the real ones; the kernel timed over the whole pool, two launches
+    bit for bit equal, the card's plan equal to pool_plan's. Returns per
+    form (worst error, ms, plain_ms, bound_ms, bound_by), the modes and
+    the launch shape."""
     from rakau_tpu_torch.kernels import pool
     G = inputs[0].shape[0]
     dev = inputs[0].device
@@ -1318,6 +1450,11 @@ def pool_kernels(inputs, n: int, window: int, block: int, forms) -> dict:
     subset = real[torch.linspace(0, len(real) - 1, min(SUBSET_TILES,
                                                        len(real)),
                                  device=dev).long()]
+    P = int(inputs[2].shape[0])
+    if not same_rows_plan(pool.pool_device_plan(inputs[5], window, block, P),
+                          pool.pool_plan(inputs[5], window, block, P)):
+        raise AssertionError("K2: the kernel's plan differs from pool_plan's"
+                             " on the query's pool")
     out = {}
     for form in forms:
         quad, comp = form.startswith("quad"), form.endswith("comp")
@@ -1327,6 +1464,12 @@ def pool_kernels(inputs, n: int, window: int, block: int, forms) -> dict:
         for mode in MODES:
             got = pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0, block,
                                        mode=mode, **kw)
+            again = pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0,
+                                         block, mode=mode, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K2 {form} {mode}: two launches "
+                                     "differ on the query's pool")
+            del again
             pkw = dict(compensated=comp, mode=mode, quad=quad)
             if mode == "both":
                 plain_pool(inputs, subset[:PLAIN_TILES], window, block,
@@ -1346,7 +1489,9 @@ def pool_kernels(inputs, n: int, window: int, block: int, forms) -> dict:
                                          for v in modes.values()),
                          ms=modes["both"]["ms"],
                          plain_ms=modes["both"]["plain_ms"],
-                         bound_ms=b_ms, bound_by=b_by, modes=modes)
+                         bound_ms=b_ms, bound_by=b_by, modes=modes,
+                         shape=pool_shape(inputs, window, block, quad, comp),
+                         pct_of_bound=100 * b_ms / modes["both"]["ms"])
     return out
 
 
@@ -1473,7 +1618,7 @@ def gwalk_main(pos, mass, oracle, shared_rms, dev):
                              f"rms {p_rms:.3e}")
     emit("gwalk_layers", warm_query_ms=warm_ms, **gwalk_layer_ms(tree))
     emit("gwalk_profile", **profile_record(
-        device_profile(tree, "pool_kernel", "k2_device_ms"), warm_ms))
+        device_profile(tree, K2_KERNELS, "k2_device_ms"), warm_ms))
     return tree, per_query[0], rec
 
 
@@ -2459,8 +2604,10 @@ def staircase(dev, dtype, kernel: str) -> dict:
     round the same way at every block: four targets at the origin, one
     source of mass 1 at distance 1 in the first block, then one of mass
     0.75 u (u: the spacing of dtype above 1) in each of the next 63 blocks
-    (K1: spans of SPAN granules, whose sums its reduction adds; K2: pool
-    blocks of 512), all at distance 1 along x (inv_r = 1; every other row
+    (spans of SPAN granules, whose sums the reduction adds; K2's pool
+    blocks of GRANULE x SPAN rows are one span, or two spans of the
+    quadrupole's QUAD_SPAN, the second adding an exact zero), all at
+    distance 1 along x (inv_r = 1; every other row
     massless). The exact sums are -(1 + 47.25 u) (potential) and
     1 + 47.25 u (x acceleration): fp sums round up by a quarter u at each
     block (error 15.75 u), TwoSum keeps the remainders (0.25 u after the
@@ -2470,7 +2617,8 @@ def staircase(dev, dtype, kernel: str) -> dict:
     from fractions import Fraction
     from rakau_tpu_torch.kernels import pool, shared
     u = torch.finfo(dtype).eps
-    block = shared.GRANULE * shared.SPAN if kernel == "K1" else 512
+    block = (shared.GRANULE * shared.SPAN if kernel == "K1"
+             else pool.GRANULE * pool.SPAN)
     S, T = 64 * block, 4
     tgt = torch.zeros((1, T, 3), dtype=dtype, device=dev)
     tidx = torch.arange(T, device=dev)[None]
@@ -2571,19 +2719,35 @@ TILES_EDGE = ((4, 200, 3000, 2500, 3, 0.0, 1e30),
               (3, 100, 1500, 1200, 2, 0.01, 1e30))
 
 
+def tiles_plans_equal(args) -> bool:
+    """The plan K3's kernel builds on these rows equals tiles_plan's."""
+    from rakau_tpu_torch.kernels import tiles
+    C, Sm, Sp = args[0].shape[0], args[2].shape[1], args[5].shape[1]
+    return same_rows_plan(tiles.tiles_device_plan(C, Sm, Sp, args[4],
+                                                  args[8]),
+                          tiles.tiles_plan(C, Sm, Sp, args[4], args[8]))
+
+
 def tiles_edge_cases(dev, dtype) -> dict:
     """K3 and K4 against their plain versions in dtype on made rows
-    (tiles_case: counts of 0, of the whole row and not multiples of
-    BLOCK, self pairs in the P2P row, a node on a target at eps = 0,
-    eps 0 and 0.05, ragged T, padding at 1e30 and at 4 * box, and a 2-D
-    case), K3 against K4, K4 twice bit for bit; a tile whose counts are 0
-    gets exact zeros from K3, and the node on the target adds nothing.
+    (tiles_case: counts of 0, of the whole row and not multiples of the
+    granule or of BLOCK, self pairs in the P2P row, a node on a target at
+    eps = 0, eps 0 and 0.05, ragged T, padding at 1e30 and at 4 * box,
+    and a 2-D case), K3 against K4, K3 and K4 twice bit for bit, the
+    plan K3's kernel builds equal to tiles_plan's; a tile whose counts are
+    0 gets exact zeros from K3, and the node on the target adds nothing.
     Returns the worst |kernel - plain| of each and of K3 - K4."""
     rng = np.random.default_rng(23)
     worst = {"K3": 0.0, "K4": 0.0, "K3_vs_K4": 0.0}
     for C, T, Sm, Sp, ndim, eps, pad in TILES_EDGE:
         args = on_card(tiles_case(rng, C, T, Sm, Sp, ndim, pad), dev, dtype)
+        if not tiles_plans_equal(args):
+            raise AssertionError("K3: the kernel's plan differs from "
+                                 "tiles_plan's")
         got3 = k3(args, eps, 1.5)
+        if not all(torch.equal(a, b) for a, b in zip(got3,
+                                                     k3(args, eps, 1.5))):
+            raise AssertionError("K3: two launches differ")
         worst["K3"] = max(worst["K3"], compare(got3, k3(args, eps, 1.5, True),
                                                **tol(dtype)))
         got4 = k4(args, eps, 1.5)
@@ -2637,6 +2801,33 @@ def tiles_bound(args, n: int):
                                         else "operations")
 
 
+def tiles_shape(args) -> dict:
+    """K3's launch shape on one chunk's rows: the granules and spans of
+    its plan (tiles.tiles_plan), its work items, the CUDA blocks of its
+    persistent grid, the blocks that fit an SM, the warps an SM holds on
+    average (4 a block, over the blocks that find an item) and the
+    registers of its kernel (ptxas, build phase)."""
+    from rakau_tpu_torch.kernels import shared, tiles
+    tp, mc, pc = args[0], args[4], args[8]
+    C, T, _ = tp.shape
+    Sm, Sp = args[2].shape[1], args[5].shape[1]
+    f64 = tp.dtype == torch.float64
+    lib = shared._library("tiles", f64)
+    plan = tiles.tiles_plan(C, Sm, Sp, mc, pc)
+    sms = shared.multiprocessors(tp.device)
+    grid = lib.rakau_tiles_grid(plan.work.shape[0], T, sms)
+    items = int(plan.n_work[0]) * -(-T // (
+        128 * lib.rakau_tiles_targets_per_thread()))
+    gm, gp = tiles.tiles_granules(C, Sm, Sp, mc, pc)
+    return dict(granules=int((gm + gp).sum()), span=tiles.SPAN,
+                spans=int(plan.n_work[0]), work_items=items,
+                cuda_blocks=grid,
+                blocks_per_sm_fit=lib.rakau_tiles_blocks_per_sm(),
+                warps_per_sm=4 * min(grid, items) / sms, sms=sms,
+                registers=REGISTERS.get("tiles_f64" if f64 else "tiles", {})
+                .get("tiles_fused_kernel"))
+
+
 def tile_kernels(tree, n: int, label: str, theta: float, nchunks: int = 2,
                  with_k4: bool = True) -> dict:
     """Phase kernel for K3 (and K4) on the first `nchunks` chunks of
@@ -2663,7 +2854,12 @@ def tile_kernels(tree, n: int, label: str, theta: float, nchunks: int = 2,
                    m2p_count_mean=float(args[4].double().mean()),
                    p2p_count_mean=float(args[8].double().mean()),
                    bound_ms=b_ms, bound_by=b_by, sms=sms)
-        runs = [("K3", k3, C * -(-T // 128))]
+        if not tiles_plans_equal(args):
+            raise AssertionError(f"K3, {label} chunk {ch}: the kernel's "
+                                 "plan differs from tiles_plan's")
+        shape = tiles_shape(args)
+        rec["K3_shape"] = shape
+        runs = [("K3", k3, shape["cuda_blocks"])]
         if with_k4:
             runs.append(("K4", k4, C * -(-T // 128) * sum(
                 shared.blocks_nsplit(C, T, -(-S // min(tiles.BLOCK, S)), sms)
@@ -2671,6 +2867,10 @@ def tile_kernels(tree, n: int, label: str, theta: float, nchunks: int = 2,
         got3 = None
         for name, fn, cuda_blocks in runs:
             got = fn(args, 0.0, 1.0)
+            if not all(torch.equal(a, b) for a, b in zip(got,
+                                                         fn(args, 0.0, 1.0))):
+                raise AssertionError(f"{name}, {label} chunk {ch}: two "
+                                     "launches differ")
             want = fn(args, 0.0, 1.0, True)
             err = compare(got, want, **tol(dt))
             if got3 is None:
@@ -2681,7 +2881,8 @@ def tile_kernels(tree, n: int, label: str, theta: float, nchunks: int = 2,
             pm = cuda_ms(lambda: fn(args, 0.0, 1.0, True), 1)
             rec[name] = dict(ms=km, plain_ms=pm, max_abs_err=err,
                              cuda_blocks=cuda_blocks,
-                             fill=cuda_blocks / sms)
+                             fill=cuda_blocks / sms,
+                             pct_of_bound=100 * b_ms / km)
             per.setdefault(name, []).append(dict(
                 max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b_ms,
                 bound_by=b_by))
@@ -2777,7 +2978,7 @@ def lists_main(pos, mass, oracle, shared_rms, dev):
                              f"rms {p_rms:.3e}")
     emit("lists_layers", warm_query_ms=warm_ms, **lists_layer_ms(tree))
     emit("lists_profile", **profile_record(
-        device_profile(tree, "tiles_fused_kernel", "k3_device_ms"), warm_ms))
+        device_profile(tree, K3_KERNELS, "k3_device_ms"), warm_ms))
     with dispatch.tiles_variant("split"):
         (acc4, pot4), ms4, c4 = warm_counted(tree, 1)
     if c4[-1] != launched(c4[-1], {"tiles": {"split": 2 * chunks}}):
@@ -2975,8 +3176,8 @@ def f1(seed: int, dev) -> tuple:
     inputs = engine.pool_inputs(gtree.tree_data, gcfg_t, F1_F64_THETA, 0.0)
     k2 = pool_kernels(inputs, F1_N, gcfg_t.pool_window, gcfg_t.pool_block,
                       ("mono",))["mono"]
-    forms["K2"] = {k: v for k, v in k2.items() if k != "modes"}
-    emit("kernel", config="gwalk_f64", **forms["K2"])
+    forms["K2"] = {k: v for k, v in k2.items() if k in KERNEL_KEYS}
+    emit("kernel", config="gwalk_f64", **k2)
     del gtree
     with diag_modes():
         ltree = Tree(coords=p64, masses=m64,
@@ -3226,7 +3427,7 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": POOL_SRC,
                         "replaces": POOL_REPLACES, "launches": n_launch,
                         **{k: v for k, v in k2[form].items()
-                           if k != "modes"}, "library_ms": None})
+                           if k in KERNEL_KEYS}, "library_ms": None})
     for forms_, launches_, cell in ((v_forms, v_launches, ""),
                                     (lv_forms, lv_launches, "_cell")):
         for prec in PRECS:

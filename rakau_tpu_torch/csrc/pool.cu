@@ -1,4 +1,5 @@
-// gwalk pool kernel (K2; fp32, or fp64 in the float64 build) for NVIDIA Hopper, in four forms.
+// gwalk pool kernel (K2; fp32, or fp64 in the float64 build) for NVIDIA
+// Hopper, in four forms.
 //
 // Replaces the TPU kernel rakau_tpu/kernels/pallas.py:_pool_kernel in its
 // forms: monopole, compensated, quadrupole, and both (modes both/acc/pot).
@@ -7,296 +8,323 @@
 //
 //     [(sched[g,0] * Wb + sched[g,1]) * block, + (sched[g,2] + sched[g,3]) * block)
 //
-// its sched[g,2] node blocks, then its sched[g,3] particle blocks. No mask:
-// padding rows carry mass 0. For target i and row j:
-//
-//     d = s_j - t_i, r2 = |d|^2 + eps^2
-//     inv_r = 0 if idx_j == idx_i or r2 <= 0, else rsqrt(r2)
-//     w = m_j * inv_r
-//     pot_i -= w, acc_i += w * inv_r^2 * d          (G applied by the caller)
-//
-// QUAD, on the node blocks only (raw second moments Q_j, 6 planes xx xy xz
-// yy yz zz), with Qd = Q_j d, dQd = d.Qd, tr = tr Q_j:
-//
-//     pot_i -= 1.5 dQd inv_r^5 - 0.5 tr inv_r^3
-//     acc_i += -3 Qd inv_r^5 + (7.5 dQd inv_r^7 - 1.5 tr inv_r^5) d
-//
-// the signs of pallas.py:1041-1090 and of K1d (csrc/shared_fused.cu). The
-// dead gate zeroes inv_r before any power of it is formed, so a node row
-// exactly on a target at eps = 0 adds 0, not 0 * inf = NaN.
-//
-// COMP: each thread sums one pool block (`block` rows) into partials
-// and adds each partial into its running sum with Knuth's TwoSum, keeping
-// the error terms, written as sum + err at the end (the TPU kernel's
-// per-block structure, pallas.py:1092-1101). TwoSum has no products, so
-// nvcc's FMA contraction cannot change it; no fast math.
-//
-// Padding rows sit at the traversal's 4 * box_size sentinel (not at 1e30)
-// with mass 0 and zero second moments: r2 stays finite and they add 0.
-// Padding tiles have m = p = 0 and write zeros.
+// its sched[g,2] node blocks, then its sched[g,3] particle blocks; the
+// segments of different tiles are disjoint. No mask: padding rows carry
+// mass 0 (at the traversal's 4 * box sentinel) and zero second moments.
+// The pair terms, the quadrupole correction on the node blocks only and the
+// dead gate are those of csrc/rows.cuh. Padding tiles have m = p = 0 and
+// get zeros.
 //
 // What bounds it on this card: arithmetic. A monopole pair costs ~20 fp32
 // operations and one MUFU rsqrt, a quadrupole pair ~64, against 24 bytes
-// of row (48 with the second moments) that every target of the tile
-// reuses from shared memory; each row is read from device memory by one
-// tile only (segments are disjoint). So the instruction rate and the
-// warps in flight are the limit, and the tiles' segment lengths, which
-// differ by an order of magnitude, decide the load balance across SMs.
+// of row (48 with the second moments) that every target of a work item
+// reuses from shared memory; each row is read by one tile only. So the
+// issue rate and the warps in flight are the limit, and the tiles' segment
+// lengths, which differ by an order of magnitude, decide the load balance.
 //
-// Design: one CUDA block per tile, kThreads threads, one thread per target
-// (a tile of more than kThreads targets is done in passes of kThreads,
-// each streaming the segment again). The segment is streamed through
-// shared memory kStage rows at a time: pos + mass as real4 and idx as
-// int32, and the 6 second-moment planes while in the node blocks. Every
-// thread then reads the same staged row at a time (a broadcast) and
-// accumulates in registers. A pool block may hold any number of rows (a
-// runtime argument, 512 by default): its last stage may be ragged. Row
-// offsets are int64 (at 8M the pool holds 16n = 134M rows, and row * 6
-// planes passes 2^31). Indices are compared as int32 (particle counts
-// stay below 2^31).
+// Design (csrc/rows.cuh), three kernels a launch, none waiting on the
+// host:
+//  1. rows_work_kernel, one CUDA block: tile g has (sched[g,2] +
+//     sched[g,3]) * gpb granules (gpb = ceil(block / 128): a pool block of
+//     any length is whole granules, the last one ragged), cut into spans of
+//     `span` granules; the work list holds the spans tile after tile
+//     (kernels/pool.py:pool_plan is the same plan in PyTorch);
+//  2. pool_kernel: a persistent grid of at most as many CUDA blocks as fit
+//     on the card walks the (span, group of targets) items in a fixed
+//     order; granules stream from the pool's planes as they are through a
+//     ring of three by cp.async copies, one barrier a granule; two targets
+//     a thread in the float build, one in the float64 build; a granule of
+//     a node block takes the quadrupole terms (uniform per granule). Each
+//     span writes its per-target partial into a scratch;
+//  3. rows_reduce_kernel adds each target's spans in order and applies G.
+// Staging the planes as they are measured 1-2 % faster a launch on the 1M
+// pools than packing the visited blocks once a launch into (x, y, z, m) +
+// int32 indices (PERF.md): the packing pass cost more than the three more
+// shared loads a row it saves.
+// COMP keeps Knuth's TwoSum at both levels: granule partials into the
+// span's sum, span sums in the reduction, the error terms added at the end:
+// the reference's per-block TwoSum (pallas.py:1092-1101) with the granule
+// as the block. Two launches on the same inputs give the same bits.
 //
 // Scalar type: `real` is RAKAU_REAL, float unless the library is built
-// with -DRAKAU_REAL=double (kernels/shared.py:build_library(f64=True)),
-// which gives the same kernels in float64 for float64 trees (the staged
-// rows then take 21 KB of shared memory).
+// with -DRAKAU_REAL=double (kernels/shared.py:build_library(f64=True)).
+// Pool rows are addressed in 64 bits (at 8M the pool holds 16n = 134M
+// rows); indices are compared as int32 (particle counts stay below 2^31).
+// 12 instantiations of pool_kernel (mode x compensated x quadrupole), the
+// work list and the reduction in two forms: 15 kernels.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#ifdef RAKAU_REAL
-// The float64 build: at most two resident blocks a SM bound the registers.
-// Under the thread bound alone ptxas held the double forms near 64
-// registers and spilled in four of them; with this bound they take 78-96
-// and none spills.
-#define RAKAU_POOL_BOUNDS __launch_bounds__(kThreads, 2)
-#else
-#define RAKAU_REAL float
-#define RAKAU_POOL_BOUNDS __launch_bounds__(kThreads)
-#endif
+#include "rows.cuh"
 
 namespace {
 
-using real = RAKAU_REAL;
-struct alignas(4 * sizeof(real)) real4 { real x, y, z, w; };
-__device__ __forceinline__ float rsqrt_r(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_r(double x) { return rsqrt(x); }
+// Tile g's descriptor: its first pool row, node blocks and granules.
+struct PoolTile {
+    long long row0;
+    int m_nb;
+    int granules;
+};
 
-constexpr int kThreads = 256;   // targets per pass, one per thread
-constexpr int kStage = 256;     // pool rows staged per step
-constexpr int kQuad = 6;
-// rows unrolled in the inner loop
-constexpr int kUnroll = sizeof(real) == 8 ? 2 : 4;
-static_assert(kStage * (sizeof(real4) + sizeof(int) + kQuad * sizeof(real))
-                  <= 48 * 1024,
-              "the staged rows must fit in static shared memory");
-enum Mode { kBoth = 0, kAcc = 1, kPot = 2 };
-
-// Knuth TwoSum: s + e == a + b exactly; a becomes s, e is added to err.
-__device__ __forceinline__ void two_sum_into(real& a, real b, real& err)
+// Tile g's pool blocks [base, base + m + p), or m + p = -1 where the
+// schedule row is out of range (negative counts, or blocks past the pool).
+__device__ __forceinline__ int pool_blocks(const int32_t* __restrict__ s,
+                                           int Wb, long long NB,
+                                           long long& base)
 {
-    const real s = a + b;
-    const real bb = s - a;
-    err += (a - (s - bb)) + (b - bb);
-    a = s;
+    const int m = s[2], p = s[3];
+    base = static_cast<long long>(s[0]) * Wb + s[1];
+    if (m < 0 || p < 0) return -1;
+    if (m + p == 0) return 0;
+    if (s[0] < 0 || s[1] < 0 || base + m + p > NB) return -1;
+    return m + p;
 }
 
-// Adds the staged rows [0, nj) to one target's block partials.
-template <int MODE, bool QUAD>
-__device__ __forceinline__ void accumulate(
-    const real4* __restrict__ s_pm, const int* __restrict__ s_idx,
-    const real* __restrict__ s_q, int nj, real tx, real ty, real tz,
-    int ti, real eps2, real& bx, real& by, real& bz, real& bp)
-{
-#pragma unroll (kUnroll)
-    for (int j = 0; j < nj; ++j) {
-        const real4 v = s_pm[j];
-        const real dx = v.x - tx;
-        const real dy = v.y - ty;
-        const real dz = v.z - tz;
-        const real r2 = dx * dx + dy * dy + dz * dz + eps2;
-        real inv_r = rsqrt_r(r2);
-        if (s_idx[j] == ti || r2 <= real(0)) inv_r = 0;
-        const real w = v.w * inv_r;
-        const real inv2 = inv_r * inv_r;
-        real g = w * inv2;                 // the factor of d in acc
-        real qx = 0, qy = 0, qz = 0;
-        if (QUAD) {
-            const real qxx = s_q[0 * kStage + j], qxy = s_q[1 * kStage + j];
-            const real qxz = s_q[2 * kStage + j], qyy = s_q[3 * kStage + j];
-            const real qyz = s_q[4 * kStage + j], qzz = s_q[5 * kStage + j];
-            qx = qxx * dx + qxy * dy + qxz * dz;          // Qd
-            qy = qxy * dx + qyy * dy + qyz * dz;
-            qz = qxz * dx + qyz * dy + qzz * dz;
-            const real dqd = dx * qx + dy * qy + dz * qz;
-            const real tr = qxx + qyy + qzz;
-            const real inv3 = inv2 * inv_r;
-            const real inv5 = inv3 * inv2;
-            if (MODE != kPot) {
-                g += real(7.5) * dqd * (inv5 * inv2) - real(1.5) * tr * inv5;
-                qx *= real(-3) * inv5;
-                qy *= real(-3) * inv5;
-                qz *= real(-3) * inv5;
-            }
-            if (MODE != kAcc)
-                bp -= real(1.5) * dqd * inv5 - real(0.5) * tr * inv3;
-        }
-        if (MODE != kPot) {
-            bx += g * dx + qx;
-            by += g * dy + qy;
-            bz += g * dz + qz;
-        }
-        if (MODE != kAcc) bp -= w;
+// The granules of each tile, for the work list.
+struct PoolCount {
+    const int32_t* sched;
+    int Wb, gpb;
+    long long NB;
+    __device__ int operator()(int g) const
+    {
+        long long base;
+        const int nb = pool_blocks(sched + 4 * g, Wb, NB, base);
+        return nb < 0 ? -1 : nb * gpb;
     }
-}
+};
 
-template <int MODE, bool COMP, bool QUAD>
-__global__ void RAKAU_POOL_BOUNDS
-pool_kernel(const real* __restrict__ tgt,          // [G, T, 3]
-            const int64_t* __restrict__ tgt_idx,   // [G, T]
-            const real* __restrict__ pos,          // [P, 3]
-            const real* __restrict__ mass,         // [P]
-            const int64_t* __restrict__ idx,       // [P]
-            const real* __restrict__ quad,         // [P, 6] (QUAD)
-            const int32_t* __restrict__ sched,     // [G, 4]
-            real* __restrict__ acc,                // [G, T, 3]
-            real* __restrict__ pot,                // [G, T]
-            int T, int Wb, int block, real eps2)
-{
-    __shared__ real4 s_pm[kStage];
-    __shared__ int s_idx[kStage];
-    __shared__ real s_q[QUAD ? kQuad * kStage : 1];
-
-    const int64_t g = blockIdx.x;
-    const int32_t* sg = sched + 4 * g;
-    const int64_t row0 = (static_cast<int64_t>(sg[0]) * Wb + sg[1]) * block;
-    const int m_nb = sg[2];
-    const int nblk = sg[2] + sg[3];
-
-    for (int t0 = 0; t0 < T; t0 += kThreads) {
-        const int t = t0 + static_cast<int>(threadIdx.x);
-        const bool live = t < T;
-        const int64_t tg = g * T + t;
-        real tx = 0, ty = 0, tz = 0;
-        int ti = -2;   // matches no row index (nodes and padding carry -1)
-        if (live) {
-            tx = tgt[3 * tg];
-            ty = tgt[3 * tg + 1];
-            tz = tgt[3 * tg + 2];
-            ti = static_cast<int>(tgt_idx[tg]);
-        }
-        real ax = 0, ay = 0, az = 0, pp = 0;   // running sums
-        real ex = 0, ey = 0, ez = 0, ep = 0;   // TwoSum errors
-        for (int b = 0; b < nblk; ++b) {
-            const bool with_quad = QUAD && b < m_nb;    // uniform per block
-            const int64_t brow = row0 + static_cast<int64_t>(b) * block;
-            real bx = 0, by = 0, bz = 0, bp = 0;   // block partials
-            for (int s0 = 0; s0 < block; s0 += kStage) {
-                const int nj = min(kStage, block - s0);
-                __syncthreads();        // the previous stage is consumed
-                for (int j = threadIdx.x; j < nj; j += kThreads) {
-                    const int64_t r = brow + s0 + j;
-                    s_pm[j] = real4{pos[3 * r], pos[3 * r + 1],
-                                    pos[3 * r + 2], mass[r]};
-                    s_idx[j] = static_cast<int>(idx[r]);
-                    if constexpr (QUAD) {
-                        if (with_quad) {
-#pragma unroll
-                            for (int q = 0; q < kQuad; ++q)
-                                s_q[q * kStage + j] = quad[kQuad * r + q];
-                        }
-                    }
-                }
-                __syncthreads();
-                if constexpr (QUAD) {
-                    if (with_quad) {
-                        accumulate<MODE, true>(s_pm, s_idx, s_q, nj, tx, ty,
-                                               tz, ti, eps2, bx, by, bz, bp);
-                        continue;
-                    }
-                }
-                accumulate<MODE, false>(s_pm, s_idx, s_q, nj, tx, ty, tz,
-                                        ti, eps2, bx, by, bz, bp);
-            }
-            if (COMP) {
-                if (MODE != kPot) {
-                    two_sum_into(ax, bx, ex);
-                    two_sum_into(ay, by, ey);
-                    two_sum_into(az, bz, ez);
-                }
-                if (MODE != kAcc) two_sum_into(pp, bp, ep);
-            } else {
-                ax += bx;
-                ay += by;
-                az += bz;
-                pp += bp;
-            }
-        }
-        if (live) {
-            acc[3 * tg] = ax + ex;
-            acc[3 * tg + 1] = ay + ey;
-            acc[3 * tg + 2] = az + ez;
-            pot[tg] = pp + ep;
-        }
+// The pool's planes and schedule, for walk_items: granule k of tile g is
+// the run sub = k % gpb of its block b = k / gpb, rows [row0 + b * block +
+// sub * kGranule, + min(kGranule, block - sub * kGranule)), cut at P.
+struct PoolSrc {
+    const real* pos;          // [P, 3]
+    const real* mass;         // [P]
+    const int64_t* idx;       // [P]
+    const real* quad;         // [P, 6] or null
+    const int32_t* sched;     // [G, 4]
+    long long P;
+    int Wb, block, gpb;
+    __device__ PoolTile tile(int g) const
+    {
+        const int32_t* s = sched + 4 * g;
+        return {(static_cast<long long>(s[0]) * Wb + s[1]) * block, s[2],
+                (s[2] + s[3]) * gpb};
     }
-}
-
-struct Args {
-    const real* tgt; const int64_t* tgt_idx; const real* pos;
-    const real* mass; const int64_t* idx; const real* quad;
-    const int32_t* sched; real* acc; real* pot;
-    int G, T, Wb, block; real eps2;
+    __device__ Granule granule(const PoolTile& t, int k) const
+    {
+        const int b = k / gpb;
+        const int sub = k - b * gpb;
+        const long long r = t.row0 + static_cast<long long>(b) * block
+            + sub * kGranule;
+        const long long n = min(static_cast<long long>(
+                                    min(kGranule, block - sub * kGranule)),
+                                P - r);
+        return {pos + 3 * r, mass + r, idx + r,
+                quad != nullptr && b < t.m_nb ? quad + kQuad * r : nullptr,
+                static_cast<int>(n > 0 ? n : 0)};
+    }
 };
 
 template <int MODE, bool COMP, bool QUAD>
-cudaError_t launch(const Args& a, cudaStream_t stream)
+__global__ void RAKAU_ROWS_BOUNDS
+pool_kernel(PoolSrc src, const real* __restrict__ tgt,
+            const int64_t* __restrict__ tgt_idx,
+            const int32_t* __restrict__ first,
+            const int32_t* __restrict__ work,
+            const int32_t* __restrict__ n_work, real4* __restrict__ sums,
+            real4* __restrict__ errs, int T, int span, real eps2)
 {
-    pool_kernel<MODE, COMP, QUAD><<<a.G, kThreads, 0, stream>>>(
-        a.tgt, a.tgt_idx, a.pos, a.mass, a.idx, a.quad, a.sched, a.acc,
-        a.pot, a.T, a.Wb, a.block, a.eps2);
+    walk_items<MODE, COMP, QUAD>(src, tgt, tgt_idx, first, work, n_work,
+                                 sums, errs, T, span, eps2);
+}
+
+// Byte offsets of the workspace's parts, 256-aligned: the spans' scratch
+// (sums, and their TwoSum errors in COMP).
+struct Layout {
+    size_t sums, errs, total;
+};
+
+Layout layout(int T, int cap, bool comp)
+{
+    Layout L{};
+    const size_t part = align256(static_cast<size_t>(cap) * T
+                                 * sizeof(real4));
+    L.sums = 0;
+    L.errs = part;
+    L.total = comp ? 2 * part : part;
+    return L;
+}
+
+struct Args {
+    const real* tgt; const int64_t* tgt_idx; PoolSrc src;
+    const int32_t* first; const int32_t* work; const int32_t* n_work;
+    unsigned char* ws; real* acc; real* pot;
+    int G, T, span, cap, sms; real eps2, Gc;
+};
+
+template <int MODE, bool COMP, bool QUAD>
+int blocks_per_sm()
+{
+    static int occ = 0;
+    return fit_per_sm(pool_kernel<MODE, COMP, QUAD>, occ);
+}
+
+template <int MODE, bool COMP, bool QUAD>
+cudaError_t launch(const Args& a, const Layout& L, cudaStream_t stream)
+{
+    const int grid = persistent_grid(a.cap, a.T,
+                                     blocks_per_sm<MODE, COMP, QUAD>(), a.sms);
+    real4* sums = reinterpret_cast<real4*>(a.ws + L.sums);
+    real4* errs = reinterpret_cast<real4*>(a.ws + L.errs);
+    pool_kernel<MODE, COMP, QUAD><<<grid, kThreads, 0, stream>>>(
+        a.src, a.tgt, a.tgt_idx, a.first, a.work, a.n_work, sums, errs,
+        a.T, a.span, a.eps2);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const long long GT = static_cast<long long>(a.G) * a.T;
+    rows_reduce_kernel<COMP>
+        <<<static_cast<unsigned>((GT + kPackThreads - 1) / kPackThreads),
+           kPackThreads, 0, stream>>>(sums, errs, a.first, a.n_work, a.acc,
+                                      a.pot, a.G, a.T, a.Gc);
     return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t launch_form(const Args& a, bool comp, cudaStream_t stream)
+template <int MODE, bool COMP, bool QUAD>
+struct Launch {
+    static cudaError_t run(const Args& a, const Layout& L, cudaStream_t st)
+    {
+        return launch<MODE, COMP, QUAD>(a, L, st);
+    }
+};
+
+template <int MODE, bool COMP, bool QUAD>
+struct Occupancy {
+    static int run() { return blocks_per_sm<MODE, COMP, QUAD>(); }
+};
+
+// The form's instantiation called with F<MODE, COMP, QUAD>::run.
+template <template <int, bool, bool> class F, typename R, typename... A>
+R by_form(int mode, bool comp, bool quad, R bad, A&&... args)
 {
-    const bool quad = a.quad != nullptr;
-    if (comp)
-        return quad ? launch<MODE, true, true>(a, stream)
-                    : launch<MODE, true, false>(a, stream);
-    return quad ? launch<MODE, false, true>(a, stream)
-                : launch<MODE, false, false>(a, stream);
+#define RAKAU_POOL_FORM(M)                                                  \
+    return comp ? (quad ? F<M, true, true>::run(args...)                    \
+                        : F<M, true, false>::run(args...))                  \
+                : (quad ? F<M, false, true>::run(args...)                   \
+                        : F<M, false, false>::run(args...))
+    switch (mode) {
+    case kBoth: RAKAU_POOL_FORM(kBoth);
+    case kAcc: RAKAU_POOL_FORM(kAcc);
+    case kPot: RAKAU_POOL_FORM(kPot);
+    default: return bad;
+    }
+#undef RAKAU_POOL_FORM
+}
+
+cudaError_t plan(const int32_t* sched, int32_t* first, int32_t* work,
+                 int32_t* n_work, int G, long long NB, int Wb, int gpb,
+                 int span, int cap, cudaStream_t st)
+{
+    rows_work_kernel<<<1, kWorkThreads, 0, st>>>(
+        PoolCount{sched, Wb, gpb, NB}, G, span, cap, first, work, n_work);
+    return cudaGetLastError();
+}
+
+bool bad_sizes(int G, int T, int P, int Wb, int block, int span, int cap)
+{
+    return G < 0 || T < 0 || P < 0 || Wb <= 0 || block <= 0 || span < 1
+        || cap < 1;
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() of the launch
-// (0 = accepted). mode: 0 both, 1 acc only (pot written as 0), 2 pot only
-// (acc written as 0). quad: [P, 6] second moments, or null for the
-// monopole forms. comp: nonzero for the compensated (TwoSum) sums. Wb:
-// blocks per window; block: rows per pool block. Every real pointer and
-// eps2 are of the library's scalar type.
-extern "C" int rakau_pool(const real* tgt, const int64_t* tgt_idx,
-                          const real* pos, const real* mass,
-                          const int64_t* idx, const real* quad,
-                          const int32_t* sched, real* acc, real* pot,
-                          int G, int T, int Wb, int block, int mode, int comp,
-                          real eps2, void* stream)
-{
-    if (G <= 0 || T <= 0) return 0;
-    if (Wb <= 0 || block <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    const Args a{tgt, tgt_idx, pos, mass, idx, quad, sched, acc, pot,
-                 G, T, Wb, block, eps2};
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (mode) {
-    case kBoth: return static_cast<int>(launch_form<kBoth>(a, comp != 0, st));
-    case kAcc:  return static_cast<int>(launch_form<kAcc>(a, comp != 0, st));
-    case kPot:  return static_cast<int>(launch_form<kPot>(a, comp != 0, st));
-    default:    return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
+// Entries a granule (kernels/rows.py:GRANULE).
+extern "C" int rakau_pool_granule() { return kGranule; }
+
+// Targets a thread holds.
+extern "C" int rakau_pool_targets_per_thread() { return kTpt; }
 
 // Bytes of the scalar type the library was built for (4 or 8).
 extern "C" int rakau_pool_real_bytes() { return static_cast<int>(sizeof(real)); }
+
+// Bytes of the workspace a launch needs (the scratch of cap spans of T
+// targets, twice with comp), or 0 for bad sizes.
+extern "C" size_t rakau_pool_workspace(int T, int cap, int comp)
+{
+    if (T <= 0 || cap < 1) return 0;
+    return layout(T, cap, comp != 0).total;
+}
+
+// K2's plan on `stream`: tile g's granules (sched[g,2] + sched[g,3]) *
+// ceil(block / 128) cut into spans of `span`; first [G + 1] the spans
+// before each tile, work [cap] the tile of each span (padded with G),
+// n_work [1] the spans, or -1 if a schedule row lies outside the P-row pool
+// or the spans exceed cap: kernels/pool.py:pool_plan on the card. Returns
+// cudaGetLastError() of the launch (0 = accepted).
+extern "C" int rakau_pool_plan(const int32_t* sched, int32_t* first,
+                               int32_t* work, int32_t* n_work, int G, int P,
+                               int Wb, int block, int span, int cap,
+                               void* stream)
+{
+    if (bad_sizes(G, 1, P, Wb, block, span, cap))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(plan(sched, first, work, n_work, G,
+                                 (static_cast<long long>(P) + block - 1)
+                                     / block,
+                                 Wb, (block + kGranule - 1) / kGranule, span,
+                                 cap, static_cast<cudaStream_t>(stream)));
+}
+
+// Launches the whole of K2 on `stream` (the plan into first/work/n_work,
+// the main kernel and the span reduction) and returns cudaGetLastError()
+// of the launches (0 = accepted). ws: 256-byte aligned,
+// rakau_pool_workspace(T, cap, comp) bytes. mode: 0 both, 1 acc only (pot
+// written as 0), 2 pot only (acc written as 0). quad: [P, 6] second
+// moments, or null for the monopole forms. comp: nonzero for the
+// compensated (TwoSum) sums. Wb: blocks per window. sms: the card's
+// multiprocessors. acc [G, T, 3] and pot [G, T] are the sums times Gc.
+// Every real pointer, eps2 and Gc are of the library's scalar type.
+extern "C" int rakau_pool(const real* tgt, const int64_t* tgt_idx,
+                          const real* pos, const real* mass,
+                          const int64_t* idx, const real* quad,
+                          const int32_t* sched, int32_t* first,
+                          int32_t* work, int32_t* n_work, void* ws,
+                          real* acc, real* pot, int G, int T, int P, int Wb,
+                          int block, int span, int cap, int mode, int comp,
+                          int sms, real eps2, real Gc, void* stream)
+{
+    if (G == 0 || T == 0) return 0;
+    if (bad_sizes(G, T, P, Wb, block, span, cap) || ws == nullptr
+        || reinterpret_cast<uintptr_t>(ws) % 256 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Layout L = layout(T, cap, comp != 0);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int gpb = (block + kGranule - 1) / kGranule;
+    const cudaError_t err = plan(sched, first, work, n_work, G,
+                                 (static_cast<long long>(P) + block - 1)
+                                     / block,
+                                 Wb, gpb, span, cap, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Args a{tgt, tgt_idx, {pos, mass, idx, quad, sched, P, Wb, block,
+                                gpb}, first, work, n_work,
+                 static_cast<unsigned char*>(ws), acc, pot, G, T, span, cap,
+                 sms, eps2, Gc};
+    return static_cast<int>(by_form<Launch>(mode, comp != 0, quad != nullptr,
+                                            cudaErrorInvalidValue, a, L,
+                                            st));
+}
+
+// CUDA blocks of a form that fit on one SM at once, or -1 for a bad mode.
+extern "C" int rakau_pool_blocks_per_sm(int mode, int comp, int quad)
+{
+    return by_form<Occupancy>(mode, comp != 0, quad != 0, -1);
+}
+
+// CUDA blocks a launch of cap spans and T targets runs (its persistent
+// grid), or -1 for a bad mode.
+extern "C" int rakau_pool_grid(int cap, int T, int mode, int comp, int quad,
+                               int sms)
+{
+    const int per_sm = rakau_pool_blocks_per_sm(mode, comp, quad);
+    return per_sm < 0 ? -1 : persistent_grid(cap, T, per_sm, sms);
+}
 
 extern "C" const char* rakau_cuda_error_string(int err)
 {

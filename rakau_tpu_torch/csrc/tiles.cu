@@ -19,27 +19,30 @@
 // dead by r2 <= 0 alone. Padding adds exact zeros: at 1e30 r2 overflows to
 // inf (float) and rsqrt gives 0, at 4*box the mass is 0.
 //
-// The block plan is the TPU kernels': a row is visited in whole blocks of
-// `block` entries (a runtime argument) up to its count, read on the device
-// from cnt[c] with no host sync:
-//   K3: ceil(clip(cnt, 0, S) / block) blocks, so a count of 0 visits none;
-//   K4: ceil(max(min(cnt, S), 1) / block) blocks, at least one,
-// the last one cut at S. Entries past the count inside a visited block are
-// padding and add zero, as on the TPU.
-//
 // What bounds them on this card: arithmetic. A pair costs ~20 operations
 // and one rsqrt against 16 (32 in double) bytes of row, read from device
-// memory by one tile only and reused from shared memory by its 128
-// targets. A chunk of 32 tiles of 512 targets is 128 CUDA blocks of 4
-// warps for 132 SMs: the card is about one block an SM, so the warps in
-// flight, not the issue rate, are the first limit (as in K1).
+// memory by one tile only and reused from shared memory by every target of
+// the tile.
 //
-// K3 design: grid (C, ceil(T/128)), one thread per target, its position
-// and index in registers. The block streams its tile's M2P row and then
-// its P2P row through shared memory, kStage entries at a time (real4 x, y,
-// z, m and the int32 index), every thread reading the same entry at a
-// time (a broadcast), each stage summed into partials that are then added
-// to the running sums.
+// K3 design (csrc/rows.cuh): tile c's rows are cut into granules of 128
+// entries: ceil(clip(m2p_cnt, 0, Sm) / 128) of the M2P row, then
+// ceil(clip(p2p_cnt, 0, Sp) / 128) of the P2P row, counts read on the
+// device (a count of 0 gives none; entries past a count inside a granule
+// are the caller's padding and add zeros, as in the reference's block
+// plan). Three kernels a launch, none waiting on the host:
+//  1. rows_work_kernel, one CUDA block: the granules cut into spans of
+//     `span`, the spans tile after tile (kernels/tiles.py:tiles_plan is the
+//     same plan in PyTorch);
+//  2. tiles_fused_kernel: a persistent grid of at most as many CUDA blocks
+//     as fit on the card walks the (span, group of targets) items in a
+//     fixed order, so no block waits on the tile with the longest lists;
+//     granules stream from the rows as they are through a ring of three by
+//     cp.async copies, one barrier a granule (kNoIdx as the index of every
+//     M2P entry, which has no self-exclusion); two targets a thread in the
+//     float build, one in the float64 build; each span writes its
+//     per-target partial into a scratch;
+//  3. rows_reduce_kernel adds each target's spans in order and applies G:
+//     two launches on the same inputs give the same bits.
 //
 // K4 design: the TPU form's (C, blocks) grid runs a tile's blocks in order
 // into one output; CUDA blocks run in no order and share nothing, so the
@@ -49,42 +52,112 @@
 // one partial (ax, ay, az, pot) a target into scratch[z, c, t]; a second
 // kernel adds the nsplit partials in the order z = 0, 1, ... (no atomics,
 // so two launches agree bit for bit). One launch evaluates one row,
-// with (P2P) or without (M2P) the index test.
+// with (P2P) or without (M2P) the index test. Its row is visited in whole
+// blocks of `block` entries (a runtime argument) up to
+// ceil(max(min(cnt, S), 1) / block) blocks, at least one, the last one cut
+// at S, as the TPU kernel's plan.
 //
 // Scalar type: `real` is RAKAU_REAL, float unless the library is built
 // with -DRAKAU_REAL=double. Indices are compared as int32 (particle counts
-// stay below 2^31). Built without --use_fast_math.
+// stay below 2^31). Built without --use_fast_math. Kernels: K3's three, K4's
+// two forms and its reduction.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#ifndef RAKAU_REAL
-#define RAKAU_REAL float
-#endif
+#include "rows.cuh"
 
 namespace {
 
-using real = RAKAU_REAL;
-struct alignas(4 * sizeof(real)) real4 { real x, y, z, w; };
-__device__ __forceinline__ float rsqrt_r(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_r(double x) { return rsqrt(x); }
-
-constexpr int kThreads = 128;   // targets per CUDA block, one per thread
-constexpr int kStage = 512;     // row entries staged per step
-// entries unrolled in the inner loop (fewer in double, as in pool.cu)
-constexpr int kUnroll = sizeof(real) == 8 ? 2 : 4;
+constexpr int kStage = 512;     // K4: row entries staged per step
+// K4: entries unrolled in its inner loop (fewer in double)
+constexpr int kSplitUnroll = sizeof(real) == 8 ? 2 : 4;
 static_assert(kStage * (sizeof(real4) + sizeof(int)) <= 48 * 1024,
               "the staged entries must fit in static shared memory");
 
-// Entries of tile c's row that the block plan visits: whole blocks up to
-// the count (all S without counts), the last block cut at S.
-__device__ __forceinline__ int row_entries(const int64_t* __restrict__ cnt,
-                                           int c, int S, int block,
-                                           bool at_least_one)
+// ---------------------------------------------------------------- K3
+// Granules of tile c's row of S entries with counts cnt (null: all S).
+__device__ __forceinline__ int row_granules(const int64_t* __restrict__ cnt,
+                                            int c, int S)
 {
     int64_t k = cnt == nullptr ? S : cnt[c];
     k = k < 0 ? 0 : (k > S ? S : k);
-    if (at_least_one && k < 1) k = 1;
+    return static_cast<int>((k + kGranule - 1) / kGranule);
+}
+
+struct TilesTile {
+    int c;          // the tile
+    int gm;         // its M2P granules
+    int granules;   // M2P and P2P
+};
+
+// Both rows' granules of each tile, for the work list.
+struct TilesCount {
+    const int64_t* m_cnt;
+    const int64_t* p_cnt;
+    int Sm, Sp;
+    __device__ int operator()(int c) const
+    {
+        return row_granules(m_cnt, c, Sm) + row_granules(p_cnt, c, Sp);
+    }
+};
+
+// The rows for walk_items: tile c's granule k is the M2P row's granule k
+// for k < gm, else the P2P row's granule k - gm, each cut at its row's
+// end.
+struct TilesSrc {
+    const real* m_pos;        // [C, Sm, 3]
+    const real* m_mass;       // [C, Sm]
+    const real* p_pos;        // [C, Sp, 3]
+    const real* p_mass;       // [C, Sp]
+    const int64_t* p_idx;     // [C, Sp]
+    TilesCount count;
+    __device__ TilesTile tile(int c) const
+    {
+        const int gm = row_granules(count.m_cnt, c, count.Sm);
+        return {c, gm, gm + row_granules(count.p_cnt, c, count.Sp)};
+    }
+    __device__ Granule granule(const TilesTile& t, int k) const
+    {
+        const bool m2p = k < t.gm;
+        const int S = m2p ? count.Sm : count.Sp;
+        const int e = (m2p ? k : k - t.gm) * kGranule;
+        const size_t r = static_cast<size_t>(t.c) * S + e;
+        return {(m2p ? m_pos : p_pos) + 3 * r, (m2p ? m_mass : p_mass) + r,
+                m2p ? nullptr : p_idx + r, nullptr, min(kGranule, S - e)};
+    }
+};
+
+__global__ void RAKAU_ROWS_BOUNDS
+tiles_fused_kernel(TilesSrc src, const real* __restrict__ tgt,
+                   const int64_t* __restrict__ tgt_idx,
+                   const int32_t* __restrict__ first,
+                   const int32_t* __restrict__ work,
+                   const int32_t* __restrict__ n_work,
+                   real4* __restrict__ sums, int T, int span, real eps2)
+{
+    walk_items<kBoth, false, false>(src, tgt, tgt_idx, first, work, n_work,
+                                    sums, nullptr, T, span, eps2);
+}
+
+// Bytes of K3's workspace: the spans' scratch.
+size_t workspace(int T, int cap)
+{
+    return align256(static_cast<size_t>(cap) * T * sizeof(real4));
+}
+
+int k3_blocks_per_sm()
+{
+    static int occ = 0;
+    return fit_per_sm(tiles_fused_kernel, occ);
+}
+
+// ---------------------------------------------------------------- K4
+// Entries of tile c's row that K4's block plan visits: whole blocks up to
+// the count (all S without counts), at least one, the last block cut at S.
+__device__ __forceinline__ int row_entries(const int64_t* __restrict__ cnt,
+                                           int c, int S, int block)
+{
+    int64_t k = cnt == nullptr ? S : cnt[c];
+    k = k < 0 ? 0 : (k > S ? S : k);
+    if (k < 1) k = 1;
     const int64_t n = (k + block - 1) / block * block;
     return static_cast<int>(n < S ? n : S);
 }
@@ -111,7 +184,7 @@ __device__ __forceinline__ void accumulate(
     real tx, real ty, real tz, int ti, real eps2, real& bx, real& by,
     real& bz, real& bp)
 {
-#pragma unroll (kUnroll)
+#pragma unroll (kSplitUnroll)
     for (int j = 0; j < nj; ++j) {
         const real4 v = s_pm[j];
         const real dx = v.x - tx;
@@ -155,50 +228,6 @@ __device__ __forceinline__ void stream_row(
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-tiles_fused_kernel(const real* __restrict__ tgt,          // [C, T, 3]
-                   const int64_t* __restrict__ tgt_idx,   // [C, T]
-                   const real* __restrict__ m_pos,        // [C, Sm, 3]
-                   const real* __restrict__ m_mass,       // [C, Sm]
-                   const int64_t* __restrict__ m_cnt,     // [C] or null
-                   const real* __restrict__ p_pos,        // [C, Sp, 3]
-                   const real* __restrict__ p_mass,       // [C, Sp]
-                   const int64_t* __restrict__ p_idx,     // [C, Sp]
-                   const int64_t* __restrict__ p_cnt,     // [C] or null
-                   real* __restrict__ acc,                // [C, T, 3]
-                   real* __restrict__ pot,                // [C, T]
-                   int T, int Sm, int Sp, int block, real eps2)
-{
-    __shared__ real4 s_pm[kStage];
-    __shared__ int s_idx[kStage];
-
-    const int c = blockIdx.x;
-    const int t = blockIdx.y * kThreads + threadIdx.x;
-    const bool live = t < T;
-    const size_t tc = static_cast<size_t>(c) * T + t;
-    real tx = 0, ty = 0, tz = 0;
-    int ti = -2;   // matches no source index (padding carries -1)
-    if (live) {
-        tx = tgt[3 * tc];
-        ty = tgt[3 * tc + 1];
-        tz = tgt[3 * tc + 2];
-        ti = static_cast<int>(tgt_idx[tc]);
-    }
-    real ax = 0, ay = 0, az = 0, pp = 0;
-    stream_row<false>(m_pos, m_mass, nullptr, static_cast<size_t>(c) * Sm, 0,
-                      row_entries(m_cnt, c, Sm, block, false), s_pm, s_idx,
-                      tx, ty, tz, ti, eps2, ax, ay, az, pp);
-    stream_row<true>(p_pos, p_mass, p_idx, static_cast<size_t>(c) * Sp, 0,
-                     row_entries(p_cnt, c, Sp, block, false), s_pm, s_idx,
-                     tx, ty, tz, ti, eps2, ax, ay, az, pp);
-    if (live) {
-        acc[3 * tc] = ax;
-        acc[3 * tc + 1] = ay;
-        acc[3 * tc + 2] = az;
-        pot[tc] = pp;
-    }
-}
-
 template <bool USE_IDX>
 __global__ void __launch_bounds__(kThreads)
 tiles_split_kernel(const real* __restrict__ tgt,          // [C, T, 3]
@@ -226,7 +255,7 @@ tiles_split_kernel(const real* __restrict__ tgt,          // [C, T, 3]
         tz = tgt[3 * tc + 2];
         ti = static_cast<int>(tgt_idx[tc]);
     }
-    const int n = row_entries(cnt, c, S, block, true);
+    const int n = row_entries(cnt, c, S, block);
     const int jb_end = min((n + block - 1) / block, (z + 1) * per);
     real ax = 0, ay = 0, az = 0, pp = 0;
     for (int jb = z * per; jb < jb_end; ++jb) {
@@ -276,26 +305,85 @@ tiles_split_reduce(const real* __restrict__ scratch,    // [nsplit, CT, 4]
 // Bytes of the scalar type the library was built for (4 or 8).
 extern "C" int rakau_tiles_real_bytes() { return static_cast<int>(sizeof(real)); }
 
-// K3: launches on `stream` and returns cudaGetLastError() of the launch
-// (0 = accepted). m_cnt / p_cnt: per-tile counts [C] (int64), or null for
-// whole rows. block: entries per block of the plan (>= 1). Every real
-// pointer and eps2 are of the library's scalar type.
+// Entries a granule of K3 (kernels/rows.py:GRANULE).
+extern "C" int rakau_tiles_granule() { return kGranule; }
+
+// Targets a thread of K3 holds.
+extern "C" int rakau_tiles_targets_per_thread() { return kTpt; }
+
+// Bytes of K3's workspace for T targets and cap spans, or 0 for bad sizes.
+extern "C" size_t rakau_tiles_workspace(int T, int cap)
+{
+    if (T <= 0 || cap < 1) return 0;
+    return workspace(T, cap);
+}
+
+// K3's plan on `stream`: tile c's granules ceil(clip(m_cnt[c], 0, Sm) / 128)
+// + ceil(clip(p_cnt[c], 0, Sp) / 128) (null counts: whole rows), cut into
+// spans of `span`; first [C + 1], work [cap] (padded with C), n_work [1]
+// (-1 if the spans exceed cap): kernels/tiles.py:tiles_plan on the card.
+// Returns cudaGetLastError() of the launch (0 = accepted).
+extern "C" int rakau_tiles_plan(const int64_t* m_cnt, const int64_t* p_cnt,
+                                int32_t* first, int32_t* work,
+                                int32_t* n_work, int C, int Sm, int Sp,
+                                int span, int cap, void* stream)
+{
+    if (C < 0 || Sm < 0 || Sp < 0 || span < 1 || cap < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    rows_work_kernel<<<1, kWorkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        TilesCount{m_cnt, p_cnt, Sm, Sp}, C, span, cap, first, work, n_work);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K3: launches the plan (into first, work, n_work), the main kernel and
+// the span reduction on `stream` (ws: 256-byte aligned,
+// rakau_tiles_workspace(T, cap) bytes), and returns cudaGetLastError() of
+// the launches (0 = accepted). m_cnt / p_cnt: per-tile counts [C] (int64),
+// or null for whole rows. sms: the card's multiprocessors. acc [C, T, 3],
+// pot [C, T]: the sums times G. Every real pointer, eps2 and G are of the
+// library's scalar type.
 extern "C" int rakau_tiles(const real* tgt, const int64_t* tgt_idx,
                            const real* m_pos, const real* m_mass,
                            const int64_t* m_cnt, const real* p_pos,
                            const real* p_mass, const int64_t* p_idx,
-                           const int64_t* p_cnt, real* acc, real* pot, int C,
-                           int T, int Sm, int Sp, int block, real eps2,
-                           void* stream)
+                           const int64_t* p_cnt, int32_t* first,
+                           int32_t* work, int32_t* n_work, void* ws,
+                           real* acc, real* pot, int C, int T, int Sm,
+                           int Sp, int span, int cap, int sms, real eps2,
+                           real G, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
-    if (Sm < 0 || Sp < 0 || block < 1 || (T + kThreads - 1) / kThreads > 65535)
+    if (Sm < 0 || Sp < 0 || span < 1 || cap < 1 || ws == nullptr
+        || reinterpret_cast<uintptr_t>(ws) % 256 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(C, (T + kThreads - 1) / kThreads);
-    tiles_fused_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tgt, tgt_idx, m_pos, m_mass, m_cnt, p_pos, p_mass, p_idx, p_cnt, acc,
-        pot, T, Sm, Sp, block, eps2);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int err = rakau_tiles_plan(m_cnt, p_cnt, first, work, n_work, C,
+                                     Sm, Sp, span, cap, stream);
+    if (err != 0) return err;
+    real4* sums = static_cast<real4*>(ws);
+    const int grid = persistent_grid(cap, T, k3_blocks_per_sm(), sms);
+    tiles_fused_kernel<<<grid, kThreads, 0, st>>>(
+        TilesSrc{m_pos, m_mass, p_pos, p_mass, p_idx,
+                 TilesCount{m_cnt, p_cnt, Sm, Sp}},
+        tgt, tgt_idx, first, work, n_work, sums, T, span, eps2);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long CT = static_cast<long long>(C) * T;
+    rows_reduce_kernel<false>
+        <<<static_cast<unsigned>((CT + kPackThreads - 1) / kPackThreads),
+           kPackThreads, 0, st>>>(sums, nullptr, first, n_work, acc, pot, C,
+                                  T, G);
     return static_cast<int>(cudaGetLastError());
+}
+
+// CUDA blocks of K3 that fit on one SM at once.
+extern "C" int rakau_tiles_blocks_per_sm() { return k3_blocks_per_sm(); }
+
+// CUDA blocks a K3 launch of cap spans and T targets runs (its persistent
+// grid).
+extern "C" int rakau_tiles_grid(int cap, int T, int sms)
+{
+    return persistent_grid(cap, T, k3_blocks_per_sm(), sms);
 }
 
 // K4: one row, both kernels launched on `stream`; returns

@@ -56,6 +56,7 @@ from typing import NamedTuple
 import torch
 
 from .. import scan_utils as su
+from . import rows
 
 _MODES = {"both": 0, "acc": 1, "pot": 2}
 # Source-block granularity of the active-block lists of K5 and K6: each
@@ -488,14 +489,28 @@ _LIBRARIES = {
                     + [_REAL, _VOIDP]}, ("block", "cell_bits")),
     "shared_blocks": ({"rakau_shared_blocks": [_VOIDP] * 10 + [_INT] * 5
                        + [_REAL, _VOIDP]}, ("block",)),
-    "pool": ({"rakau_pool": [_VOIDP] * 9 + [_INT] * 6 + [_REAL, _VOIDP]},
-             ("real_bytes",)),
-    "tiles": ({"rakau_tiles": [_VOIDP] * 11 + [_INT] * 5 + [_REAL, _VOIDP],
+    "pool": ({"rakau_pool_plan": [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP],
+              "rakau_pool": [_VOIDP] * 13 + [_INT] * 10
+              + [_REAL, _REAL, _VOIDP],
+              "rakau_pool_workspace": [_INT] * 3,
+              "rakau_pool_grid": [_INT] * 6,
+              "rakau_pool_blocks_per_sm": [_INT] * 3,
+              "rakau_pool_targets_per_thread": []},
+             ("granule", "real_bytes")),
+    "tiles": ({"rakau_tiles_plan": [_VOIDP] * 5 + [_INT] * 5 + [_VOIDP],
+               "rakau_tiles": [_VOIDP] * 15 + [_INT] * 7
+               + [_REAL, _REAL, _VOIDP],
+               "rakau_tiles_workspace": [_INT] * 2,
+               "rakau_tiles_grid": [_INT] * 3,
+               "rakau_tiles_blocks_per_sm": [],
+               "rakau_tiles_targets_per_thread": [],
                "rakau_tiles_split": [_VOIDP] * 9 + [_INT] * 5
-               + [_REAL, _VOIDP]}, ("real_bytes",)),
+               + [_REAL, _VOIDP]}, ("granule", "real_bytes")),
 }
 # functions that return something else than an int
-_RESTYPES = {"rakau_shared_fused_workspace": ctypes.c_size_t}
+_RESTYPES = {"rakau_shared_fused_workspace": ctypes.c_size_t,
+             "rakau_pool_workspace": ctypes.c_size_t,
+             "rakau_tiles_workspace": ctypes.c_size_t}
 # the libraries that have a float64 build
 F64_LIBRARIES = ("shared_fused", "pool", "tiles")
 
@@ -524,7 +539,8 @@ def _library(name: str = "shared_fused", f64: bool = False):
             raise ValueError(f"{name} has no float64 build")
         consts = _LIBRARIES[name][1]
         lib = bind_library(build_library(name, f64), name, f64)
-        checks = [("block", (), BLOCK), ("granule", (), GRANULE),
+        granule = rows.GRANULE if name in ("pool", "tiles") else GRANULE
+        checks = [("block", (), BLOCK), ("granule", (), granule),
                   ("real_bytes", (), 8 if f64 else 4)]
         checks += [("cell_bits", (d,), b) for d, b in CELL_BITS.items()]
         for const, args, want in checks:

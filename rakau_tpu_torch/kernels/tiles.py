@@ -15,12 +15,16 @@ away, index -1). For target i (position t_i, index ti_i) and entry j:
     pot_i = -G * sum_j w,  acc_i = G * sum_j w * inv_r^2 * d
 
 The M2P row has no self-exclusion: a node on a target at eps = 0 is dead
-by r2 <= 0 alone. The block plan is the reference's: a row is visited in
-whole blocks of `block` entries up to its count; K3 visits
-ceil(clip(cnt, 0, S) / b) blocks of b = min(block, Sm, Sp), K4
-ceil(max(min(cnt, S), 1) / b) blocks of b = min(block, S) per row (at
-least one). Entries past the count in a visited block are padding and add
-zero. tile_blocks gives that plan.
+by r2 <= 0 alone. Entries past a count are padding and add zero.
+
+K3's plan (kernels/rows.py): each tile's rows are cut into granules of
+GRANULE entries, ceil(clip(m2p_cnt, 0, Sm) / GRANULE) of the M2P row
+then ceil(clip(p2p_cnt, 0, Sp) / GRANULE) of the P2P row (tiles_granules),
+the granules into spans of SPAN; each granule's partial enters its span's
+sum, the spans' sums are added in order. That visits the same live
+entries as the reference's plan of whole blocks of `block` up to each
+count. K4 keeps the reference's plan: ceil(max(min(cnt, S), 1) / b)
+blocks of b = min(block, S) per row (at least one); tile_blocks gives it.
 
 The device of the tensors decides: CUDA tensors launch the kernel (2-D
 operands padded to 3-D by kernels.shared.pad_to_3d, float64 through the
@@ -30,10 +34,15 @@ from __future__ import annotations
 
 import torch
 
-from . import shared
+from . import rows, shared
 
-# the plan's block and the kernels' default (the reference's DEF_BLOCK)
+# K4's block and its default (the reference's DEF_BLOCK)
 BLOCK = 1024
+GRANULE = rows.GRANULE
+# K3: granules a span, handed to each launch
+SPAN = 2
+# the index of an M2P entry in K3's plain version: no target has it
+_NO_IDX = torch.iinfo(torch.int64).min
 # Launches, counted where the wrappers launch: "fused" is K3, "split" one
 # K4 launch (one row); "xla_quad" counts the quadrupole calls of
 # kernels.dispatch.eval_tiles, which take the plain-op route of the
@@ -49,10 +58,10 @@ def reset_launches():
 
 
 def tile_blocks(cnt, S: int, block: int, at_least_one: bool):
-    """Blocks of `block` entries that the plan visits in each tile's row
-    of S entries with counts cnt [C] (None: all S): K3's
-    ceil(clip(cnt, 0, S) / block), or with at_least_one K4's
-    ceil(max(min(cnt, S), 1) / block)."""
+    """Blocks of `block` entries that a plan visits in each tile's row
+    of S entries with counts cnt [C] (None: all S):
+    ceil(clip(cnt, 0, S) / block) (K3's at its granule), or with
+    at_least_one K4's ceil(max(min(cnt, S), 1) / block)."""
     if cnt is None:
         return -(-S // block)
     k = torch.clamp(cnt.to(torch.int64), 0, S)
@@ -116,25 +125,85 @@ def _eps2(eps, tgt_pos):
                       device=tgt_pos.device) ** 2
 
 
+def tiles_granules(C: int, Sm: int, Sp: int, m2p_cnt=None, p2p_cnt=None,
+                   granule: int = GRANULE, device=None):
+    """K3's granules of each tile: (gm [C], gp [C]) int64, of the M2P row
+    and of the P2P row."""
+    def row(cnt, S):
+        g = tile_blocks(cnt, S, granule, False)
+        return g if torch.is_tensor(g) else torch.full(
+            (C,), g, dtype=torch.int64, device=device)
+    return row(m2p_cnt, Sm), row(p2p_cnt, Sp)
+
+
+def tiles_capacity(C: int, Sm: int, Sp: int, span: int = SPAN) -> int:
+    """The spans a K3 launch makes room for: every tile's whole rows."""
+    ngt = -(-Sm // GRANULE) + -(-Sp // GRANULE)
+    return max(1, C * -(-ngt // span))
+
+
+def tiles_plan(C: int, Sm: int, Sp: int, m2p_cnt=None, p2p_cnt=None,
+               span: int = SPAN, device=None) -> rows.RowsPlan:
+    """K3's plan for C tiles with rows of Sm and Sp entries and counts
+    [C] (None: whole rows), on the counts' device (or `device`), with no
+    host sync (csrc/tiles.cu builds the same on the card)."""
+    gm, gp = tiles_granules(C, Sm, Sp, m2p_cnt, p2p_cnt, device=device)
+    return rows.span_plan(gm + gp, span, tiles_capacity(C, Sm, Sp, span))
+
+
+def _granule_rows(pos, mass, idx, granule: int):
+    """A row [C, S, ...] padded to whole granules (1e30, mass 0, index -1;
+    idx None: _NO_IDX everywhere)."""
+    C, S = mass.shape
+    pad = -(-S // granule) * granule - S
+    fpad = torch.nn.functional.pad
+    if idx is None:
+        idx = torch.full((C, S), _NO_IDX, dtype=torch.int64,
+                         device=mass.device)
+    return (fpad(pos, (0, 0, 0, pad), value=1e30), fpad(mass, (0, pad)),
+            fpad(idx, (0, pad), value=-1))
+
+
 def eval_tiles_plain(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
                      p2p_idx, eps, G, m2p_cnt=None, p2p_cnt=None,
-                     block: int = BLOCK):
-    """Plain version of K3 (`rakau_tpu.kernels.pallas.eval_tiles_fused`):
-    per tile the M2P row's blocks, then the P2P row's, in block order,
-    each bounded by its count, into one running sum; times G.
+                     granule: int = GRANULE, span: int = SPAN):
+    """Plain version of K3 (`rakau_tpu.kernels.pallas.eval_tiles_fused`),
+    in K3's plan: per tile the M2P row's granules, then the P2P row's,
+    each bounded by its count, one [C, T, granule] panel per granule
+    position, added into spans of `span` granules (0: one span a tile),
+    the spans in order; times G.
 
     tgt_pos [C, T, D], tgt_idx [C, T], m2p_pos [C, Sm, D], m2p_mass
     [C, Sm], p2p_pos [C, Sp, D], p2p_mass [C, Sp], p2p_idx [C, Sp],
     counts [C] -> acc [C, T, D], pot [C, T]."""
-    b = max(1, min(block, m2p_pos.shape[1], p2p_pos.shape[1]))
+    if span < 0:
+        raise ValueError("span must be >= 0")
+    C, T, D = tgt_pos.shape
+    Sm, Sp = m2p_pos.shape[1], p2p_pos.shape[1]
+    dev = tgt_pos.device
     eps2 = _eps2(eps, tgt_pos)
-    acc = torch.zeros_like(tgt_pos)
-    pot = torch.zeros_like(tgt_pos[..., 0])
-    _row_plain(acc, pot, tgt_pos, tgt_idx, m2p_pos, m2p_mass, None, eps2,
-               tile_blocks(m2p_cnt, m2p_pos.shape[1], b, False), b)
-    _row_plain(acc, pot, tgt_pos, tgt_idx, p2p_pos, p2p_mass, p2p_idx, eps2,
-               tile_blocks(p2p_cnt, p2p_pos.shape[1], b, False), b)
-    return G * acc, G * pot
+    gm, gp = tiles_granules(C, Sm, Sp, m2p_cnt, p2p_cnt, granule, dev)
+    ng = gm + gp
+    mrow = _granule_rows(m2p_pos, m2p_mass, None, granule)
+    prow = _granule_rows(p2p_pos, p2p_mass, p2p_idx, granule)
+    NGm = mrow[1].shape[1] // granule
+    pos, mass, idx = (torch.cat(x, 1) for x in zip(mrow, prow))
+    top = max(pos.shape[1] // granule - 1, 0)
+    lane = torch.arange(granule, device=dev)
+    acc = rows.SpanSums(tgt_pos, False)
+    pot = rows.SpanSums(tgt_pos[..., 0], False)
+    for k in range(int(ng.max()) if C else 0):
+        live = k < ng
+        slot = torch.where(k < gm, k, NGm + k - gm).clamp(0, top)
+        ent = slot[:, None] * granule + lane                   # [C, g]
+        s = torch.gather(pos, 1, ent[..., None].expand(-1, -1, D))
+        m = torch.where(live[:, None], torch.gather(mass, 1, ent), 0.0)
+        a, p = _pair_sums(tgt_pos, tgt_idx, s, m, torch.gather(idx, 1, ent),
+                          eps2)
+        end = rows.span_ends(k, ng, span)
+        acc.add(a, live, end)
+        pot.add(p, live, end)
+    return G * acc.total(), G * pot.total()
 
 
 def eval_pairwise_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
@@ -286,15 +355,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def tiles_device_plan(C: int, Sm: int, Sp: int, m2p_cnt=None, p2p_cnt=None,
+                      device=None) -> rows.RowsPlan:
+    """K3's plan as its kernel builds it on a CUDA device from the counts
+    (integer [C] CUDA tensors, or None for whole rows), which must equal
+    tiles_plan(...) in every field (a check of the kernels, not a step of
+    the path)."""
+    m2p_cnt, p2p_cnt = _cnt64(m2p_cnt), _cnt64(p2p_cnt)
+    dev = next((c.device for c in (m2p_cnt, p2p_cnt) if c is not None),
+               device)
+    cap = tiles_capacity(C, Sm, Sp)
+    plan = rows.plan_views(torch.empty(C + cap + 2, dtype=torch.int32,
+                                       device=dev), C, cap)
+    lib = shared._library("tiles")
+    with torch.cuda.device(dev):
+        err = lib.rakau_tiles_plan(
+            _ptr(m2p_cnt), _ptr(p2p_cnt), *(t.data_ptr() for t in plan), C,
+            Sm, Sp, SPAN, cap, torch.cuda.current_stream(dev).cuda_stream)
+    shared.raise_on(err, lib, "tiles (plan)")
+    return plan
+
+
 def eval_tiles_fused(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
-                     p2p_idx, eps, G, m2p_cnt=None, p2p_cnt=None,
-                     block: int = BLOCK):
+                     p2p_idx, eps, G, m2p_cnt=None, p2p_cnt=None):
     """K3, the CUDA kernel (replaces `rakau_tpu.kernels.pallas.
     eval_tiles_fused`): one launch for the chunk, both rows of each tile,
     the counts read on the device. Same arguments and results as
-    eval_tiles_plain; 2-D or 3-D float32 or float64 tensors, int64
-    indices, integer counts, all on one CUDA device. Launches on the
-    current stream."""
+    eval_tiles_plain at its default plan; 2-D or 3-D float32 or float64
+    tensors, int64 indices, integer counts, all on one CUDA device. On the
+    current stream, with no host sync: the plan, the kernel and its span
+    reduction."""
     C, T, D, f64 = _check_tiles(tgt_pos, tgt_idx, (
         ("m2p", m2p_pos, m2p_mass, None, m2p_cnt),
         ("p2p", p2p_pos, p2p_mass, p2p_idx, p2p_cnt)))
@@ -304,22 +394,28 @@ def eval_tiles_fused(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
     Sm, Sp = m2p_pos.shape[1], p2p_pos.shape[1]
     acc, pot = shared._outputs(tgt_pos)
     if C == 0 or T == 0:
-        return G * acc[..., :D], G * pot
+        return acc[..., :D], pot
     m2p_cnt, p2p_cnt = _cnt64(m2p_cnt), _cnt64(p2p_cnt)
-    lib = shared._library("tiles", f64)
     dev = tgt_pos.device
+    cap = tiles_capacity(C, Sm, Sp)
+    plan = rows.plan_views(torch.empty(C + cap + 2, dtype=torch.int32,
+                                       device=dev), C, cap)
+    lib = shared._library("tiles", f64)
+    ws = torch.empty(lib.rakau_tiles_workspace(T, cap), dtype=torch.uint8,
+                     device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.rakau_tiles(
             tgt_pos.data_ptr(), tgt_idx.data_ptr(), m2p_pos.data_ptr(),
             m2p_mass.data_ptr(), _ptr(m2p_cnt), p2p_pos.data_ptr(),
             p2p_mass.data_ptr(), p2p_idx.data_ptr(), _ptr(p2p_cnt),
-            acc.data_ptr(), pot.data_ptr(), C, T, Sm, Sp,
-            max(1, min(block, Sm, Sp)), shared.eps2_arg(eps, tgt_pos.dtype),
-            stream)
+            *(t.data_ptr() for t in plan), ws.data_ptr(), acc.data_ptr(),
+            pot.data_ptr(), C, T, Sm, Sp, SPAN, cap,
+            shared.multiprocessors(dev), shared.eps2_arg(eps, tgt_pos.dtype),
+            float(G), stream)
     shared.raise_on(err, lib, "tiles")
     shared.count_launch(launches, "fused", D == 2, f64)
-    return G * acc[..., :D], G * pot
+    return (acc if D == 3 else acc[..., :D].contiguous()), pot
 
 
 def eval_pairwise(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
@@ -368,17 +464,16 @@ def eval_tiles(tgt_pos, tgt_idx, m2p_pos, m2p_mass, m2p_quad, p2p_pos,
     + P2P of each tile's rows, times G. CUDA tensors launch K3 (fused) or,
     with fused=False, K4 once per row (M2P without, P2P with the index
     test), the two sums added and multiplied by G; CPU tensors take the
-    plain versions of the same. The quadrupole raises NotImplementedError,
-    as the reference's does (kernels.dispatch.eval_tiles routes it to
-    eval_m2p + eval_p2p)."""
+    plain versions of the same. `block` is K4's (K3 visits granules). The
+    quadrupole raises NotImplementedError, as the reference's does
+    (kernels.dispatch.eval_tiles routes it to eval_m2p + eval_p2p)."""
     if m2p_quad is not None:
         raise NotImplementedError("the tile kernels are monopole-only")
     cuda = tgt_pos.is_cuda
     if fused:
         fn = eval_tiles_fused if cuda else eval_tiles_plain
         return fn(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
-                  p2p_idx, eps, G, m2p_cnt=m2p_cnt, p2p_cnt=p2p_cnt,
-                  block=block)
+                  p2p_idx, eps, G, m2p_cnt=m2p_cnt, p2p_cnt=p2p_cnt)
     fn = eval_pairwise if cuda else eval_pairwise_plain
     am, pm = fn(tgt_pos, tgt_idx, m2p_pos, m2p_mass, None, eps,
                 use_idx=False, cnt=m2p_cnt, block=block)
