@@ -1,21 +1,23 @@
 """Time the hand-written kernels K1 (rakau_tpu_torch/csrc/shared_fused.cu),
-K2 (csrc/pool.cu) and K3 (csrc/tiles.cu) of this checkout against those of
-another checkout, on the same inputs on one CUDA card, and sweep this
-checkout's build options and span lengths.
+K2 (csrc/pool.cu), K3 (csrc/tiles.cu) and K6 (csrc/shared_mma.cu) of this
+checkout against those of another checkout, on the same inputs on one CUDA
+card, and sweep this checkout's build options and span lengths.
 
-    python3 ab_kernels.py --other DIR [--kernels k1,k2,k3] [--n 1048576]
+    python3 ab_kernels.py --other DIR [--kernels k1,k2,k3,k6] [--n 1048576]
         [--reps 20] [--out FILE] [--sweep G:TPT:UNROLL:MINB,...]
         [--spans SPAN,...] [--pool-spans SPAN,...] [--tiles-spans SPAN,...]
-        [--rows-sweep TPT:UNROLL:MINB,...]
+        [--rows-sweep TPT:UNROLL:MINB,...] [--mma-spans SPAN,...]
+        [--mma-sweep WARPS:SLABS,...]
 
 DIR is the root of the other checkout (an unpacked `git archive` of an
 earlier commit, say). Its csrc/<kernel>.cu is built with the flags of
 kernels/shared.py:build_library into rakau_tpu_torch/_build/other/ (the
 float64 build too where a form is float64) and called through ctypes with
-the launch signature its source declares: K1 the row-at-a-time signature
-of the 1024-source block plan (with or without the cell_dims argument), K2
-and K3 the one-launch signatures of their earlier kernels (no G factor,
-K3's block plan of min(1024, Sm, Sp)).
+the launch signature its source declares: K1 this side's (the granule
+plan) or the row-at-a-time signature of the 1024-source block plan (with
+or without the cell_dims argument), K2 and K3 the one-launch signatures of
+their earlier kernels (no G factor, K3's block plan of min(1024, Sm, Sp)),
+K6 the signature of its 1024-source block plan (no G).
 
 K1's inputs are chunks 0 and 1 of a query of a seeded Plummer sphere of n
 particles: the shared traversal, farfield "grid2" (order 4, grid_sep 3),
@@ -28,17 +30,23 @@ quadrupole + compensated m2p configuration, pool window 131072: all four
 forms) and of its F1 float64 gwalk query (65,536 particles, theta 0.4: the
 monopole in float64). K3's are chunks 0 and 1 of the lists query of the
 same particles (chip_smoke.py's LISTS_KW) and chunk 0 of F1's float64
-lists query. Each form and input runs other, this, this, other: `reps`
-launches each between two CUDA events (the card held busy while the host
-enqueues them), the host work (the other's block plan; this side's plan
-tensors and workspace) done once outside the timing. This side's time is
-the whole launch (K1: the plan, the row packing, the main kernel and the
-span reduction, and `this_kernel_ms` the last two alone; K2 and K3: the
-one C call that runs their plan, packing, kernel and reduction), with the
-device time of each of its kernels from one profiled launch. The sums are
-not expected to be bit-equal (another order of summation): the largest
-difference is reported, beside whether two launches of this side agree bit
-for bit and whether the plan its kernel builds equals the PyTorch plan.
+lists query. K6's are chunks 0 and 1 of chip_smoke.py's shared+grid query
+(its main path) and of its lmac+grid2 query (LMAC_KW, the cell form) of
+the same particles, in each precision. Each form and input runs other,
+this, this, other: `reps` launches each between two CUDA events (the card
+held busy while the host enqueues them), the host work (the other's block
+plan; this side's plan tensors and workspace) done once outside the
+timing. This side's time is the whole launch (K1: the plan, the row
+packing, the main kernel and the span reduction, and `this_kernel_ms` the
+last two alone; K2 and K3: the one C call that runs their plan, packing,
+kernel and reduction; K6: its plan's three kernels, the packing, the
+kernel and its reduction), with the device time of each of its kernels
+from one profiled launch (K2, K3, K6). The sums are not expected to be
+bit-equal (another order of summation): the largest difference is
+reported, beside whether two launches of this side agree bit for bit and
+whether the plan its kernel builds equals the PyTorch plan (K6: also
+whether they lie within chip_smoke.py's MMA_ATOL_REL of the other's
+largest sum).
 
 --sweep builds K1's source again with -DRAKAU_GRANULE, -DRAKAU_TPT
 (targets a thread), -DRAKAU_UNROLL and -DRAKAU_MIN_BLOCKS (the launch
@@ -49,7 +57,9 @@ default build (default, variant, variant, default). --pool-spans and
 --tiles-spans time K2 and K3 at other span lengths (granules a work item)
 beside their defaults; --rows-sweep builds K2's and K3's sources again
 with -DRAKAU_TPT, -DRAKAU_UNROLL and -DRAKAU_MIN_BLOCKS (csrc/rows.cuh) for
-each TPT:UNROLL:MINB and times each build beside the default one. Prints
+each TPT:UNROLL:MINB and times each build beside the default one;
+--mma-spans and --mma-sweep do the same for K6 (-DRAKAU_MMA_WARPS and
+-DRAKAU_MMA_SLABS for each WARPS:SLABS). Prints
 one JSON line per form and input, the card's name and power limit, and a
 summary line; with --out, writes them all to that file too.
 """
@@ -91,23 +101,25 @@ def compile_other(root: Path, name: str, f64: bool = False) -> Path:
 
 
 def build_other(root: Path) -> tuple:
-    """(loaded library, takes cell_dims) of root's shared_fused.cu."""
+    """(loaded library, its plan) of root's shared_fused.cu: "granules"
+    for a K1 on the granule plan (this side's C interface), else
+    "blocks" or "blocks_dims" (the 1024-source block plan, without or with
+    the cell_dims argument)."""
+    from rakau_tpu_torch.kernels import shared
     src = root / "rakau_tpu_torch" / "csrc" / "shared_fused.cu"
     out = compile_other(root, "shared_fused")
     text = src.read_text()
     sig = text[text.index('extern "C" int rakau_shared_fused('):]
     sig = sig[:sig.index("{")]
     if "int span" in sig:
-        raise SystemExit("ab_kernels: K1's A/B takes a checkout whose K1 "
-                         "launches the 1024-source block plan; this one's "
-                         "takes the granule plan (use --kernels k2,k3)")
+        return shared.bind_library(out), "granules"
     dims = "int cell_dims" in sig
     lib = ctypes.CDLL(str(out))
     fn = lib.rakau_shared_fused
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * (8 if dims else 7)
                    + [ctypes.c_float, ctypes.c_void_p])
-    return lib, dims
+    return lib, "blocks_dims" if dims else "blocks"
 
 
 MACROS = ("RAKAU_GRANULE", "RAKAU_TPT", "RAKAU_UNROLL", "RAKAU_MIN_BLOCKS")
@@ -307,8 +319,7 @@ def ab_k1(args, dev, card) -> tuple:
     with ThreadPoolExecutor(2) as ex:
         other_f = ex.submit(build_other, args.other.resolve())
         libs = build_this([None] + sweep)
-        other_lib, other_dims = other_f.result()
-    other = other_lib.rakau_shared_fused
+        other_lib, other_plan = other_f.result()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     pos, mass = particles.plummer(args.n, generator=gen)
     cfg = TreeConfig(**KW)
@@ -320,7 +331,13 @@ def ab_k1(args, dev, card) -> tuple:
         inp = engine.kernel_inputs(td, cfg, THETA, 0.0, chunk)
         for form in FORMS:
             a = form_args(inp, form)
-            run_o = other_launcher(other, other_dims, a, cfg.grid_sep)
+            if other_plan == "granules":
+                run_o = this_launchers(other_lib, a, cfg.grid_sep,
+                                       shared.SPAN)[0]
+            else:
+                run_o = other_launcher(other_lib.rakau_shared_fused,
+                                       other_plan == "blocks_dims", a,
+                                       cfg.grid_sep)
             run_t, kern_t, shape = this_launchers(libs[None], a,
                                                   cfg.grid_sep, shared.SPAN)
             got_o = [t.clone() for t in run_o()]
@@ -332,7 +349,8 @@ def ab_k1(args, dev, card) -> tuple:
             C, T, _ = a["tensors"][0].shape
             pairs = shape["granules"] * shape["granule"] * T
             rec = dict(kernel="K1", form=form, chunk=chunk,
-                       other_active_blocks=int(a["cnt"].sum()),
+                       other_active_blocks=(None if other_plan == "granules"
+                                            else int(a["cnt"].sum())),
                        other_ms=[ms[0], ms[3]], this_ms=[ms[1], ms[2]],
                        this_kernel_ms=kms,
                        ratio=(ms[1] + ms[2]) / (ms[0] + ms[3]),
@@ -363,7 +381,7 @@ def ab_k1(args, dev, card) -> tuple:
             print(json.dumps(rec), flush=True)
     del tree
     torch.cuda.empty_cache()
-    return lines, dict(other_takes_cell_dims=other_dims,
+    return lines, dict(other_k1_plan=other_plan,
                        granule=shared.GRANULE, span=shared.SPAN,
                        ratio_this_over_other=ratios)
 
@@ -700,6 +718,172 @@ def ab_k3(args, dev, card) -> tuple:
     return lines, dict(tiles_span=tiles.SPAN, k3_ratio_this_over_other=ratios)
 
 
+def mma_rows(n: int, seed: int, dev):
+    """(label, chunk, the row's six tensors, cells or None) of K6's rows:
+    chunks 0 and 1 of chip_smoke.py's shared+grid query (its main path's
+    configuration) and of its lmac+grid2 query (LMAC_KW, caps grown and
+    fitted as there), of a seeded Plummer sphere of n particles."""
+    import chip_smoke as cs
+    from rakau_tpu_torch import Tree, engine, particles
+    from rakau_tpu_torch.config import TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(n, generator=gen)
+    for label, kw in (("shared+grid", cs.TREE_KW), ("lmac+grid2", cs.LMAC_KW)):
+        tree = Tree(coords=pos, masses=mass, config=TreeConfig(**kw))
+        tree.accs_pots_o(cs.THETA)      # grows what overflows
+        if kw is cs.LMAC_KW:
+            tree.tune_caps()
+        td, cfg = tree.tree_data, tree.config
+        for ch in (0, 1):
+            inp = engine.kernel_inputs(td, cfg, cs.THETA, 0.0, ch)
+            cells = None
+            if inp[7] is not None:
+                cells = (inp[7].to(torch.int32).contiguous(),
+                         inp[8].to(torch.int32).contiguous(), cfg.grid_sep)
+            yield label, ch, tuple(inp[:6]), cells
+        del tree, td
+        torch.cuda.empty_cache()
+
+
+def other_mma(lib, args, cells, prec: str):
+    """The other checkout's K6 (the 1024-source block plan: its C
+    signature before K1's plan, no G) on one row, the block lists made
+    here once, into its own outputs."""
+    from rakau_tpu_torch.kernels import shared
+    tpos, tidx, spos, smass, sidx, mask = args
+    C, T, D = tpos.shape
+    S = spos.shape[0]
+    fn = lib.rakau_shared_mma
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    lib.rakau_shared_mma_block.restype = ctypes.c_int
+    ids, cnt = shared.active_blocks(mask, lib.rakau_shared_mma_block())
+    acc = torch.empty((C, T, 3), dtype=torch.float32, device=tpos.device)
+    pot = torch.empty((C, T), dtype=torch.float32, device=tpos.device)
+    sep = cells[2] if cells else 0
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(tpos.data_ptr(), spos.data_ptr(), smass.data_ptr(),
+                 mask.data_ptr(), cells[0].data_ptr() if cells else None,
+                 cells[1].data_ptr() if cells else None, ids.data_ptr(),
+                 cnt.data_ptr(), acc.data_ptr(), pot.data_ptr(), C, T, S,
+                 ids.shape[1], 0, shared.PRECS[prec], sep, D, 0.0, stream)
+        if err:
+            raise RuntimeError(f"other K6 launch failed: {err}")
+        return acc, pot
+    return run
+
+
+def this_mma(lib, args, cells, prec: str, span: int):
+    """This side's K6 (its whole launch: the plan's three kernels, the
+    packing, the kernel and its reduction) on one row at `span`, the plan
+    tensors and the workspace made here; and its launch shape, with the
+    plan its kernels build against fused_plan's."""
+    from rakau_tpu_torch.kernels import shared
+    tpos, tidx, spos, smass, sidx, mask = args
+    C, T, D = tpos.shape
+    S = spos.shape[0]
+    dev = tpos.device
+    plan = shared.fused_plan(mask, span=span)
+    dplan = shared.FusedPlan(*(torch.empty_like(t) for t in plan[:4]),
+                             plan.zmax)
+    ws = torch.empty(lib.rakau_shared_mma_workspace(C, T, S, span,
+                                                    int(cells is not None)),
+                     dtype=torch.uint8, device=dev)
+    acc = torch.empty((C, T, 3), dtype=torch.float32, device=dev)
+    pot = torch.empty((C, T), dtype=torch.float32, device=dev)
+    sep = cells[2] if cells else 0
+    pr = shared.PRECS[prec]
+    sms = shared.multiprocessors(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.rakau_shared_mma_plan(
+            mask.data_ptr(), ws.data_ptr(),
+            *(t.data_ptr() for t in dplan[:4]), C, S, span, stream)
+        err = err or lib.rakau_shared_mma_pack(
+            spos.data_ptr(), smass.data_ptr(),
+            cells[0].data_ptr() if cells else None, ws.data_ptr(), C, T, S,
+            span, D if cells else 0, stream)
+        err = err or lib.rakau_shared_mma(
+            tpos.data_ptr(), cells[1].data_ptr() if cells else None,
+            *(t.data_ptr() for t in dplan[:4]), ws.data_ptr(),
+            acc.data_ptr(), pot.data_ptr(), C, T, S, span, 0, pr, sep, D,
+            sms, 0.0, 1.0, stream)
+        if err:
+            raise RuntimeError(f"K6 launch failed: {err}")
+        return acc, pot
+    run()
+    grid = lib.rakau_shared_mma_grid(C, T, S, span, 0, pr, sep, D, sms)
+    tpi = lib.rakau_shared_mma_targets_per_item()
+    items = int(plan.n_work[0]) * -(-T // tpi)
+    return run, dict(
+        span=span, granules=int(plan.cnt.sum()), spans=int(plan.n_work[0]),
+        work_items=items, cuda_blocks=grid,
+        blocks_per_sm_fit=lib.rakau_shared_mma_blocks_per_sm(0, pr, sep, D),
+        warps_per_sm=lib.rakau_shared_mma_threads() // 32 * min(grid, items)
+        / sms, device_plan_equal=all(torch.equal(x, y) for x, y in
+                                     zip(dplan[:4], plan[:4])))
+
+
+MMA_MACROS = ("RAKAU_MMA_WARPS", "RAKAU_MMA_SLABS")
+
+
+def mma_builds(sweep: str) -> dict:
+    """label -> csrc/shared_mma.cu built with the macros of each
+    WARPS:SLABS of `sweep` (a trailing field may be left out: the
+    source's default), built together."""
+    from rakau_tpu_torch.kernels import shared
+    vs = [v for v in sweep.split(",") if v]
+
+    def one(v):
+        path = shared.build_library("shared_mma", macros=tuple(
+            f"-D{m}={x}" for m, x in zip(MMA_MACROS, v.split(":"))))
+        return f"build{v}", shared.bind_library(path, "shared_mma")
+    with ThreadPoolExecutor(max(1, len(vs))) as ex:
+        return dict(ex.map(one, vs))
+
+
+def ab_k6(args, dev, card) -> tuple:
+    """K6 in every precision, with and without cells, on the shared+grid
+    and lmac+grid2 chunks against the other checkout's, at other spans
+    and in other builds. Returns (lines, summary)."""
+    import chip_smoke as cs
+    from rakau_tpu_torch.kernels import shared
+    spans = [int(x) for x in args.mma_spans.split(",") if x]
+    with ThreadPoolExecutor(2) as ex:
+        other_f = ex.submit(compile_other, args.other.resolve(), "shared_mma")
+        this = shared._library("shared_mma")
+        other = ctypes.CDLL(str(other_f.result()))
+    builds = mma_builds(args.mma_sweep)
+    lines, ratios = [], {}
+    for label, ch, row, cells in mma_rows(args.n, args.seed, dev):
+        for prec in cs.PRECS:
+            run_o = other_mma(other, row, cells, prec)
+            run_t, shape = this_mma(this, row, cells, prec, shared.SPAN)
+            variants = [(f"span{sp}", this_mma(this, row, cells, prec,
+                                               sp)[0])
+                        for sp in spans if sp != shared.SPAN]
+            variants += [(lv, this_mma(lib_v, row, cells, prec,
+                                       shared.SPAN)[0])
+                         for lv, lib_v in builds.items()]
+            form = ("mma_cell/" if cells else "mma/") + prec
+            rec = compare_ab(dict(kernel="K6", config=label, chunk=ch,
+                                  form=form, C=int(row[0].shape[0]),
+                                  T=int(row[0].shape[1]),
+                                  S=int(row[2].shape[0]), **shape),
+                             run_o, run_t, args.reps, variants)
+            rec["within_mma_atol_rel"] = rec["max_rel_diff"] \
+                <= cs.MMA_ATOL_REL
+            ratios.setdefault(f"{label}/{form}", []).append(rec["ratio"])
+            lines.append(rec)
+            print(json.dumps(rec), flush=True)
+    return lines, dict(mma_span=shared.SPAN, granule=shared.GRANULE,
+                       k6_ratio_this_over_other=ratios)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True)
@@ -719,6 +903,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows-sweep", default="",
                     help="TPT:UNROLL:MINB,... builds of K2's and K3's "
                          "sources to time")
+    ap.add_argument("--mma-spans", default="",
+                    help="K6 span lengths to time beside the default")
+    ap.add_argument("--mma-sweep", default="",
+                    help="WARPS:SLABS,... builds of K6's source to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
@@ -731,7 +919,8 @@ def main(argv=None) -> int:
     lines = []
     summary = dict(card=card, n=args.n, reps=args.reps,
                    other=str(args.other))
-    for key, fn in (("k1", ab_k1), ("k2", ab_k2), ("k3", ab_k3)):
+    for key, fn in (("k1", ab_k1), ("k2", ab_k2), ("k3", ab_k3),
+                    ("k6", ab_k6)):
         if key in args.kernels.split(","):
             got, summ = fn(args, dev, card)
             lines += got

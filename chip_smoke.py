@@ -36,7 +36,13 @@ Phases, each printing one JSON line:
                tensor-core form K6 (edge_mma: every mode and precision,
                with and without the cell test: a source exactly on a
                target, an all-masked tile, a ragged last block, S < 128, a
-               tile whose only active block is the last, exempt cells) and
+               tile whose only active block is the last, exempt cells; and
+               on rows made for its plan, K1's (k6_structure_cases), with
+               no cells, 3-D cells and 2-D cells on 2-D operands: a long
+               list beside a tile with none, scattered granules, lists not
+               a multiple of the span, S ending inside a granule, padding
+               at 1e30 and at 4 * box; the plan K6's kernels build equal
+               to fused_plan's, two launches bit for bit equal) and
                the split-source form K5 (edge_blocks: the same rows at
                several splits, two launches bit for bit equal); the
                float64 builds (edge_f64: every K1 form, K1c and K2 form
@@ -72,13 +78,16 @@ Phases, each printing one JSON line:
                at bf16, x3 and highest, and "blocks": launches of the
                variant = chunks and no K1a launch; x3, highest and K5
                within 1 % of K1a's force RMS and under the bounds, one bf16
-               pass under 5e-2 (see BF16_FORCE_RMS_MAX);
+               pass under 5e-2 (see BF16_FORCE_RMS_MAX); each variant's
+               kernel call (between device syncs) beside K1a's;
      kernel:   K6 (each precision and mode) and K5 against their plain
                versions on the first two chunks, timed beside K1a on the
-               same rows, with bounds; K5's split and CUDA blocks;
+               same rows, with bounds and % of them; K6's launch shape
+               (k6_shape) beside K1a's; K5's split and CUDA blocks;
      metrics:  metrics.collect_shared_density on the query; its processed
                pairs must equal what K1's plan (shared.fused_plan: active
-               granules) gives for the same chunks;
+               granules) gives for the same chunks, which K6's kernels
+               must build too, and which the "mma" variant replays;
   s. grid2:    the same particles through the shared traversal with
                farfield "grid2" (local_order 4, grid_sep 3, the level from
                grid_occupancy 32: 5 at 1M), caps grown by the Tree and
@@ -260,11 +269,13 @@ POOL_REPLACES = "rakau_tpu/kernels/pallas.py:974"
 # kernel sources under rakau_tpu_torch/csrc/, each with its float64 build or
 # not, and their kernels (template instantiations: mode x compensated x
 # quadrupole, and x cell test in K1, whose launch adds the three kernels
-# of its plan, its row packing and its span reduction in two forms; K2's
-# launch adds its work list and its reduction in two forms; K3 is three
-# kernels (work list, kernel, reduction), K4 two forms and its reduction)
+# of its plan, its row packing and its span reduction in two forms; K6:
+# mode x cell test x precision, the same plan and packing kernels
+# (shared_plan.cuh) and its reduction; K2's launch adds its work list and
+# its reduction in two forms; K3 is three kernels (work list, kernel,
+# reduction), K4 two forms and its reduction)
 LIBRARIES = {("shared_fused", False): 42, ("pool", False): 15,
-             ("shared_mma", False): 27, ("shared_blocks", False): 2,
+             ("shared_mma", False): 32, ("shared_blocks", False): 2,
              ("tiles", False): 6, ("shared_fused", True): 42,
              ("pool", True): 15, ("tiles", True): 6}
 TILES_SRC = "rakau_tpu_torch/csrc/tiles.cu"
@@ -416,7 +427,7 @@ def build_kernels() -> dict:
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)]
         rec = dict(seconds=secs, library=path.name, kernels=len(regs),
                    registers=regs, spill_bytes=spills)
-        if key[0] in ("shared_fused", "pool", "tiles"):
+        if key[0] in ("shared_fused", "shared_mma", "pool", "tiles"):
             rec["registers_by_kernel"] = REGISTERS[name] = \
                 kernel_registers(ptxas)
         if any(spills):
@@ -430,8 +441,9 @@ def build_kernels() -> dict:
     return out
 
 
-# registers of each kernel of K1's, K2's and K3's builds (build_kernels),
-# by library ("pool", "pool_f64", ...) and kernel_registers' short name
+# registers of each kernel of K1's, K6's, K2's and K3's builds
+# (build_kernels), by library ("pool", "pool_f64", ...) and
+# kernel_registers' short name
 REGISTERS: dict = {}
 
 
@@ -492,6 +504,36 @@ def k1_shape(args, comp=False, quad=False, cells=None,
     return dict(granules=int(plan.cnt.sum()), spans=int(plan.n_work[0]),
                 work_items=items, cuda_blocks=grid, blocks_per_sm_fit=fit,
                 warps_per_sm=4 * min(grid, items) / sms, sms=sms)
+
+
+def k6_shape(args, prec: str, cells=None, mode: str = "both") -> dict:
+    """K6's launch shape on these rows, as k1_shape's: the granules and
+    spans of its plan (K1's, shared.fused_plan), its work items of
+    targets_per_item targets, the CUDA blocks of its persistent grid, the
+    blocks of this form that fit an SM, the warps an SM holds on average
+    and the form's registers (ptxas)."""
+    from rakau_tpu_torch.kernels import shared
+    tpos, mask = args[0], args[5]
+    C, T, D = tpos.shape
+    S = int(args[2].shape[0])
+    lib = shared._library("shared_mma")
+    plan = shared.fused_plan(mask)
+    sms = shared.multiprocessors(tpos.device)
+    sep = cells[2] if cells else 0
+    m, pr = MODES.index(mode), shared.PRECS[prec]
+    grid = lib.rakau_shared_mma_grid(C, T, S, shared.SPAN, m, pr, sep, D,
+                                     sms)
+    fit = lib.rakau_shared_mma_blocks_per_sm(m, pr, sep, D)
+    tpi = lib.rakau_shared_mma_targets_per_item()
+    items = int(plan.n_work[0]) * -(-T // tpi)
+    cell = D if sep else 0
+    regs = REGISTERS.get("shared_mma", {}).get(
+        f"shared_mma_kernel<{m},{cell},{pr}>")
+    return dict(granules=int(plan.cnt.sum()), spans=int(plan.n_work[0]),
+                work_items=items, targets_per_item=tpi, cuda_blocks=grid,
+                blocks_per_sm_fit=fit,
+                warps_per_sm=lib.rakau_shared_mma_threads() // 32
+                * min(grid, items) / sms, registers=regs, sms=sms)
 
 
 # device cycles that cuda_ms keeps the card busy for before it times, so
@@ -866,6 +908,83 @@ def k1_structure_cases(shared, dev, dtype=torch.float32, cells=False):
                     want = shared.eval_shared_plain(*args, eps, 1.5, **kw)
                     worst[form] = max(worst.get(form, 0.0),
                                       compare(got, want, **tol(dtype)))
+    return worst
+
+
+def k6_structure_cases(shared, dev) -> dict:
+    """K6 against its plain version on rows made for its plan (K1's), at
+    each precision and cell form (none, 3-D cells, 2-D cells on 2-D
+    operands) and mode: one tile whose list holds every granule of the row
+    beside a tile with none; live granules scattered through the row;
+    lists of SPAN + 1 and 2 SPAN - 1 entries (not multiples of the span);
+    S ending inside a granule, whose ragged last granule is a tile's only
+    live one; T past one work item; sources exactly on targets of tile 0;
+    padding inside the row at 1e30 and at 4 * box (massless, mask on);
+    each tile's targets in a unit cube, as the engine's tiles are. The
+    plan that K6's kernels build must equal fused_plan's, two launches on
+    the same inputs must agree bit for bit, the tile with no list must get
+    zeros. Returns the worst |kernel - plain| per form and precision."""
+    G, span = shared.GRANULE, shared.SPAN
+    rng = np.random.default_rng(37)
+    worst = {}
+    for C, T, ng, tail, eps, sep in ((6, 300, 5 * span + 2, 37, 0.05, 2),
+                                     (3, 64, 3, 5, 0.0, 3)):
+        S = ng * G + tail
+        for D, cell in ((3, ""), (3, "_cell"), (2, "_cell2d")):
+            centers = rng.uniform(-2, 2, (C, 1, D))
+            tpos = centers + rng.uniform(-0.5, 0.5, (C, T, D))
+            tidx = rng.choice(10000, size=(C, T),
+                              replace=False).astype(np.int64)
+            spos = rng.uniform(-3, 3, (S, D))
+            smass = rng.uniform(0.1, 1, S)
+            sidx = np.full(S, -1, np.int64)
+            spos[:6] = tpos[0, :6]            # on targets: dead by distance
+            box = 4.0
+            spos[S // 2:S // 2 + 4] = 1e30   # far, massless padding
+            spos[S // 3:S // 3 + 4] = 4 * box
+            smass[S // 2:S // 2 + 4] = 0.0
+            smass[S // 3:S // 3 + 4] = 0.0
+            mask = np.zeros((C, S), bool)
+            mask[0] = rng.uniform(size=S) < 0.5   # every granule
+            mask[0, ::G] = True
+            mask[0, S // 2:S // 2 + 4] = True
+            mask[0, S // 3:S // 3 + 4] = True
+            # tile 1 has no list
+            mask[2, S - tail:] = True             # only the ragged last one
+            if C > 3:
+                for g in rng.choice(ng, ng // 3, replace=False):
+                    mask[3, g * G + rng.integers(0, G, 2)] = True
+                for c, k in ((4, span + 1), (5, 2 * span - 1)):
+                    for g in np.sort(rng.choice(ng, k, replace=False)):
+                        mask[c, g * G + rng.integers(0, G)] = True
+            args = on_card((tpos, tidx, spos, smass, sidx, mask), dev)
+            if not same_plan(shared.fused_device_plan(args[5], "shared_mma"),
+                             shared.fused_plan(args[5])):
+                raise AssertionError("K6: the kernels' plan differs from "
+                                     "fused_plan's")
+            ckw = {}
+            if cell:
+                scell = rng.integers(0, 8, (S, D))
+                scell[S // 4:S // 4 + 20] = -1    # exempt rows
+                ckw = dict(src_cell=torch.as_tensor(scell, device=dev),
+                           tgt_cell=torch.as_tensor(
+                               rng.integers(0, 8, (C, T, D)), device=dev),
+                           grid_sep=sep)
+            for prec in PRECS:
+                key = f"mma{cell}/{prec}"
+                for mode in MODES:
+                    kw = dict(mode=mode, prec=prec, **ckw)
+                    got = shared.eval_shared_mma(*args, eps, 1.5, **kw)
+                    again = shared.eval_shared_mma(*args, eps, 1.5, **kw)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"K6 {key} {mode}: two launches "
+                                             "differ")
+                    if bool(got[0][1].any() | got[1][1].any()):
+                        raise AssertionError(f"K6 {key}: the tile with no "
+                                             "list got a nonzero result")
+                    want = shared.eval_shared_mma_plain(*args, eps, 1.5, **kw)
+                    worst[key] = max(worst.get(key, 0.0),
+                                     compare(got, want, **mma_tol(prec)))
     return worst
 
 
@@ -2069,7 +2188,9 @@ def variant_queries(tree, oracle, fused_rms, form: str, dev) -> tuple:
     "mma" (no cells), "blocks". Each must launch its own kernel once a live
     chunk and no other; x3, highest and K5 must give the fused kernel's
     force RMS within VARIANT_RMS_RTOL and meet the accuracy bounds; one
-    bf16 pass is held to BF16_FORCE_RMS_MAX.
+    bf16 pass is held to BF16_FORCE_RMS_MAX. Each variant's kernel call
+    (dispatch.eval_shared between device syncs, one warm query) is
+    recorded beside the fused kernel's.
     Returns the record and the launches per variant."""
     from rakau_tpu_torch import engine
     from rakau_tpu_torch.kernels import dispatch
@@ -2077,17 +2198,22 @@ def variant_queries(tree, oracle, fused_rms, form: str, dev) -> tuple:
     runs = [("mma", prec, form) for prec in PRECS]
     if form == "mma":
         runs.append(("blocks", "x3", "blocks"))
+    layers = ((dispatch, "eval_shared"),)
     rec, launches = {"chunks": chunks, "fused_force_rms": fused_rms[0],
-                     "fused_pot_rms": fused_rms[1]}, {}
+                     "fused_pot_rms": fused_rms[1],
+                     "fused_kernel_call_ms": synced_layers(
+                         tree, layers)[0]["eval_shared"]}, {}
     for name, prec, key in runs:
         label = f"{name}/{prec}" if name == "mma" else name
         with dispatch.shared_variant(name, prec):
             (acc, pot), ms, counts = warm_counted(tree, 2)
+            call_ms = synced_layers(tree, layers)[0]["eval_shared"]
         k1_launches(counts[-1], chunks, (key,), f"variant {label} query")
         finite(f"variant {label} result", acc, pot)
         f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
         rec[label] = dict(warm_query_ms=ms, force_rms=f_rms, pot_rms=p_rms,
-                          launches=counts[-1]["K1"][key])
+                          launches=counts[-1]["K1"][key],
+                          kernel_call_ms=call_ms)
         launches[label] = counts[-1]["K1"][key]
         f_max = BF16_FORCE_RMS_MAX if prec == "bf16" else FORCE_RMS_MAX
         if not (f_rms < f_max and p_rms < POT_RMS_MAX):
@@ -2105,10 +2231,12 @@ def variant_queries(tree, oracle, fused_rms, form: str, dev) -> tuple:
 def variant_kernels(tree, n: int, label: str, dev) -> dict:
     """Phase kernel for K6 (and, on rows without cells, K5) on chunks 0 and
     1 of `tree`'s query: every precision and mode against the plain
-    version, CUDA-event ms per call beside the fused kernel's on the same
-    rows, the bound, the plain version's ms; K5 also twice for bit-equal
-    results, with its split. Returns per form (worst error, ms, plain_ms,
-    bound_ms, bound_by; means over the chunks)."""
+    version, CUDA-event ms per call, the bound, % of it, the plain
+    version's ms and K6's launch shape (k6_shape: granules, spans, work
+    items, CUDA blocks, warps a SM, registers), beside the fused kernel's
+    (K1a or K1c) ms, % of its bound and shape on the same rows; K5 also
+    twice for bit-equal results, with its split. Returns per form (worst
+    error, ms, plain_ms, bound_ms, bound_by; means over the chunks)."""
     from rakau_tpu_torch import engine
     from rakau_tpu_torch.kernels import shared
     td, cfg = tree.tree_data, tree.config
@@ -2124,9 +2252,14 @@ def variant_kernels(tree, n: int, label: str, dev) -> dict:
         S = int(args[2].shape[0])
         fused_ms = cuda_ms(lambda: shared.eval_shared_fused(
             *args, 0.0, 1.0, **ckw), 10)
-        rec = dict(config=label, chunk=ch, C=C, T=T, S=S,
-                   active_blocks=int(shared.active_blocks(args[5])[1].sum()),
-                   fused_ms=fused_ms, forms={})
+        f_bound, _ = bound(args, n, cells=cells)
+        cell = 3 if cells else 0     # the chunks are 3-D
+        rec = dict(config=label, chunk=ch, C=C, T=T, S=S, fused_ms=fused_ms,
+                   fused=dict(k1_shape(args, cells=cells), bound_ms=f_bound,
+                              pct_of_bound=100 * f_bound / fused_ms,
+                              registers=REGISTERS.get("shared_fused", {}).get(
+                                  f"shared_fused_kernel<0,0,0,{cell}>")),
+                   forms={})
         for prec in PRECS:
             modes = {}
             for mode in MODES:
@@ -2143,8 +2276,10 @@ def variant_kernels(tree, n: int, label: str, dev) -> dict:
                 TENSOR_FLOPS if prec == "highest" else 0),
                 tensor_flops=TENSOR_FLOPS * MMA_PASSES[prec])
             form = ("mma_cell/" if cells else "mma/") + prec
-            rec["forms"][form] = dict(modes=modes, bound_ms=b_ms,
-                                      bound_by=b_by)
+            rec["forms"][form] = dict(
+                modes=modes, bound_ms=b_ms, bound_by=b_by,
+                pct_of_bound=100 * b_ms / modes["both"]["ms"],
+                **k6_shape(args, prec, cells))
             per_form.setdefault(form, []).append(dict(
                 max_abs_err=max(v["max_abs_err"] for v in modes.values()),
                 ms=modes["both"]["ms"], plain_ms=modes["both"]["plain_ms"],
@@ -2165,6 +2300,7 @@ def variant_kernels(tree, n: int, label: str, dev) -> dict:
                 *args, 0.0, 1.0, nsplit=nsplit), 1)
             b_ms, b_by = bound(args, n, extra_bytes=2 * nsplit * C * T * 16)
             rec["forms"]["blocks"] = dict(
+                active_blocks=int(shared.active_blocks(args[5])[1].sum()),
                 ms=km, plain_ms=pm, max_abs_err=err, bound_ms=b_ms,
                 bound_by=b_by, nsplit=nsplit, source_blocks=nb,
                 cuda_blocks=C * -(-T // 128) * nsplit, sms=sms,
@@ -2187,7 +2323,9 @@ def density(tree, label: str) -> dict:
     `tree`'s query, and the check that its processed pairs are what the
     plan that K1's kernels build on the card (shared.fused_device_plan:
     active granules) gives for the engine's masks on the same chunks,
-    where that plan must equal shared.fused_plan's lists."""
+    where that plan must equal shared.fused_plan's lists. K6 runs on the
+    same plan: the one its kernels build must equal it too, and the pairs
+    metrics.processed_pairs replays under the "mma" variant are its."""
     from rakau_tpu_torch import engine, metrics
     from rakau_tpu_torch.kernels import shared
     td, cfg = tree.tree_data, tree.config
@@ -2199,9 +2337,14 @@ def density(tree, label: str) -> dict:
     for ch in sample:
         mask = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)[5]
         plan = shared.fused_device_plan(mask)
-        if not same_plan(plan, shared.fused_plan(mask)):
+        if not (same_plan(plan, shared.fused_plan(mask)) and same_plan(
+                shared.fused_device_plan(mask, "shared_mma"), plan)):
             raise AssertionError(f"{label} chunk {ch}: the kernels' plan "
                                  "differs from fused_plan's")
+        if int(metrics.processed_pairs(cfg, mask, "mma")) \
+                != int(plan.cnt.sum()) * shared.GRANULE * cfg.ncrit:
+            raise AssertionError(f"{label} chunk {ch}: K6's processed pairs "
+                                 "are not its plan's")
         granules += int(plan.cnt.sum())
     replay = float(granules * shared.GRANULE * cfg.ncrit) \
         * (n_live / len(sample))
@@ -3222,7 +3365,8 @@ def main(argv=None) -> int:
     emit("edge_pool", max_abs_err=edge_err, cancellation_err=cancel)
     emit("edge_cell", max_abs_err=cell_edge_cases(shared, dev),
          wide_cells_max_abs_err=wide_cell_cases(shared, dev))
-    emit("edge_mma", max_abs_err=mma_edge_cases(shared, dev))
+    emit("edge_mma", max_abs_err=mma_edge_cases(shared, dev),
+         structure_max_abs_err=k6_structure_cases(shared, dev))
     emit("edge_blocks", max_abs_err=blocks_edge_cases(shared, dev))
     f64 = torch.float64
     k1_err, k1_stair = edge_cases(shared, dev, f64)

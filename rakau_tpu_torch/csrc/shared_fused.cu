@@ -54,18 +54,13 @@
 // warps in flight are.
 //
 // Design, six kernels a launch, none waiting on the host:
-//  1. shared_fused_mask_kernel turns the mask [C, S] into bits
-//     [C, Sp / 32] (a warp ballot a word) and one flag a (tile, granule
-//     of kGranule sources): does the tile take any of its sources?
-//  2. shared_fused_plan_kernel, one CUDA block a tile, compacts the tile's
-//     flagged granules into its list ids [C, NG] and count cnt [C], and
-//     shared_fused_work_kernel, one CUDA block, cuts every list into spans
-//     of `span` consecutive entries and writes them tile after tile
-//     (kernels/shared.py:fused_plan is the same plan in PyTorch).
-//  3. shared_fused_pack_kernel packs the row once: (x, y, z, m) as one
-//     real4 a source, int32 indices, the packed cells and the second
-//     moments, all padded to whole granules (far, massless, index -1,
-//     exempt, zero moments).
+//  1-3. The plan and the packed row (shared_plan.cuh, shared with K6):
+//     the mask into bits and granule flags, each tile's list of active
+//     granules of kGranule sources, the spans of `span` list entries
+//     (kernels/shared.py:fused_plan is the same plan in PyTorch); the row
+//     packed once: (x, y, z, m) as one real4 a source, int32 indices, the
+//     packed cells and the second moments, all padded to whole granules
+//     (far, massless, index -1, exempt, zero moments).
 //  4. shared_fused_kernel: the work is cut by each tile's own list; a
 //     work item is (span, group of targets), in the work list's order. A
 //     persistent grid of at most as many CUDA blocks as fit on the card
@@ -105,14 +100,8 @@
 //
 // CELL is the packing of the cell test: 0 (none), 3 (3-D cells) or 2 (2-D
 // cells, padded to 3-D by the wrapper): 36 instantiations of the main
-// kernel, two of the reduction and the four plan and packing kernels.
-
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-#include "cell_test.cuh"
+// kernel, two of the reduction and the four plan and packing kernels of
+// shared_plan.cuh.
 
 #ifdef RAKAU_REAL
 // The float64 build: at least four resident blocks a SM (at most 128
@@ -132,9 +121,6 @@
 #else
 #define RAKAU_K1_BOUNDS __launch_bounds__(kThreads)
 #endif
-#ifndef RAKAU_GRANULE
-#define RAKAU_GRANULE 128
-#endif
 #ifndef RAKAU_TPT
 #define RAKAU_TPT 2
 #endif
@@ -142,11 +128,14 @@
 #define RAKAU_UNROLL 8
 #endif
 
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cell_test.cuh"
+#include "shared_plan.cuh"
+
 namespace {
 
-using real = RAKAU_REAL;
-struct alignas(32) double4a { double x, y, z, w; };
-using real4 = std::conditional_t<sizeof(real) == 4, float4, double4a>;
 __device__ __forceinline__ float rsqrt_r(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_r(double x) { return rsqrt(x); }
 
@@ -157,17 +146,11 @@ constexpr int kThreads = 128;            // threads of a work item's block
 constexpr int kTpt = sizeof(real) == 8 ? 1 : RAKAU_TPT;
 constexpr int kTargets = kThreads * kTpt;    // targets a work item
 constexpr int kUnroll = RAKAU_UNROLL;    // unrolling of the source loop
-// Sources a granule: the unit of the per-tile active lists and of one
-// staging step. Must equal kernels/shared.py:GRANULE (checked at load).
-constexpr int kGranule = RAKAU_GRANULE;
 constexpr int kStages = 3;               // ring of staged granules
-constexpr int kQuad = 6;
-constexpr int kPackThreads = 256;
 constexpr size_t kStaticSmem = 48 * 1024;
 constexpr int kMaskedIdx = INT32_MIN;    // staged idx of a masked-out source
-static_assert(kGranule % 32 == 0 && kGranule / 4 <= kThreads,
-              "a granule is whole mask words, and one thread folds each "
-              "16-byte chunk of its indices");
+static_assert(kGranule / 4 <= kThreads,
+              "one thread folds each 16-byte chunk of a granule's indices");
 static_assert(kTpt >= 1, "a thread holds at least one target");
 enum Mode { kBoth = 0, kAcc = 1, kPot = 2 };
 
@@ -296,156 +279,6 @@ __device__ __forceinline__ void fold(int* s_idx, unsigned word)
         if (!(b & 8u)) v.w = kMaskedIdx;
         *p = v;
     }
-}
-
-// The mask as bits and granule flags: warp w = c * NG + g reads tile c's
-// mask over granule g (a ballot a 32-entry word) and writes its words and
-// whether any entry is on.
-__global__ void __launch_bounds__(kPackThreads)
-shared_fused_mask_kernel(const uint8_t* __restrict__ mask,    // [C, S]
-                         unsigned* __restrict__ bits,         // [C, words]
-                         uint8_t* __restrict__ flags,         // [C, NG]
-                         int C, int S, int NG)
-{
-    const long long w = (static_cast<long long>(blockIdx.x) * kPackThreads
-                         + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (w >= static_cast<long long>(C) * NG) return;    // the whole warp
-    const int c = static_cast<int>(w / NG);
-    const int g = static_cast<int>(w - static_cast<long long>(c) * NG);
-    const uint8_t* row = mask + static_cast<size_t>(c) * S;
-    unsigned any = 0;
-#pragma unroll
-    for (int k = 0; k < kGranule / 32; ++k) {
-        const int s = g * kGranule + 32 * k + lane;
-        const unsigned b = __ballot_sync(0xffffffffu, s < S && row[s] != 0);
-        if (lane == 0) bits[w * (kGranule / 32) + k] = b;
-        any |= b;
-    }
-    if (lane == 0) flags[w] = any != 0;
-}
-
-// Tile blockIdx.x's list: its flagged granules in row order into ids[c, :],
-// their count into cnt[c], the rest of the row padded with NG
-// (kernels/shared.py:fused_plan, whose ids and counts these equal).
-__global__ void __launch_bounds__(kPackThreads)
-shared_fused_plan_kernel(const uint8_t* __restrict__ flags,   // [C, NG]
-                         int32_t* __restrict__ ids,           // [C, NG]
-                         int32_t* __restrict__ cnt,           // [C]
-                         int NG)
-{
-    __shared__ int warp_on[kPackThreads / 32];
-    const int c = blockIdx.x;
-    const int lane = threadIdx.x & 31;
-    const int wid = threadIdx.x >> 5;
-    const uint8_t* f = flags + static_cast<size_t>(c) * NG;
-    int32_t* out = ids + static_cast<size_t>(c) * NG;
-    int running = 0;    // the same in every thread
-    for (int base = 0; base < NG; base += kPackThreads) {
-        const int g = base + threadIdx.x;
-        const bool on = g < NG && f[g] != 0;
-        const unsigned bal = __ballot_sync(0xffffffffu, on);
-        if (lane == 0) warp_on[wid] = __popc(bal);
-        __syncthreads();
-        int before = running, total = 0;
-        for (int w = 0; w < kPackThreads / 32; ++w) {
-            before += w < wid ? warp_on[w] : 0;
-            total += warp_on[w];
-        }
-        if (on) out[before + __popc(bal & ((1u << lane) - 1u))] = g;
-        running += total;
-        __syncthreads();    // warp_on is read before the next round
-    }
-    for (int g = running + threadIdx.x; g < NG; g += kPackThreads)
-        out[g] = NG;
-    if (threadIdx.x == 0) cnt[c] = running;
-}
-
-// Pack the row: entries [0, Sp) of pm, idx, quad, cell, padding past S.
-__global__ void __launch_bounds__(kPackThreads)
-shared_fused_pack_kernel(const real* __restrict__ src,         // [S, 3]
-                         const real* __restrict__ mass,        // [S]
-                         const int64_t* __restrict__ src_idx,  // [S]
-                         const real* __restrict__ quad,        // [S, 6]
-                         const int32_t* __restrict__ src_cell, // [S, 3]
-                         real4* __restrict__ pm, int* __restrict__ idx,
-                         real* __restrict__ q6, int* __restrict__ cellw,
-                         int S, int Sp, int cell_dims)
-{
-    const long long i = static_cast<long long>(blockIdx.x) * kPackThreads
-        + threadIdx.x;
-    if (i >= Sp) return;
-    const int s = static_cast<int>(i);
-    const bool in = s < S;
-    const size_t s3 = 3 * static_cast<size_t>(s);
-    real4 v{real(1e30f), real(1e30f), real(1e30f), real(0)};
-    if (in) {
-        v.x = src[s3];
-        v.y = src[s3 + 1];
-        v.z = src[s3 + 2];
-        v.w = mass[s];
-    }
-    pm[s] = v;
-    idx[s] = in ? static_cast<int>(src_idx[s]) : -1;
-    if (q6 != nullptr) {
-        const size_t s6 = kQuad * static_cast<size_t>(s);
-        for (int q = 0; q < kQuad; ++q)
-            q6[s6 + q] = in ? quad[s6 + q] : real(0);
-    }
-    if (cellw != nullptr) {
-        // padding past S: exempt, and massless
-        cellw[s] = !in ? -1
-            : cell_dims == 2 ? cell_source_word<2>(src_cell + s3)
-                             : cell_source_word<3>(src_cell + s3);
-    }
-}
-
-constexpr int kWorkThreads = 1024;   // the one CUDA block of the work list
-
-// The work list, by one CUDA block: tile c's spans z < ceil(cnt[c] / span)
-// as c * zmax + z, tile after tile (fused_plan's work list), padded with
-// C * zmax, and their number into n_work[0].
-__global__ void __launch_bounds__(kWorkThreads)
-shared_fused_work_kernel(const int32_t* __restrict__ cnt,     // [C]
-                         int32_t* __restrict__ work,          // [C * zmax]
-                         int32_t* __restrict__ n_work,        // [1]
-                         int C, int zmax, int span)
-{
-    __shared__ int first[kWorkThreads + 1];  // spans before each tile
-    __shared__ int warp_sum[kWorkThreads / 32];
-    const int lane = threadIdx.x & 31;
-    const int wid = threadIdx.x >> 5;
-    int base = 0;   // spans of the tiles before this round's
-    for (int c0 = 0; c0 < C; c0 += kWorkThreads) {
-        const int c = c0 + threadIdx.x;
-        const int ns = c < C ? (cnt[c] + span - 1) / span : 0;
-        int incl = ns;  // inclusive scan in the warp, then across warps
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const int up = __shfl_up_sync(0xffffffffu, incl, o);
-            if (lane >= o) incl += up;
-        }
-        if (lane == 31) warp_sum[wid] = incl;
-        __syncthreads();
-        int before = base;
-        for (int w = 0; w < wid; ++w) before += warp_sum[w];
-        first[threadIdx.x] = before + incl - ns;
-        if (threadIdx.x == kWorkThreads - 1)
-            first[kWorkThreads] = before + incl;
-        __syncthreads();
-        const int tiles = min(kWorkThreads, C - c0);
-        for (int k = 0; k < tiles; ++k) {
-            const int at = first[k];
-            const int n = first[k + 1] - at;
-            for (int z = threadIdx.x; z < n; z += kWorkThreads)
-                work[at + z] = (c0 + k) * zmax + z;
-        }
-        base = first[kWorkThreads];
-        __syncthreads();    // first, warp_sum read before the next round
-    }
-    for (int k = base + threadIdx.x; k < C * zmax; k += kWorkThreads)
-        work[k] = C * zmax;
-    if (threadIdx.x == 0) n_work[0] = base;
 }
 
 template <int MODE, bool COMP, bool QUAD, int CELL>
@@ -890,21 +723,10 @@ extern "C" int rakau_shared_fused_plan(const uint8_t* mask, void* ws,
         return static_cast<int>(cudaErrorInvalidValue);
     const Layout L = layout(C, 1, S, span, false, false, false);
     unsigned char* base = static_cast<unsigned char*>(ws);
-    uint8_t* flags = reinterpret_cast<uint8_t*>(base + L.flags);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const long long threads = static_cast<long long>(C) * L.NG * 32;
-    shared_fused_mask_kernel<<<static_cast<unsigned>(
-        (threads + kPackThreads - 1) / kPackThreads), kPackThreads, 0, st>>>(
-        mask, reinterpret_cast<unsigned*>(base + L.bits), flags, C, S, L.NG);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    shared_fused_plan_kernel<<<C, kPackThreads, 0, st>>>(flags, ids, cnt,
-                                                         L.NG);
-    const cudaError_t err2 = cudaGetLastError();
-    if (err2 != cudaSuccess) return static_cast<int>(err2);
-    shared_fused_work_kernel<<<1, kWorkThreads, 0, st>>>(cnt, work, n_work,
-                                                         C, L.zmax, span);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_plan(
+        mask, reinterpret_cast<unsigned*>(base + L.bits),
+        reinterpret_cast<uint8_t*>(base + L.flags), ids, cnt, work, n_work,
+        C, S, L.NG, L.zmax, span, static_cast<cudaStream_t>(stream)));
 }
 
 // Packs the row into the workspace ws (256-byte aligned, at least

@@ -38,10 +38,12 @@ float32 only): a 2-D call is padded to 3-D by pad_to_3d, which is exact,
 and a float64 call runs the same source built with -DRAKAU_REAL=double
 (build_library(f64=True)).
 
-The plans: K1 (csrc/shared_fused.cu) compacts each tile's mask at GRANULE
-sources and cuts each tile's list into spans of SPAN entries (fused_plan);
-K5 and K6 take whole blocks of BLOCK sources (active_blocks). PLAN_BLOCK
-names each evaluator's unit; metrics.processed_pairs replays them.
+The plans: K1 (csrc/shared_fused.cu) and K6 (csrc/shared_mma.cu) compact
+each tile's mask at GRANULE sources and cut each tile's list into spans of
+SPAN entries (fused_plan), built on the card by the same plan kernels
+(csrc/shared_plan.cuh); K5 takes whole blocks of BLOCK sources
+(active_blocks). PLAN_BLOCK names each evaluator's unit;
+metrics.processed_pairs replays them.
 """
 from __future__ import annotations
 
@@ -59,21 +61,21 @@ from .. import scan_utils as su
 from . import rows
 
 _MODES = {"both": 0, "acc": 1, "pot": 2}
-# Source-block granularity of the active-block lists of K5 and K6: each
-# CUDA block stages this many sources per step. Their kBlock must equal it
-# (checked when each library loads).
+# Source-block granularity of K5's active-block lists: each CUDA block
+# stages this many sources per step. Its kBlock must equal it (checked
+# when the library loads).
 BLOCK = 1024
-# K1's plan: each tile's list of active granules of GRANULE sources (the
-# reference's `subblock` selection; the unit of one staging step), cut
-# into spans of SPAN consecutive entries, one work item a span and target
-# group. The kernel's kGranule must equal GRANULE (checked when the
-# library loads); SPAN is handed to each launch. The plain version follows
-# the same plan unless told otherwise.
+# The plan of K1 and K6: each tile's list of active granules of GRANULE
+# sources (the reference's `subblock` selection; the unit of one staging
+# step), cut into spans of SPAN consecutive entries, one work item a span
+# and target group. Each kernel's kGranule must equal GRANULE (checked
+# when the library loads); SPAN is handed to each launch. The plain
+# versions follow the same plan unless told otherwise.
 GRANULE = 128
 SPAN = 2
 # the unit of each evaluator's plan: the sources a processed (tile, entry)
 # pair of its lists computes for every target
-PLAN_BLOCK = {"fused": GRANULE, "mma": BLOCK, "blocks": BLOCK}
+PLAN_BLOCK = {"fused": GRANULE, "mma": GRANULE, "blocks": BLOCK}
 
 
 def quad_pairs(ndim: int):
@@ -247,8 +249,8 @@ def _bf16(x):
 
 def eval_shared_mma_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
                           eps, G, mode: str = "both", prec: str = "x3",
-                          block: int = BLOCK, src_cell=None, tgt_cell=None,
-                          grid_sep: int = 0):
+                          src_cell=None, tgt_cell=None, grid_sep: int = 0,
+                          granule: int = GRANULE, span: int = SPAN):
     """Plain version of the tensor-core form (counterpart of
     `rakau_tpu.kernels.pallas._shared_fused_kernel_mxu`): monopole, fp32
     sums, another arithmetic than eval_shared_plain. In tile-local
@@ -263,10 +265,18 @@ def eval_shared_mma_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
 
     The indices are not read: the relative threshold drops a target's own
     row and any source within ~7e-4 of the pair's distance from p. Y is a
-    [T, B] x [B, D] product per source block at precision `prec`: "bf16"
-    (both operands rounded to bfloat16, fp32 sums), "x3" (w3 = Ah + Al and
-    s' = Bh + Bl in bfloat16, the three products Ah Bl + Al Bh + Ah Bh) or
-    "highest" (fp32). Arguments and results as eval_shared_plain."""
+    [T, B] x [B, D] product per granule at precision `prec`: "bf16" (both
+    operands rounded to bfloat16, fp32 sums), "x3" (w3 = Ah + Al and s' =
+    Bh + Bl in bfloat16, the three products Ah Bl + Al Bh + Ah Bh) or
+    "highest" (fp32).
+
+    K1's plan and order of sums (eval_shared_plain): each tile's list of
+    active granules of `granule` sources is cut into spans of `span`
+    consecutive entries (0: one span, the whole list); a granule's
+    [C, T, granule] panel is summed over its sources and added into its
+    span's sums (Y, ysum, pot), the spans' sums are added in span order,
+    and acc = Y - ysum t' is formed once on the totals. Arguments and
+    results as eval_shared_plain."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
     if prec not in PRECS:
@@ -275,62 +285,88 @@ def eval_shared_mma_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
         grid_sep = 0
     elif tgt_cell is None or grid_sep < 1:
         raise ValueError("src_cell needs tgt_cell and grid_sep >= 1")
+    if span < 0:
+        raise ValueError("span must be >= 0")
     C, T, D = tgt_pos.shape
     S = src_pos.shape[0]
     dtype = tgt_pos.dtype
-    eps2 = torch.full((), eps, dtype=dtype, device=tgt_pos.device) ** 2
+    dev = tgt_pos.device
+    eps2 = torch.full((), eps, dtype=dtype, device=dev) ** 2
     p = tgt_pos[:, :1, :]                               # [C, 1, D]
     tp = tgt_pos - p
     tts = None
     for d in range(D):
         sq = tp[..., d] * tp[..., d]
         tts = sq if tts is None else tts + sq           # [C, T]
-    y = torch.zeros_like(tgt_pos)
-    ysum = torch.zeros_like(tts)
-    pot = torch.zeros_like(tts)
-    mk = mask.to(dtype)
-    for s in range(0, S, block):
-        if not bool(mask[:, s:s + block].any()):
-            continue    # no tile takes this block: it adds exact zeros
-        sp = src_pos[None, s:s + block] - p             # [C, B, D]
+    ids, cnt = active_blocks(mask, granule)
+    NG = ids.shape[1]
+    pad = NG * granule - S
+    # the row padded to whole granules with masked-out entries
+    fpad = torch.nn.functional.pad
+    pos_p = fpad(src_pos, (0, 0, 0, pad))
+    mass_p = fpad(src_mass, (0, pad))
+    mask_p = fpad(mask, (0, pad))
+    cell_p = fpad(src_cell, (0, 0, 0, pad), value=-1) if grid_sep else None
+    zero = {"y": torch.zeros_like(tgt_pos), "ysum": torch.zeros_like(tts),
+            "pot": torch.zeros_like(tts)}
+    tot = dict(zero)          # the spans added so far
+    run = dict(zero)          # the current span's sums
+    nmax = int(cnt.max()) if C else 0
+    lane = torch.arange(granule, device=dev)
+    for k in range(nmax):
+        take = k < cnt                                     # [C]
+        end = take & (k + 1 == cnt)
+        if span:
+            end = end | (take & ((k + 1) % span == 0))
+        sl = ids[:, k].clamp(max=NG - 1).long()[:, None] * granule + lane
+        sp = pos_p[sl] - p                                 # [C, B, D]
         ss = dot = None
         for d in range(D):
             sq = sp[..., d] * sp[..., d]
-            ss = sq if ss is None else ss + sq          # [C, B]
+            ss = sq if ss is None else ss + sq             # [C, B]
             pr = tp[:, :, None, d] * sp[:, None, :, d]
-            dot = pr if dot is None else dot + pr       # [C, T, B]
+            dot = pr if dot is None else dot + pr          # [C, T, B]
         r2n = (tts[:, :, None] - 2.0 * dot) + ss[:, None, :]
         dead = r2n <= 2.0 ** -21 * (tts[:, :, None] + ss[:, None, :])
         if grid_sep:
-            scb = src_cell[s:s + block]
+            scb = cell_p[sl]                               # [C, B, D]
             csep = None
             for d in range(D):
-                cd = (scb[None, None, :, d] - tgt_cell[:, :, None, d]).abs()
+                cd = (scb[:, None, :, d] - tgt_cell[:, :, None, d]).abs()
                 csep = cd if csep is None else torch.maximum(csep, cd)
-            dead = dead | ((csep >= grid_sep) & (scb[None, None, :, 0] >= 0))
+            dead = dead | ((csep >= grid_sep) & (scb[:, None, :, 0] >= 0))
         inv_r = torch.where(dead, 0.0, torch.rsqrt(r2n + eps2))
-        w = (src_mass[s:s + block][None, None, :]
-             * mk[:, None, s:s + block]) * inv_r
+        mkb = torch.gather(mask_p, 1, sl).to(dtype)        # [C, B]
+        w = (mass_p[sl] * mkb)[:, None, :] * inv_r
+        part = {}
         if mode in ("both", "acc"):
             w3 = w * (inv_r * inv_r)
-            ysum += w3.sum(-1)
+            part["ysum"] = w3.sum(-1)
             if prec == "highest":
-                parts = [(w3, sp)]
+                pairs = [(w3, sp)]
             else:
                 ah, bh = _bf16(w3), _bf16(sp)
-                parts = [(ah, bh)]
+                pairs = [(ah, bh)]
                 if prec == "x3":
-                    parts = [(ah, _bf16(sp - bh)), (_bf16(w3 - ah), bh),
+                    pairs = [(ah, _bf16(sp - bh)), (_bf16(w3 - ah), bh),
                              (ah, bh)]
+            ys = []
             for d in range(D):
                 yd = None
-                for a, b in parts:
+                for a, b in pairs:
                     pr = a * b[:, None, :, d]
                     yd = pr if yd is None else yd + pr
-                y[..., d] += yd.sum(-1)
+                ys.append(yd.sum(-1))
+            part["y"] = torch.stack(ys, dim=-1)
         if mode in ("both", "pot"):
-            pot -= w.sum(-1)
-    return G * (y - ysum[..., None] * tp), G * pot
+            part["pot"] = -w.sum(-1)
+        for o, v in part.items():
+            sh = (C, 1, 1) if o == "y" else (C, 1)
+            tk, ek = take.view(sh), end.view(sh)
+            run[o] = torch.where(tk, run[o] + v, run[o])
+            tot[o] = torch.where(ek, tot[o] + run[o], tot[o])
+            run[o] = torch.where(ek, 0.0, run[o])
+    return G * (tot["y"] - tot["ysum"][..., None] * tp), G * tot["pot"]
 
 
 def eval_shared_blocks_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
@@ -485,8 +521,18 @@ _LIBRARIES = {
                       "rakau_shared_fused_blocks_per_sm": [_INT] * 5,
                       "rakau_shared_fused_targets_per_thread": []},
                      ("granule", "cell_bits", "real_bytes")),
-    "shared_mma": ({"rakau_shared_mma": [_VOIDP] * 10 + [_INT] * 8
-                    + [_REAL, _VOIDP]}, ("block", "cell_bits")),
+    "shared_mma": ({"rakau_shared_mma_plan": [_VOIDP] * 6 + [_INT] * 3
+                    + [_VOIDP],
+                    "rakau_shared_mma_pack": [_VOIDP] * 4 + [_INT] * 5
+                    + [_VOIDP],
+                    "rakau_shared_mma": [_VOIDP] * 9 + [_INT] * 9
+                    + [_REAL, _REAL, _VOIDP],
+                    "rakau_shared_mma_workspace": [_INT] * 5,
+                    "rakau_shared_mma_grid": [_INT] * 9,
+                    "rakau_shared_mma_blocks_per_sm": [_INT] * 4,
+                    "rakau_shared_mma_targets_per_item": [],
+                    "rakau_shared_mma_threads": []},
+                   ("granule", "cell_bits")),
     "shared_blocks": ({"rakau_shared_blocks": [_VOIDP] * 10 + [_INT] * 5
                        + [_REAL, _VOIDP]}, ("block",)),
     "pool": ({"rakau_pool_plan": [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP],
@@ -509,6 +555,7 @@ _LIBRARIES = {
 }
 # functions that return something else than an int
 _RESTYPES = {"rakau_shared_fused_workspace": ctypes.c_size_t,
+             "rakau_shared_mma_workspace": ctypes.c_size_t,
              "rakau_pool_workspace": ctypes.c_size_t,
              "rakau_tiles_workspace": ctypes.c_size_t}
 # the libraries that have a float64 build
@@ -564,8 +611,8 @@ def block_any(mask: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     """[C, NB] bool: tile c has a live mask entry in source block j of
     `block` entries. The one place where a mask [C, S] becomes a kernel's
     plan: each form computes exactly the (tile, block) pairs that are true
-    here at its own unit (PLAN_BLOCK: GRANULE for K1, BLOCK for K5 and
-    K6), block x T pairs each, and metrics.processed_pairs counts them from
+    here at its own unit (PLAN_BLOCK: GRANULE for K1 and K6, BLOCK for
+    K5), block x T pairs each, and metrics.processed_pairs counts them from
     here. The last block may be ragged (the kernels pad or bounds-check
     it)."""
     C, S = mask.shape
@@ -585,12 +632,13 @@ def active_blocks(mask: torch.Tensor, block: int = BLOCK):
 
 
 class FusedPlan(NamedTuple):
-    """K1's plan of one launch. ids [C, NG] int32, cnt [C] int32: every
-    tile's active granules (active_blocks(mask, GRANULE)). work [C * zmax]
-    int32: the spans, tile * zmax + span index in tile-major order, span z
-    of tile c the list entries [z * span, min((z + 1) * span, cnt[c]));
-    n_work [1] int32 of them are live (the rest padding). zmax =
-    ceil(NG / span), the most spans a tile can have."""
+    """The plan of one launch of K1 or K6. ids [C, NG] int32, cnt [C]
+    int32: every tile's active granules (active_blocks(mask, GRANULE)).
+    work [C * zmax] int32: the spans, tile * zmax + span index in
+    tile-major order, span z of tile c the list entries [z * span,
+    min((z + 1) * span, cnt[c])); n_work [1] int32 of them are live (the
+    rest padding). zmax = ceil(NG / span), the most spans a tile can
+    have."""
     ids: torch.Tensor
     cnt: torch.Tensor
     work: torch.Tensor
@@ -600,8 +648,9 @@ class FusedPlan(NamedTuple):
 
 def fused_plan(mask: torch.Tensor, span: int = SPAN,
                granule: int = GRANULE) -> FusedPlan:
-    """K1's plan for a mask [C, S], on the mask's device, with no host
-    sync: each tile's active granules, cut into spans of `span` entries."""
+    """The plan of K1 and K6 for a mask [C, S], on the mask's device, with
+    no host sync: each tile's active granules, cut into spans of `span`
+    entries."""
     ids, cnt = active_blocks(mask, granule)
     zmax = -(-ids.shape[1] // span)
     nspan = (cnt.long() + span - 1) // span
@@ -726,9 +775,12 @@ def multiprocessors(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _device_plan(lib, mask, ws, stream) -> FusedPlan:
-    """fused_plan(mask) built by K1's kernels on the card into new
-    tensors, the mask bits and flags into the workspace ws."""
+def _device_plan(lib, mask, ws, stream,
+                 name: str = "shared_fused") -> FusedPlan:
+    """fused_plan(mask) built on the card by the plan kernels of library
+    `name` (shared_fused or shared_mma: the same kernels,
+    csrc/shared_plan.cuh) into new tensors, the mask bits and flags into
+    the workspace ws."""
     C, S = mask.shape
     ng = max(1, -(-S // GRANULE))
     zmax = -(-ng // SPAN)
@@ -737,27 +789,30 @@ def _device_plan(lib, mask, ws, stream) -> FusedPlan:
                      torch.empty((C,), dtype=torch.int32, device=dev),
                      torch.empty((C * zmax,), dtype=torch.int32, device=dev),
                      torch.empty((1,), dtype=torch.int32, device=dev), zmax)
-    err = lib.rakau_shared_fused_plan(
+    err = getattr(lib, f"rakau_{name}_plan")(
         mask.data_ptr(), ws.data_ptr(), plan.ids.data_ptr(),
         plan.cnt.data_ptr(), plan.work.data_ptr(), plan.n_work.data_ptr(),
         C, S, SPAN, stream)
-    raise_on(err, lib, "shared_fused (plan)")
+    raise_on(err, lib, f"{name} (plan)")
     return plan
 
 
-def fused_device_plan(mask: torch.Tensor) -> FusedPlan:
-    """K1's plan as its kernels build it from a bool mask [C, S] on a CUDA
-    device, which must equal fused_plan(mask) in every field (a check of
-    the kernels, not a step of the path)."""
+def fused_device_plan(mask: torch.Tensor,
+                      name: str = "shared_fused") -> FusedPlan:
+    """The plan as the kernels of library `name` (K1's shared_fused or
+    K6's shared_mma) build it from a bool mask [C, S] on a CUDA device,
+    which must equal fused_plan(mask) in every field (a check of the
+    kernels, not a step of the path)."""
     _check("mask", mask, torch.bool, mask.shape)
-    lib = _library("shared_fused")
+    lib = _library(name)
     C, S = mask.shape
-    ws = torch.empty(lib.rakau_shared_fused_workspace(C, 1, S, SPAN, 0, 0,
-                                                      0),
-                     dtype=torch.uint8, device=mask.device)
+    size = (lib.rakau_shared_fused_workspace(C, 1, S, SPAN, 0, 0, 0)
+            if name == "shared_fused"
+            else lib.rakau_shared_mma_workspace(C, 1, S, SPAN, 0))
+    ws = torch.empty(size, dtype=torch.uint8, device=mask.device)
     with torch.cuda.device(mask.device):
         return _device_plan(lib, mask, ws, torch.cuda.current_stream(
-            mask.device).cuda_stream)
+            mask.device).cuda_stream, name)
 
 
 def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
@@ -827,9 +882,12 @@ def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     `rakau_tpu.kernels.pallas._shared_fused_kernel_mxu`): monopole, fp32
     sums, with or without the cell-separation test, at precision `prec`
     ("bf16" | "x3" | "highest"). Same arguments and results as
-    eval_shared_mma_plain, same tensor types as eval_shared_fused but
-    float32 only (float64 raises ValueError); the indices are checked and
-    not read. Launches on the current stream."""
+    eval_shared_mma_plain at its default plan (fused_plan), same tensor
+    types as eval_shared_fused but float32 only (float64 raises
+    ValueError); the indices are checked and not read. On the current
+    stream, with no host sync: K1's plan and the packed row into a
+    workspace (K1's own plan and packing kernels), then the kernel and its
+    span reduction."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
     if prec not in PRECS:
@@ -844,25 +902,33 @@ def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
             tgt_cell if grid_sep else None)
     acc, pot = _outputs(tgt_pos)
     if C == 0 or T == 0:
-        return G * acc[..., :D], G * pot
-    ids, cnt = active_blocks(mask)
+        return acc[..., :D], pot
     if grid_sep:
         src_cell = src_cell.to(torch.int32)
         tgt_cell = tgt_cell.to(torch.int32)
     lib = _library("shared_mma")
     dev = tgt_pos.device
+    ws = torch.empty(lib.rakau_shared_mma_workspace(C, T, S, SPAN,
+                                                    int(bool(grid_sep))),
+                     dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        plan = _device_plan(lib, mask, ws, stream, "shared_mma")
+        err = lib.rakau_shared_mma_pack(
+            src_pos.data_ptr(), src_mass.data_ptr(),
+            src_cell.data_ptr() if grid_sep else None, ws.data_ptr(), C, T,
+            S, SPAN, D if grid_sep else 0, stream)
+        raise_on(err, lib, "shared_mma (row packing)")
         err = lib.rakau_shared_mma(
-            tgt_pos.data_ptr(), src_pos.data_ptr(), src_mass.data_ptr(),
-            mask.data_ptr(), src_cell.data_ptr() if grid_sep else None,
-            tgt_cell.data_ptr() if grid_sep else None, ids.data_ptr(),
-            cnt.data_ptr(), acc.data_ptr(), pot.data_ptr(), C, T, S,
-            ids.shape[1], _MODES[mode], PRECS[prec], int(grid_sep), D,
-            eps2_arg(eps, torch.float32), stream)
+            tgt_pos.data_ptr(), tgt_cell.data_ptr() if grid_sep else None,
+            plan.ids.data_ptr(), plan.cnt.data_ptr(), plan.work.data_ptr(),
+            plan.n_work.data_ptr(), ws.data_ptr(), acc.data_ptr(),
+            pot.data_ptr(), C, T, S, SPAN, _MODES[mode], PRECS[prec],
+            int(grid_sep), D, multiprocessors(dev),
+            eps2_arg(eps, torch.float32), float(G), stream)
     raise_on(err, lib, "shared_mma")
     count_launch(launches, "mma_cell" if grid_sep else "mma", D == 2, False)
-    return G * acc[..., :D], G * pot
+    return (acc if D == 3 else acc[..., :D].contiguous()), pot
 
 
 # CUDA blocks per SM that eval_shared_blocks aims at when it splits the row

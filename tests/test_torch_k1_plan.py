@@ -133,11 +133,11 @@ def test_compensated_sums_beat_fp32_at_every_granule_and_span():
 
 
 def test_each_evaluator_names_its_plan():
-    """K1 (fused) plans at GRANULE, K5 (blocks) and K6 (mma) at BLOCK;
+    """K1 (fused) and K6 (mma) plan at GRANULE, K5 (blocks) at BLOCK;
     processed_pairs follows the evaluator that takes each launch."""
     from rakau_tpu_torch import metrics
     assert shared.PLAN_BLOCK == {"fused": shared.GRANULE,
-                                 "mma": shared.BLOCK,
+                                 "mma": shared.GRANULE,
                                  "blocks": shared.BLOCK}
     assert shared.GRANULE in (128, 256) and shared.BLOCK % G == 0
     mask = torch.zeros((2, 3000), dtype=torch.bool)
@@ -146,15 +146,16 @@ def test_each_evaluator_names_its_plan():
     fused = metrics.processed_pairs(cfg, mask)
     assert int(fused) == 3 * G * 64
     with dispatch.shared_variant("mma"):
-        assert int(metrics.processed_pairs(cfg, mask)) \
-            == 3 * shared.BLOCK * 64
+        assert int(metrics.processed_pairs(cfg, mask)) == 3 * G * 64
         # a compensated launch stays with K1
         comp = cfg.with_(accum="compensated")
         assert int(metrics.processed_pairs(comp, mask)) == 3 * G * 64
     assert int(metrics.processed_pairs(cfg, mask, "blocks")) \
         == 3 * shared.BLOCK * 64
-    # quadrupole: the node rows [0, m2p_cap) are K1's in every variant
+    # quadrupole: the node rows [0, m2p_cap) are K1's in every variant,
+    # the particle rows K6's (K1's granules) or K5's (blocks)
     quad = cfg.with_(multipole_order=2)
     with dispatch.shared_variant("mma"):
-        assert int(metrics.processed_pairs(quad, mask)) \
-            == (G + 2 * shared.BLOCK) * 64
+        assert int(metrics.processed_pairs(quad, mask)) == (G + 2 * G) * 64
+    assert int(metrics.processed_pairs(quad, mask, "blocks")) \
+        == (G + 2 * shared.BLOCK) * 64

@@ -502,40 +502,192 @@ def make_mma_case(seed, C=4, T=32, S=384):
     return tpos, tidx, spos, smass, sidx, mask, 0.25
 
 
+def make_mma_tile_case(seed, C=4, T=32, S=333, D=3):
+    """A row for K6 whose tiles are compact, as the engine's are: each
+    tile's targets in a unit cube, the sources spread around them, so that
+    |Y| stays within a few |acc| (on make_mma_case's unclustered rows |Y|
+    is up to ~100 |acc|, and the reference's own fp32 sums of Y then lie
+    1.07-1.33x the tolerance from the exact sum of the same terms at
+    blocks of 128-512, where the plain version's lie 0.24x). Planted self
+    pairs (tile 0, targets 0..7), far massless padding, a dead stretch of
+    granules and an empty tile (2); softening 0.25 (make_mma_case)."""
+    rng = np.random.default_rng(seed)
+    n = 2000
+    centers = rng.uniform(-2, 2, (C, 1, D))
+    tpos = (centers + rng.uniform(-0.5, 0.5, (C, T, D))).astype(np.float32)
+    tidx = rng.choice(n, size=(C, T), replace=False).astype(np.int32)
+    tidx[1, -3:] = n                                    # padding targets
+    spos = rng.uniform(-3, 3, (S, D)).astype(np.float32)
+    smass = rng.uniform(0.1, 1, S).astype(np.float32)
+    sidx = np.full(S, -1, np.int32)
+    spos[:8] = tpos[0, :8]                              # self pairs
+    sidx[:8] = tidx[0, :8]
+    spos[-5:] = 1e30                                    # padding sources
+    smass[-5:] = 0.0
+    mask = rng.uniform(size=(C, S)) < 0.3
+    mask[:, 64:192] = False
+    mask[2] = False                                     # empty tile
+    return tpos, tidx, spos, smass, sidx, mask, 0.25
+
+
+# The plain K6 follows K1's plan; against the reference's matrix-unit
+# kernel with the granule as its `subblock` (its step a block of 256
+# sources made of them), each mode runs it at one granule, at every span
+# length: (granule, spans)
+MMA_PLANS = {"both": (shared.GRANULE, (0, 1, 3)), "acc": (64, (0, 1, 3)),
+             "pot": (32, (0, 1, 3))}
+
+
+def _mma_close(got, want, prec):
+    """K6 against the reference's matrix-unit kernel: RTOL/ATOL, one bf16
+    pass at 2e-2 (2^-8 a pair)."""
+    rtol = 2e-2 if prec == "bf16" else RTOL
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol,
+                                   atol=ATOL if prec != "bf16" else 2e-2)
+
+
+def _mma_cells(seed, S, D=3):
+    """(torch, jax) keyword arguments of make_cells' leaf cells in D
+    dimensions at grid_sep 2."""
+    scell, tcell = make_cells(seed, 4, 32, S)
+    scell, tcell = scell[:, :D].copy(), tcell[..., :D].copy()
+    return (dict(src_cell=torch.as_tensor(scell).long(),
+                 tgt_cell=torch.as_tensor(tcell).long(), grid_sep=2),
+            dict(src_cell=jnp.asarray(scell), tgt_cell=jnp.asarray(tcell),
+                 grid_sep=2))
+
+
 @pytest.mark.parametrize("mode", ["both", "acc", "pot"])
 @pytest.mark.parametrize("cells", [False, True])
 @pytest.mark.parametrize("prec", ["bf16", "x3", "highest"])
 def test_plain_mma_matches_the_pallas_mxu_kernel(monkeypatch, prec, cells,
                                                  mode):
+    """At each precision, with and without cells: the plain K6 at granules
+    of 64 in one span against the reference's kernel at blocks of 64 on
+    make_mma_case's rows; then at its mode's granule (MMA_PLANS: 128, 64,
+    32) and every span length against the reference with that granule as
+    its `subblock`, on compact tiles (make_mma_tile_case)."""
     case = make_mma_case(61, S=333)
     eps = case[-1]
     targs, jargs = _torch_args(case), _jax_args(case)
-    tkw, jkw = {}, {}
-    if cells:
-        scell, tcell = make_cells(62, 4, 32, 333)
-        tkw = dict(src_cell=torch.as_tensor(scell).long(),
-                   tgt_cell=torch.as_tensor(tcell).long(), grid_sep=2)
-        jkw = dict(src_cell=jnp.asarray(scell), tgt_cell=jnp.asarray(tcell),
-                   grid_sep=2)
+    tkw, jkw = _mma_cells(62, 333) if cells else ({}, {})
     monkeypatch.setenv("RAKAU_PALLAS_MXU", "1")
     monkeypatch.setenv("RAKAU_MXU_PREC", prec)
     want = pk.eval_shared_fused(*jargs, eps, 1.5, block=64, interpret=True,
                                 mode=mode, **jkw)
     got = shared.eval_shared_mma_plain(*targs, eps, 1.5, mode=mode,
-                                       prec=prec, block=64, **tkw)
-    rtol = 2e-2 if prec == "bf16" else RTOL
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol,
-                                   atol=ATOL if prec != "bf16" else 2e-2)
+                                       prec=prec, granule=64, span=0, **tkw)
+    _mma_close(got, want, prec)
     assert not got[0][2].any() and not got[1][2].any()      # empty tile
-    # the planted self pairs (tile 0, targets 0..7) add nothing: without
-    # them target (0, 0) keeps its sums bit for bit
+
+    case = make_mma_tile_case(61, S=333)
+    targs, jargs = _torch_args(case), _jax_args(case)
+    granule, spans = MMA_PLANS[mode]
+    want = pk.eval_shared_fused(*jargs, eps, 1.5, block=256,
+                                subblock=granule, interpret=True, mode=mode,
+                                **jkw)
     off = targs[5].clone()
     off[0, 0] = False
-    bare = shared.eval_shared_mma_plain(*targs[:5], off, eps, 1.5, mode=mode,
-                                        prec=prec, block=64, **tkw)
-    assert torch.equal(bare[0][0, 0], got[0][0, 0])
-    assert torch.equal(bare[1][0, 0], got[1][0, 0])
+    for span in spans:
+        plan = dict(mode=mode, prec=prec, granule=granule, span=span, **tkw)
+        got = shared.eval_shared_mma_plain(*targs, eps, 1.5, **plan)
+        _mma_close(got, want, prec)
+        assert not got[0][2].any() and not got[1][2].any()  # empty tile
+        # the planted self pairs (tile 0, targets 0..7) add nothing:
+        # without them target (0, 0) keeps its sums bit for bit
+        bare = shared.eval_shared_mma_plain(*targs[:5], off, eps, 1.5,
+                                            **plan)
+        assert torch.equal(bare[0][0, 0], got[0][0, 0])
+        assert torch.equal(bare[1][0, 0], got[1][0, 0])
+
+
+@pytest.mark.parametrize("cells", [False, True])
+@pytest.mark.parametrize("prec", ["bf16", "x3", "highest"])
+def test_plain_mma_matches_the_pallas_mxu_kernel_in_2d(monkeypatch, prec,
+                                                       cells):
+    """The same in 2-D (2-D cells too) on compact tiles, at a granule of
+    64 and every span length, mode both."""
+    case = make_mma_tile_case(70, S=300, D=2)
+    eps = case[-1]
+    targs, jargs = _torch_args(case), _jax_args(case)
+    tkw, jkw = _mma_cells(71, 300, D=2) if cells else ({}, {})
+    monkeypatch.setenv("RAKAU_PALLAS_MXU", "1")
+    monkeypatch.setenv("RAKAU_MXU_PREC", prec)
+    want = pk.eval_shared_fused(*jargs, eps, 1.5, block=256, subblock=64,
+                                interpret=True, **jkw)
+    for span in (0, 1, 3):
+        got = shared.eval_shared_mma_plain(*targs, eps, 1.5, prec=prec,
+                                           granule=64, span=span, **tkw)
+        assert got[0].shape == (4, 32, 2)
+        _mma_close(got, want, prec)
+        assert not got[0][2].any() and not got[1][2].any()  # empty tile
+
+
+# the plans of test_plain_mma_plans_do_not_change_the_sums: (granule, span)
+MMA_PLAN_GRID = ((32, 1), (64, 0), (shared.GRANULE, shared.SPAN), (256, 3),
+                 (1000, shared.SPAN))
+
+
+@pytest.mark.parametrize("cells", [False, True])
+@pytest.mark.parametrize("mode", ["both", "acc", "pot"])
+@pytest.mark.parametrize("prec", ["bf16", "x3", "highest"])
+def test_plain_mma_plans_do_not_change_the_sums(prec, mode, cells):
+    """Neither the granule nor the span length changes the plain K6's sums
+    beyond the reordering of fp32 sums: every per-pair term (w3, its
+    bfloat16 parts and their products, exact in fp32) is the same at every
+    plan. Tolerance rtol 1e-5, and an absolute 2e-5 of the largest
+    acceleration (acc = Y - ysum t' cancels: |Y| is up to 10-100x |acc|
+    in a tile, so the rounding of Y's sums, ~1e-7 of |Y|, shows at up to
+    1e-5 of acc; measured 0.8-2.5e-6 here) or 1e-6 of the largest
+    potential (a plain sum; measured 2.4e-7)."""
+    case = make_mma_case(72, S=700)
+    eps = case[-1]
+    targs = _torch_args(case)
+    kw = dict(mode=mode, prec=prec)
+    if cells:
+        scell, tcell = make_cells(73, 4, 32, 700)
+        kw.update(src_cell=torch.as_tensor(scell).long(),
+                  tgt_cell=torch.as_tensor(tcell).long(), grid_sep=2)
+    a = shared.eval_shared_mma_plain(*targs, eps, 1.0, granule=64, span=1,
+                                     **kw)
+    for granule, span in MMA_PLAN_GRID:
+        b = shared.eval_shared_mma_plain(*targs, eps, 1.0, granule=granule,
+                                         span=span, **kw)
+        for x, y, atol in zip(b, a, (2e-5, 1e-6)):
+            np.testing.assert_allclose(
+                x.numpy(), y.numpy(), rtol=1e-5,
+                atol=atol * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("cells", [False, True])
+@pytest.mark.parametrize("prec", ["bf16", "x3", "highest"])
+def test_plain_mma_self_pairs_add_nothing_at_every_plan(prec, cells):
+    """The planted self pairs (tile 0, targets 0..7 on sources 0..7) are
+    dead at every granule and span: with the mask of source 0 on tile 0
+    switched off, target (0, 0) keeps its sums bit for bit, in every
+    mode."""
+    case = make_mma_case(74, S=500)
+    eps = case[-1]
+    targs = _torch_args(case)
+    kw = {}
+    if cells:
+        scell, tcell = make_cells(75, 4, 32, 500)
+        kw = dict(src_cell=torch.as_tensor(scell).long(),
+                  tgt_cell=torch.as_tensor(tcell).long(), grid_sep=3)
+    off = targs[5].clone()
+    off[0, 0] = False
+    for granule in (32, 64, 128):
+        for span in (0, 1, 3):
+            for mode in ("both", "acc", "pot"):
+                plan = dict(granule=granule, span=span, mode=mode, prec=prec,
+                            **kw)
+                got = shared.eval_shared_mma_plain(*targs, eps, 1.5, **plan)
+                bare = shared.eval_shared_mma_plain(*targs[:5], off, eps,
+                                                    1.5, **plan)
+                assert torch.equal(bare[0][0, 0], got[0][0, 0])
+                assert torch.equal(bare[1][0, 0], got[1][0, 0])
+                assert torch.isfinite(got[0]).all()
 
 
 @pytest.mark.parametrize("prec,tol", [("highest", 1e-4), ("x3", 1e-4),
@@ -615,11 +767,12 @@ def test_blocks_nsplit_rule():
 
 
 def test_block_any_is_the_plan_of_every_form():
-    """K5 and K6 plan at BLOCK; K1 at GRANULE (fused_plan)."""
+    """K5 plans at BLOCK; K1 and K6 at GRANULE (fused_plan)."""
     mask = torch.zeros((3, 2500), dtype=torch.bool)
     mask[0, 5] = mask[0, 2050] = mask[1, 1024] = True
-    assert shared.PLAN_BLOCK["mma"] == shared.PLAN_BLOCK["blocks"] \
-        == shared.BLOCK
+    assert shared.PLAN_BLOCK["blocks"] == shared.BLOCK
+    assert shared.PLAN_BLOCK["mma"] == shared.PLAN_BLOCK["fused"] \
+        == shared.GRANULE
     any_ = shared.block_any(mask)
     assert any_.tolist() == [[True, False, True], [False, True, False],
                              [False, False, False]]

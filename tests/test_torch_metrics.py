@@ -18,7 +18,7 @@ from rakau_tpu import metrics as jmetrics
 from rakau_tpu.config import TreeConfig as JaxConfig
 from rakau_tpu_torch import engine, metrics
 from rakau_tpu_torch.convert import config_from_jax, treedata_from_numpy
-from rakau_tpu_torch.kernels import shared
+from rakau_tpu_torch.kernels import dispatch, shared
 
 # pytest-xdist runs one worker per core; torch's own intra-op pool in
 # every worker would oversubscribe the cores (tens of times slower).
@@ -87,6 +87,12 @@ def test_shared_density_matches_jax_and_the_kernels_plan(case, monkeypatch):
     assert got.processed_pairs == pytest.approx(
         blocks * shared.GRANULE * cfg.ncrit * n_live / len(sample),
         rel=1e-12)
+    # K6 runs on K1's plan: under its variant the same granules are
+    # replayed (a compensated or quadrupole launch stays K1's anyway)
+    with dispatch.shared_variant("mma"):
+        mma = metrics.collect_shared_density(td, cfg, THETA, max_chunks=3)
+    assert mma.processed_pairs == got.processed_pairs
+    assert mma.block == shared.GRANULE
 
 
 def test_density_needs_a_shared_row():
