@@ -1,13 +1,16 @@
 """Time the hand-written kernels K1 (rakau_tpu_torch/csrc/shared_fused.cu),
-K2 (csrc/pool.cu), K3 (csrc/tiles.cu) and K6 (csrc/shared_mma.cu) of this
-checkout against those of another checkout, on the same inputs on one CUDA
-card, and sweep this checkout's build options and span lengths.
+K2 (csrc/pool.cu), K3 and K4 (csrc/tiles.cu), K5 (csrc/shared_blocks.cu)
+and K6 (csrc/shared_mma.cu) of this checkout against those of another
+checkout, on the same inputs on one CUDA card, and sweep this checkout's
+build options and span lengths.
 
-    python3 ab_kernels.py --other DIR [--kernels k1,k2,k3,k6] [--n 1048576]
-        [--reps 20] [--out FILE] [--sweep G:TPT:UNROLL:MINB,...]
+    python3 ab_kernels.py --other DIR [--kernels k1,k2,k3,k4,k5,k6]
+        [--n 1048576] [--reps 20] [--out FILE] [--sweep G:TPT:UNROLL:MINB,...]
         [--spans SPAN,...] [--pool-spans SPAN,...] [--tiles-spans SPAN,...]
         [--rows-sweep TPT:UNROLL:MINB,...] [--mma-spans SPAN,...]
-        [--mma-sweep WARPS:SLABS,...]
+        [--mma-sweep WARPS:SLABS,...] [--blocks-spans SPAN,...]
+        [--blocks-sweep STEP:TPT:UNROLL:THREADS,...]
+        [--pairwise-spans SPAN,...]
 
 DIR is the root of the other checkout (an unpacked `git archive` of an
 earlier commit, say). Its csrc/<kernel>.cu is built with the flags of
@@ -15,9 +18,12 @@ kernels/shared.py:build_library into rakau_tpu_torch/_build/other/ (the
 float64 build too where a form is float64) and called through ctypes with
 the launch signature its source declares: K1 this side's (the granule
 plan) or the row-at-a-time signature of the 1024-source block plan (with
-or without the cell_dims argument), K2 and K3 the one-launch signatures of
-their earlier kernels (no G factor, K3's block plan of min(1024, Sm, Sp)),
-K6 the signature of its 1024-source block plan (no G).
+or without the cell_dims argument), K2 and K3 this side's (the granule
+plan) or the one-launch signatures of their earlier kernels (no G factor,
+K3's block plan of min(1024, Sm, Sp)), K6 the signature of its
+1024-source block plan (no G), K5 and K4 this side's or the static split
+of the row (grid (C, T / 128, nsplit), nsplit from the split's own rule:
+8 CUDA blocks an SM; K5 with its active blocks made here once).
 
 K1's inputs are chunks 0 and 1 of a query of a seeded Plummer sphere of n
 particles: the shared traversal, farfield "grid2" (order 4, grid_sep 3),
@@ -32,7 +38,10 @@ monopole in float64). K3's are chunks 0 and 1 of the lists query of the
 same particles (chip_smoke.py's LISTS_KW) and chunk 0 of F1's float64
 lists query. K6's are chunks 0 and 1 of chip_smoke.py's shared+grid query
 (its main path) and of its lmac+grid2 query (LMAC_KW, the cell form) of
-the same particles, in each precision. Each form and input runs other,
+the same particles, in each precision. K5's are the shared+grid chunks 0
+and 1 and the dense row of metrics.measure_kernel_roof (its roof); K4's
+are K3's (one chunk's two launches, one a row, and the add of their sums,
+as eval_tiles(fused=False) runs them). Each form and input runs other,
 this, this, other: `reps` launches each between two CUDA events (the card
 held busy while the host enqueues them), the host work (the other's block
 plan; this side's plan tensors and workspace) done once outside the
@@ -46,7 +55,8 @@ bit-equal (another order of summation): the largest difference is
 reported, beside whether two launches of this side agree bit for bit and
 whether the plan its kernel builds equals the PyTorch plan (K6: also
 whether they lie within chip_smoke.py's MMA_ATOL_REL of the other's
-largest sum).
+largest sum), and whether the two sides' sums are bit-equal (K2 and K3
+against a parent on the same design: the MUFU rsqrt must keep them so).
 
 --sweep builds K1's source again with -DRAKAU_GRANULE, -DRAKAU_TPT
 (targets a thread), -DRAKAU_UNROLL and -DRAKAU_MIN_BLOCKS (the launch
@@ -59,8 +69,11 @@ beside their defaults; --rows-sweep builds K2's and K3's sources again
 with -DRAKAU_TPT, -DRAKAU_UNROLL and -DRAKAU_MIN_BLOCKS (csrc/rows.cuh) for
 each TPT:UNROLL:MINB and times each build beside the default one;
 --mma-spans and --mma-sweep do the same for K6 (-DRAKAU_MMA_WARPS and
--DRAKAU_MMA_SLABS for each WARPS:SLABS). Prints
-one JSON line per form and input, the card's name and power limit, and a
+-DRAKAU_MMA_SLABS for each WARPS:SLABS), --blocks-spans and --blocks-sweep
+for K5 (-DRAKAU_STEP, -DRAKAU_TPT, -DRAKAU_UNROLL and -DRAKAU_THREADS
+for each STEP:TPT:UNROLL:THREADS) and --pairwise-spans for K4
+(--rows-sweep builds K4's source too). Prints one JSON line per form and
+input, the card's name and power limit, and a
 summary line; with --out, writes them all to that file too.
 """
 from __future__ import annotations
@@ -98,6 +111,30 @@ def compile_other(root: Path, name: str, f64: bool = False) -> Path:
            str(src)]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
     return out
+
+
+def c_signature(root: Path, name: str, fn: str) -> str:
+    """The declaration of extern "C" function `fn` in root's
+    csrc/<name>.cu, up to its body, or "" where it has none."""
+    text = (root / "rakau_tpu_torch" / "csrc" / f"{name}.cu").read_text()
+    at = text.find(f'extern "C" int {fn}(')
+    return "" if at < 0 else text[at:text.index("{", at)]
+
+
+def bind_some(path: Path, name: str, f64: bool = False):
+    """The library at `path` (of csrc/<name>.cu, another checkout's) with
+    the argument and result types of kernels/shared.py declared for the
+    functions of this side's library that it has."""
+    from rakau_tpu_torch.kernels import shared
+    real = ctypes.c_double if f64 else ctypes.c_float
+    lib = ctypes.CDLL(str(path))
+    for fname, argtypes in shared._LIBRARIES[name][0].items():
+        if not hasattr(lib, fname):
+            continue
+        fn = getattr(lib, fname)
+        fn.restype = shared._RESTYPES.get(fname, ctypes.c_int)
+        fn.argtypes = [real if a is shared._REAL else a for a in argtypes]
+    return lib
 
 
 def build_other(root: Path) -> tuple:
@@ -558,6 +595,8 @@ def compare_ab(key: dict, run_o, run_t, reps: int, variants=()) -> dict:
                ratio=(ms[1] + ms[2]) / (ms[0] + ms[3]),
                max_abs_diff=max_diff(got_o, got_t),
                max_rel_diff=max_diff(got_o, got_t) / scale,
+               bit_equal_to_other=all(torch.equal(x, y) for x, y in
+                                      zip(got_o, got_t)),
                repeat_bit_equal=all(torch.equal(x, y) for x, y in
                                     zip(got_t, again)),
                this_kernels_device_ms=profile_kernels(run_t))
@@ -614,11 +653,12 @@ def ab_k2(args, dev, card) -> tuple:
     from rakau_tpu_torch.kernels import pool, shared
     spans = [int(x) for x in args.pool_spans.split(",") if x]
     root = args.other.resolve()
+    granular = "int span" in c_signature(root, "pool", "rakau_pool")
     with ThreadPoolExecutor(2) as ex:
         others = {f64: ex.submit(compile_other, root, "pool", f64)
                   for f64 in (False, True)}
         this = {f64: shared._library("pool", f64) for f64 in (False, True)}
-        others = {f64: ctypes.CDLL(str(f.result()))
+        others = {f64: bind_some(f.result(), "pool", f64)
                   for f64, f in others.items()}
     builds = rows_builds("pool", args.rows_sweep)
     lines, ratios = [], {}
@@ -627,7 +667,9 @@ def ab_k2(args, dev, card) -> tuple:
         f64 = inputs[0].dtype == torch.float64
         for form in forms:
             span = pool.form_span(form.startswith("quad"))
-            run_o = other_pool(others[f64], inputs, window, block, form)
+            run_o = (this_pool(others[f64], inputs, window, block, form,
+                               span)[0] if granular else
+                     other_pool(others[f64], inputs, window, block, form))
             run_t, shape = this_pool(this[f64], inputs, window, block, form,
                                      span)
             variants = [(f"span{sp}", this_pool(this[f64], inputs, window,
@@ -650,6 +692,7 @@ def ab_k2(args, dev, card) -> tuple:
         del inputs
         torch.cuda.empty_cache()
     return lines, dict(pool_span=pool.SPAN, pool_quad_span=pool.QUAD_SPAN,
+                       other_k2_granular=granular,
                        k2_ratio_this_over_other=ratios)
 
 
@@ -683,23 +726,33 @@ def lists_chunks(n: int, seed: int, dev):
             torch.cuda.empty_cache()
 
 
+def tiles_libraries(root: Path) -> tuple:
+    """(other, this): root's csrc/tiles.cu and this side's, each in its
+    float32 and float64 builds ({f64: library}), built together."""
+    from rakau_tpu_torch.kernels import shared
+    with ThreadPoolExecutor(2) as ex:
+        others = {f64: ex.submit(compile_other, root, "tiles", f64)
+                  for f64 in (False, True)}
+        this = {f64: shared._library("tiles", f64) for f64 in (False, True)}
+        others = {f64: bind_some(f.result(), "tiles", f64)
+                  for f64, f in others.items()}
+    return others, this
+
+
 def ab_k3(args, dev, card) -> tuple:
     """K3 on the lists chunks against the other checkout's, at other
     spans. Returns (lines, summary)."""
     from rakau_tpu_torch.kernels import shared, tiles
     spans = [int(x) for x in args.tiles_spans.split(",") if x]
     root = args.other.resolve()
-    with ThreadPoolExecutor(2) as ex:
-        others = {f64: ex.submit(compile_other, root, "tiles", f64)
-                  for f64 in (False, True)}
-        this = {f64: shared._library("tiles", f64) for f64 in (False, True)}
-        others = {f64: ctypes.CDLL(str(f.result()))
-                  for f64, f in others.items()}
+    granular = "int span" in c_signature(root, "tiles", "rakau_tiles")
+    others, this = tiles_libraries(root)
     builds = rows_builds("tiles", args.rows_sweep)
     lines, ratios = [], {}
     for label, ch, a in lists_chunks(args.n, args.seed, dev):
         f64 = a[0].dtype == torch.float64
-        run_o = other_tiles(others[f64], a)
+        run_o = (this_tiles(others[f64], a, tiles.SPAN)[0] if granular
+                 else other_tiles(others[f64], a))
         run_t, shape = this_tiles(this[f64], a, tiles.SPAN)
         variants = [(f"span{sp}", this_tiles(this[f64], a, sp)[0])
                     for sp in spans if sp != tiles.SPAN and not f64]
@@ -715,7 +768,8 @@ def ab_k3(args, dev, card) -> tuple:
         ratios.setdefault(label, []).append(rec["ratio"])
         lines.append(rec)
         print(json.dumps(rec), flush=True)
-    return lines, dict(tiles_span=tiles.SPAN, k3_ratio_this_over_other=ratios)
+    return lines, dict(tiles_span=tiles.SPAN, other_k3_granular=granular,
+                       k3_ratio_this_over_other=ratios)
 
 
 def mma_rows(n: int, seed: int, dev):
@@ -884,6 +938,306 @@ def ab_k6(args, dev, card) -> tuple:
                        k6_ratio_this_over_other=ratios)
 
 
+# ---------------------------------------------------------------- K5, K4
+def split_nsplit(C: int, T: int, nb: int, sms: int) -> int:
+    """The static split's spans for a row of nb blocks (the rule of the
+    kernels K5 and K4 had before their plans: as many as bring the launch
+    to 8 CUDA blocks an SM, between 1 and one a block)."""
+    base = C * -(-T // 128)
+    return max(1, min(nb, -(-8 * sms // base)))
+
+
+def shared_rows(n: int, seed: int, dev):
+    """(label, chunk, the row's six tensors) of K5's rows: chunks 0 and 1
+    of chip_smoke.py's shared+grid query of a seeded Plummer sphere of n
+    particles, then the dense row of metrics.measure_kernel_roof at
+    chip_smoke.py's ROOF_SOURCES (every pair live: the roof)."""
+    import chip_smoke as cs
+    from rakau_tpu_torch import Tree, engine, particles
+    from rakau_tpu_torch.config import TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(n, generator=gen)
+    tree = Tree(coords=pos, masses=mass, config=TreeConfig(**cs.TREE_KW))
+    tree.accs_pots_o(cs.THETA)      # grows what overflows
+    td, cfg = tree.tree_data, tree.config
+    for ch in (0, 1):
+        yield "shared+grid", ch, tuple(engine.kernel_inputs(
+            td, cfg, cs.THETA, 0.0, ch)[:6])
+    del tree, td
+    torch.cuda.empty_cache()
+    C, T, S = cfg.tile_chunk, cfg.ncrit, cs.ROOF_SOURCES
+    tgt = (torch.arange(C * T * 3, dtype=torch.float32, device=dev)
+           .reshape(C, T, 3) % 251.0) * 1e-3 + 1.0
+    src = (torch.arange(S * 3, dtype=torch.float32, device=dev)
+           .reshape(S, 3) % 257.0) * 1e-3 - 1.0
+    yield "dense", 0, (tgt, torch.arange(C * T, device=dev).reshape(C, T),
+                       src, torch.ones(S, device=dev),
+                       torch.full((S,), -1, dtype=torch.int64, device=dev),
+                       torch.ones((C, S), dtype=torch.bool, device=dev))
+
+
+def other_blocks(lib, row):
+    """The other checkout's K5 as the static split of the row (no G), its
+    active blocks made here once, into its own outputs."""
+    from rakau_tpu_torch.kernels import shared
+    tpos, tidx, spos, smass, sidx, mask = row
+    C, T, _ = tpos.shape
+    S = spos.shape[0]
+    fn = lib.rakau_shared_blocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    blk = shared.block_any(mask).to(torch.uint8).contiguous()
+    nb = blk.shape[1]
+    nsplit = split_nsplit(C, T, nb, shared.multiprocessors(tpos.device))
+    scratch = torch.empty((nsplit, C, T, 4), dtype=torch.float32,
+                          device=tpos.device)
+    acc = torch.empty((C, T, 3), dtype=torch.float32, device=tpos.device)
+    pot = torch.empty((C, T), dtype=torch.float32, device=tpos.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(tpos.data_ptr(), tidx.data_ptr(), spos.data_ptr(),
+                 smass.data_ptr(), sidx.data_ptr(), mask.data_ptr(),
+                 blk.data_ptr(), scratch.data_ptr(), acc.data_ptr(),
+                 pot.data_ptr(), C, T, S, nb, nsplit, 0.0, stream)
+        if err:
+            raise RuntimeError(f"other K5 launch failed: {err}")
+        return acc, pot
+    return run
+
+
+def this_blocks(lib, row, span: int):
+    """This side's K5 (its whole launch: the plan's three kernels, the
+    packing, the kernel and its reduction) on one row at `span`, the plan
+    tensors and the workspace made here; and its launch shape, with the
+    plan its kernels build against fused_plan's."""
+    from rakau_tpu_torch.kernels import shared
+    tpos, tidx, spos, smass, sidx, mask = row
+    C, T, _ = tpos.shape
+    S = spos.shape[0]
+    dev = tpos.device
+    plan = shared.fused_plan(mask, span, shared.BLOCK)
+    dplan = shared.FusedPlan(*(torch.empty_like(t) for t in plan[:4]),
+                             plan.zmax)
+    ws = torch.empty(lib.rakau_shared_blocks_workspace(C, T, S, span),
+                     dtype=torch.uint8, device=dev)
+    acc = torch.empty((C, T, 3), dtype=torch.float32, device=dev)
+    pot = torch.empty((C, T), dtype=torch.float32, device=dev)
+    sms = shared.multiprocessors(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.rakau_shared_blocks_plan(
+            mask.data_ptr(), ws.data_ptr(),
+            *(t.data_ptr() for t in dplan[:4]), C, S, span, stream)
+        err = err or lib.rakau_shared_blocks_pack(
+            spos.data_ptr(), smass.data_ptr(), sidx.data_ptr(),
+            ws.data_ptr(), C, T, S, span, stream)
+        err = err or lib.rakau_shared_blocks(
+            tpos.data_ptr(), tidx.data_ptr(),
+            *(t.data_ptr() for t in dplan[:4]), ws.data_ptr(),
+            acc.data_ptr(), pot.data_ptr(), C, T, S, span, sms, 0.0, 1.0,
+            stream)
+        if err:
+            raise RuntimeError(f"K5 launch failed: {err}")
+        return acc, pot
+    run()
+    grid = lib.rakau_shared_blocks_grid(C, T, S, span, sms)
+    tpt = lib.rakau_shared_blocks_targets_per_thread()
+    threads = lib.rakau_shared_blocks_threads()
+    items = int(plan.n_work[0]) * -(-T // (threads * tpt))
+    return run, dict(
+        span=span, step=lib.rakau_shared_blocks_step(),
+        targets_per_thread=tpt, threads=threads, blocks=int(plan.cnt.sum()),
+        spans=int(plan.n_work[0]), work_items=items, cuda_blocks=grid,
+        blocks_per_sm_fit=lib.rakau_shared_blocks_blocks_per_sm(),
+        warps_per_sm=threads // 32 * min(grid, items) / sms,
+        processed_pairs=int(plan.cnt.sum()) * shared.BLOCK * T,
+        device_plan_equal=all(torch.equal(x, y) for x, y in
+                              zip(dplan[:4], plan[:4])))
+
+
+BLOCKS_MACROS = ("RAKAU_STEP", "RAKAU_TPT", "RAKAU_UNROLL", "RAKAU_THREADS")
+
+
+def blocks_builds(sweep: str) -> dict:
+    """label -> csrc/shared_blocks.cu built with the macros of each
+    STEP:TPT:UNROLL:THREADS of `sweep` (trailing fields may be left out:
+    the source's defaults), built together."""
+    from rakau_tpu_torch.kernels import shared
+    vs = [v for v in sweep.split(",") if v]
+
+    def one(v):
+        path = shared.build_library("shared_blocks", macros=tuple(
+            f"-D{m}={x}" for m, x in zip(BLOCKS_MACROS, v.split(":"))))
+        return f"build{v}", shared.bind_library(path, "shared_blocks")
+    with ThreadPoolExecutor(max(1, len(vs))) as ex:
+        return dict(ex.map(one, vs))
+
+
+def ab_k5(args, dev, card) -> tuple:
+    """K5 on the shared+grid chunks against the other checkout's, at other
+    spans and in other builds. Returns (lines, summary)."""
+    from rakau_tpu_torch.kernels import shared
+    spans = [int(x) for x in args.blocks_spans.split(",") if x]
+    root = args.other.resolve()
+    planned = "int span" in c_signature(root, "shared_blocks",
+                                        "rakau_shared_blocks")
+    with ThreadPoolExecutor(2) as ex:
+        other_f = ex.submit(compile_other, root, "shared_blocks")
+        this = shared._library("shared_blocks")
+        other = bind_some(other_f.result(), "shared_blocks")
+    builds = blocks_builds(args.blocks_sweep)
+    lines, ratios = [], {}
+    for label, ch, row in shared_rows(args.n, args.seed, dev):
+        span = shared.BLOCKS_SPAN
+        run_o = (this_blocks(other, row, span)[0] if planned
+                 else other_blocks(other, row))
+        run_t, shape = this_blocks(this, row, span)
+        variants = [(f"span{sp}", this_blocks(this, row, sp)[0])
+                    for sp in spans if sp != span]
+        variants += [(lv, this_blocks(lib_v, row, span)[0])
+                     for lv, lib_v in builds.items()]
+        rec = compare_ab(dict(kernel="K5", config=label, chunk=ch,
+                              C=int(row[0].shape[0]), T=int(row[0].shape[1]),
+                              S=int(row[2].shape[0]), **shape),
+                         run_o, run_t, args.reps, variants)
+        rec["processed_gpairs_per_s"] = shape["processed_pairs"] / (
+            rec["this_ms"][0] * 1e6)
+        ratios.setdefault(label, []).append(rec["ratio"])
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+    return lines, dict(blocks_span=shared.BLOCKS_SPAN,
+                       other_k5_planned=planned,
+                       k5_ratio_this_over_other=ratios)
+
+
+def other_pairwise(lib, a):
+    """The other checkout's K4 as the static split of each row (no G): one
+    launch a row and the add, into its own outputs."""
+    from rakau_tpu_torch.kernels import shared, tiles
+    tp, ti, mp, mm, mc, pp, pm, pi, pc = a
+    C, T, _ = tp.shape
+    f64 = tp.dtype == torch.float64
+    fn = lib.rakau_tiles_split
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [_real(f64), ctypes.c_void_p])
+    sms = shared.multiprocessors(tp.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    launches = []
+    for pos, mass, idx, cnt in ((mp, mm, None, mc), (pp, pm, pi, pc)):
+        S = pos.shape[1]
+        b = min(tiles.BLOCK, S)
+        nsplit = split_nsplit(C, T, -(-S // b), sms)
+        scratch = torch.empty((nsplit, C, T, 4), dtype=tp.dtype,
+                              device=tp.device)
+        out = (torch.empty((C, T, 3), dtype=tp.dtype, device=tp.device),
+               torch.empty((C, T), dtype=tp.dtype, device=tp.device))
+        launches.append((pos, mass, idx, cnt.to(torch.int64), S, b, nsplit,
+                         scratch, out))
+
+    def run():
+        for pos, mass, idx, cnt, S, b, nsplit, scratch, out in launches:
+            err = fn(tp.data_ptr(), ti.data_ptr(), pos.data_ptr(),
+                     mass.data_ptr(), None if idx is None else idx.data_ptr(),
+                     cnt.data_ptr(), scratch.data_ptr(), out[0].data_ptr(),
+                     out[1].data_ptr(), C, T, S, b, nsplit, 0.0, stream)
+            if err:
+                raise RuntimeError(f"other K4 launch failed: {err}")
+        (am, pmo), (ap, ppo) = launches[0][-1], launches[1][-1]
+        return am + ap, pmo + ppo
+    return run
+
+
+def this_pairwise(lib, a, span: int):
+    """This side's K4 (two whole launches, one a row: each its plan, kernel
+    and reduction in one C call, and the add) on one chunk's rows at
+    `span`, the plan tensors and the workspaces made here; and the launch
+    shape, with the plans its kernel builds against pairwise_plan's."""
+    from rakau_tpu_torch.kernels import rows, shared, tiles
+    tp, ti, mp, mm, mc, pp, pm, pi, pc = a
+    C, T, _ = tp.shape
+    dev = tp.device
+    sms = shared.multiprocessors(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    launches, shape = [], dict(span=span, granules=0, spans=0, work_items=0,
+                               cuda_blocks=0, device_plan_equal=True)
+    per_item = -(-T // (128 * lib.rakau_tiles_targets_per_thread()))
+    for pos, mass, idx, cnt in ((mp, mm, None, mc), (pp, pm, pi, pc)):
+        S = pos.shape[1]
+        cap = tiles.pairwise_capacity(C, S, span)
+        plan = rows.plan_views(torch.empty(C + cap + 2, dtype=torch.int32,
+                                           device=dev), C, cap)
+        ws = torch.empty(lib.rakau_tiles_workspace(T, cap), dtype=torch.uint8,
+                         device=dev)
+        out = (torch.empty((C, T, 3), dtype=tp.dtype, device=dev),
+               torch.empty((C, T), dtype=tp.dtype, device=dev))
+        launches.append((pos, mass, idx, cnt.to(torch.int64), S, cap, plan,
+                         ws, out))
+        want = tiles.pairwise_plan(C, S, cnt, span=span)
+        grid = lib.rakau_tiles_pairwise_grid(cap, T, sms)
+        shape["granules"] += int(tiles.pairwise_granules(C, S, cnt).sum())
+        shape["spans"] += int(want.n_work[0])
+        shape["work_items"] += int(want.n_work[0]) * per_item
+        shape["cuda_blocks"] += grid
+
+    def run():
+        for pos, mass, idx, cnt, S, cap, plan, ws, out in launches:
+            err = lib.rakau_tiles_pairwise(
+                tp.data_ptr(), ti.data_ptr(), pos.data_ptr(),
+                mass.data_ptr(), None if idx is None else idx.data_ptr(),
+                cnt.data_ptr(), *(t.data_ptr() for t in plan), ws.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), C, T, S, tiles.BLOCK,
+                span, cap, sms, 0.0, stream)
+            if err:
+                raise RuntimeError(f"K4 launch failed: {err}")
+        (am, pmo), (ap, ppo) = launches[0][-1], launches[1][-1]
+        return am + ap, pmo + ppo
+    run()
+    for pos, mass, idx, cnt, S, cap, plan, ws, out in launches:
+        want = tiles.pairwise_plan(C, S, cnt, span=span)
+        shape["device_plan_equal"] &= all(torch.equal(x, y)
+                                          for x, y in zip(plan, want))
+    return run, shape
+
+
+def ab_k4(args, dev, card) -> tuple:
+    """K4 (one lists chunk: its two launches and the add) on the lists
+    chunks against the other checkout's, at other spans and in other
+    builds. Returns (lines, summary)."""
+    from rakau_tpu_torch.kernels import tiles
+    spans = [int(x) for x in args.pairwise_spans.split(",") if x]
+    root = args.other.resolve()
+    planned = "int span" in c_signature(root, "tiles",
+                                        "rakau_tiles_pairwise")
+    others, this = tiles_libraries(root)
+    builds = rows_builds("tiles", args.rows_sweep)
+    lines, ratios = [], {}
+    for label, ch, a in lists_chunks(args.n, args.seed, dev):
+        f64 = a[0].dtype == torch.float64
+        run_o = (this_pairwise(others[f64], a, tiles.SPAN)[0] if planned
+                 else other_pairwise(others[f64], a))
+        run_t, shape = this_pairwise(this[f64], a, tiles.SPAN)
+        variants = [(f"span{sp}", this_pairwise(this[f64], a, sp)[0])
+                    for sp in spans if sp != tiles.SPAN and not f64]
+        if not f64:
+            variants += [(label_v, this_pairwise(lib_v, a, tiles.SPAN)[0])
+                         for label_v, lib_v in builds.items()]
+        rec = compare_ab(dict(kernel="K4", config=label, chunk=ch,
+                              dtype="float64" if f64 else "float32",
+                              C=int(a[0].shape[0]), T=int(a[0].shape[1]),
+                              Sm=int(a[2].shape[1]), Sp=int(a[5].shape[1]),
+                              **shape),
+                         run_o, run_t, args.reps, variants)
+        ratios.setdefault(label, []).append(rec["ratio"])
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+    return lines, dict(pairwise_span=tiles.SPAN, other_k4_planned=planned,
+                       k4_ratio_this_over_other=ratios)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True)
@@ -907,6 +1261,13 @@ def main(argv=None) -> int:
                     help="K6 span lengths to time beside the default")
     ap.add_argument("--mma-sweep", default="",
                     help="WARPS:SLABS,... builds of K6's source to time")
+    ap.add_argument("--blocks-spans", default="",
+                    help="K5 span lengths to time beside the default")
+    ap.add_argument("--blocks-sweep", default="",
+                    help="STEP:TPT:UNROLL:THREADS,... builds of K5's source "
+                         "to time")
+    ap.add_argument("--pairwise-spans", default="",
+                    help="K4 span lengths to time beside the default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
@@ -920,7 +1281,7 @@ def main(argv=None) -> int:
     summary = dict(card=card, n=args.n, reps=args.reps,
                    other=str(args.other))
     for key, fn in (("k1", ab_k1), ("k2", ab_k2), ("k3", ab_k3),
-                    ("k6", ab_k6)):
+                    ("k4", ab_k4), ("k5", ab_k5), ("k6", ab_k6)):
         if key in args.kernels.split(","):
             got, summ = fn(args, dev, card)
             lines += got

@@ -43,8 +43,13 @@ Phases, each printing one JSON line:
                a multiple of the span, S ending inside a granule, padding
                at 1e30 and at 4 * box; the plan K6's kernels build equal
                to fused_plan's, two launches bit for bit equal) and
-               the split-source form K5 (edge_blocks: the same rows at
-               several splits, two launches bit for bit equal); the
+               the block-plan form K5 (edge_blocks: the same rows and
+               rows made for its plan at blocks of 1024, a long list
+               beside empty tiles, a tile's blocks all at the row's end,
+               S ending inside a block, lists not a multiple of the span,
+               self pairs, eps 0 and 0.01, at spans 1, 2 and BLOCKS_SPAN;
+               the plan K5's kernels build equal to fused_plan(mask, span,
+               BLOCK), two launches bit for bit equal); the
                float64 builds (edge_f64: every K1 form, K1c and K2 form
                and mode against the float64 plain versions at rtol 1e-9,
                and the staircase() check of the compensated forms); and
@@ -54,7 +59,10 @@ Phases, each printing one JSON line:
                at eps = 0, eps 0 and 0.05, ragged T, padding at 1e30 and at
                4 * box, a 2-D case; K3 against K4, K3 and K4
                bit-repeatable, the plan K3's kernel builds equal to
-               tiles_plan's);
+               tiles_plan's; K4 one row a launch, M2P without and P2P
+               with indices, blocks of 64, 200 and 1024, counts past S,
+               negative, 0 and short of the live entries, its card plan
+               equal to pairwise_plan's: k4_row_cases);
   4. main:     a Plummer sphere of N particles (default 1,048,576) from a
                seeded CUDA generator, octree(...) with the headline
                shared+grid configuration, accs_pots_o(theta=0.75) once
@@ -83,11 +91,13 @@ Phases, each printing one JSON line:
      kernel:   K6 (each precision and mode) and K5 against their plain
                versions on the first two chunks, timed beside K1a on the
                same rows, with bounds and % of them; K6's launch shape
-               (k6_shape) beside K1a's; K5's split and CUDA blocks;
+               (k6_shape) beside K1a's; K5's launch shape (k5_shape) and
+               its card plan equal to fused_plan's at blocks of 1024;
      metrics:  metrics.collect_shared_density on the query; its processed
                pairs must equal what K1's plan (shared.fused_plan: active
                granules) gives for the same chunks, which K6's kernels
-               must build too, and which the "mma" variant replays;
+               must build too, and which the "mma" variant replays; K5's
+               kernels' plan at blocks of 1024 likewise, for "blocks";
   s. grid2:    the same particles through the shared traversal with
                farfield "grid2" (local_order 4, grid_sep 3, the level from
                grid_occupancy 32: 5 at 1M), caps grown by the Tree and
@@ -179,8 +189,9 @@ Phases, each printing one JSON line:
                6), lists_split (the whole query on K4: 2 launches a chunk,
                force RMS within 1 % of K3's), kernel (K3 and K4 against
                their plain versions on chunks 0 and 1, each bit-repeatable,
-               K3's plan equal to tiles_plan's, with the CUDA blocks
-               against the SMs and K3's launch shape: tiles_shape);
+               K3's plan equal to tiles_plan's and K4's to pairwise_plan's,
+               with the CUDA blocks against the SMs and their launch
+               shapes: tiles_shape, pairwise_shape);
      lists_quad: 262,144 particles: the lists monopole (K3), the
                quadrupole with farfield "local" on the lists path (the
                reference's plain-op route, no kernel: xla_quad = chunks),
@@ -191,9 +202,10 @@ Phases, each printing one JSON line:
                launches all "d2", force and potential RMS < 2e-2) and a
                float64 octree from NumPy float64 arrays (theta 0.4: K1a
                "f64", force RMS < 2e-3), the same float64 particles
-               through gwalk (K2 "f64") and the lists path (K3 "f64"),
-               each with every plain version made to raise; the float64
-               kernels against their plain versions on chunk 0;
+               through gwalk (K2 "f64") and the lists path (K3 "f64",
+               then under tiles_variant("split") K4 "f64"), each with
+               every plain version made to raise; the float64 kernels
+               against their plain versions on chunk 0;
   9. leapfrog: BASELINE config #2 (benchmarks/configs.py:90-114) through
                rakau_tpu_torch.integrate: a cold sphere of N particles
                (--n, default 1,048,576), zero velocities, 3 steps of
@@ -271,13 +283,14 @@ POOL_REPLACES = "rakau_tpu/kernels/pallas.py:974"
 # quadrupole, and x cell test in K1, whose launch adds the three kernels
 # of its plan, its row packing and its span reduction in two forms; K6:
 # mode x cell test x precision, the same plan and packing kernels
-# (shared_plan.cuh) and its reduction; K2's launch adds its work list and
-# its reduction in two forms; K3 is three kernels (work list, kernel,
-# reduction), K4 two forms and its reduction)
+# (shared_plan.cuh) and its reduction; K5: the same plan and packing
+# kernels at blocks of 1024, its kernel and its reduction; K2's launch adds
+# its work list and its reduction in two forms; K3 and K4 are a work list
+# and a kernel each and one shared span reduction)
 LIBRARIES = {("shared_fused", False): 42, ("pool", False): 15,
-             ("shared_mma", False): 32, ("shared_blocks", False): 2,
-             ("tiles", False): 6, ("shared_fused", True): 42,
-             ("pool", True): 15, ("tiles", True): 6}
+             ("shared_mma", False): 32, ("shared_blocks", False): 6,
+             ("tiles", False): 5, ("shared_fused", True): 42,
+             ("pool", True): 15, ("tiles", True): 5}
 TILES_SRC = "rakau_tpu_torch/csrc/tiles.cu"
 K3_REPLACES = "rakau_tpu/kernels/pallas.py:149"
 K4_REPLACES = "rakau_tpu/kernels/pallas.py:42"
@@ -427,7 +440,8 @@ def build_kernels() -> dict:
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)]
         rec = dict(seconds=secs, library=path.name, kernels=len(regs),
                    registers=regs, spill_bytes=spills)
-        if key[0] in ("shared_fused", "shared_mma", "pool", "tiles"):
+        if key[0] in ("shared_fused", "shared_mma", "shared_blocks", "pool",
+                      "tiles"):
             rec["registers_by_kernel"] = REGISTERS[name] = \
                 kernel_registers(ptxas)
         if any(spills):
@@ -441,7 +455,7 @@ def build_kernels() -> dict:
     return out
 
 
-# registers of each kernel of K1's, K6's, K2's and K3's builds
+# registers of each kernel of K1's, K6's, K5's, K2's, K3's and K4's builds
 # (build_kernels), by library ("pool", "pool_f64", ...) and
 # kernel_registers' short name
 REGISTERS: dict = {}
@@ -534,6 +548,34 @@ def k6_shape(args, prec: str, cells=None, mode: str = "both") -> dict:
                 blocks_per_sm_fit=fit,
                 warps_per_sm=lib.rakau_shared_mma_threads() // 32
                 * min(grid, items) / sms, registers=regs, sms=sms)
+
+
+def k5_shape(args) -> dict:
+    """K5's launch shape on these rows: the active blocks and spans of its
+    plan (shared.fused_plan at BLOCKS_SPAN and BLOCK), its work items, the
+    CUDA blocks of its persistent grid, the blocks that fit an SM, the
+    warps an SM holds on average (over the blocks that find an item), its
+    staging step and threads a block and its kernel's registers
+    (ptxas)."""
+    from rakau_tpu_torch.kernels import shared
+    tpos, mask = args[0], args[5]
+    C, T, _ = tpos.shape
+    S = int(args[2].shape[0])
+    lib = shared._library("shared_blocks")
+    plan = shared.fused_plan(mask, shared.BLOCKS_SPAN, shared.BLOCK)
+    sms = shared.multiprocessors(tpos.device)
+    grid = lib.rakau_shared_blocks_grid(C, T, S, shared.BLOCKS_SPAN, sms)
+    tpt = lib.rakau_shared_blocks_targets_per_thread()
+    threads = lib.rakau_shared_blocks_threads()
+    items = int(plan.n_work[0]) * -(-T // (threads * tpt))
+    return dict(blocks=int(plan.cnt.sum()), span=shared.BLOCKS_SPAN,
+                spans=int(plan.n_work[0]), work_items=items,
+                targets_per_thread=tpt, threads=threads,
+                step=lib.rakau_shared_blocks_step(), cuda_blocks=grid,
+                blocks_per_sm_fit=lib.rakau_shared_blocks_blocks_per_sm(),
+                warps_per_sm=threads // 32 * min(grid, items) / sms, sms=sms,
+                registers=REGISTERS.get("shared_blocks", {}).get(
+                    "shared_blocks_kernel"))
 
 
 # device cycles that cuda_ms keeps the card busy for before it times, so
@@ -803,30 +845,84 @@ def mma_edge_cases(shared, dev):
     return worst
 
 
+def blocks_at(shared, args, eps, span):
+    """K5 at `span` twice (bit for bit) against its plain version; the
+    plan its kernels build equal to fused_plan(mask, span, BLOCK). Returns
+    (the kernel's result, |kernel - plain|)."""
+    mask = args[5]
+    if not same_plan(shared.blocks_device_plan(mask, span),
+                     shared.fused_plan(mask, span, shared.BLOCK)):
+        raise AssertionError(f"K5 span {span}: the kernels' plan differs "
+                             "from fused_plan's")
+    got = shared.eval_shared_blocks(*args, eps, 1.5, span=span)
+    again = shared.eval_shared_blocks(*args, eps, 1.5, span=span)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K5 span {span}: two launches differ")
+    want = shared.eval_shared_blocks_plain(*args, eps, 1.5, span=span)
+    return got, compare(got, want)
+
+
 def blocks_edge_cases(shared, dev):
-    """K5 vs its plain version on the same made rows, at the default split
-    and at 1, 2 and one span a block; two launches must agree bit for bit.
-    Returns the worst |kernel - plain|."""
+    """K5 vs its plain version at spans 1, 2 and BLOCKS_SPAN, two launches
+    bit for bit, its card plan equal to fused_plan(mask, span, BLOCK):
+    on row_case's rows (S ragged, S below a block, a tile whose only
+    active block is the last, self pairs, eps 0, an all-masked tile) and
+    on rows made for its plan: a tile whose list holds every block of the
+    row beside empty tiles, a tile whose active blocks all lie at the
+    row's end, S ending inside a block whose ragged last block is a
+    tile's only one, lists of 3 and 5 blocks (not multiples of the span),
+    sources planted on targets with their indices, far massless padding
+    inside the row, eps 0 and 0.01, T past one work item. A tile with no
+    active block gets exact zeros. Returns the worst |kernel - plain|."""
     rng = np.random.default_rng(19)
+    spans = sorted({1, 2, shared.BLOCKS_SPAN})
     worst = 0.0
     for C, T, S, eps, last in EDGE_SHAPES:
         row, _ = row_case(rng, C, T, S, last)
         args = [torch.as_tensor(a, device=dev) for a in row]
-        nb = -(-S // shared.BLOCK)
-        for nsplit in sorted({None, 1, min(2, nb), nb}, key=str):
-            got = shared.eval_shared_blocks(*args, eps, 1.5, nsplit=nsplit)
-            again = shared.eval_shared_blocks(*args, eps, 1.5, nsplit=nsplit)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"K5 nsplit {nsplit}: two launches "
-                                     "differ")
-            want = shared.eval_shared_blocks_plain(
-                *args, eps, 1.5, nsplit=nsplit or shared.blocks_nsplit(
-                    C, T, nb, torch.cuda.get_device_properties(dev)
-                    .multi_processor_count))
-            worst = max(worst, compare(got, want))
+        for span in spans:
+            got, err = blocks_at(shared, args, eps, span)
+            worst = max(worst, err)
             if C > 1 and bool(got[0][-1].any() | got[1][-1].any()):
                 raise AssertionError("K5: the all-masked tile got a nonzero "
                                      "result")
+    B = shared.BLOCK
+    C, T, nb, tail = 6, 300, 9, 300
+    S = (nb - 1) * B + tail
+    n = 10000
+    tpos = rng.standard_normal((C, T, 3)).astype(np.float32)
+    tidx = rng.choice(n, size=(C, T), replace=False).astype(np.int64)
+    tidx[:, -3:] = n                          # padding targets
+    spos = (rng.standard_normal((S, 3)) + 0.3).astype(np.float32)
+    smass = rng.uniform(0.1, 1, S).astype(np.float32)
+    sidx = np.full(S, -1, np.int64)
+    for c in range(C):                        # self pairs in blocks 0, 4
+        at = [c * 8 + k for k in range(4)] + [4 * B + c * 8 + k
+                                              for k in range(4)]
+        spos[at] = np.concatenate([tpos[c, :4], tpos[c, 4:8]])
+        sidx[at] = np.concatenate([tidx[c, :4], tidx[c, 4:8]])
+    spos[S // 2:S // 2 + 4] = 1e30            # far, massless padding
+    smass[S // 2:S // 2 + 4] = 0.0
+    mask = np.zeros((C, S), bool)
+    mask[0] = rng.uniform(size=S) < 0.5       # every block: a long list
+    mask[0, ::B] = True
+    mask[0, :8] = mask[0, 4 * B:4 * B + 8] = True
+    # tile 1 has no list
+    mask[2, S - tail:] = True                 # only the ragged last block
+    mask[3, (nb - 3) * B:] = rng.uniform(size=S - (nb - 3) * B) < 0.3
+    for c, k in ((4, 3), (5, 5)):             # 3 and 5 blocks, scattered
+        for b in np.sort(rng.choice(nb - 1, k, replace=False)):
+            mask[c, b * B + rng.integers(0, B, 3)] = True
+    mask[4, 24:32] = mask[4, 4 * B + 32:4 * B + 40] = True
+    args = [torch.as_tensor(a, device=dev)
+            for a in (tpos, tidx, spos, smass, sidx, mask)]
+    for eps in (0.0, 0.01):
+        for span in spans:
+            got, err = blocks_at(shared, args, eps, span)
+            worst = max(worst, err)
+            if bool(got[0][1].any() | got[1][1].any()):
+                raise AssertionError("K5: the tile with no list got a "
+                                     "nonzero result")
     return worst
 
 
@@ -2228,19 +2324,19 @@ def variant_queries(tree, oracle, fused_rms, form: str, dev) -> tuple:
     return rec, launches
 
 
-def variant_kernels(tree, n: int, label: str, dev) -> dict:
+def variant_kernels(tree, n: int, label: str) -> dict:
     """Phase kernel for K6 (and, on rows without cells, K5) on chunks 0 and
     1 of `tree`'s query: every precision and mode against the plain
     version, CUDA-event ms per call, the bound, % of it, the plain
     version's ms and K6's launch shape (k6_shape: granules, spans, work
     items, CUDA blocks, warps a SM, registers), beside the fused kernel's
     (K1a or K1c) ms, % of its bound and shape on the same rows; K5 also
-    twice for bit-equal results, with its split. Returns per form (worst
-    error, ms, plain_ms, bound_ms, bound_by; means over the chunks)."""
+    twice for bit-equal results, its card plan against fused_plan's and
+    its launch shape (k5_shape). Returns per form (worst error, ms,
+    plain_ms, bound_ms, bound_by; means over the chunks)."""
     from rakau_tpu_torch import engine
     from rakau_tpu_torch.kernels import shared
     td, cfg = tree.tree_data, tree.config
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_form: dict = {}
     for ch in range(min(2, engine.live_chunks(td, cfg))):
         inp = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)
@@ -2285,26 +2381,26 @@ def variant_kernels(tree, n: int, label: str, dev) -> dict:
                 ms=modes["both"]["ms"], plain_ms=modes["both"]["plain_ms"],
                 bound_ms=b_ms, bound_by=b_by))
         if not cells:
-            nb = -(-S // shared.BLOCK)
-            nsplit = shared.blocks_nsplit(C, T, nb, sms)
+            plan = shared.fused_plan(args[5], shared.BLOCKS_SPAN,
+                                     shared.BLOCK)
+            if not same_plan(shared.blocks_device_plan(args[5]), plan):
+                raise AssertionError("K5: the kernels' plan differs from "
+                                     "fused_plan's")
             got = shared.eval_shared_blocks(*args, 0.0, 1.0)
             again = shared.eval_shared_blocks(*args, 0.0, 1.0)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError("K5: two launches differ")
-            want = shared.eval_shared_blocks_plain(*args, 0.0, 1.0,
-                                                   nsplit=nsplit)
+            want = shared.eval_shared_blocks_plain(*args, 0.0, 1.0)
             err = compare(got, want)
             km = cuda_ms(lambda: shared.eval_shared_blocks(*args, 0.0, 1.0),
                          10)
             pm = cuda_ms(lambda: shared.eval_shared_blocks_plain(
-                *args, 0.0, 1.0, nsplit=nsplit), 1)
-            b_ms, b_by = bound(args, n, extra_bytes=2 * nsplit * C * T * 16)
+                *args, 0.0, 1.0), 1)
+            b_ms, b_by = bound(args, n)
             rec["forms"]["blocks"] = dict(
-                active_blocks=int(shared.active_blocks(args[5])[1].sum()),
                 ms=km, plain_ms=pm, max_abs_err=err, bound_ms=b_ms,
-                bound_by=b_by, nsplit=nsplit, source_blocks=nb,
-                cuda_blocks=C * -(-T // 128) * nsplit, sms=sms,
-                fused_cuda_blocks=C * -(-T // 128))
+                bound_by=b_by, pct_of_bound=100 * b_ms / km,
+                source_blocks=-(-S // shared.BLOCK), **k5_shape(args))
             per_form.setdefault("blocks", []).append(dict(
                 max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b_ms,
                 bound_by=b_by))
@@ -2325,7 +2421,10 @@ def density(tree, label: str) -> dict:
     active granules) gives for the engine's masks on the same chunks,
     where that plan must equal shared.fused_plan's lists. K6 runs on the
     same plan: the one its kernels build must equal it too, and the pairs
-    metrics.processed_pairs replays under the "mma" variant are its."""
+    metrics.processed_pairs replays under the "mma" variant are its. K5's
+    kernels build its plan at blocks of BLOCK: equal to fused_plan's at
+    that unit, and the pairs replayed under "blocks" are its; its density
+    (the useful pairs over its processed pairs) is reported beside."""
     from rakau_tpu_torch import engine, metrics
     from rakau_tpu_torch.kernels import shared
     td, cfg = tree.tree_data, tree.config
@@ -2333,7 +2432,7 @@ def density(tree, label: str) -> dict:
         td, cfg, THETA, max_chunks=8))
     n_live = engine.live_chunks(td, cfg)
     sample = metrics.sample_chunks(n_live, 8)
-    granules = 0
+    granules = blocks = 0
     for ch in sample:
         mask = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)[5]
         plan = shared.fused_device_plan(mask)
@@ -2345,11 +2444,25 @@ def density(tree, label: str) -> dict:
                 != int(plan.cnt.sum()) * shared.GRANULE * cfg.ncrit:
             raise AssertionError(f"{label} chunk {ch}: K6's processed pairs "
                                  "are not its plan's")
+        k5 = shared.blocks_device_plan(mask)
+        if not same_plan(k5, shared.fused_plan(mask, shared.BLOCKS_SPAN,
+                                               shared.BLOCK)):
+            raise AssertionError(f"{label} chunk {ch}: K5's kernels' plan "
+                                 "differs from fused_plan's")
+        if int(metrics.processed_pairs(cfg, mask, "blocks")) \
+                != int(k5.cnt.sum()) * shared.BLOCK * cfg.ncrit:
+            raise AssertionError(f"{label} chunk {ch}: K5's processed pairs "
+                                 "are not its plan's")
         granules += int(plan.cnt.sum())
+        blocks += int(k5.cnt.sum())
     replay = float(granules * shared.GRANULE * cfg.ncrit) \
         * (n_live / len(sample))
+    k5_pairs = float(blocks * shared.BLOCK * cfg.ncrit) \
+        * (n_live / len(sample))
     emit("metrics", config=label, collect_ms=ms, chunks=n_live,
-         sampled=sample, kernel_plan_pairs=replay, **stats.as_dict())
+         sampled=sample, kernel_plan_pairs=replay,
+         blocks_processed_pairs=k5_pairs,
+         blocks_density=stats.useful_pairs / k5_pairs, **stats.as_dict())
     if stats.processed_pairs != replay:
         raise AssertionError(f"{label}: processed pairs "
                              f"{stats.processed_pairs} != the kernel plan's "
@@ -2523,7 +2636,7 @@ def lmac_main(pos, mass, oracle, dev):
     vrec, v_launches = variant_queries(tree, oracle, (f_rms, p_rms),
                                        "mma_cell", dev)
     emit("variants", config="lmac+grid2", **vrec)
-    forms = variant_kernels(tree, n, "lmac+grid2", dev)
+    forms = variant_kernels(tree, n, "lmac+grid2")
     density(tree, "lmac+grid2")
     return cfg, forms, v_launches, rec
 
@@ -2871,6 +2984,50 @@ def tiles_plans_equal(args) -> bool:
                           tiles.tiles_plan(C, Sm, Sp, args[4], args[8]))
 
 
+def pairwise_plans_equal(C: int, S: int, cnt, block: int) -> bool:
+    """The plan K4's kernel builds for one row equals pairwise_plan's."""
+    from rakau_tpu_torch.kernels import tiles
+    return same_rows_plan(tiles.pairwise_device_plan(C, S, cnt, block),
+                          tiles.pairwise_plan(C, S, cnt, block))
+
+
+def k4_row_cases(args, eps, dtype) -> float:
+    """K4 launched on one row at a time, each row of tiles_case's tiles:
+    the M2P row without indices, the P2P row with them, at blocks of 64,
+    200 (not a multiple of the granule) and BLOCK, with the rows' counts
+    and with counts past S, negative, 0 and ending before the row's live
+    entries (mass past the count inside a visited block, which K4 reads);
+    each launch twice bit for bit and against its plain version, the
+    plan its kernel builds equal to pairwise_plan's. Returns the worst
+    |kernel - plain|."""
+    from rakau_tpu_torch.kernels import tiles
+    tp, ti, mp, mm, mc, pp, pm, pi, pc = args
+    worst = 0.0
+    for pos, mass, idx, cnt in ((mp, mm, None, mc), (pp, pm, pi, pc)):
+        C, S = mass.shape
+        odd = cnt.clone()
+        odd[0] = S + 50
+        odd[-1] = cnt[-1] // 2
+        if C > 2:
+            odd[1], odd[2] = -3, 0
+        for block in (64, 200, tiles.BLOCK):
+            for k in (cnt, odd):
+                if not pairwise_plans_equal(C, S, k, block):
+                    raise AssertionError("K4: the kernel's plan differs "
+                                         "from pairwise_plan's")
+                kw = dict(cnt=k, block=block)
+                got = tiles.eval_pairwise(tp, ti, pos, mass, idx, eps,
+                                          idx is not None, **kw)
+                again = tiles.eval_pairwise(tp, ti, pos, mass, idx, eps,
+                                            idx is not None, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError("K4 (one row): two launches differ")
+                want = tiles.eval_pairwise_plain(tp, ti, pos, mass, idx, eps,
+                                                 idx is not None, **kw)
+                worst = max(worst, compare(got, want, **tol(dtype)))
+    return worst
+
+
 def tiles_edge_cases(dev, dtype) -> dict:
     """K3 and K4 against their plain versions in dtype on made rows
     (tiles_case: counts of 0, of the whole row and not multiples of the
@@ -2878,10 +3035,11 @@ def tiles_edge_cases(dev, dtype) -> dict:
     eps = 0, eps 0 and 0.05, ragged T, padding at 1e30 and at 4 * box,
     and a 2-D case), K3 against K4, K3 and K4 twice bit for bit, the
     plan K3's kernel builds equal to tiles_plan's; a tile whose counts are
-    0 gets exact zeros from K3, and the node on the target adds nothing.
-    Returns the worst |kernel - plain| of each and of K3 - K4."""
+    0 gets exact zeros from K3, and the node on the target adds nothing;
+    then K4 one row a launch (k4_row_cases). Returns the worst
+    |kernel - plain| of each and of K3 - K4."""
     rng = np.random.default_rng(23)
-    worst = {"K3": 0.0, "K4": 0.0, "K3_vs_K4": 0.0}
+    worst = {"K3": 0.0, "K4": 0.0, "K3_vs_K4": 0.0, "K4_rows": 0.0}
     for C, T, Sm, Sp, ndim, eps, pad in TILES_EDGE:
         args = on_card(tiles_case(rng, C, T, Sm, Sp, ndim, pad), dev, dtype)
         if not tiles_plans_equal(args):
@@ -2904,6 +3062,8 @@ def tiles_edge_cases(dev, dtype) -> dict:
         if C > 1 and bool(got3[0][1].any() | got3[1][1].any()):
             raise AssertionError("K3: a tile with empty rows got a nonzero "
                                  "result")
+        worst["K4_rows"] = max(worst["K4_rows"],
+                               k4_row_cases(args, eps, dtype))
         if eps == 0.0:
             off = list(args)
             off[3] = args[3].clone()
@@ -2971,6 +3131,38 @@ def tiles_shape(args) -> dict:
                 .get("tiles_fused_kernel"))
 
 
+def pairwise_shape(args) -> dict:
+    """K4's launch shape on one chunk's rows, its two launches summed: the
+    granules and spans of their plans (tiles.pairwise_plan), their work
+    items and the CUDA blocks of their persistent grids, the blocks that
+    fit an SM, the warps an SM holds on average over a launch and the
+    registers of its kernel (ptxas, build phase)."""
+    from rakau_tpu_torch.kernels import shared, tiles
+    tp = args[0]
+    C, T, _ = tp.shape
+    f64 = tp.dtype == torch.float64
+    lib = shared._library("tiles", f64)
+    sms = shared.multiprocessors(tp.device)
+    out = dict(granules=0, span=tiles.SPAN, spans=0, work_items=0,
+               cuda_blocks=0, warps=0)
+    per_item = -(-T // (128 * lib.rakau_tiles_targets_per_thread()))
+    for pos, cnt in ((args[2], args[4]), (args[5], args[8])):
+        S = pos.shape[1]
+        plan = tiles.pairwise_plan(C, S, cnt)
+        grid = lib.rakau_tiles_pairwise_grid(plan.work.shape[0], T, sms)
+        items = int(plan.n_work[0]) * per_item
+        out["granules"] += int(tiles.pairwise_granules(C, S, cnt).sum())
+        out["spans"] += int(plan.n_work[0])
+        out["work_items"] += items
+        out["cuda_blocks"] += grid
+        out["warps"] += 4 * min(grid, items)
+    out["warps_per_sm"] = out.pop("warps") / (2 * sms)
+    return dict(out, sms=sms,
+                blocks_per_sm_fit=lib.rakau_tiles_pairwise_blocks_per_sm(),
+                registers=REGISTERS.get("tiles_f64" if f64 else "tiles", {})
+                .get("tiles_pairwise_kernel"))
+
+
 def tile_kernels(tree, n: int, label: str, theta: float, nchunks: int = 2,
                  with_k4: bool = True) -> dict:
     """Phase kernel for K3 (and K4) on the first `nchunks` chunks of
@@ -2979,7 +3171,7 @@ def tile_kernels(tree, n: int, label: str, theta: float, nchunks: int = 2,
     plain version's, the bound, the CUDA blocks against the SMs. Returns
     per kernel (worst error, mean ms, plain_ms, bound_ms, bound_by)."""
     from rakau_tpu_torch import engine
-    from rakau_tpu_torch.kernels import shared, tiles
+    from rakau_tpu_torch.kernels import tiles
     td, cfg = tree.tree_data, tree.config
     dev = td.pos.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3004,9 +3196,12 @@ def tile_kernels(tree, n: int, label: str, theta: float, nchunks: int = 2,
         rec["K3_shape"] = shape
         runs = [("K3", k3, shape["cuda_blocks"])]
         if with_k4:
-            runs.append(("K4", k4, C * -(-T // 128) * sum(
-                shared.blocks_nsplit(C, T, -(-S // min(tiles.BLOCK, S)), sms)
-                for S in (Sm, Sp))))
+            if not all(pairwise_plans_equal(C, S, cnt, tiles.BLOCK)
+                       for S, cnt in ((Sm, args[4]), (Sp, args[8]))):
+                raise AssertionError(f"K4, {label} chunk {ch}: the kernel's "
+                                     "plan differs from pairwise_plan's")
+            rec["K4_shape"] = pairwise_shape(args)
+            runs.append(("K4", k4, rec["K4_shape"]["cuda_blocks"]))
         got3 = None
         for name, fn, cuda_blocks in runs:
             got = fn(args, 0.0, 1.0)
@@ -3231,8 +3426,9 @@ def f1(seed: int, dev) -> tuple:
         chunks, every one "f64"; force RMS < 2e-3; then the same particles
         through gwalk (farfield "m2p", bench.py's gwalk caps tuned by
         tune_gwalk): one K2 launch, "f64"; and through the lists path
-        (farfield "m2p"): K3 launches = chunks, "f64"; force RMS < 2e-3
-        each.
+        (farfield "m2p"): K3 launches = chunks, "f64", and the same query
+        under tiles_variant("split"): K4 launches = 2 x chunks, "f64";
+        force RMS < 2e-3 each.
     Returns the record, the launches of each float64 form and their
     kernel records on chunk 0 (against the plain version)."""
     from rakau_tpu_torch import (Tree, direct_acc_pot_np, engine, octree,
@@ -3271,7 +3467,7 @@ def f1(seed: int, dev) -> tuple:
     run("quadtree", tree, F1_2D_THETA,
         lambda c: {"K1": {"mono": c, "d2": c}}, (F1_2D_MAX, F1_2D_MAX))
     del tree
-    from rakau_tpu_torch.kernels import pool, shared
+    from rakau_tpu_torch.kernels import dispatch, pool, shared
     tree = quadtree(coords=p2, masses=m2, **F1_2D_GRID2_KW, **kw)
     run("quadtree_grid2", tree, F1_2D_THETA,
         lambda c: {"K1": {"mono_cell": c, "d2": c}}, (F1_2D_MAX, F1_2D_MAX))
@@ -3328,8 +3524,14 @@ def f1(seed: int, dev) -> tuple:
         launches["K3"] = run("lists_f64", ltree, F1_F64_THETA,
                              lambda c: {"tiles": {"fused": c, "f64": c}},
                              (F1_F64_FORCE_MAX, None))["tiles"]["f64"]
-        forms["K3"] = tile_kernels(ltree, F1_N, "lists_f64", F1_F64_THETA,
-                                   nchunks=1, with_k4=False)["K3"]
+        with dispatch.tiles_variant("split"):
+            launches["K4"] = run(
+                "lists_f64_split", ltree, F1_F64_THETA,
+                lambda c: {"tiles": {"split": 2 * c, "f64": 2 * c}},
+                (F1_F64_FORCE_MAX, None))["tiles"]["f64"]
+        t_forms = tile_kernels(ltree, F1_N, "lists_f64", F1_F64_THETA,
+                               nchunks=1)
+        forms["K3"], forms["K4"] = t_forms["K3"], t_forms["K4"]
     del ltree
     emit("f1", **rec)
     return rec, launches, forms
@@ -3480,7 +3682,7 @@ def main(argv=None) -> int:
     vrec, v_launches = variant_queries(tree, oracle, (f_rms, p_rms), "mma",
                                        dev)
     emit("variants", config="shared+grid", **vrec)
-    v_forms = variant_kernels(tree, args.n, "shared+grid", dev)
+    v_forms = variant_kernels(tree, args.n, "shared+grid")
     density(tree, "shared+grid")
     del tree, td, acc, pot
     torch.cuda.empty_cache()
@@ -3588,7 +3790,7 @@ def main(argv=None) -> int:
                     "library_ms": None})
     for key, name, replaces in (
             ("K3", "K3 tiles (fused rows, monopole, fp32)", K3_REPLACES),
-            ("K4", "K4 tiles_split (one launch a row, monopole, fp32)",
+            ("K4", "K4 tiles pairwise (one launch a row, monopole, fp32)",
              K4_REPLACES)):
         kernels.append({"name": name, "route": "cuda", "source": TILES_SRC,
                         "replaces": replaces, "launches": t_launches[key],
@@ -3599,7 +3801,9 @@ def main(argv=None) -> int:
             ("K2", "K2 pool (monopole, fp64 build)", POOL_SRC,
              POOL_REPLACES),
             ("K3", "K3 tiles (fused rows, monopole, fp64 build)", TILES_SRC,
-             K3_REPLACES)):
+             K3_REPLACES),
+            ("K4", "K4 tiles pairwise (one launch a row, monopole, fp64 "
+             "build)", TILES_SRC, K4_REPLACES)):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": f64_launches[key],
                         **f64_forms[key], "library_ms": None})

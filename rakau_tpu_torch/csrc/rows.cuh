@@ -1,9 +1,10 @@
 // Device code shared by the kernels whose tiles own private, contiguous
-// source rows: K2 (csrc/pool.cu, the gwalk pool) and K3 (csrc/tiles.cu,
-// the lists path's fused rows). Each tile's rows are cut into granules of
-// kGranule packed entries; the work is cut into spans of consecutive
-// granules of one tile; a persistent grid walks (span, group of targets)
-// items; a second kernel adds each target's spans in span order.
+// source rows: K2 (csrc/pool.cu, the gwalk pool), K3 and K4 (csrc/tiles.cu,
+// the lists path's rows: both in one launch, or one row a launch). Each
+// tile's rows are cut into granules of kGranule packed entries; the work
+// is cut into spans of consecutive granules of one tile; a persistent grid
+// walks (span, group of targets) items; a second kernel adds each target's
+// spans in span order.
 //
 // What this header holds:
 //  * the scalar type (RAKAU_REAL, float unless the library is built with
@@ -84,6 +85,9 @@ namespace {
 using real = RAKAU_REAL;
 struct alignas(32) double4a { double x, y, z, w; };
 using real4 = std::conditional_t<sizeof(real) == 4, float4, double4a>;
+// rsqrtf, not K6's MUFU-only form (shared_mma.cu:rsqrt_normal): measured
+// on the card with both, the same bits, K2 6.5 % faster but K3 6.6 %
+// slower on the MUFU alone (PERF.md, K2 and K3).
 __device__ __forceinline__ float rsqrt_r(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_r(double x) { return rsqrt(x); }
 

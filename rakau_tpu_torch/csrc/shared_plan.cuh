@@ -1,6 +1,8 @@
-// The plan and the packed row of the kernels of the shared row that run on
-// K1's plan: K1 (shared_fused.cu) and K6 (shared_mma.cu). Each library
-// includes this header once, so each has its own copy of these kernels.
+// The plan and the packed row of the kernels of the shared row: K1
+// (shared_fused.cu) and K6 (shared_mma.cu) at granules of 128 sources, K5
+// (shared_blocks.cu) at the reference's blocks of 1024. Each library
+// includes this header once, so each has its own copy of these kernels at
+// its own granule.
 //
 // The plan of a launch over a mask [C, S] (kernels/shared.py:fused_plan
 // builds the same in PyTorch), three kernels, none waiting on the host:
@@ -18,7 +20,10 @@
 //
 // Scalar type: `real` is RAKAU_REAL, float unless the library is built
 // with -DRAKAU_REAL=double. RAKAU_GRANULE sets the granule at build time
-// (128; kernels/shared.py:GRANULE must equal it, checked at load).
+// (128, kernels/shared.py:GRANULE; shared_blocks.cu defines 1024,
+// kernels/shared.py:BLOCK; each checked at load). Nothing here depends on
+// the granule beyond kGranule: the mask kernel's ballots run over its
+// words, the other kernels over whole granules.
 #pragma once
 
 #include <cuda_runtime.h>

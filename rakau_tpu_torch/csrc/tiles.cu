@@ -44,33 +44,33 @@
 //  3. rows_reduce_kernel adds each target's spans in order and applies G:
 //     two launches on the same inputs give the same bits.
 //
-// K4 design: the TPU form's (C, blocks) grid runs a tile's blocks in order
-// into one output; CUDA blocks run in no order and share nothing, so the
-// sequential axis becomes a split of the row (as K5, shared_blocks.cu):
-// grid (C, ceil(T/128), nsplit), CUDA block (c, y, z) sums the blocks
-// [z * per, (z + 1) * per) that tile c visits for 128 targets, and writes
-// one partial (ax, ay, az, pot) a target into scratch[z, c, t]; a second
-// kernel adds the nsplit partials in the order z = 0, 1, ... (no atomics,
-// so two launches agree bit for bit). One launch evaluates one row,
-// with (P2P) or without (M2P) the index test. Its row is visited in whole
-// blocks of `block` entries (a runtime argument) up to
+// K4 design: K3's engine (csrc/rows.cuh) on one row a launch, with K4's
+// own visited set. The TPU kernel visits each tile's row in whole blocks
+// of `block` entries (a runtime argument, cut to S) up to
 // ceil(max(min(cnt, S), 1) / block) blocks, at least one, the last one cut
-// at S, as the TPU kernel's plan.
+// at S (pallas.py:_pairwise): the entries past the count inside a visited
+// block are read, as the reference reads them. Here those entries are cut
+// into granules of 128, ceil(visited / 128) a tile, the last one ragged
+// where `block` or S is not a multiple of 128. Three kernels a launch,
+// none waiting on the host: rows_work_kernel (the spans of `span`
+// granules, tile after tile; kernels/tiles.py:pairwise_plan is the same
+// plan in PyTorch), tiles_pairwise_kernel (walk_items over the row, two
+// targets a thread in the float build, one in the float64 build; the M2P
+// launch passes no indices, so every entry carries kNoIdx and only
+// r2 <= 0 kills a pair) and rows_reduce_kernel (the spans added in order,
+// no G: the reference's _pairwise returns sums without it, and
+// eval_tiles(fused=False) applies G to the two launches' sum). Two
+// launches on the same inputs give the same bits.
 //
 // Scalar type: `real` is RAKAU_REAL, float unless the library is built
 // with -DRAKAU_REAL=double. Indices are compared as int32 (particle counts
-// stay below 2^31). Built without --use_fast_math. Kernels: K3's three, K4's
-// two forms and its reduction.
+// stay below 2^31). Built without --use_fast_math. Kernels: the work list
+// of each (rows_work_kernel over K3's and over K4's counts), their main
+// kernels and the span reduction.
 
 #include "rows.cuh"
 
 namespace {
-
-constexpr int kStage = 512;     // K4: row entries staged per step
-// K4: entries unrolled in its inner loop (fewer in double)
-constexpr int kSplitUnroll = sizeof(real) == 8 ? 2 : 4;
-static_assert(kStage * (sizeof(real4) + sizeof(int)) <= 48 * 1024,
-              "the staged entries must fit in static shared memory");
 
 // ---------------------------------------------------------------- K3
 // Granules of tile c's row of S entries with counts cnt (null: all S).
@@ -151,7 +151,8 @@ int k3_blocks_per_sm()
 
 // ---------------------------------------------------------------- K4
 // Entries of tile c's row that K4's block plan visits: whole blocks up to
-// the count (all S without counts), at least one, the last block cut at S.
+// the count (all S without counts), at least one, the last block cut at S
+// (block: the caller's, already cut to S).
 __device__ __forceinline__ int row_entries(const int64_t* __restrict__ cnt,
                                            int c, int S, int block)
 {
@@ -162,142 +163,70 @@ __device__ __forceinline__ int row_entries(const int64_t* __restrict__ cnt,
     return static_cast<int>(n < S ? n : S);
 }
 
-// Stages entries [s0, s0 + nj) of the row that starts at row0.
-template <bool USE_IDX>
-__device__ __forceinline__ void stage(const real* __restrict__ pos,
-                                      const real* __restrict__ mass,
-                                      const int64_t* __restrict__ idx,
-                                      size_t row0, int s0, int nj,
-                                      real4* s_pm, int* s_idx)
-{
-    for (int j = threadIdx.x; j < nj; j += kThreads) {
-        const size_t s = row0 + s0 + j;
-        s_pm[j] = real4{pos[3 * s], pos[3 * s + 1], pos[3 * s + 2], mass[s]};
-        if (USE_IDX) s_idx[j] = static_cast<int>(idx[s]);
+struct PairTile {
+    int c;          // the tile
+    int n;          // its visited entries
+    int granules;   // ceil(n / kGranule)
+};
+
+// The visited entries' granules of each tile, for the work list.
+struct PairCount {
+    const int64_t* cnt;
+    int S, block;
+    __device__ int operator()(int c) const
+    {
+        return (row_entries(cnt, c, S, block) + kGranule - 1) / kGranule;
     }
+};
+
+// The row for walk_items: tile c's granule k is its visited entries
+// [k kGranule, min((k + 1) kGranule, n)).
+struct PairSrc {
+    const real* pos;          // [C, S, 3]
+    const real* mass;         // [C, S]
+    const int64_t* idx;       // [C, S], or null (M2P: no index test)
+    PairCount count;
+    __device__ PairTile tile(int c) const
+    {
+        const int n = row_entries(count.cnt, c, count.S, count.block);
+        return {c, n, (n + kGranule - 1) / kGranule};
+    }
+    __device__ Granule granule(const PairTile& t, int k) const
+    {
+        const int e = k * kGranule;
+        const size_t r = static_cast<size_t>(t.c) * count.S + e;
+        return {pos + 3 * r, mass + r, idx == nullptr ? nullptr : idx + r,
+                nullptr, min(kGranule, t.n - e)};
+    }
+};
+
+__global__ void RAKAU_ROWS_BOUNDS
+tiles_pairwise_kernel(PairSrc src, const real* __restrict__ tgt,
+                      const int64_t* __restrict__ tgt_idx,
+                      const int32_t* __restrict__ first,
+                      const int32_t* __restrict__ work,
+                      const int32_t* __restrict__ n_work,
+                      real4* __restrict__ sums, int T, int span, real eps2)
+{
+    walk_items<kBoth, false, false>(src, tgt, tgt_idx, first, work, n_work,
+                                    sums, nullptr, T, span, eps2);
 }
 
-// Adds the staged entries [0, nj) to one target's partials.
-template <bool USE_IDX>
-__device__ __forceinline__ void accumulate(
-    const real4* __restrict__ s_pm, const int* __restrict__ s_idx, int nj,
-    real tx, real ty, real tz, int ti, real eps2, real& bx, real& by,
-    real& bz, real& bp)
+int k4_blocks_per_sm()
 {
-#pragma unroll (kSplitUnroll)
-    for (int j = 0; j < nj; ++j) {
-        const real4 v = s_pm[j];
-        const real dx = v.x - tx;
-        const real dy = v.y - ty;
-        const real dz = v.z - tz;
-        const real r2 = dx * dx + dy * dy + dz * dz + eps2;
-        real inv_r = rsqrt_r(r2);
-        bool dead = r2 <= real(0);
-        if (USE_IDX) dead = dead || s_idx[j] == ti;
-        if (dead) inv_r = 0;
-        const real w = v.w * inv_r;
-        const real g = w * (inv_r * inv_r);
-        bx += g * dx;
-        by += g * dy;
-        bz += g * dz;
-        bp -= w;
-    }
+    static int occ = 0;
+    return fit_per_sm(tiles_pairwise_kernel, occ);
 }
 
-// Streams row entries [b0, b1) of the row at row0 into the running sums,
-// one stage's partials at a time.
-template <bool USE_IDX>
-__device__ __forceinline__ void stream_row(
-    const real* __restrict__ pos, const real* __restrict__ mass,
-    const int64_t* __restrict__ idx, size_t row0, int b0, int b1,
-    real4* s_pm, int* s_idx, real tx, real ty, real tz, int ti, real eps2,
-    real& ax, real& ay, real& az, real& pp)
+bool bad_pairwise(int S, int block, int span, int cap)
 {
-    for (int s0 = b0; s0 < b1; s0 += kStage) {
-        const int nj = min(kStage, b1 - s0);
-        __syncthreads();            // the previous stage is consumed
-        stage<USE_IDX>(pos, mass, idx, row0, s0, nj, s_pm, s_idx);
-        __syncthreads();
-        real bx = 0, by = 0, bz = 0, bp = 0;
-        accumulate<USE_IDX>(s_pm, s_idx, nj, tx, ty, tz, ti, eps2, bx, by,
-                            bz, bp);
-        ax += bx;
-        ay += by;
-        az += bz;
-        pp += bp;
-    }
+    return S < 0 || block < 1 || span < 1 || cap < 1;
 }
 
-template <bool USE_IDX>
-__global__ void __launch_bounds__(kThreads)
-tiles_split_kernel(const real* __restrict__ tgt,          // [C, T, 3]
-                   const int64_t* __restrict__ tgt_idx,   // [C, T]
-                   const real* __restrict__ pos,          // [C, S, 3]
-                   const real* __restrict__ mass,         // [C, S]
-                   const int64_t* __restrict__ idx,       // [C, S] (USE_IDX)
-                   const int64_t* __restrict__ cnt,       // [C] or null
-                   real4* __restrict__ scratch,           // [nsplit, C, T]
-                   int C, int T, int S, int block, int per, real eps2)
+// The reference's block, min(block, S) (1 for an empty row).
+int row_block(int S, int block)
 {
-    __shared__ real4 s_pm[kStage];
-    __shared__ int s_idx[USE_IDX ? kStage : 1];
-
-    const int c = blockIdx.x;
-    const int t = blockIdx.y * kThreads + threadIdx.x;
-    const int z = blockIdx.z;
-    const bool live = t < T;
-    const size_t tc = static_cast<size_t>(c) * T + t;
-    real tx = 0, ty = 0, tz = 0;
-    int ti = -2;
-    if (live) {
-        tx = tgt[3 * tc];
-        ty = tgt[3 * tc + 1];
-        tz = tgt[3 * tc + 2];
-        ti = static_cast<int>(tgt_idx[tc]);
-    }
-    const int n = row_entries(cnt, c, S, block);
-    const int jb_end = min((n + block - 1) / block, (z + 1) * per);
-    real ax = 0, ay = 0, az = 0, pp = 0;
-    for (int jb = z * per; jb < jb_end; ++jb) {
-        // one TPU grid step: this block's sums, added to the span's
-        real bx = 0, by = 0, bz = 0, bp = 0;
-        stream_row<USE_IDX>(pos, mass, idx, static_cast<size_t>(c) * S,
-                            jb * block, min((jb + 1) * block, n), s_pm,
-                            s_idx, tx, ty, tz, ti, eps2, bx, by, bz, bp);
-        ax += bx;
-        ay += by;
-        az += bz;
-        pp += bp;
-    }
-    if (live)
-        scratch[(static_cast<size_t>(z) * C + c) * T + t]
-            = real4{ax, ay, az, pp};
-}
-
-// acc[i], pot[i] = the nsplit partials of target i, added in order (read
-// as four reals: a 32-byte real4 local went through local memory in
-// double).
-__global__ void __launch_bounds__(kThreads)
-tiles_split_reduce(const real* __restrict__ scratch,    // [nsplit, CT, 4]
-                   real* __restrict__ acc,              // [CT, 3]
-                   real* __restrict__ pot,              // [CT]
-                   int CT, int nsplit)
-{
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i >= CT) return;
-    const real* p = scratch + 4 * static_cast<size_t>(i);
-    real sx = p[0], sy = p[1], sz = p[2], sp = p[3];
-    for (int z = 1; z < nsplit; ++z) {
-        p += 4 * static_cast<size_t>(CT);
-        sx += p[0];
-        sy += p[1];
-        sz += p[2];
-        sp += p[3];
-    }
-    acc[3 * static_cast<size_t>(i)] = sx;
-    acc[3 * static_cast<size_t>(i) + 1] = sy;
-    acc[3 * static_cast<size_t>(i) + 2] = sz;
-    pot[i] = sp;
+    return S < 1 ? 1 : (block < S ? block : S);
 }
 
 }  // namespace
@@ -386,39 +315,77 @@ extern "C" int rakau_tiles_grid(int cap, int T, int sms)
     return persistent_grid(cap, T, k3_blocks_per_sm(), sms);
 }
 
-// K4: one row, both kernels launched on `stream`; returns
-// cudaGetLastError() of the launches (0 = accepted). idx: the row's
-// indices [C, S] for the self-exclusion test (P2P), or null (M2P, no
-// test). cnt: counts [C] or null. scratch: nsplit * C * T * 4 reals,
-// written and read here. nsplit in [1, ceil(S / block)].
-extern "C" int rakau_tiles_split(const real* tgt, const int64_t* tgt_idx,
-                                 const real* pos, const real* mass,
-                                 const int64_t* idx, const int64_t* cnt,
-                                 real* scratch, real* acc, real* pot, int C,
-                                 int T, int S, int block, int nsplit,
-                                 real eps2, void* stream)
+// K4's plan on `stream`: tile c's granules ceil(n_c / 128), n_c its
+// visited entries (whole blocks of min(block, S) up to max(min(cnt[c], S),
+// 1), the last cut at S; null counts: the whole row), cut into spans of
+// `span`; first [C + 1], work [cap] (padded with C), n_work [1] (-1 if the
+// spans exceed cap): kernels/tiles.py:pairwise_plan on the card. Returns
+// cudaGetLastError() of the launch (0 = accepted).
+extern "C" int rakau_tiles_pairwise_plan(const int64_t* cnt, int32_t* first,
+                                         int32_t* work, int32_t* n_work,
+                                         int C, int S, int block, int span,
+                                         int cap, void* stream)
+{
+    if (C < 0 || bad_pairwise(S, block, span, cap))
+        return static_cast<int>(cudaErrorInvalidValue);
+    rows_work_kernel<<<1, kWorkThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        PairCount{cnt, S, row_block(S, block)}, C, span, cap, first, work,
+        n_work);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K4, one row: launches the plan (into first, work, n_work), the main
+// kernel and the span reduction on `stream` (ws: 256-byte aligned,
+// rakau_tiles_workspace(T, cap) bytes), and returns cudaGetLastError() of
+// the launches (0 = accepted). idx: the row's indices [C, S] for the
+// self-exclusion test (P2P), or null (M2P, no test). cnt: counts [C]
+// (int64) or null. acc [C, T, 3], pot [C, T]: the sums, without G. sms:
+// the card's multiprocessors. Every real pointer and eps2 are of the
+// library's scalar type.
+extern "C" int rakau_tiles_pairwise(const real* tgt, const int64_t* tgt_idx,
+                                    const real* pos, const real* mass,
+                                    const int64_t* idx, const int64_t* cnt,
+                                    int32_t* first, int32_t* work,
+                                    int32_t* n_work, void* ws, real* acc,
+                                    real* pot, int C, int T, int S,
+                                    int block, int span, int cap, int sms,
+                                    real eps2, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
-    const int nb = S > 0 && block > 0 ? (S + block - 1) / block : 0;
-    if (S < 1 || block < 1 || nsplit < 1 || nsplit > nb || nsplit > 65535
-        || (T + kThreads - 1) / kThreads > 65535)
+    if (bad_pairwise(S, block, span, cap) || ws == nullptr
+        || reinterpret_cast<uintptr_t>(ws) % 256 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int per = (nb + nsplit - 1) / nsplit;
-    const dim3 grid(C, (T + kThreads - 1) / kThreads, nsplit);
-    real4* sc = reinterpret_cast<real4*>(scratch);
-    if (idx != nullptr)
-        tiles_split_kernel<true><<<grid, kThreads, 0, st>>>(
-            tgt, tgt_idx, pos, mass, idx, cnt, sc, C, T, S, block, per, eps2);
-    else
-        tiles_split_kernel<false><<<grid, kThreads, 0, st>>>(
-            tgt, tgt_idx, pos, mass, idx, cnt, sc, C, T, S, block, per, eps2);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int CT = C * T;
-    tiles_split_reduce<<<(CT + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        scratch, acc, pot, CT, nsplit);
+    const int err = rakau_tiles_pairwise_plan(cnt, first, work, n_work, C, S,
+                                              block, span, cap, stream);
+    if (err != 0) return err;
+    real4* sums = static_cast<real4*>(ws);
+    const int grid = persistent_grid(cap, T, k4_blocks_per_sm(), sms);
+    tiles_pairwise_kernel<<<grid, kThreads, 0, st>>>(
+        PairSrc{pos, mass, idx, PairCount{cnt, S, row_block(S, block)}},
+        tgt, tgt_idx, first, work, n_work, sums, T, span, eps2);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long CT = static_cast<long long>(C) * T;
+    rows_reduce_kernel<false>
+        <<<static_cast<unsigned>((CT + kPackThreads - 1) / kPackThreads),
+           kPackThreads, 0, st>>>(sums, nullptr, first, n_work, acc, pot, C,
+                                  T, real(1));
     return static_cast<int>(cudaGetLastError());
+}
+
+// CUDA blocks of K4 that fit on one SM at once.
+extern "C" int rakau_tiles_pairwise_blocks_per_sm()
+{
+    return k4_blocks_per_sm();
+}
+
+// CUDA blocks a K4 launch of cap spans and T targets runs (its persistent
+// grid).
+extern "C" int rakau_tiles_pairwise_grid(int cap, int T, int sms)
+{
+    return persistent_grid(cap, T, k4_blocks_per_sm(), sms);
 }
 
 extern "C" const char* rakau_cuda_error_string(int err)

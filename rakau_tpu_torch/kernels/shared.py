@@ -40,10 +40,12 @@ and a float64 call runs the same source built with -DRAKAU_REAL=double
 
 The plans: K1 (csrc/shared_fused.cu) and K6 (csrc/shared_mma.cu) compact
 each tile's mask at GRANULE sources and cut each tile's list into spans of
-SPAN entries (fused_plan), built on the card by the same plan kernels
-(csrc/shared_plan.cuh); K5 takes whole blocks of BLOCK sources
-(active_blocks). PLAN_BLOCK names each evaluator's unit;
-metrics.processed_pairs replays them.
+SPAN entries (fused_plan); K5 (csrc/shared_blocks.cu) compacts it at the
+reference's whole blocks of BLOCK sources, in spans of BLOCKS_SPAN
+(fused_plan(mask, BLOCKS_SPAN, BLOCK)). Each library builds its plan on
+the card by the same plan kernels (csrc/shared_plan.cuh) at its own unit.
+PLAN_BLOCK names each evaluator's unit; metrics.processed_pairs replays
+them.
 """
 from __future__ import annotations
 
@@ -61,10 +63,12 @@ from .. import scan_utils as su
 from . import rows
 
 _MODES = {"both": 0, "acc": 1, "pot": 2}
-# Source-block granularity of K5's active-block lists: each CUDA block
-# stages this many sources per step. Its kBlock must equal it (checked
-# when the library loads).
+# The reference's source block (`pallas.eval_shared`): the unit of K5's
+# per-tile active-block lists, whose kernel's kGranule must equal it
+# (checked when the library loads); its lists are cut into spans of
+# BLOCKS_SPAN entries, handed to each launch.
 BLOCK = 1024
+BLOCKS_SPAN = 1
 # The plan of K1 and K6: each tile's list of active granules of GRANULE
 # sources (the reference's `subblock` selection; the unit of one staging
 # step), cut into spans of SPAN consecutive entries, one work item a span
@@ -125,14 +129,17 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
                       eps, G, mode: str = "both", block: int = GRANULE,
                       compensated: bool = False, src_quad=None,
                       src_cell=None, tgt_cell=None, grid_sep: int = 0,
-                      span: int = SPAN):
+                      span: int = SPAN, weight_mask: bool = False):
     """Plain version (counterpart of `rakau_tpu.kernels.xla.eval_shared`),
     in K1's structure: each tile's list of active granules of `block`
     sources (active_blocks(mask, block)) is cut into spans of `span`
     consecutive entries (0: one span, the whole list). A granule's
     [C, T, block] panel is summed over its sources and added into its
     span's sum; the spans' sums are added in span order. compensated:
-    TwoSum at both levels, the error terms added at the end.
+    TwoSum at both levels, the error terms added at the end. weight_mask:
+    the mask multiplies the masses (m_j * mask[c, j], the reference's
+    `_shared_kernel`, K5) instead of entering the dead gate (monopole
+    only; the same sums wherever m_j * inv_r^3 is finite).
 
     tgt_pos [C, T, D], tgt_idx [C, T], src_pos [S, D], src_mass [S],
     src_idx [S], mask [C, S] bool (+ src_quad [S, Q]; + integer
@@ -146,6 +153,8 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
         raise ValueError("src_cell needs tgt_cell and grid_sep >= 1")
     if span < 0:
         raise ValueError("span must be >= 0")
+    if weight_mask and src_quad is not None:
+        raise ValueError("weight_mask is the monopole's")
     C, T, D = tgt_pos.shape
     S = src_pos.shape[0]
     dtype = tgt_pos.dtype
@@ -186,8 +195,9 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
         dds = [sp[:, None, :, d] - tgt_pos[:, :, None, d] for d in range(D)]
         r2 = eps2 + sum(dd * dd for dd in dds)
         inv_r = torch.rsqrt(r2)
-        dead = (idx_p[sl][:, None, :] == tgt_idx[:, :, None]) | (r2 <= 0) \
-            | ~mkb
+        dead = (idx_p[sl][:, None, :] == tgt_idx[:, :, None]) | (r2 <= 0)
+        if not weight_mask:
+            dead = dead | ~mkb
         if grid_sep:
             scb = cell_p[sl]                               # [C, B, D]
             csep = None
@@ -196,7 +206,8 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
                 csep = cd if csep is None else torch.maximum(csep, cd)
             dead = dead | ((csep >= grid_sep) & (scb[:, None, :, 0] >= 0))
         inv_r = torch.where(dead, 0.0, inv_r)
-        w = mass_p[sl][:, None, :] * inv_r
+        m = mass_p[sl][:, None, :]
+        w = (m * mkb.to(dtype) if weight_mask else m) * inv_r
         part = {}
         if "acc" in outs:
             w3 = w * inv_r * inv_r
@@ -371,31 +382,20 @@ def eval_shared_mma_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
 
 def eval_shared_blocks_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
                              mask, eps, G, block: int = BLOCK,
-                             nsplit: int = 1):
-    """Plain version of the split-source form (counterpart of
-    `rakau_tpu.kernels.pallas.eval_shared`): the monopole sums of
-    eval_shared_plain, fp32, both outputs, as per-block sums: the row's
-    blocks are cut into `nsplit` contiguous spans, each span adds its
-    blocks' sums in block order ((tile, block) pairs with an empty mask
-    add exact zeros), and the spans' sums are added in order."""
-    C, T, D = tgt_pos.shape
-    S = src_pos.shape[0]
-    nb = max(1, -(-S // block))
-    if not 1 <= nsplit <= nb:
-        raise ValueError(f"nsplit must be in [1, {nb}]")
-    per = -(-nb // nsplit)
-    acc = torch.zeros_like(tgt_pos)
-    pot = torch.zeros_like(tgt_pos[..., 0])
-    for z in range(nsplit):
-        a, p = eval_shared_plain(
-            tgt_pos, tgt_idx, src_pos[z * per * block:(z + 1) * per * block],
-            src_mass[z * per * block:(z + 1) * per * block],
-            src_idx[z * per * block:(z + 1) * per * block],
-            mask[:, z * per * block:(z + 1) * per * block], eps, 1.0,
-            block=block, span=0)
-        acc += a
-        pot += p
-    return G * acc, G * pot
+                             span: int = BLOCKS_SPAN):
+    """Plain version of the block-plan form K5 (counterpart of
+    `rakau_tpu.kernels.pallas.eval_shared`): monopole, fp32, both outputs,
+    in K5's plan (fused_plan(mask, span, block)): each tile's list of
+    active blocks of `block` sources cut into spans of `span` entries, a
+    block's [C, T, block] panel summed over its sources with every entry
+    weighted by its mask (m_j * mask[c, j], the reference's multiply) and
+    added into its span's sum, the spans' sums added in span order; times
+    G."""
+    if span < 1:
+        raise ValueError("span must be >= 1")
+    return eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
+                             mask, eps, G, block=block, span=span,
+                             weight_mask=True)
 
 
 # ---------------------------------------------------------------- kernel
@@ -403,7 +403,7 @@ def eval_shared_blocks_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
 # "mono_comp" K1b, "quad" K1d and "quad_comp" K1d with K1b's sums; the
 # "_cell" forms are K1c, each of them with the cell-separation test; "mma"
 # and "mma_cell" are the tensor-core form K6 (any precision) and "blocks"
-# the split-source form K5.
+# the block-plan form K5.
 FORMS = ("mono", "mono_comp", "quad", "quad_comp", "mono_cell",
          "mono_comp_cell", "quad_cell", "quad_comp_cell", "mma", "mma_cell",
          "blocks")
@@ -533,8 +533,18 @@ _LIBRARIES = {
                     "rakau_shared_mma_targets_per_item": [],
                     "rakau_shared_mma_threads": []},
                    ("granule", "cell_bits")),
-    "shared_blocks": ({"rakau_shared_blocks": [_VOIDP] * 10 + [_INT] * 5
-                       + [_REAL, _VOIDP]}, ("block",)),
+    "shared_blocks": ({"rakau_shared_blocks_plan": [_VOIDP] * 6
+                       + [_INT] * 3 + [_VOIDP],
+                       "rakau_shared_blocks_pack": [_VOIDP] * 4 + [_INT] * 4
+                       + [_VOIDP],
+                       "rakau_shared_blocks": [_VOIDP] * 9 + [_INT] * 5
+                       + [_REAL, _REAL, _VOIDP],
+                       "rakau_shared_blocks_workspace": [_INT] * 4,
+                       "rakau_shared_blocks_grid": [_INT] * 5,
+                       "rakau_shared_blocks_blocks_per_sm": [],
+                       "rakau_shared_blocks_targets_per_thread": [],
+                       "rakau_shared_blocks_threads": [],
+                       "rakau_shared_blocks_step": []}, ("block",)),
     "pool": ({"rakau_pool_plan": [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP],
               "rakau_pool": [_VOIDP] * 13 + [_INT] * 10
               + [_REAL, _REAL, _VOIDP],
@@ -550,12 +560,18 @@ _LIBRARIES = {
                "rakau_tiles_grid": [_INT] * 3,
                "rakau_tiles_blocks_per_sm": [],
                "rakau_tiles_targets_per_thread": [],
-               "rakau_tiles_split": [_VOIDP] * 9 + [_INT] * 5
-               + [_REAL, _VOIDP]}, ("granule", "real_bytes")),
+               "rakau_tiles_pairwise_plan": [_VOIDP] * 4 + [_INT] * 5
+               + [_VOIDP],
+               "rakau_tiles_pairwise": [_VOIDP] * 12 + [_INT] * 7
+               + [_REAL, _VOIDP],
+               "rakau_tiles_pairwise_grid": [_INT] * 3,
+               "rakau_tiles_pairwise_blocks_per_sm": []},
+              ("granule", "real_bytes")),
 }
 # functions that return something else than an int
 _RESTYPES = {"rakau_shared_fused_workspace": ctypes.c_size_t,
              "rakau_shared_mma_workspace": ctypes.c_size_t,
+             "rakau_shared_blocks_workspace": ctypes.c_size_t,
              "rakau_pool_workspace": ctypes.c_size_t,
              "rakau_tiles_workspace": ctypes.c_size_t}
 # the libraries that have a float64 build
@@ -775,15 +791,15 @@ def multiprocessors(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _device_plan(lib, mask, ws, stream,
-                 name: str = "shared_fused") -> FusedPlan:
-    """fused_plan(mask) built on the card by the plan kernels of library
-    `name` (shared_fused or shared_mma: the same kernels,
-    csrc/shared_plan.cuh) into new tensors, the mask bits and flags into
-    the workspace ws."""
+def _device_plan(lib, mask, ws, stream, name: str = "shared_fused",
+                 span: int = SPAN, granule: int = GRANULE) -> FusedPlan:
+    """fused_plan(mask, span, granule) built on the card by the plan
+    kernels of library `name` (shared_fused, shared_mma or shared_blocks:
+    the same kernels, csrc/shared_plan.cuh, at the library's granule)
+    into new tensors, the mask bits and flags into the workspace ws."""
     C, S = mask.shape
-    ng = max(1, -(-S // GRANULE))
-    zmax = -(-ng // SPAN)
+    ng = max(1, -(-S // granule))
+    zmax = -(-ng // span)
     dev = mask.device
     plan = FusedPlan(torch.empty((C, ng), dtype=torch.int32, device=dev),
                      torch.empty((C,), dtype=torch.int32, device=dev),
@@ -792,7 +808,7 @@ def _device_plan(lib, mask, ws, stream,
     err = getattr(lib, f"rakau_{name}_plan")(
         mask.data_ptr(), ws.data_ptr(), plan.ids.data_ptr(),
         plan.cnt.data_ptr(), plan.work.data_ptr(), plan.n_work.data_ptr(),
-        C, S, SPAN, stream)
+        C, S, span, stream)
     raise_on(err, lib, f"{name} (plan)")
     return plan
 
@@ -931,58 +947,59 @@ def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     return (acc if D == 3 else acc[..., :D].contiguous()), pot
 
 
-# CUDA blocks per SM that eval_shared_blocks aims at when it splits the row
-BLOCKS_PER_SM = 8
-_KERNEL_THREADS = 128       # targets per CUDA block of every form
-
-
-def blocks_nsplit(C: int, T: int, nb: int, sms: int) -> int:
-    """Spans into which eval_shared_blocks cuts a row of nb source blocks:
-    as many as bring the launch to BLOCKS_PER_SM CUDA blocks per SM, given
-    the C * ceil(T / 128) that the targets alone give, at least 1 and at
-    most one span a block."""
-    base = C * -(-T // _KERNEL_THREADS)
-    return max(1, min(nb, -(-BLOCKS_PER_SM * sms // base)))
+def blocks_device_plan(mask: torch.Tensor,
+                       span: int = BLOCKS_SPAN) -> FusedPlan:
+    """K5's plan as its kernels build it from a bool mask [C, S] on a CUDA
+    device, which must equal fused_plan(mask, span, BLOCK) in every field
+    (a check of the kernels, not a step of the path)."""
+    _check("mask", mask, torch.bool, mask.shape)
+    lib = _library("shared_blocks")
+    C, S = mask.shape
+    ws = torch.empty(lib.rakau_shared_blocks_workspace(C, 1, S, span),
+                     dtype=torch.uint8, device=mask.device)
+    with torch.cuda.device(mask.device):
+        return _device_plan(lib, mask, ws, torch.cuda.current_stream(
+            mask.device).cuda_stream, "shared_blocks", span, BLOCK)
 
 
 def eval_shared_blocks(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                       eps, G, nsplit: int = None):
-    """The split-source CUDA kernel csrc/shared_blocks.cu (replaces
+                       eps, G, span: int = BLOCKS_SPAN):
+    """The block-plan CUDA kernel csrc/shared_blocks.cu, K5 (replaces
     `rakau_tpu.kernels.pallas.eval_shared`): monopole, fp32 sums, both
-    outputs. CUDA block (tile, 128 targets, span) sums the span's blocks
-    that block_any(mask) marks for the tile into a scratch
-    [nsplit, C, T, 4]; a second kernel adds the spans in order, so two
-    launches on the same inputs agree bit for bit. nsplit defaults to
-    blocks_nsplit for the tensors' device. Same arguments and results as
-    eval_shared_blocks_plain, same tensor types as eval_shared_fused but
-    float32 only (float64 raises ValueError). Launches on the current
-    stream."""
+    outputs. Same arguments and results as eval_shared_blocks_plain at the
+    same `span` (its plan fused_plan(mask, span, BLOCK)), same tensor
+    types as eval_shared_fused but float32 only (float64 raises
+    ValueError). On the current stream, with no host sync: the plan and
+    the packed row into a workspace (K1's plan and packing kernels at
+    blocks of BLOCK), then the kernel and its span reduction, which
+    applies G; two launches on the same inputs agree bit for bit."""
+    if span < 1:
+        raise ValueError("span must be >= 1")
     C, T, S, D, _ = _check_row(tgt_pos, tgt_idx, src_pos, src_mass,
                                src_idx, mask, f32_only=True)
     if D == 2:
         (tgt_pos, src_pos), _ = pad_to_3d(tgt_pos, src_pos)
     acc, pot = _outputs(tgt_pos)
     if C == 0 or T == 0:
-        return G * acc[..., :D], G * pot
-    dev = tgt_pos.device
-    blk = block_any(mask).to(torch.uint8).contiguous()
-    nb = blk.shape[1]
-    if nsplit is None:
-        nsplit = blocks_nsplit(
-            C, T, nb, torch.cuda.get_device_properties(dev)
-            .multi_processor_count)
-    if not 1 <= nsplit <= nb:
-        raise ValueError(f"nsplit must be in [1, {nb}]")
-    scratch = torch.empty((nsplit, C, T, 4), dtype=torch.float32, device=dev)
+        return acc[..., :D], pot
     lib = _library("shared_blocks")
+    dev = tgt_pos.device
+    ws = torch.empty(lib.rakau_shared_blocks_workspace(C, T, S, span),
+                     dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        plan = _device_plan(lib, mask, ws, stream, "shared_blocks", span,
+                            BLOCK)
+        err = lib.rakau_shared_blocks_pack(
+            src_pos.data_ptr(), src_mass.data_ptr(), src_idx.data_ptr(),
+            ws.data_ptr(), C, T, S, span, stream)
+        raise_on(err, lib, "shared_blocks (row packing)")
         err = lib.rakau_shared_blocks(
-            tgt_pos.data_ptr(), tgt_idx.data_ptr(), src_pos.data_ptr(),
-            src_mass.data_ptr(), src_idx.data_ptr(), mask.data_ptr(),
-            blk.data_ptr(), scratch.data_ptr(), acc.data_ptr(),
-            pot.data_ptr(), C, T, S, nb, nsplit,
-            eps2_arg(eps, torch.float32), stream)
+            tgt_pos.data_ptr(), tgt_idx.data_ptr(), plan.ids.data_ptr(),
+            plan.cnt.data_ptr(), plan.work.data_ptr(),
+            plan.n_work.data_ptr(), ws.data_ptr(), acc.data_ptr(),
+            pot.data_ptr(), C, T, S, span, multiprocessors(dev),
+            eps2_arg(eps, torch.float32), float(G), stream)
     raise_on(err, lib, "shared_blocks")
     count_launch(launches, "blocks", D == 2, False)
-    return G * acc[..., :D], G * pot
+    return (acc if D == 3 else acc[..., :D].contiguous()), pot

@@ -23,8 +23,11 @@ then ceil(clip(p2p_cnt, 0, Sp) / GRANULE) of the P2P row (tiles_granules),
 the granules into spans of SPAN; each granule's partial enters its span's
 sum, the spans' sums are added in order. That visits the same live
 entries as the reference's plan of whole blocks of `block` up to each
-count. K4 keeps the reference's plan: ceil(max(min(cnt, S), 1) / b)
-blocks of b = min(block, S) per row (at least one); tile_blocks gives it.
+count. K4 keeps the reference's visited set, one row a launch:
+ceil(max(min(cnt, S), 1) / b) blocks of b = min(block, S) per tile (at
+least one; tile_blocks), the last cut at S, entries past the count inside
+them included; those entries are cut into granules of GRANULE and spans
+of SPAN on K3's engine (pairwise_granules, pairwise_plan).
 
 The device of the tensors decides: CUDA tensors launch the kernel (2-D
 operands padded to 3-D by kernels.shared.pad_to_3d, float64 through the
@@ -39,7 +42,7 @@ from . import rows, shared
 # K4's block and its default (the reference's DEF_BLOCK)
 BLOCK = 1024
 GRANULE = rows.GRANULE
-# K3: granules a span, handed to each launch
+# K3 and K4: granules a span, handed to each launch
 SPAN = 2
 # the index of an M2P entry in K3's plain version: no target has it
 _NO_IDX = torch.iinfo(torch.int64).min
@@ -206,20 +209,79 @@ def eval_tiles_plain(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
     return G * acc.total(), G * pot.total()
 
 
-def eval_pairwise_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
-                        use_idx: bool, cnt=None, block: int = BLOCK):
-    """Plain version of one K4 launch (`rakau_tpu.kernels.pallas.
-    _pairwise`): one row, with the self-exclusion test if use_idx, blocks
-    of min(block, S) up to ceil(max(min(cnt, S), 1) / b) per tile. No G
-    factor. Returns acc [C, T, D], pot [C, T]."""
-    S = src_pos.shape[1]
+def pairwise_entries(C: int, S: int, cnt=None, block: int = BLOCK,
+                     device=None) -> torch.Tensor:
+    """[C] int64: the entries of each tile's row of S that K4's plan
+    visits, the reference's: whole blocks of b = min(block, S) up to
+    ceil(max(min(cnt, S), 1) / b), at least one, the last cut at S (None:
+    the whole row)."""
     b = max(1, min(block, S))
-    acc = torch.zeros_like(tgt_pos)
-    pot = torch.zeros_like(tgt_pos[..., 0])
-    _row_plain(acc, pot, tgt_pos, tgt_idx, src_pos, src_mass,
-               src_idx if use_idx else None, _eps2(eps, tgt_pos),
-               tile_blocks(cnt, S, b, True), b)
-    return acc, pot
+    nb = tile_blocks(cnt, S, b, True)
+    if not torch.is_tensor(nb):
+        nb = torch.full((C,), nb, dtype=torch.int64, device=device)
+    return torch.clamp(nb * b, max=S)
+
+
+def pairwise_granules(C: int, S: int, cnt=None, block: int = BLOCK,
+                      device=None) -> torch.Tensor:
+    """[C] int64: K4's granules of each tile, ceil(pairwise_entries /
+    GRANULE)."""
+    n = pairwise_entries(C, S, cnt, block, device)
+    return (n + GRANULE - 1) // GRANULE
+
+
+def pairwise_capacity(C: int, S: int, span: int = SPAN) -> int:
+    """The spans a K4 launch makes room for: every tile's whole row."""
+    ng = -(-S // GRANULE)
+    return max(1, C * -(-ng // span))
+
+
+def pairwise_plan(C: int, S: int, cnt=None, block: int = BLOCK,
+                  span: int = SPAN, device=None) -> rows.RowsPlan:
+    """K4's plan for C tiles with a row of S entries and counts [C]
+    (None: the whole row), on the counts' device (or `device`), with no
+    host sync (csrc/tiles.cu builds the same on the card)."""
+    return rows.span_plan(pairwise_granules(C, S, cnt, block,
+                                            device=device),
+                          span, pairwise_capacity(C, S, span))
+
+
+def eval_pairwise_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
+                        use_idx: bool, cnt=None, block: int = BLOCK,
+                        granule: int = GRANULE, span: int = SPAN):
+    """Plain version of one K4 launch (`rakau_tpu.kernels.pallas.
+    _pairwise`), in K4's plan: one row, with the self-exclusion test if
+    use_idx, each tile's visited entries (pairwise_entries: whole blocks of
+    min(block, S) up to ceil(max(min(cnt, S), 1) / b), entries past the
+    count inside them included) cut into granules of `granule`, one
+    [C, T, granule] panel per granule position, added into spans of `span`
+    granules (0: one span a tile), the spans in order. No G factor.
+    Returns acc [C, T, D], pot [C, T]."""
+    if span < 0:
+        raise ValueError("span must be >= 0")
+    C, T, D = tgt_pos.shape
+    S = src_pos.shape[1]
+    dev = tgt_pos.device
+    n = pairwise_entries(C, S, cnt, block, dev)
+    ng = (n + granule - 1) // granule
+    pos, mass, idx = _granule_rows(src_pos, src_mass,
+                                   src_idx if use_idx else None, granule)
+    top = max(pos.shape[1] // granule - 1, 0)
+    lane = torch.arange(granule, device=dev)
+    acc = rows.SpanSums(tgt_pos, False)
+    pot = rows.SpanSums(tgt_pos[..., 0], False)
+    eps2 = _eps2(eps, tgt_pos)
+    for k in range(int(ng.max()) if C and S else 0):
+        live = k < ng
+        ent = min(k, top) * granule + lane                  # [granule]
+        s = pos[:, ent]
+        m = torch.where((ent[None, :] < n[:, None]) & live[:, None],
+                        mass[:, ent], 0.0)
+        a, p = _pair_sums(tgt_pos, tgt_idx, s, m, idx[:, ent], eps2)
+        end = rows.span_ends(k, ng, span)
+        acc.add(a, live, end)
+        pot.add(p, live, end)
+    return acc.total(), pot.total()
 
 
 # ----------------------------------------- the reference's plain-op route
@@ -418,43 +480,64 @@ def eval_tiles_fused(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
     return (acc if D == 3 else acc[..., :D].contiguous()), pot
 
 
+def pairwise_device_plan(C: int, S: int, cnt=None, block: int = BLOCK,
+                         device=None) -> rows.RowsPlan:
+    """K4's plan as its kernel builds it on a CUDA device from the counts
+    (an integer [C] CUDA tensor, or None for the whole row), which must
+    equal pairwise_plan(...) in every field (a check of the kernels, not a
+    step of the path)."""
+    cnt = _cnt64(cnt)
+    dev = cnt.device if cnt is not None else device
+    cap = pairwise_capacity(C, S)
+    plan = rows.plan_views(torch.empty(C + cap + 2, dtype=torch.int32,
+                                       device=dev), C, cap)
+    lib = shared._library("tiles")
+    with torch.cuda.device(dev):
+        err = lib.rakau_tiles_pairwise_plan(
+            _ptr(cnt), *(t.data_ptr() for t in plan), C, S, block, SPAN, cap,
+            torch.cuda.current_stream(dev).cuda_stream)
+    shared.raise_on(err, lib, "tiles (K4 plan)")
+    return plan
+
+
 def eval_pairwise(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
                   use_idx: bool, cnt=None, block: int = BLOCK):
     """One K4 launch, the CUDA kernel (replaces `rakau_tpu.kernels.pallas.
-    _pairwise`): one row on the grid (C, T / 128, nsplit) into a scratch,
-    then the spans added in order (two launches on the same inputs agree
-    bit for bit); nsplit is kernels.shared.blocks_nsplit over the row's
-    blocks (8 CUDA blocks an SM, as K5's split). Same arguments and
-    results as eval_pairwise_plain (no G factor), same tensor types as
-    eval_tiles_fused. Launches on the current stream."""
+    _pairwise`): one row on K3's engine over K4's visited set. Same
+    arguments and results as eval_pairwise_plain at its default plan (no G
+    factor), same tensor types as eval_tiles_fused. On the current stream,
+    with no host sync: the plan, the kernel and its span reduction (two
+    launches on the same inputs agree bit for bit)."""
     C, T, D, f64 = _check_tiles(tgt_pos, tgt_idx, (
         ("src", src_pos, src_mass, src_idx if use_idx else None, cnt),))
+    if block < 1:
+        raise ValueError("block must be >= 1")
     if D == 2:
         (tgt_pos, src_pos), _ = shared.pad_to_3d(tgt_pos, src_pos)
     S = src_pos.shape[1]
     acc, pot = shared._outputs(tgt_pos)
     if C == 0 or T == 0:
         return acc[..., :D], pot
-    if S == 0:
-        return acc.zero_()[..., :D], pot.zero_()
-    b = min(block, S)
-    nb = -(-S // b)
-    dev = tgt_pos.device
-    nsplit = shared.blocks_nsplit(
-        C, T, nb, torch.cuda.get_device_properties(dev).multi_processor_count)
-    scratch = torch.empty((nsplit, C, T, 4), dtype=tgt_pos.dtype, device=dev)
     cnt = _cnt64(cnt)
+    dev = tgt_pos.device
+    cap = pairwise_capacity(C, S)
+    plan = rows.plan_views(torch.empty(C + cap + 2, dtype=torch.int32,
+                                       device=dev), C, cap)
     lib = shared._library("tiles", f64)
+    ws = torch.empty(lib.rakau_tiles_workspace(T, cap), dtype=torch.uint8,
+                     device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.rakau_tiles_split(
+        err = lib.rakau_tiles_pairwise(
             tgt_pos.data_ptr(), tgt_idx.data_ptr(), src_pos.data_ptr(),
             src_mass.data_ptr(), src_idx.data_ptr() if use_idx else None,
-            _ptr(cnt), scratch.data_ptr(), acc.data_ptr(), pot.data_ptr(),
-            C, T, S, b, nsplit, shared.eps2_arg(eps, tgt_pos.dtype), stream)
-    shared.raise_on(err, lib, "tiles_split")
+            _ptr(cnt), *(t.data_ptr() for t in plan), ws.data_ptr(),
+            acc.data_ptr(), pot.data_ptr(), C, T, S, block, SPAN, cap,
+            shared.multiprocessors(dev), shared.eps2_arg(eps, tgt_pos.dtype),
+            stream)
+    shared.raise_on(err, lib, "tiles (K4)")
     shared.count_launch(launches, "split", D == 2, f64)
-    return acc[..., :D], pot
+    return (acc if D == 3 else acc[..., :D].contiguous()), pot
 
 
 def eval_tiles(tgt_pos, tgt_idx, m2p_pos, m2p_mass, m2p_quad, p2p_pos,

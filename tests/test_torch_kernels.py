@@ -733,37 +733,60 @@ def test_mma_operands_are_checked():
         shared.eval_shared_blocks(*targs, 0.0, 1.0)
 
 
-# ----------------------------------------------- K5, the split-source form
-@pytest.mark.parametrize("nsplit", [1, 2, 6])
-def test_plain_blocks_matches_pallas_shared_and_xla(nsplit):
+# ----------------------------------------------- K5, the block-plan form
+@pytest.mark.parametrize("span", [1, 2, 6])
+def test_plain_blocks_matches_pallas_shared_and_xla(span):
     case = make_case(65)
     eps = case[-1]
     targs, jargs = _torch_args(case), _jax_args(case)
     got = shared.eval_shared_blocks_plain(*targs, eps, 1.5, block=64,
-                                          nsplit=nsplit)
+                                          span=span)
     want_p = pk.eval_shared(*jargs, eps, 1.5, block=64, interpret=True)
     want_x = xk.eval_shared(*jargs, eps, 1.5, block=64)
     _close(got, want_p)
     _close(got, want_x)
     assert not got[0][2].any() and not got[1][2].any()      # empty tile
-    # the spans only regroup the per-block sums
+    # the spans only regroup the per-block sums, and the mask as a weight
+    # gives the dead gate's sums
     one = shared.eval_shared_plain(*targs, eps, 1.5, block=64)
     for g, w in zip(got, one):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
                                    atol=1e-6)
-    with pytest.raises(ValueError, match="nsplit"):
-        shared.eval_shared_blocks_plain(*targs, eps, 1.5, block=64,
-                                        nsplit=7)
+    with pytest.raises(ValueError, match="span"):
+        shared.eval_shared_blocks_plain(*targs, eps, 1.5, block=64, span=0)
 
 
-def test_blocks_nsplit_rule():
-    """As many spans as bring the launch to BLOCKS_PER_SM CUDA blocks a SM,
-    between 1 and one span a block."""
-    assert shared.BLOCKS_PER_SM == 8
-    assert shared.blocks_nsplit(32, 512, 57, 132) == 9      # 1152 blocks
-    assert shared.blocks_nsplit(32, 512, 4, 132) == 4       # one a block
-    assert shared.blocks_nsplit(64, 4096, 57, 132) == 1     # full already
-    assert shared.blocks_nsplit(1, 1, 1, 132) == 1
+def test_blocks_plan_is_fused_plan_at_the_block():
+    """K5's plan is K1's plan at the reference's block: fused_plan(mask,
+    BLOCKS_SPAN, BLOCK), whose lists, counts and spans here follow a brute
+    force over a mask with an empty tile, a full tile, a tile whose only
+    live entry lies in the ragged last block and a long list."""
+    B = shared.BLOCK
+    S = 6 * B + 300                                     # a ragged last block
+    rng = np.random.default_rng(71)
+    mask = torch.as_tensor(rng.uniform(size=(5, S)) < 2e-3)
+    mask[1] = False                                     # empty
+    mask[2] = True                                      # full
+    mask[3] = False
+    mask[3, -1] = True                                  # ragged tail only
+    mask[4, ::B // 2] = True                            # every block
+    nb = -(-S // B)
+    for span in (shared.BLOCKS_SPAN, 1, 2, 4):
+        plan = shared.fused_plan(mask, span, B)
+        assert plan.zmax == -(-nb // span)
+        work = []
+        for c in range(5):
+            live = [b for b in range(nb) if mask[c, b * B:(b + 1) * B].any()]
+            assert plan.cnt[c] == len(live)
+            assert plan.ids[c, :len(live)].tolist() == live
+            assert (plan.ids[c, len(live):] == nb).all()
+            work += [c * plan.zmax + z for z in range(-(-len(live) // span))]
+        assert plan.n_work.item() == len(work)
+        assert plan.work[:len(work)].tolist() == work
+        assert (plan.work[len(work):] == 5 * plan.zmax).all()
+    plan = shared.fused_plan(mask, shared.BLOCKS_SPAN, B)
+    assert plan.cnt[1:].tolist() == [0, nb, 1, nb]
+    assert plan.ids[3, 0] == nb - 1
 
 
 def test_block_any_is_the_plan_of_every_form():

@@ -319,3 +319,85 @@ def test_plain_tiles_at_other_plans_matches_pallas(ndim, granule, span):
                              interpret=True)
         assert all(bool(torch.isfinite(x).all()) for x in got)
         _close(got, want)
+
+
+# ------------------------------------------------------------------- K4
+# (S, block, counts): 0 and a negative count (one block all the same), a
+# count past S, the whole row, counts that end inside a block; block 64
+# (not a multiple of the granule at the row's end), 1000 (cut to S) and
+# 200 (granules cross its blocks)
+PAIR_CASES = [
+    (300, 64, [0, 400, -3, 300, 65]),
+    (300, 1000, [0, 400, -3, 300, 65]),
+    (1000, 200, [1, 999, 0, 129, 201]),
+]
+
+
+def brute_visited(S, block, k):
+    """Entries of a row of S that the reference's _pairwise visits for a
+    tile with count k: whole blocks of min(block, S) up to max(min(k, S),
+    1), the last one cut at S."""
+    b = min(block, S)
+    k = max(min(max(k, 0), S), 1)
+    return min(-(-k // b) * b, S)
+
+
+@pytest.mark.parametrize("span", [1, 4, tiles.SPAN])
+@pytest.mark.parametrize("case", range(len(PAIR_CASES)))
+def test_pairwise_plan_matches_a_brute_force(case, span):
+    S, block, cnt = PAIR_CASES[case]
+    C = len(cnt)
+    want = [-(-brute_visited(S, block, k) // GR) for k in cnt]
+    cap = tiles.pairwise_capacity(C, S, span)
+    plan = tiles.pairwise_plan(C, S, torch.tensor(cnt), block, span)
+    assert_plan(plan, want, span, cap)
+    assert tiles.pairwise_entries(C, S, torch.tensor(cnt), block).tolist() \
+        == [brute_visited(S, block, k) for k in cnt]
+    whole = [-(-S // GR)] * C
+    assert_plan(tiles.pairwise_plan(C, S, None, block, span), whole, span,
+                cap)
+
+
+def make_pair_row(rng, C, T, S, n=1000):
+    """One K4 row: particles with mass everywhere (past each count too),
+    self pairs at the head of each tile's row, the last 3 targets padding
+    (index n)."""
+    tpos = rng.standard_normal((C, T, 3)).astype(np.float32)
+    tidx = rng.choice(n, size=(C, T), replace=False).astype(np.int64)
+    tidx[:, -3:] = n
+    spos = rng.standard_normal((C, S, 3)).astype(np.float32)
+    smass = rng.uniform(0.1, 1, (C, S)).astype(np.float32)
+    sidx = rng.integers(0, n, (C, S)).astype(np.int64)
+    spos[:, :4] = tpos[:, :4]
+    sidx[:, :4] = tidx[:, :4]
+    return tpos, tidx, spos, smass, sidx
+
+
+@pytest.mark.parametrize("use_idx", [False, True])
+@pytest.mark.parametrize("span", [1, 2, 5])
+def test_plain_pairwise_at_every_span_matches_pallas(span, use_idx):
+    """The plain K4 in its granules and spans against `pallas._pairwise`
+    in interpret mode: the reference's visited set, the entries past a
+    count inside a visited block included (they carry mass here, so a plan
+    that stopped at the count would differ)."""
+    S, T = 300, 40
+    cnt = np.array([0, 400, -3, 300, 65, 130])
+    case = make_pair_row(np.random.default_rng(span * 2 + use_idx), 6, T,
+                         S)
+    t = [_t(a) for a in case]
+    j = [_j(a) for a in case]
+    eps = 0.0 if use_idx else 0.05
+    for block in (64, 1000):
+        got = tiles.eval_pairwise_plain(*t, eps, use_idx, cnt=_t(cnt),
+                                        block=block, span=span)
+        want = pk._pairwise(*j, eps, use_idx=use_idx, cnt=_j(cnt),
+                            block=block, interpret=True)
+        assert all(bool(torch.isfinite(x).all()) for x in got)
+        _close(got, want)
+        # up to the counts only: another result
+        live = np.arange(S)[None] < np.clip(cnt, 0, S)[:, None]
+        cut = list(t)
+        cut[3] = torch.as_tensor(np.where(live, case[3], np.float32(0)))
+        short = tiles.eval_pairwise_plain(*cut, eps, use_idx, cnt=_t(cnt),
+                                          block=block, span=span)
+        assert float((short[1] - got[1]).abs().max()) > 1e-2

@@ -259,7 +259,7 @@ def test_padding_is_exact_for_every_k1_form(comp, quad, cells):
 def test_padding_is_exact_for_k2_k5_and_k6():
     (tp, ti, sp, sm, si, mask), q, sc, tc = _row2d(37, S=512)
     (tp3, sp3, sc3, tc3), q3 = _pad(tp, sp, sc, tc, quad=q)
-    for fn, kw in ((shared.eval_shared_blocks_plain, dict(nsplit=1)),
+    for fn, kw in ((shared.eval_shared_blocks_plain, dict(span=1)),
                    (shared.eval_shared_mma_plain, dict(prec="highest"))):
         want = fn(tp, ti, sp, sm, si, mask, 0.05, 1.0, **kw)
         got = fn(tp3, ti, sp3, sm, si, mask, 0.05, 1.0, **kw)
