@@ -206,6 +206,29 @@ Phases, each printing one JSON line:
                then under tiles_variant("split") K4 "f64"), each with
                every plain version made to raise; the float64 kernels
                against their plain versions on chunk 0;
+     multi:    the multi-device paths, every shard of a mesh on
+               cuda:(r % card count) (with one card all share it, and no
+               copy between cards or NVLink collective is made): F2, on
+               65,536 Plummer particles (shared+grid), the query under
+               kernel_backend="xla" makes no hand launch and agrees with
+               "auto" to 1e-5 force RMS, and "pallas" on a CPU copy of the
+               tree raises; parallel.sharded on the main particles, tree
+               and caps at 1, 2 and 4 shards against the single-device
+               query with farfield "local" (rtol 1e-5, atol 1e-6 of the
+               largest; K1a launches summed over the shards = chunks;
+               seconds a query), then one leapfrog_step_sharded at 4
+               shards against integrate.leapfrog_step (pos within 1e-6,
+               vel within 1e-5 of their largest); parallel.let on
+               min(262,144, --n) Plummer particles, 4 shards,
+               shared+"local", theta 0.75, eps 0.01, distributed phase 0,
+               the export caps raised until export_ovf is clear (printed):
+               force RMS against the float64 direct sum below max(1.5 x
+               the single-device query's, 2e-3), potential RMS < 5e-3,
+               phase0="global" within 3e-3 RMS of it, the [4, 4] export
+               counts, the halo bytes, the seconds of the query and of
+               each stage; and the accuracy engine (lmac + "m2p" +
+               quadrupole, 65,536 particles, 4 shards) within 5e-3 of its
+               single-device query (max |difference| over max |acc|);
   9. leapfrog: BASELINE config #2 (benchmarks/configs.py:90-114) through
                rakau_tpu_torch.integrate: a cold sphere of N particles
                (--n, default 1,048,576), zero velocities, 3 steps of
@@ -3537,6 +3560,314 @@ def f1(seed: int, dev) -> tuple:
     return rec, launches, forms
 
 
+# ---- phase multi: F2, the sharded query and step, the LET ---------------
+MULTI_SHARDS = (1, 2, 4)
+MULTI_EPS, MULTI_DT = 0.01, 1e-3
+F2_RMS_MAX = 1e-5
+# the reference's own tolerances: tests/test_sharded.py:50-67,
+# tests/test_let.py:60-62 and :106, __graft_entry__.py:150
+SHARD_RTOL, SHARD_ATOL_REL = 1e-5, 1e-6
+STEP_POS_ATOL_REL, STEP_VEL_ATOL_REL = 1e-6, 1e-5
+LET_SHARDS = 4
+# The LET runs at a quarter of the main N: its Morton-range
+# domain boxes overlap, so a shard exports about its whole range to the
+# domain that overlaps it (export counts of 64-66k of a shard's 65,536
+# rows at 262,144), each shard imports ndev x export_cap rows, and the
+# sizing runs the whole LET once per cap step
+LET_N = 262144
+LET_CAPS = dict(export_cap=16384, export_node_cap=8192,
+                export_part_cap=32768, export_leaf_cap=4096,
+                export_frontier_cap=1024)      # acc_pot_let's defaults
+LET_FORCE_FLOOR, LET_POT_MAX, LET_CROSS_MAX = 2e-3, 5e-3, 3e-3
+LET_FORCE_RATIO = 1.5
+# the accuracy engine through the LET (__graft_entry__.py:128-156), at
+# F1_N particles on tests/test_let.py's tree shape. The exports are
+# monopole macro-particles while the single-device query gives the same
+# nodes their quadrupoles; that difference is what LET_ACC_DEV_MAX bounds,
+# and it grows with the tiles (with the main path's ncrit 512 and
+# max_depth 14 it exceeded the bound)
+LET_ACC_KW = dict(max_depth=8, max_leaf_n=16, ncrit=64, tile_chunk=16,
+                  traversal_mode="lmac", farfield="m2p", multipole_order=2,
+                  frontier_cap=4096)
+LET_ACC_EPS, LET_ACC_BOX, LET_ACC_DEV_MAX = 0.05, 64.0, 5e-3
+MULTI_TRIES = 8
+
+
+def rel_rms(got, want) -> float:
+    """RMS over particles of |got - want| / |want| (rows for vectors)."""
+    got, want = got.double(), want.double()
+    if got.dim() == 2:
+        num, den = (got - want).norm(dim=1), want.norm(dim=1)
+    else:
+        num, den = (got - want).abs(), want.abs()
+    return float(((num / den.clamp_min(1e-300)) ** 2).mean().sqrt())
+
+
+def clear_of_overflow(fn, cfg, what: str):
+    """fn(cfg) -> (result, overflow flags [4]); doubles the capacities
+    whose flag is set until none is. Returns (result, cfg)."""
+    from rakau_tpu_torch.config import grow_overflowed
+    for _ in range(MULTI_TRIES):
+        out, ovf = fn(cfg)
+        if not bool(ovf.any()):
+            return out, cfg
+        cfg = grow_overflowed(cfg, ovf.tolist())
+    raise AssertionError(f"multi {what}: overflow {ovf.tolist()} after "
+                         f"{MULTI_TRIES} tries")
+
+
+def f2_check(seed: int, dev) -> dict:
+    """F2: kernel_backend is read. On F1_N Plummer particles (float32
+    octree, shared+grid): the same query under "auto" and "xla"; "xla"
+    makes no hand launch and agrees with "auto" to F2_RMS_MAX force RMS;
+    "pallas" on a CPU copy of the tree raises ValueError."""
+    from rakau_tpu_torch import engine, octree, particles
+    from rakau_tpu_torch.parallel import mesh
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p, m = particles.plummer(F1_N, generator=gen)
+    tree = octree(coords=p, masses=m, farfield="grid", max_depth=14,
+                  max_leaf_n=32, ncrit=512, tile_chunk=32)
+    tree.accs_pots_o(THETA)                 # the Tree fits its caps
+    td, cfg = tree.tree_data, tree.config
+    chunks = engine.live_chunks(td, cfg)
+    (auto, c_auto), ms_auto = synced_ms(lambda: counted(
+        lambda: engine.acc_pot_u_host(td, cfg, THETA, 0.0)))
+    (xla, c_xla), ms_xla = synced_ms(lambda: counted(
+        lambda: engine.acc_pot_u_host(
+            td, cfg.with_(kernel_backend="xla"), THETA, 0.0)))
+    if c_auto != launched(c_auto, {"K1": {"mono": chunks}}):
+        raise AssertionError(f"multi f2: auto launches {c_auto}")
+    hand = {k: {f: v for f, v in c.items() if v and f != "xla_quad"}
+            for k, c in c_xla.items()}
+    if any(hand.values()):
+        raise AssertionError(f"multi f2: xla made hand launches {hand}")
+    f_rms, p_rms = rel_rms(xla[0], auto[0]), rel_rms(xla[1], auto[1])
+    if not (f_rms <= F2_RMS_MAX and p_rms <= F2_RMS_MAX
+            and torch.equal(xla[2], auto[2]) and not auto[2].any()):
+        raise AssertionError(f"multi f2: xla vs auto force rms {f_rms:.3e}, "
+                             f"pot rms {p_rms:.3e}, flags {xla[2]} "
+                             f"{auto[2]}")
+    try:
+        engine.acc_pot_u_host(mesh.to_shards(mesh.default_mesh(
+            device="cpu"), td)[0], cfg.with_(
+            farfield="local", kernel_backend="pallas"), THETA, 0.0)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("multi f2: 'pallas' on CPU tensors ran")
+    return dict(n=F1_N, chunks=chunks, auto_launches=c_auto["K1"]["mono"],
+                xla_hand_launches=0, xla_vs_auto_force_rms=f_rms,
+                xla_vs_auto_pot_rms=p_rms, auto_ms=ms_auto, xla_ms=ms_xla,
+                pallas_on_cpu=refused)
+
+
+def sharded_check(pos, mass, cfg, dev) -> tuple:
+    """The tile-sharded query on the main phase's particles, tree and caps
+    at 1, 2 and 4 shards against the single-device query of the same
+    config with farfield "local" (the sharded path's fallback from
+    "grid"); then one leapfrog_step_sharded at 4 shards against
+    integrate.leapfrog_step. Returns the record and the local config with
+    the caps that held."""
+    from rakau_tpu_torch import build, engine, integrate
+    from rakau_tpu_torch.parallel import sharded
+    td = build.build_tree(pos, mass, cfg)
+
+    def single(c):
+        out, ms = synced_ms(lambda: engine.acc_pot_u_host(td, c, THETA, 0.0))
+        return (out, ms), out[2]
+
+    ((a1, p1, _, _), single_ms), cfg_l = clear_of_overflow(
+        single, cfg.with_(farfield="local"), "single-device query")
+    chunks = engine.live_chunks(td, cfg_l)
+    cfg_g = cfg_l.with_(farfield="grid")
+    a_tol = SHARD_ATOL_REL * float(a1.abs().max())
+    p_tol = SHARD_ATOL_REL * float(p1.abs().max())
+    rec = dict(n=pos.shape[0], chunks=chunks, single_query_s=single_ms / 1e3,
+               caps={f: getattr(cfg_l, f) for f in
+                     ("m2p_cap", "p2p_leaf_cap", "p2p_src_cap",
+                      "frontier_cap")}, shards={})
+    for k in MULTI_SHARDS:
+        mesh = sharded.default_mesh(k)
+        ((a, p, o), counts), ms = synced_ms(lambda: counted(
+            lambda: sharded.acc_pot_u_sharded(td, cfg_g, THETA, 0.0, 1.0,
+                                              mesh)))
+        ok = (not o.any()
+              and torch.allclose(a, a1, rtol=SHARD_RTOL, atol=a_tol)
+              and torch.allclose(p, p1, rtol=SHARD_RTOL, atol=p_tol))
+        rec["shards"][k] = dict(
+            query_s=ms / 1e3, k1a_launches=counts["K1"]["mono"],
+            devices=[str(d) for d in mesh.devices],
+            max_abs_diff_acc=float((a - a1).abs().max()),
+            max_abs_diff_pot=float((p - p1).abs().max()))
+        if not ok or counts != launched(counts, {"K1": {"mono": chunks}}):
+            raise AssertionError(f"multi sharded {k}: {rec['shards'][k]}, "
+                                 f"flags {o.tolist()}, launches {counts}")
+    state = integrate.NBodyState(pos, torch.zeros_like(pos), mass)
+
+    def step1(c):
+        out, ms = synced_ms(lambda: integrate.leapfrog_step(
+            state, MULTI_DT, c, THETA, MULTI_EPS))
+        return (out[0], ms), out[1]
+
+    (s1, ms1), cfg_s = clear_of_overflow(step1, cfg_l, "leapfrog_step")
+    mesh = sharded.default_mesh(LET_SHARDS)
+    (s4, o4), ms4 = synced_ms(lambda: sharded.leapfrog_step_sharded(
+        state, MULTI_DT, cfg_s, THETA, MULTI_EPS, 1.0, mesh))
+    d_pos = float((s4.pos - s1.pos).abs().max())
+    d_vel = float((s4.vel - s1.vel).abs().max())
+    rec["leapfrog"] = dict(shards=LET_SHARDS, dt=MULTI_DT, eps=MULTI_EPS,
+                           step_s=ms1 / 1e3, sharded_step_s=ms4 / 1e3,
+                           max_abs_diff_pos=d_pos, max_abs_diff_vel=d_vel)
+    if (o4.any() or d_pos > STEP_POS_ATOL_REL * float(s1.pos.abs().max())
+            or d_vel > STEP_VEL_ATOL_REL * float(s1.vel.abs().max())):
+        raise AssertionError(f"multi leapfrog: {rec['leapfrog']}, flags "
+                             f"{o4.tolist()}")
+    return rec, cfg_l
+
+
+def let_sized(pos, mass, cfg, eps, mesh, caps: dict, box_size=None,
+              phase0: str = "distributed"):
+    """acc_pot_let with the query's caps grown on overflow and the export
+    caps raised while export_ovf is set (export_cap to the power of two
+    above the largest count when a count exceeds it, else the walk's four
+    caps doubled). Returns ((acc, pot, counts), seconds of the last
+    (synced) run, launches of its K1 forms, caps, query config)."""
+    from rakau_tpu_torch.config import grow_overflowed
+    from rakau_tpu_torch.parallel import let
+    caps = dict(caps)
+    for _ in range(MULTI_TRIES):
+        (out, counts), ms = synced_ms(lambda: counted(lambda: let.acc_pot_let(
+            pos, mass, cfg, THETA, eps, 1.0, mesh, box_size=box_size,
+            phase0=phase0, with_stats=True, **caps)))
+        acc, pot, ovf, xo, cnt = out
+        if ovf.any():
+            cfg = grow_overflowed(cfg, ovf.tolist())
+        elif xo and int(cnt.max()) > caps["export_cap"]:
+            caps["export_cap"] = 1 << (int(cnt.max()) - 1).bit_length()
+        elif xo:
+            caps.update({k: 2 * v for k, v in caps.items()
+                         if k != "export_cap"})
+        else:
+            return (acc, pot, cnt), ms / 1e3, counts["K1"], caps, cfg
+    raise AssertionError(f"multi let: overflow {ovf.tolist()}, export "
+                         f"overflow {bool(xo)} at caps {caps}")
+
+
+def let_check(n: int, cfg_l, seed: int, dev) -> dict:
+    """The LET on n Plummer particles, LET_SHARDS shards, shared+"local"
+    with the main phase's caps, theta THETA, eps MULTI_EPS, distributed
+    phase 0 (caps sized by let_sized): against the float64 direct sum on
+    256 sampled
+    targets (force RMS below max(LET_FORCE_RATIO x the single-device
+    query's, LET_FORCE_FLOOR), potential RMS < LET_POT_MAX); phase0
+    "global" against it (RMS < LET_CROSS_MAX); the export matrix, the halo
+    bytes and the seconds of each stage."""
+    from rakau_tpu_torch import direct_acc_pot_np, integrate, particles
+    from rakau_tpu_torch.parallel import let, sharded
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(n, generator=gen)
+    ndim = pos.shape[1]
+    mesh = sharded.default_mesh(LET_SHARDS)
+    (acc, pot, cnt), let_s, k1, caps, cfg_q = let_sized(
+        pos, mass, cfg_l, MULTI_EPS, mesh, LET_CAPS)
+    (acc_g, _, ovf_g, xo_g, _) = let.acc_pot_let(
+        pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh, phase0="global",
+        with_stats=True, **caps)
+    with let.stage_seconds() as stages:
+        let.acc_pot_let(pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh,
+                        **caps)
+
+    def single(c):
+        out, ms = synced_ms(lambda: integrate.acc_pot(pos, mass, c, THETA,
+                                                      MULTI_EPS))
+        return (out[:2], ms), out[2]
+
+    ((acc_1, pot_1), single_s), _ = clear_of_overflow(
+        single, cfg_q, "LET single-device query")
+    samp = np.sort(np.random.default_rng(seed).choice(n, 256, replace=False))
+    acc_o, pot_o = direct_acc_pot_np(pos.double().cpu().numpy(),
+                                     mass.double().cpu().numpy(),
+                                     eps=MULTI_EPS, targets=samp)
+    f_let, p_let = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
+    f_one, p_one = sampled_rms(acc_1, pot_1, acc_o, pot_o, samp, dev)
+    cross = rel_rms(acc, acc_g)
+    item = pos.element_size() * (ndim + 1)
+    rec = dict(
+        n=n, shards=LET_SHARDS, devices=[str(d) for d in mesh.devices],
+        theta=THETA, eps=MULTI_EPS, phase0="distributed", caps_used=caps,
+        query_caps={f: getattr(cfg_q, f) for f in
+                    ("m2p_cap", "p2p_leaf_cap", "p2p_src_cap",
+                     "frontier_cap")},
+        export_counts=cnt.tolist(), halo_bytes=int(cnt.sum()) * item,
+        halo_slot_bytes=LET_SHARDS * (LET_SHARDS - 1) * caps["export_cap"]
+        * item, let_query_s=let_s, single_query_s=single_s / 1e3,
+        stage_s=stages, k1_launches={f: v for f, v in k1.items() if v},
+        force_rms=f_let, pot_rms=p_let, single_force_rms=f_one,
+        single_pot_rms=p_one, global_vs_distributed_rms=cross)
+    if (ovf_g.any() or xo_g
+            or not f_let < max(LET_FORCE_RATIO * f_one, LET_FORCE_FLOOR)
+            or not p_let < LET_POT_MAX or not cross < LET_CROSS_MAX):
+        raise AssertionError(f"multi let: {rec}, global flags "
+                             f"{ovf_g.tolist()} {bool(xo_g)}")
+    return rec
+
+
+def let_accuracy_engine(seed: int, dev) -> dict:
+    """The accuracy engine through the LET (__graft_entry__.py:128-156):
+    lmac + "m2p" + quadrupole, F1_N Plummer particles, LET_SHARDS shards,
+    eps LET_ACC_EPS, box LET_ACC_BOX, against the same engine on one
+    device: max |acc_let - acc_1| / max |acc_1| <= LET_ACC_DEV_MAX."""
+    from rakau_tpu_torch import integrate, particles
+    from rakau_tpu_torch.config import TreeConfig
+    from rakau_tpu_torch.parallel import sharded
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(F1_N, generator=gen)
+
+    def single(c):
+        out = integrate.acc_pot(pos, mass, c, THETA, LET_ACC_EPS,
+                                box_size=LET_ACC_BOX)
+        return out[:2], out[2]
+
+    (acc_1, _), cfg = clear_of_overflow(single, TreeConfig(**LET_ACC_KW),
+                                        "accuracy engine")
+    mesh = sharded.default_mesh(LET_SHARDS)
+    (acc, _, cnt), let_s, k1, caps, _ = let_sized(
+        pos, mass, cfg, LET_ACC_EPS, mesh, LET_CAPS, box_size=LET_ACC_BOX)
+    dev_max = float((acc - acc_1).norm(dim=1).max()
+                    / acc_1.norm(dim=1).max())
+    rec = dict(n=F1_N, shards=LET_SHARDS, config="lmac+m2p+quadrupole",
+               eps=LET_ACC_EPS, box=LET_ACC_BOX, caps_used=caps,
+               export_counts=cnt.tolist(), let_query_s=let_s,
+               k1_launches={f: v for f, v in k1.items() if v},
+               max_rel_dev=dev_max)
+    if not dev_max <= LET_ACC_DEV_MAX:
+        raise AssertionError(f"multi let accuracy engine: {rec}")
+    return rec
+
+
+def multi(pos, mass, cfg, seed: int, dev, let_n: int) -> dict:
+    """Phase multi: the F2 repair (f2_check), the tile-sharded query and
+    step on the main particles (sharded_check), the LET on let_n Plummer
+    particles (let_check) and on the accuracy engine
+    (let_accuracy_engine). Every shard of a mesh
+    sits on cuda:(r % card count): with one card all shards share it, and
+    no copy between cards or collective over NVLink is made."""
+    t0 = time.perf_counter()
+    rec = dict(cards=torch.cuda.device_count())
+    rec["f2"] = f2_check(seed, dev)
+    rec["sharded"], cfg_l = sharded_check(pos, mass, cfg, dev)
+    torch.cuda.empty_cache()
+    rec["let"] = let_check(let_n, cfg_l, seed + 1, dev)
+    torch.cuda.empty_cache()
+    rec["let_accuracy_engine"] = let_accuracy_engine(seed + 2, dev)
+    if rec["cards"] == 1:
+        rec["note"] = ("one card: every shard ran on cuda:0; copies between "
+                       "cards and NVLink collectives were not exercised")
+    rec["seconds"] = time.perf_counter() - t0
+    emit("multi", **rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -3728,6 +4059,10 @@ def main(argv=None) -> int:
 
     # ---- F1: 2-D and float64 trees on the card --------------------------
     _, f64_launches, f64_forms = f1(args.seed + 6, dev)
+    torch.cuda.empty_cache()
+
+    # ---- the multi-device paths: F2, sharded query and step, LET ---------
+    multi(pos, mass, cfg, args.seed + 7, dev, min(LET_N, args.n))
     torch.cuda.empty_cache()
 
     # ---- BASELINE config #2: the leapfrog harness -----------------------

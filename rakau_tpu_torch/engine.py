@@ -31,6 +31,13 @@ closed per pair, in the shared path by the kernel's cell-separation test
 the pool's per-row drop. The normalized leaf locals depend on the tree
 and eps only and are kept with the query state; the L2P runs per query.
 
+Imported sources (`extra=(pos, mass)`, the LET imports of
+parallel/let.py) join every valid tile's row in the shared and lmac
+queries, through the far/near gate of the tile expansions with "local"
+and "grid". The chunk loop (run_chunks) runs any range of chunks: the
+single-device query all live ones, each shard of parallel/sharded.py
+its own.
+
 Results come back in internal Morton order (the `_u` view).
 """
 from __future__ import annotations
@@ -101,7 +108,7 @@ def _gather_tiles(td: TreeData, cfg: TreeConfig):
            tcell.reshape(shape + (ndim,)))
     if cfg.farfield == "grid2" and cfg.traversal_mode != "gwalk":
         L0 = grid2.effective_grid_level(cfg, n)
-        if td.pos.is_cuda and _use_shared(cfg):
+        if _use_shared(cfg) and dispatch._kernel(cfg, td.pos):
             # the kernels' packed cell test bounds the leaf-grid level
             shared.check_cell_level(L0, ndim)
         tpc = grid2.particle_cells(td.pos, td.box_size, cfg.max_depth,
@@ -123,13 +130,22 @@ def _chunk_tiles(tiles, chunk: int):
 
 def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
                    tpos, tidx, blo, bhi, tables, tcell, Lgrid, tcells=None,
-                   cand=None):
+                   cand=None, extra=None):
     """Traversal + far field for one chunk of C tiles. Returns (src, mask,
     acc_l, pot_l): the shared sources, the per-tile kernel mask [C, S]
     and the local-expansion field at the targets (None with "m2p" and
     "grid2"). tcells (grid2): the chunk's (tgt_cell, tcell_lo,
     tcell_hi); the drop test then takes the tile's cell range. cand
-    (lmac): the candidate table of the chunk's slice."""
+    (lmac): the candidate table of the chunk's slice.
+
+    extra: (pos [E, D], mass [E]) sources applied to every valid tile,
+    the LET imports (parallel/let.py), as the reference's `_eval_chunk`
+    takes them: with "local" and "grid" they pass the same far/near gate
+    as the walk's nodes (far ones into the tile's expansion); the near
+    ones (all of them with "m2p" and "grid2") are appended to the row
+    with idx -1, with "grid2" at cell -1 (exempt from the coverage test:
+    the local pyramid holds no remote mass). src then carries the
+    appended rows."""
     n, ndim = td.pos.shape
     dtype = td.pos.dtype
     tvalid = tidx[:, 0] < n
@@ -173,8 +189,33 @@ def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
             tv = tvalid[:, None]
             shift = torch.where(tv, center - ccenter, 0.0)
             L = L + torch.where(tv, expansion.l2l(Lg, shift, order), 0.0)
+        if extra is not None:
+            far_e, near_e = expansion.far_split(
+                center, rad2, extra[0], extra[1], _every_tile(tvalid, extra),
+                cfg.local_gamma)
+            L = L + expansion.m2l(center, extra[0], extra[1], far_e, eps,
+                                  order)
         acc_l, pot_l = expansion.l2p(L, center, tpos, G, order)
+    elif extra is not None:
+        near_e = _every_tile(tvalid, extra)
+    if extra is not None:
+        e_pos, e_mass = extra
+        E = e_pos.shape[0]
+        cell = src.cell
+        if cell is not None:
+            cell = torch.cat([cell, cell.new_full((E, cell.shape[1]), -1)])
+        src = src._replace(
+            pos=torch.cat([src.pos, e_pos]),
+            mass=torch.cat([src.mass, e_mass]),
+            idx=torch.cat([src.idx, src.idx.new_full((E,), -1)]),
+            cell=cell)
+        mask = torch.cat([mask, near_e], dim=1)
     return src, mask, acc_l, pot_l
+
+
+def _every_tile(tvalid, extra):
+    """[C, E]: every import row for every valid tile."""
+    return tvalid[:, None].expand(tvalid.shape[0], extra[0].shape[0])
 
 
 def _gather_sources(td: TreeData, cfg: TreeConfig,
@@ -210,13 +251,19 @@ def _tile_sources(td: TreeData, cfg: TreeConfig, theta, blo, bhi):
 
 def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
                 tpos, tidx, blo, bhi, tables, tcell, Lgrid, mode="both",
-                tcells=None, cand=None):
+                tcells=None, cand=None, extra=None):
     """Traversal + far field + kernel for one chunk of C tiles. Returns
     (acc [C, T, D], pot [C, T], overflow [4], maxima [4]). The grid2 far
     field is not added here: it is per particle, once per query. The
     lists path computes both outputs whatever the mode, as the
-    reference's."""
+    reference's. extra: the imported sources of _chunk_sources."""
     if not _use_shared(cfg):
+        if extra is not None:
+            # the reference's lists branch never reads `extra` and returns
+            # forces without the imports; refuse instead
+            raise ValueError("imported sources (extra=) ride the shared "
+                             "and lmac engines; the lists path would "
+                             "drop them")
         il, rows = _tile_sources(td, cfg, theta, blo, bhi)
         acc, pot = dispatch.eval_tiles(cfg, tpos, tidx, *rows, eps, G,
                                        m2p_cnt=il.m2p_count,
@@ -224,7 +271,7 @@ def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
         return acc, pot, il.overflow, il.maxima
     src, mask, acc_l, pot_l = _chunk_sources(
         td, cfg, theta, eps, G, tpos, tidx, blo, bhi, tables, tcell, Lgrid,
-        tcells, cand)
+        tcells, cand, extra)
     acc, pot = dispatch.eval_shared(
         cfg, tpos, tidx, src.pos, src.mass, src.idx, mask, eps, G,
         mode=mode, src_quad=src.quad, src_cell=src.cell,
@@ -512,30 +559,25 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     return fitted.with_(gwalk_round_caps=fit_round_caps(rcnt.cpu()))
 
 
-def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
-                   slice_chunks: int = None, mode: str = "both"):
-    """Accelerations [N, D] and potentials [N] in Morton order, plus the
-    overflow flags [4], in the order of config.OVF_FIELDS (m2p,
-    p2p_leaf, p2p_src, frontier), and the maxima [4], in the order that
-    config.fit_caps reads (m2p, p2p_src, frontier, p2p_leaf), of the
-    query. Shared, lmac and lists: a Python loop over the chunks that
-    hold real tiles, with lmac in slices of `slice_chunks` chunks
-    (_slices), each with its candidate table, whose overflow and row
-    count ride the frontier slots (flag 3, maximum 2); gwalk: one walk,
-    pool and kernel launch for all tiles. theta, eps and G are Python
-    numbers."""
-    tiles, tables, Lgrid = _query_state(td, cfg, eps)
-    if cfg.traversal_mode == "gwalk":
-        acc_u, pot_u, ovf, mx = _gwalk_impl(td, cfg, theta, eps, G, tiles,
-                                            Lgrid, mode=mode)[:4]
-        acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
-        return acc_u, pot_u, ovf, mx
+def run_chunks(td: TreeData, cfg: TreeConfig, theta, eps, G, state,
+               first: int, last: int, slice_chunks: int = None,
+               mode: str = "both", extra=None):
+    """The shared, lmac or lists chunk loop over chunks [first, last) of a
+    query whose per-tree state (_query_state: tiles, tables, far field) is
+    `state`. lmac runs them in slices of `slice_chunks` (_slices, over
+    this range), each with its candidate table, whose overflow and row
+    count ride the frontier slots (flag 3, maximum 2); the sums do not
+    depend on the slicing. Returns the tiles' acc [(last - first) * CH,
+    T, D] and pot, the overflow flags [4] and the maxima [4]. The single-
+    device query runs every live chunk through it, each shard of
+    parallel.sharded its own range."""
+    tiles, tables, Lgrid = state
     dev = td.pos.device
     ovf = torch.zeros(4, dtype=torch.bool, device=dev)
     mx = torch.zeros(4, dtype=torch.int64, device=dev)
     accs, pots = [], []
-    n_live = live_chunks(td, cfg)
-    for s, start, K in _slices(n_live, cfg.tile_chunk, slice_chunks):
+    for s, start, K in _slices(last - first, cfg.tile_chunk, slice_chunks):
+        s, start = s + first, start + first
         cand = None
         if cfg.traversal_mode == "lmac" and _use_shared(cfg):
             cand = _slice_cand(td, cfg, theta, tiles, tables, start, K)
@@ -545,11 +587,40 @@ def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
             base, tcells = _chunk_tiles(tiles, i)
             a, p, o, m = _eval_chunk(td, cfg, theta, eps, G, *base[:4],
                                      tables, base[4], Lgrid, mode=mode,
-                                     tcells=tcells, cand=cand)
+                                     tcells=tcells, cand=cand, extra=extra)
             accs.append(a)
             pots.append(p)
             ovf = ovf | o
             mx = torch.maximum(mx, m)
-    acc_u, pot_u = _assemble_impl(td, cfg, torch.cat(accs), torch.cat(pots))
+    return torch.cat(accs), torch.cat(pots), ovf, mx
+
+
+def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
+                   slice_chunks: int = None, mode: str = "both",
+                   extra=None):
+    """Accelerations [N, D] and potentials [N] in Morton order, plus the
+    overflow flags [4], in the order of config.OVF_FIELDS (m2p,
+    p2p_leaf, p2p_src, frontier), and the maxima [4], in the order that
+    config.fit_caps reads (m2p, p2p_src, frontier, p2p_leaf), of the
+    query. Shared, lmac and lists: run_chunks over the chunks that hold
+    real tiles; gwalk: one walk, pool and kernel launch for all tiles.
+    theta, eps and G are Python numbers. extra: optional (pos [E, D],
+    mass [E]) sources added to every tile, the LET imports (shared and
+    lmac only: gwalk raises NotImplementedError, as the reference does,
+    and the lists path ValueError)."""
+    if cfg.traversal_mode == "gwalk" and extra is not None:
+        raise NotImplementedError(
+            "LET imports ride the shared/lmac engines, not gwalk")
+    state = _query_state(td, cfg, eps)
+    Lgrid = state[2]
+    if cfg.traversal_mode == "gwalk":
+        acc_u, pot_u, ovf, mx = _gwalk_impl(td, cfg, theta, eps, G,
+                                            state[0], Lgrid, mode=mode)[:4]
+        acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
+        return acc_u, pot_u, ovf, mx
+    acc, pot, ovf, mx = run_chunks(td, cfg, theta, eps, G, state, 0,
+                                   live_chunks(td, cfg), slice_chunks,
+                                   mode, extra)
+    acc_u, pot_u = _assemble_impl(td, cfg, acc, pot)
     acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
     return acc_u, pot_u, ovf, mx

@@ -2,9 +2,11 @@
 per-tile list evaluations. Counterpart of
 `rakau_tpu.kernels.dispatch.eval_shared`, `eval_pool` and `eval_tiles`.
 
-The device of the tensors decides: CUDA tensors go to the hand-written
-kernel in the asked form (or raise), CPU tensors to the plain PyTorch
-version. Nothing falls back from one to the other.
+`cfg.kernel_backend` decides, as the reference's field does (`_kernel`):
+"auto" sends CUDA tensors to the hand-written kernel in the asked form (or
+raises) and CPU tensors to the plain PyTorch version; "xla" takes the plain
+version on either device; "pallas" takes the kernel and raises ValueError
+on CPU tensors. Nothing falls back from one to the other.
 
 The shared row has three evaluators. The default is the fused kernel
 (kernels.shared.eval_shared_fused, every form). `shared_variant` selects,
@@ -73,11 +75,29 @@ def tiles_variant(name: str):
         _tiles_fused = saved
 
 
-def _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
+def _on_card(t) -> bool:
+    return t.is_cuda
+
+
+def _kernel(cfg: TreeConfig, t) -> bool:
+    """Whether a call on tensor `t` goes to the hand-written kernel (True)
+    or to its plain PyTorch version (False), by cfg.kernel_backend: "auto"
+    by the tensor's device, "xla" never, "pallas" always (ValueError on a
+    CPU tensor, which has no kernel)."""
+    backend = cfg.kernel_backend
+    if backend == "xla":
+        return False
+    if backend == "pallas" and not _on_card(t):
+        raise ValueError("kernel_backend='pallas' needs CUDA tensors; the "
+                         "CPU has only the plain versions (use 'auto' or "
+                         "'xla')")
+    return _on_card(t)
+
+
+def _eval(kernel, tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
           mode, compensated, src_quad=None, src_cell=None, tgt_cell=None,
           grid_sep=0):
     name, prec = _variant
-    cuda = tgt_pos.is_cuda
     row = (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G)
     if name == "blocks":
         if (compensated or src_quad is not None or src_cell is not None
@@ -85,14 +105,14 @@ def _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
             raise ValueError(
                 "shared_variant('blocks') evaluates the monopole in fp32 "
                 "sums, mode 'both', without cells only")
-        fn = shared.eval_shared_blocks if cuda \
+        fn = shared.eval_shared_blocks if kernel \
             else shared.eval_shared_blocks_plain
         return fn(*row)
     if name == "mma" and not compensated and src_quad is None:
-        fn = shared.eval_shared_mma if cuda else shared.eval_shared_mma_plain
+        fn = shared.eval_shared_mma if kernel else shared.eval_shared_mma_plain
         return fn(*row, mode=mode, prec=prec, src_cell=src_cell,
                   tgt_cell=tgt_cell, grid_sep=grid_sep)
-    fn = shared.eval_shared_fused if cuda else shared.eval_shared_plain
+    fn = shared.eval_shared_fused if kernel else shared.eval_shared_plain
     return fn(*row, mode=mode, compensated=compensated, src_quad=src_quad,
               src_cell=src_cell, tgt_cell=tgt_cell, grid_sep=grid_sep)
 
@@ -113,6 +133,7 @@ def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
     quadrupole form on rows [0, U) and the monopole form on rows [U, S),
     so the quadrupole's ~3x work per pair is paid on the node rows only;
     their results are summed. The cells are split with the rows."""
+    kernel = _kernel(cfg, tgt_pos)
     comp = cfg.accum == "compensated"
     sep = cfg.grid_sep if src_cell is not None else 0
     if src_pos.shape[0] == 0:
@@ -121,8 +142,9 @@ def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
                 torch.zeros((C, T), dtype=tgt_pos.dtype,
                             device=tgt_pos.device))
     if src_quad is None:
-        return _eval(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                     eps, G, mode, comp, None, src_cell, tgt_cell, sep)
+        return _eval(kernel, tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
+                     mask, eps, G, mode, comp, None, src_cell, tgt_cell,
+                     sep)
     U = src_quad.shape[0]
     cell_n = cell_p = None
     if src_cell is not None:
@@ -130,7 +152,7 @@ def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
     a1, p1 = eval_shared(cfg, tgt_pos, tgt_idx, src_pos[U:], src_mass[U:],
                          src_idx[U:], mask[:, U:].contiguous(), eps, G,
                          mode=mode, src_cell=cell_p, tgt_cell=tgt_cell)
-    a2, p2 = _eval(tgt_pos, tgt_idx, src_pos[:U], src_mass[:U],
+    a2, p2 = _eval(kernel, tgt_pos, tgt_idx, src_pos[:U], src_mass[:U],
                    src_idx[:U], mask[:, :U].contiguous(), eps, G, mode,
                    comp, src_quad, cell_n, tgt_cell, sep)
     return a1 + a2, p1 + p2
@@ -144,7 +166,8 @@ def eval_pool(cfg: TreeConfig, tgt_pos, tgt_idx, pool_pos, pool_mass,
     for the whole query. cfg.accum == "compensated" selects the TwoSum
     block sums, in the monopole form too. Returns acc [G, T, D],
     pot [G, T]."""
-    fn = pool.eval_pool_fused if tgt_pos.is_cuda else pool.eval_pool_plain
+    fn = pool.eval_pool_fused if _kernel(cfg, tgt_pos) \
+        else pool.eval_pool_plain
     return fn(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
               window, eps, G, block,
               compensated=cfg.accum == "compensated", mode=mode,
@@ -164,8 +187,9 @@ def eval_tiles(cfg: TreeConfig, tgt_pos, tgt_idx, m2p_pos, m2p_mass,
     kernels are monopole-only, `pallas.eval_tiles` raises) and takes its
     plain-op route, `xla.eval_m2p` + `xla.eval_p2p`, on whatever device
     the tensors lie on; so does the port (tiles.eval_m2p + eval_p2p),
-    counted in tiles.launches["xla_quad"]. cfg is not read: the lists
-    kernels have no modes, compensated sums or cells."""
+    counted in tiles.launches["xla_quad"]. Of cfg only kernel_backend is
+    read: the lists kernels have no modes, compensated sums or cells."""
+    kernel = _kernel(cfg, tgt_pos)
     if m2p_quad is not None:
         tiles.launches["xla_quad"] += 1
         am, pm = tiles.eval_m2p(tgt_pos, m2p_pos, m2p_mass, eps, G,
@@ -176,4 +200,4 @@ def eval_tiles(cfg: TreeConfig, tgt_pos, tgt_idx, m2p_pos, m2p_mass,
     return tiles.eval_tiles(tgt_pos, tgt_idx, m2p_pos, m2p_mass, None,
                             p2p_pos, p2p_mass, p2p_idx, eps, G,
                             m2p_cnt=m2p_cnt, p2p_cnt=p2p_cnt,
-                            fused=_tiles_fused)
+                            fused=_tiles_fused, kernel=kernel)

@@ -542,17 +542,20 @@ def eval_pairwise(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
 
 def eval_tiles(tgt_pos, tgt_idx, m2p_pos, m2p_mass, m2p_quad, p2p_pos,
                p2p_mass, p2p_idx, eps, G, m2p_cnt=None, p2p_cnt=None,
-               block: int = BLOCK, fused: bool = True):
+               block: int = BLOCK, fused: bool = True, kernel=None):
     """Counterpart of `rakau_tpu.kernels.pallas.eval_tiles`: monopole M2P
-    + P2P of each tile's rows, times G. CUDA tensors launch K3 (fused) or,
-    with fused=False, K4 once per row (M2P without, P2P with the index
-    test), the two sums added and multiplied by G; CPU tensors take the
-    plain versions of the same. `block` is K4's (K3 visits granules). The
-    quadrupole raises NotImplementedError, as the reference's does
-    (kernels.dispatch.eval_tiles routes it to eval_m2p + eval_p2p)."""
+    + P2P of each tile's rows, times G. With kernel=True K3 is launched
+    (fused) or, with fused=False, K4 once per row (M2P without, P2P with
+    the index test), the two sums added and multiplied by G; with
+    kernel=False the plain versions of the same run. kernel=None takes
+    the kernel on CUDA tensors and the plain versions on CPU tensors
+    (kernels.dispatch.eval_tiles passes cfg.kernel_backend's choice).
+    `block` is K4's (K3 visits granules). The quadrupole raises
+    NotImplementedError, as the reference's does (kernels.dispatch
+    .eval_tiles routes it to eval_m2p + eval_p2p)."""
     if m2p_quad is not None:
         raise NotImplementedError("the tile kernels are monopole-only")
-    cuda = tgt_pos.is_cuda
+    cuda = tgt_pos.is_cuda if kernel is None else kernel
     if fused:
         fn = eval_tiles_fused if cuda else eval_tiles_plain
         return fn(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,

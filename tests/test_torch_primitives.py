@@ -153,8 +153,11 @@ def test_config_validation_matches_jax(kw):
 
 def test_import_pulls_in_no_jax():
     code = ("import rakau_tpu_torch, sys; "
+            "import rakau_tpu_torch.parallel.mesh, "
+            "rakau_tpu_torch.parallel.sharded, rakau_tpu_torch.parallel.let; "
             "bad = [m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]; "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'triton', "
+            "'rakau_tpu')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
