@@ -67,13 +67,37 @@ Phases, each printing one JSON line:
                seeded CUDA generator, octree(...) with the headline
                shared+grid configuration, accs_pots_o(theta=0.75) once
                cold and three times warm (median and spread reported);
-               the kernel's launch count over each warm query must equal
-               the number of chunks it evaluated;
+               the kernel's launches in a warm query must equal the
+               number of chunks it evaluated. Launch counts are measured:
+               the wrappers count where they launch (eagerly, in a warm-up
+               or a capture), a replay calls none, so a replayed query's
+               launches are its main kernels' records in the card's
+               profile (profile_launches, measured), held to the
+               bookkeeping of the wrappers and the graphs' replays
+               (counted); every count the kernels line states is one;
   5. layers:   one more warm query with the walk, the walk + far field and
-               the kernel call each timed between device syncs;
+               the kernel call each timed between device syncs (run
+               eagerly, engine.acc_pot_u_host(graph=False), as every
+               *_layers phase below: a graph replay would skip the timed
+               functions and a capture refuses a sync);
   6. profile:  one more warm query under torch.profiler (CUDA activity
                only): device ops, device-busy ms (union of the device
                intervals), the kernel's device ms and the idle share;
+     graphs:   the query replayed from its CUDA graphs (the default on
+               the card) against the same query run eagerly (graph=False)
+               on one tree: the graph cache emptied, the first graphed
+               query's seconds (warm-up, capture, replay), GRAPH_REPS warm
+               queries each way in turns (median, spread, peak memory,
+               launches = chunk evaluations on both), a profile each way
+               (whose records show them),
+               the graph pool's memory; the sums bit for bit equal, flags
+               and maxima equal (graph_ab; likewise after lmac_profile,
+               gwalk_profile and lists_profile); then engine.acc_pot_u,
+               the whole query as one graph, against the eager query:
+               equal sums, K1a launches = the tile capacity's chunks
+               (acc_pot_u_check); after the leapfrog's steps one step
+               both ways, pos and vel bit-equal (step_ab); and a closing
+               summary line after phase 10;
   7. kernel:   kernel vs plain PyTorch on the first two chunks of that
                query (the same targets, shared sources and masks), every
                mode, rtol 2e-4 and atol 2e-5*max|plain|, both timed, with
@@ -426,8 +450,13 @@ def gwalk_kw(n: int) -> dict:
                 pool_window=262144, pool_group=8)
 
 
+# the script's start, for the seconds each line states (`at_s`)
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - T0}), flush=True)
     torch.cuda.synchronize()
 
 
@@ -646,15 +675,40 @@ def synced(module, name: str, totals: dict):
         setattr(module, name, orig)
 
 
+def eager_query(tree, theta: float = THETA):
+    """One query of `tree` as accs_pots_o runs it (the query, the overflow
+    read, the inverse permutation) but eagerly: engine.acc_pot_u_host with
+    graph=False. The per-layer phases run it so, since they time module
+    functions between device syncs: a graph replay would run none of the
+    patched functions and a capture refuses a sync."""
+    from rakau_tpu_torch import engine
+    td = tree.tree_data
+    acc, pot, ovf, _ = engine.acc_pot_u_host(td, tree.config, theta, 0.0,
+                                             graph=False)
+    if any(ovf.cpu().tolist()):
+        raise AssertionError(f"eager query overflowed: {ovf.tolist()}")
+    return acc[td.inv_perm], pot[td.inv_perm]
+
+
+def query_chunks(td, cfg) -> int:
+    """The chunk evaluations of one query (engine.evaluated_chunks over
+    its live chunks): every slice evaluates its K chunks, the last one,
+    moved back, whole; a kernel that runs once a chunk launches this
+    many times a query."""
+    from rakau_tpu_torch import engine
+    return engine.evaluated_chunks(engine.live_chunks(td, cfg),
+                                   cfg.tile_chunk)
+
+
 def synced_layers(tree, layers) -> tuple:
-    """One warm query through the entry point with each (module, name) of
-    `layers` timed between device syncs. Returns (ms per name, synced
-    query ms); the syncs add to the total."""
+    """One warm query, run eagerly (eager_query), with each (module,
+    name) of `layers` timed between device syncs. Returns (ms per name,
+    synced query ms); the syncs add to the total."""
     t: dict = {}
     with ExitStack() as stack:
         for mod, name in layers:
             stack.enter_context(synced(mod, name, t))
-        _, total = synced_ms(lambda: tree.accs_pots_o(THETA))
+        _, total = synced_ms(lambda: eager_query(tree))
     return t, total
 
 
@@ -705,43 +759,291 @@ K2_KERNELS = ("pool_kernel", "rows_work_kernel", "rows_reduce_kernel")
 K3_KERNELS = ("tiles_fused_kernel", "rows_work_kernel", "rows_reduce_kernel")
 
 
-def device_profile(tree, kernel, key: str) -> dict:
+def device_profile(tree, kernel, key: str, graph: bool = True) -> dict:
     """One warm query under torch.profiler with CUDA activity only: the
     number of device ops (kernels, copies, sets), the device-busy ms as
     the union of their intervals, and the share of the kernels whose name
-    holds `kernel` (a string, or a tuple of them) (reported as `key`)."""
+    holds `kernel` (a string, or a tuple of them) (reported as `key`).
+    graph: the query through the entry point (its CUDA graphs replayed);
+    False: eager_query. `launches`: on a replay, the main kernels' records
+    per form, held to the bookkeeping (profile_launches: the query is
+    profiled again, at most PROFILE_TRIES times, until a run shows it;
+    the ops and times are that run's); eagerly, the wrappers' counts, each
+    taken where its launch returned, with the profile's beside them
+    (`profiled_launches`)."""
     names = (kernel,) if isinstance(kernel, str) else kernel
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    run = (lambda: tree.accs_pots_o(THETA)) if graph else \
+        (lambda: eager_query(tree))
+
+    def timed():
         start.record()
-        tree.accs_pots_o(THETA)
+        run()
         stop.record()
         stop.synchronize()
-    spans, k_us = [], 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+
+    _, launches, booked, events, tries = profile_launches(timed, hold=graph)
+    spans, k_ns = [], 0
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or "spin_kernel" in e.name():
             continue
-        spans.append((e.time_range.start, e.time_range.end))
-        if any(k in e.name for k in names):
-            k_us += e.time_range.end - e.time_range.start
-    busy_us, end = 0.0, float("-inf")
+        a = e.start_ns()
+        spans.append((a, a + e.duration_ns()))
+        if any(k in e.name() for k in names):
+            k_ns += e.duration_ns()
+    busy_ns, end = 0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
-            busy_us += b - max(a, end)
+            busy_ns += b - max(a, end)
             end = b
     return {"profiled_query_ms": start.elapsed_time(stop),
-            "device_ops": len(spans), "device_busy_ms": busy_us / 1e3,
-            key: k_us / 1e3}
+            "device_ops": len(spans), "device_busy_ms": busy_ns / 1e6,
+            key: k_ns / 1e6, "launches": launches if graph else booked,
+            "profiled_launches": launches, "profile_runs": tries}
 
 
 def profile_record(prof: dict, warm_ms: float) -> dict:
-    return dict(prof, warm_query_ms=warm_ms,
+    return dict(prof, launches=nonzero(prof["launches"]),
+                profiled_launches=nonzero(prof["profiled_launches"]),
+                warm_query_ms=warm_ms,
                 idle_share=1 - prof["device_busy_ms"] / warm_ms,
                 idle_share_profiled=1 - prof["device_busy_ms"]
                 / prof["profiled_query_ms"])
+
+
+# graphed and eager warm queries of the graphs phase, each (in turns)
+GRAPH_REPS = 5
+MB = 1 << 20
+
+
+def graph_pool_mb() -> float:
+    """Device memory the CUDA graphs' pools hold (segments of private
+    pools in the allocator's snapshot), in MiB."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / MB
+
+
+def graph_ab(tree, label: str, forms: dict, kernel, key: str) -> dict:
+    """Phase graphs, one query: `tree`'s query through
+    engine.acc_pot_u_host replayed from its CUDA graphs (graph=None, the
+    default on the card) against the same query run eagerly
+    (graph=False), on one tree in one call. The graph cache is emptied
+    first, so the first graphed query captures (its warm-up, capture and
+    replay: capture_s); then GRAPH_REPS warm queries each way, in turns
+    (the query and the overflow read, synced wall ms), each with the
+    launch counts of `forms` ({module key: {form: launches}}, counted)
+    and no other; the peak memory of each (max_memory_allocated over the
+    memory held before it); a profile of each (device_profile with
+    `kernel` and `key`), whose records of the main kernels must show the
+    launches of `forms` (the timed queries' counts are the bookkeeping,
+    held to the same). Raises unless the graphed sums equal the eager
+    ones bit for bit and the flags and maxima are equal. Emits and
+    returns the record."""
+    from rakau_tpu_torch import engine
+    td, cfg = tree.tree_data, tree.config
+
+    def run(graph):
+        out = engine.acc_pot_u_host(td, cfg, THETA, 0.0, graph=graph)
+        out[2].cpu()            # the overflow read of the Tree's query
+        return out
+
+    engine.clear_graphs()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (_, capture_ms), counts = counted(lambda: synced_ms(lambda: run(None)))
+    rec = {"query": label, "capture_s": capture_ms / 1e3,
+           "capture_peak_mb": (torch.cuda.max_memory_allocated() - base)
+           / MB, "graphs_cached": len(engine._GRAPHS),
+           "capture_launches": counts}
+    torch.cuda.synchronize()
+    rec["graph_held_mb"] = (torch.cuda.memory_allocated() - base) / MB
+    rec["graph_pool_mb"] = graph_pool_mb()
+    ms = {False: [], True: []}
+    peak = {False: [], True: []}
+    out = {}
+    want = None
+    for i in range(GRAPH_REPS):
+        for graph in ((False, True) if i % 2 == 0 else (True, False)):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            (out[graph], t), counts = counted(
+                lambda: synced_ms(lambda: run(graph)))
+            peak[graph].append((torch.cuda.max_memory_allocated() - held)
+                               / MB)
+            ms[graph].append(t)
+            want = want or launched(counts, forms)
+            if counts != want:
+                raise AssertionError(
+                    f"graphs {label} (graph={graph}): launches {counts}, "
+                    f"want {forms} and nothing else")
+    (a_e, p_e, o_e, m_e), (a_g, p_g, o_g, m_g) = out[False], out[True]
+    rec.update(
+        launches_per_query=forms,
+        max_abs_diff_acc=float((a_g - a_e).abs().max()),
+        max_abs_diff_pot=float((p_g - p_e).abs().max()),
+        flags_equal=bool(torch.equal(o_g, o_e)),
+        maxima_equal=bool(torch.equal(m_g, m_e)), overflow=o_g.tolist())
+    for graph, side in ((False, "eager"), (True, "graphed")):
+        med = statistics.median(ms[graph])
+        prof = device_profile(tree, kernel, key, graph=graph)
+        if prof["launches"] != want:
+            raise AssertionError(
+                f"graphs {label} (graph={graph}): launches on the card's "
+                f"profile {nonzero(prof['launches'])}, want {forms}")
+        rec[side] = dict(
+            profile_record(prof, med), warm_query_ms_all=ms[graph],
+            warm_spread=(max(ms[graph]) - min(ms[graph])) / med,
+            peak_mb=max(peak[graph]))
+    rec["speedup"] = (rec["eager"]["warm_query_ms"]
+                      / rec["graphed"]["warm_query_ms"])
+    emit("graphs", **rec)
+    if not (torch.equal(a_g, a_e) and torch.equal(p_g, p_e)
+            and rec["flags_equal"] and rec["maxima_equal"]):
+        raise AssertionError(f"graphs {label}: the graphed query differs "
+                             f"from the eager one: {rec}")
+    return rec
+
+
+def acc_pot_u_check(tree) -> dict:
+    """Phase graphs: engine.acc_pot_u, the whole query as one CUDA graph
+    (every chunk of the tile capacity, tiles, tables and far field built
+    inside), on `tree` against engine.acc_pot_u_host run eagerly: equal
+    sums and flags, K1a launches a replay = the chunks of the tile
+    capacity (stated beside the live chunks), measured on a profiled
+    replay. Emits and returns the record."""
+    from rakau_tpu_torch import engine
+    td, cfg = tree.tree_data, tree.config
+    cap_chunks = engine._gather_tiles(td, cfg)[0].shape[0]
+    live = engine.live_chunks(td, cfg)
+    engine.clear_graphs()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, capture_ms = synced_ms(lambda: engine.acc_pot_u(
+        td, cfg, THETA, 0.0, with_stats=True))
+    capture_peak = (torch.cuda.max_memory_allocated() - base) / MB
+    pool_mb = graph_pool_mb()
+    warm, booked = [], None
+    for _ in range(2):
+        ((acc, pot, ovf, mx), t), booked = counted(lambda: synced_ms(
+            lambda: engine.acc_pot_u(td, cfg, THETA, 0.0, with_stats=True)))
+        warm.append(t)
+    # one more replay under the profiler: the launches it ran
+    _, counts = measured(lambda: engine.acc_pot_u(
+        td, cfg, THETA, 0.0, with_stats=True), want=booked)
+    (a_h, p_h, o_h, m_h), host_ms = synced_ms(lambda: engine.acc_pot_u_host(
+        td, cfg, THETA, 0.0, graph=False))
+    rec = {"query": "acc_pot_u (shared+grid)", "capture_s": capture_ms / 1e3,
+           "capture_peak_mb": capture_peak, "graph_pool_mb": pool_mb,
+           "warm_ms_all": warm,
+           "eager_host_query_ms": host_ms, "capacity_chunks": cap_chunks,
+           "live_chunks": live, "launches_per_replay": nonzero(counts),
+           "max_abs_diff_acc": float((acc - a_h).abs().max()),
+           "max_abs_diff_pot": float((pot - p_h).abs().max()),
+           "overflow": ovf.tolist(), "maxima": mx.tolist(),
+           "host_maxima": m_h.tolist()}
+    emit("graphs", **rec)
+    if counts != launched(counts, {"K1": {"mono": cap_chunks}}):
+        raise AssertionError(f"acc_pot_u: launches {counts}, want "
+                             f"{cap_chunks} K1a (the tile capacity)")
+    if not (torch.equal(acc, a_h) and torch.equal(pot, p_h)
+            and torch.equal(ovf, o_h)):
+        raise AssertionError(f"acc_pot_u differs from acc_pot_u_host: {rec}")
+    return rec
+
+
+@contextmanager
+def engine_graph(graph):
+    """Inside, every call of engine.acc_pot_u_host runs with `graph`
+    (False: eagerly; None: from CUDA graphs on the card), whatever its
+    caller passes (integrate and the LET's local query take the
+    default)."""
+    from rakau_tpu_torch import engine
+    orig = engine.acc_pot_u_host
+
+    def forced(*a, **kw):
+        kw["graph"] = graph
+        return orig(*a, **kw)
+
+    engine.acc_pot_u_host = forced
+    try:
+        yield
+    finally:
+        engine.acc_pot_u_host = orig
+
+
+def step_ab(state, cfg) -> dict:
+    """Phase graphs: one leapfrog step of BASELINE config #2
+    (integrate.leapfrog_step_morton from `state`) with its queries
+    replayed from CUDA graphs against the same step run eagerly, in turns
+    (eager, graphed, graphed, eager): pos and vel bit-equal, step ms of
+    each. Emits and returns the record."""
+    from rakau_tpu_torch import integrate
+
+    def step():
+        return integrate.leapfrog_step_morton(state, LF_DT, cfg, LF_THETA,
+                                              LF_EPS, box_size=LF_BOX)
+
+    out, ms = {}, {False: [], True: []}
+    for graph in (False, True, True, False):
+        if graph:
+            out[graph], t = synced_ms(step)
+        else:
+            with engine_graph(False):
+                out[graph], t = synced_ms(step)
+        ms[graph].append(t)
+    (s_e, o_e, _), (s_g, o_g, _) = out[False], out[True]
+    rec = {"query": "leapfrog step (BASELINE config #2)",
+           "n": state.pos.shape[0], "eager_step_ms": ms[False],
+           "graphed_step_ms": ms[True],
+           "max_abs_diff_pos": float((s_g.pos - s_e.pos).abs().max()),
+           "max_abs_diff_vel": float((s_g.vel - s_e.vel).abs().max()),
+           "overflow": (o_e | o_g).tolist()}
+    emit("graphs", **rec)
+    if not (torch.equal(s_g.pos, s_e.pos) and torch.equal(s_g.vel, s_e.vel)
+            and not (o_e | o_g).any()):
+        raise AssertionError(f"graphs leapfrog step: {rec}")
+    return rec
+
+
+def graphs_summary(queries: dict, mrec: dict, step: dict) -> dict:
+    """The graphs phase in one record: for each query its graphed and
+    eager warm medians, device ops, busy ms, idle shares, peak memory and
+    capture seconds; acc_pot_u's; the sharded query at LET_SHARDS shards
+    against the single-device one and the LET's accuracy (both run on the
+    graphs, phase multi); the leapfrog step's."""
+    out = {}
+    for label, r in queries.items():
+        if "eager" not in r:
+            out[label] = {k: r[k] for k in (
+                "capture_s", "graph_pool_mb", "warm_ms_all",
+                "eager_host_query_ms",
+                "capacity_chunks", "live_chunks", "max_abs_diff_acc")}
+            continue
+        out[label] = {"capture_s": r["capture_s"], "speedup": r["speedup"],
+                      "capture_peak_mb": r["capture_peak_mb"],
+                      "graph_held_mb": r["graph_held_mb"],
+                      "graph_pool_mb": r["graph_pool_mb"],
+                      "max_abs_diff_acc": r["max_abs_diff_acc"],
+                      "max_abs_diff_pot": r["max_abs_diff_pot"]}
+        for side in ("eager", "graphed"):
+            out[label][side] = {k: r[side][k] for k in (
+                "warm_query_ms", "warm_spread", "device_ops",
+                "device_busy_ms", "idle_share", "peak_mb")}
+    shard = mrec["sharded"]["shards"][LET_SHARDS]
+    out["sharded"] = {"shards": LET_SHARDS, "query_s": shard["query_s"],
+                      "max_abs_diff_acc": shard["max_abs_diff_acc"],
+                      "max_abs_diff_pot": shard["max_abs_diff_pot"]}
+    out["let"] = {k: mrec["let"].get(k) for k in (
+        "force_rms", "pot_rms", "let_query_s", "local_query_graph_ab")}
+    out["leapfrog_step"] = {k: step[k] for k in (
+        "eager_step_ms", "graphed_step_ms", "max_abs_diff_pos",
+        "max_abs_diff_vel")}
+    return out
 
 
 def on_card(arrays, dev, dtype=torch.float32):
@@ -1768,15 +2070,153 @@ def event_ms(fn):
 
 def counted(fn):
     """(fn(), launches per kernel form of K1 (with K5, K6), K2 and the
-    tile kernels K3/K4 ("tiles")) with every count set to 0 just before
-    the call and read just after."""
+    tile kernels K3/K4 ("tiles")) that ran in the call, by bookkeeping:
+    with every count and the graph cache's tally set to 0 just before the
+    call and read just after, the wrappers' counts (the launches they made
+    eagerly and those a capture recorded) less what the captures recorded
+    plus what the graphs' replays repeated (graphs.GraphCache). measured()
+    holds these against the card's profile."""
+    from rakau_tpu_torch import engine
     from rakau_tpu_torch.kernels import pool, shared, tiles
     shared.reset_launches()
     pool.reset_launches()
     tiles.reset_launches()
+    engine._GRAPHS.reset_tally()
     out = fn()
-    return out, {"K1": dict(shared.launches), "K2": dict(pool.launches),
-                 "tiles": dict(tiles.launches)}
+    counts = {}
+    for key, c, cap, rep in zip(
+            ("K1", "K2", "tiles"), (shared.launches, pool.launches,
+                                    tiles.launches),
+            engine._GRAPHS.captured, engine._GRAPHS.replayed):
+        counts[key] = {f: v - cap.get(f, 0) + rep.get(f, 0)
+                       for f, v in c.items()}
+    return out, counts
+
+
+# The main kernel of each hand-written launch (one a wrapper call), by its
+# name in the card's profile: its module key in counted's counts and its
+# form from the kernel's template arguments (shared_fused_kernel<MODE,
+# COMP, QUAD, CELL>, shared_mma_kernel<MODE, CELL, PREC>, pool_kernel<MODE,
+# COMP, QUAD>).
+MAIN_KERNELS = {
+    "shared_fused_kernel": ("K1", 4, lambda a: (
+        ("quad" if a[2] else "mono") + ("_comp" if a[1] else "")
+        + ("_cell" if a[3] else ""))),
+    "shared_mma_kernel": ("K1", 3, lambda a: "mma_cell" if a[1] else "mma"),
+    "shared_blocks_kernel": ("K1", 0, lambda a: "blocks"),
+    "pool_kernel": ("K2", 3, lambda a: (
+        ("quad" if a[2] else "mono") + ("_comp" if a[1] else ""))),
+    "tiles_fused_kernel": ("tiles", 0, lambda a: "fused"),
+    "tiles_pairwise_kernel": ("tiles", 0, lambda a: "split"),
+}
+# counts that no kernel's name shows: 2-D operands padded to 3-D ("d2"),
+# the float64 build ("f64") and the plain M2P row of the lists
+# quadrupole ("xla_quad", no kernel)
+BOOKED_ONLY = ("d2", "f64", "xla_quad")
+_MAIN_RE = re.compile(r"(?<!\w)(" + "|".join(MAIN_KERNELS)
+                      + r")(?:<([^()]*)>)?(?=\(|$)")
+
+
+def kernel_form(name: str):
+    """(module key, form) of the kernel that a device record of the
+    profiler names, where it is the main kernel of a hand-written launch
+    (MAIN_KERNELS), else None. Takes the demangled name ("void
+    ns::pool_kernel<0, false, true>(PoolSrc, ...)") or the mangled one."""
+    if name.startswith("_Z"):
+        base, rest = entry_name(name)
+        targs = re.match(r"I(.*?E)E", rest)
+        args = [int(v) for v in re.findall(r"L[ib](\d+)E", targs.group(1))
+                ] if targs else []
+    else:
+        m = _MAIN_RE.search(name)
+        if m is None:
+            return None
+        base = m.group(1)
+        args = [1 if v.strip() == "true" else 0 if v.strip() == "false"
+                else int(re.search(r"-?\d+", v).group())
+                for v in (m.group(2) or "").split(",") if v.strip()]
+    if base not in MAIN_KERNELS:
+        return None
+    key, n_args, form = MAIN_KERNELS[base]
+    if len(args) < n_args:
+        raise AssertionError(f"cannot read the form of kernel {name!r}")
+    return key, form(args)
+
+
+def profiled_launches(events, booked: dict) -> dict:
+    """The launches that a profile's device records (kineto events) show,
+    per module key
+    and form as counted gives them (booked: its counts of the same call):
+    each record of a main kernel (kernel_form) counts one; BOOKED_ONLY
+    are taken from `booked`."""
+    from torch.autograd import DeviceType
+    got = {k: {f: (v if f in BOOKED_ONLY else 0) for f, v in c.items()}
+           for k, c in booked.items()}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            kf = kernel_form(e.name())
+            if kf is not None:
+                got[kf[0]][kf[1]] += 1
+    return got
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: {f: v for f, v in c.items() if v}
+            for k, c in counts.items() if any(c.values())}
+
+
+# profiled runs of a call, at most, until one shows its launches, and
+# the tiny kernels (torch.cuda._sleep's spin_kernel) that each further run
+# launches first, per run already taken
+PROFILE_TRIES = 4
+PROFILE_SHIFT = 3
+
+
+def profile_launches(fn, hold: bool = True):
+    """fn() under torch.profiler (CUDA activity only), its main kernels'
+    records counted (profiled_launches) beside the bookkeeping of the
+    same call (counted). The profiler can drop a record (95 of 96 K1a on
+    an eager 1M query; 95 of 96 K5, and of K3 in three runs running, on
+    replays) but shows none that did not run: a run that shows the
+    bookkeeping's count proves those launches ran. hold: run fn again, at
+    most PROFILE_TRIES times in all, until one run shows it, each further
+    run after PROFILE_SHIFT more tiny kernels than the last (a loss that
+    repeats in runs of the same work then falls elsewhere in the next);
+    raise if none shows it or one shows more. Returns (fn(), the last
+    run's profiled launches, its bookkeeping, its events, the runs
+    taken)."""
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_SHIFT * (tries - 1)):
+                torch.cuda._sleep(1)
+            out, booked = counted(fn)
+            torch.cuda.synchronize()
+        # the profiler's own records (prof.events() builds an event tree
+        # from them, ~20x slower at 200k records)
+        events = prof.profiler.kineto_results.events()
+        got = profiled_launches(events, booked)
+        if not hold or got == booked:
+            return out, got, booked, events, tries
+        seen.append(nonzero(got))
+        if any(v > booked[k][f] for k, c in got.items()
+               for f, v in c.items()):
+            break
+    raise AssertionError(f"launches on the card's profile {seen}, by the "
+                         f"bookkeeping {nonzero(booked)}")
+
+
+def measured(fn, want=None):
+    """(fn(), launches measured on the card: profile_launches held to the
+    bookkeeping). Raises unless they also equal `want`, where given (the
+    counts of other, unprofiled calls, such as the timed ones)."""
+    out, got, _, _, _ = profile_launches(fn)
+    if want is not None and got != want:
+        raise AssertionError(f"launches on the card's profile "
+                             f"{nonzero(got)}, of the timed calls "
+                             f"{nonzero(want)}")
+    return out, got
 
 
 def launched(counts: dict, want: dict) -> dict:
@@ -1846,7 +2286,7 @@ def gwalk_main(pos, mass, oracle, shared_rms, dev):
                cold_query_ms=cold_ms, warm_query_ms=warm_ms,
                warm_query_ms_all=warm,
                warm_spread=(max(warm) - min(warm)) / warm_ms,
-               k2_launches_per_warm_query=per_query,
+               booked_k2_launches_per_warm_query=per_query,
                evals_per_s=n / (warm_ms / 1e3), force_rms=f_rms,
                pot_rms=p_rms, shared_force_rms=shared_rms[0],
                shared_pot_rms=shared_rms[1])
@@ -1855,16 +2295,20 @@ def gwalk_main(pos, mass, oracle, shared_rms, dev):
         raise AssertionError(f"gwalk accuracy: force rms {f_rms:.3e}, pot "
                              f"rms {p_rms:.3e}")
     emit("gwalk_layers", warm_query_ms=warm_ms, **gwalk_layer_ms(tree))
-    emit("gwalk_profile", **profile_record(
-        device_profile(tree, K2_KERNELS, "k2_device_ms"), warm_ms))
-    return tree, per_query[0], rec
+    prof = device_profile(tree, K2_KERNELS, "k2_device_ms")
+    one_launch(prof["launches"], "mono", "gwalk profiled query")
+    emit("gwalk_profile", **profile_record(prof, warm_ms))
+    rec["graphs"] = graph_ab(tree, "gwalk+grid", {"K2": {"mono": 1}},
+                             K2_KERNELS, "k2_device_ms")
+    return tree, prof["launches"]["K2"]["mono"], rec
 
 
 def gwalk_quad(pos, mass, oracle, dev):
     """Phase gwalk_quad: farfield "m2p" monopole fp32, then quadrupole +
     compensated (pool_window 131072, bench.py:81-85), each sized by
     gwalk_tree; each configuration queried again with the other
-    accumulation, so that every K2 form runs once in a real query.
+    accumulation, so that every K2 form runs once in a real query (each
+    timed query's launches held to a profiled one's, measured).
     Returns the quadrupole + compensated tree and the launches per form."""
     from rakau_tpu_torch import Tree
     from rakau_tpu_torch.config import TreeConfig
@@ -1883,14 +2327,17 @@ def gwalk_quad(pos, mass, oracle, dev):
         ((acc, pot), warm_ms), counts = counted(
             lambda: event_ms(lambda: tree.accs_pots_o(THETA)))
         one_launch(counts, form, f"gwalk m2p {form} query")
+        _, counts = measured(lambda: tree.accs_pots_o(THETA), want=counts)
         launches[form] = counts["K2"][form]
         rms[form] = sampled_rms(acc, pot, *oracle, dev)
         acc_cfg = tree.config.with_(
             accum="fp32" if cfg.accum == "compensated" else "compensated")
         otree = Tree(coords=pos, masses=mass, config=acc_cfg)
+        otree.accs_pots_o(THETA)        # captures its graph
         ((acc2, pot2), other_ms), counts = counted(
             lambda: event_ms(lambda: otree.accs_pots_o(THETA)))
         one_launch(counts, other, f"gwalk m2p {other} query")
+        _, counts = measured(lambda: otree.accs_pots_o(THETA), want=counts)
         launches[other] = counts["K2"][other]
         rms[other] = sampled_rms(acc2, pot2, *oracle, dev)
         for t in (acc, pot, acc2, pot2):
@@ -1986,13 +2433,15 @@ def grid2_shared(pos, mass, oracle, shared_rms, dev):
             lambda: event_ms(lambda: tree.accs_pots_o(THETA)))
         warm.append(ms)
         per_query.append(counts["K1"]["mono_cell"])
-        k1_launches(counts, chunks, ("mono_cell",), "grid2 warm query")
+        k1_launches(counts, query_chunks(td, cfg), ("mono_cell",),
+                    "grid2 warm query")
     if acc.shape != (n, 3) or pot.shape != (n,):
         raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
     finite("grid2 accelerations or potentials", acc, pot)
     f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
     warm_ms = statistics.median(warm)
-    launches = {"mono_cell": per_query[0]}
+    _, got = measured(lambda: tree.accs_pots_o(THETA), want=counts)
+    launches = {"mono_cell": got["K1"]["mono_cell"]}
     rec = dict(n=n, theta=THETA, **GRID2_KW,
                grid_level=grid2.effective_grid_level(cfg, n),
                build_ms=build_ms, cold_query_ms=cold_ms, caps_grown=grown,
@@ -2001,7 +2450,8 @@ def grid2_shared(pos, mass, oracle, shared_rms, dev):
                warm_query_ms_all=warm,
                warm_spread=(max(warm) - min(warm)) / warm_ms,
                n_tiles=int(td.n_tiles), chunks=chunks,
-               launches_per_warm_query=per_query,
+               booked_launches_per_warm_query=per_query,
+               measured_launches=nonzero(got),
                evals_per_s=n / (warm_ms / 1e3), force_rms=f_rms,
                pot_rms=p_rms, shared_grid_force_rms=shared_rms[0],
                shared_grid_pot_rms=shared_rms[1])
@@ -2018,8 +2468,9 @@ def grid2_shared(pos, mass, oracle, shared_rms, dev):
         _, q_cold = event_ms(lambda: t2.accs_pots_o(THETA))
         ((qacc, qpot), q_ms), counts = counted(
             lambda: event_ms(lambda: t2.accs_pots_o(THETA)))
-        k1_launches(counts, engine.live_chunks(t2.tree_data, t2.config),
+        k1_launches(counts, query_chunks(t2.tree_data, t2.config),
                     forms, f"grid2 {key} query")
+        _, counts = measured(lambda: t2.accs_pots_o(THETA), want=counts)
         finite(f"grid2 {key} result", qacc, qpot)
         qf, qp = sampled_rms(qacc, qpot, *oracle, dev)
         rec[key] = dict(kw, cold_query_ms=q_cold, warm_query_ms=q_ms,
@@ -2289,16 +2740,19 @@ def gwalk_grid2(pos, mass, oracle, grid2_rms, dev) -> dict:
 
 
 def warm_counted(tree, reps: int, theta: float = THETA):
-    """`reps` warm queries through the entry point, each with every launch
-    count set to 0 just before and read just after. Returns the last
-    (acc, pot), the device ms of each and the counts of each."""
-    ms_all, counts_all = [], []
+    """`reps` warm queries through the entry point, each timed and counted
+    (counted), then one more under the profiler (measured), whose launches
+    the last timed query's count must equal. Returns the last timed (acc,
+    pot), the device ms of each and the launches of each: the counts of
+    the timed queries, the last one's those measured."""
+    ms_all, booked = [], []
     for _ in range(reps):
         ((acc, pot), ms), counts = counted(
             lambda: event_ms(lambda: tree.accs_pots_o(theta)))
         ms_all.append(ms)
-        counts_all.append(counts)
-    return (acc, pot), ms_all, counts_all
+        booked.append(counts)
+    _, got = measured(lambda: tree.accs_pots_o(theta), want=booked[-1])
+    return (acc, pot), ms_all, booked[:-1] + [got]
 
 
 def variant_queries(tree, oracle, fused_rms, form: str, dev) -> tuple:
@@ -2313,7 +2767,7 @@ def variant_queries(tree, oracle, fused_rms, form: str, dev) -> tuple:
     Returns the record and the launches per variant."""
     from rakau_tpu_torch import engine
     from rakau_tpu_torch.kernels import dispatch
-    chunks = engine.live_chunks(tree.tree_data, tree.config)
+    chunks = query_chunks(tree.tree_data, tree.config)
     runs = [("mma", prec, form) for prec in PRECS]
     if form == "mma":
         runs.append(("blocks", "x3", "blocks"))
@@ -2537,7 +2991,8 @@ def lmac_cpu_cuda(seed: int, dev) -> dict:
         tables = traversal3.make_tables(td, cfg)
         _, start, K = engine._slices(engine.live_chunks(td, cfg),
                                      cfg.tile_chunk)[0]
-        cand = engine._slice_cand(td, cfg, THETA, tiles, tables, start, K)
+        cand = engine._slice_cand(
+            td, cfg, THETA, tuple(t[start:start + K] for t in tiles), tables)
         (tpos, tidx, blo, bhi, tcell), tcells = engine._chunk_tiles(tiles, 0)
         src = traversal3.build_shared_sources(
             td, cfg, THETA, blo, bhi, tables=tables,
@@ -2609,7 +3064,8 @@ def lmac_main(pos, mass, oracle, dev):
     chunks = engine.live_chunks(td, cfg)
     (acc, pot), warm, counts = warm_counted(tree, WARM_REPS)
     for c in counts:
-        k1_launches(c, chunks, ("mono_cell",), "lmac warm query")
+        k1_launches(c, query_chunks(td, cfg), ("mono_cell",),
+                    "lmac warm query")
     if acc.shape != (n, 3) or pot.shape != (n,):
         raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
     finite("lmac accelerations or potentials", acc, pot)
@@ -2656,6 +3112,9 @@ def lmac_main(pos, mass, oracle, dev):
     emit("lmac_profile", **profile_record(
         device_profile(tree, "shared_fused_", "k1c_device_ms"),
         warm_ms))
+    rec["graphs"] = graph_ab(tree, "lmac+grid2",
+                             {"K1": {"mono_cell": query_chunks(td, cfg)}},
+                             "shared_fused_", "k1c_device_ms")
     vrec, v_launches = variant_queries(tree, oracle, (f_rms, p_rms),
                                        "mma_cell", dev)
     emit("variants", config="lmac+grid2", **vrec)
@@ -2682,7 +3141,7 @@ def lmac_gate(seed: int, dev) -> dict:
     tree = Tree(coords=pos, masses=mass, config=TreeConfig(**GATE_KW))
     _, cold_ms = event_ms(lambda: tree.accs_pots_o(GATE_THETA))
     (acc, pot), ms, counts = warm_counted(tree, 1, GATE_THETA)
-    chunks = engine.live_chunks(tree.tree_data, tree.config)
+    chunks = query_chunks(tree.tree_data, tree.config)
     k1_launches(counts[0], chunks, ("quad_comp_cell", "mono_comp_cell"),
                 "lmac gate query")
     finite("lmac gate result", acc, pot)
@@ -2719,11 +3178,12 @@ def leapfrog(n: int, seed: int, dev):
            "energy_theta": E_THETA, "eps": LF_EPS, "box": LF_BOX}
 
     def launches_of(fn):
-        """(fn(), wall ms, launches per form) with the counts set to 0
-        just before the call and read just after."""
-        shared.reset_launches()
-        out, ms = synced_ms(fn)
-        return out, ms, dict(shared.launches)
+        """(fn(), wall ms, K1's launches per form): the call timed and
+        counted, then once more under the profiler (measured), whose
+        launches the timed call's must equal."""
+        (out, ms), counts = counted(lambda: synced_ms(fn))
+        _, counts = measured(fn, want=counts)
+        return out, ms, counts["K1"]
 
     # size the energy query's caps through the Tree API (grow and retry);
     # E3's state has moved a little, so no cap stays below 1.25x the
@@ -2741,7 +3201,7 @@ def leapfrog(n: int, seed: int, dev):
     def energy(st, td):
         e, ms, launches = launches_of(lambda: integrate.total_energy(
             st, ecfg, E_THETA, LF_EPS, box_size=LF_BOX))
-        chunks = engine.live_chunks(td, ecfg)
+        chunks = query_chunks(td, ecfg)
         if not (launches["quad_comp"] == launches["mono_comp"] == chunks
                 and launches["mono"] == launches["quad"] == 0):
             raise AssertionError(f"energy query launches {launches}, "
@@ -2750,21 +3210,24 @@ def leapfrog(n: int, seed: int, dev):
             raise AssertionError(f"energy {e} is not finite")
         return e, ms, chunks, launches
 
+    # the energy query's graphs are captured once, before it is counted
+    integrate.total_energy(state, ecfg, E_THETA, LF_EPS, box_size=LF_BOX)
     e0, e0_ms, e_chunks, e_launches = energy(state, etree.tree_data)
     rec.update(e0=e0, energy_query_ms=e0_ms, energy_chunks=e_chunks,
                energy_launches=e_launches)
 
     step_ms, retries, caps_grown = [], 0, []
-    shared.reset_launches()
+    step_launches = dict.fromkeys(shared.launches, 0)
     for _ in range(LF_STEPS):
-        (state, ovf, _, cfg, r), ms = synced_ms(
+        ((state, ovf, _, cfg, r), ms), counts = counted(lambda: synced_ms(
             lambda: integrate.leapfrog_step_morton_safe(
-                state, LF_DT, cfg, LF_THETA, LF_EPS, box_size=LF_BOX))
+                state, LF_DT, cfg, LF_THETA, LF_EPS, box_size=LF_BOX)))
         step_ms.append(ms)
         retries += r
         if r:
             caps_grown.append({f: getattr(cfg, f) for f in OVF_FIELDS})
-    step_launches = dict(shared.launches)
+        for f, v in counts["K1"].items():
+            step_launches[f] += v
     if step_launches["mono"] <= 0 or any(
             step_launches[f] for f in ("mono_comp", "quad", "quad_comp")):
         raise AssertionError(f"leapfrog step launches {step_launches}")
@@ -2781,6 +3244,7 @@ def leapfrog(n: int, seed: int, dev):
                cap_retries=retries, caps_grown_to=caps_grown,
                step_launches=step_launches)
 
+    rec["graphs"] = step_ab(state, cfg)
     td3 = build.build_tree(state.pos, state.mass, ecfg, LF_BOX)
     e3, e3_ms, _, _ = energy(state, td3)
     drift = abs(e3 - e0) / abs(e0)
@@ -2801,6 +3265,7 @@ def leapfrog(n: int, seed: int, dev):
     # the same energy query with fp32 sums (K1d), beside it
     qtree = Tree(coords=state.pos, masses=state.mass,
                  config=ecfg.with_(accum="fp32"), box_size=LF_BOX)
+    qtree.pots_o(E_THETA, LF_EPS)       # captures its graphs
     qpot, q_ms, q_launches = launches_of(lambda: qtree.pots_o(E_THETA,
                                                               LF_EPS))
     _, q_rms = sampled_rms(None, qpot, None, pot_o, samp, dev)
@@ -3311,7 +3776,7 @@ def lists_main(pos, mass, oracle, shared_rms, dev):
                                             config=TreeConfig(**LISTS_KW)))
     _, cold_ms = event_ms(lambda: tree.accs_pots_o(THETA))
     td, cfg = tree.tree_data, tree.config
-    chunks = engine.live_chunks(td, cfg)
+    chunks = query_chunks(td, cfg)
     (acc, pot), warm, counts = warm_counted(tree, WARM_REPS)
     for c in counts:
         if c != launched(c, {"tiles": {"fused": chunks}}):
@@ -3340,8 +3805,11 @@ def lists_main(pos, mass, oracle, shared_rms, dev):
     emit("lists_layers", warm_query_ms=warm_ms, **lists_layer_ms(tree))
     emit("lists_profile", **profile_record(
         device_profile(tree, K3_KERNELS, "k3_device_ms"), warm_ms))
+    rec["graphs"] = graph_ab(tree, "lists", {"tiles": {"fused": chunks}},
+                             K3_KERNELS, "k3_device_ms")
     with dispatch.tiles_variant("split"):
-        (acc4, pot4), ms4, c4 = warm_counted(tree, 1)
+        # the first query captures the variant's graphs; the second counts
+        (acc4, pot4), ms4, c4 = warm_counted(tree, 2)
     if c4[-1] != launched(c4[-1], {"tiles": {"split": 2 * chunks}}):
         raise AssertionError(f"lists split query: launches {c4[-1]}, want "
                              f"{2 * chunks} K4 and nothing else")
@@ -3386,7 +3854,7 @@ def lists_quad(seed: int, dev) -> dict:
         tree = Tree(coords=pos, masses=mass, config=TreeConfig(**kw))
         tree.accs_pots_o(THETA)
         (acc, pot), ms, counts = warm_counted(tree, 1)
-        chunks = engine.live_chunks(tree.tree_data, tree.config)
+        chunks = query_chunks(tree.tree_data, tree.config)
         want = {"lists_mono": {"tiles": {"fused": chunks}},
                 "lists_quad": {"tiles": {"xla_quad": chunks}},
                 "shared_quad": {"K1": {"quad": chunks, "mono": chunks}}}[key]
@@ -3466,7 +3934,7 @@ def f1(seed: int, dev) -> tuple:
         tree.accs_pots_o(theta)
         with plain_forbidden():
             (acc, pot), ms, counts = warm_counted(tree, 1, theta)
-        chunks = engine.live_chunks(tree.tree_data, tree.config)
+        chunks = query_chunks(tree.tree_data, tree.config)
         want = want(chunks)
         if counts[-1] != launched(counts[-1], want):
             raise AssertionError(f"f1 {key}: launches {counts[-1]}, want "
@@ -3629,7 +4097,7 @@ def f2_check(seed: int, dev) -> dict:
                   max_leaf_n=32, ncrit=512, tile_chunk=32)
     tree.accs_pots_o(THETA)                 # the Tree fits its caps
     td, cfg = tree.tree_data, tree.config
-    chunks = engine.live_chunks(td, cfg)
+    chunks = query_chunks(td, cfg)
     (auto, c_auto), ms_auto = synced_ms(lambda: counted(
         lambda: engine.acc_pot_u_host(td, cfg, THETA, 0.0)))
     (xla, c_xla), ms_xla = synced_ms(lambda: counted(
@@ -3688,18 +4156,31 @@ def sharded_check(pos, mass, cfg, dev) -> tuple:
                       "frontier_cap")}, shards={})
     for k in MULTI_SHARDS:
         mesh = sharded.default_mesh(k)
+        # the first query captures the shards' slice graphs; the second
+        # is counted and timed
+        sharded.acc_pot_u_sharded(td, cfg_g, THETA, 0.0, 1.0, mesh)
         ((a, p, o), counts), ms = synced_ms(lambda: counted(
             lambda: sharded.acc_pot_u_sharded(td, cfg_g, THETA, 0.0, 1.0,
                                               mesh)))
+        # a third under the profiler: the launches it ran on the card
+        _, counts = measured(lambda: sharded.acc_pot_u_sharded(
+            td, cfg_g, THETA, 0.0, 1.0, mesh), want=counts)
+        # the same chunk sums, each shard's slices replayed from graphs:
+        # equal to the single-device query bit for bit
         ok = (not o.any()
               and torch.allclose(a, a1, rtol=SHARD_RTOL, atol=a_tol)
-              and torch.allclose(p, p1, rtol=SHARD_RTOL, atol=p_tol))
+              and torch.allclose(p, p1, rtol=SHARD_RTOL, atol=p_tol)
+              and torch.equal(a, a1) and torch.equal(p, p1))
         rec["shards"][k] = dict(
             query_s=ms / 1e3, k1a_launches=counts["K1"]["mono"],
             devices=[str(d) for d in mesh.devices],
             max_abs_diff_acc=float((a - a1).abs().max()),
             max_abs_diff_pot=float((p - p1).abs().max()))
-        if not ok or counts != launched(counts, {"K1": {"mono": chunks}}):
+        # each shard's chunk loop evaluates its range's slices whole
+        want = sum(engine.evaluated_chunks(b - a, cfg_g.tile_chunk)
+                   for a, b in sharded.chunk_ranges(chunks, k) if b > a)
+        rec["shards"][k]["chunk_evaluations"] = want
+        if not ok or counts != launched(counts, {"K1": {"mono": want}}):
             raise AssertionError(f"multi sharded {k}: {rec['shards'][k]}, "
                                  f"flags {o.tolist()}, launches {counts}")
     state = integrate.NBodyState(pos, torch.zeros_like(pos), mass)
@@ -3776,6 +4257,30 @@ def let_check(n: int, cfg_l, seed: int, dev) -> dict:
     with let.stage_seconds() as stages:
         let.acc_pot_let(pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh,
                         **caps)
+    # the whole LET with its local query run eagerly and from CUDA graphs
+    # (the default): the first graphed run captures (the cache emptied
+    # first, as let_sized's first run found it), the second replays
+    local = {}
+    for mode, graph in (("eager", False), ("graphed_capture", None),
+                        ("graphed_replay", None), ("eager_again", False)):
+        if mode == "graphed_capture":
+            from rakau_tpu_torch import engine
+            engine.clear_graphs()
+        with engine_graph(graph), let.stage_seconds() as st:
+            _, ms = synced_ms(lambda: let.acc_pot_let(
+                pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh, **caps))
+        local[mode] = {"let_s": ms / 1e3, "stage_s": dict(st)}
+    # a second particle set of the same count, as a step hands the LET:
+    # the shards' fixed buffers keep every shape, so it replays (the
+    # graphs' tally records no capture)
+    gen2 = torch.Generator(device=dev).manual_seed(seed + 1)
+    pos2, mass2 = particles.plummer(n, generator=gen2)
+    (_, booked), ms = synced_ms(lambda: counted(lambda: let.acc_pot_let(
+        pos2, mass2, cfg_q, THETA, MULTI_EPS, 1.0, mesh, **caps)))
+    from rakau_tpu_torch import engine
+    local["graphed_new_particles"] = {
+        "let_s": ms / 1e3, "k1a_launches": booked["K1"]["mono"],
+        "captured": [dict(c) for c in engine._GRAPHS.captured]}
 
     def single(c):
         out, ms = synced_ms(lambda: integrate.acc_pot(pos, mass, c, THETA,
@@ -3801,7 +4306,8 @@ def let_check(n: int, cfg_l, seed: int, dev) -> dict:
         export_counts=cnt.tolist(), halo_bytes=int(cnt.sum()) * item,
         halo_slot_bytes=LET_SHARDS * (LET_SHARDS - 1) * caps["export_cap"]
         * item, let_query_s=let_s, single_query_s=single_s / 1e3,
-        stage_s=stages, k1_launches={f: v for f, v in k1.items() if v},
+        stage_s=stages, local_query_graph_ab=local,
+        k1_launches={f: v for f, v in k1.items() if v},
         force_rms=f_let, pot_rms=p_let, single_force_rms=f_one,
         single_pot_rms=p_one, global_vs_distributed_rms=cross)
     if (ovf_g.any() or xo_g
@@ -3931,31 +4437,42 @@ def main(argv=None) -> int:
         return out, start.elapsed_time(stop)
 
     _, cold_ms = query()
-    cold_launches = shared.launches["mono"]     # build + cold query
-    warm, per_query = [], []
+    # the wrappers' own count over the build and the cold query, which
+    # runs each graph's warm-up eagerly and captures it
+    cold_launches = shared.launches["mono"]
+    warm, booked = [], []
     for _ in range(WARM_REPS):
-        shared.reset_launches()
-        (acc, pot), ms = query()
-        per_query.append(shared.launches["mono"])
-        if any(v for f, v in shared.launches.items() if f != "mono"):
-            raise AssertionError(f"main path launches {shared.launches}")
+        ((acc, pot), ms), counts = counted(query)
+        booked.append(counts)
         warm.append(ms)
-    launches = per_query[0]
     warm_ms = statistics.median(warm)
     td, cfg = tree.tree_data, tree.config
     chunks = engine.live_chunks(td, cfg)
+    evaluated = query_chunks(td, cfg)
+    # one more warm query under the profiler: its K1a records are the
+    # launches the main path's query makes on the card
+    prof = device_profile(tree, "shared_fused_", "k1a_device_ms")
+    want = launched(prof["launches"], {"K1": {"mono": evaluated}})
+    launches = prof["launches"]["K1"]["mono"]
     emit("main", n=args.n, theta=THETA, build_ms=build_ms,
          cold_query_ms=cold_ms, warm_query_ms=warm_ms, warm_query_ms_all=warm,
          warm_spread=(max(warm) - min(warm)) / warm_ms,
          n_nodes=tree.n_nodes, n_tiles=int(td.n_tiles), chunks=chunks,
-         launches=launches, launches_per_warm_query=per_query,
+         chunk_evaluations=evaluated, launches=launches,
+         booked_launches_per_warm_query=[c["K1"]["mono"] for c in booked],
          cold_launches=cold_launches,
          caps={f: getattr(cfg, f) for f in
                ("m2p_cap", "p2p_leaf_cap", "p2p_src_cap", "frontier_cap")},
          evals_per_s=args.n / (warm_ms / 1e3))
-    if any(k != chunks for k in per_query) or chunks <= 0:
+    if prof["launches"] != want or chunks <= 0 or cold_launches <= 0:
         raise AssertionError(
-            f"kernel launches per warm query {per_query} != chunks {chunks}")
+            f"main path: launches on the card's profile "
+            f"{nonzero(prof['launches'])}, want {evaluated} K1a (the chunk "
+            f"evaluations) and nothing else; {cold_launches} K1a by the "
+            f"wrappers in the build and cold query")
+    if any(c != want for c in booked):
+        raise AssertionError(f"main path: booked launches {booked} differ "
+                             f"from the profile's {nonzero(want)}")
     if acc.shape != (args.n, 3) or pot.shape != (args.n,):
         raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
     if not (torch.isfinite(acc).all() and torch.isfinite(pot).all()):
@@ -3963,9 +4480,11 @@ def main(argv=None) -> int:
 
     # ---- where a warm query's time goes ---------------------------------
     emit("layers", warm_query_ms=warm_ms, **layer_ms(tree))
-    emit("profile", **profile_record(
-        device_profile(tree, "shared_fused_", "k1a_device_ms"),
-        warm_ms))
+    emit("profile", **profile_record(prof, warm_ms))
+    graphs_rec = {"shared+grid": graph_ab(
+        tree, "shared+grid", {"K1": {"mono": evaluated}}, "shared_fused_",
+        "k1a_device_ms")}
+    graphs_rec["acc_pot_u"] = acc_pot_u_check(tree)
 
     # ---- kernel vs plain at the main path's chunk shapes ----------------
     worst, k_ms, p_ms, b_ms, per_mode = 0.0, [], [], [], {}
@@ -4029,15 +4548,18 @@ def main(argv=None) -> int:
 
     # ---- the lmac engine: no walk, one predicate panel a chunk -----------
     lmac_cpu_cuda(args.seed + 3, dev)
-    lmac_cfg, lv_forms, lv_launches, _ = lmac_main(pos, mass, oracle, dev)
+    lmac_cfg, lv_forms, lv_launches, lmac_rec = lmac_main(pos, mass, oracle,
+                                                          dev)
+    graphs_rec["lmac+grid2"] = lmac_rec["graphs"]
     torch.cuda.empty_cache()
     lmac_gate(args.seed + 4, dev)
     kernel_roofs(cfg, lmac_cfg)
     torch.cuda.empty_cache()
 
     # ---- the gwalk engine: one walk, one pool, one K2 launch -------------
-    gtree, g_launches, _ = gwalk_main(pos, mass, oracle, (f_rms, p_rms),
-                                      dev)
+    gtree, g_launches, grec = gwalk_main(pos, mass, oracle, (f_rms, p_rms),
+                                         dev)
+    graphs_rec["gwalk+grid"] = grec["graphs"]
     k2 = pool_kernel_phase(gtree, ("mono",), "gwalk+grid")
     del gtree
     qtree, q_launches = gwalk_quad(pos, mass, oracle, dev)
@@ -4051,8 +4573,9 @@ def main(argv=None) -> int:
 
     # ---- the lists path: per-tile lists and K3 (K4 beside it) -----------
     with diag_modes():
-        t_launches, t_forms, _ = lists_main(pos, mass, oracle,
-                                            (f_rms, p_rms), dev)
+        t_launches, t_forms, trec = lists_main(pos, mass, oracle,
+                                               (f_rms, p_rms), dev)
+        graphs_rec["lists"] = trec["graphs"]
         torch.cuda.empty_cache()
         lists_quad(args.seed + 5, dev)
     torch.cuda.empty_cache()
@@ -4062,12 +4585,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- the multi-device paths: F2, sharded query and step, LET ---------
-    multi(pos, mass, cfg, args.seed + 7, dev, min(LET_N, args.n))
+    mrec = multi(pos, mass, cfg, args.seed + 7, dev, min(LET_N, args.n))
     torch.cuda.empty_cache()
 
     # ---- BASELINE config #2: the leapfrog harness -----------------------
     lf, etree, ecfg = leapfrog(args.n, args.seed + 2, dev)
     forms = energy_kernels(etree, ecfg)
+    emit("graphs", summary=graphs_summary(graphs_rec, mrec, lf["graphs"]))
 
     kernels = [{
         "name": "K1a shared_fused (monopole, fp32)", "route": "cuda",

@@ -38,6 +38,17 @@ and "grid". The chunk loop (run_chunks) runs any range of chunks: the
 single-device query all live ones, each shard of parallel/sharded.py
 its own.
 
+On the card each of the reference's executables is a CUDA graph
+(graphs.py), captured at its first call and replayed after: one for each
+slice of chunks (`_slice_impl`, the counterpart of `_slice_query_jit`),
+one for the gwalk walk, pool and launch (`_gwalk_query`, `_gwalk_jit`
+with `_far_jit`), one for the assembly and grid2's far field
+(`_tail_impl`, `_assemble_jit` with `_far_jit`), and `acc_pot_u` whole as
+one. The per-tree state and the query's one host read (`live_chunks`)
+stay outside every graph. `graph=None` takes graphs on CUDA tensors and
+runs eagerly on CPU tensors; `graph=False` runs eagerly on the card too
+(the A/B and the per-layer timing), `graph=True` on CPU tensors raises.
+
 Results come back in internal Morton order (the `_u` view).
 """
 from __future__ import annotations
@@ -47,10 +58,49 @@ import torch.nn.functional as F
 
 from . import expansion
 from . import grid as gridmod
-from . import grid2, traversal, traversal2, traversal3, traversal4
+from . import graphs, grid2, traversal, traversal2, traversal3, traversal4
 from .build import TreeData, _quad_dim
 from .config import OVF_FIELDS, TreeConfig, fit_caps, fit_round_caps
-from .kernels import dispatch, shared
+from .kernels import dispatch, pool, shared, tiles
+
+# The captured pieces of queries (graphs.py; graphs.SIZE of them, each
+# pinning a copy of its tree). clear_graphs() releases them.
+_GRAPHS = graphs.GraphCache(
+    counters=(shared.launches, pool.launches, tiles.launches))
+
+
+def clear_graphs():
+    """Drop every captured query graph and hand the memory they held (their
+    static copies of trees and tables, and the shared pool) back to the
+    card."""
+    _GRAPHS.clear()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _use_graph(graph, t, cfg: TreeConfig) -> bool:
+    """Whether a query on tensor t replays CUDA graphs. `graph` None
+    takes them on CUDA tensors with the hand-written kernels, and runs
+    eagerly on CPU tensors and under kernel_backend="xla" (the plain
+    versions bound their loops by host reads, which a capture refuses);
+    True where there is none raises ValueError."""
+    possible = t.is_cuda and cfg.kernel_backend != "xla"
+    if graph is None:
+        return possible
+    if graph and not possible:
+        raise ValueError("graph=True needs CUDA tensors and the kernels: "
+                         "the CPU has no CUDA graphs, and "
+                         "kernel_backend='xla' runs the plain versions, "
+                         "which read the host (use graph=None or False)")
+    return bool(graph)
+
+
+def _run(graph: bool, fn, *args, **kw):
+    """fn(*args, **kw), replayed from its CUDA graph when `graph`; the
+    key adds the global switches a capture reads (dispatch.capture_key)."""
+    if not graph:
+        return fn(*args, **kw)
+    return _GRAPHS(fn, *args, key=dispatch.capture_key(), **kw)
 
 
 def _use_shared(cfg: TreeConfig) -> bool:
@@ -376,14 +426,14 @@ def _slices(n_live: int, tile_chunk: int, slice_chunks=None):
     return [(s, min(s, n_live - K), K) for s in range(0, n_live, K)]
 
 
-def _slice_cand(td: TreeData, cfg: TreeConfig, theta, tiles, tables,
-                start: int, K: int):
-    """The lmac candidate table of chunks [start, start + K): one
-    relevance pass and compaction over the whole node table against the
-    slice's bounding box, so that each chunk's predicate runs over
-    frontier_cap candidate rows instead of every node."""
+def _slice_cand(td: TreeData, cfg: TreeConfig, theta, panels, tables):
+    """The lmac candidate table of a slice, from its tile panels (each
+    array of the gathered tiles cut to the slice's chunks): one relevance
+    pass and compaction over the whole node table against the slice's
+    bounding box, so that each chunk's predicate runs over frontier_cap
+    candidate rows instead of every node."""
     n, ndim = td.pos.shape
-    flat = [t[start:start + K].reshape((-1,) + t.shape[2:]) for t in tiles]
+    flat = [t.reshape((-1,) + t.shape[2:]) for t in panels]
     # grid2: each tile's cell range; "grid": cell-clipped tiles, one cell
     clo, chi = (flat[6], flat[7]) if len(flat) > 5 else (flat[4], flat[4])
     return traversal3.build_group_candidates(
@@ -405,7 +455,8 @@ def kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps, chunk: int):
         _, start, K = [sl for sl in _slices(live_chunks(td, cfg),
                                             cfg.tile_chunk)
                        if sl[0] <= chunk][-1]
-        cand = _slice_cand(td, cfg, theta, tiles, tables, start, K)
+        cand = _slice_cand(td, cfg, theta,
+                           tuple(t[start:start + K] for t in tiles), tables)
     src, mask, _, _ = _chunk_sources(td, cfg, theta, eps, 1.0, tpos, tidx,
                                      blo, bhi, tables, tcell, Lgrid, tcells,
                                      cand)
@@ -559,68 +610,188 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     return fitted.with_(gwalk_round_caps=fit_round_caps(rcnt.cpu()))
 
 
-def run_chunks(td: TreeData, cfg: TreeConfig, theta, eps, G, state,
-               first: int, last: int, slice_chunks: int = None,
-               mode: str = "both", extra=None):
-    """The shared, lmac or lists chunk loop over chunks [first, last) of a
-    query whose per-tree state (_query_state: tiles, tables, far field) is
-    `state`. lmac runs them in slices of `slice_chunks` (_slices, over
-    this range), each with its candidate table, whose overflow and row
-    count ride the frontier slots (flag 3, maximum 2); the sums do not
-    depend on the slicing. Returns the tiles' acc [(last - first) * CH,
-    T, D] and pot, the overflow flags [4] and the maxima [4]. The single-
-    device query runs every live chunk through it, each shard of
-    parallel.sharded its own range."""
-    tiles, tables, Lgrid = state
+def _chunk_loop(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
+                tables, Lgrid, mode: str = "both", extra=None, cand=None):
+    """Every chunk of the tile panels (arrays [K, CH, ...]) in order.
+    Returns acc [K * CH, T, D], pot, the overflow flags [4] OR-ed and the
+    maxima [4] max-ed over the chunks."""
     dev = td.pos.device
     ovf = torch.zeros(4, dtype=torch.bool, device=dev)
     mx = torch.zeros(4, dtype=torch.int64, device=dev)
     accs, pots = [], []
+    for i in range(panels[0].shape[0]):
+        base, tcells = _chunk_tiles(panels, i)
+        a, p, o, m = _eval_chunk(td, cfg, theta, eps, G, *base[:4], tables,
+                                 base[4], Lgrid, mode=mode, tcells=tcells,
+                                 cand=cand, extra=extra)
+        accs.append(a)
+        pots.append(p)
+        ovf = ovf | o
+        mx = torch.maximum(mx, m)
+    return torch.cat(accs), torch.cat(pots), ovf, mx
+
+
+def _slice_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
+                tables, Lgrid, mode: str = "both", extra=None):
+    """One slice of a query, the counterpart of the reference's
+    `_slice_query_jit`: lmac's candidate table built from the slice's
+    tile panels (whose overflow and row count ride the frontier slots,
+    flag 3 and maximum 2), then every chunk of the panels. Returns what
+    _chunk_loop returns."""
+    cand = None
+    if cfg.traversal_mode == "lmac" and _use_shared(cfg):
+        cand = _slice_cand(td, cfg, theta, panels, tables)
+    acc, pot, ovf, mx = _chunk_loop(td, cfg, theta, eps, G, panels, tables,
+                                    Lgrid, mode, extra, cand)
+    if cand is not None:
+        ovf[3] |= cand.overflow
+        mx[2] = torch.maximum(mx[2], cand.count)
+    return acc, pot, ovf, mx
+
+
+def _tail_impl(td: TreeData, cfg: TreeConfig, eps, G, Lgrid, acc_tiles,
+               pot_tiles):
+    """Assembly of the tiles' sums into Morton order, then grid2's
+    per-particle far field (Lgrid: its leaf locals, None otherwise): the
+    counterpart of `_assemble_jit` and `_far_jit`."""
+    acc_u, pot_u = _assemble_impl(td, cfg, acc_tiles, pot_tiles)
+    return _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
+
+
+def _gwalk_query(td: TreeData, cfg: TreeConfig, theta, eps, G, tiles,
+                 Lgrid, mode: str = "both"):
+    """A gwalk query whole (walk, pool, K2, far fields, assembly): the
+    counterpart of `_gwalk_jit` and `_far_jit`. Returns (acc_u, pot_u,
+    overflow [4], maxima [4])."""
+    acc_u, pot_u, ovf, mx = _gwalk_impl(td, cfg, theta, eps, G, tiles, Lgrid,
+                                        mode=mode)[:4]
+    acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
+    return acc_u, pot_u, ovf, mx
+
+
+def evaluated_chunks(n_chunks: int, tile_chunk: int,
+                     slice_chunks: int = None) -> int:
+    """Chunk evaluations of a chunk loop over n_chunks chunks (run_chunks'
+    range): every slice evaluates its K chunks, the last one moved back
+    included, so a query launches its kernel this many times."""
+    return sum(K for _, _, K in _slices(n_chunks, tile_chunk, slice_chunks))
+
+
+def run_chunks(td: TreeData, cfg: TreeConfig, theta, eps, G, state,
+               first: int, last: int, slice_chunks: int = None,
+               mode: str = "both", extra=None, graph=None):
+    """The shared, lmac or lists chunk loop over chunks [first, last) of a
+    query whose per-tree state (_query_state: tiles, tables, far field) is
+    `state`, in slices of `slice_chunks` (_slices, over this range): each
+    slice is one _slice_impl over its K chunks, on the card one CUDA graph
+    replay (graph=None: on CUDA tensors; False: eagerly). The last slice,
+    moved back to end at `last`, evaluates all its K chunks and drops the
+    rows before its first new chunk, as the reference does: those chunks
+    are evaluated twice with the same sums, and OR and max over them
+    change no flag. The sums do not depend on the slicing; lmac's
+    candidate table, whose overflow and row count ride the frontier slots
+    (flag 3, maximum 2), follows it. Returns the tiles' acc [(last -
+    first) * CH, T, D] and pot, the overflow flags [4] and the maxima [4].
+    The single-device query runs every live chunk through it, each shard
+    of parallel.sharded its own range."""
+    graph = _use_graph(graph, td.pos, cfg)
+    tiles, tables, Lgrid = state
+    CH = tiles[0].shape[1]
+    if cfg.farfield != "grid":
+        Lgrid = None        # read by the chunks with "grid" only
+    ovf = mx = None
+    accs, pots = [], []
     for s, start, K in _slices(last - first, cfg.tile_chunk, slice_chunks):
         s, start = s + first, start + first
-        cand = None
-        if cfg.traversal_mode == "lmac" and _use_shared(cfg):
-            cand = _slice_cand(td, cfg, theta, tiles, tables, start, K)
-            ovf[3] |= cand.overflow
-            mx[2] = torch.maximum(mx[2], cand.count)
-        for i in range(s, start + K):
-            base, tcells = _chunk_tiles(tiles, i)
-            a, p, o, m = _eval_chunk(td, cfg, theta, eps, G, *base[:4],
-                                     tables, base[4], Lgrid, mode=mode,
-                                     tcells=tcells, cand=cand, extra=extra)
-            accs.append(a)
-            pots.append(p)
-            ovf = ovf | o
-            mx = torch.maximum(mx, m)
+        a, p, o, m = _run(graph, _slice_impl, td, cfg, theta, eps, G,
+                          tuple(t[start:start + K] for t in tiles), tables,
+                          Lgrid, mode=mode, extra=extra)
+        accs.append(a[(s - start) * CH:])
+        pots.append(p[(s - start) * CH:])
+        ovf = o if ovf is None else ovf | o
+        mx = m if mx is None else torch.maximum(mx, m)
     return torch.cat(accs), torch.cat(pots), ovf, mx
 
 
 def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
                    slice_chunks: int = None, mode: str = "both",
-                   extra=None):
+                   extra=None, graph=None):
     """Accelerations [N, D] and potentials [N] in Morton order, plus the
     overflow flags [4], in the order of config.OVF_FIELDS (m2p,
     p2p_leaf, p2p_src, frontier), and the maxima [4], in the order that
     config.fit_caps reads (m2p, p2p_src, frontier, p2p_leaf), of the
     query. Shared, lmac and lists: run_chunks over the chunks that hold
-    real tiles; gwalk: one walk, pool and kernel launch for all tiles.
-    theta, eps and G are Python numbers. extra: optional (pos [E, D],
-    mass [E]) sources added to every tile, the LET imports (shared and
-    lmac only: gwalk raises NotImplementedError, as the reference does,
-    and the lists path ValueError)."""
+    real tiles, then the tail (assembly, grid2's far field); gwalk: one
+    walk, pool and kernel launch for all tiles. On CUDA tensors each of
+    these replays a CUDA graph (graph=None; graph=False runs eagerly,
+    graph=True on CPU tensors raises ValueError); the per-tree state and
+    the one host read (live_chunks) stay outside. theta, eps and G are
+    Python numbers. extra: optional (pos [E, D], mass [E]) sources added
+    to every tile, the LET imports (shared and lmac only: gwalk raises
+    NotImplementedError, as the reference does, and the lists path
+    ValueError)."""
+    graph = _use_graph(graph, td.pos, cfg)
     if cfg.traversal_mode == "gwalk" and extra is not None:
         raise NotImplementedError(
             "LET imports ride the shared/lmac engines, not gwalk")
-    state = _query_state(td, cfg, eps)
-    Lgrid = state[2]
+    tiles, tables, Lgrid = _query_state(td, cfg, eps)
     if cfg.traversal_mode == "gwalk":
-        acc_u, pot_u, ovf, mx = _gwalk_impl(td, cfg, theta, eps, G,
-                                            state[0], Lgrid, mode=mode)[:4]
-        acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
-        return acc_u, pot_u, ovf, mx
-    acc, pot, ovf, mx = run_chunks(td, cfg, theta, eps, G, state, 0,
-                                   live_chunks(td, cfg), slice_chunks,
-                                   mode, extra)
-    acc_u, pot_u = _assemble_impl(td, cfg, acc, pot)
-    acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
+        return _run(graph, _gwalk_query, td, cfg, theta, eps, G, tiles,
+                    Lgrid, mode=mode)
+    acc, pot, ovf, mx = run_chunks(td, cfg, theta, eps, G,
+                                   (tiles, tables, Lgrid), 0,
+                                   live_chunks(td, cfg), slice_chunks, mode,
+                                   extra, graph)
+    # the padding chunks' rows as zeros (the reference's tail shape), so
+    # that one tail serves every n_live
+    rows = tiles[0].shape[0] * tiles[0].shape[1] - acc.shape[0]
+    acc = F.pad(acc, (0, 0, 0, 0, 0, rows))
+    pot = F.pad(pot, (0, 0, 0, rows))
+    acc_u, pot_u = _run(graph, _tail_impl, td, cfg, eps, G,
+                        Lgrid if cfg.farfield == "grid2" else None, acc, pot)
     return acc_u, pot_u, ovf, mx
+
+
+def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, G,
+                mode: str = "both", extra=None):
+    """acc_pot_u's computation: tiles, tables and far field, every chunk of
+    the tile capacity, the tail. Returns (acc_u, pot_u, ovf, maxima)."""
+    tiles = _gather_tiles(td, cfg)
+    Lgrid = _grid_farfield(td, cfg, eps)
+    if cfg.traversal_mode == "gwalk":
+        return _gwalk_query(td, cfg, theta, eps, G, tiles, Lgrid, mode)
+    tables = (_traversal_mod(cfg).make_tables(td, cfg)
+              if _use_shared(cfg) else None)
+    acc, pot, ovf, mx = _chunk_loop(
+        td, cfg, theta, eps, G, tiles, tables,
+        Lgrid if cfg.farfield == "grid" else None, mode, extra)
+    acc_u, pot_u = _tail_impl(td, cfg, eps, G,
+                              Lgrid if cfg.farfield == "grid2" else None,
+                              acc, pot)
+    return acc_u, pot_u, ovf, mx
+
+
+def acc_pot_u(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
+              with_stats: bool = False, extra=None, mode: str = "both",
+              graph=None):
+    """The reference's single-executable query (`rakau_tpu.engine
+    .acc_pot_u`): accelerations [N, D] and potentials [N] in Morton
+    order and the overflow flags [4], with `with_stats` also the maxima
+    [4]. The tiles gather, the tables and the far field are made inside
+    (no _QUERY_STATE_CACHE), every chunk of the tile capacity runs (no
+    read of n_tiles: padding chunks walk with tile_valid false and add
+    nothing), and lmac runs its un-sliced predicate (no candidate table:
+    its flags and maxima are the reference's). On the card the whole call
+    is one CUDA graph (graph=None; graph=False runs eagerly, graph=True on
+    CPU tensors raises). Its sums equal acc_pot_u_host's. theta, eps and
+    G are Python numbers; extra as in acc_pot_u_host (gwalk raises
+    NotImplementedError, the lists path ValueError)."""
+    graph = _use_graph(graph, td.pos, cfg)
+    if cfg.traversal_mode == "gwalk" and extra is not None:
+        raise NotImplementedError(
+            "LET imports ride the shared/lmac engines, not gwalk")
+    acc_u, pot_u, ovf, mx = _run(graph, _query_impl, td, cfg, theta, eps, G,
+                                 mode=mode, extra=extra)
+    if with_stats:
+        return acc_u, pot_u, ovf, mx
+    return acc_u, pot_u, ovf

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import expansion
+from .graphs import device_constant
 
 # Stencil geometry: children of parents with sep<=2 span offsets in
 # [-5, 5]; covered offsets are 3 <= maxcomp <= 5.
@@ -49,6 +50,14 @@ def stencil_offsets(ndim: int):
             offs.append(o)
             bits.append(mask)
     return np.asarray(offs, np.int64), np.asarray(bits, np.int64)
+
+
+@device_constant
+def _stencil_tensors(ndim: int, device):
+    """stencil_offsets(ndim) as tensors on `device`, made once."""
+    offs, bits = stencil_offsets(ndim)
+    return (torch.as_tensor(offs, device=device),
+            torch.as_tensor(bits, device=device))
 
 
 def effective_grid_level(cfg, n: int) -> int:
@@ -129,11 +138,9 @@ def dense_far_field(pyr: Pyramid, ndim: int, L0: int, box_size, eps,
     The reference scans the stencil offsets one by one; here they go in
     batches of offsets (bounded by _BATCH_ENTRIES), each batch one
     gathered [offsets, cells] panel, so a level costs a few launches."""
-    offs_np, bits_np = stencil_offsets(ndim)
     dev = pyr.mass[0].device
     dtype = pyr.mass[0].dtype
-    offs = torch.as_tensor(offs_np, device=dev)
-    bits = torch.as_tensor(bits_np, device=dev)
+    offs, bits = _stencil_tensors(ndim, dev)
     NC = expansion.n_coeffs(ndim, order)
 
     Lcur = None

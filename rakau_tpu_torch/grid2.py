@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from . import morton, particles
 from . import scan_utils as su
+from .graphs import device_constant
 from .grid import rowmajor_cell_index
 
 F64 = torch.float64
@@ -141,6 +142,23 @@ def _t_tensor_basis(ndim: int, order: int):
     return A, K, C
 
 
+@device_constant
+def _t_basis_tensors(ndim: int, order: int, device):
+    """_t_tensor_basis as tensors on `device` (K, A, C), made once."""
+    A, K, C = _t_tensor_basis(ndim, order)
+    return (torch.as_tensor(K, device=device),
+            torch.as_tensor(A, device=device),
+            torch.as_tensor(C, device=device))
+
+
+def _f64(x, device) -> torch.Tensor:
+    """x, a number or a tensor, as a float64 0-d tensor on `device`; a
+    number is filled in on the device, not copied from the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=F64)
+    return torch.full((), x, dtype=F64, device=device)
+
+
 def _powers(x: torch.Tensor, order: int) -> torch.Tensor:
     """x [...] -> [..., order + 1] with x^0 .. x^order, by repeated
     products (0^0 = 1)."""
@@ -154,18 +172,16 @@ def t_tensors(d: torch.Tensor, eps, ndim: int, order: int) -> torch.Tensor:
     """All T_gamma, |gamma| <= order, at offsets d [..., D]: [..., NG] in
     graded-lex order, of d's dtype. Evaluated in float64 (the terms of a
     high-order T cancel by several digits) and rounded once."""
-    A, K, C = _t_tensor_basis(ndim, order)
     dev = d.device
+    Kt, At, Ct = _t_basis_tensors(ndim, order, dev)
     d64 = d.to(F64)
-    rho = (d64 * d64).sum(-1) + torch.as_tensor(eps, dtype=F64,
-                                                device=dev) ** 2
+    rho = (d64 * d64).sum(-1) + _f64(eps, dev) ** 2
     inv = 1.0 / rho
     rpow = torch.rsqrt(rho)[..., None] * _powers(inv, order)   # [..., k]
-    basis = rpow[..., torch.as_tensor(K, device=dev)]          # [..., J]
-    At = torch.as_tensor(A, device=dev)
+    basis = rpow[..., Kt]                                      # [..., J]
     for dd in range(ndim):
         basis = basis * _powers(d64[..., dd], order)[..., At[:, dd]]
-    return (basis @ torch.as_tensor(C, device=dev)).to(d.dtype)
+    return (basis @ Ct).to(d.dtype)
 
 
 # ------------------------------------------------------------- stencil
@@ -212,6 +228,30 @@ def _m2l_index_maps(ndim: int, p: int, q: int):
     return gpos, coef
 
 
+@device_constant
+def _m2l_tables(ndim: int, p: int, q: int, sep: int, device):
+    """The constant operands of m2l_kernels on `device`, made once: the
+    offsets d [NO, D] (float64), the gamma position [NL * NM] and the
+    coefficient [NL * NM] of each kernel entry, and for each target
+    parity the kernel slots and the offsets that fill them."""
+    offs_np, bits_np = stencil_offsets(ndim, sep)
+    K = 2 * (2 * sep - 1) + 1
+    gpos, coef = _m2l_index_maps(ndim, p, q)
+    flat_idx = np.zeros(offs_np.shape[0], np.int64)
+    for dd in range(ndim):
+        flat_idx = flat_idx * K + (offs_np[:, dd] + 2 * sep - 1)
+    parity = []
+    for b in range(2 ** ndim):
+        sel = np.nonzero((bits_np >> b) & 1)[0]
+        parity.append((torch.as_tensor(flat_idx[sel], device=device),
+                       torch.as_tensor(sel, device=device)))
+    return (-torch.as_tensor(offs_np, dtype=F64, device=device),
+            torch.as_tensor(gpos.reshape(-1).astype(np.int64),
+                            device=device),
+            torch.as_tensor(coef.reshape(-1), device=device),
+            tuple(parity))
+
+
 def m2l_kernels(ndim: int, p: int, q: int, sep: int, s_cell, eps,
                 dtype=torch.float32, device=None) -> torch.Tensor:
     """Per-parity NORMALIZED M2L conv kernels.
@@ -225,28 +265,17 @@ def m2l_kernels(ndim: int, p: int, q: int, sep: int, s_cell, eps,
 
     The result is a view of a tensor laid out [2^D, NL, NM, (K,)*D], the
     layout the convolutions take, so `_parity_conv` copies nothing."""
-    offs_np, bits_np = stencil_offsets(ndim, sep)
-    pad = 2 * sep - 1
-    K = 2 * pad + 1
-    eps_n = (torch.as_tensor(eps, dtype=F64, device=device)
-             / torch.as_tensor(s_cell, dtype=F64, device=device))
-    d = -torch.as_tensor(offs_np, dtype=F64, device=device)     # [NO, D]
+    K = 2 * (2 * sep - 1) + 1
+    d, gpos, coef, parity = _m2l_tables(ndim, p, q, sep, device)
+    eps_n = _f64(eps, device) / _f64(s_cell, device)
     T = t_tensors(d, eps_n, ndim, p + q)                        # [NO, NG]
-    gpos, coef = _m2l_index_maps(ndim, p, q)
-    NL, NM = gpos.shape
-    Kmat = (T[:, torch.as_tensor(gpos.reshape(-1).astype(np.int64),
-                                 device=device)]
-            * torch.as_tensor(coef.reshape(-1), device=device))
+    NL, NM = n_coeffs(ndim, p), n_coeffs(ndim, q)
+    Kmat = T[:, gpos] * coef
     Kmat = Kmat.T.to(dtype)                                     # [NL*NM, NO]
-    flat_idx = np.zeros(offs_np.shape[0], np.int64)
-    for dd in range(ndim):
-        flat_idx = flat_idx * K + (offs_np[:, dd] + pad)
     W = torch.zeros((2 ** ndim, NL * NM, K ** ndim), dtype=dtype,
                     device=device)
-    for b in range(2 ** ndim):
-        sel = np.nonzero((bits_np >> b) & 1)[0]
-        W[b][:, torch.as_tensor(flat_idx[sel], device=device)] = \
-            Kmat[:, torch.as_tensor(sel, device=device)]
+    for b, (slots, sel) in enumerate(parity):
+        W[b][:, slots] = Kmat[:, sel]
     W = W.reshape((2 ** ndim, NL, NM) + (K,) * ndim)
     return W.permute((0,) + tuple(range(3, 3 + ndim)) + (1, 2))
 
@@ -329,13 +358,15 @@ def shift_matrix(t, ndim: int, order: int, kind: str,
     return M.reshape(NC, NC).to(dtype)
 
 
+@device_constant
 def _parity_shifts(ndim: int, order: int, kind: str, dtype, device):
     """The 2^D halving shift matrices of one pyramid step, by parity
-    bidx = sum_d b_d << d: t = (b - 1/2)/2 in parent-cell units."""
-    return [shift_matrix([(((bidx >> d) & 1) - 0.5) * 0.5
+    bidx = sum_d b_d << d: t = (b - 1/2)/2 in parent-cell units; made
+    once for each argument tuple."""
+    return tuple(shift_matrix([(((bidx >> d) & 1) - 0.5) * 0.5
                           for d in range(ndim)], ndim, order, kind,
                          halving=True, dtype=dtype, device=device)
-            for bidx in range(2 ** ndim)]
+                 for bidx in range(2 ** ndim))
 
 
 # ------------------------------------------------------------- binning
@@ -355,11 +386,18 @@ def cell_centers_of(cell: torch.Tensor, box_size, L0: int, dtype):
     return (cell.to(dtype) + 0.5) * s0 - box_size / 2
 
 
+@device_constant
+def _exponents(idx, device):
+    """Multi-indices idx (a tuple of NC tuples) as an [NC, D] int64
+    tensor on `device`, made once."""
+    return torch.as_tensor(np.asarray(idx, np.int64).reshape(len(idx), -1),
+                           device=device)
+
+
 def _monomials(x: torch.Tensor, idx, order: int) -> torch.Tensor:
     """x [N, D], multi-indices idx (a tuple of NC tuples) ->
     [N, NC] with prod_d x_d^{a_d}."""
-    At = torch.as_tensor(np.asarray(idx, np.int64).reshape(len(idx), -1),
-                         device=x.device)
+    At = _exponents(idx, x.device)
     out = None
     for d in range(x.shape[1]):
         col = _powers(x[:, d], order)[:, At[:, d]]
@@ -506,6 +544,22 @@ def dense_far_field(pyr: Pyramid2, cfg, L0: int, box_size, eps,
 
 
 # ---------------------------------------------------------------- L2P
+@device_constant
+def _l2p_tables(ndim: int, p: int, dtype, device):
+    """l2p_particles' constant operands on `device`, made once: 1/beta!'s
+    denominators [NL] in dtype, the rows |beta| <= p - 1 and, for each
+    dimension d, the rows beta + e_d that those read."""
+    betas, lookup, fact = multi_indices(ndim, p)
+    low = [i for i, b in enumerate(betas) if sum(b) <= p - 1]
+    ups = tuple(
+        torch.as_tensor([lookup[betas[i][:d] + (betas[i][d] + 1,)
+                                + betas[i][d + 1:]] for i in low],
+                        device=device)
+        for d in range(ndim))
+    return (torch.as_tensor(fact, dtype=dtype, device=device),
+            torch.as_tensor(low, device=device), ups)
+
+
 def l2p_particles(Lleaf, cells, pos, box_size, L0: int, G_grav, p: int):
     """Per-particle evaluation of the (normalized) leaf-cell locals.
 
@@ -516,21 +570,17 @@ def l2p_particles(Lleaf, cells, pos, box_size, L0: int, G_grav, p: int):
     ndim = pos.shape[1]
     dtype = pos.dtype
     dev = pos.device
-    betas, lookup, fact = multi_indices(ndim, p)
+    betas = multi_indices(ndim, p)[0]
+    fact_t, low_t, ups = _l2p_tables(ndim, p, dtype, dev)
     L = Lleaf[rowmajor_cell_index(cells, ndim, L0)]   # [N, NL] gather
     s0 = box_size * (2.0 ** -L0)
     s = (pos - cell_centers_of(cells, box_size, L0, dtype)) / s0
-    w = _monomials(s, betas, p) / torch.as_tensor(fact, dtype=dtype,
-                                                  device=dev)
+    w = _monomials(s, betas, p) / fact_t
     psi = (L * w).sum(1)
-    low = [i for i, b in enumerate(betas) if sum(b) <= p - 1]
-    low_t = torch.as_tensor(low, device=dev)
     wl = w[:, low_t]
     accs = []
-    for d in range(ndim):
-        up = [lookup[betas[i][:d] + (betas[i][d] + 1,) + betas[i][d + 1:]]
-              for i in low]
-        accs.append((L[:, torch.as_tensor(up, device=dev)] * wl).sum(1))
+    for up in ups:
+        accs.append((L[:, up] * wl).sum(1))
     return ((G_grav / (s0 * s0)) * torch.stack(accs, dim=-1),
             -(G_grav / s0) * psi)
 

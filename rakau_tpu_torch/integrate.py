@@ -2,9 +2,18 @@
 step, and energy diagnostics. Counterpart of `rakau_tpu.integrate`.
 
 Every function runs where the state's tensors live and never moves them.
-The reference has two twins of most functions, one jitted as a whole and
-one (`_host`, with `slice_chunks`) that keeps each dispatch under the TPU
-watchdog; PyTorch runs eagerly, so each pair is one function here:
+The reference has two twins of most functions, one jitted as a whole
+(`acc_pot`, `leapfrog_step`, `leapfrog_step_morton`, `total_energy`,
+around `engine.acc_pot_u`) and one (`_host`, with `slice_chunks`) that
+keeps each dispatch under the TPU watchdog. Here each pair is one
+function, and each runs its queries through `engine.acc_pot_u_host`:
+on CUDA tensors every slice of chunks, the tail and a gwalk query replay
+CUDA graphs (engine.py, graphs.py), the host-sliced twin's shape. The
+jitted twins' whole-call executable has no counterpart yet: the build
+runs eagerly between the graphs (`build.build_tree` copies a
+`box_size` given as a number to the device, and `_build_tree` reads
+`td.overflow` on the host), so a whole step as one graph is a later
+step; `engine.acc_pot_u` is the whole query as one graph.
 
     rakau_tpu.integrate                      rakau_tpu_torch.integrate
     NBodyState                               NBodyState

@@ -75,6 +75,15 @@ def tiles_variant(name: str):
         _tiles_fused = saved
 
 
+def capture_key() -> tuple:
+    """The global switches a captured query reads, for its CUDA graph's key
+    (engine._run): the two variants above and torch's TF32 switches, which
+    the plain matmuls and convolutions of the far fields read. A switch
+    added here reaches the key with nothing else to change."""
+    return (_variant, _tiles_fused, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
 def _on_card(t) -> bool:
     return t.is_cuda
 

@@ -72,7 +72,9 @@ def cell_center(cells: torch.Tensor, box_size: torch.Tensor, depth: int,
 
     cells: [N, ndim] int64 at full `depth` resolution; level: int or [N]
     int64 tensor."""
-    level = torch.as_tensor(level, device=cells.device)
+    if not isinstance(level, torch.Tensor):
+        # filled in on the device: no host-to-device copy of a number
+        level = torch.full((), level, dtype=torch.int64, device=cells.device)
     shift = (depth - level).to(torch.int64)
     lv = level.to(box_size.dtype)
     if shift.ndim:

@@ -313,7 +313,10 @@ def build_pool(td: TreeData, gl: GlobalLists, G: int, block: int,
     n, D = td.pos.shape
     if sentinel is None:
         sentinel = 4.0 * td.box_size
-    sentinel = torch.as_tensor(sentinel, dtype=dtype, device=dev)
+    if isinstance(sentinel, torch.Tensor):
+        sentinel = sentinel.to(device=dev, dtype=dtype)
+    else:   # filled in on the device: no host-to-device copy of a number
+        sentinel = torch.full((), sentinel, dtype=dtype, device=dev)
     MCAP = gl.m2p_tile.shape[0]
     LCAP = gl.leaf_tile.shape[0]
     fences = torch.arange(G + 1, device=dev)
