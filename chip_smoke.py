@@ -95,9 +95,34 @@ Phases, each printing one JSON line:
                gwalk_profile and lists_profile); then engine.acc_pot_u,
                the whole query as one graph, against the eager query:
                equal sums, K1a launches = the tile capacity's chunks
-               (acc_pot_u_check); after the leapfrog's steps one step
-               both ways, pos and vel bit-equal (step_ab); and a closing
-               summary line after phase 10;
+               (acc_pot_u_check); the tree build replayed from its graph
+               (engine.build_tree) against the eager build on the main
+               particles, every TreeData field equal, first call's
+               seconds, warm ms each way (build_ab); a Tree rebuild at
+               the same N twice, the second capturing nothing
+               (rebuild_captures); the graft entry's counterpart,
+               integrate.acc_pot as one graph on __graft_entry__.py's
+               configuration (16,384 Plummer particles, caps grown
+               through the Tree first), force RMS < 5e-3, K1a launches =
+               the tile capacity's chunks, bit-equal to and timed against
+               integrate.acc_pot_host, with its build graphed against
+               eager (graft_entry); acc_pot and leapfrog_step_morton there
+               on builds overflowed at node_cap 4 and tile_cap 4 raising
+               RuntimeError after the replay, the normal calls then
+               replaying unchanged (overflow_refused); after the
+               leapfrog's steps config #2's step three ways, the whole
+               integrate.leapfrog_step_morton as one graph, the sliced
+               leapfrog_step_morton_host and the same eagerly, pos, vel
+               and step_perm bit-equal, the whole step's capture seconds
+               and memory, K1a launches of a replay measured: 2 x the
+               tile capacity's chunks whole, 2 x the chunk evaluations
+               sliced, a whole step at -dt capturing nothing and equal
+               to the sliced one (step_three_ways); total_energy as one
+               graph against total_energy_host, within 1 ulp, K1d+K1b and K1b
+               launches measured (energy_two_ways), with config #2's
+               build graphed against eager (build_ab, at the start of
+               phase leapfrog); and a closing summary line after phase
+               10;
   7. kernel:   kernel vs plain PyTorch on the first two chunks of that
                query (the same targets, shared sources and masks), every
                mode, rtol 2e-4 and atol 2e-5*max|plain|, both timed, with
@@ -241,7 +266,7 @@ Phases, each printing one JSON line:
                query with farfield "local" (rtol 1e-5, atol 1e-6 of the
                largest; K1a launches summed over the shards = chunks;
                seconds a query), then one leapfrog_step_sharded at 4
-               shards against integrate.leapfrog_step (pos within 1e-6,
+               shards against integrate.leapfrog_step_host (pos within 1e-6,
                vel within 1e-5 of their largest); parallel.let on
                min(262,144, --n) Plummer particles, 4 shards,
                shared+"local", theta 0.75, eps 0.01, distributed phase 0,
@@ -256,8 +281,10 @@ Phases, each printing one JSON line:
   9. leapfrog: BASELINE config #2 (benchmarks/configs.py:90-114) through
                rakau_tpu_torch.integrate: a cold sphere of N particles
                (--n, default 1,048,576), zero velocities, 3 steps of
-               leapfrog_step_morton_safe at theta=0.75 (farfield "local"),
-               energies E0 and E3 from total_energy with the quadrupole +
+               leapfrog_step_morton_host_safe at theta=0.75 (farfield
+               "local"; the third, with no cap grown, and the energy
+               queries after the first capture no graph), energies E0
+               and E3 from total_energy_host with the quadrupole +
                compensated m2p configuration at theta=0.25, its caps sized
                first through the Tree API's grow-and-retry. Checks: finite
                results, drift |E3 - E0| / |E0| < 2e-3, K1d+K1b and K1b
@@ -279,6 +306,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -772,7 +800,6 @@ def device_profile(tree, kernel, key: str, graph: bool = True) -> dict:
     taken where its launch returned, with the profile's beside them
     (`profiled_launches`)."""
     names = (kernel,) if isinstance(kernel, str) else kernel
-    from torch.autograd import DeviceType
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     run = (lambda: tree.accs_pots_o(THETA)) if graph else \
@@ -785,23 +812,41 @@ def device_profile(tree, kernel, key: str, graph: bool = True) -> dict:
         stop.synchronize()
 
     _, launches, booked, events, tries = profile_launches(timed, hold=graph)
-    spans, k_ns = [], 0
+    ops, busy_ms, by_name = device_busy(events)
+    k_ms = sum(ms for name, (ms, _) in by_name.items()
+               if any(k in name for k in names))
+    return {"profiled_query_ms": start.elapsed_time(stop),
+            "device_ops": ops, "device_busy_ms": busy_ms,
+            key: k_ms, "launches": launches if graph else booked,
+            "profiled_launches": launches, "profile_runs": tries}
+
+
+def device_busy(events) -> tuple:
+    """(device ops, busy ms as the union of their intervals, {name: (ms,
+    records)}) of a profile's device records (kineto events), leaving out
+    the tiny spin kernels that torch.cuda._sleep launches."""
+    from torch.autograd import DeviceType
+    spans, by_name = [], {}
     for e in events:
         if e.device_type() != DeviceType.CUDA or "spin_kernel" in e.name():
             continue
         a = e.start_ns()
         spans.append((a, a + e.duration_ns()))
-        if any(k in e.name() for k in names):
-            k_ns += e.duration_ns()
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     busy_ns, end = 0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
             busy_ns += b - max(a, end)
             end = b
-    return {"profiled_query_ms": start.elapsed_time(stop),
-            "device_ops": len(spans), "device_busy_ms": busy_ns / 1e6,
-            key: k_ns / 1e6, "launches": launches if graph else booked,
-            "profiled_launches": launches, "profile_runs": tries}
+    return len(spans), busy_ns / 1e6, by_name
+
+
+def top_ops(by_name: dict, k: int = 6) -> list:
+    """The k device ops with the most device time: (name cut to 90
+    characters, ms, records)."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:k]
+    return [(name[:90], ms, n) for name, (ms, n) in top]
 
 
 def profile_record(prof: dict, warm_ms: float) -> dict:
@@ -958,64 +1003,395 @@ def acc_pot_u_check(tree) -> dict:
 
 @contextmanager
 def engine_graph(graph):
-    """Inside, every call of engine.acc_pot_u_host runs with `graph`
-    (False: eagerly; None: from CUDA graphs on the card), whatever its
-    caller passes (integrate and the LET's local query take the
-    default)."""
+    """Inside, every call of engine.acc_pot_u_host and engine.build_tree
+    runs with `graph` (False: eagerly; None: from CUDA graphs on the
+    card), whatever its caller passes (the LET's builds and local query
+    take the default)."""
     from rakau_tpu_torch import engine
-    orig = engine.acc_pot_u_host
+    origs = {name: getattr(engine, name)
+             for name in ("acc_pot_u_host", "build_tree")}
 
-    def forced(*a, **kw):
-        kw["graph"] = graph
-        return orig(*a, **kw)
+    def forced(orig):
+        def call(*a, **kw):
+            kw["graph"] = graph
+            return orig(*a, **kw)
+        return call
 
-    engine.acc_pot_u_host = forced
+    for name, orig in origs.items():
+        setattr(engine, name, forced(orig))
     try:
         yield
     finally:
-        engine.acc_pot_u_host = orig
+        for name, orig in origs.items():
+            setattr(engine, name, orig)
 
 
-def step_ab(state, cfg) -> dict:
-    """Phase graphs: one leapfrog step of BASELINE config #2
-    (integrate.leapfrog_step_morton from `state`) with its queries
-    replayed from CUDA graphs against the same step run eagerly, in turns
-    (eager, graphed, graphed, eager): pos and vel bit-equal, step ms of
-    each. Emits and returns the record."""
-    from rakau_tpu_torch import integrate
+def warm_stats(ms: list) -> dict:
+    med = statistics.median(ms)
+    return {"warm_ms": med, "warm_ms_all": ms,
+            "warm_spread": (max(ms) - min(ms)) / med}
 
-    def step():
-        return integrate.leapfrog_step_morton(state, LF_DT, cfg, LF_THETA,
-                                              LF_EPS, box_size=LF_BOX)
 
-    out, ms = {}, {False: [], True: []}
-    for graph in (False, True, True, False):
-        if graph:
-            out[graph], t = synced_ms(step)
-        else:
-            with engine_graph(False):
-                out[graph], t = synced_ms(step)
-        ms[graph].append(t)
-    (s_e, o_e, _), (s_g, o_g, _) = out[False], out[True]
-    rec = {"query": "leapfrog step (BASELINE config #2)",
-           "n": state.pos.shape[0], "eager_step_ms": ms[False],
-           "graphed_step_ms": ms[True],
-           "max_abs_diff_pos": float((s_g.pos - s_e.pos).abs().max()),
-           "max_abs_diff_vel": float((s_g.vel - s_e.vel).abs().max()),
-           "overflow": (o_e | o_g).tolist()}
+def profiled(fn, want: dict, warm_ms: float) -> dict:
+    """One more call of fn under the profiler (profile_launches), its
+    launches held to `want` (the counts of the timed calls; {}: none, as
+    in a build): the measured
+    launches, device ops, busy ms, idle share against warm_ms (the timed
+    calls' median) and the ops with the most device time."""
+    _, got, _, events, tries = profile_launches(fn)
+    if nonzero(got) != nonzero(want):
+        raise AssertionError(f"launches on the card's profile {nonzero(got)}"
+                             f", of the timed calls {nonzero(want)}")
+    ops, busy, by_name = device_busy(events)
+    return {"launches": nonzero(got), "device_ops": ops,
+            "device_busy_ms": busy, "idle_share": 1 - busy / warm_ms,
+            "top_ops": top_ops(by_name), "profile_runs": tries}
+
+
+def first_call(fn) -> tuple:
+    """(fn(), its synced seconds, the MiB its new graph pins (static inputs
+    and outputs), the allocator's peak over the memory held before it, the
+    graph pools' MiB after it, the captures it made): the first call of a
+    whole-call function, which runs its warm-up, capture and replay."""
+    from rakau_tpu_torch import engine
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine._GRAPHS.reset_tally()
+    out, ms = synced_ms(fn)
+    name, pinned = engine._GRAPHS.pinned()[-1]     # the one just used
+    return out, {"capture_s": ms / 1e3, "graph": name,
+                 "pinned_mb": pinned / MB,
+                 "capture_peak_mb": (torch.cuda.max_memory_allocated()
+                                     - base) / MB,
+                 "graph_pool_mb": graph_pool_mb(),
+                 "captures": engine._GRAPHS.captures}
+
+
+def build_ab(pos, mass, cfg, box, label: str) -> dict:
+    """Phase graphs, the tree build: engine.build_tree replayed from its
+    CUDA graph against the same build run eagerly (graph=False) on the
+    same particles. The graph cache is emptied, so the first graphed build
+    captures (first_call); then GRAPH_REPS warm builds each way in turns
+    (synced wall ms). Raises unless every TreeData field of the graphed
+    build equals the eager one's (torch.equal) and neither overflowed.
+    Emits and returns the record."""
+    from rakau_tpu_torch import engine
+    engine.clear_graphs()
+    _, rec = first_call(lambda: engine.build_tree(pos, mass, cfg, box))
+    rec = {"build": label, "n": pos.shape[0], **rec}
+    ms, out = {False: [], True: []}, {}
+    for i in range(GRAPH_REPS):
+        for graph in ((False, True) if i % 2 == 0 else (True, False)):
+            out[graph], t = synced_ms(lambda: engine.build_tree(
+                pos, mass, cfg, box, graph=graph))
+            ms[graph].append(t)
+    differ = [f for f, a, b in zip(out[True]._fields, out[True], out[False])
+              if not torch.equal(a, b)]
+    prof = {graph: profiled(lambda: engine.build_tree(
+        pos, mass, cfg, box, graph=graph), {}, statistics.median(ms[graph]))
+        for graph in (False, True)}
+    rec.update(eager=dict(warm_stats(ms[False]), **prof[False]),
+               graphed=dict(warm_stats(ms[True]), **prof[True]),
+               n_nodes=int(out[True].n_nodes),
+               n_tiles=int(out[True].n_tiles), fields_differing=differ,
+               overflow=bool(out[True].overflow or out[False].overflow))
+    rec["speedup"] = rec["eager"]["warm_ms"] / rec["graphed"]["warm_ms"]
     emit("graphs", **rec)
-    if not (torch.equal(s_g.pos, s_e.pos) and torch.equal(s_g.vel, s_e.vel)
-            and not (o_e | o_g).any()):
+    if differ or rec["overflow"]:
+        raise AssertionError(f"graphs build {label}: {rec}")
+    return rec
+
+
+def rebuild_captures(tree, pos) -> dict:
+    """Phase graphs: a Tree rebuild at the same N (update_positions_o with
+    the same positions) replays the build's graph. The first rebuild may
+    capture (a query that grew a cap changed the config, which keys the
+    build's graph); the second must capture nothing. Emits and returns the
+    record."""
+    from rakau_tpu_torch import engine
+    engine._GRAPHS.reset_tally()
+    _, first_ms = synced_ms(lambda: tree.update_positions_o(pos))
+    first = engine._GRAPHS.captures
+    engine._GRAPHS.reset_tally()
+    _, ms = synced_ms(lambda: tree.update_positions_o(pos))
+    rec = {"rebuild": "Tree.update_positions_o, same N", "n": pos.shape[0],
+           "first_ms": first_ms, "first_captures": first, "ms": ms,
+           "captures": engine._GRAPHS.captures,
+           "captured": nonzero({"K1": engine._GRAPHS.captured[0]})}
+    emit("graphs", **rec)
+    if rec["captures"] or rec["captured"]:
+        raise AssertionError(f"graphs: a steady-state Tree rebuild "
+                             f"captured: {rec}")
+    return rec
+
+
+# warm steps of the whole-step comparison, each way (in turns)
+STEP_REPS = 3
+
+
+def step_three_ways(state, cfg) -> dict:
+    """Phase graphs: one leapfrog step of BASELINE config #2 from `state`,
+    three ways: integrate.leapfrog_step_morton, the whole step as one
+    CUDA graph ("whole": its two builds and two queries over every chunk
+    of the tile capacity); leapfrog_step_morton_host ("sliced": each
+    build's graph, each query's slices and tail); the host twin run
+    eagerly ("eager", graph=False). The whole step's first call is timed
+    and its memory read (first_call); then STEP_REPS warm steps each way
+    in turns (synced wall ms, K1a launches by bookkeeping), and one
+    profiled replay of each graphed way, whose K1a launches measured on
+    the card must be 2 x the tile capacity's chunks (whole) and 2 x the
+    chunk evaluations of the live chunks (sliced). Then a whole step at
+    -dt must capture nothing and equal the sliced one. Raises unless pos,
+    vel and step_perm are bit-equal across the three and no flag is set.
+    Emits and returns the record."""
+    from rakau_tpu_torch import build, engine, integrate
+    args = (state, LF_DT, cfg, LF_THETA, LF_EPS)
+    ways = {
+        "whole": lambda: integrate.leapfrog_step_morton(
+            *args, box_size=LF_BOX),
+        "sliced": lambda: integrate.leapfrog_step_morton_host(
+            *args, box_size=LF_BOX),
+        "eager": lambda: integrate.leapfrog_step_morton_host(
+            *args, box_size=LF_BOX, graph=False)}
+    td0 = build.build_tree(state.pos, state.mass, cfg, LF_BOX)
+    cap = engine._gather_tiles(td0, cfg)[0].shape[0]
+    out, first = first_call(ways["whole"])
+    ms = {w: [] for w in ways}
+    booked = {}
+    outs = {"whole": out}
+    for i in range(STEP_REPS):
+        order = list(ways) if i % 2 else list(ways)[::-1]
+        for w in order:
+            ((outs[w], t), counts) = counted(lambda: synced_ms(ways[w]))
+            ms[w].append(t)
+            if booked.setdefault(w, counts) != counts:
+                raise AssertionError(f"graphs step {w}: launches {counts}, "
+                                     f"then {booked[w]}")
+    # another step size (-dt) replays the whole step's graph: dt is an
+    # input, not part of its key
+    engine._GRAPHS.reset_tally()
+    back = integrate.leapfrog_step_morton(state, -LF_DT, cfg, LF_THETA,
+                                          LF_EPS, box_size=LF_BOX)
+    back_captures = engine._GRAPHS.captures
+    back_host = integrate.leapfrog_step_morton_host(
+        state, -LF_DT, cfg, LF_THETA, LF_EPS, box_size=LF_BOX)
+    back_equal = (torch.equal(back[0].pos, back_host[0].pos)
+                  and torch.equal(back[0].vel, back_host[0].vel)
+                  and torch.equal(back[2], back_host[2]))
+    new = outs["whole"][0]
+    td1 = build.build_tree(new.pos, new.mass, cfg, LF_BOX)
+    evaluated = query_chunks(td0, cfg) + query_chunks(td1, cfg)
+    want = {"whole": 2 * cap, "sliced": evaluated, "eager": evaluated}
+    stats = {w: warm_stats(ms[w]) for w in ways}
+    for w in ("whole", "sliced"):
+        stats[w].update(profiled(ways[w], booked[w], stats[w]["warm_ms"]))
+    rec = {"step": "leapfrog_step_morton (BASELINE config #2)",
+           "n": state.pos.shape[0], "whole_first_call": first,
+           "capacity_chunks": cap, "live_chunks": [
+               engine.live_chunks(td0, cfg), engine.live_chunks(td1, cfg)],
+           "k1a_launches_booked": {w: c["K1"]["mono"]
+                                   for w, c in booked.items()},
+           "k1a_launches_measured": {
+               w: stats[w]["launches"]["K1"]["mono"]
+               for w in ("whole", "sliced")},
+           "k1a_launches_want": want, **stats}
+    ref = outs["eager"]
+    rec["bit_equal_to_eager"] = {
+        w: [bool(torch.equal(a, b)) for a, b in (
+            (o[0].pos, ref[0].pos), (o[0].vel, ref[0].vel), (o[2], ref[2]))]
+        for w, o in outs.items() if w != "eager"}
+    rec["overflow"] = [o[1].tolist() for o in outs.values()]
+    rec["whole_over_sliced"] = (rec["whole"]["warm_ms"]
+                                / rec["sliced"]["warm_ms"])
+    rec["minus_dt"] = {"captures": back_captures,
+                       "equal_to_sliced": back_equal}
+    emit("graphs", **rec)
+    if back_captures or not back_equal:
+        raise AssertionError(f"graphs step at -dt: {rec['minus_dt']}")
+    if (not all(all(v) for v in rec["bit_equal_to_eager"].values())
+            or any(any(o) for o in rec["overflow"])
+            or any(booked[w] != launched(booked[w], {"K1": {"mono": n}})
+                   for w, n in want.items())):
         raise AssertionError(f"graphs leapfrog step: {rec}")
     return rec
 
 
-def graphs_summary(queries: dict, mrec: dict, step: dict) -> dict:
+def energy_two_ways(state, ecfg) -> dict:
+    """Phase graphs: integrate.total_energy, the build and the pots-only
+    query over the tile capacity as one CUDA graph, against
+    total_energy_host (the build's graph, the sliced query) on the same
+    state: the whole call's first call (first_call), STEP_REPS warm calls
+    each way in turns, and a profiled replay of each, whose K1d+K1b and K1b
+    launches measured on the card must be the tile capacity's chunks
+    (whole) and the chunk evaluations (host). Raises unless the two
+    energies agree to 1 ulp of the float64 sum. Emits and returns the
+    record."""
+    from rakau_tpu_torch import build, engine, integrate
+    args = (state, ecfg, E_THETA, LF_EPS)
+    ways = {"whole": lambda: integrate.total_energy(*args, box_size=LF_BOX),
+            "host": lambda: integrate.total_energy_host(*args,
+                                                        box_size=LF_BOX)}
+    td = build.build_tree(state.pos, state.mass, ecfg, LF_BOX)
+    want = {"whole": engine._gather_tiles(td, ecfg)[0].shape[0],
+            "host": query_chunks(td, ecfg)}
+    e, first = first_call(ways["whole"])
+    ms, booked, es = {w: [] for w in ways}, {}, {"whole": e}
+    for i in range(STEP_REPS):
+        for w in (list(ways) if i % 2 else list(ways)[::-1]):
+            ((es[w], t), counts) = counted(lambda: synced_ms(ways[w]))
+            ms[w].append(t)
+            if booked.setdefault(w, counts) != counts:
+                raise AssertionError(f"graphs energy {w}: launches "
+                                     f"{counts}, then {booked[w]}")
+    stats = {w: warm_stats(ms[w]) for w in ways}
+    for w in ways:
+        stats[w].update(profiled(ways[w], booked[w], stats[w]["warm_ms"]))
+    rec = {"energy": "total_energy (BASELINE config #2, theta 0.25, "
+                     "quadrupole, compensated)",
+           "n": state.pos.shape[0], "whole_first_call": first,
+           "energies": es, "diff_ulp": abs(es["whole"] - es["host"])
+           / math.ulp(abs(es["host"])),
+           "launches_measured": {w: stats[w]["launches"] for w in ways},
+           "chunks_want": want, **stats}
+    rec["whole_over_host"] = rec["whole"]["warm_ms"] / rec["host"]["warm_ms"]
+    emit("graphs", **rec)
+    forms = ("quad_comp", "mono_comp")
+    if not (rec["diff_ulp"] <= 1 and all(
+            booked[w] == launched(booked[w], {"K1": dict.fromkeys(forms, n)})
+            for w, n in want.items())):
+        raise AssertionError(f"graphs energy: {rec}")
+    return rec
+
+
+# the reference's single-chip entry point (__graft_entry__.py): a Plummer
+# sphere through integrate.acc_pot, theta THETA, eps 0.01, at its config
+GRAFT_N, GRAFT_EPS = 16384, 0.01
+GRAFT_KW = dict(max_depth=10, max_leaf_n=32, ncrit=128, tile_chunk=32)
+
+
+def graft_entry(seed: int, dev) -> dict:
+    """Phase graphs: the counterpart of __graft_entry__.py's entry(),
+    integrate.acc_pot as one CUDA graph on its configuration. Its default
+    caps overflow there (the reference's executable ignores the flags and
+    returns truncated forces), so the caps are grown first through the
+    Tree API (grow and retry). At this size, where a launch costs what
+    the work does: the build graphed against eager (build_ab), and
+    acc_pot against acc_pot_host (GRAPH_REPS warm calls each way in turns,
+    bit-equal). The first call captures; a replay's K1a launches measured
+    = the tile capacity's chunks; force RMS at 1024 sampled targets
+    against the float64 direct sum < FORCE_RMS_MAX; then overflow_refused.
+    Emits and returns the record."""
+    from rakau_tpu_torch import (Tree, build, direct_acc_pot_np, engine,
+                                 integrate, particles)
+    from rakau_tpu_torch.config import TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(GRAFT_N, generator=gen)
+    tree = Tree(coords=pos, masses=mass, config=TreeConfig(**GRAFT_KW))
+    tree.accs_pots_o(THETA, GRAFT_EPS)
+    cfg = tree.config
+    build_rec = build_ab(pos, mass, cfg, None, "graft entry")
+
+    ways = {"whole": lambda: integrate.acc_pot(pos, mass, cfg, THETA,
+                                               GRAFT_EPS),
+            "host": lambda: integrate.acc_pot_host(pos, mass, cfg, THETA,
+                                                   GRAFT_EPS)}
+    _, first = first_call(ways["whole"])
+    _, host_first = first_call(ways["host"])
+    ms, outs = {w: [] for w in ways}, {}
+    for i in range(GRAPH_REPS):
+        for w in (list(ways) if i % 2 else list(ways)[::-1]):
+            outs[w], t = synced_ms(ways[w])
+            ms[w].append(t)
+    (acc, pot, ovf), counts = counted(ways["whole"])
+    _, counts = measured(ways["whole"], want=counts)
+    cap = engine._gather_tiles(build.build_tree(pos, mass, cfg), cfg)[0]
+    samp = np.sort(np.random.default_rng(seed).choice(GRAFT_N, 1024,
+                                                      replace=False))
+    acc_o, pot_o = direct_acc_pot_np(pos.double().cpu().numpy(),
+                                     mass.double().cpu().numpy(),
+                                     eps=GRAFT_EPS, targets=samp)
+    f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
+    stats = {w: warm_stats(ms[w]) for w in ways}
+    rec = {"entry": "integrate.acc_pot (the graft entry's configuration)",
+           "n": GRAFT_N, "theta": THETA, "eps": GRAFT_EPS,
+           "caps_grown": {f: getattr(cfg, f) for f in (
+               "m2p_cap", "p2p_leaf_cap", "p2p_src_cap", "frontier_cap")},
+           "first_call": first, "host_first_call": host_first,
+           "whole": stats["whole"], "host": stats["host"],
+           "whole_over_host": (stats["whole"]["warm_ms"]
+                               / stats["host"]["warm_ms"]),
+           "bit_equal_to_host": all(
+               torch.equal(a, b) for a, b in zip(outs["whole"],
+                                                 outs["host"])),
+           "build_graphed_over_eager": 1 / build_rec["speedup"],
+           "overflow": ovf.tolist(),
+           "launches": nonzero(counts), "capacity_chunks": cap.shape[0],
+           "force_rms": f_rms, "pot_rms": p_rms}
+    emit("graphs", **rec)
+    if (ovf.any() or not f_rms < FORCE_RMS_MAX
+            or not rec["bit_equal_to_host"]
+            or counts != launched(counts, {"K1": {"mono": cap.shape[0]}})):
+        raise AssertionError(f"graphs graft entry: {rec}")
+    rec["overflow_refused"] = overflow_refused(pos, mass, cfg, acc, pot)
+    return rec
+
+
+def overflow_refused(pos, mass, cfg, acc, pot) -> dict:
+    """Phase graphs: a whole call on a build that overflows its node or
+    tile capacity (node_cap 4, then tile_cap 4) captures and replays the
+    query on that tree, and the wrapper raises RuntimeError ("... build
+    overflowed ...") after the replay: integrate.acc_pot and
+    leapfrog_step_morton on the graft entry's particles (at rest, auto
+    box). Then the normal calls replay (no capture) and give what they
+    gave before (acc, pot: the graft entry's). Emits and returns the
+    record."""
+    from rakau_tpu_torch import engine, integrate
+    state = integrate.NBodyState(pos, torch.zeros_like(pos), mass)
+    calls = {
+        "acc_pot": lambda c: integrate.acc_pot(pos, mass, c, THETA,
+                                               GRAFT_EPS)[:2],
+        "leapfrog_step_morton": lambda c: integrate.leapfrog_step_morton(
+            state, LF_DT, c, THETA, GRAFT_EPS)}
+    before = {"acc_pot": (acc, pot),
+              "leapfrog_step_morton": calls["leapfrog_step_morton"](cfg)}
+    rec = {}
+    for name, call in calls.items():
+        for cap in ("node_cap", "tile_cap"):
+            try:
+                call(cfg.with_(**{cap: 4}))
+                rec[f"{name} {cap}=4"] = "no error"
+            except RuntimeError as e:
+                rec[f"{name} {cap}=4"] = str(e)
+    torch.cuda.synchronize()
+    engine._GRAPHS.reset_tally()
+    after = {name: call(cfg) for name, call in calls.items()}
+    rec["captures_after"] = engine._GRAPHS.captures
+    rec["equal_after"] = {name: _leaves_equal(before[name], after[name])
+                          for name in calls}
+    emit("graphs", overflow_refused=rec)
+    if (rec["captures_after"] or not all(rec["equal_after"].values())
+            or not all("build overflowed" in v for k, v in rec.items()
+                       if k.endswith("=4"))):
+        raise AssertionError(f"graphs overflowed builds: {rec}")
+    return rec
+
+
+def _leaves_equal(a, b) -> bool:
+    """Whether two nests of tuples of tensors are equal leaf by leaf."""
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return len(a) == len(b) and all(_leaves_equal(x, y)
+                                   for x, y in zip(a, b))
+
+
+def graphs_summary(queries: dict, mrec: dict, whole: dict) -> dict:
     """The graphs phase in one record: for each query its graphed and
     eager warm medians, device ops, busy ms, idle shares, peak memory and
     capture seconds; acc_pot_u's; the sharded query at LET_SHARDS shards
     against the single-device one and the LET's accuracy (both run on the
-    graphs, phase multi); the leapfrog step's."""
+    graphs, phase multi); then `whole`: the builds, the Tree rebuild, the
+    config #2 step three ways, its energy two ways and the graft entry."""
     out = {}
     for label, r in queries.items():
         if "eager" not in r:
@@ -1040,9 +1416,17 @@ def graphs_summary(queries: dict, mrec: dict, step: dict) -> dict:
                       "max_abs_diff_pot": shard["max_abs_diff_pot"]}
     out["let"] = {k: mrec["let"].get(k) for k in (
         "force_rms", "pot_rms", "let_query_s", "local_query_graph_ab")}
-    out["leapfrog_step"] = {k: step[k] for k in (
-        "eager_step_ms", "graphed_step_ms", "max_abs_diff_pos",
-        "max_abs_diff_vel")}
+    for label, r in whole.items():
+        first = r.get("first_call") or r.get("whole_first_call") or r
+        out[label] = {k: first[k] for k in (
+            "capture_s", "pinned_mb", "capture_peak_mb", "graph_pool_mb")
+            if k in first}
+        out[label].update({w: r[w]["warm_ms"] for w in (
+            "eager", "graphed", "whole", "sliced", "host") if w in r})
+        out[label].update({k: r[k] for k in (
+            "k1a_launches_measured", "launches_measured", "diff_ulp",
+            "force_rms", "captures", "warm_ms", "whole_over_host",
+            "build_graphed_over_eager") if k in r})
     return out
 
 
@@ -3176,14 +3560,18 @@ def leapfrog(n: int, seed: int, dev):
                       farfield="m2p")
     rec = {"n": n, "steps": LF_STEPS, "dt": LF_DT, "theta": LF_THETA,
            "energy_theta": E_THETA, "eps": LF_EPS, "box": LF_BOX}
+    # the step's build graphed against eager, first (it empties the graph
+    # cache to time a first call)
+    build_rec = build_ab(pos, mass, cfg, LF_BOX, "config #2")
 
     def launches_of(fn):
-        """(fn(), wall ms, K1's launches per form): the call timed and
-        counted, then once more under the profiler (measured), whose
-        launches the timed call's must equal."""
+        """(fn(), wall ms, K1's launches per form, graphs captured): the
+        call timed and counted, then once more under the profiler
+        (measured), whose launches the timed call's must equal."""
         (out, ms), counts = counted(lambda: synced_ms(fn))
+        captures = engine._GRAPHS.captures
         _, counts = measured(fn, want=counts)
-        return out, ms, counts["K1"]
+        return out, ms, counts["K1"], captures
 
     # size the energy query's caps through the Tree API (grow and retry);
     # E3's state has moved a little, so no cap stays below 1.25x the
@@ -3199,8 +3587,12 @@ def leapfrog(n: int, seed: int, dev):
                energy_caps={f: getattr(ecfg, f) for f in OVF_FIELDS})
 
     def energy(st, td):
-        e, ms, launches = launches_of(lambda: integrate.total_energy(
-            st, ecfg, E_THETA, LF_EPS, box_size=LF_BOX))
+        """(energy, ms, chunks, K1's launches, graphs captured): the
+        config's energy query, total_energy_host as benchmarks/configs.py
+        calls it."""
+        e, ms, launches, captures = launches_of(
+            lambda: integrate.total_energy_host(st, ecfg, E_THETA, LF_EPS,
+                                                box_size=LF_BOX))
         chunks = query_chunks(td, ecfg)
         if not (launches["quad_comp"] == launches["mono_comp"] == chunks
                 and launches["mono"] == launches["quad"] == 0):
@@ -3208,26 +3600,34 @@ def leapfrog(n: int, seed: int, dev):
                                  f"chunks {chunks}")
         if not np.isfinite(e):
             raise AssertionError(f"energy {e} is not finite")
-        return e, ms, chunks, launches
+        return e, ms, chunks, launches, captures
 
-    # the energy query's graphs are captured once, before it is counted
-    integrate.total_energy(state, ecfg, E_THETA, LF_EPS, box_size=LF_BOX)
-    e0, e0_ms, e_chunks, e_launches = energy(state, etree.tree_data)
+    # the energy query's graphs are captured once, before it is counted;
+    # the second query (E0) must capture nothing
+    integrate.total_energy_host(state, ecfg, E_THETA, LF_EPS,
+                                box_size=LF_BOX)
+    e0, e0_ms, e_chunks, e_launches, e0_captures = energy(state,
+                                                          etree.tree_data)
     rec.update(e0=e0, energy_query_ms=e0_ms, energy_chunks=e_chunks,
-               energy_launches=e_launches)
+               energy_launches=e_launches, e0_captures=e0_captures)
 
-    step_ms, retries, caps_grown = [], 0, []
+    step_ms, retries, caps_grown, step_captures = [], 0, [], []
     step_launches = dict.fromkeys(shared.launches, 0)
     for _ in range(LF_STEPS):
         ((state, ovf, _, cfg, r), ms), counts = counted(lambda: synced_ms(
-            lambda: integrate.leapfrog_step_morton_safe(
+            lambda: integrate.leapfrog_step_morton_host_safe(
                 state, LF_DT, cfg, LF_THETA, LF_EPS, box_size=LF_BOX)))
         step_ms.append(ms)
+        step_captures.append((engine._GRAPHS.captures, r))
         retries += r
         if r:
             caps_grown.append({f: getattr(cfg, f) for f in OVF_FIELDS})
         for f, v in counts["K1"].items():
             step_launches[f] += v
+    # a steady-state step (the third, where no cap grew) captures nothing
+    if e0_captures or (step_captures[-1][0] and not step_captures[-1][1]):
+        raise AssertionError(f"leapfrog: steady-state captures: energy "
+                             f"{e0_captures}, steps {step_captures}")
     if step_launches["mono"] <= 0 or any(
             step_launches[f] for f in ("mono_comp", "quad", "quad_comp")):
         raise AssertionError(f"leapfrog step launches {step_launches}")
@@ -3242,13 +3642,17 @@ def leapfrog(n: int, seed: int, dev):
                step_build_ms=build_ms, step_query_ms=query_ms,
                step_chunks=engine.live_chunks(td, cfg),
                cap_retries=retries, caps_grown_to=caps_grown,
-               step_launches=step_launches)
+               step_launches=step_launches,
+               step_captures=[c for c, _ in step_captures])
 
-    rec["graphs"] = step_ab(state, cfg)
     td3 = build.build_tree(state.pos, state.mass, ecfg, LF_BOX)
-    e3, e3_ms, _, _ = energy(state, td3)
+    e3, e3_ms, _, _, e3_captures = energy(state, td3)
     drift = abs(e3 - e0) / abs(e0)
-    rec.update(e3=e3, energy_query_ms_e3=e3_ms, drift=drift)
+    rec.update(e3=e3, energy_query_ms_e3=e3_ms, drift=drift,
+               e3_captures=e3_captures)
+    rec["graphs"] = {"leapfrog_step": step_three_ways(state, cfg),
+                     "total_energy": energy_two_ways(state, ecfg),
+                     "build config #2": build_rec}
 
     # sampled accuracy of the final state against the float64 direct sum
     samp = np.sort(np.random.default_rng(seed + 1).choice(n, 256,
@@ -3256,18 +3660,18 @@ def leapfrog(n: int, seed: int, dev):
     acc_o, pot_o = direct_acc_pot_np(state.pos.double().cpu().numpy(),
                                      state.mass.double().cpu().numpy(),
                                      eps=LF_EPS, targets=samp)
-    acc, pot, ovf = integrate.acc_pot(state.pos, state.mass, cfg, LF_THETA,
-                                      LF_EPS, box_size=LF_BOX)
+    acc, pot, ovf = integrate.acc_pot_host(state.pos, state.mass, cfg,
+                                           LF_THETA, LF_EPS, box_size=LF_BOX)
     f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
-    _, epot, eovf = integrate.acc_pot(state.pos, state.mass, ecfg, E_THETA,
-                                      LF_EPS, box_size=LF_BOX)
+    _, epot, eovf = integrate.acc_pot_host(state.pos, state.mass, ecfg,
+                                           E_THETA, LF_EPS, box_size=LF_BOX)
     _, e_rms = sampled_rms(None, epot, None, pot_o, samp, dev)
     # the same energy query with fp32 sums (K1d), beside it
     qtree = Tree(coords=state.pos, masses=state.mass,
                  config=ecfg.with_(accum="fp32"), box_size=LF_BOX)
     qtree.pots_o(E_THETA, LF_EPS)       # captures its graphs
-    qpot, q_ms, q_launches = launches_of(lambda: qtree.pots_o(E_THETA,
-                                                              LF_EPS))
+    qpot, q_ms, q_launches, _ = launches_of(lambda: qtree.pots_o(E_THETA,
+                                                                 LF_EPS))
     _, q_rms = sampled_rms(None, qpot, None, pot_o, samp, dev)
     rec.update(force_rms=f_rms, pot_rms=p_rms, energy_pot_rms=e_rms,
                fp32_quad_pot_rms=q_rms, fp32_quad_query_ms=q_ms,
@@ -4134,7 +4538,7 @@ def sharded_check(pos, mass, cfg, dev) -> tuple:
     at 1, 2 and 4 shards against the single-device query of the same
     config with farfield "local" (the sharded path's fallback from
     "grid"); then one leapfrog_step_sharded at 4 shards against
-    integrate.leapfrog_step. Returns the record and the local config with
+    integrate.leapfrog_step_host. Returns the record and the local config with
     the caps that held."""
     from rakau_tpu_torch import build, engine, integrate
     from rakau_tpu_torch.parallel import sharded
@@ -4186,11 +4590,12 @@ def sharded_check(pos, mass, cfg, dev) -> tuple:
     state = integrate.NBodyState(pos, torch.zeros_like(pos), mass)
 
     def step1(c):
-        out, ms = synced_ms(lambda: integrate.leapfrog_step(
+        out, ms = synced_ms(lambda: integrate.leapfrog_step_host(
             state, MULTI_DT, c, THETA, MULTI_EPS))
         return (out[0], ms), out[1]
 
-    (s1, ms1), cfg_s = clear_of_overflow(step1, cfg_l, "leapfrog_step")
+    (s1, ms1), cfg_s = clear_of_overflow(step1, cfg_l,
+                                         "leapfrog_step_host")
     mesh = sharded.default_mesh(LET_SHARDS)
     (s4, o4), ms4 = synced_ms(lambda: sharded.leapfrog_step_sharded(
         state, MULTI_DT, cfg_s, THETA, MULTI_EPS, 1.0, mesh))
@@ -4283,8 +4688,8 @@ def let_check(n: int, cfg_l, seed: int, dev) -> dict:
         "captured": [dict(c) for c in engine._GRAPHS.captured]}
 
     def single(c):
-        out, ms = synced_ms(lambda: integrate.acc_pot(pos, mass, c, THETA,
-                                                      MULTI_EPS))
+        out, ms = synced_ms(lambda: integrate.acc_pot_host(
+            pos, mass, c, THETA, MULTI_EPS))
         return (out[:2], ms), out[2]
 
     ((acc_1, pot_1), single_s), _ = clear_of_overflow(
@@ -4330,8 +4735,8 @@ def let_accuracy_engine(seed: int, dev) -> dict:
     pos, mass = particles.plummer(F1_N, generator=gen)
 
     def single(c):
-        out = integrate.acc_pot(pos, mass, c, THETA, LET_ACC_EPS,
-                                box_size=LET_ACC_BOX)
+        out = integrate.acc_pot_host(pos, mass, c, THETA, LET_ACC_EPS,
+                                     box_size=LET_ACC_BOX)
         return out[:2], out[2]
 
     (acc_1, _), cfg = clear_of_overflow(single, TreeConfig(**LET_ACC_KW),
@@ -4485,6 +4890,13 @@ def main(argv=None) -> int:
         tree, "shared+grid", {"K1": {"mono": evaluated}}, "shared_fused_",
         "k1a_device_ms")}
     graphs_rec["acc_pot_u"] = acc_pot_u_check(tree)
+    # the build's graph on the main tree, a steady-state Tree rebuild and
+    # the graft entry's whole acc_pot (config #2's step, energy and build
+    # follow in phase leapfrog)
+    whole_rec = {"build main": build_ab(pos, mass, cfg, tree.box_size,
+                                        "main (shared+grid)"),
+                 "Tree rebuild": rebuild_captures(tree, pos),
+                 "graft entry": graft_entry(args.seed + 8, dev)}
 
     # ---- kernel vs plain at the main path's chunk shapes ----------------
     worst, k_ms, p_ms, b_ms, per_mode = 0.0, [], [], [], {}
@@ -4591,7 +5003,15 @@ def main(argv=None) -> int:
     # ---- BASELINE config #2: the leapfrog harness -----------------------
     lf, etree, ecfg = leapfrog(args.n, args.seed + 2, dev)
     forms = energy_kernels(etree, ecfg)
-    emit("graphs", summary=graphs_summary(graphs_rec, mrec, lf["graphs"]))
+    emit("graphs", summary=graphs_summary(graphs_rec, mrec,
+                                          {**whole_rec, **lf["graphs"]}))
+    whole_k1a = {
+        "leapfrog_step_morton (config #2)": lf["graphs"]["leapfrog_step"][
+            "k1a_launches_measured"]["whole"],
+        "acc_pot (graft entry)": whole_rec["graft entry"]["launches"][
+            "K1"]["mono"]}
+    whole_quad_comp = {"total_energy (config #2)": lf["graphs"][
+        "total_energy"]["launches_measured"]["whole"]["K1"]["quad_comp"]}
 
     kernels = [{
         "name": "K1a shared_fused (monopole, fp32)", "route": "cuda",
@@ -4600,7 +5020,8 @@ def main(argv=None) -> int:
         "plain_ms": float(np.mean(p_ms)),
         # the mean of the chunks' bounds, limited as the larger of them is
         "bound_ms": float(np.mean([b for b, _ in b_ms])),
-        "bound_by": max(b_ms)[1], "library_ms": None}]
+        "bound_by": max(b_ms)[1], "library_ms": None,
+        "whole_call_launches": whole_k1a}]
     for form, name, n_launch in (
             ("mono_comp", "K1b shared_fused (monopole, compensated)",
              lf["energy_launches"]["mono_comp"]),
@@ -4611,6 +5032,8 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": SRC,
                         "replaces": REPLACES, "launches": n_launch,
                         **forms[form], "library_ms": None})
+        if form == "quad_comp":
+            kernels[-1]["whole_call_launches"] = whole_quad_comp
     for form, name in (
             ("mono_cell", "K1c shared_fused (monopole, fp32, cell test)"),
             ("mono_comp_cell",

@@ -102,11 +102,13 @@ def _tile_grid_level(cfg: TreeConfig, n: int) -> int:
 
 def build_tree(pos: torch.Tensor, mass: torch.Tensor, cfg: TreeConfig,
                box_size=None) -> TreeData:
-    """Construct the tree on pos.device (no host sync)."""
+    """Construct the tree on pos.device: no host read and, with box_size
+    None, a tensor or a number (filled in on the device), no
+    host-to-device copy, so that a CUDA graph can capture it whole
+    (engine.build_tree)."""
     dev = pos.device
-    if box_size is None:
-        box_size = particles.auto_box_size(pos)
-    box_size = torch.as_tensor(box_size, dtype=pos.dtype, device=dev)
+    box_size = (particles.auto_box_size(pos) if box_size is None
+                else particles.scalar_tensor(box_size, pos))
     n, ndim = pos.shape
     depth = cfg.max_depth
     B = cfg.code_bits

@@ -44,10 +44,13 @@ slice of chunks (`_slice_impl`, the counterpart of `_slice_query_jit`),
 one for the gwalk walk, pool and launch (`_gwalk_query`, `_gwalk_jit`
 with `_far_jit`), one for the assembly and grid2's far field
 (`_tail_impl`, `_assemble_jit` with `_far_jit`), and `acc_pot_u` whole as
-one. The per-tree state and the query's one host read (`live_chunks`)
-stay outside every graph. `graph=None` takes graphs on CUDA tensors and
-runs eagerly on CPU tensors; `graph=False` runs eagerly on the card too
-(the A/B and the per-layer timing), `graph=True` on CPU tensors raises.
+one; `build_tree` replays the tree build (the reference's `_build_jit`),
+and integrate.py's whole-call twins put builds and `_query_impl` in one
+graph. The per-tree state and the query's one host read (`live_chunks`)
+stay outside every graph of `acc_pot_u_host`. `graph=None` takes graphs
+on CUDA tensors and runs eagerly on CPU tensors; `graph=False` runs
+eagerly on the card too (the A/B and the per-layer timing), `graph=True`
+on CPU tensors raises.
 
 Results come back in internal Morton order (the `_u` view).
 """
@@ -56,6 +59,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import build as _build
 from . import expansion
 from . import grid as gridmod
 from . import graphs, grid2, traversal, traversal2, traversal3, traversal4
@@ -101,6 +105,16 @@ def _run(graph: bool, fn, *args, **kw):
     if not graph:
         return fn(*args, **kw)
     return _GRAPHS(fn, *args, key=dispatch.capture_key(), **kw)
+
+
+def build_tree(pos, mass, cfg: TreeConfig, box_size=None,
+               graph=None) -> TreeData:
+    """build.build_tree, on CUDA tensors replayed from its CUDA graph (the
+    counterpart of the reference's `_build_jit`): one graph per cfg, box
+    size (a number is part of the key, a tensor an input) and shapes.
+    graph as in acc_pot_u_host. The caller reads td.overflow."""
+    return _run(_use_graph(graph, pos, cfg), _build.build_tree, pos, mass,
+                cfg, box_size)
 
 
 def _use_shared(cfg: TreeConfig) -> bool:

@@ -1,15 +1,18 @@
 """CUDA graphs: the port's counterpart of `jax.jit` on the card.
 
 The reference runs each piece of a query (a slice of chunks, the gwalk
-walk and pool, the assembly, the whole `acc_pot_u`) as one compiled XLA
-executable. Here the same piece runs eagerly once, is captured into a
-`torch.cuda.CUDAGraph`, and every later call with the same key replays
-that graph: its thousands of small launches leave the host as one.
+walk and pool, the assembly, the whole `acc_pot_u`), the tree build and
+each whole integrate call (a build and its query, a leapfrog step, an
+energy) as one compiled XLA executable. Here the same piece runs eagerly
+once, is captured into a `torch.cuda.CUDAGraph`, and every later call
+with the same key replays that graph: its thousands of small launches
+leave the host as one.
 
 `GraphCache` keeps the captured graphs. A call's key is the function, the
 structure of its arguments with every non-tensor leaf in it (the
-`TreeConfig`, `mode`, the Python scalars theta, eps and G that the
-launches bake in), the shape, dtype and device of every tensor leaf, and
+`TreeConfig`, `mode`, the Python scalars theta, eps, G and a numeric
+box size that the launches bake in, the functions a whole call
+is given), the shape, dtype and device of every tensor leaf, and
 the caller's `key` (global switches the function reads). The first call
 with a key
   * runs the function eagerly once on a side stream (as the
@@ -50,14 +53,16 @@ import torch
 
 # What a key holds for a tensor leaf; any other leaf must be hashable.
 _TENSOR = object()
-# Captured graphs a cache keeps; the oldest is dropped first, as
-# engine._QUERY_STATE_CACHE drops its trees, because a graph pins its
-# static inputs and outputs (a copy of the tree, its tables and tile
-# panels: 0.1-0.3 GB at 1M particles) and its share of the pool. A
-# shared, lmac or lists query takes two (its slice and its tail), so a
-# leapfrog step and its energy query (four) fit beside a whole-query
-# `acc_pot_u`, a gwalk query and a kernel variant's.
-SIZE = 8
+# Captured graphs a cache keeps; the one used least recently is dropped
+# first, because a graph pins its static inputs and outputs (a slice: a
+# copy of the tree, its tables and tile panels, 0.1-0.3 GB at 1M
+# particles; a build or a whole step: the particles and the tree, ~0.1
+# GB) and its share of the pool. A host-sliced leapfrog step holds three
+# (its build, slice and tail), its energy query three more (another cfg),
+# the whole-call step and energy one each, a Tree's rebuild one: nine, so
+# that a steady-state step, energy query or rebuild captures nothing even
+# beside a whole-query `acc_pot_u`, a gwalk query and a kernel variant's.
+SIZE = 16
 
 
 def _flatten(x, tensors: list):
@@ -123,7 +128,7 @@ class GraphCache:
     """Captured CUDA graphs by key, at most SIZE of them. `counters`: the
     launch-count dicts whose growth at capture the tally keeps (see the
     module's docstring): `captured` and `replayed`, one dict per counter,
-    set to zero by reset_tally()."""
+    and `captures`, the graphs captured, set to zero by reset_tally()."""
 
     def __init__(self, counters=()):
         self.counters = tuple(counters)
@@ -144,6 +149,13 @@ class GraphCache:
     def reset_tally(self):
         self.captured = [{} for _ in self.counters]
         self.replayed = [{} for _ in self.counters]
+        self.captures = 0
+
+    def pinned(self) -> list:
+        """(function name, bytes of its static inputs and outputs) of each
+        graph, least recently used first; the pool comes on top."""
+        return [(k[0].__name__, sum(t.nbytes for t in g.inputs + g.outputs))
+                for k, g in self._graphs.items()]
 
     def key(self, fn, args, kwargs, key=()):
         """The cache key of fn(*args, **kwargs) (see the module's
@@ -165,12 +177,12 @@ class GraphCache:
         if any(t.device != dev for t in tensors):
             raise ValueError("a captured call takes tensors on one device")
         with torch.cuda.device(dev):
-            g = self._graphs.get(k)
+            g = self._graphs.pop(k, None)
             if g is None:
                 g = self._capture(fn, k[1], tensors, dev)
                 while len(self._graphs) >= SIZE:
                     self._graphs.pop(next(iter(self._graphs)))
-                self._graphs[k] = g
+            self._graphs[k] = g         # the most recently used, last
             out = g.replay(tensors)
             _add(self.replayed, g.counts)
             return out
@@ -195,6 +207,7 @@ class GraphCache:
         counts = [{f: c[f] - was[f] for f in c if c[f] != was[f]}
                   for c, was in zip(self.counters, before)]
         _add(self.captured, counts)
+        self.captures += 1
         outputs: list = []
         out_template = _flatten(out, outputs)
         return _Graph(graph, inputs, out_template, outputs, counts)

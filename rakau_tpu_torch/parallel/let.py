@@ -297,8 +297,8 @@ def _let_distributed(pos_sh, mass_sh, slack, samples, mesh, cfg_q, cfg_e,
     with _stage(mesh, "local_build"):
         tds, lo, hi, ne = [], [], [], []
         for (_, pos_r, mass_r, val_r), box in zip(recv, boxes):
-            tds.append(_build.build_tree(pos_r, mass_r, cfg_q,
-                                         box_size=box))
+            tds.append(_engine.build_tree(pos_r, mass_r, cfg_q,
+                                          box_size=box))
             big = 2.0 * box
             lo.append(torch.where(val_r[:, None], pos_r, big).amin(0))
             hi.append(torch.where(val_r[:, None], pos_r, -big).amax(0))
@@ -355,7 +355,7 @@ def _let_global(pos, mass, corner, zeros, mesh, cfg_q, cfg_e, theta, eps,
         mass_sh = [mass_s[r * nl:(r + 1) * nl].to(d)
                    for r, d in enumerate(mesh.devices)]
     with _stage(mesh, "local_build"):
-        tds = [_build.build_tree(p, m, cfg_q, box_size=b)
+        tds = [_engine.build_tree(p, m, cfg_q, box_size=b)
                for p, m, b in zip(pos_sh, mass_sh, boxes)]
         # domain boxes over every row, the zero-mass ones included
         # (conservative)

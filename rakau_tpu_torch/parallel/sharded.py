@@ -82,7 +82,8 @@ def acc_pot_sharded(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
     A build that overflows its node or tile capacity raises, as
     integrate's does."""
     dev0 = mesh.devices[0]
-    td = integrate._build_tree(pos.to(dev0), mass.to(dev0), cfg, box_size)
+    td = integrate._host_build(pos.to(dev0), mass.to(dev0), cfg, box_size,
+                               graph=None)
     acc_u, pot_u, ovf = acc_pot_u_sharded(td, cfg, theta, eps, G, mesh)
     return acc_u[td.inv_perm], pot_u[td.inv_perm], ovf
 

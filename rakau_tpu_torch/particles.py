@@ -21,10 +21,21 @@ def auto_box_size(pos: torch.Tensor) -> torch.Tensor:
                                 device=pos.device)
 
 
+def scalar_tensor(x, like: torch.Tensor) -> torch.Tensor:
+    """x (a number or a tensor: a box size, a time step) as a 0-dim tensor
+    of like.dtype on like.device. A number is filled in on the device (no
+    host-to-device copy, which a CUDA graph capture refuses), rounded once
+    to the dtype as torch.as_tensor rounds it: one ulp of the box moves
+    Morton codes (discretize)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=like.dtype)
+    return torch.full((), float(x), dtype=like.dtype, device=like.device)
+
+
 def validate(pos: torch.Tensor, mass: torch.Tensor, box_size) -> dict:
     """Violation flags (0-dim bool tensors): non-finite coordinates or
     masses, coordinates outside the box, mismatched lengths."""
-    half = torch.as_tensor(box_size, dtype=pos.dtype, device=pos.device) / 2
+    half = scalar_tensor(box_size, pos) / 2
     return {
         "nonfinite_pos": (~torch.isfinite(pos)).any(),
         "nonfinite_mass": (~torch.isfinite(mass)).any(),
@@ -57,7 +68,7 @@ def discretize(pos: torch.Tensor, box_size, depth: int) -> torch.Tensor:
     clamp, is that of the reference: one ulp of difference would move a
     particle across a cell face and change its Morton code."""
     ncells = float(2 ** depth)
-    box = torch.as_tensor(box_size, dtype=pos.dtype, device=pos.device)
+    box = scalar_tensor(box_size, pos)
     half = box / 2
     u = (pos + half) / box
     c = torch.floor(u * torch.full((), ncells, dtype=pos.dtype,

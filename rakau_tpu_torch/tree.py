@@ -21,7 +21,6 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from . import build as _build
 from . import direct as _direct
 from . import engine as _engine
 from . import particles as _particles
@@ -116,13 +115,14 @@ class Tree:
 
     # ------------------------------------------------------------- build
     def _rebuild(self, pos, mass):
-        """Full re-sort + rebuild, growing node/tile capacities on
-        overflow."""
+        """Full re-sort + rebuild (on the card replayed from the build's
+        CUDA graph: engine.build_tree), growing node/tile capacities on
+        overflow (read after the build)."""
         cfg = self._cfg
         n = pos.shape[0]
         for _ in range(self._max_retries):
             with phase_timer("tree_build"):
-                td = _build.build_tree(pos, mass, cfg, self._box)
+                td = _engine.build_tree(pos, mass, cfg, self._box)
                 overflow = bool(td.overflow)
             if not overflow:
                 break

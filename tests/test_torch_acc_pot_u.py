@@ -269,16 +269,9 @@ class _HostReads(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("name", ["shared+grid", "shared+grid2",
-                                  "lmac+grid2", "gwalk+grid", "lists+m2p",
-                                  "quad+comp"])
-def test_query_reads_nothing_from_the_host(name, monkeypatch):
-    """acc_pot_u issues no host read and, once its constant tables are
-    made (a first run), no host-to-device copy of host data: what the
-    capture of the whole query as one CUDA graph needs on the card."""
-    _, _, cfg, td = _case(name)
-    engine.acc_pot_u(td, cfg, THETA, EPS)
-
+def forbid_host_copies(monkeypatch):
+    """Make torch.as_tensor (of anything but a tensor), torch.tensor and
+    torch.from_numpy raise: the ways host data is copied into a tensor."""
     as_tensor = torch.as_tensor
 
     def refuse(data, *a, **kw):
@@ -292,6 +285,18 @@ def test_query_reads_nothing_from_the_host(name, monkeypatch):
     monkeypatch.setattr(torch, "as_tensor", tensor_only)
     monkeypatch.setattr(torch, "tensor", refuse)
     monkeypatch.setattr(torch, "from_numpy", refuse)
+
+
+@pytest.mark.parametrize("name", ["shared+grid", "shared+grid2",
+                                  "lmac+grid2", "gwalk+grid", "lists+m2p",
+                                  "quad+comp"])
+def test_query_reads_nothing_from_the_host(name, monkeypatch):
+    """acc_pot_u issues no host read and, once its constant tables are
+    made (a first run), no host-to-device copy of host data: what the
+    capture of the whole query as one CUDA graph needs on the card."""
+    _, _, cfg, td = _case(name)
+    engine.acc_pot_u(td, cfg, THETA, EPS)
+    forbid_host_copies(monkeypatch)
     reads = _HostReads()
     with reads:
         engine.acc_pot_u(td, cfg, THETA, EPS)

@@ -51,7 +51,7 @@ def _user_order(x, perm):
 def test_morton_step_matches_jax():
     pos, vel, mass = plummer_state(768)
     state = nbody_state_from_numpy(pos, vel, mass, "cpu")
-    new, ovf, perm = integrate.leapfrog_step_morton(
+    new, ovf, perm = integrate.leapfrog_step_morton_host(
         state, 1e-3, CFG, 0.6, EPS, box_size=BOX)
     jnew, jovf, jperm = jintegrate.leapfrog_step_morton_host(
         jintegrate.NBodyState(*(jnp.asarray(a) for a in (pos, vel, mass))),
@@ -76,8 +76,9 @@ def test_morton_step_matches_jax():
 
 def test_acc_pot_is_in_input_order():
     pos, _, mass = plummer_state(512, seed=3)
-    acc, pot, ovf = integrate.acc_pot(torch.as_tensor(pos),
-                                      torch.as_tensor(mass), CFG, 0.2, 0.01)
+    acc, pot, ovf = integrate.acc_pot_host(torch.as_tensor(pos),
+                                           torch.as_tensor(mass), CFG, 0.2,
+                                           0.01)
     assert not ovf.any()
     acc_d, pot_d = direct_acc_pot_np(pos, mass, eps=0.01)
     rel = np.linalg.norm(acc.numpy() - acc_d, axis=1) \
@@ -93,13 +94,14 @@ def test_safe_step_grows_caps_and_matches_a_straight_step():
     grown caps."""
     state = nbody_state_from_numpy(*plummer_state(512), "cpu")
     small = CFG.with_(m2p_cap=64, p2p_src_cap=256, p2p_leaf_cap=64)
-    new, ovf, perm, grown, n_retries = integrate.leapfrog_step_morton_safe(
-        state, 1e-3, small, 0.6, EPS, box_size=BOX)
+    new, ovf, perm, grown, n_retries = \
+        integrate.leapfrog_step_morton_host_safe(
+            state, 1e-3, small, 0.6, EPS, box_size=BOX)
     assert not ovf.any() and n_retries >= 1
     assert (grown.m2p_cap > small.m2p_cap
             or grown.p2p_src_cap > small.p2p_src_cap
             or grown.p2p_leaf_cap > small.p2p_leaf_cap)
-    ref, ovf_r, perm_r = integrate.leapfrog_step_morton(
+    ref, ovf_r, perm_r = integrate.leapfrog_step_morton_host(
         state, 1e-3, grown, 0.6, EPS, box_size=BOX)
     assert not ovf_r.any()
     np.testing.assert_array_equal(perm.numpy(), perm_r.numpy())
@@ -109,9 +111,10 @@ def test_safe_step_grows_caps_and_matches_a_straight_step():
 
 def test_kdk_is_reversible():
     state = nbody_state_from_numpy(*plummer_state(512), "cpu")
-    s1, _ = integrate.leapfrog_step(state, 1e-3, CFG, 0.4, EPS,
-                                    box_size=BOX)
-    s2, _ = integrate.leapfrog_step(s1, -1e-3, CFG, 0.4, EPS, box_size=BOX)
+    s1, _ = integrate.leapfrog_step_host(state, 1e-3, CFG, 0.4, EPS,
+                                         box_size=BOX)
+    s2, _ = integrate.leapfrog_step_host(s1, -1e-3, CFG, 0.4, EPS,
+                                         box_size=BOX)
     np.testing.assert_allclose(s2.pos.numpy(), state.pos.numpy(), atol=1e-5)
     np.testing.assert_allclose(s2.vel.numpy(), state.vel.numpy(), atol=1e-4)
 
@@ -120,8 +123,8 @@ def test_exact_energy_drift_over_20_steps():
     state = nbody_state_from_numpy(*plummer_state(1024), "cpu")
     e0 = integrate.exact_total_energy(state, eps=EPS)
     for _ in range(20):
-        state, ovf = integrate.leapfrog_step(state, 1e-3, CFG, 0.4, EPS,
-                                             box_size=BOX)
+        state, ovf = integrate.leapfrog_step_host(state, 1e-3, CFG, 0.4, EPS,
+                                                  box_size=BOX)
         assert not ovf.any()
     e1 = integrate.exact_total_energy(state, eps=EPS)
     assert abs(e1 - e0) / abs(e0) < 2e-3
@@ -136,8 +139,8 @@ def test_tree_energy_quad_comp_matches_jax_and_the_exact_sum():
     pos, vel, mass = plummer_state(1024, seed=5)
     state = nbody_state_from_numpy(pos, vel, mass, "cpu")
     jc = _energy_cfg()
-    e = integrate.total_energy(state, config_from_jax(jc), 0.25, 0.02,
-                               box_size=BOX)
+    e = integrate.total_energy_host(state, config_from_jax(jc), 0.25, 0.02,
+                                    box_size=BOX)
     je = float(jintegrate.total_energy_host(
         jintegrate.NBodyState(*(jnp.asarray(a) for a in (pos, vel, mass))),
         jc, jnp.float32(0.25), jnp.float32(0.02), box_size=BOX))
@@ -150,7 +153,7 @@ def test_tree_energy_raises_on_an_overflowed_query():
     state = nbody_state_from_numpy(*plummer_state(512), "cpu")
     cfg = config_from_jax(_energy_cfg(m2p_cap=64, p2p_src_cap=256))
     with pytest.raises(RuntimeError, match="overflow"):
-        integrate.total_energy(state, cfg, 0.25, 0.02, box_size=BOX)
+        integrate.total_energy_host(state, cfg, 0.25, 0.02, box_size=BOX)
 
 
 @pytest.mark.parametrize("name", ["uniform_cube", "cold_sphere",
@@ -197,10 +200,10 @@ def test_cold_sphere_step_forces_are_the_reference_forces():
     mass = np.full(n, 1.0 / n, np.float32)
     jc = JaxConfig(max_depth=12, max_leaf_n=32, ncrit=512, tile_chunk=32,
                    m2p_cap=1024, p2p_leaf_cap=512, p2p_src_cap=4096)
-    acc, pot, ovf = integrate.acc_pot(torch.as_tensor(pos),
-                                      torch.as_tensor(mass),
-                                      config_from_jax(jc), 0.75, 0.02,
-                                      box_size=8.0)
+    acc, pot, ovf = integrate.acc_pot_host(torch.as_tensor(pos),
+                                           torch.as_tensor(mass),
+                                           config_from_jax(jc), 0.75, 0.02,
+                                           box_size=8.0)
     jacc, jpot, jovf = jintegrate.acc_pot_host(
         jnp.asarray(pos), jnp.asarray(mass), jc, jnp.float32(0.75),
         jnp.float32(0.02), box_size=8.0)
