@@ -261,23 +261,41 @@ Phases, each printing one JSON line:
                65,536 Plummer particles (shared+grid), the query under
                kernel_backend="xla" makes no hand launch and agrees with
                "auto" to 1e-5 force RMS, and "pallas" on a CPU copy of the
-               tree raises; parallel.sharded on the main particles, tree
-               and caps at 1, 2 and 4 shards against the single-device
-               query with farfield "local" (rtol 1e-5, atol 1e-6 of the
-               largest; K1a launches summed over the shards = chunks;
-               seconds a query), then one leapfrog_step_sharded at 4
-               shards against integrate.leapfrog_step_host (pos within 1e-6,
-               vel within 1e-5 of their largest); parallel.let on
-               min(262,144, --n) Plummer particles, 4 shards,
+               tree raises; parallel.sharded's _host twins on the main
+               particles, tree and caps at 1, 2 and 4 shards against the
+               single-device query with farfield "local" (rtol 1e-5, atol
+               1e-6 of the largest; K1a launches summed over the shards =
+               chunks; seconds a query), then one
+               leapfrog_step_sharded_host at 4 shards against
+               integrate.leapfrog_step_host (pos within 1e-6, vel within
+               1e-5 of their largest); the whole twins beside them, each
+               call one CUDA graph: acc_pot_u_sharded at 2 and 4 shards
+               (its first call; 3 warm calls each way in turns with the
+               _host twin, capturing nothing; K1a launches of a replay on
+               the card's profile = the capacity chunks padded to a
+               multiple of the shards; sums bit-equal to the _host twin's
+               and to engine.acc_pot_u's; at 1 shard, where its graph
+               would be engine.acc_pot_u's, the body once eagerly, the
+               same equalities), leapfrog_step_sharded at 4 shards
+               against leapfrog_step_sharded_host (first call, 3 warm
+               steps each way in turns, none capturing; 2 x the padded
+               chunks of K1a by bookkeeping) and integrate.leapfrog_step
+               run eagerly (pos and vel bit-equal, else where they part
+               is named and the step tolerances hold); parallel.let's
+               _host twin on min(65,536, --n) Plummer particles, 4 shards,
                shared+"local", theta 0.75, eps 0.01, distributed phase 0,
                the export caps raised until export_ovf is clear (printed):
                force RMS against the float64 direct sum below max(1.5 x
                the single-device query's, 2e-3), potential RMS < 5e-3,
                phase0="global" within 3e-3 RMS of it, the [4, 4] export
                counts, the halo bytes, the seconds of the query and of
-               each stage; and the accuracy engine (lmac + "m2p" +
-               quadrupole, 65,536 particles, 4 shards) within 5e-3 of its
-               single-device query (max |difference| over max |acc|);
+               each stage; the whole acc_pot_let beside it in both phase0
+               modes (first call, 2 warm calls each way in turns, none
+               capturing; sums, flags and export counts bit-equal to the
+               _host twin's; its force RMS); and the accuracy engine (lmac
+               + "m2p" + quadrupole, 65,536 particles, 4 shards) within
+               5e-3 of its single-device query (max |difference| over max
+               |acc|);
   9. leapfrog: BASELINE config #2 (benchmarks/configs.py:90-114) through
                rakau_tpu_torch.integrate: a cold sphere of N particles
                (--n, default 1,048,576), zero velocities, 3 steps of
@@ -1130,6 +1148,25 @@ def rebuild_captures(tree, pos) -> dict:
 STEP_REPS = 3
 
 
+def in_turns(ways: dict, reps: int, what: str) -> tuple:
+    """reps warm calls of each way ({name: fn}) in turns, the order
+    reversed every other round: (the last output of each way, synced wall
+    ms of each call by way, the launches each way's calls booked
+    (counted), the graphs their calls captured). Raises where two calls
+    of a way booked different launches."""
+    from rakau_tpu_torch import engine
+    ms, booked, outs, captures = {w: [] for w in ways}, {}, {}, 0
+    for i in range(reps):
+        for w in (list(ways) if i % 2 else list(ways)[::-1]):
+            ((outs[w], t), counts) = counted(lambda: synced_ms(ways[w]))
+            captures += engine._GRAPHS.captures
+            ms[w].append(t)
+            if booked.setdefault(w, counts) != counts:
+                raise AssertionError(f"{what} {w}: launches {counts}, "
+                                     f"then {booked[w]}")
+    return outs, ms, booked, captures
+
+
 def step_three_ways(state, cfg) -> dict:
     """Phase graphs: one leapfrog step of BASELINE config #2 from `state`,
     three ways: integrate.leapfrog_step_morton, the whole step as one
@@ -1156,18 +1193,8 @@ def step_three_ways(state, cfg) -> dict:
             *args, box_size=LF_BOX, graph=False)}
     td0 = build.build_tree(state.pos, state.mass, cfg, LF_BOX)
     cap = engine._gather_tiles(td0, cfg)[0].shape[0]
-    out, first = first_call(ways["whole"])
-    ms = {w: [] for w in ways}
-    booked = {}
-    outs = {"whole": out}
-    for i in range(STEP_REPS):
-        order = list(ways) if i % 2 else list(ways)[::-1]
-        for w in order:
-            ((outs[w], t), counts) = counted(lambda: synced_ms(ways[w]))
-            ms[w].append(t)
-            if booked.setdefault(w, counts) != counts:
-                raise AssertionError(f"graphs step {w}: launches {counts}, "
-                                     f"then {booked[w]}")
+    _, first = first_call(ways["whole"])
+    outs, ms, booked, _ = in_turns(ways, STEP_REPS, "graphs step")
     # another step size (-dt) replays the whole step's graph: dt is an
     # input, not part of its key
     engine._GRAPHS.reset_tally()
@@ -1235,15 +1262,8 @@ def energy_two_ways(state, ecfg) -> dict:
     td = build.build_tree(state.pos, state.mass, ecfg, LF_BOX)
     want = {"whole": engine._gather_tiles(td, ecfg)[0].shape[0],
             "host": query_chunks(td, ecfg)}
-    e, first = first_call(ways["whole"])
-    ms, booked, es = {w: [] for w in ways}, {}, {"whole": e}
-    for i in range(STEP_REPS):
-        for w in (list(ways) if i % 2 else list(ways)[::-1]):
-            ((es[w], t), counts) = counted(lambda: synced_ms(ways[w]))
-            ms[w].append(t)
-            if booked.setdefault(w, counts) != counts:
-                raise AssertionError(f"graphs energy {w}: launches "
-                                     f"{counts}, then {booked[w]}")
+    _, first = first_call(ways["whole"])
+    es, ms, booked, _ = in_turns(ways, STEP_REPS, "graphs energy")
     stats = {w: warm_stats(ms[w]) for w in ways}
     for w in ways:
         stats[w].update(profiled(ways[w], booked[w], stats[w]["warm_ms"]))
@@ -1390,8 +1410,9 @@ def graphs_summary(queries: dict, mrec: dict, whole: dict) -> dict:
     eager warm medians, device ops, busy ms, idle shares, peak memory and
     capture seconds; acc_pot_u's; the sharded query at LET_SHARDS shards
     against the single-device one and the LET's accuracy (both run on the
-    graphs, phase multi); then `whole`: the builds, the Tree rebuild, the
-    config #2 step three ways, its energy two ways and the graft entry."""
+    graphs, phase multi) and phase multi's whole twins against their
+    _host twins; then `whole`: the builds, the Tree rebuild, the config #2
+    step three ways, its energy two ways and the graft entry."""
     out = {}
     for label, r in queries.items():
         if "eager" not in r:
@@ -1416,6 +1437,22 @@ def graphs_summary(queries: dict, mrec: dict, whole: dict) -> dict:
                       "max_abs_diff_pot": shard["max_abs_diff_pot"]}
     out["let"] = {k: mrec["let"].get(k) for k in (
         "force_rms", "pot_rms", "let_query_s", "local_query_graph_ab")}
+    # the whole twins of phase multi against their _host twins
+    out["sharded_whole"] = {
+        k: {"capture_s": r["first_call"]["capture_s"],
+            "whole_ms": r["whole"]["warm_ms"], "host_ms": r["host"]["warm_ms"],
+            "k1a_launches_measured": r["k1a_launches_measured"]}
+        for k, r in mrec["sharded_whole"].items()
+        if k in MULTI_SHARDS and "first_call" in r}
+    sw = mrec["step_whole"]
+    out["step_whole"] = {"capture_s": sw["first_call"]["capture_s"],
+                         **{w: sw[w]["warm_ms"] for w in ("sharded_whole",
+                                                          "sharded_host")}}
+    out["let_whole"] = {
+        phase0: {"capture_s": r["first_call"]["capture_s"],
+                 "whole_s": r["whole"]["warm_ms"] / 1e3,
+                 "host_s": r["host"]["warm_ms"] / 1e3}
+        for phase0, r in mrec["let"]["whole"].items()}
     for label, r in whole.items():
         first = r.get("first_call") or r.get("whole_first_call") or r
         out[label] = {k: first[k] for k in (
@@ -4441,12 +4478,13 @@ F2_RMS_MAX = 1e-5
 SHARD_RTOL, SHARD_ATOL_REL = 1e-5, 1e-6
 STEP_POS_ATOL_REL, STEP_VEL_ATOL_REL = 1e-6, 1e-5
 LET_SHARDS = 4
-# The LET runs at a quarter of the main N: its Morton-range
-# domain boxes overlap, so a shard exports about its whole range to the
-# domain that overlaps it (export counts of 64-66k of a shard's 65,536
-# rows at 262,144), each shard imports ndev x export_cap rows, and the
-# sizing runs the whole LET once per cap step
-LET_N = 262144
+# The LET runs at a sixteenth of the main N: its Morton-range domain
+# boxes overlap, so a shard exports about its whole range to the domain
+# that overlaps it (export counts of 64-66k of a shard's 65,536 rows at
+# 262,144), each shard imports ndev x export_cap rows, and the sizing runs
+# the whole LET once per cap step. 262,144 until the whole twins' checks
+# joined phase multi; cut to keep the script inside its time limit
+LET_N = 65536
 LET_CAPS = dict(export_cap=16384, export_node_cap=8192,
                 export_part_cap=32768, export_leaf_cap=4096,
                 export_frontier_cap=1024)      # acc_pot_let's defaults
@@ -4534,12 +4572,14 @@ def f2_check(seed: int, dev) -> dict:
 
 
 def sharded_check(pos, mass, cfg, dev) -> tuple:
-    """The tile-sharded query on the main phase's particles, tree and caps
-    at 1, 2 and 4 shards against the single-device query of the same
-    config with farfield "local" (the sharded path's fallback from
-    "grid"); then one leapfrog_step_sharded at 4 shards against
-    integrate.leapfrog_step_host. Returns the record and the local config with
-    the caps that held."""
+    """The tile-sharded query's _host twin on the main phase's particles,
+    tree and caps at 1, 2 and 4 shards against the single-device query of
+    the same config with farfield "local" (the sharded path's fallback
+    from "grid"); then one leapfrog_step_sharded_host at 4 shards against
+    integrate.leapfrog_step_host. Returns the record, the local config
+    with the caps that held, and what the whole twins' checks compare
+    with: the tree, the host twin's query result by shard count, the
+    step's state and config."""
     from rakau_tpu_torch import build, engine, integrate
     from rakau_tpu_torch.parallel import sharded
     td = build.build_tree(pos, mass, cfg)
@@ -4558,16 +4598,18 @@ def sharded_check(pos, mass, cfg, dev) -> tuple:
                caps={f: getattr(cfg_l, f) for f in
                      ("m2p_cap", "p2p_leaf_cap", "p2p_src_cap",
                       "frontier_cap")}, shards={})
+    hosts = {}
     for k in MULTI_SHARDS:
         mesh = sharded.default_mesh(k)
         # the first query captures the shards' slice graphs; the second
         # is counted and timed
-        sharded.acc_pot_u_sharded(td, cfg_g, THETA, 0.0, 1.0, mesh)
+        sharded.acc_pot_u_sharded_host(td, cfg_g, THETA, 0.0, 1.0, mesh)
         ((a, p, o), counts), ms = synced_ms(lambda: counted(
-            lambda: sharded.acc_pot_u_sharded(td, cfg_g, THETA, 0.0, 1.0,
-                                              mesh)))
+            lambda: sharded.acc_pot_u_sharded_host(td, cfg_g, THETA, 0.0,
+                                                   1.0, mesh)))
+        hosts[k] = (a, p, o)
         # a third under the profiler: the launches it ran on the card
-        _, counts = measured(lambda: sharded.acc_pot_u_sharded(
+        _, counts = measured(lambda: sharded.acc_pot_u_sharded_host(
             td, cfg_g, THETA, 0.0, 1.0, mesh), want=counts)
         # the same chunk sums, each shard's slices replayed from graphs:
         # equal to the single-device query bit for bit
@@ -4597,7 +4639,7 @@ def sharded_check(pos, mass, cfg, dev) -> tuple:
     (s1, ms1), cfg_s = clear_of_overflow(step1, cfg_l,
                                          "leapfrog_step_host")
     mesh = sharded.default_mesh(LET_SHARDS)
-    (s4, o4), ms4 = synced_ms(lambda: sharded.leapfrog_step_sharded(
+    (s4, o4), ms4 = synced_ms(lambda: sharded.leapfrog_step_sharded_host(
         state, MULTI_DT, cfg_s, THETA, MULTI_EPS, 1.0, mesh))
     d_pos = float((s4.pos - s1.pos).abs().max())
     d_vel = float((s4.vel - s1.vel).abs().max())
@@ -4608,23 +4650,212 @@ def sharded_check(pos, mass, cfg, dev) -> tuple:
             or d_vel > STEP_VEL_ATOL_REL * float(s1.vel.abs().max())):
         raise AssertionError(f"multi leapfrog: {rec['leapfrog']}, flags "
                              f"{o4.tolist()}")
-    return rec, cfg_l
+    return rec, cfg_l, (td, cfg_g, hosts, state, cfg_s)
+
+
+# warm calls of each way in the multi phase's whole-against-_host LET
+# comparison (in turns; the query and the step take STEP_REPS)
+LET_REPS = 2
+
+
+def padded_chunks(td, cfg, k: int) -> int:
+    """The chunks that the whole sharded query evaluates on k shards: the
+    tile capacity's, padded to a multiple of k."""
+    from rakau_tpu_torch import engine
+    nc = engine._gather_tiles(td, cfg)[0].shape[0]
+    return nc + (-nc % k)
+
+
+def sharded_whole(td, cfg_g, hosts: dict) -> dict:
+    """Phase multi, the whole sharded query: sharded.acc_pot_u_sharded (one
+    CUDA graph a call: every chunk of the tile capacity, padded to a
+    multiple of the shards) on the main tree with "grid" (its fallback
+    "local") at MULTI_SHARDS shards, against acc_pot_u_sharded_host
+    (hosts[k]: its result in sharded_check) and engine.acc_pot_u run
+    eagerly with "local". On one shard nothing is padded and the graph
+    would be engine.acc_pot_u's again, so its body runs once eagerly
+    (graph=False). For each k > 1: the first call (first_call), STEP_REPS
+    warm calls each way in turns that capture nothing, and a profiled
+    replay whose K1a launches on the card must be the padded chunks.
+    Raises unless the sums are bit-equal to both and no flag is set.
+    Returns the record."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.parallel import sharded
+    cfg_l = cfg_g.with_(farfield="local")
+    a1, p1, o1 = engine.acc_pot_u(td, cfg_l, THETA, 0.0, graph=False)
+    rec = {"capacity_chunks": padded_chunks(td, cfg_l, 1)}
+    for k in MULTI_SHARDS:
+        mesh = sharded.default_mesh(k)
+        args = (td, cfg_g, THETA, 0.0, 1.0, mesh)
+        if k == 1:
+            a, p, o = sharded.acc_pot_u_sharded(*args, graph=False)
+            r = rec[k] = {
+                "graph": False,
+                "bit_equal_to_host": [bool(torch.equal(x, y))
+                                      for x, y in zip((a, p, o), hosts[k])],
+                "bit_equal_to_acc_pot_u": [bool(torch.equal(a, a1)),
+                                           bool(torch.equal(p, p1))],
+                "overflow": o.tolist()}
+            if (not all(r["bit_equal_to_host"] + r["bit_equal_to_acc_pot_u"])
+                    or o.any() or o1.any()):
+                raise AssertionError(f"multi sharded whole {k}: {r}")
+            continue
+        ways = {"whole": lambda: sharded.acc_pot_u_sharded(*args),
+                "host": lambda: sharded.acc_pot_u_sharded_host(*args)}
+        ways["host"]()                  # its graphs, as a caller finds them
+        out, first = first_call(ways["whole"])
+        outs, ms, booked, captures = in_turns(ways, STEP_REPS,
+                                              f"multi sharded {k}")
+        want = padded_chunks(td, cfg_l, k)
+        stats = {w: warm_stats(ms[w]) for w in ways}
+        stats["whole"].update(profiled(ways["whole"], booked["whole"],
+                                       stats["whole"]["warm_ms"]))
+        a, p, o = outs["whole"]
+        r = rec[k] = {
+            "first_call": first, "padded_chunks": want,
+            "k1a_launches_measured": stats["whole"]["launches"]["K1"][
+                "mono"], "steady_state_captures": captures, **stats,
+            "whole_over_host": (stats["whole"]["warm_ms"]
+                                / stats["host"]["warm_ms"]),
+            # acc, pot, flags
+            "bit_equal_to_host": [bool(torch.equal(x, y))
+                                  for x, y in zip((a, p, o), hosts[k])],
+            "bit_equal_to_acc_pot_u": [bool(torch.equal(a, a1)),
+                                       bool(torch.equal(p, p1))],
+            "first_call_equal": _leaves_equal(out, outs["whole"]),
+            "overflow": o.tolist()}
+        if (not all(r["bit_equal_to_host"] + r["bit_equal_to_acc_pot_u"])
+                or not r["first_call_equal"] or o.any() or o1.any()
+                or captures
+                or booked["whole"] != launched(booked["whole"],
+                                               {"K1": {"mono": want}})):
+            raise AssertionError(f"multi sharded whole {k}: {r}")
+    return rec
+
+
+def step_whole(state, cfg) -> dict:
+    """Phase multi, the whole sharded step: sharded.leapfrog_step_sharded
+    at LET_SHARDS shards (one CUDA graph: two builds, two sharded queries
+    over the padded capacity chunks, the KDK arithmetic) against
+    leapfrog_step_sharded_host and integrate.leapfrog_step (one device;
+    its body run once eagerly, graph=False: its graph is timed in phase
+    leapfrog, on config #2), from one state: the sharded whole step's first call
+    (first_call), STEP_REPS warm steps of the two sharded twins in turns
+    that capture nothing, the sharded whole step's K1a launches
+    (bookkeeping) 2 x the padded capacity chunks. pos and vel are
+    expected bit-equal across the three; where the sharded whole step
+    parts from the single-device one, the record names where (the first
+    build's query, or what follows it) and the step tolerances must hold.
+    Raises on a flag. Returns the record."""
+    from rakau_tpu_torch import build, integrate
+    from rakau_tpu_torch.parallel import sharded
+    mesh = sharded.default_mesh(LET_SHARDS)
+    args = (state, MULTI_DT, cfg, THETA, MULTI_EPS)
+    ways = {"sharded_whole": lambda: sharded.leapfrog_step_sharded(
+                *args, 1.0, mesh),
+            "sharded_host": lambda: sharded.leapfrog_step_sharded_host(
+                *args, 1.0, mesh)}
+    ways["sharded_host"]()              # its graphs, as a step finds them
+    first = first_call(ways["sharded_whole"])[1]
+    outs, ms, booked, captures = in_turns(ways, STEP_REPS, "multi step")
+    outs["single_whole"] = integrate.leapfrog_step(*args, graph=False)
+    stats = {w: warm_stats(ms[w]) for w in ways}
+    td = build.build_tree(state.pos, state.mass, cfg)
+    want = 2 * padded_chunks(td, cfg, LET_SHARDS)
+    s, o = outs["sharded_whole"]
+    rec = {"n": state.pos.shape[0], "shards": LET_SHARDS,
+           "first_call": first, "k1a_launches_want": want,
+           "k1a_launches_booked": booked["sharded_whole"]["K1"]["mono"],
+           "steady_state_captures": captures, **stats,
+           "sharded_whole_over_host": (stats["sharded_whole"]["warm_ms"]
+                                       / stats["sharded_host"]["warm_ms"]),
+           "overflow": [v[1].tolist() for v in outs.values()]}
+    for w in ("single_whole", "sharded_host"):
+        ref = outs[w][0]
+        rec[f"bit_equal_to_{w}"] = [bool(torch.equal(s.pos, ref.pos)),
+                                    bool(torch.equal(s.vel, ref.vel))]
+        rec[f"max_abs_diff_{w}"] = [float((s.pos - ref.pos).abs().max()),
+                                    float((s.vel - ref.vel).abs().max())]
+    ref = outs["single_whole"][0]
+    if not all(rec["bit_equal_to_single_whole"]):
+        # where the sharded whole step parts from the single-device one
+        q = [integrate.acc_pot(state.pos, state.mass, cfg, THETA, MULTI_EPS,
+                               graph=False),
+             sharded.acc_pot_sharded(state.pos, state.mass, cfg, THETA,
+                                     MULTI_EPS, 1.0, mesh, graph=False)]
+        rec["parts_at"] = ("the first build's query" if not torch.equal(
+            q[0][0], q[1][0]) else "after the first build's query")
+    pos_tol = STEP_POS_ATOL_REL * float(ref.pos.abs().max())
+    vel_tol = STEP_VEL_ATOL_REL * float(ref.vel.abs().max())
+    if (any(any(v) for v in rec["overflow"]) or captures
+            or booked["sharded_whole"] != launched(
+                booked["sharded_whole"], {"K1": {"mono": want}})
+            or any(d[0] > pos_tol or d[1] > vel_tol for d in (
+                rec["max_abs_diff_single_whole"],
+                rec["max_abs_diff_sharded_host"]))):
+        raise AssertionError(f"multi step whole: {rec}")
+    return rec
+
+
+def let_whole(pos, mass, cfg_q, caps: dict, mesh, oracle, dev) -> dict:
+    """Phase multi, the whole LET: let.acc_pot_let (one CUDA graph a call:
+    phase 0, the local builds, the domains, the export walk, the
+    exchange, the local queries over each shard's tile capacity, the
+    return route) on let_check's particles, mesh and caps, in both phase0
+    modes, against acc_pot_let_host: the first call (first_call), LET_REPS
+    warm calls each way in turns that capture nothing, and
+    (distributed) a profiled replay whose K1a launches on the card must
+    equal the bookkeeping's. Raises unless the sums, flags, export
+    overflow and export counts are bit-equal to the host twin's and no
+    flag is set. Returns the record with the whole call's force and
+    potential RMS against the oracle (acc_o, pot_o, samp)."""
+    from rakau_tpu_torch.parallel import let
+    rec = {}
+    for phase0 in ("distributed", "global"):
+        kw = dict(phase0=phase0, with_stats=True, **caps)
+        args = (pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh)
+        ways = {"whole": lambda: let.acc_pot_let(*args, **kw),
+                "host": lambda: let.acc_pot_let_host(*args, **kw)}
+        ways["host"]()                  # its graphs, as a step finds them
+        _, first = first_call(ways["whole"])
+        outs, ms, booked, captures = in_turns(ways, LET_REPS,
+                                              f"multi let {phase0}")
+        stats = {w: warm_stats(ms[w]) for w in ways}
+        if phase0 == "distributed":
+            stats["whole"].update(profiled(ways["whole"], booked["whole"],
+                                           stats["whole"]["warm_ms"]))
+        w, h = outs["whole"], outs["host"]
+        f_rms, p_rms = sampled_rms(w[0], w[1], *oracle, dev)
+        r = rec[phase0] = {
+            "first_call": first, "steady_state_captures": captures,
+            **stats, "whole_over_host": (stats["whole"]["warm_ms"]
+                                         / stats["host"]["warm_ms"]),
+            "k1a_launches": {v: booked[v]["K1"]["mono"] for v in ways},
+            "bit_equal_to_host": [bool(torch.equal(x, y))
+                                  for x, y in zip(w, h)],
+            "overflow": w[2].tolist(), "export_ovf": bool(w[3]),
+            "force_rms": f_rms, "pot_rms": p_rms}
+        if (not all(r["bit_equal_to_host"]) or w[2].any() or w[3]
+                or captures):
+            raise AssertionError(f"multi let whole {phase0}: {r}")
+    return rec
 
 
 def let_sized(pos, mass, cfg, eps, mesh, caps: dict, box_size=None,
               phase0: str = "distributed"):
-    """acc_pot_let with the query's caps grown on overflow and the export
-    caps raised while export_ovf is set (export_cap to the power of two
-    above the largest count when a count exceeds it, else the walk's four
-    caps doubled). Returns ((acc, pot, counts), seconds of the last
+    """acc_pot_let_host with the query's caps grown on overflow and the
+    export caps raised while export_ovf is set (export_cap to the power of
+    two above the largest count when a count exceeds it, else the walk's
+    four caps doubled). Returns ((acc, pot, counts), seconds of the last
     (synced) run, launches of its K1 forms, caps, query config)."""
     from rakau_tpu_torch.config import grow_overflowed
     from rakau_tpu_torch.parallel import let
     caps = dict(caps)
     for _ in range(MULTI_TRIES):
-        (out, counts), ms = synced_ms(lambda: counted(lambda: let.acc_pot_let(
-            pos, mass, cfg, THETA, eps, 1.0, mesh, box_size=box_size,
-            phase0=phase0, with_stats=True, **caps)))
+        (out, counts), ms = synced_ms(lambda: counted(
+            lambda: let.acc_pot_let_host(
+                pos, mass, cfg, THETA, eps, 1.0, mesh, box_size=box_size,
+                phase0=phase0, with_stats=True, **caps)))
         acc, pot, ovf, xo, cnt = out
         if ovf.any():
             cfg = grow_overflowed(cfg, ovf.tolist())
@@ -4656,11 +4887,11 @@ def let_check(n: int, cfg_l, seed: int, dev) -> dict:
     mesh = sharded.default_mesh(LET_SHARDS)
     (acc, pot, cnt), let_s, k1, caps, cfg_q = let_sized(
         pos, mass, cfg_l, MULTI_EPS, mesh, LET_CAPS)
-    (acc_g, _, ovf_g, xo_g, _) = let.acc_pot_let(
+    (acc_g, _, ovf_g, xo_g, _) = let.acc_pot_let_host(
         pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh, phase0="global",
         with_stats=True, **caps)
     with let.stage_seconds() as stages:
-        let.acc_pot_let(pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh,
+        let.acc_pot_let_host(pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh,
                         **caps)
     # the whole LET with its local query run eagerly and from CUDA graphs
     # (the default): the first graphed run captures (the cache emptied
@@ -4672,7 +4903,7 @@ def let_check(n: int, cfg_l, seed: int, dev) -> dict:
             from rakau_tpu_torch import engine
             engine.clear_graphs()
         with engine_graph(graph), let.stage_seconds() as st:
-            _, ms = synced_ms(lambda: let.acc_pot_let(
+            _, ms = synced_ms(lambda: let.acc_pot_let_host(
                 pos, mass, cfg_q, THETA, MULTI_EPS, 1.0, mesh, **caps))
         local[mode] = {"let_s": ms / 1e3, "stage_s": dict(st)}
     # a second particle set of the same count, as a step hands the LET:
@@ -4680,8 +4911,9 @@ def let_check(n: int, cfg_l, seed: int, dev) -> dict:
     # graphs' tally records no capture)
     gen2 = torch.Generator(device=dev).manual_seed(seed + 1)
     pos2, mass2 = particles.plummer(n, generator=gen2)
-    (_, booked), ms = synced_ms(lambda: counted(lambda: let.acc_pot_let(
-        pos2, mass2, cfg_q, THETA, MULTI_EPS, 1.0, mesh, **caps)))
+    (_, booked), ms = synced_ms(lambda: counted(
+        lambda: let.acc_pot_let_host(pos2, mass2, cfg_q, THETA, MULTI_EPS,
+                                     1.0, mesh, **caps)))
     from rakau_tpu_torch import engine
     local["graphed_new_particles"] = {
         "let_s": ms / 1e3, "k1a_launches": booked["K1"]["mono"],
@@ -4715,6 +4947,8 @@ def let_check(n: int, cfg_l, seed: int, dev) -> dict:
         k1_launches={f: v for f, v in k1.items() if v},
         force_rms=f_let, pot_rms=p_let, single_force_rms=f_one,
         single_pot_rms=p_one, global_vs_distributed_rms=cross)
+    rec["whole"] = let_whole(pos, mass, cfg_q, caps, mesh,
+                             (acc_o, pot_o, samp), dev)
     if (ovf_g.any() or xo_g
             or not f_let < max(LET_FORCE_RATIO * f_one, LET_FORCE_FLOOR)
             or not p_let < LET_POT_MAX or not cross < LET_CROSS_MAX):
@@ -4758,19 +4992,36 @@ def let_accuracy_engine(seed: int, dev) -> dict:
 
 def multi(pos, mass, cfg, seed: int, dev, let_n: int) -> dict:
     """Phase multi: the F2 repair (f2_check), the tile-sharded query and
-    step on the main particles (sharded_check), the LET on let_n Plummer
-    particles (let_check) and on the accuracy engine
-    (let_accuracy_engine). Every shard of a mesh
-    sits on cuda:(r % card count): with one card all shards share it, and
-    no copy between cards or collective over NVLink is made."""
+    step on the main particles through the _host twins (sharded_check)
+    and the whole twins (sharded_whole, step_whole), the LET on let_n
+    Plummer particles through both twins (let_check, let_whole) and on
+    the accuracy engine (let_accuracy_engine); the seconds of each part.
+    Every shard of a mesh sits on cuda:(r % card count): with one card
+    all shards share it, and no copy between cards or collective over
+    NVLink is made."""
+    from rakau_tpu_torch import engine
     t0 = time.perf_counter()
-    rec = dict(cards=torch.cuda.device_count())
-    rec["f2"] = f2_check(seed, dev)
-    rec["sharded"], cfg_l = sharded_check(pos, mass, cfg, dev)
+    rec = dict(cards=torch.cuda.device_count(), part_s={})
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec["part_s"][name] = time.perf_counter() - t
+        return out
+
+    rec["f2"] = part("f2", lambda: f2_check(seed, dev))
+    rec["sharded"], cfg_l, (td, cfg_g, hosts, state, cfg_s) = part(
+        "sharded", lambda: sharded_check(pos, mass, cfg, dev))
+    rec["sharded_whole"] = part("sharded_whole",
+                                lambda: sharded_whole(td, cfg_g, hosts))
+    rec["step_whole"] = part("step_whole", lambda: step_whole(state, cfg_s))
+    del td, hosts, state
+    engine.clear_graphs()
+    rec["let"] = part("let", lambda: let_check(let_n, cfg_l, seed + 1, dev))
     torch.cuda.empty_cache()
-    rec["let"] = let_check(let_n, cfg_l, seed + 1, dev)
-    torch.cuda.empty_cache()
-    rec["let_accuracy_engine"] = let_accuracy_engine(seed + 2, dev)
+    rec["let_accuracy_engine"] = part(
+        "let_accuracy_engine", lambda: let_accuracy_engine(seed + 2, dev))
     if rec["cards"] == 1:
         rec["note"] = ("one card: every shard ran on cuda:0; copies between "
                        "cards and NVLink collectives were not exercised")

@@ -45,9 +45,11 @@ one for the gwalk walk, pool and launch (`_gwalk_query`, `_gwalk_jit`
 with `_far_jit`), one for the assembly and grid2's far field
 (`_tail_impl`, `_assemble_jit` with `_far_jit`), and `acc_pot_u` whole as
 one; `build_tree` replays the tree build (the reference's `_build_jit`),
-and integrate.py's whole-call twins put builds and `_query_impl` in one
-graph. The per-tree state and the query's one host read (`live_chunks`)
-stay outside every graph of `acc_pot_u_host`. `graph=None` takes graphs
+integrate.py's whole-call twins put builds and `_query_impl` in one
+graph, and parallel/'s whole twins their builds with `_chunk_loop` over
+each shard's chunks or with `_query_impl(extra=)` (the LET). The
+per-tree state and the query's one host read (`live_chunks`) stay
+outside every graph of `acc_pot_u_host`. `graph=None` takes graphs
 on CUDA tensors and runs eagerly on CPU tensors; `graph=False` runs
 eagerly on the card too (the A/B and the per-layer timing), `graph=True`
 on CPU tensors raises.
@@ -770,6 +772,9 @@ def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, G,
                 mode: str = "both", extra=None):
     """acc_pot_u's computation: tiles, tables and far field, every chunk of
     the tile capacity, the tail. Returns (acc_u, pot_u, ovf, maxima)."""
+    if cfg.traversal_mode == "gwalk" and extra is not None:
+        raise NotImplementedError(
+            "LET imports ride the shared/lmac engines, not gwalk")
     tiles = _gather_tiles(td, cfg)
     Lgrid = _grid_farfield(td, cfg, eps)
     if cfg.traversal_mode == "gwalk":
@@ -801,9 +806,6 @@ def acc_pot_u(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     G are Python numbers; extra as in acc_pot_u_host (gwalk raises
     NotImplementedError, the lists path ValueError)."""
     graph = _use_graph(graph, td.pos, cfg)
-    if cfg.traversal_mode == "gwalk" and extra is not None:
-        raise NotImplementedError(
-            "LET imports ride the shared/lmac engines, not gwalk")
     acc_u, pot_u, ovf, mx = _run(graph, _query_impl, td, cfg, theta, eps, G,
                                  mode=mode, extra=extra)
     if with_stats:

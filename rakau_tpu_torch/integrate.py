@@ -155,11 +155,11 @@ def _host(graph):
             functools.partial(_engine.acc_pot_u_host, graph=graph))
 
 
-def _whole(graph, body, *args):
-    """body(*args, build.build_tree, engine._query_impl), on the card as
-    one CUDA graph (engine._run)."""
-    return _engine._run(graph, body, *args, _build.build_tree,
-                        _engine._query_impl)
+def _whole(graph, body, *args, query=_engine._query_impl):
+    """body(*args, build.build_tree, query), on the card as one CUDA graph
+    (engine._run). query: engine._query_impl, or the sharded query
+    (parallel.sharded)."""
+    return _engine._run(graph, body, *args, _build.build_tree, query)
 
 
 # ---------------------------------------------------------------- the twins

@@ -24,14 +24,20 @@ a conservative coarsened view of the rest:
   4. The exports move by one `all_to_all` into fixed [ndev, export_cap]
      slots.
   5. Each shard queries its local tree with the imports as extra sources
-     of every tile (engine.acc_pot_u_host(extra=)): far imports go into
-     the tile expansions, near ones ride the pairwise kernel.
+     of every tile: far imports go into the tile expansions, near ones
+     ride the pairwise kernel.
   6. The results return to their input shard through the inverse
      permutations and one `all_to_all`.
 
-The shards run in turn on one controller (parallel/mesh.py); inside
-`stage_seconds()` the mesh is synchronised around each stage and its
-seconds recorded.
+The shards run in turn on one controller (parallel/mesh.py). The twins,
+as in parallel/sharded.py, run one pipeline (`_let`) given a build and a
+query: `acc_pot_let`, the reference's executable, with build.build_tree
+and engine._query_impl(extra=) (every chunk of the tile capacity), no
+host read and on a one-card mesh one CUDA graph; `acc_pot_let_host` with
+engine.build_tree and engine.acc_pot_u_host(extra=) (one host read of
+n_tiles a shard, the live chunks in sliced graphs). Inside
+`stage_seconds()` acc_pot_let_host synchronises the mesh around each
+stage and records its seconds.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ _timing = None
 
 @contextmanager
 def stage_seconds():
-    """Inside the block, acc_pot_let synchronises the mesh's devices
+    """Inside the block, acc_pot_let_host synchronises the mesh's devices
     around each of its stages ("phase0", "local_build", "export_walk",
     "exchange", "local_query", "return_route") and adds the stage's
     seconds to the yielded dict."""
@@ -115,8 +121,9 @@ def _route(codes_s: list, nl: int, cap: int, s_smp: int) -> list:
     reference's (hi, lo) word-pair test. Returns [(dest, start, cnt,
     x_ovf)] per shard."""
     ndev = len(codes_s)
-    sidx = ((torch.arange(s_smp) * nl) // s_smp + nl // (2 * s_smp))
-    smp = _mesh.all_gather([c[sidx.to(c.device)] for c in codes_s])
+    smp = _mesh.all_gather([
+        c[(torch.arange(s_smp, device=c.device) * nl) // s_smp
+          + nl // (2 * s_smp)] for c in codes_s])
     out = []
     for me, (code, sm) in enumerate(zip(codes_s, smp)):
         dev = code.device
@@ -152,7 +159,7 @@ def _export_rows(td, cfg_e: TreeConfig, theta, dlo, dhi, not_me,
 
 def _export_query(mesh: Mesh, tds: list, cfg_q, cfg_e, theta, eps, G,
                   box_size: list, export_cap: int, dlo: list, dhi: list,
-                  not_me: list):
+                  not_me: list, query):
     """The LET's back half on every shard: export walk, exchange, local
     query with the imports. Returns per shard the results in the local
     pre-build order (acc, pot), the overflow flags [4] and export_ovf
@@ -169,7 +176,7 @@ def _export_query(mesh: Mesh, tds: list, cfg_q, cfg_e, theta, eps, G,
     with _stage(mesh, "local_query"):
         for td, ip, im in zip(tds, imp_pos, imp_mass):
             ndim = td.pos.shape[1]
-            a, p, o, _ = _engine.acc_pot_u_host(
+            a, p, o, _ = query(
                 td, cfg_q, theta, eps, G,
                 extra=(ip.reshape(ndev * export_cap, ndim),
                        im.reshape(ndev * export_cap)))
@@ -186,11 +193,21 @@ def acc_pot_let(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
                 export_node_cap: int = 8192, export_part_cap: int = 32768,
                 export_leaf_cap: int = 4096, export_frontier_cap: int = 1024,
                 phase0: str = "distributed", exchange_slack: float = 2.0,
-                splitter_samples: int = 128, with_stats: bool = False):
-    """The whole LET pipeline. Returns (acc [N, D], pot [N], overflow [4],
-    export_ovf) in the input order on the first shard's device, and with
-    with_stats the export-count matrix [ndev, ndev] (exports[src, dst],
-    the halo volume). theta, eps and G are numbers.
+                splitter_samples: int = 128, with_stats: bool = False,
+                graph=None):
+    """The whole LET pipeline, the reference's executable: phase 0, the
+    local builds (build.build_tree), the domains, the export walk, the
+    exchange, the local queries (engine._query_impl(extra=), every chunk
+    of each shard's tile capacity) and the return route, with no host
+    read; on a one-card mesh one CUDA graph (graph as in
+    parallel.sharded: on a mesh over several cards graph=None or True
+    raises ValueError, graph=False runs eagerly). Returns (acc [N, D],
+    pot [N], overflow [4], export_ovf) in the input order on the first
+    shard's device, and with with_stats the export-count matrix [ndev,
+    ndev] (exports[src, dst], the halo volume): all of them outputs of
+    the graph, read by the caller after the call. theta, eps and G are
+    numbers. stage_seconds() times acc_pot_let_host only: inside it this
+    raises ValueError.
 
     phase0="distributed" (the default) runs the sample-sort assignment:
     each shard's local sort, splitters from a gathered regular sample,
@@ -199,25 +216,67 @@ def acc_pot_let(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
     larger exchange_slack), as does an export count above export_cap or
     an overflowed export walk. phase0="global" sorts globally on the
     first shard and cuts equal ranges."""
-    theta, eps, G = float(theta), float(eps), float(G)
+    if _timing is not None:
+        raise ValueError("stage_seconds() synchronises the mesh between "
+                         "the stages of acc_pot_let_host; the whole call "
+                         "has no stages to time: call acc_pot_let_host")
+    dev0 = mesh.devices[0]
+    pos, mass = pos.to(dev0), mass.to(dev0)
+    graph = _mesh.one_card(_engine._use_graph(graph, pos, cfg), mesh)
+    if isinstance(box_size, torch.Tensor):
+        box_size = box_size.to(dev0)
+    out = _engine._run(
+        graph, _let, pos, mass, cfg, float(theta), float(eps), float(G),
+        mesh, box_size, (export_cap, export_node_cap, export_part_cap,
+                         export_leaf_cap, export_frontier_cap),
+        phase0, exchange_slack, splitter_samples, _build.build_tree,
+        _engine._query_impl)
+    return out if with_stats else out[:4]
+
+
+def acc_pot_let_host(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
+                     box_size=None, export_cap: int = 16384,
+                     export_node_cap: int = 8192,
+                     export_part_cap: int = 32768,
+                     export_leaf_cap: int = 4096,
+                     export_frontier_cap: int = 1024,
+                     phase0: str = "distributed",
+                     exchange_slack: float = 2.0,
+                     splitter_samples: int = 128, with_stats: bool = False):
+    """acc_pot_let's _host twin: each local build through
+    engine.build_tree (its graph on the card) and each local query through
+    engine.acc_pot_u_host(extra=) (one host read of n_tiles, the live
+    chunks in sliced graphs). Returns what acc_pot_let returns, the same
+    sums bit for bit; inside stage_seconds() each stage is timed."""
+    out = _let(pos, mass, cfg, float(theta), float(eps), float(G), mesh,
+               box_size, (export_cap, export_node_cap, export_part_cap,
+                          export_leaf_cap, export_frontier_cap),
+               phase0, exchange_slack, splitter_samples, _engine.build_tree,
+               _engine.acc_pot_u_host)
+    return out if with_stats else out[:4]
+
+
+def _let(pos, mass, cfg, theta, eps, G, mesh, box_size, caps, phase0,
+         slack, samples, build, query):
+    """Both twins' pipeline, given `build(pos, mass, cfg, box_size)` and
+    `query(td, cfg, theta, eps, G, extra=)`. Returns (acc, pot, overflow,
+    export_ovf, the export counts [ndev, ndev] on the first shard)."""
     ndev = mesh.size
     n, ndim = pos.shape
     dtype = pos.dtype
-    if box_size is None:
-        box_size = _particles.auto_box_size(pos)
-    box_size = torch.as_tensor(box_size, dtype=dtype, device=pos.device)
+    box_size = (_particles.auto_box_size(pos) if box_size is None
+                else _particles.scalar_tensor(box_size, pos))
     depth = cfg.max_depth
     cfg_q = _query_cfg(cfg)
-    cfg_e = _export_cfg(cfg, export_node_cap, export_part_cap,
-                        export_leaf_cap, export_frontier_cap)
+    cfg_e = _export_cfg(cfg, *caps[1:])
     n_pad = -(-n // ndev) * ndev
     nl = n_pad // ndev
     boxes = _mesh.to_shards(mesh, box_size)
     corner = torch.full((n_pad - n, ndim), 0.4999, dtype=dtype,
                         device=pos.device) * box_size
     zeros = torch.zeros(n_pad - n, dtype=dtype, device=pos.device)
-    args = (mesh, cfg_q, cfg_e, theta, eps, G, boxes, export_cap, n, nl,
-            depth)
+    args = (mesh, cfg_q, cfg_e, theta, eps, G, boxes, caps[0], n, nl,
+            depth, build, query)
     if phase0 == "global":
         out = _let_global(pos, mass, corner, zeros, *args)
     elif phase0 == "distributed":
@@ -230,15 +289,12 @@ def acc_pot_let(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
              for r, d in enumerate(mesh.devices)],
             [mass_p[r * nl:(r + 1) * nl].to(d)
              for r, d in enumerate(mesh.devices)],
-            exchange_slack, splitter_samples, *args)
+            slack, samples, *args)
     else:
         raise ValueError("phase0 must be 'distributed' or 'global'")
     acc, pot, ovf, exp_ovf, cnts = out
-    if with_stats:
-        dev0 = mesh.devices[0]
-        return acc, pot, ovf, exp_ovf, torch.stack([c.to(dev0)
-                                                    for c in cnts])
-    return acc, pot, ovf, exp_ovf
+    dev0 = mesh.devices[0]
+    return acc, pot, ovf, exp_ovf, torch.stack([c.to(dev0) for c in cnts])
 
 
 def _domains(lo: list, hi: list, nonempty: list):
@@ -252,7 +308,8 @@ def _domains(lo: list, hi: list, nonempty: list):
 
 
 def _let_distributed(pos_sh, mass_sh, slack, samples, mesh, cfg_q, cfg_e,
-                     theta, eps, G, boxes, export_cap, n, nl, depth):
+                     theta, eps, G, boxes, export_cap, n, nl, depth, build,
+                     query):
     ndev = mesh.size
     ndim = pos_sh[0].shape[1]
     cap = max(1, -(-int(nl * slack) // ndev))
@@ -297,8 +354,7 @@ def _let_distributed(pos_sh, mass_sh, slack, samples, mesh, cfg_q, cfg_e,
     with _stage(mesh, "local_build"):
         tds, lo, hi, ne = [], [], [], []
         for (_, pos_r, mass_r, val_r), box in zip(recv, boxes):
-            tds.append(_engine.build_tree(pos_r, mass_r, cfg_q,
-                                          box_size=box))
+            tds.append(build(pos_r, mass_r, cfg_q, box))
             big = 2.0 * box
             lo.append(torch.where(val_r[:, None], pos_r, big).amin(0))
             hi.append(torch.where(val_r[:, None], pos_r, -big).amax(0))
@@ -306,7 +362,7 @@ def _let_distributed(pos_sh, mass_sh, slack, samples, mesh, cfg_q, cfg_e,
         dlo, dhi, not_me = _domains(lo, hi, ne)
     accs, pots, ovf, exp_ovf, cnts = _export_query(
         mesh, tds, cfg_q, cfg_e, theta, eps, G, boxes, export_cap, dlo, dhi,
-        not_me)
+        not_me, query)
     with _stage(mesh, "return_route"):
         # ---- each received row's result back to the shard it came from ---
         acc_rcv, pot_rcv = [], []
@@ -341,7 +397,7 @@ def _let_distributed(pos_sh, mass_sh, slack, samples, mesh, cfg_q, cfg_e,
 
 
 def _let_global(pos, mass, corner, zeros, mesh, cfg_q, cfg_e, theta, eps,
-                G, boxes, export_cap, n, nl, depth):
+                G, boxes, export_cap, n, nl, depth, build, query):
     """phase0="global": one global Morton sort on the input's device and
     equal contiguous ranges (O(N) memory on one device)."""
     with _stage(mesh, "phase0"):
@@ -355,7 +411,7 @@ def _let_global(pos, mass, corner, zeros, mesh, cfg_q, cfg_e, theta, eps,
         mass_sh = [mass_s[r * nl:(r + 1) * nl].to(d)
                    for r, d in enumerate(mesh.devices)]
     with _stage(mesh, "local_build"):
-        tds = [_engine.build_tree(p, m, cfg_q, box_size=b)
+        tds = [build(p, m, cfg_q, b)
                for p, m, b in zip(pos_sh, mass_sh, boxes)]
         # domain boxes over every row, the zero-mass ones included
         # (conservative)
@@ -366,7 +422,7 @@ def _let_global(pos, mass, corner, zeros, mesh, cfg_q, cfg_e, theta, eps,
                                      for p in pos_sh])
     accs, pots, ovf, exp_ovf, cnts = _export_query(
         mesh, tds, cfg_q, cfg_e, theta, eps, G, boxes, export_cap, dlo, dhi,
-        not_me)
+        not_me, query)
     with _stage(mesh, "return_route"):
         dev0 = mesh.devices[0]
         inv = _inverse(perm).to(dev0)

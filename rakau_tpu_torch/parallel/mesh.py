@@ -49,6 +49,19 @@ def default_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     return Mesh(tuple(torch.device("cuda", r % cards) for r in range(n)))
 
 
+def one_card(graph: bool, mesh: Mesh) -> bool:
+    """graph (whether a whole call replays a CUDA graph), refused where the
+    mesh's shards sit on more than one device: a graph lives on one
+    card."""
+    devices = set(mesh.devices)
+    if graph and len(devices) > 1:
+        raise ValueError(
+            f"one CUDA graph cannot span the mesh's devices "
+            f"{sorted(map(str, devices))}: pass graph=False to run the "
+            "whole call eagerly, or call its _host twin")
+    return graph
+
+
 def all_to_all(xs: list) -> list:
     """xs[s]: [ndev, ...] on shard s. out[r] = stack over s of xs[s][r],
     on shard r's device (jax.lax.all_to_all(split_axis=0, concat_axis=0,
