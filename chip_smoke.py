@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (rakau_tpu_torch) once on one CUDA card.
 
-    python3 chip_smoke.py [--n N] [--seed S]
+    python3 chip_smoke.py [--n N] [--seed S] [--phases GROUP,...]
+
+--phases runs only the named groups of PHASES (device among them; e.g.
+device,build,multicard on a machine with several cards); every group runs
+by default, and only then is the kernels line printed.
 
 Phases, each printing one JSON line:
   1. device:   the card (nvidia-smi name and power limit), torch and CUDA;
@@ -296,6 +300,31 @@ Phases, each printing one JSON line:
                + "m2p" + quadrupole, 65,536 particles, 4 shards) within
                5e-3 of its single-device query (max |difference| over max
                |acc|);
+     multicard: the staged pipelines that the whole twins run on a mesh
+               over several cards (parallel/mesh.py: a CUDA graph a card
+               and stage, the copies between cards between them), first
+               on one card: sharded._query_impl(staged=True) at 4 shards
+               on the main tree (phase multi's configuration) and
+               let._let(staged=True) at 65,536 particles in both phase0
+               modes, each against the same whole twin as one graph on
+               the same one-card mesh: first call of each, 3 warm calls
+               each way in turns (none capturing), one profiled staged
+               call (K1a a card from the profile's device index, summing
+               to the padded capacity chunks for the query; busy share a
+               card), bit-equal sums, flags and export counts; then, with
+               more than one card, on default_mesh() and
+               default_mesh(2 x cards), each whole twin across the cards
+               against the same call on a one-card mesh of as many
+               shards, with its _host twin and graph=False across the
+               cards held equal too: the sharded query on the main tree
+               (and, on default_mesh() only, on cards x N particles), the
+               sharded step and acc_pot_sharded on the main particles,
+               the LET at 262,144 in both phase0 modes and the accuracy
+               engine's LET at 65,536, each case on a line of its own
+               (multicard_case); with the bytes copied between cards, the
+               peer
+               access of each pair, and each graph's tensors on its
+               key's card;
   9. leapfrog: BASELINE config #2 (benchmarks/configs.py:90-114) through
                rakau_tpu_torch.integrate: a cold sphere of N particles
                (--n, default 1,048,576), zero velocities, 3 steps of
@@ -335,6 +364,10 @@ from contextlib import ExitStack, contextmanager
 import numpy as np
 import torch
 
+# the phase groups that --phases selects, in the order they run (edge: the
+# edge phases; main: phases main through f1)
+PHASES = ("device", "build", "edge", "main", "multi", "multicard",
+          "leapfrog")
 THETA = 0.75
 TREE_KW = dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32,
                farfield="grid", m2p_cap=9728, p2p_leaf_cap=5888,
@@ -506,11 +539,16 @@ def emit(phase: str, **kw):
     torch.cuda.synchronize()
 
 
-def card_line() -> str:
+def card_lines() -> list:
+    """nvidia-smi's name and power limit of every card, a line each."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        check=True).stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def build_kernels() -> dict:
@@ -4870,7 +4908,7 @@ def let_sized(pos, mass, cfg, eps, mesh, caps: dict, box_size=None,
                          f"overflow {bool(xo)} at caps {caps}")
 
 
-def let_check(n: int, cfg_l, seed: int, dev) -> dict:
+def let_check(n: int, cfg_l, seed: int, dev) -> tuple:
     """The LET on n Plummer particles, LET_SHARDS shards, shared+"local"
     with the main phase's caps, theta THETA, eps MULTI_EPS, distributed
     phase 0 (caps sized by let_sized): against the float64 direct sum on
@@ -4954,7 +4992,7 @@ def let_check(n: int, cfg_l, seed: int, dev) -> dict:
             or not p_let < LET_POT_MAX or not cross < LET_CROSS_MAX):
         raise AssertionError(f"multi let: {rec}, global flags "
                              f"{ovf_g.tolist()} {bool(xo_g)}")
-    return rec
+    return rec, (pos, mass, cfg_q, caps)
 
 
 def let_accuracy_engine(seed: int, dev) -> dict:
@@ -4990,15 +5028,17 @@ def let_accuracy_engine(seed: int, dev) -> dict:
     return rec
 
 
-def multi(pos, mass, cfg, seed: int, dev, let_n: int) -> dict:
+def multi(pos, mass, cfg, seed: int, dev, let_n: int) -> tuple:
     """Phase multi: the F2 repair (f2_check), the tile-sharded query and
     step on the main particles through the _host twins (sharded_check)
     and the whole twins (sharded_whole, step_whole), the LET on let_n
     Plummer particles through both twins (let_check, let_whole) and on
     the accuracy engine (let_accuracy_engine); the seconds of each part.
     Every shard of a mesh sits on cuda:(r % card count): with one card
-    all shards share it, and no copy between cards or collective over
-    NVLink is made."""
+    all shards share it, and no copy between cards is made (phase
+    multicard makes them). Returns the record and the sharded query's
+    configuration and let_check's particles, query configuration and
+    caps (for phase multicard)."""
     from rakau_tpu_torch import engine
     t0 = time.perf_counter()
     rec = dict(cards=torch.cuda.device_count(), part_s={})
@@ -5018,64 +5058,408 @@ def multi(pos, mass, cfg, seed: int, dev, let_n: int) -> dict:
     rec["step_whole"] = part("step_whole", lambda: step_whole(state, cfg_s))
     del td, hosts, state
     engine.clear_graphs()
-    rec["let"] = part("let", lambda: let_check(let_n, cfg_l, seed + 1, dev))
+    rec["let"], let_set = part("let", lambda: let_check(let_n, cfg_l,
+                                                        seed + 1, dev))
     torch.cuda.empty_cache()
     rec["let_accuracy_engine"] = part(
         "let_accuracy_engine", lambda: let_accuracy_engine(seed + 2, dev))
     if rec["cards"] == 1:
         rec["note"] = ("one card: every shard ran on cuda:0; copies between "
-                       "cards and NVLink collectives were not exercised")
+                       "cards were not exercised here (phase multicard)")
     rec["seconds"] = time.perf_counter() - t0
     emit("multi", **rec)
+    return rec, (cfg_g, let_set)
+
+
+# ------------------------------------------------------- phase multicard
+# the staged pipelines on one card: the sharded query's shards, the LET's
+# particles; warm calls of each way (in turns) there and across cards
+MC_SHARDS, MC_LET_N, MC_REPS = LET_SHARDS, LET_N, 3
+# across cards: the LET's particles (the accuracy engine's are F1_N)
+MC_CROSS_LET_N = 262144
+
+
+def all_synced_ms(fn):
+    """(fn(), wall ms) with every card synchronised before and after."""
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    out = fn()
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def card_profile(fn) -> tuple:
+    """fn() under torch.profiler (CUDA activity only): the K1a records of
+    each card (kineto's device index), held to the bookkeeping of the same
+    call (counted; the profiler can drop a record, so the call is
+    profiled again, at most PROFILE_TRIES times, until the cards' sum
+    shows it), each card's busy ms (the union of its device records) and
+    busy share of the call's wall ms (every card synchronised). Returns
+    (fn(), the record)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_SHIFT * (tries - 1)):
+                torch.cuda._sleep(1)
+            (out, ms), booked = counted(lambda: all_synced_ms(fn))
+        k1a, by_card = {}, {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            d = e.device_index()
+            by_card.setdefault(d, []).append(e)
+            name = e.name()
+            if ("shared_fused_kernel" in name
+                    and kernel_form(name) == ("K1", "mono")):
+                k1a[d] = k1a.get(d, 0) + 1
+        want = booked["K1"]["mono"]
+        if sum(k1a.values()) == want:
+            busy = {d: device_busy(ev)[1] for d, ev in sorted(by_card.items())}
+            return out, {"k1a_launches_by_card": dict(sorted(k1a.items())),
+                         "k1a_launches_booked": want, "profiled_ms": ms,
+                         "busy_ms_by_card": busy,
+                         "busy_share_by_card": {d: b / ms
+                                                for d, b in busy.items()},
+                         "profile_runs": tries}
+        seen.append(k1a)
+    raise AssertionError(f"K1a on the cards' profiles {seen}, by the "
+                         f"bookkeeping {want}")
+
+
+def graphs_on_their_cards() -> dict:
+    """The graph cache's graphs by device, each one's static inputs and
+    outputs held to lie on its key's device (a graph captured on one card
+    never serves another)."""
+    from rakau_tpu_torch import engine
+    by_dev = {}
+    for k, g in engine._GRAPHS._graphs.items():
+        dev = k[2][0][2]
+        if any(t.device != dev for t in g.inputs + g.outputs):
+            raise AssertionError(f"graph {k[0].__name__} keyed on {dev} "
+                                 "holds tensors of another device")
+        by_dev[str(dev)] = by_dev.get(str(dev), 0) + 1
+    return by_dev
+
+
+def mc_case(ways: dict, flags, want_k1a=None) -> dict:
+    """One comparison of phase multicard. ways: "one" (the call on a
+    one-card mesh, the reference), "staged" (the same on the staged
+    pipeline, the cross-card way or, on one card, the internal staged
+    function) and optionally "host" and "eager" (the _host twin and
+    graph=False on the staged way's mesh). The graphs emptied, the first
+    call of "one" then of "staged" (seconds, captures), MC_REPS warm calls
+    of both in turns (every card synchronised; none may capture), one
+    profiled call of "staged" (card_profile: K1a a card, summing to
+    want_k1a where given; busy shares; the bytes the collectives copied
+    between cards), then "host" and "eager" once each. Raises unless
+    every way's outputs are bit-equal to "one"'s and flags(out) is
+    clear. Returns the record."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.parallel import mesh as pm
+    engine.clear_graphs()
+    outs, rec = {}, {"first_call_s": {}, "first_call_captures": {}}
+    for w in ("one", "staged"):
+        engine._GRAPHS.reset_tally()
+        outs[w], ms = all_synced_ms(ways[w])
+        rec["first_call_s"][w] = ms / 1e3
+        rec["first_call_captures"][w] = engine._GRAPHS.captures
+    warm, captures = {"one": [], "staged": []}, 0
+    for i in range(MC_REPS):
+        for w in (("one", "staged") if i % 2 else ("staged", "one")):
+            engine._GRAPHS.reset_tally()
+            outs[w], ms = all_synced_ms(ways[w])
+            warm[w].append(ms)
+            captures += engine._GRAPHS.captures
+    stats = {w: warm_stats(v) for w, v in warm.items()}
+    pm.reset_copied()
+    _, prof = card_profile(ways["staged"])
+    rec.update(stats=stats, staged_over_one=(stats["staged"]["warm_ms"]
+                                             / stats["one"]["warm_ms"]),
+               steady_state_captures=captures, profile=prof,
+               # the profiled call's copies (each run copies the same)
+               copied_bytes={f"{a}->{b}": v // prof["profile_runs"]
+                             for (a, b), v in sorted(pm.copied.items())},
+               graphs_by_device=graphs_on_their_cards())
+    for w in ("host", "eager"):
+        if w in ways:
+            outs[w], ms = all_synced_ms(ways[w])
+            rec[f"{w}_s"] = ms / 1e3
+    rec["bit_equal_to_one"] = {w: _leaves_equal(outs[w], outs["one"])
+                               for w in outs if w != "one"}
+    rec["flags_clear"] = not any(bool(f.any()) for f in flags(outs["one"]))
+    if want_k1a is not None:
+        rec["k1a_want"] = want_k1a
+    if (not all(rec["bit_equal_to_one"].values()) or not rec["flags_clear"]
+            or captures or (want_k1a is not None
+                            and prof["k1a_launches_booked"] != want_k1a)):
+        raise AssertionError(f"multicard: {rec}")
     return rec
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=1 << 20)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-    t_start = time.perf_counter()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false)", file=sys.stderr)
-        return 2
-    from rakau_tpu_torch import direct_acc_pot_np, octree, particles
+def local_config(td, cfg):
+    """cfg with farfield "local" and its caps grown until the main tree's
+    single-device query clears them (sharded_check's start), then back to
+    "grid": the sharded query's configuration (it falls back to
+    "local")."""
     from rakau_tpu_torch import engine
+
+    def single(c):
+        out = engine.acc_pot_u_host(td, c, THETA, 0.0)
+        return None, out[2]
+
+    return clear_of_overflow(single, cfg.with_(farfield="local"),
+                             "single-device query")[1].with_(farfield="grid")
+
+
+def mc_let_setup(n: int, cfg, seed: int, mesh, eps=MULTI_EPS, box=None):
+    """n Plummer particles from seed on cuda:0 and the LET's caps for
+    `mesh` (let_sized, the _host twin): (pos, mass, query config, caps)."""
+    from rakau_tpu_torch import particles
+    gen = torch.Generator(device="cuda:0").manual_seed(seed)
+    pos, mass = particles.plummer(n, generator=gen)
+    _, _, _, caps, cfg_q = let_sized(pos, mass, cfg, eps, mesh, LET_CAPS,
+                                     box_size=box)
+    return pos, mass, cfg_q, caps
+
+
+def let_flags(out):
+    return out[2], out[3]
+
+
+def mc_let_ways(pos, mass, cfg_q, caps, mesh, one, eps=MULTI_EPS, box=None,
+                phase0="distributed", staged_fn=False) -> dict:
+    """The LET's ways for mc_case: the whole twin on the one-card mesh
+    `one` and on `mesh` (staged_fn: let._let with staged=True, the
+    internal function, instead of the public call), and across cards its
+    _host twin and graph=False."""
+    from rakau_tpu_torch import build, engine
+    from rakau_tpu_torch.parallel import let
+    kw = dict(box_size=box, phase0=phase0, with_stats=True, **caps)
+    args = (pos, mass, cfg_q, THETA, eps, 1.0)
+    ways = {"one": lambda: let.acc_pot_let(*args, one, **kw)}
+    if staged_fn:
+        cap_t = tuple(caps[k] for k in ("export_cap", "export_node_cap",
+                                        "export_part_cap", "export_leaf_cap",
+                                        "export_frontier_cap"))
+        ways["staged"] = lambda: let._let(
+            *args, mesh, box, cap_t, phase0, 2.0, 128, build.build_tree,
+            engine._query_impl, staged=True)
+        return ways
+    ways["staged"] = lambda: let.acc_pot_let(*args, mesh, **kw)
+    ways["host"] = lambda: let.acc_pot_let_host(*args, mesh, **kw)
+    ways["eager"] = lambda: let.acc_pot_let(*args, mesh, graph=False, **kw)
+    return ways
+
+
+def multicard_one(td, cfg_g, let_set, seed: int) -> dict:
+    """Phase multicard on one card: the staged pipelines (the functions
+    the public whole twins call on a mesh over several cards) replaying
+    their per-card graphs on cuda:0, against the one-graph whole twins on
+    the same one-card mesh: the sharded query at MC_SHARDS shards on the
+    main tree (cfg_g, as sharded_whole), K1a = the padded capacity
+    chunks; the LET in both phase0 modes on let_set (phase multi's
+    let_check particles, query configuration and caps at MC_SHARDS
+    shards), or where None on MC_LET_N particles (at most the main
+    tree's) sized here, shared+"local" with the main caps."""
+    from rakau_tpu_torch.parallel import sharded
+    from rakau_tpu_torch.parallel.mesh import Mesh
+    dev0 = torch.device("cuda", 0)
+    one = Mesh((dev0,) * MC_SHARDS)
+    args = (td, cfg_g, THETA, 0.0, 1.0, one)
+    rec = {"shards": MC_SHARDS, "query": mc_case(
+        {"one": lambda: sharded.acc_pot_u_sharded(*args),
+         "staged": lambda: sharded._query_impl(*args, staged=True)},
+        lambda out: out[2:3],
+        padded_chunks(td, cfg_g.with_(farfield="local"), MC_SHARDS))}
+    pos, mass, cfg_q, caps = let_set or mc_let_setup(
+        min(MC_LET_N, td.pos.shape[0]), cfg_g.with_(farfield="local"), seed,
+        one)
+    rec["let"] = {"n": pos.shape[0], "caps": caps}
+    for phase0 in ("distributed", "global"):
+        rec["let"][phase0] = mc_case(
+            mc_let_ways(pos, mass, cfg_q, caps, one, one, phase0=phase0,
+                        staged_fn=True), let_flags)
+    return rec
+
+
+def multicard_cross(pos, mass, td, cfg_g, n: int, seed: int) -> dict:
+    """Phase multicard across the cards: on default_mesh() (a shard a
+    card) and default_mesh(2 x cards), each whole twin against the same
+    call on a one-card mesh of as many shards (mc_case), with its _host
+    twin and graph=False across the cards: the sharded query on the main
+    tree, the sharded step and acc_pot_sharded on the main particles, the
+    LET at MC_CROSS_LET_N (at most n) in both phase0 modes and the
+    accuracy engine's LET at F1_N; then, on default_mesh() only, the
+    query on cards x n particles (the weak-scaling shape). Each case is
+    printed as it ends (phase multicard_case). A case that fails is
+    recorded under
+    "failures" and the others still run (multicard raises after printing
+    the record)."""
+    from rakau_tpu_torch import build, engine, integrate, particles
+    from rakau_tpu_torch.config import TreeConfig
+    from rakau_tpu_torch.parallel import mesh as pm
+    from rakau_tpu_torch.parallel import sharded
+    cards = torch.cuda.device_count()
+    dev0 = torch.device("cuda", 0)
+    rec = {"peer_access": {
+        f"cuda:{a}->cuda:{b}": torch.cuda.can_device_access_peer(a, b)
+        for a in range(cards) for b in range(cards) if a != b},
+           "meshes": {}, "failures": []}
+
+    def case(where: str, fn):
+        engine.clear_graphs()
+        t = time.perf_counter()
+        try:
+            out = fn()
+        except Exception as e:  # noqa: BLE001 (recorded, raised after)
+            rec["failures"].append(f"{where}: {type(e).__name__}: "
+                                   f"{str(e)[:1500]}")
+            out = {"error": rec["failures"][-1]}
+        # each case on a line of its own as it ends
+        emit("multicard_case", case=where, seconds=time.perf_counter() - t,
+             **out)
+        return out
+
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    pos_w, mass_w = particles.plummer(cards * n, generator=gen)
+    td_w = build.build_tree(pos_w, mass_w, cfg_g)
+    if bool(td_w.overflow):
+        raise AssertionError("multicard: the weak-scaling build overflowed")
+    cfg_w = local_config(td_w, cfg_g)
+    rec["weak"] = {"n": cards * n, "caps": {
+        f: getattr(cfg_w, f) for f in ("m2p_cap", "p2p_leaf_cap",
+                                       "p2p_src_cap", "frontier_cap")}}
+    state = integrate.NBodyState(pos, torch.zeros_like(pos), mass)
+    cfg_l = cfg_g.with_(farfield="local")
+    # the trees acc_pot_sharded and the step build ("local" clips no tile)
+    td_l = build.build_tree(pos, mass, cfg_l)
+
+    def step1(c):
+        out = integrate.leapfrog_step_host(state, MULTI_DT, c, THETA,
+                                           MULTI_EPS)
+        return None, out[1]
+
+    cfg_s = clear_of_overflow(step1, cfg_l, "leapfrog_step_host")[1]
+
+    def single(c):
+        out = integrate.acc_pot_host(ap, am, c, THETA, LET_ACC_EPS,
+                                     box_size=LET_ACC_BOX)
+        return None, out[2]
+
+    gen = torch.Generator(device=dev0).manual_seed(seed + 2)
+    ap, am = particles.plummer(F1_N, generator=gen)
+    acfg = clear_of_overflow(single, TreeConfig(**LET_ACC_KW),
+                             "accuracy engine")[1]
+    gen = torch.Generator(device=dev0).manual_seed(seed + 1)
+    lp, lm = particles.plummer(min(MC_CROSS_LET_N, n), generator=gen)
+
+    def query_ways(t, c, mesh, one):
+        args = (t, c, THETA, 0.0, 1.0)
+        return {"one": lambda: sharded.acc_pot_u_sharded(*args, one),
+                "staged": lambda: sharded.acc_pot_u_sharded(*args, mesh),
+                "host": lambda: sharded.acc_pot_u_sharded_host(*args, mesh),
+                "eager": lambda: sharded.acc_pot_u_sharded(*args, mesh,
+                                                           graph=False)}
+
+    def twin_ways(name, first, c, mesh, one):
+        whole = getattr(sharded, name)
+        host = getattr(sharded, name + "_host")
+        args = first + (c, THETA, MULTI_EPS, 1.0)
+        return {"one": lambda: whole(*args, one),
+                "staged": lambda: whole(*args, mesh),
+                "host": lambda: host(*args, mesh),
+                "eager": lambda: whole(*args, mesh, graph=False)}
+
+    def let_case(p, m_, c, eps, box, phase0s, mesh, one):
+        _, _, _, caps, cfg_q = let_sized(p, m_, c, eps, mesh, LET_CAPS,
+                                         box_size=box)
+        out = {"n": p.shape[0], "caps": caps}
+        for phase0 in phase0s:
+            out[phase0] = mc_case(mc_let_ways(p, m_, cfg_q, caps, mesh, one,
+                                              eps=eps, box=box,
+                                              phase0=phase0), let_flags)
+        return out
+
+    for k in (cards, 2 * cards):
+        mesh = sharded.default_mesh(k)
+        one = pm.Mesh((dev0,) * k)
+        m = rec["meshes"][k] = {"devices": [str(d) for d in mesh.devices]}
+        m["query"] = case(f"query {k}", lambda: mc_case(
+            query_ways(td, cfg_g, mesh, one), lambda out: out[2:3],
+            padded_chunks(td, cfg_l, k)))
+        m["step"] = case(f"step {k}", lambda: mc_case(
+            twin_ways("leapfrog_step_sharded", (state, MULTI_DT), cfg_s,
+                      mesh, one), lambda out: out[1:2],
+            2 * padded_chunks(td_l, cfg_s, k)))
+        m["acc_pot_sharded"] = case(f"acc_pot_sharded {k}", lambda: mc_case(
+            twin_ways("acc_pot_sharded", (pos, mass), cfg_l, mesh, one),
+            lambda out: out[2:3], padded_chunks(td_l, cfg_l, k)))
+        m["let"] = case(f"let {k}", lambda: let_case(
+            lp, lm, cfg_l, MULTI_EPS, None, ("distributed", "global"), mesh,
+            one))
+        m["let_accuracy_engine"] = case(
+            f"let_accuracy_engine {k}", lambda: let_case(
+                ap, am, acfg, LET_ACC_EPS, LET_ACC_BOX, ("distributed",),
+                mesh, one))
+    # the weak-scaling query, a shard a card (the costliest case, last)
+    mesh = sharded.default_mesh(cards)
+    rec["meshes"][cards]["query_weak"] = case(
+        f"query_weak {cards}", lambda: mc_case(
+            query_ways(td_w, cfg_w, mesh, pm.Mesh((dev0,) * cards)),
+            lambda out: out[2:3], padded_chunks(td_w, cfg_l, cards)))
+    engine.clear_graphs()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def multicard(pos, mass, cfg, multi_set, seed: int, n: int) -> dict:
+    """Phase multicard: multicard_one on every run; with more than one
+    card, multicard_cross. multi_set: phase multi's sharded query
+    configuration and LET set (let_check), or None (then local_config of
+    cfg, the main tree's, and a LET set sized here)."""
+    from rakau_tpu_torch import build, engine
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    cfg_g, let_set = multi_set or (None, None)
+    if cfg_g is None:
+        td = build.build_tree(pos, mass, cfg)
+        cfg_g = local_config(td, cfg)
+    td = build.build_tree(pos, mass, cfg_g)
+    rec = {"cards": cards, "cards_nvidia_smi": card_lines()}
+    failures = []
+    t = time.perf_counter()
+    rec["one_card"] = multicard_one(td, cfg_g, let_set, seed)
+    rec["one_card_s"] = time.perf_counter() - t
+    engine.clear_graphs()
+    torch.cuda.empty_cache()
+    if cards > 1:
+        t = time.perf_counter()
+        rec["cross"] = multicard_cross(pos, mass, td, cfg_g, n, seed + 3)
+        rec["cross_s"] = time.perf_counter() - t
+        failures = rec["cross"]["failures"]
+    else:
+        rec["note"] = ("one card: the staged pipelines ran on cuda:0 only; "
+                       "the cross-card part did not run")
+    del td
+    engine.clear_graphs()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    emit("multicard", **rec)
+    if failures:
+        raise AssertionError(f"multicard across the cards: {failures}")
+    return rec
+
+
+def main_path(n: int, seed: int, pos, mass, dev) -> dict:
+    """Phase group "main": phases main through f1 on the main particles.
+    Returns what the kernels line and phases multi and multicard take."""
+    from rakau_tpu_torch import direct_acc_pot_np, engine, octree
     from rakau_tpu_torch.kernels import pool, shared
-
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    emit("device", nvidia_smi=card, torch=torch.__version__,
-         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count())
-
-    emit("build", **build_kernels())
-
-    edge_err, cancel = edge_cases(shared, dev)
-    emit("edge", max_abs_err=edge_err, cancellation_err=cancel)
-    edge_err, cancel = pool_edge_cases(dev)
-    emit("edge_pool", max_abs_err=edge_err, cancellation_err=cancel)
-    emit("edge_cell", max_abs_err=cell_edge_cases(shared, dev),
-         wide_cells_max_abs_err=wide_cell_cases(shared, dev))
-    emit("edge_mma", max_abs_err=mma_edge_cases(shared, dev),
-         structure_max_abs_err=k6_structure_cases(shared, dev))
-    emit("edge_blocks", max_abs_err=blocks_edge_cases(shared, dev))
-    f64 = torch.float64
-    k1_err, k1_stair = edge_cases(shared, dev, f64)
-    k2_err, k2_stair = pool_edge_cases(dev, f64)
-    emit("edge_f64", max_abs_err={
-        "K1": k1_err, "K1c": cell_edge_cases(shared, dev, f64), "K2": k2_err},
-        staircase_err_u={"K1": k1_stair, "K2": k2_stair})
-    emit("edge_tiles", max_abs_err={
-        "float32": tiles_edge_cases(dev, torch.float32),
-        "float64": tiles_edge_cases(dev, f64)})
-
     # ---- main path -----------------------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    pos, mass = particles.plummer(args.n, generator=gen)
     torch.cuda.synchronize()
     shared.reset_launches()
     t0 = time.perf_counter()
@@ -5110,7 +5494,7 @@ def main(argv=None) -> int:
     prof = device_profile(tree, "shared_fused_", "k1a_device_ms")
     want = launched(prof["launches"], {"K1": {"mono": evaluated}})
     launches = prof["launches"]["K1"]["mono"]
-    emit("main", n=args.n, theta=THETA, build_ms=build_ms,
+    emit("main", n=n, theta=THETA, build_ms=build_ms,
          cold_query_ms=cold_ms, warm_query_ms=warm_ms, warm_query_ms_all=warm,
          warm_spread=(max(warm) - min(warm)) / warm_ms,
          n_nodes=tree.n_nodes, n_tiles=int(td.n_tiles), chunks=chunks,
@@ -5119,7 +5503,7 @@ def main(argv=None) -> int:
          cold_launches=cold_launches,
          caps={f: getattr(cfg, f) for f in
                ("m2p_cap", "p2p_leaf_cap", "p2p_src_cap", "frontier_cap")},
-         evals_per_s=args.n / (warm_ms / 1e3))
+         evals_per_s=n / (warm_ms / 1e3))
     if prof["launches"] != want or chunks <= 0 or cold_launches <= 0:
         raise AssertionError(
             f"main path: launches on the card's profile "
@@ -5129,7 +5513,7 @@ def main(argv=None) -> int:
     if any(c != want for c in booked):
         raise AssertionError(f"main path: booked launches {booked} differ "
                              f"from the profile's {nonzero(want)}")
-    if acc.shape != (args.n, 3) or pot.shape != (args.n,):
+    if acc.shape != (n, 3) or pot.shape != (n,):
         raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
     if not (torch.isfinite(acc).all() and torch.isfinite(pot).all()):
         raise AssertionError("non-finite accelerations or potentials")
@@ -5147,7 +5531,7 @@ def main(argv=None) -> int:
     whole_rec = {"build main": build_ab(pos, mass, cfg, tree.box_size,
                                         "main (shared+grid)"),
                  "Tree rebuild": rebuild_captures(tree, pos),
-                 "graft entry": graft_entry(args.seed + 8, dev)}
+                 "graft entry": graft_entry(seed + 8, dev)}
 
     # ---- kernel vs plain at the main path's chunk shapes ----------------
     worst, k_ms, p_ms, b_ms, per_mode = 0.0, [], [], [], {}
@@ -5168,7 +5552,7 @@ def main(argv=None) -> int:
                 k_ms.append(km)
                 p_ms.append(pm)
         C, T, _ = inputs[0].shape
-        b, b_by = bound(inputs, args.n)
+        b, b_by = bound(inputs, n)
         b_ms.append((b, b_by))
         emit("kernel", form="mono", chunk=ch, C=C, T=T,
              S=int(inputs[2].shape[0]), **k1_shape(inputs),
@@ -5177,8 +5561,8 @@ def main(argv=None) -> int:
              pct_of_bound=100 * b / per_mode["both"][-1]["ms"])
 
     # ---- accuracy against the float64 oracle ----------------------------
-    samp = np.sort(np.random.default_rng(args.seed + 1).choice(
-        args.n, 256, replace=False))
+    samp = np.sort(np.random.default_rng(seed + 1).choice(
+        n, 256, replace=False))
     pos_np = pos.double().cpu().numpy()
     acc_o, pot_o = direct_acc_pot_np(pos_np, mass.double().cpu().numpy(),
                                      targets=samp)
@@ -5195,7 +5579,7 @@ def main(argv=None) -> int:
     vrec, v_launches = variant_queries(tree, oracle, (f_rms, p_rms), "mma",
                                        dev)
     emit("variants", config="shared+grid", **vrec)
-    v_forms = variant_kernels(tree, args.n, "shared+grid")
+    v_forms = variant_kernels(tree, n, "shared+grid")
     density(tree, "shared+grid")
     del tree, td, acc, pot
     torch.cuda.empty_cache()
@@ -5205,17 +5589,17 @@ def main(argv=None) -> int:
                                                    (f_rms, p_rms), dev)
     emit("grid2_layers", **grid2_layer_ms(g2tree, g2["warm_query_ms"]))
     grid2_tf32(g2tree, dev)
-    c_forms = cell_kernels(g2tree, g2qtree, args.n)
+    c_forms = cell_kernels(g2tree, g2qtree, n)
     del g2tree, g2qtree
     torch.cuda.empty_cache()
 
     # ---- the lmac engine: no walk, one predicate panel a chunk -----------
-    lmac_cpu_cuda(args.seed + 3, dev)
+    lmac_cpu_cuda(seed + 3, dev)
     lmac_cfg, lv_forms, lv_launches, lmac_rec = lmac_main(pos, mass, oracle,
                                                           dev)
     graphs_rec["lmac+grid2"] = lmac_rec["graphs"]
     torch.cuda.empty_cache()
-    lmac_gate(args.seed + 4, dev)
+    lmac_gate(seed + 4, dev)
     kernel_roofs(cfg, lmac_cfg)
     torch.cuda.empty_cache()
 
@@ -5240,22 +5624,42 @@ def main(argv=None) -> int:
                                                (f_rms, p_rms), dev)
         graphs_rec["lists"] = trec["graphs"]
         torch.cuda.empty_cache()
-        lists_quad(args.seed + 5, dev)
+        lists_quad(seed + 5, dev)
     torch.cuda.empty_cache()
 
     # ---- F1: 2-D and float64 trees on the card --------------------------
-    _, f64_launches, f64_forms = f1(args.seed + 6, dev)
+    _, f64_launches, f64_forms = f1(seed + 6, dev)
     torch.cuda.empty_cache()
 
-    # ---- the multi-device paths: F2, sharded query and step, LET ---------
-    mrec = multi(pos, mass, cfg, args.seed + 7, dev, min(LET_N, args.n))
-    torch.cuda.empty_cache()
+    return dict(
+        cfg=cfg, launches=launches, worst=worst, k_ms=k_ms, p_ms=p_ms,
+        b_ms=b_ms, graphs_rec=graphs_rec, whole_rec=whole_rec,
+        c_launches=c_launches, c_forms=c_forms, v_forms=v_forms,
+        v_launches=v_launches, lv_forms=lv_forms, lv_launches=lv_launches,
+        g_launches=g_launches, q_launches=q_launches, k2=k2,
+        t_launches=t_launches, t_forms=t_forms, f64_launches=f64_launches,
+        f64_forms=f64_forms)
 
-    # ---- BASELINE config #2: the leapfrog harness -----------------------
-    lf, etree, ecfg = leapfrog(args.n, args.seed + 2, dev)
-    forms = energy_kernels(etree, ecfg)
-    emit("graphs", summary=graphs_summary(graphs_rec, mrec,
-                                          {**whole_rec, **lf["graphs"]}))
+
+def main_config(pos, mass):
+    """The main tree's configuration where phase group "main" did not run:
+    octree(...) with TREE_KW and one query, which grows its caps."""
+    from rakau_tpu_torch import octree
+    tree = octree(coords=pos, masses=mass, **TREE_KW)
+    tree.accs_pots_o(THETA)
+    return tree.config
+
+def kernels_line(m: dict, lf: dict, forms: dict) -> list:
+    """The kernels line: every kernel form with its launches on the main
+    path, time, plain time and bound (m: main_path's results; lf, forms:
+    phase leapfrog's and its energy kernels')."""
+    (launches, worst, k_ms, p_ms, b_ms, whole_rec, c_launches, c_forms,
+     v_forms, v_launches, lv_forms, lv_launches, g_launches, q_launches, k2,
+     t_launches, t_forms, f64_launches, f64_forms) = (m[k] for k in (
+        "launches", "worst", "k_ms", "p_ms", "b_ms", "whole_rec",
+        "c_launches", "c_forms", "v_forms", "v_launches", "lv_forms",
+        "lv_launches", "g_launches", "q_launches", "k2", "t_launches",
+        "t_forms", "f64_launches", "f64_forms"))
     whole_k1a = {
         "leapfrog_step_morton (config #2)": lf["graphs"]["leapfrog_step"][
             "k1a_launches_measured"]["whole"],
@@ -5340,8 +5744,93 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": f64_launches[key],
                         **f64_forms[key], "library_ms": None})
+    return kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1 << 20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="the phase groups to run, comma-separated, of "
+                         + ",".join(PHASES) + " (default: all; the kernels "
+                         "line is printed when all run)")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES) or "device" not in phases:
+        ap.error(f"--phases takes groups of {PHASES}, device among them")
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    from rakau_tpu_torch import particles
+    from rakau_tpu_torch.kernels import shared
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    emit("device", nvidia_smi=card, torch=torch.__version__,
+         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count())
+
+    if "build" in phases:
+        emit("build", **build_kernels())
+
+    if "edge" in phases:
+        edge_err, cancel = edge_cases(shared, dev)
+        emit("edge", max_abs_err=edge_err, cancellation_err=cancel)
+        edge_err, cancel = pool_edge_cases(dev)
+        emit("edge_pool", max_abs_err=edge_err, cancellation_err=cancel)
+        emit("edge_cell", max_abs_err=cell_edge_cases(shared, dev),
+             wide_cells_max_abs_err=wide_cell_cases(shared, dev))
+        emit("edge_mma", max_abs_err=mma_edge_cases(shared, dev),
+             structure_max_abs_err=k6_structure_cases(shared, dev))
+        emit("edge_blocks", max_abs_err=blocks_edge_cases(shared, dev))
+        f64 = torch.float64
+        k1_err, k1_stair = edge_cases(shared, dev, f64)
+        k2_err, k2_stair = pool_edge_cases(dev, f64)
+        emit("edge_f64", max_abs_err={
+            "K1": k1_err, "K1c": cell_edge_cases(shared, dev, f64),
+            "K2": k2_err}, staircase_err_u={"K1": k1_stair, "K2": k2_stair})
+        emit("edge_tiles", max_abs_err={
+            "float32": tiles_edge_cases(dev, torch.float32),
+            "float64": tiles_edge_cases(dev, f64)})
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    pos, mass = particles.plummer(args.n, generator=gen)
+    if "main" in phases:
+        m = main_path(args.n, args.seed, pos, mass, dev)
+        cfg = m["cfg"]
+    elif phases & {"multi", "multicard"}:
+        cfg = main_config(pos, mass)
+    torch.cuda.empty_cache()
+
+    # ---- the multi-device paths: F2, sharded query and step, LET ---------
+    multi_set = None
+    if "multi" in phases:
+        mrec, multi_set = multi(pos, mass, cfg, args.seed + 7, dev,
+                                min(LET_N, args.n))
+        torch.cuda.empty_cache()
+    # ---- the staged pipelines, per card (across the cards where several) -
+    if "multicard" in phases:
+        multicard(pos, mass, cfg, multi_set, args.seed + 9, args.n)
+        torch.cuda.empty_cache()
+
+    # ---- BASELINE config #2: the leapfrog harness -----------------------
+    kernels = None
+    if "leapfrog" in phases:
+        lf, etree, ecfg = leapfrog(args.n, args.seed + 2, dev)
+        forms = energy_kernels(etree, ecfg)
+        del etree
+    if phases == set(PHASES):
+        emit("graphs", summary=graphs_summary(
+            m["graphs_rec"], mrec, {**m["whole_rec"], **lf["graphs"]}))
+        kernels = kernels_line(m, lf, forms)
     emit("total", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -163,7 +163,7 @@ struct Args {
 template <int MODE, bool COMP, bool QUAD>
 int blocks_per_sm()
 {
-    static int occ = 0;
+    static int occ[kMaxDevices] = {};
     return fit_per_sm(pool_kernel<MODE, COMP, QUAD>, occ);
 }
 

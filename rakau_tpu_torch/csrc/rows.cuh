@@ -56,6 +56,8 @@
 
 #include <type_traits>
 
+#include "per_device.cuh"
+
 #ifdef RAKAU_REAL
 // The float64 build: at least four resident blocks a SM (at most 128
 // registers a thread), as K1's float64 build, against spills.
@@ -526,10 +528,12 @@ rows_reduce_kernel(const real4* __restrict__ sums,    // [spans, T]
 inline size_t align256(size_t at) { return (at + 255) / 256 * 256; }
 
 // CUDA blocks of `kernel` (kThreads threads, static shared memory) that
-// fit on an SM at once, at least 1; `occ` caches it.
+// fit on an SM at once, at least 1; `cache` keeps it per device
+// (per_device.cuh).
 template <class K>
-int fit_per_sm(K kernel, int& occ)
+int fit_per_sm(K kernel, int* cache)
 {
+    int& occ = device_slot(cache);
     if (occ == 0) {
         int got = 0;
         if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -386,10 +386,12 @@ Layout layout(int C, int T, int S, int span)
 }
 
 // CUDA blocks of the main kernel that fit on an SM at once (at least 1);
-// sets its dynamic shared memory limit first where it needs one.
+// sets its dynamic shared memory limit first where it needs one, once on
+// each device (per_device.cuh).
 int blocks_per_sm()
 {
-    static int occ = 0;
+    static int cache[kMaxDevices] = {};
+    int& occ = device_slot(cache);
     if (occ == 0) {
         if (kDynamicSmem > 0)
             cudaFuncSetAttribute(shared_blocks_kernel,

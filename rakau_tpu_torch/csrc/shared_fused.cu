@@ -548,11 +548,13 @@ struct Args {
 };
 
 // CUDA blocks of one form that fit on an SM at once (at least 1); sets
-// the form's dynamic shared memory limit first where it needs one.
+// the form's dynamic shared memory limit first where it needs one, once
+// on each device (per_device.cuh).
 template <int MODE, bool COMP, bool QUAD, int CELL>
 int blocks_per_sm()
 {
-    static int occ = 0;
+    static int cache[kMaxDevices] = {};
+    int& occ = device_slot(cache);
     if (occ == 0) {
         constexpr size_t smem = dynamic_smem<QUAD, CELL != 0>();
         auto kernel = shared_fused_kernel<MODE, COMP, QUAD, CELL>;

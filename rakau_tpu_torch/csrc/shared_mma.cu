@@ -614,7 +614,8 @@ struct Args {
 template <int MODE, int CELL, int PREC>
 int blocks_per_sm()
 {
-    static int occ = 0;
+    static int cache[kMaxDevices] = {};
+    int& occ = device_slot(cache);
     if (occ == 0) {
         int got = 0;
         if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(

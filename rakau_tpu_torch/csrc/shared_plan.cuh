@@ -31,6 +31,8 @@
 
 #include <type_traits>
 
+#include "per_device.cuh"
+
 #include "cell_test.cuh"
 
 #ifndef RAKAU_REAL

@@ -145,7 +145,7 @@ size_t workspace(int T, int cap)
 
 int k3_blocks_per_sm()
 {
-    static int occ = 0;
+    static int occ[kMaxDevices] = {};
     return fit_per_sm(tiles_fused_kernel, occ);
 }
 
@@ -214,7 +214,7 @@ tiles_pairwise_kernel(PairSrc src, const real* __restrict__ tgt,
 
 int k4_blocks_per_sm()
 {
-    static int occ = 0;
+    static int occ[kMaxDevices] = {};
     return fit_per_sm(tiles_pairwise_kernel, occ);
 }
 

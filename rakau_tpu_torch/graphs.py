@@ -19,9 +19,10 @@ with a key
     `torch.cuda.graphs` documentation requires before a capture): this
     builds the kernel libraries, fills the occupancy statics of `csrc/`
     and the constant tables (`device_constant`), and warms the allocator;
-  * captures it into a graph that draws on the cache's one memory pool
-    (the graphs never run at the same time, and each call clones its
-    outputs before any other replay can reuse their memory);
+  * captures it into a graph that draws on the cache's memory pool for
+    its device (the graphs of a device never run at the same time, and
+    each call clones its outputs before any other replay can reuse their
+    memory);
   * keeps the static input buffers, cloned from that call's tensors.
 Every call copies its tensors into the static inputs, replays the graph
 and returns clones of the outputs: fresh tensors, as a jitted call's are.
@@ -53,8 +54,10 @@ import torch
 
 # What a key holds for a tensor leaf; any other leaf must be hashable.
 _TENSOR = object()
-# Captured graphs a cache keeps; the one used least recently is dropped
-# first, because a graph pins its static inputs and outputs (a slice: a
+# Captured graphs a cache keeps a device (a graph and its key belong to
+# the device of its tensors, so one captured on one card never serves
+# another); the one used least recently there is dropped first, because
+# a graph pins its static inputs and outputs (a slice: a
 # copy of the tree, its tables and tile panels, 0.1-0.3 GB at 1M
 # particles; a build or a whole step: the particles and the tree, ~0.1
 # GB) and its share of the pool. A host-sliced leapfrog step holds three
@@ -62,6 +65,8 @@ _TENSOR = object()
 # the whole-call step and energy one each, a Tree's rebuild one: nine, so
 # that a steady-state step, energy query or rebuild captures nothing even
 # beside a whole-query `acc_pot_u`, a gwalk query and a kernel variant's.
+# A staged multi-card LET keeps nine on the first shard's card and seven
+# on each other card (parallel/mesh.py).
 SIZE = 16
 
 
@@ -125,7 +130,8 @@ class _Graph:
 
 
 class GraphCache:
-    """Captured CUDA graphs by key, at most SIZE of them. `counters`: the
+    """Captured CUDA graphs by key, at most SIZE of them a device.
+    `counters`: the
     launch-count dicts whose growth at capture the tally keeps (see the
     module's docstring): `captured` and `replayed`, one dict per counter,
     and `captures`, the graphs captured, set to zero by reset_tally()."""
@@ -180,12 +186,20 @@ class GraphCache:
             g = self._graphs.pop(k, None)
             if g is None:
                 g = self._capture(fn, k[1], tensors, dev)
-                while len(self._graphs) >= SIZE:
-                    self._graphs.pop(next(iter(self._graphs)))
-            self._graphs[k] = g         # the most recently used, last
+            self._keep(k, g)
             out = g.replay(tensors)
             _add(self.replayed, g.counts)
             return out
+
+    def _keep(self, k, g):
+        """g under key k as the most recently used graph (last), the least
+        recently used ones of its device (the key's tensors') dropped
+        while that device holds SIZE."""
+        dev = k[2][0][2]
+        mine = [kk for kk in self._graphs if kk[2][0][2] == dev]
+        for kk in mine[:max(0, len(mine) - SIZE + 1)]:
+            del self._graphs[kk]
+        self._graphs[k] = g
 
     def _snapshot(self):
         return [dict(c) for c in self.counters]
@@ -202,7 +216,10 @@ class GraphCache:
             self._pools[dev] = torch.cuda.graph_pool_handle()
         before = self._snapshot()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pools[dev]):
+        # captured on a stream of dev: torch.cuda.graph's own default
+        # capture stream is made once, on the device current at its first
+        # use, and a capture on another card would record into it
+        with torch.cuda.graph(graph, pool=self._pools[dev], stream=side):
             out = fn(*args, **kwargs)
         counts = [{f: c[f] - was[f] for f in c if c[f] != was[f]}
                   for c, was in zip(self.counters, before)]

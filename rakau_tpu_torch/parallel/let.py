@@ -29,15 +29,19 @@ a conservative coarsened view of the rest:
   6. The results return to their input shard through the inverse
      permutations and one `all_to_all`.
 
-The shards run in turn on one controller (parallel/mesh.py). The twins,
-as in parallel/sharded.py, run one pipeline (`_let`) given a build and a
-query: `acc_pot_let`, the reference's executable, with build.build_tree
-and engine._query_impl(extra=) (every chunk of the tile capacity), no
-host read and on a one-card mesh one CUDA graph; `acc_pot_let_host` with
-engine.build_tree and engine.acc_pot_u_host(extra=) (one host read of
-n_tiles a shard, the live chunks in sliced graphs). Inside
-`stage_seconds()` acc_pot_let_host synchronises the mesh around each
-stage and records its seconds.
+The shards run on one controller (parallel/mesh.py): each numbered step
+above is a per-shard stage, run for every shard (`mesh.stage_map`) between
+the collectives that move rows between shards. The twins, as in
+parallel/sharded.py, run one pipeline (`_let`) given a build and a query:
+`acc_pot_let`, the reference's executable, with build.build_tree and
+engine._query_impl(extra=) (every chunk of the tile capacity), no host
+read, on a one-card mesh one CUDA graph and on a mesh over several cards
+one CUDA graph a card and stage, the collectives between them;
+`acc_pot_let_host` with engine.build_tree and engine.acc_pot_u_host(extra=)
+(one host read of n_tiles a shard, the live chunks in sliced graphs), its
+stages eager under each card's device. Inside `stage_seconds()`
+acc_pot_let_host synchronises the mesh around each stage and records its
+seconds.
 """
 from __future__ import annotations
 
@@ -111,33 +115,6 @@ def _codes(pos, box_size, depth: int):
                          pos.shape[1], depth)
 
 
-def _route(codes_s: list, nl: int, cap: int, s_smp: int) -> list:
-    """Phase 0's routing from each shard's sorted codes [nl]: the
-    splitters from a gathered regular sample of `s_smp` codes a shard,
-    each row's owner `dest` [nl] (nondecreasing), the first row `start`
-    [ndev] and the count `cnt` [ndev] of each owner's run, and `x_ovf`,
-    set when a run bound for another shard exceeds `cap` (rows that stay
-    never ride the exchange). One int64 comparison replaces the
-    reference's (hi, lo) word-pair test. Returns [(dest, start, cnt,
-    x_ovf)] per shard."""
-    ndev = len(codes_s)
-    smp = _mesh.all_gather([
-        c[(torch.arange(s_smp, device=c.device) * nl) // s_smp
-          + nl // (2 * s_smp)] for c in codes_s])
-    out = []
-    for me, (code, sm) in enumerate(zip(codes_s, smp)):
-        dev = code.device
-        ranks = torch.arange(1, ndev, device=dev) * s_smp
-        sp = torch.sort(sm.reshape(-1)).values[ranks]          # [ndev-1]
-        dest = torch.searchsorted(sp, code, right=True)        # [nl]
-        ids = torch.arange(ndev, device=dev)
-        start = su.searchsorted_1d(dest, ids)
-        cnt = torch.cat([start[1:], start.new_full((1,), nl)]) - start
-        x_ovf = ((cnt > cap) & (ids != me)).any()
-        out.append((dest, start, cnt, x_ovf))
-    return out
-
-
 def _export_rows(td, cfg_e: TreeConfig, theta, dlo, dhi, not_me,
                  export_cap: int, box_size):
     """One shard's export walk (the domains as tiles) and its compaction
@@ -157,35 +134,54 @@ def _export_rows(td, cfg_e: TreeConfig, theta, dlo, dhi, not_me,
     return e_pos, e_mass, cnt, exp_ovf
 
 
+def _export_shard(me: int, td, cfg_e: TreeConfig, theta, dlo, dhi, ne,
+                  export_cap: int, box_size):
+    """Shard `me`'s export stage: _export_rows to every other nonempty
+    domain (ne [ndev], gathered)."""
+    not_me = (torch.arange(ne.shape[0], device=ne.device) != me) & ne
+    return _export_rows(td, cfg_e, theta, dlo, dhi, not_me, export_cap,
+                        box_size)
+
+
+def _local_query(td, imp_pos, imp_mass, cfg_q, theta, eps, G, query,
+                 perm_r):
+    """One shard's local query with its imports [ndev, export_cap] as extra
+    sources. Returns (acc, pot) in the rows' pre-build order (with phase0
+    "distributed", perm_r: in the order the rows were received) and the
+    overflow flags [4]."""
+    ndim = td.pos.shape[1]
+    E = imp_mass.numel()
+    a, p, o, _ = query(td, cfg_q, theta, eps, G,
+                       extra=(imp_pos.reshape(E, ndim), imp_mass.reshape(E)))
+    a, p = a[td.inv_perm], p[td.inv_perm]
+    if perm_r is not None:
+        inv = _inverse(perm_r)
+        a, p = a[inv], p[inv]
+    return a, p, o
+
+
 def _export_query(mesh: Mesh, tds: list, cfg_q, cfg_e, theta, eps, G,
-                  box_size: list, export_cap: int, dlo: list, dhi: list,
-                  not_me: list, query):
-    """The LET's back half on every shard: export walk, exchange, local
-    query with the imports. Returns per shard the results in the local
-    pre-build order (acc, pot), the overflow flags [4] and export_ovf
-    OR-reduced over the shards, and each shard's export counts [ndev]."""
+                  boxes: list, export_cap: int, lo: list, hi: list,
+                  ne: list, perms: list, query, staged):
+    """The LET's back half on every shard: the domains, the export walk,
+    the exchange, the local query with the imports. Returns per shard the
+    results (acc, pot; _local_query's order), the overflow flags [4], the
+    export overflow and the export counts [ndev]."""
     ndev = mesh.size
     with _stage(mesh, "export_walk"):
-        ex = [_export_rows(td, cfg_e, theta, lo, hi, nm, export_cap, box)
-              for td, lo, hi, nm, box in zip(tds, dlo, dhi, not_me,
-                                             box_size)]
+        dlo, dhi, ne = (_mesh.all_gather(x) for x in (lo, hi, ne))
+        ex = _mesh.stage_map(mesh, _export_shard, [
+            (me, tds[me], cfg_e, theta, dlo[me], dhi[me], ne[me], export_cap,
+             boxes[me]) for me in range(ndev)], staged)
     with _stage(mesh, "exchange"):
         imp_pos = _mesh.all_to_all([e[0] for e in ex])
         imp_mass = _mesh.all_to_all([e[1] for e in ex])
-    accs, pots, ovfs = [], [], []
     with _stage(mesh, "local_query"):
-        for td, ip, im in zip(tds, imp_pos, imp_mass):
-            ndim = td.pos.shape[1]
-            a, p, o, _ = query(
-                td, cfg_q, theta, eps, G,
-                extra=(ip.reshape(ndev * export_cap, ndim),
-                       im.reshape(ndev * export_cap)))
-            accs.append(a[td.inv_perm])
-            pots.append(p[td.inv_perm])
-            ovfs.append(o)
-    ovf = _mesh.any(ovfs)
-    exp_ovf = _mesh.any([e[3] for e in ex])
-    return accs, pots, ovf, exp_ovf, [e[2] for e in ex]
+        res = _mesh.stage_map(mesh, _local_query, [
+            (tds[me], imp_pos[me], imp_mass[me], cfg_q, theta, eps, G, query,
+             perms[me]) for me in range(ndev)], staged)
+    return ([r[0] for r in res], [r[1] for r in res], [r[2] for r in res],
+            [e[3] for e in ex], [e[2] for e in ex])
 
 
 def acc_pot_let(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
@@ -199,13 +195,13 @@ def acc_pot_let(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
     local builds (build.build_tree), the domains, the export walk, the
     exchange, the local queries (engine._query_impl(extra=), every chunk
     of each shard's tile capacity) and the return route, with no host
-    read; on a one-card mesh one CUDA graph (graph as in
-    parallel.sharded: on a mesh over several cards graph=None or True
-    raises ValueError, graph=False runs eagerly). Returns (acc [N, D],
-    pot [N], overflow [4], export_ovf) in the input order on the first
+    read; on a one-card mesh one CUDA graph, on a mesh over several cards
+    one graph a card and stage with the collectives between them (graph
+    as in parallel.sharded: graph=False runs eagerly). Returns (acc [N,
+    D], pot [N], overflow [4], export_ovf) in the input order on the first
     shard's device, and with with_stats the export-count matrix [ndev,
     ndev] (exports[src, dst], the halo volume): all of them outputs of
-    the graph, read by the caller after the call. theta, eps and G are
+    the graphs, read by the caller after the call. theta, eps and G are
     numbers. stage_seconds() times acc_pot_let_host only: inside it this
     raises ValueError.
 
@@ -222,15 +218,18 @@ def acc_pot_let(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
                          "has no stages to time: call acc_pot_let_host")
     dev0 = mesh.devices[0]
     pos, mass = pos.to(dev0), mass.to(dev0)
-    graph = _mesh.one_card(_engine._use_graph(graph, pos, cfg), mesh)
+    graph = _engine._use_graph(graph, pos, cfg)
     if isinstance(box_size, torch.Tensor):
         box_size = box_size.to(dev0)
-    out = _engine._run(
-        graph, _let, pos, mass, cfg, float(theta), float(eps), float(G),
-        mesh, box_size, (export_cap, export_node_cap, export_part_cap,
-                         export_leaf_cap, export_frontier_cap),
-        phase0, exchange_slack, splitter_samples, _build.build_tree,
-        _engine._query_impl)
+    args = (pos, mass, cfg, float(theta), float(eps), float(G), mesh,
+            box_size, (export_cap, export_node_cap, export_part_cap,
+                       export_leaf_cap, export_frontier_cap),
+            phase0, exchange_slack, splitter_samples, _build.build_tree,
+            _engine._query_impl)
+    if _mesh.one_card(mesh):
+        out = _engine._run(graph, _let, *args)
+    else:
+        out = _let(*args, staged=graph)
     return out if with_stats else out[:4]
 
 
@@ -245,187 +244,242 @@ def acc_pot_let_host(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
                      splitter_samples: int = 128, with_stats: bool = False):
     """acc_pot_let's _host twin: each local build through
     engine.build_tree (its graph on the card) and each local query through
-    engine.acc_pot_u_host(extra=) (one host read of n_tiles, the live
-    chunks in sliced graphs). Returns what acc_pot_let returns, the same
-    sums bit for bit; inside stage_seconds() each stage is timed."""
+    engine.acc_pot_u_host(extra=) (one host read of n_tiles a shard, the
+    live chunks in sliced graphs), each card's shards together under its
+    device (the stages run eagerly around those graphs). Returns what
+    acc_pot_let returns, the same sums bit for bit; inside
+    stage_seconds() each stage is timed."""
     out = _let(pos, mass, cfg, float(theta), float(eps), float(G), mesh,
                box_size, (export_cap, export_node_cap, export_part_cap,
                           export_leaf_cap, export_frontier_cap),
                phase0, exchange_slack, splitter_samples, _engine.build_tree,
-               _engine.acc_pot_u_host)
+               _engine.acc_pot_u_host, staged=False)
     return out if with_stats else out[:4]
 
 
-def _let(pos, mass, cfg, theta, eps, G, mesh, box_size, caps, phase0,
-         slack, samples, build, query):
-    """Both twins' pipeline, given `build(pos, mass, cfg, box_size)` and
-    `query(td, cfg, theta, eps, G, extra=)`. Returns (acc, pot, overflow,
-    export_ovf, the export counts [ndev, ndev] on the first shard)."""
-    ndev = mesh.size
+def _split(pos, mass, box_size, ndev: int, depth: int, global_sort: bool):
+    """Phase 0's first stage, on the first shard's device: the box (a
+    0-dim tensor), with global_sort the one global Morton sort's
+    permutation (else None), and the rows (sorted with global_sort)
+    padded to ndev equal ranges by zero-mass rows in the upper box corner
+    (results dropped at the end; they source nothing), one range a
+    shard."""
     n, ndim = pos.shape
-    dtype = pos.dtype
-    box_size = (_particles.auto_box_size(pos) if box_size is None
-                else _particles.scalar_tensor(box_size, pos))
+    nl = -(-n // ndev)
+    box = (_particles.auto_box_size(pos) if box_size is None
+           else _particles.scalar_tensor(box_size, pos))
+    corner = torch.full((nl * ndev - n, ndim), 0.4999, dtype=pos.dtype,
+                        device=pos.device) * box
+    zeros = torch.zeros(nl * ndev - n, dtype=pos.dtype, device=pos.device)
+    perm = None
+    if global_sort:
+        _, perm, (pos, mass) = _build.sort_by_code(_codes(pos, box, depth),
+                                                   pos, mass)
+    pos_p = torch.cat([pos, corner])
+    mass_p = torch.cat([mass, zeros])
+    return (box, perm, tuple(pos_p[r * nl:(r + 1) * nl] for r in range(ndev)),
+            tuple(mass_p[r * nl:(r + 1) * nl] for r in range(ndev)))
+
+
+def _collect(accs, pots, ovfs, flags, cnts, n: int, perm):
+    """The last stage, on the first shard's device: the shards' results
+    (gathered there, in shard order) cut to the n input rows, in the input
+    order (perm: the global sort's, phase0 "global"), the overflow flags
+    and the export overflows OR-ed, the export counts stacked."""
+    acc = torch.cat(accs)[:n]
+    pot = torch.cat(pots)[:n]
+    if perm is not None:
+        inv = _inverse(perm)
+        acc, pot = acc[inv], pot[inv]
+    return (acc, pot, torch.stack(ovfs).any(0), torch.stack(flags).any(),
+            torch.stack(cnts))
+
+
+def _let(pos, mass, cfg, theta, eps, G, mesh, box_size, caps, phase0,
+         slack, samples, build, query, staged=None):
+    """Both twins' pipeline, given `build(pos, mass, cfg, box_size)` and
+    `query(td, cfg, theta, eps, G, extra=)`, its per-shard stages run as
+    `staged` names (parallel.mesh). Returns (acc, pot, overflow,
+    export_ovf, the export counts [ndev, ndev] on the first shard)."""
+    if phase0 not in ("distributed", "global"):
+        raise ValueError("phase0 must be 'distributed' or 'global'")
+    ndev = mesh.size
+    n = pos.shape[0]
     depth = cfg.max_depth
     cfg_q = _query_cfg(cfg)
     cfg_e = _export_cfg(cfg, *caps[1:])
-    n_pad = -(-n // ndev) * ndev
-    nl = n_pad // ndev
-    boxes = _mesh.to_shards(mesh, box_size)
-    corner = torch.full((n_pad - n, ndim), 0.4999, dtype=dtype,
-                        device=pos.device) * box_size
-    zeros = torch.zeros(n_pad - n, dtype=dtype, device=pos.device)
-    args = (mesh, cfg_q, cfg_e, theta, eps, G, boxes, caps[0], n, nl,
-            depth, build, query)
+    with _stage(mesh, "phase0"):
+        box, perm, pos_sh, mass_sh = _mesh.on_first(
+            mesh, _split, staged, pos, mass, box_size, ndev, depth,
+            phase0 == "global")
+        boxes = _mesh.to_shards(mesh, box)
+        pos_sh = _mesh.scatter(mesh, list(pos_sh))
+        mass_sh = _mesh.scatter(mesh, list(mass_sh))
+    args = (mesh, cfg_q, cfg_e, theta, eps, G, boxes, caps[0], depth, build,
+            query, staged)
     if phase0 == "global":
-        out = _let_global(pos, mass, corner, zeros, *args)
-    elif phase0 == "distributed":
-        # zero-mass rows in the upper box corner (results dropped below;
-        # they source nothing)
-        pos_p = torch.cat([pos, corner])
-        mass_p = torch.cat([mass, zeros])
-        out = _let_distributed(
-            [pos_p[r * nl:(r + 1) * nl].to(d)
-             for r, d in enumerate(mesh.devices)],
-            [mass_p[r * nl:(r + 1) * nl].to(d)
-             for r, d in enumerate(mesh.devices)],
-            slack, samples, *args)
+        out = _let_global(pos_sh, mass_sh, *args)
     else:
-        raise ValueError("phase0 must be 'distributed' or 'global'")
-    acc, pot, ovf, exp_ovf, cnts = out
+        out = _let_distributed(pos_sh, mass_sh, slack, samples, *args)
+    accs, pots, ovfs, flags, cnts = out
     dev0 = mesh.devices[0]
-    return acc, pot, ovf, exp_ovf, torch.stack([c.to(dev0) for c in cnts])
+    with _stage(mesh, "return_route"):
+        return _mesh.on_first(
+            mesh, _collect, staged, *(_mesh.gather(x, dev0) for x in (
+                accs, pots, ovfs, flags, cnts)), n, perm)
 
 
-def _domains(lo: list, hi: list, nonempty: list):
-    """Each shard's view of every domain box and which domains it exports
-    to (every other nonempty one)."""
-    dlo, dhi = _mesh.all_gather(lo), _mesh.all_gather(hi)
-    ne = _mesh.all_gather(nonempty)
-    not_me = [(torch.arange(len(lo), device=x.device) != r) & x
-              for r, x in enumerate(ne)]
-    return dlo, dhi, not_me
+# ------------------------------------------------- phase0 "distributed"
+def _sort_sample(p, m, box, depth: int, s_smp: int):
+    """A shard's local Morton sort and its regular sample of s_smp codes:
+    (codes, perm, pos, mass, sample)."""
+    nl = p.shape[0]
+    code, perm, (pos_ls, mass_ls) = _build.sort_by_code(
+        _codes(p, box, depth), p, m)
+    sample = code[(torch.arange(s_smp, device=code.device) * nl) // s_smp
+                  + nl // (2 * s_smp)]
+    return code, perm, pos_ls, mass_ls, sample
+
+
+def _route_rows(me: int, code, pos_ls, mass_ls, smp, box, cap: int,
+                s_smp: int):
+    """Shard `me`'s routing from its sorted codes [nl] and the gathered
+    samples smp [ndev, s_smp]: the splitters, each row's owner `dest`
+    [nl] (nondecreasing), the first row `start` [ndev] of each owner's
+    run, `x_ovf`, set when a run bound for another shard exceeds `cap`
+    (rows that stay never ride the exchange), the rows that stay (pos,
+    mass, valid [nl]) and the send buffers (pos, mass, valid [ndev, cap])
+    padded in the upper box corner with mass 0. One int64 comparison
+    replaces the reference's (hi, lo) word-pair test."""
+    ndev = smp.shape[0]
+    nl = code.shape[0]
+    dev = code.device
+    ranks = torch.arange(1, ndev, device=dev) * s_smp
+    sp = torch.sort(smp.reshape(-1)).values[ranks]              # [ndev-1]
+    dest = torch.searchsorted(sp, code, right=True)             # [nl]
+    ids = torch.arange(ndev, device=dev)
+    start = su.searchsorted_1d(dest, ids)
+    cnt = torch.cat([start[1:], start.new_full((1,), nl)]) - start
+    x_ovf = ((cnt > cap) & (ids != me)).any()
+    corner_p = 0.4999 * box
+    kk_n = torch.arange(nl, device=dev)
+    rows = (start[me] + kk_n).clamp(0, nl - 1)
+    val = kk_n < cnt[me]
+    stay = (torch.where(val[:, None], pos_ls[rows], corner_p),
+            torch.where(val, mass_ls[rows], 0.0), val)
+    kk = torch.arange(cap, device=dev)
+    rows = (start[:, None] + kk).clamp(0, nl - 1)               # [ndev, cap]
+    s_val = (kk < cnt[:, None]) & (ids != me)[:, None]
+    send = (torch.where(s_val[..., None], pos_ls[rows], corner_p),
+            torch.where(s_val, mass_ls[rows], 0.0), s_val)
+    return dest, start, x_ovf, stay, send
+
+
+def _receive(stay, f_pos, f_mass, f_val, box, depth: int):
+    """A shard's rows after the exchange (its own, then what each shard
+    sent) in local Morton order: (perm_r, pos, mass (0 where not valid),
+    valid)."""
+    ndim = f_pos.shape[-1]
+    r_pos = torch.cat([stay[0], f_pos.reshape(-1, ndim)])
+    r_mass = torch.cat([stay[1], f_mass.reshape(-1)])
+    r_val = torch.cat([stay[2], f_val.reshape(-1)])
+    _, perm_r, (pos_r, mass_r, val_r) = _build.sort_by_code(
+        _codes(r_pos, box, depth), r_pos, r_mass, r_val)
+    return perm_r, pos_r, torch.where(val_r, mass_r, 0.0), val_r
+
+
+def _local_build(pos_r, mass_r, val_r, box, cfg_q, build):
+    """A shard's local tree and its domain box over its valid rows (lo,
+    hi, nonempty)."""
+    td = build(pos_r, mass_r, cfg_q, box)
+    big = 2.0 * box
+    lo = torch.where(val_r[:, None], pos_r, big).amin(0)
+    hi = torch.where(val_r[:, None], pos_r, -big).amax(0)
+    return td, lo, hi, val_r.any()
+
+
+def _return_rows(me: int, dest, start, perm_l, acc_rcv, pot_rcv, b_acc,
+                 b_pot):
+    """Shard `me`'s results in its input order: each row's result from its
+    owner (its own rows from acc_rcv [nl2], the others from the returned
+    buffers [ndev, cap]), then the local sort undone."""
+    nl = dest.shape[0]
+    cap = b_pot.shape[1]
+    jj = torch.arange(nl, device=dest.device)
+    is_self = dest == me
+    slot = jj - start[dest]
+    slot_f = slot.clamp(0, cap - 1)
+    slot_s = slot.clamp(0, nl - 1)
+    acc_ls = torch.where(is_self[:, None], acc_rcv[slot_s],
+                         b_acc[dest, slot_f])
+    pot_ls = torch.where(is_self, pot_rcv[slot_s], b_pot[dest, slot_f])
+    inv_l = _inverse(perm_l)
+    return acc_ls[inv_l], pot_ls[inv_l]
 
 
 def _let_distributed(pos_sh, mass_sh, slack, samples, mesh, cfg_q, cfg_e,
-                     theta, eps, G, boxes, export_cap, n, nl, depth, build,
-                     query):
+                     theta, eps, G, boxes, export_cap, depth, build, query,
+                     staged):
     ndev = mesh.size
+    nl = pos_sh[0].shape[0]
     ndim = pos_sh[0].shape[1]
     cap = max(1, -(-int(nl * slack) // ndev))
     s_smp = min(samples, nl)
+    shards = range(ndev)
     with _stage(mesh, "phase0"):
         # ---- local Morton sort, splitters, owners ------------------------
-        sorted_ = [_build.sort_by_code(_codes(p, box, depth), p, m)
-                   for p, m, box in zip(pos_sh, mass_sh, boxes)]
-        route = _route([s[0] for s in sorted_], nl, cap, s_smp)
-        # ---- fixed-size self and send buffers ----------------------------
-        self_rows, sends = [], ([], [], [])
-        for me, ((_, _, (pos_ls, mass_ls)), (dest, start, cnt, _)) in \
-                enumerate(zip(sorted_, route)):
-            dev = pos_ls.device
-            corner_p = 0.4999 * boxes[me]
-            kk_n = torch.arange(nl, device=dev)
-            rows = (start[me] + kk_n).clamp(0, nl - 1)
-            val = kk_n < cnt[me]
-            self_rows.append((
-                torch.where(val[:, None], pos_ls[rows], corner_p),
-                torch.where(val, mass_ls[rows], 0.0), val))
-            kk = torch.arange(cap, device=dev)
-            rows = (start[:, None] + kk).clamp(0, nl - 1)      # [ndev, cap]
-            s_val = (kk < cnt[:, None]) & (
-                torch.arange(ndev, device=dev) != me)[:, None]
-            sends[0].append(torch.where(s_val[..., None], pos_ls[rows],
-                                        corner_p))
-            sends[1].append(torch.where(s_val, mass_ls[rows], 0.0))
-            sends[2].append(s_val)
+        sorted_ = _mesh.stage_map(mesh, _sort_sample, [
+            (pos_sh[r], mass_sh[r], boxes[r], depth, s_smp) for r in shards],
+            staged)
+        smp = _mesh.all_gather([s[4] for s in sorted_])
+        route = _mesh.stage_map(mesh, _route_rows, [
+            (r, sorted_[r][0], sorted_[r][2], sorted_[r][3], smp[r], boxes[r],
+             cap, s_smp) for r in shards], staged)
         # ---- the one redistribution: three all_to_alls -------------------
-        f_pos, f_mass, f_val = (_mesh.all_to_all(x) for x in sends)
+        f_pos, f_mass, f_val = (_mesh.all_to_all([x[4][i] for x in route])
+                                for i in range(3))
         # ---- the received rows in local Morton order ---------------------
-        recv = []
-        for me in range(ndev):
-            r_pos = torch.cat([self_rows[me][0], f_pos[me].reshape(-1, ndim)])
-            r_mass = torch.cat([self_rows[me][1], f_mass[me].reshape(-1)])
-            r_val = torch.cat([self_rows[me][2], f_val[me].reshape(-1)])
-            _, perm_r, (pos_r, mass_r, val_r) = _build.sort_by_code(
-                _codes(r_pos, boxes[me], depth), r_pos, r_mass, r_val)
-            recv.append((perm_r, pos_r, torch.where(val_r, mass_r, 0.0),
-                         val_r))
+        recv = _mesh.stage_map(mesh, _receive, [
+            (route[r][3], f_pos[r], f_mass[r], f_val[r], boxes[r], depth)
+            for r in shards], staged)
     with _stage(mesh, "local_build"):
-        tds, lo, hi, ne = [], [], [], []
-        for (_, pos_r, mass_r, val_r), box in zip(recv, boxes):
-            tds.append(build(pos_r, mass_r, cfg_q, box))
-            big = 2.0 * box
-            lo.append(torch.where(val_r[:, None], pos_r, big).amin(0))
-            hi.append(torch.where(val_r[:, None], pos_r, -big).amax(0))
-            ne.append(val_r.any())
-        dlo, dhi, not_me = _domains(lo, hi, ne)
-    accs, pots, ovf, exp_ovf, cnts = _export_query(
-        mesh, tds, cfg_q, cfg_e, theta, eps, G, boxes, export_cap, dlo, dhi,
-        not_me, query)
+        built = _mesh.stage_map(mesh, _local_build, [
+            recv[r][1:] + (boxes[r], cfg_q, build) for r in shards], staged)
+    accs, pots, ovfs, exp_ovf, cnts = _export_query(
+        mesh, [b[0] for b in built], cfg_q, cfg_e, theta, eps, G, boxes,
+        export_cap, *([b[i] for b in built] for i in (1, 2, 3)),
+        [r[0] for r in recv], query, staged)
     with _stage(mesh, "return_route"):
         # ---- each received row's result back to the shard it came from ---
-        acc_rcv, pot_rcv = [], []
-        for (perm_r, *_), a, p in zip(recv, accs, pots):
-            inv = _inverse(perm_r)
-            acc_rcv.append(a[inv])                             # [nl2, D]
-            pot_rcv.append(p[inv])
         b_acc = _mesh.all_to_all([a[nl:].reshape(ndev, cap, ndim)
-                                  for a in acc_rcv])
-        b_pot = _mesh.all_to_all([p[nl:].reshape(ndev, cap)
-                                  for p in pot_rcv])
-        x_ovf = _mesh.any([r[3] for r in route])
-        dev0 = mesh.devices[0]
-        acc_out, pot_out = [], []
-        for me, ((_, perm_l, _), (dest, start, _, _)) in enumerate(
-                zip(sorted_, route)):
-            jj = torch.arange(nl, device=dest.device)
-            is_self = dest == me
-            slot = jj - start[dest]
-            slot_f = slot.clamp(0, cap - 1)
-            slot_s = slot.clamp(0, nl - 1)
-            acc_ls = torch.where(is_self[:, None], acc_rcv[me][slot_s],
-                                 b_acc[me][dest, slot_f])
-            pot_ls = torch.where(is_self, pot_rcv[me][slot_s],
-                                 b_pot[me][dest, slot_f])
-            inv_l = _inverse(perm_l)
-            acc_out.append(acc_ls[inv_l].to(dev0))
-            pot_out.append(pot_ls[inv_l].to(dev0))
-        acc = torch.cat(acc_out)[:n]
-        pot = torch.cat(pot_out)[:n]
-    return acc, pot, ovf[0], exp_ovf[0] | x_ovf[0], cnts
+                                  for a in accs])
+        b_pot = _mesh.all_to_all([p[nl:].reshape(ndev, cap) for p in pots])
+        back = _mesh.stage_map(mesh, _return_rows, [
+            (r, route[r][0], route[r][1], sorted_[r][1], accs[r], pots[r],
+             b_acc[r], b_pot[r]) for r in shards], staged)
+    return ([b[0] for b in back], [b[1] for b in back], ovfs,
+            exp_ovf + [r[2] for r in route], cnts)
 
 
-def _let_global(pos, mass, corner, zeros, mesh, cfg_q, cfg_e, theta, eps,
-                G, boxes, export_cap, n, nl, depth, build, query):
-    """phase0="global": one global Morton sort on the input's device and
-    equal contiguous ranges (O(N) memory on one device)."""
-    with _stage(mesh, "phase0"):
-        box = boxes[0].to(pos.device)
-        _, perm, (pos_s, mass_s) = _build.sort_by_code(
-            _codes(pos, box, depth), pos, mass)
-        pos_s = torch.cat([pos_s, corner])
-        mass_s = torch.cat([mass_s, zeros])
-        pos_sh = [pos_s[r * nl:(r + 1) * nl].to(d)
-                  for r, d in enumerate(mesh.devices)]
-        mass_sh = [mass_s[r * nl:(r + 1) * nl].to(d)
-                   for r, d in enumerate(mesh.devices)]
+# ------------------------------------------------------- phase0 "global"
+def _global_build(p, m, box, cfg_q, build):
+    """A shard's local tree over its range of the global order and its
+    domain box over every row, the zero-mass ones included
+    (conservative)."""
+    return (build(p, m, cfg_q, box), p.amin(0), p.amax(0),
+            torch.ones((), dtype=torch.bool, device=p.device))
+
+
+def _let_global(pos_sh, mass_sh, mesh, cfg_q, cfg_e, theta, eps, G, boxes,
+                export_cap, depth, build, query, staged):
+    """phase0="global": the one global Morton sort (in _split, on the first
+    shard's device: O(N) memory there) and equal contiguous ranges."""
+    ndev = mesh.size
     with _stage(mesh, "local_build"):
-        tds = [build(p, m, cfg_q, b)
-               for p, m, b in zip(pos_sh, mass_sh, boxes)]
-        # domain boxes over every row, the zero-mass ones included
-        # (conservative)
-        dlo, dhi, not_me = _domains([p.amin(0) for p in pos_sh],
-                                    [p.amax(0) for p in pos_sh],
-                                    [torch.ones((), dtype=torch.bool,
-                                                device=p.device)
-                                     for p in pos_sh])
-    accs, pots, ovf, exp_ovf, cnts = _export_query(
-        mesh, tds, cfg_q, cfg_e, theta, eps, G, boxes, export_cap, dlo, dhi,
-        not_me, query)
-    with _stage(mesh, "return_route"):
-        dev0 = mesh.devices[0]
-        inv = _inverse(perm).to(dev0)
-        acc = torch.cat([a.to(dev0) for a in accs])[:n][inv]
-        pot = torch.cat([p.to(dev0) for p in pots])[:n][inv]
-    return acc, pot, ovf[0], exp_ovf[0], cnts
+        built = _mesh.stage_map(mesh, _global_build, [
+            (pos_sh[r], mass_sh[r], boxes[r], cfg_q, build)
+            for r in range(ndev)], staged)
+    return _export_query(
+        mesh, [b[0] for b in built], cfg_q, cfg_e, theta, eps, G, boxes,
+        export_cap, *([b[i] for b in built] for i in (1, 2, 3)),
+        [None] * ndev, query, staged)

@@ -20,9 +20,12 @@ As in `integrate`, each function comes in twins:
     count with the reference's fills and cut into equal ranges, each
     shard's range through `engine._chunk_loop` (lmac's un-sliced
     predicate), no host read. On a mesh whose shards share one card each
-    call is one CUDA graph (`engine._run`); one graph cannot span cards,
-    so on a mesh over several `graph=None` or `True` raises ValueError
-    and `graph=False` runs the body eagerly (on any mesh);
+    call is one CUDA graph (`engine._run`). One graph cannot span cards:
+    on a mesh over several the call runs in stages (`_query_impl`: the
+    tiles and tables on the first shard's card, each card's shards'
+    ranges, the tail on the first card), each stage with `graph=None` or
+    `True` one CUDA graph on its card, the copies between cards between
+    them (parallel.mesh); `graph=False` runs eagerly on any mesh;
   * the `_host` twins, which read n_tiles once a query
     (`engine.live_chunks`), split the live chunks, and run each shard's
     range through `engine.run_chunks` (its sliced graphs) and each build
@@ -32,7 +35,8 @@ Both twins of a pair give the same sums bit for bit.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,46 +72,82 @@ def _pad_chunks(tiles, ndev: int, n: int):
                  for t, f in zip(tiles, fills))
 
 
-def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, mesh: Mesh):
-    """acc_pot_u_sharded's computation: tiles and tables built once and
-    replicated, each shard's equal range of the padded capacity chunks,
-    the flags OR-ed, the tiles' sums gathered to the first shard and the
-    tail (assembly, grid2's far field) run there once."""
-    if cfg.farfield == "grid":
-        cfg = cfg.with_(farfield="local")
-    tiles = _pad_chunks(engine._gather_tiles(td, cfg), mesh.size,
-                        td.pos.shape[0])
+def _tiles_tables(td: TreeData, cfg: TreeConfig, ndev: int):
+    """The first stage, on the first shard's device: the tiles gathered
+    and padded to a multiple of ndev chunks, and the traversal tables."""
+    tiles = _pad_chunks(engine._gather_tiles(td, cfg), ndev, td.pos.shape[0])
     tables = (engine._traversal_mod(cfg).make_tables(td, cfg)
               if engine._use_shared(cfg) else None)
-    K = tiles[0].shape[0] // mesh.size
-    accs, pots, ovfs = [], [], []
-    for r, (td_r, (tiles_r, tables_r)) in enumerate(zip(
-            _mesh.to_shards(mesh, td), _mesh.to_shards(mesh,
-                                                       (tiles, tables)))):
-        a, p, o, _ = engine._chunk_loop(
-            td_r, cfg, theta, eps, G,
-            tuple(t[r * K:(r + 1) * K] for t in tiles_r), tables_r, None)
-        accs.append(a)
-        pots.append(p)
-        ovfs.append(o)
-    dev0 = mesh.devices[0]
+    return tiles, tables
+
+
+def _shard_chunks(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
+                  tables):
+    """One shard's stage: its range of the chunks (acc, pot, flags)."""
+    return engine._chunk_loop(td, cfg, theta, eps, G, panels, tables,
+                              None)[:3]
+
+
+def _tail(td: TreeData, cfg: TreeConfig, eps, G, accs, pots, ovfs):
+    """The last stage, on the first shard's device: the shards' tile sums
+    in shard order through the tail (assembly, grid2's far field) and the
+    flags OR-ed."""
     Lgrid = (engine._grid_farfield(td, cfg, eps)
              if cfg.farfield == "grid2" else None)
-    acc_u, pot_u = engine._tail_impl(
-        td, cfg, eps, G, Lgrid, torch.cat([a.to(dev0) for a in accs]),
-        torch.cat([p.to(dev0) for p in pots]))
-    return acc_u, pot_u, _mesh.any(ovfs)[0]
+    acc_u, pot_u = engine._tail_impl(td, cfg, eps, G, Lgrid, torch.cat(accs),
+                                     torch.cat(pots))
+    return acc_u, pot_u, torch.stack(ovfs).any(0)
+
+
+def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
+                staged=None):
+    """acc_pot_u_sharded's computation in three stages (`staged` as in
+    parallel.mesh): the tiles and tables on the first shard's device; each
+    shard's equal range of the padded capacity chunks on its own device,
+    the tree and tables copied there; the tiles' sums and flags gathered
+    to the first shard, the tail run there once."""
+    if cfg.farfield == "grid":
+        cfg = cfg.with_(farfield="local")
+    tiles, tables = _mesh.on_first(mesh, _tiles_tables, staged, td, cfg,
+                                   mesh.size)
+    K = tiles[0].shape[0] // mesh.size
+    panels = _mesh.scatter(mesh, [tuple(t[r * K:(r + 1) * K] for t in tiles)
+                                  for r in range(mesh.size)])
+    sums = _mesh.stage_map(mesh, _shard_chunks, [
+        (td_r, cfg, theta, eps, G, panels_r, tables_r)
+        for td_r, panels_r, tables_r in zip(
+            _mesh.to_shards(mesh, td), panels,
+            _mesh.to_shards(mesh, tables))], staged)
+    accs, pots, ovfs = (_mesh.gather(x, mesh.devices[0]) for x in zip(*sums))
+    return _mesh.on_first(mesh, _tail, staged, td, cfg, eps, G, accs, pots,
+                          ovfs)
 
 
 class _Query(NamedTuple):
     """The sharded query as integrate's bodies call theirs
-    (engine._query_impl's arguments and results; no maxima), the mesh
-    held in a named tuple, so that a graph's key takes it as any other
-    argument."""
+    (engine._query_impl's arguments and results; no maxima), the mesh and
+    the stages held in a named tuple, so that a graph's key takes it as
+    any other argument."""
     mesh: Mesh
+    staged: Optional[bool] = None
 
     def __call__(self, td, cfg, theta, eps, G):
-        return _query_impl(td, cfg, theta, eps, G, self.mesh) + (None,)
+        return _query_impl(td, cfg, theta, eps, G, self.mesh,
+                           self.staged) + (None,)
+
+
+def _whole(graph: bool, mesh: Mesh, body, *args):
+    """body(*args, build, query) of a whole twin: on a one-card mesh one
+    call (integrate._whole: one CUDA graph with graph); on a mesh over
+    several cards uncaptured, each build replayed from its graph on the
+    first shard's card (engine.build_tree), each query in _query_impl's
+    stages (per-card graphs with graph, else eager) and the rest (the
+    kick and drift) run there eagerly."""
+    if _mesh.one_card(mesh):
+        return integrate._whole(graph, body, *args, query=_Query(mesh))
+    build = functools.partial(engine.build_tree, graph=graph)
+    with _mesh._on(mesh.devices[0]):
+        return body(*args, build, _Query(mesh, graph))
 
 
 def acc_pot_u_sharded(td: TreeData, cfg: TreeConfig, theta, eps, G,
@@ -120,27 +160,30 @@ def acc_pot_u_sharded(td: TreeData, cfg: TreeConfig, theta, eps, G,
     reference's. farfield="grid" falls back to "local", as in the
     reference (the replicated path carries no dense stencil grids);
     grid2's far field is added once, on the first shard. On a one-card
-    mesh the call is one CUDA graph (graph as in the module's docstring).
-    theta, eps and G are numbers."""
+    mesh the call is one CUDA graph, on several cards a CUDA graph a card
+    and stage (graph as in the module's docstring). theta, eps and G are
+    numbers."""
     td = _mesh._to(td, mesh.devices[0])
-    graph = _mesh.one_card(engine._use_graph(graph, td.pos, cfg), mesh)
-    return engine._run(graph, _query_impl, td, cfg, float(theta),
-                       float(eps), float(G), mesh)
+    graph = engine._use_graph(graph, td.pos, cfg)
+    args = (td, cfg, float(theta), float(eps), float(G), mesh)
+    if _mesh.one_card(mesh):
+        return engine._run(graph, _query_impl, *args)
+    return _query_impl(*args, staged=graph)
 
 
 def acc_pot_sharded(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
                     box_size=None, graph=None):
     """Build (once, on the first shard's device) + the sharded query, on a
-    one-card mesh one CUDA graph. Returns acc [N, D] and pot [N] in the
-    input order, and the overflow flags [4]; raises after the call if the
-    build overflowed its node or tile capacity."""
+    one-card mesh one CUDA graph (on several, _whole's stages). Returns
+    acc [N, D] and pot [N] in the input order, and the overflow flags
+    [4]; raises after the call if the build overflowed its node or tile
+    capacity."""
     dev0 = mesh.devices[0]
     pos, mass = pos.to(dev0), mass.to(dev0)
     graph, box_size, theta, eps, G = integrate._scalars(
         pos, cfg, graph, box_size, theta, eps, G)
-    acc, pot, ovf, b_ovf = integrate._whole(
-        _mesh.one_card(graph, mesh), integrate._acc_pot, pos, mass, cfg,
-        theta, eps, G, box_size, query=_Query(mesh))
+    acc, pot, ovf, b_ovf = _whole(graph, mesh, integrate._acc_pot, pos, mass,
+                                  cfg, theta, eps, G, box_size)
     integrate._check_build(b_ovf)
     return acc, pot, ovf
 
@@ -149,16 +192,16 @@ def leapfrog_step_sharded(state, dt, cfg: TreeConfig, theta, eps, G,
                           mesh: Mesh, box_size=None, graph=None):
     """KDK leapfrog step with a rebuild for each force evaluation, the
     queries sharded over the mesh, on a one-card mesh one CUDA graph (dt
-    an input of it, as in integrate.leapfrog_step). Returns (new
-    integrate.NBodyState on the first shard's device, overflow flags
-    [4]); raises after the call if a build overflowed."""
+    an input of it, as in integrate.leapfrog_step; on several cards,
+    _whole's stages). Returns (new integrate.NBodyState on the first
+    shard's device, overflow flags [4]); raises after the call if a build
+    overflowed."""
     state = _mesh._to(state, mesh.devices[0])
     graph, box_size, theta, eps, G = integrate._scalars(
         state.pos, cfg, graph, box_size, theta, eps, G)
-    new, ovf, b_ovf = integrate._whole(
-        _mesh.one_card(graph, mesh), integrate._step, state,
-        integrate._dt(dt, state.pos), cfg, theta, eps, G, box_size,
-        query=_Query(mesh))
+    new, ovf, b_ovf = _whole(graph, mesh, integrate._step, state,
+                             integrate._dt(dt, state.pos), cfg, theta, eps,
+                             G, box_size)
     integrate._check_build(b_ovf)
     return new, ovf
 

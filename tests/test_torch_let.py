@@ -141,17 +141,21 @@ def test_phase0_routing_matches_the_reference(ndev, slack):
         order = np.lexsort((lo, hi))
         hi_s.append(hi[order])
         lo_s.append(lo[order])
-        c = let._codes(torch.tensor(p), torch.tensor(box), depth)
-        codes.append(torch.sort(c, stable=True).values)
+        codes.append(let._sort_sample(
+            torch.tensor(p), torch.ones(nl), torch.tensor(box), depth,
+            s_smp))
     np.testing.assert_array_equal(
-        np.concatenate([c.numpy() for c in codes]),
+        np.concatenate([c[0].numpy() for c in codes]),
         np.concatenate([(h.astype(np.int64) << 32) | lo.astype(np.int64)
                         for h, lo in zip(hi_s, lo_s)]))
-    got = let._route(codes, nl, cap, s_smp)
+    smp = torch.stack([c[4] for c in codes])
+    got = [let._route_rows(me, c[0], c[2], c[3], smp, torch.tensor(box), cap,
+                           s_smp) for me, c in enumerate(codes)]
     want = _route_np(hi_s, lo_s, nl, cap, s_smp)
-    for (dest, _, cnt, x_ovf), (d_w, c_w, x_w) in zip(got, want):
+    for (dest, start, x_ovf, _, _), (d_w, c_w, x_w) in zip(got, want):
         np.testing.assert_array_equal(dest.numpy(), d_w)
-        np.testing.assert_array_equal(cnt.numpy(), c_w)
+        np.testing.assert_array_equal(
+            torch.diff(start, append=start.new_full((1,), nl)).numpy(), c_w)
         assert bool(x_ovf) == x_w
     assert any(x for _, _, x in want) == (slack == 1.0)
 

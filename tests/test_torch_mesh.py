@@ -1,11 +1,15 @@
 """rakau_tpu_torch.parallel.mesh, the collective layer of the multi-device
 paths: all_to_all, all_gather, pmax and any on per-shard lists against
 NumPy transposes and reductions at 1, 2 and 8 shards, to_shards, and
-default_mesh (CPU shards; no card here, so the card default raises)."""
+default_mesh (CPU shards; no card here, so the card default raises); the
+grouping of shards by device, the stages run over it in shard order, the
+bytes the collectives copy between devices (CPU device labels, which
+torch keeps apart), and the graph cache's per-device keys and bound."""
 import numpy as np
 import pytest
 import torch
 
+from rakau_tpu_torch import graphs
 from rakau_tpu_torch.parallel import mesh
 
 torch.set_num_threads(1)
@@ -60,3 +64,86 @@ def test_default_mesh_on_the_cpu():
 def test_default_mesh_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA card"):
         mesh.default_mesh(2)
+
+
+def _labels(*idx):
+    """A mesh whose shard r sits on the CPU device label idx[r]."""
+    return mesh.Mesh(tuple(torch.device("cpu", i) for i in idx))
+
+
+LAYOUTS = [(0,), (0, 0, 0), (0, 1), (0, 1, 0), (0, 1, 0, 1), (1, 0, 0, 1, 2)]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cards_group_the_shards_in_shard_order(layout):
+    """Each device once, in the order of its first shard, with its shards
+    in shard order; one_card where there is one device."""
+    m = _labels(*layout)
+    groups = mesh.cards(m)
+    assert [d.index for d, _ in groups] == list(dict.fromkeys(layout))
+    for dev, shards in groups:
+        assert list(shards) == sorted(shards)
+        assert all(m.devices[r] == dev for r in shards)
+    assert sorted(r for _, rs in groups for r in rs) == list(range(m.size))
+    assert mesh.one_card(m) == (len(set(layout)) == 1)
+
+
+@pytest.mark.parametrize("staged", [None, False])
+@pytest.mark.parametrize("layout", [(0, 1, 0), (1, 0, 1, 0)])
+def test_stage_map_returns_every_shard_in_order(layout, staged):
+    """stage_map gives shard r's result at r whether it loops over the
+    shards (None) or runs each device's shards together (False: eagerly,
+    as the CPU runs); on_first runs on the first shard."""
+    m = _labels(*layout)
+    args = [(torch.full((2,), float(r)), r) for r in range(m.size)]
+    out = mesh.stage_map(m, lambda x, r: (x + 1, r), args, staged)
+    assert [r for _, r in out] == list(range(m.size))
+    assert all(torch.equal(x, torch.full((2,), r + 1.0)) for x, r in out)
+    assert mesh.on_first(m, torch.neg, staged, torch.ones(1)) == -1
+
+
+def test_graphed_stages_on_cpu_tensors_raise():
+    """staged=True replays CUDA graphs: on CPU tensors it raises, and never
+    runs the stage eagerly instead."""
+    with pytest.raises(ValueError, match="CUDA"):
+        mesh.stage_map(_labels(0, 1), torch.neg,
+                       [(torch.ones(1),), (torch.ones(1),)], True)
+
+
+def test_collectives_count_the_bytes_they_copy():
+    """Moves between two device labels are counted (CPU labels copy, as
+    cards do); moves on one device, which alias, are not."""
+    x = torch.ones(4, 3)
+    mesh.reset_copied()
+    one = mesh.to_shards(mesh.default_mesh(2, device="cpu"), x)
+    assert one[0] is x and not mesh.copied
+    mesh.to_shards(_labels(0, 1, 1), x)
+    assert sum(mesh.copied.values()) == 2 * x.nbytes
+    mesh.reset_copied()
+    got = mesh.gather([x, x[:2]], torch.device("cpu", 1))
+    assert torch.equal(got[1], x[:2])
+    assert sum(mesh.copied.values()) == x.nbytes + x[:2].nbytes
+    mesh.reset_copied()
+
+
+def test_graph_keys_and_bound_are_per_device():
+    """A graph's key holds the device of its tensors (a graph captured on
+    one card never serves another), and the cache keeps SIZE graphs a
+    device: the least recently used of a full device goes, another
+    device's graphs stay."""
+    cache = graphs.GraphCache()
+    k_cpu = cache.key(torch.neg, (torch.ones(2),), {})[0]
+    k_meta = cache.key(torch.neg, (torch.ones(2, device="meta"),), {})[0]
+    assert k_cpu != k_meta
+
+    def key(dev, i):
+        return (torch.neg, i, (((2,), torch.float32, dev),), ())
+
+    a, b = torch.device("cpu", 0), torch.device("cpu", 1)
+    for i in range(graphs.SIZE):
+        cache._keep(key(a, i), f"a{i}")
+    cache._keep(key(b, 0), "b0")
+    assert len(cache) == graphs.SIZE + 1
+    cache._keep(key(a, graphs.SIZE), "new")
+    assert key(a, 0) not in cache._graphs and key(b, 0) in cache._graphs
+    assert len(cache) == graphs.SIZE + 1

@@ -1,16 +1,19 @@
 """The whole twins of rakau_tpu_torch.parallel (sharded.acc_pot_u_sharded,
 acc_pot_sharded, leapfrog_step_sharded and let.acc_pot_let), which the
-card runs as one CUDA graph each on a one-card mesh, on CPU meshes of 1, 2
-and 4 shards: each, run eagerly (graph=False, what a CPU mesh runs
-anyway), bit-equal to its _host twin (sums and input-order results;
-flags at caps that do not overflow); the whole sharded query bit-equal to
-engine.acc_pot_u, flags included; both LET phase-0 modes; the bodies that
-a whole call captures issuing no host read and, after a first run, no
-host-to-device copy; a build overflow raised after the call; graph=True
-on a CPU mesh, a graph on a mesh over two devices, and stage_seconds()
-around a whole LET refused; the whole sharded step at
-__graft_entry__.dryrun_multichip's configuration reproducing the
-reference's recorded step (MULTICHIP_r05.json)."""
+card runs as one CUDA graph each on a one-card mesh and as one graph a
+card and stage on a mesh over several cards, on CPU meshes of 1, 2 and 4
+shards: each, run eagerly (graph=False, what a CPU mesh runs anyway),
+bit-equal to its _host twin (sums and input-order results; flags at caps
+that do not overflow); the whole sharded query bit-equal to
+engine.acc_pot_u, flags included; both LET phase-0 modes; each whole twin
+on a mesh over two device labels (its stages grouped by device, the
+collectives copying between them) bit-equal to the same call on one
+label, at 2, 3 and 4 shards; the bodies that a whole call captures, and
+the staged bodies, issuing no host read and, after a first run, no
+host-to-device copy; a build overflow raised after the call; graph=True on
+a CPU mesh and stage_seconds() around a whole LET refused; the whole
+sharded step at __graft_entry__.dryrun_multichip's configuration
+reproducing the reference's recorded step (MULTICHIP_r05.json)."""
 import json
 import os
 import re
@@ -24,6 +27,7 @@ from rakau_tpu import particles as jparticles
 from rakau_tpu_torch import build, engine, integrate
 from rakau_tpu_torch.config import TreeConfig
 from rakau_tpu_torch.parallel import let, sharded
+from rakau_tpu_torch.parallel import mesh as _mesh_mod
 from rakau_tpu_torch.parallel.mesh import Mesh
 
 from .test_torch_acc_pot_u import _HostReads, forbid_host_copies
@@ -178,40 +182,55 @@ def test_let_whole_equals_its_host_twin(phase0, ndev):
 
 
 # ------------------------------------------------- what a capture rests on
-BODIES = ("acc_pot_u_sharded", "acc_pot_sharded", "leapfrog_step_sharded",
-          "acc_pot_let distributed", "acc_pot_let global")
+WHOLE = ("acc_pot_u_sharded", "acc_pot_sharded", "leapfrog_step_sharded",
+         "acc_pot_let distributed", "acc_pot_let global")
+BODIES = WHOLE + tuple(name + " staged" for name in WHOLE)
 
 
 def _body(name):
-    """The body that the whole call `name` captures, as a function of
-    nothing (its arguments as the wrapper passes them)."""
+    """The body that the whole call `name` captures on a one-card mesh
+    (2 shards), or with " staged" the stages it runs on a mesh over two
+    devices (2 shards, one a device, N_X particles; run eagerly, as
+    stage_map does with staged=False; X_CFG, X_EXPORT_CAP), as a
+    function of nothing (its arguments as the wrapper passes them)."""
+    base, staged = name.removesuffix(" staged"), name.endswith(" staged")
     pos, mass, vel = _cloud()
-    mesh = _mesh(2)
-    query = sharded._Query(mesh)
-    td = build.build_tree(pos, mass, CFG)
+    mesh, stages, cfg, cap = _mesh(2), None, CFG, EXPORT_CAP[2]
+    if staged:
+        pos, mass, vel = pos[:N_X], mass[:N_X], vel[:N_X]
+        mesh, stages, cfg, cap = _two_devices(2), False, X_CFG, X_EXPORT_CAP[2]
+    td = build.build_tree(pos, mass, cfg)
     state = integrate.NBodyState(pos, vel, mass)
+    if staged:
+        def whole(body, *args):
+            return sharded._whole(False, mesh, body, *args)
+    else:
+        def whole(body, *args):
+            return body(*args, build.build_tree, sharded._Query(mesh))
     bodies = {
         "acc_pot_u_sharded": lambda: sharded._query_impl(
-            td, CFG, THETA, EPS, 1.0, mesh),
-        "acc_pot_sharded": lambda: integrate._acc_pot(
-            pos, mass, CFG, THETA, EPS, 1.0, BOX, build.build_tree, query),
-        "leapfrog_step_sharded": lambda: integrate._step(
-            state, integrate._dt(DT, pos), CFG, THETA, EPS, 1.0, BOX,
-            build.build_tree, query)}
-    caps = (EXPORT_CAP[2], 8192, 32768, 4096, 1024)
+            td, cfg, THETA, EPS, 1.0, mesh, stages),
+        "acc_pot_sharded": lambda: whole(
+            integrate._acc_pot, pos, mass, cfg, THETA, EPS, 1.0, BOX),
+        "leapfrog_step_sharded": lambda: whole(
+            integrate._step, state, integrate._dt(DT, pos), cfg, THETA, EPS,
+            1.0, BOX)}
+    caps = (cap, 8192, 32768, 4096, 1024)
     for phase0 in ("distributed", "global"):
         bodies["acc_pot_let " + phase0] = (
             lambda phase0=phase0: let._let(
                 pos, mass, LET_CFG, LET_THETA, EPS, 1.0, mesh, 32.0, caps,
-                phase0, 2.0, 128, build.build_tree, engine._query_impl))
-    return bodies[name]
+                phase0, 2.0, 128, build.build_tree, engine._query_impl,
+                stages))
+    return bodies[base]
 
 
 @pytest.mark.parametrize("name", BODIES)
 def test_whole_body_reads_nothing_from_the_host(name, monkeypatch):
     """The body that a whole call captures (builds, each shard's chunk
-    loop, the gathers, the LET's phase 0, exchange and return route)
-    issues no host read and, once its constant tables exist (a first
+    loop, the gathers, the LET's phase 0, exchange and return route), and
+    on a mesh over two devices its stages with the collectives between
+    them, issue no host read and, once the constant tables exist (a first
     run), no host-to-device copy."""
     body = _body(name)
     first = body()
@@ -234,9 +253,6 @@ def test_build_overflow_raises_after_the_call(name, twin, cap):
         whole() if twin == "whole" else host()
 
 
-WHOLE = SHARDED + ("acc_pot_let",)
-
-
 def _whole_call(name, mesh):
     if name == "acc_pot_let":
         pos, mass, _ = _cloud()
@@ -246,29 +262,64 @@ def _whole_call(name, mesh):
     return _calls(name, CFG, mesh)[0]
 
 
-@pytest.mark.parametrize("name", WHOLE)
+@pytest.mark.parametrize("name", SHARDED + ("acc_pot_let",))
 def test_graph_true_on_a_cpu_mesh_raises(name):
     with pytest.raises(ValueError, match="CUDA"):
         _whole_call(name, _mesh(2))(True)
 
 
-@pytest.mark.parametrize("name", WHOLE)
-def test_a_mesh_over_two_devices_refuses_a_graph(name, monkeypatch):
-    """One CUDA graph cannot span cards: where the query would replay one
-    (engine._use_graph as it answers on CUDA tensors), a mesh whose shards
-    sit on two devices raises, naming graph=False; graph=False runs the
-    whole body eagerly on it, to the same results as on one device."""
-    two = Mesh((torch.device("cpu"), torch.device("cpu", 0)))
-    call = _whole_call(name, two)
-    eager = call(False)
-    use_graph = engine._use_graph
-    monkeypatch.setattr(engine, "_use_graph",
-                        lambda graph, t, cfg: graph is not False)
-    for graph in (None, True):
-        with pytest.raises(ValueError, match="graph=False"):
-            call(graph)
-    monkeypatch.setattr(engine, "_use_graph", use_graph)
-    assert _equal(eager, _whole_call(name, _mesh(2))(False))
+# ------------------------------------------- a mesh over several devices
+# the particles (the first N_X of the cloud), the configuration (a tile
+# capacity near the live tiles: fewer padding chunks) and the LET's export
+# slots a destination of the comparisons across devices
+N_X = 1024
+X_CFG = CFG.with_(tile_cap=64)
+X_EXPORT_CAP = {2: 576, 3: 384, 4: 320}
+
+
+def _two_devices(ndev):
+    """ndev shards over two device labels, shard r on cpu:(r % 2), as
+    default_mesh lays shards over two cards: torch keeps the labels
+    apart, although both put tensors on the CPU."""
+    return Mesh(tuple(torch.device("cpu", r % 2) for r in range(ndev)))
+
+
+def _x_call(name, mesh):
+    """The whole twin `name` (or the LET in phase0 mode `name`) on N_X
+    particles and `mesh`, with graph=None."""
+    pos, mass, vel = (x[:N_X] for x in _cloud())
+    if name in ("distributed", "global"):
+        return let.acc_pot_let(
+            pos, mass, LET_CFG, LET_THETA, EPS, 1.0, mesh, box_size=32.0,
+            export_cap=X_EXPORT_CAP[mesh.size], phase0=name,
+            with_stats=True)
+    if name == "acc_pot_u_sharded":
+        td = build.build_tree(pos, mass, X_CFG)
+        return sharded.acc_pot_u_sharded(td, X_CFG, THETA, EPS, 1.0, mesh)
+    first = (pos, mass) if name == "acc_pot_sharded" else (
+        integrate.NBodyState(pos, vel, mass), DT)
+    return getattr(sharded, name)(*first, X_CFG, THETA, EPS, 1.0, mesh,
+                                  box_size=BOX)
+
+
+@pytest.mark.parametrize("ndev", [2, 3, 4])
+@pytest.mark.parametrize("name", SHARDED + ("distributed", "global"))
+def test_whole_twin_over_two_devices_equals_one_device(name, ndev):
+    """On a mesh whose shards sit on two devices the whole twin runs in
+    stages, each device's shards together, the collectives copying
+    between the devices (an uneven split at 3 shards): sums, flags,
+    export overflow and export counts (the LET), pos and vel (the step)
+    bit-equal to the same call on one device, none overflowing, and the
+    collectives' copies counted."""
+    _mesh_mod.reset_copied()
+    got = _x_call(name, _two_devices(ndev))
+    assert _mesh_mod.copied
+    _mesh_mod.reset_copied()
+    want = _x_call(name, _mesh(ndev))
+    assert not _mesh_mod.copied
+    flags = want[2:4] if name in ("distributed", "global") else want[-1:]
+    assert not any(bool(f.any()) for f in flags)
+    assert _equal(got, want)
 
 
 def test_stage_seconds_refuses_a_whole_let():
