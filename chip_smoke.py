@@ -97,7 +97,8 @@ Phases, each printing one JSON line:
                the graph pool's memory; the sums bit for bit equal, flags
                and maxima equal (graph_ab; likewise after lmac_profile,
                gwalk_profile and lists_profile); then engine.acc_pot_u,
-               the whole query as one graph, against the eager query:
+               the whole query as one graph, on a tree of 262,144
+               Plummer particles (SMALL_N), against the eager query:
                equal sums, K1a launches = the tile capacity's chunks
                (acc_pot_u_check); the tree build replayed from its graph
                (engine.build_tree) against the eager build on the main
@@ -114,7 +115,9 @@ Phases, each printing one JSON line:
                on builds overflowed at node_cap 4 and tile_cap 4 raising
                RuntimeError after the replay, the normal calls then
                replaying unchanged (overflow_refused); after the
-               leapfrog's steps config #2's step three ways, the whole
+               leapfrog's steps config #2's step three ways on a cold
+               sphere of 262,144 particles (SMALL_N) with the 1M
+               caps, the whole
                integrate.leapfrog_step_morton as one graph, the sliced
                leapfrog_step_morton_host and the same eagerly, pos, vel
                and step_perm bit-equal, the whole step's capture seconds
@@ -122,7 +125,8 @@ Phases, each printing one JSON line:
                tile capacity's chunks whole, 2 x the chunk evaluations
                sliced, a whole step at -dt capturing nothing and equal
                to the sliced one (step_three_ways); total_energy as one
-               graph against total_energy_host, within 1 ulp, K1d+K1b and K1b
+               graph against total_energy_host on that sphere, within 1
+               ulp, K1d+K1b and K1b
                launches measured (energy_two_ways), with config #2's
                build graphed against eager (build_ab, at the start of
                phase leapfrog); and a closing summary line after phase
@@ -133,8 +137,11 @@ Phases, each printing one JSON line:
                K1's launch shape (granules, spans, work items, CUDA
                blocks, warps a SM: k1_shape) and its share of the bound,
                as every K1 kernel phase below prints them;
-  8. accuracy: 256 sampled targets against the float64 NumPy direct sum:
-               RMS relative force error < 5e-3, potential < 2e-3;
+  8. accuracy: 256 sampled targets against the float64 direct sum, run
+               on the card (card_oracle) and held on 8 of them to the
+               NumPy one, direct_acc_pot_np, within 1e-12 (as every
+               oracle from 262,144 particles up): RMS relative force
+               error < 5e-3, potential < 2e-3;
   v. variants: the same query whole under dispatch.shared_variant: "mma"
                at bf16, x3 and highest, and "blocks": launches of the
                variant = chunks and no K1a launch; x3, highest and K5
@@ -265,8 +272,9 @@ Phases, each printing one JSON line:
                65,536 Plummer particles (shared+grid), the query under
                kernel_backend="xla" makes no hand launch and agrees with
                "auto" to 1e-5 force RMS, and "pallas" on a CPU copy of the
-               tree raises; parallel.sharded's _host twins on the main
-               particles, tree and caps at 1, 2 and 4 shards against the
+               tree raises; parallel.sharded's _host twins on 262,144
+               Plummer particles (SMALL_N; the main caps) at 1, 2 and 4
+               shards against the
                single-device query with farfield "local" (rtol 1e-5, atol
                1e-6 of the largest; K1a launches summed over the shards =
                chunks; seconds a query), then one
@@ -304,7 +312,8 @@ Phases, each printing one JSON line:
                over several cards (parallel/mesh.py: a CUDA graph a card
                and stage, the copies between cards between them), first
                on one card: sharded._query_impl(staged=True) at 4 shards
-               on the main tree (phase multi's configuration) and
+               on a tree of 262,144 Plummer particles (SMALL_N; the
+               main caps grown with "local") and
                let._let(staged=True) at 65,536 particles in both phase0
                modes, each against the same whole twin as one graph on
                the same one-card mesh: first call of each, 3 warm calls
@@ -343,6 +352,28 @@ Phases, each printing one JSON line:
  10. kernel:   K1d+K1b on the node rows [0, U) and K1b on the particle
                rows [U, S) of the energy query's first chunk (and K1d on
                the node rows) against plain PyTorch, every mode, timed.
+     scale:    the reference's own sizes on one card (the graphs of the
+               groups before released first): 8,000,000 Plummer particles
+               (bench.py's headline) through octree(..., shared+grid
+               caps).accs_pots_o(0.75) (build, first query, 3 graphed
+               warm queries, K1a launches a warm query = the chunk
+               evaluations, grid level, tiles, chunks, peak memory), the
+               same particles through bench.py's gwalk+grid recipe (one
+               K2 launch a warm query; the pool's rows), both against a
+               float64 direct sum on the card at 256 targets (held to
+               direct_acc_pot_np on 8 of them): force RMS < 5e-3,
+               potential < 2e-3, gwalk's force RMS at most 1.01 x
+               shared's; K1a against its plain version on the first and
+               last live chunk, K2 on 128 tiles about a window boundary;
+               then BASELINE config #2 at 1 << 23 particles: the energy
+               configuration's caps sized through the Tree, E0, 2 steps
+               of leapfrog_step_morton_host_safe (cap retries reported),
+               the first step's query on the initial state (force RMS <
+               1.5e-2, potential < 2e-3), E after the steps (drift <
+               2e-3; energy potential RMS < 1e-4), K1d+K1b against its
+               plain version on the energy tree's first chunk. Each
+               group ends with a line {"phase": "group", "group": ...,
+               "seconds": ...}.
 Then the whole command's seconds (phase total), the kernels' summary line
 (time, plain time and bound of every form), the card line, and as the
 last line {"ok": true, "device": {...}}. Any
@@ -367,8 +398,18 @@ import torch
 # the phase groups that --phases selects, in the order they run (edge: the
 # edge phases; main: phases main through f1)
 PHASES = ("device", "build", "edge", "main", "multi", "multicard",
-          "leapfrog")
+          "leapfrog", "scale")
 THETA = 0.75
+# The checks whose point holds at any N (twins bit-equal to each other,
+# launches = the chunks each way, nothing captured in a steady state)
+# run on this many particles (at most --n) with the main run's caps, to
+# keep the whole script inside its time limit beside phase scale: phase
+# multi's sharded query and step and their whole twins (156 s of the
+# limit at 1M), phase multicard's staged query on one card (the cards'
+# own run keeps 1M), engine.acc_pot_u as one graph (45 s at 1M), and
+# config #2's step three ways and energy two ways (150 s at 1M); the
+# main query, its graphs and every accuracy bound stay at --n
+SMALL_N = 262144
 TREE_KW = dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32,
                farfield="grid", m2p_cap=9728, p2p_leaf_cap=5888,
                p2p_src_cap=47104, frontier_cap=1024)
@@ -916,6 +957,9 @@ def profile_record(prof: dict, warm_ms: float) -> dict:
 
 # graphed and eager warm queries of the graphs phase, each (in turns)
 GRAPH_REPS = 5
+# the eager ways take fewer of those turns (the first ones): an eager 1M
+# query or step takes 3.5-4.5 s, and two give its median and spread
+EAGER_REPS = 2
 MB = 1 << 20
 
 
@@ -932,8 +976,9 @@ def graph_ab(tree, label: str, forms: dict, kernel, key: str) -> dict:
     default on the card) against the same query run eagerly
     (graph=False), on one tree in one call. The graph cache is emptied
     first, so the first graphed query captures (its warm-up, capture and
-    replay: capture_s); then GRAPH_REPS warm queries each way, in turns
-    (the query and the overflow read, synced wall ms), each with the
+    replay: capture_s); then GRAPH_REPS warm queries each way (eagerly in
+    the first EAGER_REPS turns only), in turns (the query and the
+    overflow read, synced wall ms), each with the
     launch counts of `forms` ({module key: {form: launches}}, counted)
     and no other; the peak memory of each (max_memory_allocated over the
     memory held before it); a profile of each (device_profile with
@@ -968,6 +1013,8 @@ def graph_ab(tree, label: str, forms: dict, kernel, key: str) -> dict:
     want = None
     for i in range(GRAPH_REPS):
         for graph in ((False, True) if i % 2 == 0 else (True, False)):
+            if not graph and i >= EAGER_REPS:
+                continue
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -1038,7 +1085,8 @@ def acc_pot_u_check(tree) -> dict:
         td, cfg, THETA, 0.0, with_stats=True), want=booked)
     (a_h, p_h, o_h, m_h), host_ms = synced_ms(lambda: engine.acc_pot_u_host(
         td, cfg, THETA, 0.0, graph=False))
-    rec = {"query": "acc_pot_u (shared+grid)", "capture_s": capture_ms / 1e3,
+    rec = {"query": "acc_pot_u (shared+grid)", "n": int(td.pos.shape[0]),
+           "capture_s": capture_ms / 1e3,
            "capture_peak_mb": capture_peak, "graph_pool_mb": pool_mb,
            "warm_ms_all": warm,
            "eager_host_query_ms": host_ms, "capacity_chunks": cap_chunks,
@@ -1188,14 +1236,17 @@ STEP_REPS = 3
 
 def in_turns(ways: dict, reps: int, what: str) -> tuple:
     """reps warm calls of each way ({name: fn}) in turns, the order
-    reversed every other round: (the last output of each way, synced wall
-    ms of each call by way, the launches each way's calls booked
-    (counted), the graphs their calls captured). Raises where two calls
-    of a way booked different launches."""
+    reversed every other round, a way named "eager" in the first
+    EAGER_REPS rounds only: (the last output of each way, synced wall ms
+    of each call by way, the launches each way's calls booked (counted),
+    the graphs their calls captured). Raises where two calls of a way
+    booked different launches."""
     from rakau_tpu_torch import engine
     ms, booked, outs, captures = {w: [] for w in ways}, {}, {}, 0
     for i in range(reps):
         for w in (list(ways) if i % 2 else list(ways)[::-1]):
+            if w == "eager" and i >= EAGER_REPS:
+                continue
             ((outs[w], t), counts) = counted(lambda: synced_ms(ways[w]))
             captures += engine._GRAPHS.captures
             ms[w].append(t)
@@ -1231,6 +1282,7 @@ def step_three_ways(state, cfg) -> dict:
             *args, box_size=LF_BOX, graph=False)}
     td0 = build.build_tree(state.pos, state.mass, cfg, LF_BOX)
     cap = engine._gather_tiles(td0, cfg)[0].shape[0]
+    ways["sliced"]()                    # its graphs, as a step finds them
     _, first = first_call(ways["whole"])
     outs, ms, booked, _ = in_turns(ways, STEP_REPS, "graphs step")
     # another step size (-dt) replays the whole step's graph: dt is an
@@ -1300,6 +1352,7 @@ def energy_two_ways(state, ecfg) -> dict:
     td = build.build_tree(state.pos, state.mass, ecfg, LF_BOX)
     want = {"whole": engine._gather_tiles(td, ecfg)[0].shape[0],
             "host": query_chunks(td, ecfg)}
+    ways["host"]()                      # its graphs, as a query finds them
     _, first = first_call(ways["whole"])
     es, ms, booked, _ = in_turns(ways, STEP_REPS, "graphs energy")
     stats = {w: warm_stats(ms[w]) for w in ways}
@@ -2690,7 +2743,7 @@ def gwalk_tree(pos, mass, cfg, theta: float = THETA):
     1.1x the built tile count, rounded up to 256 (bench.py:103-111), then
     the global and per-round caps from engine.tune_gwalk
     (bench.py:130-140), tuned at theta. Returns the tree and its sizing
-    record."""
+    record (build_ms: the last tree's build, its graph's first call)."""
     from rakau_tpu_torch import Tree, engine
     from rakau_tpu_torch.config import OVF_FIELDS
     n = pos.shape[0]
@@ -2703,9 +2756,10 @@ def gwalk_tree(pos, mass, cfg, theta: float = THETA):
     tuned, tune_ms = synced_ms(lambda: engine.tune_gwalk(
         tree.tree_data, tree.config, theta, 0.0))
     del tree
-    tree = Tree(coords=pos, masses=mass, config=tuned)
+    tree, build_ms = synced_ms(lambda: Tree(coords=pos, masses=mass,
+                                            config=tuned))
     return tree, {"n_tiles": tiles, "tile_cap": tuned.tile_capacity(n),
-                  "tune_ms": tune_ms,
+                  "tune_ms": tune_ms, "build_ms": build_ms,
                   "caps": {f: getattr(tuned, f) for f in OVF_FIELDS},
                   "round_caps": list(tuned.gwalk_round_caps),
                   "pool_window": tuned.pool_window}
@@ -3622,8 +3676,7 @@ def leapfrog(n: int, seed: int, dev):
     """BASELINE config #2 on the card through rakau_tpu_torch.integrate
     (phase 9). Returns the phase's record and the energy tree and config
     for the kernel phase."""
-    from rakau_tpu_torch import Tree, build, direct_acc_pot_np, engine
-    from rakau_tpu_torch import integrate, particles
+    from rakau_tpu_torch import Tree, build, engine, integrate, particles
     from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
     from rakau_tpu_torch.kernels import shared
 
@@ -3725,16 +3778,21 @@ def leapfrog(n: int, seed: int, dev):
     drift = abs(e3 - e0) / abs(e0)
     rec.update(e3=e3, energy_query_ms_e3=e3_ms, drift=drift,
                e3_captures=e3_captures)
-    rec["graphs"] = {"leapfrog_step": step_three_ways(state, cfg),
-                     "total_energy": energy_two_ways(state, ecfg),
+    # the step three ways and the energy two ways on a smaller sphere
+    sp, sm = particles.cold_sphere(
+        min(SMALL_N, n),
+        generator=torch.Generator(device=dev).manual_seed(seed + 3))
+    small = integrate.NBodyState(sp, torch.zeros_like(sp), sm)
+    rec["graphs"] = {"leapfrog_step": step_three_ways(small, cfg),
+                     "total_energy": energy_two_ways(small, ecfg),
                      "build config #2": build_rec}
+    del small, sp, sm
 
     # sampled accuracy of the final state against the float64 direct sum
     samp = np.sort(np.random.default_rng(seed + 1).choice(n, 256,
                                                           replace=False))
-    acc_o, pot_o = direct_acc_pot_np(state.pos.double().cpu().numpy(),
-                                     state.mass.double().cpu().numpy(),
-                                     eps=LF_EPS, targets=samp)
+    acc_o, pot_o, o_check = sampled_oracle(state.pos, state.mass, samp,
+                                           LF_EPS)
     acc, pot, ovf = integrate.acc_pot_host(state.pos, state.mass, cfg,
                                            LF_THETA, LF_EPS, box_size=LF_BOX)
     f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
@@ -3748,7 +3806,8 @@ def leapfrog(n: int, seed: int, dev):
     qpot, q_ms, q_launches, _ = launches_of(lambda: qtree.pots_o(E_THETA,
                                                                  LF_EPS))
     _, q_rms = sampled_rms(None, qpot, None, pot_o, samp, dev)
-    rec.update(force_rms=f_rms, pot_rms=p_rms, energy_pot_rms=e_rms,
+    rec.update(oracle_check=o_check, force_rms=f_rms, pot_rms=p_rms,
+               energy_pot_rms=e_rms,
                fp32_quad_pot_rms=q_rms, fp32_quad_query_ms=q_ms,
                fp32_quad_launches=q_launches)
     emit("leapfrog", **rec)
@@ -3769,11 +3828,13 @@ def leapfrog(n: int, seed: int, dev):
     return rec, etree, ecfg
 
 
-def energy_kernels(etree, ecfg):
+def energy_kernels(etree, ecfg, forms=("quad_comp", "quad", "mono_comp"),
+                   label: str = "energy"):
     """Phase 10: the energy query's first chunk, node rows [0, U) through
     K1d+K1b (and K1d) and particle rows [U, S) through K1b, against plain
-    PyTorch in every mode, both timed. Returns per form (worst error,
-    ms, plain_ms, bound_ms, bound_by) of mode both."""
+    PyTorch in every mode, both timed (the kernel line says `label`; forms:
+    the ones to run). Returns per form (worst error, ms, plain_ms,
+    bound_ms, bound_by) of mode both."""
     from rakau_tpu_torch import engine
     from rakau_tpu_torch.kernels import shared
     td = etree.tree_data
@@ -3793,7 +3854,8 @@ def energy_kernels(etree, ecfg):
                       dict(compensated=True)),
     }
     out, modes, shapes = {}, {}, {}
-    for form, (args, kw) in segs.items():
+    for form in forms:
+        args, kw = segs[form]
         worst = 0.0
         for mode in ("both", "acc", "pot"):
             got = shared.eval_shared_fused(*args, LF_EPS, 1.0, mode=mode,
@@ -3816,7 +3878,7 @@ def energy_kernels(etree, ecfg):
         shapes[form] = dict(k1_shape(args, "comp" in form, "quad" in form),
                             pct_of_bound=100 * b_ms / out[form]["ms"])
     C, T, _ = inputs[0].shape
-    emit("kernel", config="energy", chunk=0, C=C, T=T, U=U,
+    emit("kernel", config=label, chunk=0, C=C, T=T, U=U,
          S=int(inputs[2].shape[0]), shapes=shapes, modes=modes,
          bounds={f: (v["bound_ms"], v["bound_by"]) for f, v in out.items()})
     return out
@@ -4315,16 +4377,15 @@ def lists_quad(seed: int, dev) -> dict:
     rows, K1a on the particle rows). The lists quadrupole's force RMS must
     be below the lists monopole's and within LISTS_QUAD_RTOL of the shared
     quadrupole's."""
-    from rakau_tpu_torch import Tree, direct_acc_pot_np, engine, particles
+    from rakau_tpu_torch import Tree, engine, particles
     from rakau_tpu_torch.config import TreeConfig
     gen = torch.Generator(device=dev).manual_seed(seed)
     pos, mass = particles.plummer(LISTS_QUAD_N, generator=gen)
     samp = np.sort(np.random.default_rng(seed).choice(LISTS_QUAD_N, 256,
                                                       replace=False))
-    acc_o, pot_o = direct_acc_pot_np(pos.double().cpu().numpy(),
-                                     mass.double().cpu().numpy(),
-                                     targets=samp)
-    rec, rms = {"n": LISTS_QUAD_N, "theta": THETA}, {}
+    acc_o, pot_o, o_check = sampled_oracle(pos, mass, samp)
+    rec, rms = {"n": LISTS_QUAD_N, "theta": THETA,
+                "oracle_check": o_check}, {}
     for key, kw in (("lists_mono", LISTS_KW),
                     ("lists_quad", dict(TREE_KW, farfield="local",
                                         multipole_order=2)),
@@ -5030,18 +5091,18 @@ def let_accuracy_engine(seed: int, dev) -> dict:
 
 def multi(pos, mass, cfg, seed: int, dev, let_n: int) -> tuple:
     """Phase multi: the F2 repair (f2_check), the tile-sharded query and
-    step on the main particles through the _host twins (sharded_check)
-    and the whole twins (sharded_whole, step_whole), the LET on let_n
-    Plummer particles through both twins (let_check, let_whole) and on
-    the accuracy engine (let_accuracy_engine); the seconds of each part.
-    Every shard of a mesh sits on cuda:(r % card count): with one card
-    all shards share it, and no copy between cards is made (phase
-    multicard makes them). Returns the record and the sharded query's
-    configuration and let_check's particles, query configuration and
+    step on pos, mass (SMALL_N particles) with the main caps (cfg) through
+    the _host twins (sharded_check) and the whole twins (sharded_whole,
+    step_whole), the LET on let_n Plummer particles through both twins
+    (let_check, let_whole) and on the accuracy engine
+    (let_accuracy_engine); the seconds of each part. Every shard of a
+    mesh sits on cuda:(r % card count): with one card all shards share
+    it, and no copy between cards is made (phase multicard makes them).
+    Returns the record and let_check's particles, query configuration and
     caps (for phase multicard)."""
     from rakau_tpu_torch import engine
     t0 = time.perf_counter()
-    rec = dict(cards=torch.cuda.device_count(), part_s={})
+    rec = dict(cards=torch.cuda.device_count(), n=pos.shape[0], part_s={})
 
     def part(name, fn):
         t = time.perf_counter()
@@ -5068,7 +5129,7 @@ def multi(pos, mass, cfg, seed: int, dev, let_n: int) -> tuple:
                        "cards were not exercised here (phase multicard)")
     rec["seconds"] = time.perf_counter() - t0
     emit("multi", **rec)
-    return rec, (cfg_g, let_set)
+    return rec, let_set
 
 
 # ------------------------------------------------------- phase multicard
@@ -5259,8 +5320,8 @@ def multicard_one(td, cfg_g, let_set, seed: int) -> dict:
     """Phase multicard on one card: the staged pipelines (the functions
     the public whole twins call on a mesh over several cards) replaying
     their per-card graphs on cuda:0, against the one-graph whole twins on
-    the same one-card mesh: the sharded query at MC_SHARDS shards on the
-    main tree (cfg_g, as sharded_whole), K1a = the padded capacity
+    the same one-card mesh: the sharded query at MC_SHARDS shards on td
+    (cfg_g, as sharded_whole), K1a = the padded capacity
     chunks; the LET in both phase0 modes on let_set (phase multi's
     let_check particles, query configuration and caps at MC_SHARDS
     shards), or where None on MC_LET_N particles (at most the main
@@ -5416,35 +5477,43 @@ def multicard_cross(pos, mass, td, cfg_g, n: int, seed: int) -> dict:
     return rec
 
 
-def multicard(pos, mass, cfg, multi_set, seed: int, n: int) -> dict:
-    """Phase multicard: multicard_one on every run; with more than one
-    card, multicard_cross. multi_set: phase multi's sharded query
-    configuration and LET set (let_check), or None (then local_config of
-    cfg, the main tree's, and a LET set sized here)."""
-    from rakau_tpu_torch import build, engine
+def local_tree(pos, mass, cfg) -> tuple:
+    """The tree of pos, mass under local_config of cfg, and that
+    configuration: the sharded query's (phase multicard)."""
+    from rakau_tpu_torch import build
+    cfg_g = local_config(build.build_tree(pos, mass, cfg), cfg)
+    return build.build_tree(pos, mass, cfg_g), cfg_g
+
+
+def multicard(pos, mass, cfg, small, let_set, seed: int, n: int) -> dict:
+    """Phase multicard: multicard_one on `small` (SMALL_N particles, the
+    main caps cfg) on every run; with more than one card,
+    multicard_cross on the main particles pos, mass. The sharded query's
+    configuration is local_config of cfg on each tree; let_set: phase
+    multi's LET set (let_check), or None (then a LET set sized here)."""
+    from rakau_tpu_torch import engine
     t0 = time.perf_counter()
     cards = torch.cuda.device_count()
-    cfg_g, let_set = multi_set or (None, None)
-    if cfg_g is None:
-        td = build.build_tree(pos, mass, cfg)
-        cfg_g = local_config(td, cfg)
-    td = build.build_tree(pos, mass, cfg_g)
     rec = {"cards": cards, "cards_nvidia_smi": card_lines()}
     failures = []
     t = time.perf_counter()
-    rec["one_card"] = multicard_one(td, cfg_g, let_set, seed)
+    td, cfg_g = local_tree(*small, cfg)
+    rec["one_card"] = dict(multicard_one(td, cfg_g, let_set, seed),
+                           n=td.pos.shape[0])
     rec["one_card_s"] = time.perf_counter() - t
+    del td
     engine.clear_graphs()
     torch.cuda.empty_cache()
     if cards > 1:
         t = time.perf_counter()
+        td, cfg_g = local_tree(pos, mass, cfg)
         rec["cross"] = multicard_cross(pos, mass, td, cfg_g, n, seed + 3)
         rec["cross_s"] = time.perf_counter() - t
         failures = rec["cross"]["failures"]
+        del td
     else:
         rec["note"] = ("one card: the staged pipelines ran on cuda:0 only; "
                        "the cross-card part did not run")
-    del td
     engine.clear_graphs()
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t0
@@ -5454,10 +5523,11 @@ def multicard(pos, mass, cfg, multi_set, seed: int, n: int) -> dict:
     return rec
 
 
-def main_path(n: int, seed: int, pos, mass, dev) -> dict:
-    """Phase group "main": phases main through f1 on the main particles.
-    Returns what the kernels line and phases multi and multicard take."""
-    from rakau_tpu_torch import direct_acc_pot_np, engine, octree
+def main_path(n: int, seed: int, pos, mass, small, dev) -> dict:
+    """Phase group "main": phases main through f1 on the main particles
+    (engine.acc_pot_u's check on `small`'s). Returns what the kernels
+    line and phases multi and multicard take."""
+    from rakau_tpu_torch import engine, octree
     from rakau_tpu_torch.kernels import pool, shared
     # ---- main path -----------------------------------------------------
     torch.cuda.synchronize()
@@ -5524,7 +5594,10 @@ def main_path(n: int, seed: int, pos, mass, dev) -> dict:
     graphs_rec = {"shared+grid": graph_ab(
         tree, "shared+grid", {"K1": {"mono": evaluated}}, "shared_fused_",
         "k1a_device_ms")}
-    graphs_rec["acc_pot_u"] = acc_pot_u_check(tree)
+    stree = octree(coords=small[0], masses=small[1], **TREE_KW)
+    stree.accs_pots_o(THETA)            # its caps grown
+    graphs_rec["acc_pot_u"] = acc_pot_u_check(stree)
+    del stree
     # the build's graph on the main tree, a steady-state Tree rebuild and
     # the graft entry's whole acc_pot (config #2's step, energy and build
     # follow in phase leapfrog)
@@ -5563,14 +5636,12 @@ def main_path(n: int, seed: int, pos, mass, dev) -> dict:
     # ---- accuracy against the float64 oracle ----------------------------
     samp = np.sort(np.random.default_rng(seed + 1).choice(
         n, 256, replace=False))
-    pos_np = pos.double().cpu().numpy()
-    acc_o, pot_o = direct_acc_pot_np(pos_np, mass.double().cpu().numpy(),
-                                     targets=samp)
+    acc_o, pot_o, o_check = sampled_oracle(pos, mass, samp)
     a = acc[torch.as_tensor(samp, device=dev)].double().cpu().numpy()
     f_rel = np.linalg.norm(a - acc_o, axis=1) / np.linalg.norm(acc_o, axis=1)
     f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
     emit("accuracy", samples=256, force_rms=f_rms, pot_rms=p_rms,
-         force_max=float(f_rel.max()))
+         force_max=float(f_rel.max()), oracle_check=o_check)
     if not f_rms < FORCE_RMS_MAX or not p_rms < POT_RMS_MAX:
         raise AssertionError(f"accuracy: force rms {f_rms:.3e}, "
                              f"pot rms {p_rms:.3e}")
@@ -5641,6 +5712,423 @@ def main_path(n: int, seed: int, pos, mass, dev) -> dict:
         f64_forms=f64_forms)
 
 
+# ------------------------------------------------------------ phase scale
+# The reference's own sizes on one card: bench.py's headline of 8,000,000
+# Plummer particles (bench.py:38-39) through the shared and the gwalk
+# engine, and BASELINE config #2 at 1 << 23 particles
+# (benchmarks/configs.py:90), two of its steps
+SCALE_N, SCALE_LF_N, SCALE_LF_STEPS = 8_000_000, 1 << 23, 2
+# the float64 direct sum on the card: targets a pass ([c, N, 3] float64
+# panels, 1.6 GB at 8M), and its agreement with direct_acc_pot_np on the
+# first ORACLE_CHECK sampled targets (relative, per target)
+ORACLE_CHUNK, ORACLE_CHECK, ORACLE_RTOL = 8, 8, 1e-12
+# K2's plain version at 8M runs on this many tiles about the first window
+# boundary of the pool (see scale_gwalk)
+SCALE_POOL_TILES = PLAIN_TILES
+# config #2's energy query at 1 << 23 starts its cap sizing from the caps
+# a run of this group measured there (on an H100): from LF_KW's it took
+# three doublings, each a query at 8M and a capture (as bench.py starts
+# from the 8M run's fitted caps, bench.py:61-64); it still grows any cap
+# that overflows
+SCALE_E_CAPS = dict(m2p_cap=98304, p2p_leaf_cap=16384, p2p_src_cap=177152,
+                    frontier_cap=4864)
+
+
+def card_oracle(pos, mass, targets, eps=0.0):
+    """The float64 direct sum (direct_acc_pot_np's arithmetic: the self
+    pair excluded by index) at the sampled `targets` (NumPy indices) over
+    every particle, on the card in passes of ORACLE_CHUNK targets. Returns
+    NumPy (acc [k, D], pot [k])."""
+    p, m = pos.double(), mass.double()
+    src = torch.arange(p.shape[0], device=p.device)
+    accs, pots = [], []
+    for t in torch.as_tensor(targets, device=p.device).split(ORACLE_CHUNK):
+        d = p[None, :, :] - p[t][:, None, :]               # [c, N, D]
+        r2 = (d * d).sum(-1) + float(eps) ** 2
+        inv_r = torch.where(t[:, None] == src[None, :], 0.0,
+                            1.0 / torch.sqrt(r2))
+        w = m[None, :] * inv_r
+        pots.append(-w.sum(1))
+        accs.append(torch.einsum("cn,cnd->cd", w * inv_r * inv_r, d))
+        del d, r2, inv_r, w
+    return torch.cat(accs).cpu().numpy(), torch.cat(pots).cpu().numpy()
+
+
+def sampled_oracle(pos, mass, samp, eps=0.0) -> tuple:
+    """(acc [k, D], pot [k], oracle_check's record): the float64 direct
+    sum at the sampled targets on the card, held to the NumPy one on the
+    first of them."""
+    acc_o, pot_o = card_oracle(pos, mass, samp, eps)
+    return acc_o, pot_o, oracle_check(pos, mass, samp, acc_o, pot_o, eps)
+
+
+def oracle_check(pos, mass, samp, acc_o, pot_o, eps=0.0) -> dict:
+    """card_oracle's sums at the first ORACLE_CHECK targets against
+    direct_acc_pot_np's on the host: the largest relative difference of a
+    target's force and potential; raises past ORACLE_RTOL."""
+    from rakau_tpu_torch import direct_acc_pot_np
+    t = samp[:ORACLE_CHECK]
+    a, p = direct_acc_pot_np(pos.double().cpu().numpy(),
+                             mass.double().cpu().numpy(), eps=eps, targets=t)
+    f_rel = float((np.linalg.norm(acc_o[:len(t)] - a, axis=1)
+                   / np.linalg.norm(a, axis=1)).max())
+    p_rel = float((np.abs(pot_o[:len(t)] - p) / np.abs(p)).max())
+    if not (f_rel <= ORACLE_RTOL and p_rel <= ORACLE_RTOL):
+        raise AssertionError(f"the card's direct sum against "
+                             f"direct_acc_pot_np: force {f_rel:.3e}, pot "
+                             f"{p_rel:.3e} (relative), bound {ORACLE_RTOL}")
+    return {"targets": len(t), "force_rel": f_rel, "pot_rel": p_rel}
+
+
+def memory_mb() -> dict:
+    """The allocator's peaks since the last reset_peak_memory_stats() and
+    the card's memory in use now (mem_get_info: every allocation of the
+    process, the allocator's cache included), MB."""
+    free, total = torch.cuda.mem_get_info()
+    return {"peak_allocated_mb": torch.cuda.max_memory_allocated() / MB,
+            "peak_reserved_mb": torch.cuda.max_memory_reserved() / MB,
+            "card_used_mb": (total - free) / MB, "card_total_mb": total / MB}
+
+
+def released():
+    """Every graph and cached per-tree query state dropped, the
+    allocator's cache handed back, the peaks reset: each path of phase
+    scale starts from an empty card."""
+    from rakau_tpu_torch import engine
+    engine.clear_graphs()
+    engine._QUERY_STATE_CACHE.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def timed_queries(tree, launches: dict, reps: int = WARM_REPS):
+    """(the first query's seconds, the launches its wrappers counted (the
+    form counts of `launches`, reset before it: the eager warm-ups and the
+    captures), the warm queries' ms, their bookkept launches, the last
+    (acc, pot)): accs_pots_o(THETA) once (its graphs captured) and `reps`
+    times warm, each timed by CUDA events."""
+    for f in launches:
+        launches[f] = 0
+    _, first_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+    wrapper = nonzero({"": launches}).get("", {})
+    warm, booked = [], []
+    for _ in range(reps):
+        (out, ms), counts = counted(
+            lambda: event_ms(lambda: tree.accs_pots_o(THETA)))
+        warm.append(ms)
+        booked.append(counts)
+    return first_ms / 1e3, wrapper, warm, booked, out
+
+
+def query_record(n, build_ms, first_s, warm, acc, pot, oracle, dev) -> dict:
+    """The numbers every query of phase scale states."""
+    if acc.shape != (n, 3) or pot.shape != (n,):
+        raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
+    finite("scale query results", acc, pot)
+    f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
+    warm_ms = statistics.median(warm)
+    return dict(n=n, theta=THETA, build_ms=build_ms, first_query_s=first_s,
+                warm_query_ms=warm_ms, warm_query_ms_all=warm,
+                warm_spread=(max(warm) - min(warm)) / warm_ms,
+                evals_per_s=n / (warm_ms / 1e3), force_rms=f_rms,
+                pot_rms=p_rms)
+
+
+def scale_shared(pos, mass, oracle, dev) -> tuple:
+    """The main path at SCALE_N: octree(..., **TREE_KW).accs_pots_o(0.75),
+    its first query (captures) and WARM_REPS graphed warm queries; K1a
+    launches a warm query = the chunk evaluations and nothing else; the
+    accuracy bounds; K1a against its plain version on chunk 0 and on the
+    last live chunk. Returns the record and the kernel's row."""
+    from rakau_tpu_torch import engine, grid, octree
+    from rakau_tpu_torch.config import OVF_FIELDS
+    from rakau_tpu_torch.kernels import shared
+    n = pos.shape[0]
+    released()
+    tree, build_ms = synced_ms(lambda: octree(coords=pos, masses=mass,
+                                              **TREE_KW))
+    first_s, wrapper, warm, booked, (acc, pot) = timed_queries(
+        tree, shared.launches)
+    td, cfg = tree.tree_data, tree.config
+    chunks = engine.live_chunks(td, cfg)
+    evaluated = query_chunks(td, cfg)
+    for c in booked:
+        k1_launches(c, evaluated, ("mono",), "scale: shared warm query")
+    if wrapper.get("mono", 0) <= 0:
+        raise AssertionError(f"scale: the first shared query's wrappers "
+                             f"counted {wrapper}, no K1a")
+    rec = query_record(n, build_ms, first_s, warm, acc, pot, oracle, dev)
+    rec.update(
+        grid_level=grid.effective_grid_level(cfg, n), n_nodes=tree.n_nodes,
+        n_tiles=int(td.n_tiles), tile_cap=cfg.tile_capacity(n),
+        live_chunks=chunks, chunk_evaluations=evaluated,
+        launches_per_warm_query=evaluated, wrapper_launches=wrapper,
+        caps={f: getattr(cfg, f) for f in OVF_FIELDS},
+        caps_grown={f: getattr(cfg, f) for f in OVF_FIELDS
+                    if getattr(cfg, f) != TREE_KW[f]},
+        **memory_mb())
+    del acc, pot
+    # K1a against its plain version on the first and the last live chunk
+    rows = []
+    for ch in sorted({0, chunks - 1}):
+        inputs = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)[:6]
+        err = compare(shared.eval_shared_fused(*inputs, 0.0, 1.0),
+                      shared.eval_shared_plain(*inputs, 0.0, 1.0))
+        km = cuda_ms(lambda: shared.eval_shared_fused(*inputs, 0.0, 1.0), 10)
+        pm = cuda_ms(lambda: shared.eval_shared_plain(*inputs, 0.0, 1.0), 1)
+        b, b_by = bound(inputs, n)
+        rows.append(dict(chunk=ch, S=int(inputs[2].shape[0]), max_abs_err=err,
+                         ms=km, plain_ms=pm, bound_ms=b, bound_by=b_by,
+                         pct_of_bound=100 * b / km, **k1_shape(inputs)))
+    rec["kernel"] = rows
+    emit("scale_shared", **rec)
+    if not (rec["force_rms"] < FORCE_RMS_MAX and rec["pot_rms"] < POT_RMS_MAX):
+        raise AssertionError(f"scale shared accuracy: force rms "
+                             f"{rec['force_rms']:.3e}, pot rms "
+                             f"{rec['pot_rms']:.3e}")
+    row = dict(launches=evaluated, max_abs_err=max(r["max_abs_err"]
+                                                    for r in rows),
+               ms=float(np.mean([r["ms"] for r in rows])),
+               plain_ms=float(np.mean([r["plain_ms"] for r in rows])),
+               bound_ms=float(np.mean([r["bound_ms"] for r in rows])),
+               bound_by=max((r["bound_ms"], r["bound_by"])
+                            for r in rows)[1])
+    del tree, td
+    return rec, row
+
+
+def scale_gwalk(pos, mass, oracle, shared_rms, dev) -> tuple:
+    """gwalk+grid at SCALE_N, sized as bench.py sizes it (gwalk_tree): its
+    first query and WARM_REPS warm ones, one K2 launch each and nothing
+    else; the accuracy bounds, and the force RMS at most 1 + SHARED_RMS_RTOL
+    times the shared query's; K2 against its plain version; the pool's
+    rows. Returns the record and the kernel's row.
+
+    With farfield "grid" the two engines are not one computation, so
+    their errors are not held within 1 % both ways as gwalk_quad holds
+    the "m2p" pair: the shared engine applies a tile's accepted nodes
+    through its local Taylor expansion, gwalk as M2P rows of its pool on
+    every target, and gwalk is the more accurate (1.615e-3 against
+    1.733e-3 at 1M on an H100, 7 % apart; the reference's engines do the
+    same)."""
+    from rakau_tpu_torch import engine, grid
+    from rakau_tpu_torch.config import TreeConfig
+    from rakau_tpu_torch.kernels import pool
+    n = pos.shape[0]
+    released()
+    (tree, sizing), sizing_ms = synced_ms(lambda: gwalk_tree(
+        pos, mass, TreeConfig(farfield="grid", **gwalk_kw(n))))
+    td, cfg = tree.tree_data, tree.config
+    first_s, wrapper, warm, booked, (acc, pot) = timed_queries(
+        tree, pool.launches)
+    for c in booked:
+        one_launch(c, "mono", "scale: gwalk warm query")
+    if wrapper.get("mono", 0) <= 0:
+        raise AssertionError(f"scale: the first gwalk query's wrappers "
+                             f"counted {wrapper}, no K2")
+    rec = query_record(n, sizing.pop("build_ms"), first_s, warm, acc, pot,
+                       oracle, dev)
+    rec.update(sizing, sizing_ms=sizing_ms,
+               grid_level=grid.effective_grid_level(cfg, n),
+               n_nodes=tree.n_nodes, live_chunks=engine.live_chunks(td, cfg),
+               launches_per_warm_query=1, wrapper_launches=wrapper,
+               shared_force_rms=shared_rms, **memory_mb())
+    del acc, pot
+    inputs = engine.pool_inputs(td, cfg, THETA, 0.0)
+    window, block = cfg.pool_window, cfg.pool_block
+    tpos, tidx, ppos, pmass = inputs[:4]
+    sched = inputs[5].long()
+    seg = pool_segments(inputs, n, window, block)
+    ends = (sched[:, 0] * (window // block) + sched[:, 1]
+            + sched[:, 2] + sched[:, 3]) * block
+    rec["pool"] = dict(segments=seg, rows=int(ppos.shape[0]),
+                       rows_written=int(ends.max()),
+                       rows_in_segments=seg["rows"],
+                       rows_live=int((pmass > 0).sum()),
+                       windows=int(sched[:, 0].max()) + 1)
+    # K2 against its plain version on SCALE_POOL_TILES tiles about the
+    # pool's first window boundary, not on every tile: the kernel's
+    # windowed addressing is what the scale can break, and a range that
+    # crosses a boundary reads both windows, while the plain version over
+    # all of the 8M pool takes ~8x the 1.5 s it takes at 1M (the 1M pool
+    # is held whole in the main group's kernel phase)
+    real = torch.nonzero(tidx[:, 0] < n).squeeze(1)
+    cross = int(torch.nonzero(sched[real, 0] > 0)[0, 0])
+    lo = max(0, cross - SCALE_POOL_TILES // 2)
+    tiles = real[lo:lo + SCALE_POOL_TILES]
+    got = pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0, block)
+    plain_pool(inputs, tiles[:8], window, block, compensated=False,
+               mode="both", quad=False)
+    want, pm = synced_ms(lambda: plain_pool(
+        inputs, tiles, window, block, compensated=False, mode="both",
+        quad=False))
+    err = compare((got[0][tiles], got[1][tiles]), want)
+    km = cuda_ms(lambda: pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0,
+                                              block), 10)
+    b, b_by = pool_bound(inputs, n, window, block, False, False)
+    rec["kernel"] = dict(
+        max_abs_err=err, ms=km, plain_ms=pm, plain_tiles=len(tiles),
+        plain_windows=sorted({int(w) for w in sched[tiles, 0]}),
+        bound_ms=b, bound_by=b_by, pct_of_bound=100 * b / km,
+        shape=pool_shape(inputs, window, block, False, False))
+    emit("scale_gwalk", **rec)
+    if not (rec["force_rms"] < FORCE_RMS_MAX and rec["pot_rms"] < POT_RMS_MAX
+            and rec["force_rms"] <= (1 + SHARED_RMS_RTOL) * shared_rms):
+        raise AssertionError(f"scale gwalk accuracy: force rms "
+                             f"{rec['force_rms']:.3e} (shared "
+                             f"{shared_rms:.3e}), pot rms "
+                             f"{rec['pot_rms']:.3e}")
+    if len(rec["kernel"]["plain_windows"]) < 2:
+        raise AssertionError("scale gwalk: the plain K2 range does not "
+                             "cross a window boundary")
+    row = dict(launches=1, max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b,
+               bound_by=b_by, plain_on=f"{len(tiles)} of {seg['tiles']} "
+               "tiles, about the pool's first window boundary")
+    del tree, td, inputs, got, want
+    return rec, row
+
+
+def scale_leapfrog(seed: int, dev) -> tuple:
+    """BASELINE config #2 at SCALE_LF_N as benchmarks/configs.py:90-128
+    runs it: the energy configuration's caps sized through the Tree
+    (grow and retry, from SCALE_E_CAPS), E0, SCALE_LF_STEPS steps of
+    leapfrog_step_morton_host_safe (retries reported), the first step's
+    query on the initial state (the step's cfg as it came out of the first
+    step) against the float64 direct sum, E after the steps; drift,
+    force and energy-potential bounds; K1d+K1b against its plain version
+    on the energy tree's first chunk. Returns the record and the kernel's
+    row."""
+    from rakau_tpu_torch import Tree, engine, integrate, particles
+    from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
+    from rakau_tpu_torch.kernels import shared
+    n = SCALE_LF_N
+    released()
+    shared.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.cold_sphere(n, generator=gen)
+    state0 = state = integrate.NBodyState(pos, torch.zeros_like(pos), mass)
+    cfg = TreeConfig(**LF_KW)
+    ecfg0 = cfg.with_(multipole_order=2, accum="compensated", farfield="m2p",
+                      **SCALE_E_CAPS)
+    samp = np.sort(np.random.default_rng(seed + 1).choice(n, 256,
+                                                          replace=False))
+    acc_o, pot_o = card_oracle(pos, mass, samp, LF_EPS)
+    rec = {"n": n, "steps": SCALE_LF_STEPS, "dt": LF_DT, "theta": LF_THETA,
+           "energy_theta": E_THETA, "eps": LF_EPS, "box": LF_BOX}
+    torch.cuda.reset_peak_memory_stats()
+    # the energy configuration's caps, as the 1M phase sizes them
+    etree, size_ms = synced_ms(lambda: Tree(coords=pos, masses=mass,
+                                            config=ecfg0, box_size=LF_BOX))
+    epot, esize_ms = synced_ms(lambda: etree.pots_o(E_THETA, LF_EPS))
+    grown = etree.config
+    fitted = etree.tune_caps(slack=1.25)
+    ecfg = grown.with_(**{f: max(getattr(grown, f), getattr(fitted, f))
+                          for f in OVF_FIELDS})
+    _, e_rms = sampled_rms(None, epot, None, pot_o, samp, dev)
+    del epot
+    rec.update(energy_build_first_ms=size_ms, energy_sizing_query_ms=esize_ms,
+               energy_caps_grown={f: getattr(grown, f) for f in OVF_FIELDS
+                                  if getattr(grown, f) != getattr(ecfg0, f)},
+               energy_caps={f: getattr(ecfg, f) for f in OVF_FIELDS})
+    e0, e0_ms = synced_ms(lambda: integrate.total_energy_host(
+        state, ecfg, E_THETA, LF_EPS, box_size=LF_BOX))
+    step_ms, retries, grown_to = [], [], []
+    for _ in range(SCALE_LF_STEPS):
+        (state, _, _, cfg, r), ms = synced_ms(
+            lambda: integrate.leapfrog_step_morton_host_safe(
+                state, LF_DT, cfg, LF_THETA, LF_EPS, box_size=LF_BOX))
+        step_ms.append(ms)
+        retries.append(r)
+        if r:
+            grown_to.append({f: getattr(cfg, f) for f in OVF_FIELDS})
+    for t in state:
+        finite("scale config #2 state", t)
+    # the wrappers' launches over the sizing, E0 and the steps (the eager
+    # warm-ups and the captures of their graphs)
+    wrapper = nonzero({"K1": shared.launches}).get("K1", {})
+    # the first step's query: the step configuration on the initial state
+    # (its build and query)
+    (acc, pot, ovf), q_ms = synced_ms(lambda: integrate.acc_pot_host(
+        state0.pos, state0.mass, cfg, LF_THETA, LF_EPS, box_size=LF_BOX))
+    if bool(ovf.any()):
+        raise AssertionError("scale config #2: the step's query overflowed")
+    finite("scale config #2 step query", acc, pot)
+    f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
+    del acc, pot
+    (e2, counts), e2_ms = synced_ms(lambda: counted(
+        lambda: integrate.total_energy_host(state, ecfg, E_THETA, LF_EPS,
+                                            box_size=LF_BOX)))
+    e_chunks = query_chunks(etree.tree_data, ecfg)
+    drift = abs(e2 - e0) / abs(e0)
+    _, sbuild_ms = synced_ms(lambda: engine.build_tree(
+        state.pos, state.mass, cfg, LF_BOX))
+    _, ebuild_ms = synced_ms(lambda: engine.build_tree(
+        state.pos, state.mass, ecfg, LF_BOX))
+    rec.update(e0=e0, e_after=e2, drift=drift, energy_query_ms_first=e0_ms,
+               energy_query_ms=e2_ms, energy_launches=counts["K1"],
+               energy_chunks=e_chunks, step_ms=step_ms,
+               step_first_ms=step_ms[0], step_warm_ms=step_ms[-1],
+               cap_retries=retries, caps_grown_to=grown_to,
+               step_caps={f: getattr(cfg, f) for f in OVF_FIELDS},
+               acc_pot_host_ms=q_ms, step_build_ms=sbuild_ms,
+               energy_build_ms=ebuild_ms, force_rms=f_rms, pot_rms=p_rms,
+               energy_pot_rms=e_rms, wrapper_launches=wrapper,
+               **memory_mb())
+    if not (counts["K1"]["quad_comp"] == counts["K1"]["mono_comp"]
+            == e_chunks > 0 and wrapper.get("quad_comp", 0) > 0
+            and wrapper.get("mono", 0) > 0):
+        raise AssertionError(f"scale config #2: energy query launches "
+                             f"{counts}, chunks {e_chunks}; by the "
+                             f"wrappers {wrapper}")
+    forms = energy_kernels(etree, ecfg, ("quad_comp",), "energy (scale)")
+    rec["kernel"] = forms["quad_comp"]
+    emit("scale_config2", **rec)
+    if not (drift < DRIFT_MAX and f_rms < LF_FORCE_RMS_MAX
+            and p_rms < LF_POT_RMS_MAX and e_rms < E_POT_RMS_MAX):
+        raise AssertionError(f"scale config #2: drift {drift:.3e}, step "
+                             f"force rms {f_rms:.3e}, pot rms {p_rms:.3e}, "
+                             f"energy pot rms {e_rms:.3e}")
+    row = dict(launches=counts["K1"]["quad_comp"], **forms["quad_comp"])
+    del etree, state, state0
+    return rec, row
+
+
+def scale(seed: int, dev) -> dict:
+    """Phase group scale: the 8M Plummer sphere through the shared and
+    the gwalk engine (one sampled float64 oracle on the card, checked
+    against direct_acc_pot_np) and config #2 at 1 << 23, every graph of
+    the earlier groups released first. Returns the kernels' 8M rows."""
+    from rakau_tpu_torch import particles
+    t0 = time.perf_counter()
+    released()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(SCALE_N, generator=gen)
+    samp = np.sort(np.random.default_rng(seed + 1).choice(
+        SCALE_N, 256, replace=False))
+    (acc_o, pot_o, check), oracle_ms = synced_ms(lambda: sampled_oracle(
+        pos, mass, samp))
+    oracle = (acc_o, pot_o, samp)
+    part_s = {"oracle": time.perf_counter() - t0}
+    t = time.perf_counter()
+    srec, k1a = scale_shared(pos, mass, oracle, dev)
+    part_s["shared"] = time.perf_counter() - t
+    t = time.perf_counter()
+    grec, k2 = scale_gwalk(pos, mass, oracle, srec["force_rms"], dev)
+    part_s["gwalk"] = time.perf_counter() - t
+    del pos, mass
+    t = time.perf_counter()
+    lrec, k1db = scale_leapfrog(seed + 2, dev)
+    part_s["config2"] = time.perf_counter() - t
+    released()
+    emit("scale", n=SCALE_N, config2_n=SCALE_LF_N, oracle_ms=oracle_ms,
+         oracle_check=check, part_s=part_s,
+         peak_allocated_mb={"shared": srec["peak_allocated_mb"],
+                            "gwalk": grec["peak_allocated_mb"],
+                            "config2": lrec["peak_allocated_mb"]},
+         seconds=time.perf_counter() - t0)
+    return {"K1a": k1a, "K2": k2, "K1d+K1b": k1db}
+
+
 def main_config(pos, mass):
     """The main tree's configuration where phase group "main" did not run:
     octree(...) with TREE_KW and one query, which grows its caps."""
@@ -5649,10 +6137,10 @@ def main_config(pos, mass):
     tree.accs_pots_o(THETA)
     return tree.config
 
-def kernels_line(m: dict, lf: dict, forms: dict) -> list:
+def kernels_line(m: dict, lf: dict, forms: dict, big: dict) -> list:
     """The kernels line: every kernel form with its launches on the main
     path, time, plain time and bound (m: main_path's results; lf, forms:
-    phase leapfrog's and its energy kernels')."""
+    phase leapfrog's and its energy kernels'; big: phase scale's rows)."""
     (launches, worst, k_ms, p_ms, b_ms, whole_rec, c_launches, c_forms,
      v_forms, v_launches, lv_forms, lv_launches, g_launches, q_launches, k2,
      t_launches, t_forms, f64_launches, f64_forms) = (m[k] for k in (
@@ -5661,12 +6149,13 @@ def kernels_line(m: dict, lf: dict, forms: dict) -> list:
         "lv_launches", "g_launches", "q_launches", "k2", "t_launches",
         "t_forms", "f64_launches", "f64_forms"))
     whole_k1a = {
-        "leapfrog_step_morton (config #2)": lf["graphs"]["leapfrog_step"][
-            "k1a_launches_measured"]["whole"],
+        f"leapfrog_step_morton (config #2 at {SMALL_N:,})": lf[
+            "graphs"]["leapfrog_step"]["k1a_launches_measured"]["whole"],
         "acc_pot (graft entry)": whole_rec["graft entry"]["launches"][
             "K1"]["mono"]}
-    whole_quad_comp = {"total_energy (config #2)": lf["graphs"][
-        "total_energy"]["launches_measured"]["whole"]["K1"]["quad_comp"]}
+    whole_quad_comp = {f"total_energy (config #2 at {SMALL_N:,})": lf[
+        "graphs"]["total_energy"]["launches_measured"]["whole"]["K1"][
+        "quad_comp"]}
 
     kernels = [{
         "name": "K1a shared_fused (monopole, fp32)", "route": "cuda",
@@ -5744,6 +6233,18 @@ def kernels_line(m: dict, lf: dict, forms: dict) -> list:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": f64_launches[key],
                         **f64_forms[key], "library_ms": None})
+    for key, name, source, replaces in (
+            ("K1a", f"K1a shared_fused (monopole, fp32, {SCALE_N:,} "
+             "particles)", SRC, REPLACES),
+            ("K2", f"K2 pool (monopole, fp32, {SCALE_N:,} particles)",
+             POOL_SRC, POOL_REPLACES),
+            ("K1d+K1b", "K1d+K1b shared_fused (quadrupole, compensated, "
+             f"config #2 at {SCALE_LF_N:,})", SRC, REPLACES)):
+        row = big[key]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, **row,
+                        "pct_of_bound": 100 * row["bound_ms"] / row["ms"],
+                        "library_ms": None})
     return kernels
 
 
@@ -5771,12 +6272,23 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    group_t = [time.perf_counter()]
+
+    def group_done(name: str):
+        """The closing line of a phase group: its seconds."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        emit("group", group=name, seconds=now - group_t[0])
+        group_t[0] = now
+
     emit("device", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
+    group_done("device")
 
     if "build" in phases:
         emit("build", **build_kernels())
+        group_done("build")
 
     if "edge" in phases:
         edge_err, cancel = edge_cases(shared, dev)
@@ -5797,26 +6309,34 @@ def main(argv=None) -> int:
         emit("edge_tiles", max_abs_err={
             "float32": tiles_edge_cases(dev, torch.float32),
             "float64": tiles_edge_cases(dev, f64)})
+        group_done("edge")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     pos, mass = particles.plummer(args.n, generator=gen)
+    # the Plummer sphere of the checks that do not need --n (SMALL_N)
+    small = particles.plummer(
+        min(SMALL_N, args.n),
+        generator=torch.Generator(device=dev).manual_seed(args.seed + 13))
     if "main" in phases:
-        m = main_path(args.n, args.seed, pos, mass, dev)
+        m = main_path(args.n, args.seed, pos, mass, small, dev)
         cfg = m["cfg"]
+        group_done("main")
     elif phases & {"multi", "multicard"}:
         cfg = main_config(pos, mass)
     torch.cuda.empty_cache()
 
     # ---- the multi-device paths: F2, sharded query and step, LET ---------
-    multi_set = None
+    let_set = None
     if "multi" in phases:
-        mrec, multi_set = multi(pos, mass, cfg, args.seed + 7, dev,
-                                min(LET_N, args.n))
+        mrec, let_set = multi(*small, cfg, args.seed + 7, dev,
+                              min(LET_N, args.n))
         torch.cuda.empty_cache()
+        group_done("multi")
     # ---- the staged pipelines, per card (across the cards where several) -
     if "multicard" in phases:
-        multicard(pos, mass, cfg, multi_set, args.seed + 9, args.n)
+        multicard(pos, mass, cfg, small, let_set, args.seed + 9, args.n)
         torch.cuda.empty_cache()
+        group_done("multicard")
 
     # ---- BASELINE config #2: the leapfrog harness -----------------------
     kernels = None
@@ -5824,10 +6344,16 @@ def main(argv=None) -> int:
         lf, etree, ecfg = leapfrog(args.n, args.seed + 2, dev)
         forms = energy_kernels(etree, ecfg)
         del etree
+        group_done("leapfrog")
+    del pos, mass, small
+    # ---- the reference's own sizes: 8M, and config #2 at 1 << 23 --------
+    if "scale" in phases:
+        big = scale(args.seed + 11, dev)
+        group_done("scale")
     if phases == set(PHASES):
         emit("graphs", summary=graphs_summary(
             m["graphs_rec"], mrec, {**m["whole_rec"], **lf["graphs"]}))
-        kernels = kernels_line(m, lf, forms)
+        kernels = kernels_line(m, lf, forms, big)
     emit("total", seconds=time.perf_counter() - t_start)
     if kernels is not None:
         print(json.dumps({"kernels": kernels}), flush=True)
