@@ -121,20 +121,55 @@ def c_signature(root: Path, name: str, fn: str) -> str:
     return "" if at < 0 else text[at:text.index("{", at)]
 
 
-def bind_some(path: Path, name: str, f64: bool = False):
+# The launch entries whose last arguments before the stream are eps^2 and G
+# (eps^2 alone for K4's): by value in a checkout before the kernels read
+# them on the card, one pointer to the card's [eps^2, G] since.
+SCALAR_ENTRIES = {"rakau_shared_fused": 2, "rakau_shared_mma": 2,
+                  "rakau_shared_blocks": 2, "rakau_pool": 2,
+                  "rakau_tiles": 2, "rakau_tiles_pairwise": 1}
+
+
+def bind_some(path: Path, name: str, f64: bool = False, root=None):
     """The library at `path` (of csrc/<name>.cu, another checkout's) with
     the argument and result types of kernels/shared.py declared for the
-    functions of this side's library that it has."""
+    functions of this side's library that it has. root: that checkout,
+    whose source says how its launches take eps^2 and G; a library that
+    takes them by value gets `by_value` set (scal_args reads it)."""
     from rakau_tpu_torch.kernels import shared
     real = ctypes.c_double if f64 else ctypes.c_float
     lib = ctypes.CDLL(str(path))
+    text = ("" if root is None else
+            (root / "rakau_tpu_torch" / "csrc" / f"{name}.cu").read_text())
+    lib.by_value = root is not None and " scal, void* stream" not in text
     for fname, argtypes in shared._LIBRARIES[name][0].items():
         if not hasattr(lib, fname):
             continue
         fn = getattr(lib, fname)
         fn.restype = shared._RESTYPES.get(fname, ctypes.c_int)
-        fn.argtypes = [real if a is shared._REAL else a for a in argtypes]
+        if lib.by_value and fname in SCALAR_ENTRIES:
+            argtypes = (argtypes[:-2] + [real] * SCALAR_ENTRIES[fname]
+                        + [ctypes.c_void_p])
+        fn.argtypes = argtypes
     return lib
+
+
+_SCALARS: dict = {}
+
+
+def scal_args(lib, like, k4: bool = False) -> tuple:
+    """The scalar arguments of a launch of `lib` at eps = 0 and G = 1, in
+    its own C interface: (0.0, 1.0) (K4: (0.0,)) where it takes them by
+    value, else the pointer of the kernels' scalar buffer
+    (shared.scalar_buffer: [eps^2, G, eps^2, 1], whose first two K4 reads
+    as well at G = 1) of like's dtype on its device, kept here for the
+    life of the process."""
+    from rakau_tpu_torch.kernels import shared
+    if getattr(lib, "by_value", False):
+        return (0.0,) if k4 else (0.0, 1.0)
+    key = (like.dtype, like.device)
+    if key not in _SCALARS:
+        _SCALARS[key] = shared.scalar_buffer(0.0, 1.0, like)
+    return (_SCALARS[key].data_ptr(),)
 
 
 def build_other(root: Path) -> tuple:
@@ -149,7 +184,7 @@ def build_other(root: Path) -> tuple:
     sig = text[text.index('extern "C" int rakau_shared_fused('):]
     sig = sig[:sig.index("{")]
     if "int span" in sig:
-        return shared.bind_library(out), "granules"
+        return bind_some(out, "shared_fused", root=root), "granules"
     dims = "int cell_dims" in sig
     lib = ctypes.CDLL(str(out))
     fn = lib.rakau_shared_fused
@@ -270,8 +305,8 @@ def this_launchers(lib, a: dict, sep: int, span: int):
             a["tcell"].data_ptr() if cell else None,
             *(t.data_ptr() for t in dplan[:4]), ws.data_ptr(),
             acc.data_ptr(), pot.data_ptr(),
-            C, T, S, span, 0, comp, int(quad), cell_sep, D, sms, 0.0, 1.0,
-            stream)
+            C, T, S, span, 0, comp, int(quad), cell_sep, D, sms,
+            *scal_args(lib, tpos), stream)
         if err:
             raise RuntimeError(f"launch failed: {err}")
         return acc, pot
@@ -482,7 +517,7 @@ def this_pool(lib, inputs, window: int, block: int, form: str, span: int):
             pquad.data_ptr() if quad else None, s32.data_ptr(),
             *(t.data_ptr() for t in plan), ws.data_ptr(), acc.data_ptr(),
             pot.data_ptr(), G, T, P, window // block, block, span, cap, 0,
-            int(comp), sms, 0.0, 1.0, stream)
+            int(comp), sms, *scal_args(lib, tpos), stream)
         if err:
             raise RuntimeError(f"K2 launch failed: {err}")
         return acc, pot
@@ -549,7 +584,7 @@ def this_tiles(lib, a, span: int):
             mc64.data_ptr(), pp.data_ptr(), pm.data_ptr(), pi.data_ptr(),
             pc64.data_ptr(), *(t.data_ptr() for t in plan), ws.data_ptr(),
             acc.data_ptr(), pot.data_ptr(), C, T, Sm, Sp, span, cap, sms,
-            0.0, 1.0, stream)
+            *scal_args(lib, tp), stream)
         if err:
             raise RuntimeError(f"K3 launch failed: {err}")
         return acc, pot
@@ -658,7 +693,7 @@ def ab_k2(args, dev, card) -> tuple:
         others = {f64: ex.submit(compile_other, root, "pool", f64)
                   for f64 in (False, True)}
         this = {f64: shared._library("pool", f64) for f64 in (False, True)}
-        others = {f64: bind_some(f.result(), "pool", f64)
+        others = {f64: bind_some(f.result(), "pool", f64, root)
                   for f64, f in others.items()}
     builds = rows_builds("pool", args.rows_sweep)
     lines, ratios = [], {}
@@ -734,7 +769,7 @@ def tiles_libraries(root: Path) -> tuple:
         others = {f64: ex.submit(compile_other, root, "tiles", f64)
                   for f64 in (False, True)}
         this = {f64: shared._library("tiles", f64) for f64 in (False, True)}
-        others = {f64: bind_some(f.result(), "tiles", f64)
+        others = {f64: bind_some(f.result(), "tiles", f64, root)
                   for f64, f in others.items()}
     return others, this
 
@@ -865,7 +900,7 @@ def this_mma(lib, args, cells, prec: str, span: int):
             tpos.data_ptr(), cells[1].data_ptr() if cells else None,
             *(t.data_ptr() for t in dplan[:4]), ws.data_ptr(),
             acc.data_ptr(), pot.data_ptr(), C, T, S, span, 0, pr, sep, D,
-            sms, 0.0, 1.0, stream)
+            sms, *scal_args(lib, tpos), stream)
         if err:
             raise RuntimeError(f"K6 launch failed: {err}")
         return acc, pot
@@ -1037,8 +1072,8 @@ def this_blocks(lib, row, span: int):
         err = err or lib.rakau_shared_blocks(
             tpos.data_ptr(), tidx.data_ptr(),
             *(t.data_ptr() for t in dplan[:4]), ws.data_ptr(),
-            acc.data_ptr(), pot.data_ptr(), C, T, S, span, sms, 0.0, 1.0,
-            stream)
+            acc.data_ptr(), pot.data_ptr(), C, T, S, span, sms,
+            *scal_args(lib, tpos), stream)
         if err:
             raise RuntimeError(f"K5 launch failed: {err}")
         return acc, pot
@@ -1087,7 +1122,7 @@ def ab_k5(args, dev, card) -> tuple:
     with ThreadPoolExecutor(2) as ex:
         other_f = ex.submit(compile_other, root, "shared_blocks")
         this = shared._library("shared_blocks")
-        other = bind_some(other_f.result(), "shared_blocks")
+        other = bind_some(other_f.result(), "shared_blocks", root=root)
     builds = blocks_builds(args.blocks_sweep)
     lines, ratios = [], {}
     for label, ch, row in shared_rows(args.n, args.seed, dev):
@@ -1190,7 +1225,7 @@ def this_pairwise(lib, a, span: int):
                 mass.data_ptr(), None if idx is None else idx.data_ptr(),
                 cnt.data_ptr(), *(t.data_ptr() for t in plan), ws.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), C, T, S, tiles.BLOCK,
-                span, cap, sms, 0.0, stream)
+                span, cap, sms, *scal_args(lib, tp, k4=True), stream)
             if err:
                 raise RuntimeError(f"K4 launch failed: {err}")
         (am, pmo), (ap, ppo) = launches[0][-1], launches[1][-1]

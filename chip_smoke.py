@@ -79,6 +79,9 @@ Phases, each printing one JSON line:
                profile (profile_launches, measured), held to the
                bookkeeping of the wrappers and the graphs' replays
                (counted); every count the kernels line states is one;
+     sweep:    the same tree at theta 0.6, then eps 1e-3, then G 0.5:
+               each a graph input, so no call captures and each changes
+               the sums (scalar_sweep);
   5. layers:   one more warm query with the walk, the walk + far field and
                the kernel call each timed between device syncs (run
                eagerly, engine.acc_pot_u_host(graph=False), as every
@@ -89,10 +92,12 @@ Phases, each printing one JSON line:
                intervals), the kernel's device ms and the idle share;
      graphs:   the query replayed from its CUDA graphs (the default on
                the card) against the same query run eagerly (graph=False)
-               on one tree: the graph cache emptied, the first graphed
-               query's seconds (warm-up, capture, replay), GRAPH_REPS warm
-               queries each way in turns (median, spread, peak memory,
-               launches = chunk evaluations on both), a profile each way
+               on one tree (shared+grid and lists: their configurations
+               on SMALL_N particles): the graph cache
+               emptied, the first graphed query's seconds (warm-up,
+               capture, replay), GRAPH_REPS warm queries each way in
+               turns (median, spread, peak memory, launches = chunk
+               evaluations on both), a profile each way
                (whose records show them),
                the graph pool's memory; the sums bit for bit equal, flags
                and maxima equal (graph_ab; likewise after lmac_profile,
@@ -142,12 +147,17 @@ Phases, each printing one JSON line:
                NumPy one, direct_acc_pot_np, within 1e-12 (as every
                oracle from 262,144 particles up): RMS relative force
                error < 5e-3, potential < 2e-3;
-  v. variants: the same query whole under dispatch.shared_variant: "mma"
+  v. variants: the query of SMALL_N particles (TREE_KW) whole under
+               dispatch.shared_variant: "mma"
                at bf16, x3 and highest, and "blocks": launches of the
                variant = chunks and no K1a launch; x3, highest and K5
                within 1 % of K1a's force RMS and under the bounds, one bf16
                pass under 5e-2 (see BF16_FORCE_RMS_MAX); each variant's
                kernel call (between device syncs) beside K1a's;
+     variant_launches: the main query's tree once eagerly under each
+               variant: its launches = chunks and no other kernel's, the
+               count of its row in the kernels line, beside the times the
+               kernel phase takes on the same tree;
      kernel:   K6 (each precision and mode) and K5 against their plain
                versions on the first two chunks, timed beside K1a on the
                same rows, with bounds and % of them; K6's launch shape
@@ -371,9 +381,38 @@ Phases, each printing one JSON line:
                the first step's query on the initial state (force RMS <
                1.5e-2, potential < 2e-3), E after the steps (drift <
                2e-3; energy potential RMS < 1e-4), K1d+K1b against its
-               plain version on the energy tree's first chunk. Each
-               group ends with a line {"phase": "group", "group": ...,
-               "seconds": ...}.
+               plain version on the energy tree's first chunk.
+     configs:  BASELINE configs #0, #1, #3 and #4 (benchmarks/configs.py)
+               at the reference's own sizes on one card, every earlier
+               graph released first, each configuration's caps grown
+               where its query flags them (reported): #0, 16,384
+               Plummer particles through engine.build_tree and the whole
+               engine.acc_pot_u against direct_acc_pot_np at every
+               target (force RMS < 5e-3, potential < 2e-3); #1, a 1M
+               uniform cube through the whole integrate.acc_pot at eps 0,
+               1e-3 and 1e-2 (theta, eps and G are graph inputs: the 2nd
+               and 3rd softening capture nothing; each bit-equal to
+               graph=False; < 1.5e-2 / 2e-3 at 256 targets); #3, 1 << 26
+               disk particles, compensated: build, rebuild of the drifted
+               Morton-ordered positions (a replay), engine.acc_pot_u_host
+               first and warm (K1b launches = its chunk evaluations;
+               force and potential RMS under 1.1 x the reference's own
+               error extrapolated to 1 << 26, disk_bound), K1b against
+               its plain version on the first and last
+               live chunk; #4, 1 << 23 cube particles through
+               sharded.acc_pot_sharded_host on a one-card mesh of one
+               shard, bit-equal to integrate.acc_pot_host, K1a against its
+               plain version at those shapes (build ms, first call s, warm
+               ms, evals/s, peak MB, caps grown, RMS, launches by form);
+     ladder:   config #4 over four cards (only where there are four; a
+               line says it skipped otherwise): the _host twin of
+               sharded.acc_pot_sharded on a mesh of a shard a card at
+               2^23, 2^24 and 2^25 particles a card (first call, warm ms,
+               K1a and busy ms a card, peak MB a card, MB copied, RMS;
+               the first size bit-equal to one card), stopping at the
+               first size that does not fit (its allocation recorded).
+               Each group ends with a line {"phase": "group", "group":
+               ..., "seconds": ...}.
 Then the whole command's seconds (phase total), the kernels' summary line
 (time, plain time and bound of every form), the card line, and as the
 last line {"ok": true, "device": {...}}. Any
@@ -398,7 +437,7 @@ import torch
 # the phase groups that --phases selects, in the order they run (edge: the
 # edge phases; main: phases main through f1)
 PHASES = ("device", "build", "edge", "main", "multi", "multicard",
-          "leapfrog", "scale")
+          "leapfrog", "scale", "configs", "ladder")
 THETA = 0.75
 # The checks whose point holds at any N (twins bit-equal to each other,
 # launches = the chunks each way, nothing captured in a steady state)
@@ -407,8 +446,10 @@ THETA = 0.75
 # multi's sharded query and step and their whole twins (156 s of the
 # limit at 1M), phase multicard's staged query on one card (the cards'
 # own run keeps 1M), engine.acc_pot_u as one graph (45 s at 1M), and
-# config #2's step three ways and energy two ways (150 s at 1M); the
-# main query, its graphs and every accuracy bound stay at --n
+# config #2's step three ways and energy two ways (150 s at 1M), and
+# phase variants' whole queries on K6 and K5 (87 s at 1M); the main
+# query, its graphs, every accuracy bound and every kernel phase stay at
+# --n
 SMALL_N = 262144
 TREE_KW = dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32,
                farfield="grid", m2p_cap=9728, p2p_leaf_cap=5888,
@@ -760,6 +801,21 @@ def k5_shape(args) -> dict:
 PRIME_CYCLES = 20_000_000
 # the measured keys of a kernel's row in the summary line
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+# the kernels' scalar buffers of the direct calls below, by value
+_SCAL: dict = {}
+
+
+def scal(eps, G, like):
+    """The kernels' scalar buffer of eps and G in like's dtype on its
+    device (kernels.shared.scalar_buffer), made at its first use and kept
+    for the run: a timed direct call times its kernels, not the making of
+    its arguments, as a query's launches take the buffer that
+    engine.scalars made once for the call."""
+    from rakau_tpu_torch.kernels import shared
+    key = (float(eps), float(G), like.dtype, like.device)
+    if key not in _SCAL:
+        _SCAL[key] = shared.scalar_buffer(eps, G, like)
+    return _SCAL[key]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1204,6 +1260,37 @@ def build_ab(pos, mass, cfg, box, label: str) -> dict:
     emit("graphs", **rec)
     if differ or rec["overflow"]:
         raise AssertionError(f"graphs build {label}: {rec}")
+    return rec
+
+
+# the sweep of phase sweep: (theta, eps, G) of each warm query after the
+# main one's, each a new value of one of the three (a wider theta: a
+# narrower one opens more nodes, and a list that overflows grows the
+# Tree's caps, a new configuration, which captures)
+SWEEP = ((0.9, 0.0, 1.0), (0.9, 1e-3, 1.0), (0.9, 1e-3, 0.5))
+
+
+def scalar_sweep(tree, acc0) -> dict:
+    """Phase sweep: the main tree queried at each (theta, eps, G) of SWEEP
+    after its warm queries: theta, eps and G are inputs of the query's
+    graphs, so no call captures one (the graph cache's count), and each
+    gives other sums than the one before (the new value reached the
+    card); CUDA-event ms of each, beside the main warm query."""
+    from rakau_tpu_torch import engine
+    rec, prev, cfg = [], acc0, tree.config
+    for theta, eps, G in SWEEP:
+        engine._GRAPHS.reset_tally()
+        (acc, _), ms = event_ms(lambda: tree.accs_pots_o(theta, eps, G))
+        rec.append(dict(theta=theta, eps=eps, G=G, ms=ms,
+                        captures=engine._GRAPHS.captures,
+                        differs=not torch.equal(acc, prev),
+                        caps_unchanged=tree.config == cfg))
+        prev = acc
+    emit("sweep", calls=rec)
+    if any(r["captures"] or not r["differs"] or not r["caps_unchanged"]
+           for r in rec):
+        raise AssertionError(f"sweep: a new theta, eps or G captured a "
+                             f"graph or changed nothing: {rec}")
     return rec
 
 
@@ -1661,22 +1748,24 @@ def mma_edge_cases(shared, dev):
             for prec in PRECS:
                 for mode in MODES:
                     kw = dict(mode=mode, prec=prec, **ckw)
-                    got = shared.eval_shared_mma(*args, eps, 1.5, **kw)
-                    want = shared.eval_shared_mma_plain(*args, eps, 1.5, **kw)
+                    got = shared.eval_shared_mma(
+                        *args, scal(eps, 1.5, args[0]), **kw)
+                    want = shared.eval_shared_mma_plain(
+                        *args, scal(eps, 1.5, args[0]), **kw)
                     key = f"{form}/{prec}"
                     worst[key] = max(worst[key], compare(got, want,
                                                          **mma_tol(prec)))
                     if C > 1 and bool(got[0][-1].any() | got[1][-1].any()):
                         raise AssertionError(f"K6 {key}: the all-masked "
                                              "tile got a nonzero result")
-                    bare = shared.eval_shared_mma(*args[:5], off, eps, 1.5,
-                                                  **kw)
+                    bare = shared.eval_shared_mma(
+                        *args[:5], off, scal(eps, 1.5, args[0]), **kw)
                     if not all(torch.equal(a[0, 0], b[0, 0])
                                for a, b in zip(got, bare)):
                         raise AssertionError(f"K6 {key} {mode}: a source on "
                                              "a target added something")
             if ckw:
-                free = shared.eval_shared_mma(*args, eps, 1.5)
+                free = shared.eval_shared_mma(*args, scal(eps, 1.5, args[0]))
                 if not bool((got[1] - free[1]).abs().max() > 1e-3):
                     raise AssertionError("K6: the cell test removed nothing")
     return worst
@@ -1691,11 +1780,13 @@ def blocks_at(shared, args, eps, span):
                      shared.fused_plan(mask, span, shared.BLOCK)):
         raise AssertionError(f"K5 span {span}: the kernels' plan differs "
                              "from fused_plan's")
-    got = shared.eval_shared_blocks(*args, eps, 1.5, span=span)
-    again = shared.eval_shared_blocks(*args, eps, 1.5, span=span)
+    got = shared.eval_shared_blocks(*args, scal(eps, 1.5, args[0]), span=span)
+    again = shared.eval_shared_blocks(
+        *args, scal(eps, 1.5, args[0]), span=span)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"K5 span {span}: two launches differ")
-    want = shared.eval_shared_blocks_plain(*args, eps, 1.5, span=span)
+    want = shared.eval_shared_blocks_plain(
+        *args, scal(eps, 1.5, args[0]), span=span)
     return got, compare(got, want)
 
 
@@ -1830,15 +1921,18 @@ def k1_structure_cases(shared, dev, dtype=torch.float32, cells=False):
                 form = shared.form_name(q is not None, comp, cells)
                 for mode in MODES:
                     kw = dict(mode=mode, compensated=comp, src_quad=q, **ckw)
-                    got = shared.eval_shared_fused(*args, eps, 1.5, **kw)
-                    again = shared.eval_shared_fused(*args, eps, 1.5, **kw)
+                    got = shared.eval_shared_fused(
+                        *args, scal(eps, 1.5, args[0]), **kw)
+                    again = shared.eval_shared_fused(
+                        *args, scal(eps, 1.5, args[0]), **kw)
                     if not all(torch.equal(a, b) for a, b in zip(got, again)):
                         raise AssertionError(f"K1 {form} {mode}: two launches "
                                              "differ")
                     if bool(got[0][1].any() | got[1][1].any()):
                         raise AssertionError(f"K1 {form}: the tile with no "
                                              "list got a nonzero result")
-                    want = shared.eval_shared_plain(*args, eps, 1.5, **kw)
+                    want = shared.eval_shared_plain(
+                        *args, scal(eps, 1.5, args[0]), **kw)
                     worst[form] = max(worst.get(form, 0.0),
                                       compare(got, want, **tol(dtype)))
     return worst
@@ -1907,15 +2001,18 @@ def k6_structure_cases(shared, dev) -> dict:
                 key = f"mma{cell}/{prec}"
                 for mode in MODES:
                     kw = dict(mode=mode, prec=prec, **ckw)
-                    got = shared.eval_shared_mma(*args, eps, 1.5, **kw)
-                    again = shared.eval_shared_mma(*args, eps, 1.5, **kw)
+                    got = shared.eval_shared_mma(
+                        *args, scal(eps, 1.5, args[0]), **kw)
+                    again = shared.eval_shared_mma(
+                        *args, scal(eps, 1.5, args[0]), **kw)
                     if not all(torch.equal(a, b) for a, b in zip(got, again)):
                         raise AssertionError(f"K6 {key} {mode}: two launches "
                                              "differ")
                     if bool(got[0][1].any() | got[1][1].any()):
                         raise AssertionError(f"K6 {key}: the tile with no "
                                              "list got a nonzero result")
-                    want = shared.eval_shared_mma_plain(*args, eps, 1.5, **kw)
+                    want = shared.eval_shared_mma_plain(
+                        *args, scal(eps, 1.5, args[0]), **kw)
                     worst[key] = max(worst.get(key, 0.0),
                                      compare(got, want, **mma_tol(prec)))
     return worst
@@ -1936,8 +2033,10 @@ def edge_cases(shared, dev, dtype=torch.float32):
                 + ("_comp" if comp else "")
             for mode in ("both", "acc", "pot"):
                 kw = dict(mode=mode, compensated=comp, src_quad=quad)
-                got = shared.eval_shared_fused(*args, eps, 1.5, **kw)
-                want = shared.eval_shared_plain(*args, eps, 1.5, **kw)
+                got = shared.eval_shared_fused(
+                    *args, scal(eps, 1.5, args[0]), **kw)
+                want = shared.eval_shared_plain(
+                    *args, scal(eps, 1.5, args[0]), **kw)
                 worst[form] = max(worst[form],
                                   compare(got, want, **tol(dtype)))
                 if empty_tile and bool(got[0][-1].any() | got[1][-1].any()):
@@ -2011,8 +2110,8 @@ def edge_cases(shared, dev, dtype=torch.float32):
     check(args, 0.0)
     errs = {}
     for comp in (False, True):
-        _, p = shared.eval_shared_fused(*args, 0.0, 1.0, mode="pot",
-                                        compensated=comp)
+        _, p = shared.eval_shared_fused(
+            *args, scal(0.0, 1.0, args[0]), mode="pot", compensated=comp)
         errs[comp] = float(np.abs(p.double().cpu().numpy() - pot_ref).max())
     if not errs[True] < errs[False]:
         raise AssertionError(f"compensated error {errs[True]:.3e} >= fp32 "
@@ -2067,16 +2166,18 @@ def cell_edge_cases(shared, dev, dtype=torch.float32):
                 form = shared.form_name(q is not None, comp, True)
                 for mode in MODES:
                     kw = dict(mode=mode, compensated=comp, src_quad=q, **ckw)
-                    got = shared.eval_shared_fused(*args, eps, 1.5, **kw)
-                    want = shared.eval_shared_plain(*args, eps, 1.5, **kw)
+                    got = shared.eval_shared_fused(
+                        *args, scal(eps, 1.5, args[0]), **kw)
+                    want = shared.eval_shared_plain(
+                        *args, scal(eps, 1.5, args[0]), **kw)
                     worst[form] = max(worst[form],
                                       compare(got, want, **tol(dtype)))
                     if bool(got[0][-1].any() | got[1][-1].any()):
                         raise AssertionError(f"{form}: empty tile got a "
                                              "nonzero result")
                     free = shared.eval_shared_fused(
-                        *args, eps, 1.5, mode=mode, compensated=comp,
-                        src_quad=q)
+                        *args, scal(eps, 1.5, args[0]), mode=mode,
+                        compensated=comp, src_quad=q)
                     k = 1 if mode == "pot" else 0
                     if not bool((got[k] - free[k]).abs().max() > 1e-3):
                         raise AssertionError(f"{form}: the cell test "
@@ -2131,20 +2232,23 @@ def wide_cell_cases(shared, dev) -> dict:
                 for comp in (False, True):
                     form = shared.form_name(q is not None, comp, True)
                     kw = dict(compensated=comp, src_quad=q, **ckw)
-                    got = shared.eval_shared_fused(*args, 0.05, 1.5, **kw)
-                    want = shared.eval_shared_plain(*args, 0.05, 1.5, **kw)
+                    got = shared.eval_shared_fused(
+                        *args, scal(0.05, 1.5, args[0]), **kw)
+                    want = shared.eval_shared_plain(
+                        *args, scal(0.05, 1.5, args[0]), **kw)
                     key = f"{D}d/{form}"
                     worst[key] = max(worst.get(key, 0.0), compare(got, want))
-                    free = shared.eval_shared_fused(*args, 0.05, 1.5,
-                                                    compensated=comp,
-                                                    src_quad=q)
+                    free = shared.eval_shared_fused(
+                        *args, scal(0.05, 1.5, args[0]), compensated=comp,
+                        src_quad=q)
                     if sep < top and not bool(
                             (got[1] - free[1]).abs().max() > 1e-3):
                         raise AssertionError(f"{key} sep {sep}: the cell "
                                              "test removed nothing")
             kw = dict(prec="x3", **ckw)
-            got = shared.eval_shared_mma(*args, 0.25, 1.5, **kw)
-            want = shared.eval_shared_mma_plain(*args, 0.25, 1.5, **kw)
+            got = shared.eval_shared_mma(*args, scal(0.25, 1.5, args[0]), **kw)
+            want = shared.eval_shared_mma_plain(
+                *args, scal(0.25, 1.5, args[0]), **kw)
             key = f"{D}d/mma_cell"
             worst[key] = max(worst.get(key, 0.0),
                              compare(got, want, **mma_tol("x3")))
@@ -2296,15 +2400,15 @@ def pool_forms(args, quad, window, eps, block, dtype, worst):
             form = pool._form(q is not None, comp)
             for mode in MODES:
                 kw = dict(compensated=comp, mode=mode, pool_quad=q)
-                got = pool.eval_pool_fused(*args, window, eps, 1.5, block,
-                                           **kw)
-                again = pool.eval_pool_fused(*args, window, eps, 1.5, block,
-                                             **kw)
+                got = pool.eval_pool_fused(
+                    *args, window, scal(eps, 1.5, args[0]), block, **kw)
+                again = pool.eval_pool_fused(
+                    *args, window, scal(eps, 1.5, args[0]), block, **kw)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError(f"K2 {form} {mode}: two launches "
                                          "differ")
-                want = pool.eval_pool_plain(*args, window, eps, 1.5, block,
-                                            **kw)
+                want = pool.eval_pool_plain(
+                    *args, window, scal(eps, 1.5, args[0]), block, **kw)
                 worst[form] = max(worst[form],
                                   compare(got, want, **tol(dtype)))
                 if bool(got[0][3].any() | got[1][3].any()):
@@ -2366,10 +2470,12 @@ def pool_edge_cases(dev, dtype=torch.float32):
             form = pool._form(quad, comp)
             kw = dict(compensated=comp, pool_quad=q)
             for mode in MODES:
-                got = pool.eval_pool_fused(*args, s, P, 0.0, 1.0, block,
-                                           mode=mode, **kw)
-                want = pool.eval_pool_plain(*args, s, P, 0.0, 1.0, block,
-                                            mode=mode, **kw)
+                got = pool.eval_pool_fused(
+                    *args, s, P, scal(0.0, 1.0, args[0]), block, mode=mode,
+                    **kw)
+                want = pool.eval_pool_plain(
+                    *args, s, P, scal(0.0, 1.0, args[0]), block, mode=mode,
+                    **kw)
                 worst[form] = max(worst[form], compare(got, want))
                 if mode == "pot":
                     errs[form] = float(np.abs(
@@ -2449,9 +2555,9 @@ def plain_pool(inputs, tiles, window, block, **kw):
         pquad = None
     accs, pots = [], []
     for c in tiles.split(PLAIN_TILES):
-        a, p = pool.eval_pool_plain(tpos[c], tidx[c], ppos, pmass, pidx,
-                                    sched[c], window, 0.0, 1.0, block,
-                                    pool_quad=pquad, **kw)
+        a, p = pool.eval_pool_plain(
+            tpos[c], tidx[c], ppos, pmass, pidx, sched[c], window,
+            scal(0.0, 1.0, tpos[c]), block, pool_quad=pquad, **kw)
         accs.append(a)
         pots.append(p)
     return torch.cat(accs), torch.cat(pots)
@@ -2514,10 +2620,12 @@ def pool_kernels(inputs, n: int, window: int, block: int, forms) -> dict:
                   pool_quad=inputs[6] if quad else None)
         modes = {}
         for mode in MODES:
-            got = pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0, block,
-                                       mode=mode, **kw)
-            again = pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0,
-                                         block, mode=mode, **kw)
+            got = pool.eval_pool_fused(
+                *inputs[:6], window, scal(0.0, 1.0, inputs[0]), block,
+                mode=mode, **kw)
+            again = pool.eval_pool_fused(
+                *inputs[:6], window, scal(0.0, 1.0, inputs[0]), block,
+                mode=mode, **kw)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"K2 {form} {mode}: two launches "
                                      "differ on the query's pool")
@@ -2534,7 +2642,8 @@ def pool_kernels(inputs, n: int, window: int, block: int, forms) -> dict:
                 want = plain_pool(inputs, subset, window, block, **pkw)
                 err = compare((got[0][subset], got[1][subset]), want)
             km = cuda_ms(lambda: pool.eval_pool_fused(
-                *inputs[:6], window, 0.0, 1.0, block, mode=mode, **kw), 10)
+                *inputs[:6], window, scal(0.0, 1.0, inputs[0]), block,
+                mode=mode, **kw), 10)
             modes[mode] = {"ms": km, "plain_ms": pm, "max_abs_err": err}
         b_ms, b_by = pool_bound(inputs, n, window, block, quad, comp)
         out[form] = dict(max_abs_err=max(v["max_abs_err"]
@@ -3147,19 +3256,19 @@ def cell_kernels(tree, qtree, n: int) -> dict:
         ckw = dict(src_cell=cells[0], tgt_cell=cells[1], grid_sep=cells[2])
         modes = {}
         for mode in MODES:
-            got = shared.eval_shared_fused(*args, 0.0, 1.0, mode=mode, **kw,
-                                           **ckw)
-            want = shared.eval_shared_plain(*args, 0.0, 1.0, mode=mode, **kw,
-                                            **ckw)
+            got = shared.eval_shared_fused(
+                *args, scal(0.0, 1.0, args[0]), mode=mode, **kw, **ckw)
+            want = shared.eval_shared_plain(
+                *args, scal(0.0, 1.0, args[0]), mode=mode, **kw, **ckw)
             err = compare(got, want)
             km = cuda_ms(lambda: shared.eval_shared_fused(
-                *args, 0.0, 1.0, mode=mode, **kw, **ckw), 10)
+                *args, scal(0.0, 1.0, args[0]), mode=mode, **kw, **ckw), 10)
             pm = cuda_ms(lambda: shared.eval_shared_plain(
-                *args, 0.0, 1.0, mode=mode, **kw, **ckw), 1)
+                *args, scal(0.0, 1.0, args[0]), mode=mode, **kw, **ckw), 1)
             modes[mode] = {"ms": km, "plain_ms": pm, "max_abs_err": err}
         # the same rows without the cell test, beside it
         free_ms = cuda_ms(lambda: shared.eval_shared_fused(
-            *args, 0.0, 1.0, **kw), 10)
+            *args, scal(0.0, 1.0, args[0]), **kw), 10)
         quad_form = "src_quad" in kw
         b_ms, b_by = bound(args + ((quad,) if quad_form else ()), n,
                            quad=quad_form, comp=kw.get("compensated", False),
@@ -3314,6 +3423,34 @@ def variant_queries(tree, oracle, fused_rms, form: str, dev) -> tuple:
     return rec, launches
 
 
+def variant_launches(tree, label: str) -> dict:
+    """Phase variant_launches: one eager query (graph=False) of `tree`,
+    whose chunks variant_kernels times, under dispatch.shared_variant for
+    "mma" at each precision and for "blocks", counted: each must launch
+    its own kernel once a chunk evaluation and no other kernel. Returns
+    the launches per variant, which the kernels line pairs with
+    variant_kernels' times on the same tree."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.kernels import dispatch
+    td, cfg = tree.tree_data, tree.config
+    chunks = query_chunks(td, cfg)
+    runs = [("mma", prec, "mma") for prec in PRECS] + [
+        ("blocks", "x3", "blocks")]
+    launches, seconds = {}, {}
+    for name, prec, key in runs:
+        label_v = f"{name}/{prec}" if name == "mma" else name
+        with dispatch.shared_variant(name, prec):
+            (_, s), counts = counted(lambda: synced_ms(
+                lambda: engine.acc_pot_u_host(td, cfg, THETA, 0.0, 1.0,
+                                              graph=False)))
+        k1_launches(counts, chunks, (key,), f"variant {label_v} eager query")
+        launches[label_v] = counts["K1"][key]
+        seconds[label_v] = s / 1e3
+    emit("variant_launches", config=label, n=int(td.pos.shape[0]),
+         chunks=chunks, launches=launches, eager_query_s=seconds)
+    return launches
+
+
 def variant_kernels(tree, n: int, label: str) -> dict:
     """Phase kernel for K6 (and, on rows without cells, K5) on chunks 0 and
     1 of `tree`'s query: every precision and mode against the plain
@@ -3337,7 +3474,7 @@ def variant_kernels(tree, n: int, label: str) -> dict:
         C, T, _ = args[0].shape
         S = int(args[2].shape[0])
         fused_ms = cuda_ms(lambda: shared.eval_shared_fused(
-            *args, 0.0, 1.0, **ckw), 10)
+            *args, scal(0.0, 1.0, args[0]), **ckw), 10)
         f_bound, _ = bound(args, n, cells=cells)
         cell = 3 if cells else 0     # the chunks are 3-D
         rec = dict(config=label, chunk=ch, C=C, T=T, S=S, fused_ms=fused_ms,
@@ -3350,13 +3487,16 @@ def variant_kernels(tree, n: int, label: str) -> dict:
             modes = {}
             for mode in MODES:
                 kw = dict(mode=mode, prec=prec, **ckw)
-                got = shared.eval_shared_mma(*args, 0.0, 1.0, **kw)
-                want = shared.eval_shared_mma_plain(*args, 0.0, 1.0, **kw)
+                got = shared.eval_shared_mma(
+                    *args, scal(0.0, 1.0, args[0]), **kw)
+                want = shared.eval_shared_mma_plain(
+                    *args, scal(0.0, 1.0, args[0]), **kw)
                 err = compare(got, want, **mma_tol(prec))
                 km = cuda_ms(lambda: shared.eval_shared_mma(
-                    *args, 0.0, 1.0, **kw), 10)
+                    *args, scal(0.0, 1.0, args[0]), **kw), 10)
                 pm = cuda_ms(lambda: shared.eval_shared_mma_plain(
-                    *args, 0.0, 1.0, **kw), 1) if mode == "both" else None
+                    *args, scal(0.0, 1.0, args[0]),
+                    **kw), 1) if mode == "both" else None
                 modes[mode] = {"ms": km, "plain_ms": pm, "max_abs_err": err}
             b_ms, b_by = bound(args, n, cells=cells, per_pair=FLOPS_MMA + (
                 TENSOR_FLOPS if prec == "highest" else 0),
@@ -3376,16 +3516,18 @@ def variant_kernels(tree, n: int, label: str) -> dict:
             if not same_plan(shared.blocks_device_plan(args[5]), plan):
                 raise AssertionError("K5: the kernels' plan differs from "
                                      "fused_plan's")
-            got = shared.eval_shared_blocks(*args, 0.0, 1.0)
-            again = shared.eval_shared_blocks(*args, 0.0, 1.0)
+            got = shared.eval_shared_blocks(*args, scal(0.0, 1.0, args[0]))
+            again = shared.eval_shared_blocks(*args, scal(0.0, 1.0, args[0]))
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError("K5: two launches differ")
-            want = shared.eval_shared_blocks_plain(*args, 0.0, 1.0)
+            want = shared.eval_shared_blocks_plain(
+                *args, scal(0.0, 1.0, args[0]))
             err = compare(got, want)
-            km = cuda_ms(lambda: shared.eval_shared_blocks(*args, 0.0, 1.0),
+            km = cuda_ms(lambda: shared.eval_shared_blocks(
+                *args, scal(0.0, 1.0, args[0])),
                          10)
             pm = cuda_ms(lambda: shared.eval_shared_blocks_plain(
-                *args, 0.0, 1.0), 1)
+                *args, scal(0.0, 1.0, args[0])), 1)
             b_ms, b_by = bound(args, n)
             rec["forms"]["blocks"] = dict(
                 ms=km, plain_ms=pm, max_abs_err=err, bound_ms=b_ms,
@@ -3858,16 +4000,16 @@ def energy_kernels(etree, ecfg, forms=("quad_comp", "quad", "mono_comp"),
         args, kw = segs[form]
         worst = 0.0
         for mode in ("both", "acc", "pot"):
-            got = shared.eval_shared_fused(*args, LF_EPS, 1.0, mode=mode,
-                                           **kw)
-            want = shared.eval_shared_plain(*args, LF_EPS, 1.0, mode=mode,
-                                            **kw)
+            got = shared.eval_shared_fused(
+                *args, scal(LF_EPS, 1.0, args[0]), mode=mode, **kw)
+            want = shared.eval_shared_plain(
+                *args, scal(LF_EPS, 1.0, args[0]), mode=mode, **kw)
             err = compare(got, want)
             worst = max(worst, err)
             km = cuda_ms(lambda: shared.eval_shared_fused(
-                *args, LF_EPS, 1.0, mode=mode, **kw), 10)
+                *args, scal(LF_EPS, 1.0, args[0]), mode=mode, **kw), 10)
             pm = cuda_ms(lambda: shared.eval_shared_plain(
-                *args, LF_EPS, 1.0, mode=mode, **kw), 1)
+                *args, scal(LF_EPS, 1.0, args[0]), mode=mode, **kw), 1)
             modes.setdefault(form, {})[mode] = {"ms": km, "plain_ms": pm,
                                                 "max_abs_err": err}
         b_ms, b_by = bound(args + ((quad,) if "quad" in form else ()), n,
@@ -3921,14 +4063,14 @@ def staircase(dev, dtype, kernel: str) -> dict:
             if kernel == "K1":
                 acc, pot = shared.eval_shared_fused(
                     tgt, tidx, src, mass, sidx,
-                    torch.ones((1, S), dtype=torch.bool, device=dev), 0.0,
-                    1.0, compensated=comp, src_quad=q)
+                    torch.ones((1, S), dtype=torch.bool, device=dev),
+                    scal(0.0, 1.0, tgt), compensated=comp, src_quad=q)
             else:
                 sched = torch.tensor([[0, 0, 64, 0] if quad else
                                       [0, 0, 0, 64]], device=dev)
                 acc, pot = pool.eval_pool_fused(
-                    tgt, tidx, src, mass, sidx, sched, S, 0.0, 1.0, block,
-                    compensated=comp, pool_quad=q)
+                    tgt, tidx, src, mass, sidx, sched, S, scal(0.0, 1.0, tgt),
+                    block, compensated=comp, pool_quad=q)
             err = max(abs(Fraction(float(acc[0, 0, 0])) - exact),
                       abs(Fraction(float(pot[0, 0])) + exact))
             errs[("quad" if quad else "mono") + ("_comp" if comp else "")] \
@@ -3982,7 +4124,8 @@ def k3(args, eps, G, plain=False):
     from rakau_tpu_torch.kernels import tiles
     tp, ti, mp, mm, mc, pp, pm, pi, pc = args
     fn = tiles.eval_tiles_plain if plain else tiles.eval_tiles_fused
-    return fn(tp, ti, mp, mm, pp, pm, pi, eps, G, m2p_cnt=mc, p2p_cnt=pc)
+    return fn(tp, ti, mp, mm, pp, pm, pi, scal(eps, G, tp), m2p_cnt=mc,
+              p2p_cnt=pc)
 
 
 def k4(args, eps, G, plain=False):
@@ -3992,8 +4135,9 @@ def k4(args, eps, G, plain=False):
     from rakau_tpu_torch.kernels import tiles
     tp, ti, mp, mm, mc, pp, pm, pi, pc = args
     fn = tiles.eval_pairwise_plain if plain else tiles.eval_pairwise
-    am, pmo = fn(tp, ti, mp, mm, None, eps, False, cnt=mc)
-    ap, ppo = fn(tp, ti, pp, pm, pi, eps, True, cnt=pc)
+    s = scal(eps, G, tp)
+    am, pmo = fn(tp, ti, mp, mm, None, s, False, cnt=mc)
+    ap, ppo = fn(tp, ti, pp, pm, pi, s, True, cnt=pc)
     return G * (am + ap), G * (pmo + ppo)
 
 
@@ -4045,14 +4189,17 @@ def k4_row_cases(args, eps, dtype) -> float:
                     raise AssertionError("K4: the kernel's plan differs "
                                          "from pairwise_plan's")
                 kw = dict(cnt=k, block=block)
-                got = tiles.eval_pairwise(tp, ti, pos, mass, idx, eps,
-                                          idx is not None, **kw)
-                again = tiles.eval_pairwise(tp, ti, pos, mass, idx, eps,
-                                            idx is not None, **kw)
+                got = tiles.eval_pairwise(
+                    tp, ti, pos, mass, idx, scal(eps, 1.0, tp),
+                    idx is not None, **kw)
+                again = tiles.eval_pairwise(
+                    tp, ti, pos, mass, idx, scal(eps, 1.0, tp),
+                    idx is not None, **kw)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError("K4 (one row): two launches differ")
-                want = tiles.eval_pairwise_plain(tp, ti, pos, mass, idx, eps,
-                                                 idx is not None, **kw)
+                want = tiles.eval_pairwise_plain(
+                    tp, ti, pos, mass, idx, scal(eps, 1.0, tp),
+                    idx is not None, **kw)
                 worst = max(worst, compare(got, want, **tol(dtype)))
     return worst
 
@@ -4299,16 +4446,17 @@ def lists_layer_ms(tree) -> dict:
     return out
 
 
-def lists_main(pos, mass, oracle, shared_rms, dev):
+def lists_main(pos, mass, oracle, shared_rms, dev, small):
     """Phase lists: the main phase's particles through the lists path
     (LISTS_KW: the caps of TREE_KW, grown by the Tree's overflow retry),
     once cold and three times warm: K3 launches per warm query = live
     chunks and no other launch, force RMS < 5e-3 and potential < 2e-3
     beside the shared engine's; then lists_layers, lists_profile, the
-    whole query once more on K4 (lists_split: 2 launches a chunk, no K3,
-    force RMS within VARIANT_RMS_RTOL of K3's) and the kernel phase on
-    chunks 0 and 1. Returns the launches of each and the kernels'
-    records."""
+    phase graphs on `small`'s particles (its point, equal sums and
+    launches, holds at any N), the whole query once more on K4
+    (lists_split: 2 launches a chunk, no K3, force RMS within
+    VARIANT_RMS_RTOL of K3's) and the kernel phase on chunks 0 and 1.
+    Returns the launches of each and the kernels' records."""
     from rakau_tpu_torch import Tree, engine
     from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
     from rakau_tpu_torch.kernels import dispatch
@@ -4346,8 +4494,13 @@ def lists_main(pos, mass, oracle, shared_rms, dev):
     emit("lists_layers", warm_query_ms=warm_ms, **lists_layer_ms(tree))
     emit("lists_profile", **profile_record(
         device_profile(tree, K3_KERNELS, "k3_device_ms"), warm_ms))
-    rec["graphs"] = graph_ab(tree, "lists", {"tiles": {"fused": chunks}},
-                             K3_KERNELS, "k3_device_ms")
+    stree = Tree(coords=small[0], masses=small[1],
+                 config=TreeConfig(**LISTS_KW))
+    stree.accs_pots_o(THETA)            # its caps grown
+    rec["graphs"] = graph_ab(stree, "lists", {"tiles": {"fused": query_chunks(
+        stree.tree_data, stree.config)}}, K3_KERNELS, "k3_device_ms")
+    rec["graphs"]["n"] = int(small[0].shape[0])
+    del stree
     with dispatch.tiles_variant("split"):
         # the first query captures the variant's graphs; the second counts
         (acc4, pot4), ms4, c4 = warm_counted(tree, 2)
@@ -4509,8 +4662,10 @@ def f1(seed: int, dev) -> tuple:
     top = int(max(inp[7].max(), inp[8].max()))
     if top < 1 << 9:
         raise AssertionError(f"f1 quadtree_grid2: cells reach {top} only")
-    err = compare(shared.eval_shared_fused(*inp[:6], 0.0, 1.0, **ckw),
-                  shared.eval_shared_plain(*inp[:6], 0.0, 1.0, **ckw))
+    err = compare(shared.eval_shared_fused(
+        *inp[:6], scal(0.0, 1.0, inp[0]), **ckw),
+                  shared.eval_shared_plain(
+                      *inp[:6], scal(0.0, 1.0, inp[0]), **ckw))
     rec["quadtree_grid2"].update(grid_level=F1_2D_GRID2_KW["grid_level"],
                                  max_cell=top, last_chunk_max_abs_err=err)
     del tree
@@ -4522,14 +4677,15 @@ def f1(seed: int, dev) -> tuple:
                           (F1_F64_FORCE_MAX, None))["K1"]["f64"]
     td, cfg = tree.tree_data, tree.config
     inp = engine.kernel_inputs(td, cfg, F1_F64_THETA, 0.0, 0)[:6]
-    got = shared.eval_shared_fused(*inp, 0.0, 1.0)
-    err = compare(got, shared.eval_shared_plain(*inp, 0.0, 1.0),
+    got = shared.eval_shared_fused(*inp, scal(0.0, 1.0, inp[0]))
+    err = compare(got, shared.eval_shared_plain(*inp, scal(0.0, 1.0, inp[0])),
                   **tol(torch.float64))
     b_ms, b_by = bound(inp, F1_N)
     forms = {"K1a": dict(
         max_abs_err=err, ms=cuda_ms(lambda: shared.eval_shared_fused(
-            *inp, 0.0, 1.0), 10),
-        plain_ms=cuda_ms(lambda: shared.eval_shared_plain(*inp, 0.0, 1.0),
+            *inp, scal(0.0, 1.0, inp[0])), 10),
+        plain_ms=cuda_ms(lambda: shared.eval_shared_plain(
+            *inp, scal(0.0, 1.0, inp[0])),
                          1), bound_ms=b_ms, bound_by=b_by)}
     emit("kernel", config="octree_f64", form="mono", chunk=0,
          **forms["K1a"], **k1_shape(inp),
@@ -5306,8 +5462,10 @@ def mc_let_ways(pos, mass, cfg_q, caps, mesh, one, eps=MULTI_EPS, box=None,
         cap_t = tuple(caps[k] for k in ("export_cap", "export_node_cap",
                                         "export_part_cap", "export_leaf_cap",
                                         "export_frontier_cap"))
+        # theta, eps and G as the whole twin hands them to _let
+        inner = args[:3] + engine.scalars(pos, *args[3:])
         ways["staged"] = lambda: let._let(
-            *args, mesh, box, cap_t, phase0, 2.0, 128, build.build_tree,
+            *inner, mesh, box, cap_t, phase0, 2.0, 128, build.build_tree,
             engine._query_impl, staged=True)
         return ways
     ways["staged"] = lambda: let.acc_pot_let(*args, mesh, **kw)
@@ -5326,14 +5484,17 @@ def multicard_one(td, cfg_g, let_set, seed: int) -> dict:
     let_check particles, query configuration and caps at MC_SHARDS
     shards), or where None on MC_LET_N particles (at most the main
     tree's) sized here, shared+"local" with the main caps."""
+    from rakau_tpu_torch import engine
     from rakau_tpu_torch.parallel import sharded
     from rakau_tpu_torch.parallel.mesh import Mesh
     dev0 = torch.device("cuda", 0)
     one = Mesh((dev0,) * MC_SHARDS)
     args = (td, cfg_g, THETA, 0.0, 1.0, one)
+    # theta, eps and G as acc_pot_u_sharded hands them to _query_impl
+    inner = (td, cfg_g) + engine.scalars(td.pos, THETA, 0.0, 1.0) + (one,)
     rec = {"shards": MC_SHARDS, "query": mc_case(
         {"one": lambda: sharded.acc_pot_u_sharded(*args),
-         "staged": lambda: sharded._query_impl(*args, staged=True)},
+         "staged": lambda: sharded._query_impl(*inner, staged=True)},
         lambda out: out[2:3],
         padded_chunks(td, cfg_g.with_(farfield="local"), MC_SHARDS))}
     pos, mass, cfg_q, caps = let_set or mc_let_setup(
@@ -5588,16 +5749,20 @@ def main_path(n: int, seed: int, pos, mass, small, dev) -> dict:
     if not (torch.isfinite(acc).all() and torch.isfinite(pot).all()):
         raise AssertionError("non-finite accelerations or potentials")
 
+    scalar_sweep(tree, acc)
     # ---- where a warm query's time goes ---------------------------------
     emit("layers", warm_query_ms=warm_ms, **layer_ms(tree))
     emit("profile", **profile_record(prof, warm_ms))
-    graphs_rec = {"shared+grid": graph_ab(
-        tree, "shared+grid", {"K1": {"mono": evaluated}}, "shared_fused_",
-        "k1a_device_ms")}
+    # the graphed query against the eager one, and engine.acc_pot_u whole,
+    # on `small` (their point, equal sums and launches, holds at any N)
     stree = octree(coords=small[0], masses=small[1], **TREE_KW)
-    stree.accs_pots_o(THETA)            # its caps grown
+    s_acc, s_pot = stree.accs_pots_o(THETA)     # its caps grown
+    graphs_rec = {"shared+grid": graph_ab(
+        stree, "shared+grid", {"K1": {"mono": query_chunks(
+            stree.tree_data, stree.config)}}, "shared_fused_",
+        "k1a_device_ms")}
+    graphs_rec["shared+grid"]["n"] = int(small[0].shape[0])
     graphs_rec["acc_pot_u"] = acc_pot_u_check(stree)
-    del stree
     # the build's graph on the main tree, a steady-state Tree rebuild and
     # the graft entry's whole acc_pot (config #2's step, energy and build
     # follow in phase leapfrog)
@@ -5611,14 +5776,16 @@ def main_path(n: int, seed: int, pos, mass, small, dev) -> dict:
     for ch in range(min(2, chunks)):
         inputs = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)[:6]
         for mode in ("both", "acc", "pot"):
-            got = shared.eval_shared_fused(*inputs, 0.0, 1.0, mode=mode)
-            want = shared.eval_shared_plain(*inputs, 0.0, 1.0, mode=mode)
+            got = shared.eval_shared_fused(
+                *inputs, scal(0.0, 1.0, inputs[0]), mode=mode)
+            want = shared.eval_shared_plain(
+                *inputs, scal(0.0, 1.0, inputs[0]), mode=mode)
             err = compare(got, want)
             worst = max(worst, err)
             km = cuda_ms(lambda: shared.eval_shared_fused(
-                *inputs, 0.0, 1.0, mode=mode), 10)
+                *inputs, scal(0.0, 1.0, inputs[0]), mode=mode), 10)
             pm = cuda_ms(lambda: shared.eval_shared_plain(
-                *inputs, 0.0, 1.0, mode=mode), 3)
+                *inputs, scal(0.0, 1.0, inputs[0]), mode=mode), 3)
             per_mode.setdefault(mode, []).append(
                 {"chunk": ch, "ms": km, "plain_ms": pm, "max_abs_err": err})
             if mode == "both":
@@ -5645,11 +5812,23 @@ def main_path(n: int, seed: int, pos, mass, small, dev) -> dict:
     if not f_rms < FORCE_RMS_MAX or not p_rms < POT_RMS_MAX:
         raise AssertionError(f"accuracy: force rms {f_rms:.3e}, "
                              f"pot rms {p_rms:.3e}")
-    # ---- the row's other evaluators on the same query: K6 and K5 --------
+    # ---- the row's other evaluators: K6 and K5 -------------------------
+    # whole queries on `small` (their point: each launches its own kernel
+    # once a chunk and gives K1a's accuracy within 1 %, at any N); their
+    # kernel phase below keeps the main query's chunks
     oracle = (acc_o, pot_o, samp)
-    vrec, v_launches = variant_queries(tree, oracle, (f_rms, p_rms), "mma",
-                                       dev)
-    emit("variants", config="shared+grid", **vrec)
+    s_samp = np.sort(np.random.default_rng(seed + 12).choice(
+        small[0].shape[0], 256, replace=False))
+    s_oracle = card_oracle(small[0], small[1], s_samp) + (s_samp,)
+    vrec, _ = variant_queries(
+        stree, s_oracle, sampled_rms(s_acc, s_pot, *s_oracle, dev), "mma",
+        dev)
+    del stree, s_acc, s_pot
+    emit("variants", config="shared+grid", n=int(small[0].shape[0]),
+         **vrec)
+    # the kernels line's K6 and K5 rows: their launches and their times on
+    # the main query's tree
+    v_launches = variant_launches(tree, "shared+grid")
     v_forms = variant_kernels(tree, n, "shared+grid")
     density(tree, "shared+grid")
     del tree, td, acc, pot
@@ -5692,7 +5871,7 @@ def main_path(n: int, seed: int, pos, mass, small, dev) -> dict:
     # ---- the lists path: per-tile lists and K3 (K4 beside it) -----------
     with diag_modes():
         t_launches, t_forms, trec = lists_main(pos, mass, oracle,
-                                               (f_rms, p_rms), dev)
+                                               (f_rms, p_rms), dev, small)
         graphs_rec["lists"] = trec["graphs"]
         torch.cuda.empty_cache()
         lists_quad(seed + 5, dev)
@@ -5734,15 +5913,15 @@ SCALE_E_CAPS = dict(m2p_cap=98304, p2p_leaf_cap=16384, p2p_src_cap=177152,
                     frontier_cap=4864)
 
 
-def card_oracle(pos, mass, targets, eps=0.0):
+def card_oracle(pos, mass, targets, eps=0.0, chunk=ORACLE_CHUNK):
     """The float64 direct sum (direct_acc_pot_np's arithmetic: the self
     pair excluded by index) at the sampled `targets` (NumPy indices) over
-    every particle, on the card in passes of ORACLE_CHUNK targets. Returns
+    every particle, on the card in passes of `chunk` targets. Returns
     NumPy (acc [k, D], pot [k])."""
     p, m = pos.double(), mass.double()
     src = torch.arange(p.shape[0], device=p.device)
     accs, pots = [], []
-    for t in torch.as_tensor(targets, device=p.device).split(ORACLE_CHUNK):
+    for t in torch.as_tensor(targets, device=p.device).split(chunk):
         d = p[None, :, :] - p[t][:, None, :]               # [c, N, D]
         r2 = (d * d).sum(-1) + float(eps) ** 2
         inv_r = torch.where(t[:, None] == src[None, :], 0.0,
@@ -5869,30 +6048,14 @@ def scale_shared(pos, mass, oracle, dev) -> tuple:
         **memory_mb())
     del acc, pot
     # K1a against its plain version on the first and the last live chunk
-    rows = []
-    for ch in sorted({0, chunks - 1}):
-        inputs = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)[:6]
-        err = compare(shared.eval_shared_fused(*inputs, 0.0, 1.0),
-                      shared.eval_shared_plain(*inputs, 0.0, 1.0))
-        km = cuda_ms(lambda: shared.eval_shared_fused(*inputs, 0.0, 1.0), 10)
-        pm = cuda_ms(lambda: shared.eval_shared_plain(*inputs, 0.0, 1.0), 1)
-        b, b_by = bound(inputs, n)
-        rows.append(dict(chunk=ch, S=int(inputs[2].shape[0]), max_abs_err=err,
-                         ms=km, plain_ms=pm, bound_ms=b, bound_by=b_by,
-                         pct_of_bound=100 * b / km, **k1_shape(inputs)))
-    rec["kernel"] = rows
+    krow = kernel_row(td, cfg, chunks, n, False)
+    rec["kernel"] = krow["chunks"]
     emit("scale_shared", **rec)
     if not (rec["force_rms"] < FORCE_RMS_MAX and rec["pot_rms"] < POT_RMS_MAX):
         raise AssertionError(f"scale shared accuracy: force rms "
                              f"{rec['force_rms']:.3e}, pot rms "
                              f"{rec['pot_rms']:.3e}")
-    row = dict(launches=evaluated, max_abs_err=max(r["max_abs_err"]
-                                                    for r in rows),
-               ms=float(np.mean([r["ms"] for r in rows])),
-               plain_ms=float(np.mean([r["plain_ms"] for r in rows])),
-               bound_ms=float(np.mean([r["bound_ms"] for r in rows])),
-               bound_by=max((r["bound_ms"], r["bound_by"])
-                            for r in rows)[1])
+    row = dict(launches=evaluated, **{k: krow[k] for k in KERNEL_KEYS})
     del tree, td
     return rec, row
 
@@ -5956,15 +6119,16 @@ def scale_gwalk(pos, mass, oracle, shared_rms, dev) -> tuple:
     cross = int(torch.nonzero(sched[real, 0] > 0)[0, 0])
     lo = max(0, cross - SCALE_POOL_TILES // 2)
     tiles = real[lo:lo + SCALE_POOL_TILES]
-    got = pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0, block)
+    got = pool.eval_pool_fused(
+        *inputs[:6], window, scal(0.0, 1.0, inputs[0]), block)
     plain_pool(inputs, tiles[:8], window, block, compensated=False,
                mode="both", quad=False)
     want, pm = synced_ms(lambda: plain_pool(
         inputs, tiles, window, block, compensated=False, mode="both",
         quad=False))
     err = compare((got[0][tiles], got[1][tiles]), want)
-    km = cuda_ms(lambda: pool.eval_pool_fused(*inputs[:6], window, 0.0, 1.0,
-                                              block), 10)
+    km = cuda_ms(lambda: pool.eval_pool_fused(
+        *inputs[:6], window, scal(0.0, 1.0, inputs[0]), block), 10)
     b, b_by = pool_bound(inputs, n, window, block, False, False)
     rec["kernel"] = dict(
         max_abs_err=err, ms=km, plain_ms=pm, plain_tiles=len(tiles),
@@ -6129,6 +6293,511 @@ def scale(seed: int, dev) -> dict:
     return {"K1a": k1a, "K2": k2, "K1d+K1b": k1db}
 
 
+# ---------------------------------------------------------- phase configs
+# BASELINE.json's configurations that group scale does not run, as
+# benchmarks/configs.py runs them, at the reference's own sizes on one
+# card: #0, 16,384 Plummer particles (configs.py:35-60); #1, a 1M uniform
+# cube through the whole integrate.acc_pot at each softening of the sweep
+# (:62-78); #3, a 1 << 26 disk galaxy with compensated sums: a build, the
+# rebuild of its Morton-ordered positions after a drift, one query
+# (:147-182); #4, the weak-scaling cube at the reference's single-chip
+# point, 1 << 23 (:184-205, PLAN.md:188-190), through the sharded _host
+# twin on a one-card mesh of one shard (the whole twin would capture every
+# capacity chunk, ROADMAP item 30). Group ladder runs #4 over four cards.
+CFG0_N, CFG1_N, CFG3_N, CFG4_N = 16384, 1 << 20, 1 << 26, 1 << 23
+CFG0_KW = dict(max_depth=12, max_leaf_n=32, ncrit=128, tile_chunk=64,
+               p2p_leaf_cap=2048)
+CFG1_KW = dict(max_depth=12, max_leaf_n=32, ncrit=512, tile_chunk=32,
+               p2p_leaf_cap=4096, p2p_src_cap=32768)
+CFG1_EPS = (0.0, 1e-3, 1e-2)
+CFG3_KW = dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32,
+               p2p_leaf_cap=4096, p2p_src_cap=49152, m2p_cap=12288,
+               accum="compensated")
+CFG3_DRIFT = 1e-4
+CFG4_KW = dict(max_depth=10, max_leaf_n=64, ncrit=256, tile_chunk=64,
+               p2p_leaf_cap=2048)
+# each configuration's query starts from the caps that a run of this group
+# grew configs.py's to on the card (each grown query: 10-23 s at 1M-64M;
+# #4 took three doublings), as SCALE_E_CAPS does; a cap that still
+# overflows grows again, and every record names the caps beside
+# configs.py's
+CFG_CAPS = {0: dict(p2p_src_cap=16384), 1: dict(m2p_cap=8192),
+            3: dict(p2p_leaf_cap=8192), 4: dict(p2p_src_cap=65536)}
+# the disk's bounds. Its error exceeds the Plummer bounds and grows with
+# N, in the reference and the port alike (equal on the CPU, RMS at 256
+# targets, DISK_ERRORS: N -> (force, potential);
+# tests/test_torch_configs.py), and the reference never ran 1 << 26 (its
+# chip ran out of memory; configs.py logs no error): the bound is 1.1 x
+# the reference's error extrapolated along log2 N through its two largest
+# runs to CFG3_N
+DISK_ERRORS = {8192: (1.303e-2, 3.199e-3), 65536: (1.911e-2, 6.027e-3),
+               262144: (2.247e-2, 7.227e-3)}
+
+
+def disk_bound(k: int) -> float:
+    """1.1 x DISK_ERRORS' k-th error at CFG3_N, on the line through its
+    two largest N in log2 N."""
+    (n0, e0), (n1, e1) = sorted((n, e[k]) for n, e in DISK_ERRORS.items())[-2:]
+    slope = (e1 - e0) / (math.log2(n1) - math.log2(n0))
+    return 1.1 * (e1 + slope * (math.log2(CFG3_N) - math.log2(n1)))
+
+
+DISK_FORCE_RMS_MAX, DISK_POT_RMS_MAX = disk_bound(0), disk_bound(1)
+# the cube (#1, #4) takes LF_FORCE_RMS_MAX, the uniform bound, and 2e-3
+# (the reference's own there on 16,384: 2.3-2.5e-3 / 1.2-1.7e-4)
+CUBE_POT_RMS_MAX = 2e-3
+# group ladder: #4's particles a card on four cards (2^25, 2^26 and 2^27
+# in all; 2^27 a card-count of four is 2^28 over a v5p-16's eight chips)
+LADDER_PER_CARD = (1 << 23, 1 << 24, 1 << 25)
+LADDER_CARDS = 4
+
+
+def grow_to_fit(cfg, flags, maxima):
+    """cfg with each capacity whose overflow flag is set doubled until it
+    exceeds the maximum the query measured (an overflowed walk may
+    undercount: the query is run again and grows again if it must)."""
+    from rakau_tpu_torch.config import OVF_FIELDS
+    mx = dict(zip(("m2p_cap", "p2p_src_cap", "frontier_cap",
+                   "p2p_leaf_cap"), maxima))
+    grown = {}
+    for f, hit in zip(OVF_FIELDS, flags):
+        if hit:
+            c = 2 * getattr(cfg, f)
+            while c <= mx[f]:
+                c *= 2
+            grown[f] = c
+    return cfg.with_(**grown)
+
+
+def config_of(k: int, kw: dict):
+    """Config #k: configs.py's TreeConfig (kw) with CFG_CAPS[k]."""
+    from rakau_tpu_torch.config import TreeConfig
+    return TreeConfig(**{**kw, **CFG_CAPS[k]})
+
+
+def until_fits(query, cfg, what: str, base=None, tries: int = 4):
+    """(query(cfg)'s result, its seconds, the cfg that held every row, its
+    caps that differ from those of `base` (configs.py's; default cfg),
+    the flagged queries' seconds): query(cfg) returns (acc, pot, overflow
+    flags [4], maxima [4] or None) and is run again with the flagged caps
+    grown (grow_to_fit, or doubled without maxima) until no flag is set,
+    as Tree._query does."""
+    from rakau_tpu_torch.config import OVF_FIELDS, grow_overflowed
+    flagged = []
+    cfg0 = cfg if base is None else base
+    for _ in range(tries):
+        out, ms = synced_ms(lambda: query(cfg))
+        flags = out[2].cpu().tolist()
+        if not any(flags):
+            return (out, ms / 1e3, cfg,
+                    {f: getattr(cfg, f) for f in OVF_FIELDS
+                     if getattr(cfg, f) != getattr(cfg0, f)}, flagged)
+        flagged.append(ms / 1e3)
+        cfg = (grow_overflowed(cfg, flags) if out[3] is None
+               else grow_to_fit(cfg, flags, out[3].cpu().tolist()))
+        emit("caps_grown", what=what, flags=flags, seconds=ms / 1e3,
+             caps={f: getattr(cfg, f) for f in OVF_FIELDS})
+    raise AssertionError(f"{what}: still overflowing after {tries} "
+                         f"queries (flags {flags})")
+
+
+def bounded(what, f_rms, p_rms, f_max, p_max):
+    if not (f_rms < f_max and p_rms < p_max):
+        raise AssertionError(f"{what}: force rms {f_rms:.3e} (bound "
+                             f"{f_max}), pot rms {p_rms:.3e} (bound "
+                             f"{p_max})")
+
+
+def kernel_row(td, cfg, chunks, n, comp: bool) -> dict:
+    """K1 (K1a, or K1b with comp) against its plain version on the first
+    and the last live chunk of a query of td: the kernels line's row."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.kernels import shared
+    kw = dict(compensated=comp)
+    rows = []
+    for ch in sorted({0, chunks - 1}):
+        inputs = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)[:6]
+        err = compare(shared.eval_shared_fused(
+            *inputs, scal(0.0, 1.0, inputs[0]), **kw),
+                      shared.eval_shared_plain(
+                          *inputs, scal(0.0, 1.0, inputs[0]), **kw))
+        km = cuda_ms(lambda: shared.eval_shared_fused(
+            *inputs, scal(0.0, 1.0, inputs[0]), **kw), 10)
+        pm = cuda_ms(lambda: shared.eval_shared_plain(
+            *inputs, scal(0.0, 1.0, inputs[0]), **kw), 1)
+        b, b_by = bound(inputs, n, comp=comp)
+        rows.append(dict(chunk=ch, S=int(inputs[2].shape[0]),
+                         max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b,
+                         bound_by=b_by, pct_of_bound=100 * b / km,
+                         **k1_shape(inputs, comp=comp)))
+        del inputs
+    return {"chunks": rows,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": float(np.mean([r["ms"] for r in rows])),
+            "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
+            "bound_ms": float(np.mean([r["bound_ms"] for r in rows])),
+            "bound_by": max((r["bound_ms"], r["bound_by"])
+                            for r in rows)[1]}
+
+
+def config0(seed: int, dev) -> dict:
+    """#0: 16,384 Plummer particles, engine.build_tree + engine.acc_pot_u
+    (whole, as configs.py:46-49 jits it), configs.py's caps grown where
+    the query flags them; every target against direct_acc_pot_np."""
+    from rakau_tpu_torch import engine, particles
+    from rakau_tpu_torch.config import TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(CFG0_N, generator=gen,
+                                  dtype=torch.float32)
+    cfg = config_of(0, CFG0_KW)
+    torch.cuda.reset_peak_memory_stats()
+    td, build_ms = synced_ms(lambda: engine.build_tree(pos, mass, cfg))
+    if bool(td.overflow):
+        raise AssertionError("config #0: the build overflowed")
+    (acc, pot, _, _), first_s, cfg, grown, flagged = until_fits(
+        lambda c: engine.acc_pot_u(td, c, THETA, 0.0, 1.0, with_stats=True),
+        cfg, "config #0", TreeConfig(**CFG0_KW))
+    (out, warm_ms), counts = counted(lambda: synced_ms(
+        lambda: engine.acc_pot_u(td, cfg, THETA, 0.0, 1.0)))
+    if not torch.equal(out[0], acc) or not torch.equal(out[1], pot):
+        raise AssertionError("config #0: two replays differ")
+    chunks = -(-td.tile_begin.shape[0] // min(cfg.tile_chunk,
+                                               td.tile_begin.shape[0]))
+    k1_launches(counts, chunks, ("mono",), "config #0 warm query")
+    finite("config #0", acc, pot)
+    # every target: the float64 direct sum on the card (direct_acc_pot_np
+    # on the host took 17 s here), held to direct_acc_pot_np on 8 targets
+    every = np.arange(CFG0_N)
+    a_o, p_o, check = sampled_oracle(td.pos, td.mass, every)
+    f_rms, p_rms = sampled_rms(acc, pot, a_o, p_o, every, dev)
+    rec = dict(n=CFG0_N, theta=THETA, eps=0.0, build_ms=build_ms,
+               first_call_s=first_s, warm_ms=warm_ms,
+               evals_per_s=CFG0_N / (warm_ms / 1e3),
+               caps_grown=grown, flagged_queries_s=flagged,
+               launches=nonzero(counts), capacity_chunks=chunks,
+               force_rms=f_rms, pot_rms=p_rms, targets=CFG0_N,
+               oracle_check=check, **memory_mb())
+    emit("config0", **rec)
+    bounded("config #0", f_rms, p_rms, FORCE_RMS_MAX, POT_RMS_MAX)
+    return rec
+
+
+def config1(seed: int, dev) -> dict:
+    """#1: a 1M uniform cube through the whole integrate.acc_pot (the build
+    and the query one CUDA graph) at eps 0, 1e-3 and 1e-2: the first
+    softening captures, the others replay the same graph (eps its input)
+    and capture nothing; each result bit-equal to the same call run
+    eagerly (graph=False); the oracle at 256 targets for each eps."""
+    from rakau_tpu_torch import engine, integrate, particles
+    from rakau_tpu_torch.config import TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.uniform_cube(CFG1_N, generator=gen,
+                                       dtype=torch.float32)
+    cfg = config_of(1, CFG1_KW)
+    samp = np.sort(np.random.default_rng(seed + 1).choice(
+        CFG1_N, 256, replace=False))
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"n": CFG1_N, "theta": THETA, "eps": {}}
+    for i, eps in enumerate(CFG1_EPS):
+        engine._GRAPHS.reset_tally()
+
+        def call(c, eps=eps):
+            return integrate.acc_pot(pos, mass, c, THETA, eps) + (None,)
+        grew = cfg
+        (acc, pot, _, _), first_s, cfg, grown, flagged = until_fits(
+            call, cfg, f"config #1 eps {eps}", TreeConfig(**CFG1_KW))
+        captures = engine._GRAPHS.captures
+        if i > 0 and (captures or cfg != grew):
+            raise AssertionError(f"config #1: eps {eps} captured "
+                                 f"{captures} graphs (grown {grown}): a "
+                                 "new softening must replay")
+        warm = []
+        for _ in range(2):
+            # counted() sets the graph cache's tally to zero first
+            ((a2, p2, _), ms), counts = counted(lambda: synced_ms(
+                lambda: integrate.acc_pot(pos, mass, cfg, THETA, eps)))
+            warm.append(ms)
+            if engine._GRAPHS.captures:
+                raise AssertionError("config #1: a warm call captured")
+        eager, eager_ms = synced_ms(lambda: integrate.acc_pot(
+            pos, mass, cfg, THETA, eps, graph=False))
+        if not (torch.equal(eager[0], acc) and torch.equal(eager[1], pot)
+                and torch.equal(a2, acc) and torch.equal(p2, pot)):
+            raise AssertionError(f"config #1 eps {eps}: the graphed call "
+                                 "and graph=False differ")
+        finite(f"config #1 eps {eps}", acc, pot)
+        a_o, p_o = card_oracle(pos, mass, samp, eps)
+        f_rms, p_rms = sampled_rms(acc, pot, a_o, p_o, samp, dev)
+        warm_ms = statistics.median(warm)
+        rec["eps"][str(eps)] = dict(
+            first_call_s=first_s, captures=captures, warm_ms=warm,
+            eager_ms=eager_ms, evals_per_s=CFG1_N / (warm_ms / 1e3),
+            caps_grown=grown, flagged_queries_s=flagged,
+            launches=nonzero(counts), bit_equal_to_eager=True,
+            force_rms=f_rms, pot_rms=p_rms)
+        del acc, pot, a2, p2, eager
+    rec.update(memory_mb())
+    emit("config1", **rec)
+    for eps, r in rec["eps"].items():
+        bounded(f"config #1 eps {eps}", r["force_rms"], r["pot_rms"],
+                LF_FORCE_RMS_MAX, CUBE_POT_RMS_MAX)
+    return rec
+
+
+def config3(seed: int, dev) -> tuple:
+    """#3: 1 << 26 disk particles, compensated: engine.build_tree (which
+    captures), the Morton-ordered positions drifted by CFG3_DRIFT x a
+    normal deviate, the timed rebuild (the same key: a replay), then
+    engine.acc_pot_u_host on it, its first call (caps grown where flagged)
+    and one warm call; K1b launched once a chunk evaluation; the oracle at
+    256 targets; K1b against its plain version. Returns the record and
+    the kernel's row."""
+    from rakau_tpu_torch import engine, particles
+    from rakau_tpu_torch.config import TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = CFG3_N
+    pos, mass = particles.disk_galaxy(n, generator=gen, dtype=torch.float32)
+    cfg = config_of(3, CFG3_KW)
+    mem = {}
+
+    def stage(name):
+        """The allocator's state after a stage, on a line of its own (the
+        memory plan's table, there even where a later stage fails)."""
+        mem[name] = memory_mb()
+        emit("config3_memory", stage=name, **mem[name])
+        torch.cuda.reset_peak_memory_stats()
+
+    stage("particles")
+    engine._GRAPHS.reset_tally()
+    td, build_ms = synced_ms(lambda: engine.build_tree(pos, mass, cfg))
+    stage("build")
+    del pos, mass
+    if bool(td.overflow):
+        raise AssertionError("config #3: the build overflowed")
+    drift = CFG3_DRIFT * torch.randn(td.pos.shape, generator=gen,
+                                     device=dev)
+    pos2 = td.pos + drift
+    mass2 = td.mass
+    del drift, td
+    captured = engine._GRAPHS.captures
+    td2, rebuild_ms = synced_ms(lambda: engine.build_tree(pos2, mass2, cfg))
+    if engine._GRAPHS.captures != captured or bool(td2.overflow):
+        raise AssertionError("config #3: the rebuild captured or "
+                             "overflowed")
+    del pos2, mass2
+    # configs.py's flow: the build's graph stays in the cache beside the
+    # query's (its inputs, its TreeData, 4.9 GB at 64M, and its share of
+    # the graph pool)
+    stage("rebuild")
+    samp = np.sort(np.random.default_rng(seed + 1).choice(n, 256,
+                                                          replace=False))
+    # passes of 2 targets: [2, N, 3] float64 panels of 3.2 GB at 64M
+    acc_o, pot_o = card_oracle(td2.pos, td2.mass, samp, chunk=2)
+    torch.cuda.empty_cache()
+    stage("oracle")
+
+    def query(c):
+        return engine.acc_pot_u_host(td2, c, THETA, 0.0, 1.0)
+    (acc, pot, _, mx), first_s, cfg, grown, flagged = until_fits(
+        query, cfg, "config #3", TreeConfig(**CFG3_KW))
+    del acc, pot
+    stage("first query")
+    ((acc, pot, ovf, _), warm_ms), counts = counted(
+        lambda: synced_ms(lambda: query(cfg)))
+    if bool(ovf.any()):
+        raise AssertionError("config #3: the warm query overflowed")
+    chunks = query_chunks(td2, cfg)
+    k1_launches(counts, chunks, ("mono_comp",), "config #3 warm query")
+    finite("config #3", acc, pot)
+    f_rms, p_rms = sampled_rms(acc, pot, acc_o, pot_o, samp, dev)
+    stage("warm query")
+    del acc, pot
+    rec = dict(n=n, theta=THETA, eps=0.0, accum=cfg.accum, drift=CFG3_DRIFT,
+               build_ms=build_ms, rebuild_ms=rebuild_ms,
+               first_call_s=first_s, warm_ms=warm_ms,
+               evals_per_s=n / (warm_ms / 1e3), caps_grown=grown,
+               flagged_queries_s=flagged, maxima=mx.cpu().tolist(),
+               n_tiles=int(td2.n_tiles), tile_cap=cfg.tile_capacity(n),
+               live_chunks=engine.live_chunks(td2, cfg),
+               chunk_evaluations=chunks, launches=nonzero(counts),
+               force_rms=f_rms, pot_rms=p_rms, memory_mb=mem)
+    row = kernel_row(td2, cfg, engine.live_chunks(td2, cfg), n, True)
+    rec["kernel"] = row
+    emit("config3", **rec)
+    bounded("config #3", f_rms, p_rms, DISK_FORCE_RMS_MAX, DISK_POT_RMS_MAX)
+    del td2
+    return rec, dict(launches=chunks,
+                     **{k: row[k] for k in KERNEL_KEYS})
+
+
+def config4(seed: int, dev) -> tuple:
+    """#4 on one card: 1 << 23 cube particles through
+    sharded.acc_pot_sharded_host on a one-card mesh of one shard (caps
+    grown where flagged), bit-equal to integrate.acc_pot_host on the same
+    particles, the oracle at 256 targets; K1a against its plain version
+    at these shapes. Returns the record and the kernel's row."""
+    from rakau_tpu_torch import engine, integrate, particles
+    from rakau_tpu_torch.config import TreeConfig
+    from rakau_tpu_torch.parallel import sharded
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = CFG4_N
+    pos, mass = particles.uniform_cube(n, generator=gen, dtype=torch.float32)
+    cfg = config_of(4, CFG4_KW)
+    mesh = sharded.default_mesh(1)
+    torch.cuda.reset_peak_memory_stats()
+
+    def call(c):
+        return sharded.acc_pot_sharded_host(pos, mass, c, THETA, 0.0, 1.0,
+                                            mesh) + (None,)
+    (acc, pot, _, _), first_s, cfg, grown, flagged = until_fits(
+        call, cfg, "config #4", TreeConfig(**CFG4_KW))
+    ((a2, p2, _), warm_ms), counts = counted(lambda: synced_ms(
+        lambda: sharded.acc_pot_sharded_host(pos, mass, cfg, THETA, 0.0,
+                                             1.0, mesh)))
+    one, one_ms = synced_ms(lambda: integrate.acc_pot_host(
+        pos, mass, cfg, THETA, 0.0, 1.0))
+    if not (torch.equal(a2, acc) and torch.equal(p2, pot)
+            and torch.equal(one[0], acc) and torch.equal(one[1], pot)):
+        raise AssertionError("config #4: the sharded call on one shard and "
+                             "integrate.acc_pot_host differ")
+    del a2, p2, one
+    td = engine.build_tree(pos, mass, cfg)
+    chunks = query_chunks(td, cfg)
+    k1_launches(counts, chunks, ("mono",), "config #4 warm call")
+    finite("config #4", acc, pot)
+    samp = np.sort(np.random.default_rng(seed + 1).choice(n, 256,
+                                                          replace=False))
+    a_o, p_o = card_oracle(pos, mass, samp)
+    f_rms, p_rms = sampled_rms(acc, pot, a_o, p_o, samp, dev)
+    del acc, pot
+    rec = dict(n=n, theta=THETA, eps=0.0, shards=1, first_call_s=first_s,
+               warm_ms=warm_ms, acc_pot_host_ms=one_ms,
+               evals_per_s=n / (warm_ms / 1e3), caps_grown=grown,
+               flagged_queries_s=flagged, n_tiles=int(td.n_tiles),
+               chunk_evaluations=chunks, launches=nonzero(counts),
+               bit_equal_to_acc_pot_host=True, force_rms=f_rms,
+               pot_rms=p_rms, **memory_mb())
+    row = kernel_row(td, cfg, engine.live_chunks(td, cfg), n, False)
+    rec["kernel"] = row
+    emit("config4", **rec)
+    bounded("config #4", f_rms, p_rms, LF_FORCE_RMS_MAX, CUBE_POT_RMS_MAX)
+    del td
+    return rec, dict(launches=chunks, **{k: row[k] for k in KERNEL_KEYS})
+
+
+def configs(seed: int, dev) -> dict:
+    """Phase group configs: BASELINE configs #0, #1, #3 and #4 (one card),
+    every earlier graph released first. Returns the kernels' rows."""
+    t0 = time.perf_counter()
+    part_s = {}
+    out = {}
+    for name, fn in (("config0", config0), ("config1", config1),
+                     ("config3", config3), ("config4", config4)):
+        released()
+        t = time.perf_counter()
+        res = fn(seed + len(part_s), dev)
+        part_s[name] = time.perf_counter() - t
+        if name in ("config3", "config4"):
+            out[name] = res[1]
+    released()
+    emit("configs", part_s=part_s, seconds=time.perf_counter() - t0)
+    return out
+
+
+def ladder(seed: int, dev0) -> dict:
+    """Phase group ladder: #4 over LADDER_CARDS cards, the _host twin of
+    sharded.acc_pot_sharded on a mesh of a shard a card (the build on card
+    0, each card's range of the live chunks in its sliced graphs), at each
+    size of LADDER_PER_CARD a card: first call, warm call, K1a and busy ms
+    a card (one profiled call), peak MB a card, MB the collectives copied,
+    the oracle at 256 targets; the first size bit-equal to the same call
+    on one card. The ladder stops at the first size whose memory does not
+    fit, with the allocation and its card recorded (the first size must
+    fit)."""
+    from rakau_tpu_torch import particles
+    from rakau_tpu_torch.config import TreeConfig
+    from rakau_tpu_torch.parallel import mesh as _mesh
+    from rakau_tpu_torch.parallel import sharded
+    cards = torch.cuda.device_count()
+    if cards < LADDER_CARDS:
+        emit("ladder", skipped=f"needs {LADDER_CARDS} cards, {cards} here")
+        return {}
+    mesh = sharded.default_mesh(LADDER_CARDS)
+    cfg0 = config_of(4, CFG4_KW)
+    rungs = []
+    for i, per_card in enumerate(LADDER_PER_CARD):
+        n = per_card * LADDER_CARDS
+        released()
+        for d in range(cards):
+            torch.cuda.reset_peak_memory_stats(d)
+        rung = {"n": n, "per_card": per_card, "cards": LADDER_CARDS}
+        try:
+            gen = torch.Generator(device=dev0).manual_seed(seed + i)
+            pos, mass = particles.uniform_cube(n, generator=gen,
+                                               dtype=torch.float32)
+
+            def call(c):
+                return sharded.acc_pot_sharded_host(
+                    pos, mass, c, THETA, 0.0, 1.0, mesh) + (None,)
+            (acc, pot, _, _), first_s, cfg, grown, flagged = until_fits(
+                call, cfg0, f"ladder {n}", TreeConfig(**CFG4_KW))
+            _mesh.reset_copied()
+            (a2, p2, _), warm_ms = all_synced_ms(
+                lambda: sharded.acc_pot_sharded_host(pos, mass, cfg, THETA,
+                                                     0.0, 1.0, mesh))
+            copied = sum(_mesh.copied.values())
+            _, prof = card_profile(lambda: sharded.acc_pot_sharded_host(
+                pos, mass, cfg, THETA, 0.0, 1.0, mesh))
+            if not (torch.equal(a2, acc) and torch.equal(p2, pot)):
+                raise AssertionError(f"ladder {n}: two calls differ")
+            del a2, p2
+            finite(f"ladder {n}", acc, pot)
+            samp = np.sort(np.random.default_rng(seed + 100 + i).choice(
+                n, 256, replace=False))
+            a_o, p_o = card_oracle(pos, mass, samp)
+            f_rms, p_rms = sampled_rms(acc, pot, a_o, p_o, samp, dev0)
+            rung.update(first_call_s=first_s, warm_ms=warm_ms,
+                        evals_per_s=n / (warm_ms / 1e3), caps_grown=grown,
+                        flagged_queries_s=flagged, mb_copied=copied / MB,
+                        peak_mb_by_card={
+                            d: torch.cuda.max_memory_allocated(d) / MB
+                            for d in range(cards)},
+                        peak_reserved_mb_by_card={
+                            d: torch.cuda.max_memory_reserved(d) / MB
+                            for d in range(cards)},
+                        force_rms=f_rms, pot_rms=p_rms, **prof)
+            bounded(f"ladder {n}", f_rms, p_rms, LF_FORCE_RMS_MAX,
+                    CUBE_POT_RMS_MAX)
+            if i == 0:
+                released()
+                one, one_ms = synced_ms(lambda: sharded.acc_pot_sharded_host(
+                    pos, mass, cfg, THETA, 0.0, 1.0,
+                    sharded.default_mesh(1)))
+                if not (torch.equal(one[0], acc)
+                        and torch.equal(one[1], pot)):
+                    raise AssertionError(f"ladder {n}: four cards and one "
+                                         "card differ")
+                rung.update(one_card_ms=one_ms, bit_equal_to_one_card=True)
+                del one
+            del acc, pot, pos, mass
+        except torch.cuda.OutOfMemoryError as e:
+            if i == 0:
+                raise
+            rung["out_of_memory"] = str(e).splitlines()[0]
+            rung["peak_mb_by_card"] = {
+                d: torch.cuda.max_memory_allocated(d) / MB
+                for d in range(cards)}
+            emit("ladder_rung", **rung)
+            rungs.append(rung)
+            break
+        emit("ladder_rung", **rung)
+        rungs.append(rung)
+    released()
+    emit("ladder", rungs=[r["n"] for r in rungs],
+         fits=[r["n"] for r in rungs if "out_of_memory" not in r])
+    return {"rungs": rungs}
+
+
 def main_config(pos, mass):
     """The main tree's configuration where phase group "main" did not run:
     octree(...) with TREE_KW and one query, which grows its caps."""
@@ -6140,7 +6809,8 @@ def main_config(pos, mass):
 def kernels_line(m: dict, lf: dict, forms: dict, big: dict) -> list:
     """The kernels line: every kernel form with its launches on the main
     path, time, plain time and bound (m: main_path's results; lf, forms:
-    phase leapfrog's and its energy kernels'; big: phase scale's rows)."""
+    phase leapfrog's and its energy kernels'; big: groups scale's and
+    configs' rows)."""
     (launches, worst, k_ms, p_ms, b_ms, whole_rec, c_launches, c_forms,
      v_forms, v_launches, lv_forms, lv_launches, g_launches, q_launches, k2,
      t_launches, t_forms, f64_launches, f64_forms) = (m[k] for k in (
@@ -6239,7 +6909,11 @@ def kernels_line(m: dict, lf: dict, forms: dict, big: dict) -> list:
             ("K2", f"K2 pool (monopole, fp32, {SCALE_N:,} particles)",
              POOL_SRC, POOL_REPLACES),
             ("K1d+K1b", "K1d+K1b shared_fused (quadrupole, compensated, "
-             f"config #2 at {SCALE_LF_N:,})", SRC, REPLACES)):
+             f"config #2 at {SCALE_LF_N:,})", SRC, REPLACES),
+            ("config3", "K1b shared_fused (monopole, compensated, config #3 "
+             f"at {CFG3_N:,})", SRC, REPLACES),
+            ("config4", "K1a shared_fused (monopole, fp32, config #4 at "
+             f"{CFG4_N:,})", SRC, REPLACES)):
         row = big[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, **row,
@@ -6347,9 +7021,17 @@ def main(argv=None) -> int:
         group_done("leapfrog")
     del pos, mass, small
     # ---- the reference's own sizes: 8M, and config #2 at 1 << 23 --------
+    big = {}
     if "scale" in phases:
         big = scale(args.seed + 11, dev)
         group_done("scale")
+    # ---- BASELINE configs #0, #1, #3, #4; #4 over four cards ------------
+    if "configs" in phases:
+        big.update(configs(args.seed + 15, dev))
+        group_done("configs")
+    if "ladder" in phases:
+        ladder(args.seed + 17, dev)
+        group_done("ladder")
     if phases == set(PHASES):
         emit("graphs", summary=graphs_summary(
             m["graphs_rec"], mrec, {**m["whole_rec"], **lf["graphs"]}))

@@ -130,10 +130,11 @@ pool_kernel(PoolSrc src, const real* __restrict__ tgt,
             const int32_t* __restrict__ first,
             const int32_t* __restrict__ work,
             const int32_t* __restrict__ n_work, real4* __restrict__ sums,
-            real4* __restrict__ errs, int T, int span, real eps2)
+            real4* __restrict__ errs, int T, int span,
+            const real* __restrict__ scal)                 // [eps^2, G]
 {
     walk_items<MODE, COMP, QUAD>(src, tgt, tgt_idx, first, work, n_work,
-                                 sums, errs, T, span, eps2);
+                                 sums, errs, T, span, scal[0]);
 }
 
 // Byte offsets of the workspace's parts, 256-aligned: the spans' scratch
@@ -157,7 +158,7 @@ struct Args {
     const real* tgt; const int64_t* tgt_idx; PoolSrc src;
     const int32_t* first; const int32_t* work; const int32_t* n_work;
     unsigned char* ws; real* acc; real* pot;
-    int G, T, span, cap, sms; real eps2, Gc;
+    int G, T, span, cap, sms; const real* scal;
 };
 
 template <int MODE, bool COMP, bool QUAD>
@@ -176,14 +177,14 @@ cudaError_t launch(const Args& a, const Layout& L, cudaStream_t stream)
     real4* errs = reinterpret_cast<real4*>(a.ws + L.errs);
     pool_kernel<MODE, COMP, QUAD><<<grid, kThreads, 0, stream>>>(
         a.src, a.tgt, a.tgt_idx, a.first, a.work, a.n_work, sums, errs,
-        a.T, a.span, a.eps2);
+        a.T, a.span, a.scal);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const long long GT = static_cast<long long>(a.G) * a.T;
     rows_reduce_kernel<COMP>
         <<<static_cast<unsigned>((GT + kPackThreads - 1) / kPackThreads),
            kPackThreads, 0, stream>>>(sums, errs, a.first, a.n_work, a.acc,
-                                      a.pot, a.G, a.T, a.Gc);
+                                      a.pot, a.G, a.T, a.scal);
     return cudaGetLastError();
 }
 
@@ -279,8 +280,10 @@ extern "C" int rakau_pool_plan(const int32_t* sched, int32_t* first,
 // written as 0), 2 pot only (acc written as 0). quad: [P, 6] second
 // moments, or null for the monopole forms. comp: nonzero for the
 // compensated (TwoSum) sums. Wb: blocks per window. sms: the card's
-// multiprocessors. acc [G, T, 3] and pot [G, T] are the sums times Gc.
-// Every real pointer, eps2 and Gc are of the library's scalar type.
+// multiprocessors. acc [G, T, 3] and pot [G, T] are the sums times G.
+// scal [2] on the card holds eps^2 and G, read by the kernels (so a CUDA
+// graph takes new values as inputs). Every real pointer is of the
+// library's scalar type.
 extern "C" int rakau_pool(const real* tgt, const int64_t* tgt_idx,
                           const real* pos, const real* mass,
                           const int64_t* idx, const real* quad,
@@ -288,10 +291,11 @@ extern "C" int rakau_pool(const real* tgt, const int64_t* tgt_idx,
                           int32_t* work, int32_t* n_work, void* ws,
                           real* acc, real* pot, int G, int T, int P, int Wb,
                           int block, int span, int cap, int mode, int comp,
-                          int sms, real eps2, real Gc, void* stream)
+                          int sms, const real* scal, void* stream)
 {
     if (G == 0 || T == 0) return 0;
     if (bad_sizes(G, T, P, Wb, block, span, cap) || ws == nullptr
+        || scal == nullptr
         || reinterpret_cast<uintptr_t>(ws) % 256 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const Layout L = layout(T, cap, comp != 0);
@@ -305,7 +309,7 @@ extern "C" int rakau_pool(const real* tgt, const int64_t* tgt_idx,
     const Args a{tgt, tgt_idx, {pos, mass, idx, quad, sched, P, Wb, block,
                                 gpb}, first, work, n_work,
                  static_cast<unsigned char*>(ws), acc, pot, G, T, span, cap,
-                 sms, eps2, Gc};
+                 sms, scal};
     return static_cast<int>(by_form<Launch>(mode, comp != 0, quad != nullptr,
                                             cudaErrorInvalidValue, a, L,
                                             st));

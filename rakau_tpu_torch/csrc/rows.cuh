@@ -474,8 +474,9 @@ __device__ __forceinline__ void walk_items(
 
 // acc, pot of target (g, t): tile g's spans [first[g], first[g + 1]) added
 // in span order (COMP: TwoSum of the sums, then the error terms; sum + err
-// at the end), times Gc. A tile without spans gets zeros; with n_work[0]
-// < 0 (a fault of the plan) every output is NaN.
+// at the end), times Gc = scal[1] (scal: [eps^2, G] on the card; null: no
+// factor). A tile without spans gets zeros; with n_work[0] < 0 (a fault of
+// the plan) every output is NaN.
 template <bool COMP>
 __global__ void __launch_bounds__(kPackThreads)
 rows_reduce_kernel(const real4* __restrict__ sums,    // [spans, T]
@@ -484,8 +485,10 @@ rows_reduce_kernel(const real4* __restrict__ sums,    // [spans, T]
                    const int32_t* __restrict__ n_work,
                    real* __restrict__ acc,            // [G, T, 3]
                    real* __restrict__ pot,            // [G, T]
-                   int G, int T, real Gc)
+                   int G, int T,
+                   const real* __restrict__ scal)     // [eps^2, G] or null
 {
+    const real Gc = scal != nullptr ? scal[1] : real(1);
     const long long i = static_cast<long long>(blockIdx.x) * kPackThreads
         + threadIdx.x;
     if (i >= static_cast<long long>(G) * T) return;

@@ -195,8 +195,9 @@ shared_blocks_kernel(Row row,
                      const int32_t* __restrict__ n_work,    // [1]
                      float4* __restrict__ sums,             // [C, zmax, T]
                      int T, int NG, int words, int zmax, int span,
-                     float eps2)
+                     const float* __restrict__ scal)        // [eps^2, G]
 {
+    const float eps2 = scal[0];
     Ring& ring = ring_smem<kDynamicSmem>();
     const int groups = (T + kTargets - 1) / kTargets;
     const int items = n_work[0] * groups;
@@ -319,15 +320,17 @@ shared_blocks_kernel(Row row,
 }
 
 // acc, pot of target (c, t): its tile's spans added in span order, times
-// G. A tile without spans gets zeros; a count whose spans exceed the
+// G = scal[1]. A tile without spans gets zeros; a count whose spans exceed the
 // plan's bound zmax (a fault of the plan) gets NaN.
 __global__ void __launch_bounds__(kPackThreads)
 shared_blocks_reduce(const float4* __restrict__ sums,   // [C, zmax, T]
                      const int32_t* __restrict__ cnt,   // [C]
                      float* __restrict__ acc,           // [C, T, 3]
                      float* __restrict__ pot,           // [C, T]
-                     int C, int T, int zmax, int span, float G)
+                     int C, int T, int zmax, int span,
+                     const float* __restrict__ scal)    // [eps^2, G]
 {
+    const float G = scal[1];
     const long long i = static_cast<long long>(blockIdx.x) * kPackThreads
         + threadIdx.x;
     if (i >= static_cast<long long>(C) * T) return;
@@ -498,17 +501,18 @@ extern "C" int rakau_shared_blocks_pack(const float* src, const float* mass,
 // span z of tile c, the list entries [z * span, min((z + 1) * span,
 // cnt[c])), and a group of targets, in the order of the work list. sms:
 // the card's multiprocessors. acc [C, T, 3] and pot [C, T] are the sums
-// times G.
+// times G. scal [2] on the card holds eps^2 and G, read by the kernels.
 extern "C" int rakau_shared_blocks(const float* tgt, const int64_t* tgt_idx,
                                    const int32_t* ids, const int32_t* cnt,
                                    const int32_t* work,
                                    const int32_t* n_work, void* ws,
                                    float* acc, float* pot, int C, int T,
-                                   int S, int span, int sms, float eps2,
-                                   float G, void* stream)
+                                   int S, int span, int sms,
+                                   const float* scal, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
-    if (bad_args(S, span, ws)) return static_cast<int>(cudaErrorInvalidValue);
+    if (bad_args(S, span, ws) || scal == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
     const Layout L = layout(C, T, S, span);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     unsigned char* base = static_cast<unsigned char*>(ws);
@@ -518,13 +522,13 @@ extern "C" int rakau_shared_blocks(const float* tgt, const int64_t* tgt_idx,
     float4* sums = reinterpret_cast<float4*>(base + L.sums);
     shared_blocks_kernel<<<grid_blocks(C, T, L, sms), kThreads, kDynamicSmem,
                            st>>>(row, tgt, tgt_idx, ids, cnt, work, n_work,
-                                 sums, T, L.NG, L.words, L.zmax, span, eps2);
+                                 sums, T, L.NG, L.words, L.zmax, span, scal);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long CT = static_cast<long long>(C) * T;
     shared_blocks_reduce<<<static_cast<unsigned>(
         (CT + kPackThreads - 1) / kPackThreads), kPackThreads, 0, st>>>(
-        sums, cnt, acc, pot, C, T, L.zmax, span, G);
+        sums, cnt, acc, pot, C, T, L.zmax, span, scal);
     return static_cast<int>(cudaGetLastError());
 }
 

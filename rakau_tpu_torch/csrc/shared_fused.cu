@@ -294,9 +294,10 @@ shared_fused_kernel(Row row,
                     real4* __restrict__ sums,             // [C, zmax, T]
                     real4* __restrict__ errs,             // [C, zmax, T]
                     int T, int NG, int words, int zmax, int span, int sep,
-                    real eps2)
+                    const real* __restrict__ scal)        // [eps^2, G]
 {
     constexpr int DIMS = CELL ? CELL : 3;
+    const real eps2 = scal[0];
     using St = Stage<QUAD, CELL != 0>;
     Ring<QUAD, CELL != 0>& ring = ring_smem<QUAD, CELL != 0>();
     const int groups = (T + kTargets - 1) / kTargets;
@@ -461,7 +462,7 @@ shared_fused_kernel(Row row,
 
 // acc, pot of target (c, t): its tile's spans added in span order (COMP:
 // TwoSum of the sums, then the error terms; sum + err at the end), times
-// G.
+// G = scal[1].
 template <bool COMP>
 __global__ void __launch_bounds__(kPackThreads)
 shared_fused_reduce_kernel(const real4* __restrict__ sums,   // [C, zmax, T]
@@ -469,8 +470,10 @@ shared_fused_reduce_kernel(const real4* __restrict__ sums,   // [C, zmax, T]
                            const int32_t* __restrict__ cnt,  // [C]
                            real* __restrict__ acc,           // [C, T, 3]
                            real* __restrict__ pot,           // [C, T]
-                           int C, int T, int zmax, int span, real G)
+                           int C, int T, int zmax, int span,
+                           const real* __restrict__ scal)  // [eps^2, G]
 {
+    const real G = scal[1];
     const long long i = static_cast<long long>(blockIdx.x) * kPackThreads
         + threadIdx.x;
     if (i >= static_cast<long long>(C) * T) return;
@@ -544,7 +547,7 @@ struct Args {
     const real* tgt; const int64_t* tgt_idx; const int32_t* tgt_cell;
     const int32_t* ids; const int32_t* cnt; const int32_t* work;
     const int32_t* n_work; unsigned char* ws; real* acc; real* pot;
-    int C, T, S, span, sep, sms; bool quad; real eps2, G;
+    int C, T, S, span, sep, sms; bool quad; const real* scal;
 };
 
 // CUDA blocks of one form that fit on an SM at once (at least 1); sets
@@ -600,14 +603,14 @@ cudaError_t launch(const Args& a, const Layout& L, cudaStream_t stream)
         <<<grid, kThreads, smem, stream>>>(
             row, a.tgt, a.tgt_idx, a.tgt_cell, a.ids, a.cnt, a.work,
             a.n_work, sums, errs, a.T, L.NG, L.words, L.zmax, a.span, a.sep,
-            a.eps2);
+            a.scal);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const long long CT = static_cast<long long>(a.C) * a.T;
     shared_fused_reduce_kernel<COMP>
         <<<static_cast<unsigned>((CT + kPackThreads - 1) / kPackThreads),
            kPackThreads, 0, stream>>>(sums, errs, a.cnt, a.acc, a.pot, a.C,
-                                      a.T, L.zmax, a.span, a.G);
+                                      a.T, L.zmax, a.span, a.scal);
     return cudaGetLastError();
 }
 
@@ -776,8 +779,9 @@ extern "C" int rakau_shared_fused_pack(const real* src, const real* mass,
 // compensated (TwoSum) sums. sep > 0 with tgt_cell [C, T, 3] of cell_dims
 // (2 or 3) dimensions (coordinates below 2^cell_coord_bits(cell_dims), sep
 // at most that) selects the cell forms. sms: the card's multiprocessors.
-// acc [C, T, 3] and pot [C, T] are the sums times G. Every real pointer,
-// eps2 and G are of the library's scalar type.
+// acc [C, T, 3] and pot [C, T] are the sums times G. scal [2] on the card
+// holds eps^2 and G, read by the kernels (so a CUDA graph takes new values
+// as inputs). Every real pointer is of the library's scalar type.
 extern "C" int rakau_shared_fused(const real* tgt, const int64_t* tgt_idx,
                                   const int32_t* tgt_cell,
                                   const int32_t* ids, const int32_t* cnt,
@@ -785,17 +789,18 @@ extern "C" int rakau_shared_fused(const real* tgt, const int64_t* tgt_idx,
                                   void* ws, real* acc, real* pot, int C,
                                   int T, int S, int span, int mode, int comp,
                                   int quad, int sep, int cell_dims, int sms,
-                                  real eps2, real G, void* stream)
+                                  const real* scal, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
     if (S < 0 || span < 1 || ws == nullptr
         || reinterpret_cast<uintptr_t>(ws) % 256 != 0
-        || bad_cells(sep, cell_dims) || (sep > 0 && tgt_cell == nullptr))
+        || bad_cells(sep, cell_dims) || (sep > 0 && tgt_cell == nullptr)
+        || scal == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     const Layout L = layout(C, T, S, span, quad != 0, sep > 0, comp != 0);
     const Args a{tgt, tgt_idx, tgt_cell, ids, cnt, work, n_work,
                  static_cast<unsigned char*>(ws), acc, pot, C, T, S, span,
-                 sep, sms, quad != 0, eps2, G};
+                 sep, sms, quad != 0, scal};
     return static_cast<int>(by_form<Launch>(
         mode, comp != 0, quad != 0, sep, cell_dims, cudaErrorInvalidValue,
         a, L, static_cast<cudaStream_t>(stream)));

@@ -288,12 +288,17 @@ shared_mma_kernel(Row row,
                   float4* __restrict__ sums,            // [C, zmax, T]
                   float* __restrict__ pots,             // [C, zmax, T]
                   int T, int NG, int words, int zmax, int span, int sep,
-                  float eps2)
+                  const float* __restrict__ scal)       // [eps^2, G]
 {
     constexpr int DIMS = CELL ? CELL : 3;   // the cell packing (CELL)
     constexpr bool kMma = PREC != kHighest && MODE != kPot;
     using St = Stage<CELL, kMma, kMma && PREC == kX3>;
     __shared__ St ring[kStages];
+    // eps^2 in a register from entry, but for the acc-only x3 cell forms:
+    // they sit at the register limit, where one more live value spills
+    // (4-8 bytes), and read it at each use instead
+    constexpr bool kHoldEps2 = !(MODE == kAcc && CELL && PREC == kX3);
+    const float eps2_held = kHoldEps2 ? __ldg(scal) : 0.f;
 
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -444,8 +449,13 @@ shared_mma_kernel(Row row,
                             if (CELL)
                                 dead = dead | cell_far<DIMS>(pc[i], tk[m][r],
                                                              cb);
+                            // the load, where there is one, on live pairs
+                            // only: made for every pair it spilled too
                             const float inv_r =
-                                dead ? 0.f : rsqrt_normal(r2n + eps2);
+                                dead ? 0.f
+                                     : rsqrt_normal(r2n + (kHoldEps2
+                                                           ? eps2_held
+                                                           : __ldg(scal)));
                             const float w = sv[i].w * inv_r;
                             if (MODE != kAcc) pp[m][r] -= w;
                             const float v3 = w * (inv_r * inv_r);
@@ -533,7 +543,8 @@ shared_mma_kernel(Row row,
 }
 
 // acc, pot of target (c, t): its tile's spans added in span order, then
-// acc = Y - ysum t' about the tile's first target, both times G.
+// acc = Y - ysum t' about the tile's first target, both times G =
+// scal[1] (read after the sums: held from entry, it spilled).
 __global__ void __launch_bounds__(kPackThreads)
 shared_mma_reduce_kernel(const float4* __restrict__ sums,  // [C, zmax, T]
                          const float* __restrict__ pots,   // [C, zmax, T]
@@ -541,7 +552,8 @@ shared_mma_reduce_kernel(const float4* __restrict__ sums,  // [C, zmax, T]
                          const float* __restrict__ tgt,    // [C, T, 3]
                          float* __restrict__ acc,          // [C, T, 3]
                          float* __restrict__ pot,          // [C, T]
-                         int C, int T, int zmax, int span, float G)
+                         int C, int T, int zmax, int span,
+                         const float* __restrict__ scal)   // [eps^2, G]
 {
     const long long i = static_cast<long long>(blockIdx.x) * kPackThreads
         + threadIdx.x;
@@ -564,6 +576,7 @@ shared_mma_reduce_kernel(const float4* __restrict__ sums,  // [C, zmax, T]
                          __fsub_rn(tgt[3 * i + 1], p0[1]),
                          __fsub_rn(tgt[3 * i + 2], p0[2])};
     const float yv[3] = {yx, yy, yz};
+    const float G = __ldg(scal + 1);
 #pragma unroll
     for (int d = 0; d < 3; ++d)
         acc[3 * i + d] = G * __fsub_rn(yv[d], __fmul_rn(ys, tv[d]));
@@ -607,7 +620,7 @@ struct Args {
     const float* tgt; const int32_t* tgt_cell; const int32_t* ids;
     const int32_t* cnt; const int32_t* work; const int32_t* n_work;
     unsigned char* ws; float* acc; float* pot;
-    int C, T, S, span, sep, sms; float eps2, G;
+    int C, T, S, span, sep, sms; const float* scal;
 };
 
 // CUDA blocks of one form that fit on an SM at once (at least 1).
@@ -651,14 +664,15 @@ cudaError_t launch(const Args& a, const Layout& L, cudaStream_t stream)
     float* pots = reinterpret_cast<float*>(a.ws + L.pots);
     shared_mma_kernel<MODE, CELL, PREC><<<grid, kThreads, 0, stream>>>(
         row, a.tgt, a.tgt_cell, a.ids, a.cnt, a.work, a.n_work, sums, pots,
-        a.T, L.NG, L.words, L.zmax, a.span, a.sep, a.eps2);
+        a.T, L.NG, L.words, L.zmax, a.span, a.sep, a.scal);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const long long CT = static_cast<long long>(a.C) * a.T;
     shared_mma_reduce_kernel
         <<<static_cast<unsigned>((CT + kPackThreads - 1) / kPackThreads),
            kPackThreads, 0, stream>>>(sums, pots, a.cnt, a.tgt, a.acc,
-                                      a.pot, a.C, a.T, L.zmax, a.span, a.G);
+                                      a.pot, a.C, a.T, L.zmax, a.span,
+                                      a.scal);
     return cudaGetLastError();
 }
 
@@ -813,24 +827,26 @@ extern "C" int rakau_shared_mma_pack(const float* src, const float* mass,
 // x3, 2 highest. sep > 0 with tgt_cell [C, T, 3] of cell_dims (2 or 3)
 // dimensions (as in rakau_shared_fused) selects the cell-separation form;
 // sep = 0 ignores the cells. sms: the card's multiprocessors. acc
-// [C, T, 3] and pot [C, T] are the sums times G.
+// [C, T, 3] and pot [C, T] are the sums times G. scal [2] on the card holds
+// eps^2 and G, read by the kernels.
 extern "C" int rakau_shared_mma(const float* tgt, const int32_t* tgt_cell,
                                 const int32_t* ids, const int32_t* cnt,
                                 const int32_t* work, const int32_t* n_work,
                                 void* ws, float* acc, float* pot, int C,
                                 int T, int S, int span, int mode, int prec,
-                                int sep, int cell_dims, int sms, float eps2,
-                                float G, void* stream)
+                                int sep, int cell_dims, int sms,
+                                const float* scal, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
     if (S < 0 || span < 1 || ws == nullptr
         || reinterpret_cast<uintptr_t>(ws) % 256 != 0
-        || bad_cells(sep, cell_dims) || (sep > 0 && tgt_cell == nullptr))
+        || bad_cells(sep, cell_dims) || (sep > 0 && tgt_cell == nullptr)
+        || scal == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     const Layout L = layout(C, T, S, span, sep > 0);
     const Args a{tgt, tgt_cell, ids, cnt, work, n_work,
                  static_cast<unsigned char*>(ws), acc, pot, C, T, S, span,
-                 sep, sms, eps2, G};
+                 sep, sms, scal};
     return static_cast<int>(by_form<Launch>(
         mode, sep, cell_dims, prec, cudaErrorInvalidValue, a, L,
         static_cast<cudaStream_t>(stream)));

@@ -131,10 +131,11 @@ tiles_fused_kernel(TilesSrc src, const real* __restrict__ tgt,
                    const int32_t* __restrict__ first,
                    const int32_t* __restrict__ work,
                    const int32_t* __restrict__ n_work,
-                   real4* __restrict__ sums, int T, int span, real eps2)
+                   real4* __restrict__ sums, int T, int span,
+                   const real* __restrict__ scal)        // [eps^2, ...]
 {
     walk_items<kBoth, false, false>(src, tgt, tgt_idx, first, work, n_work,
-                                    sums, nullptr, T, span, eps2);
+                                    sums, nullptr, T, span, scal[0]);
 }
 
 // Bytes of K3's workspace: the spans' scratch.
@@ -206,10 +207,11 @@ tiles_pairwise_kernel(PairSrc src, const real* __restrict__ tgt,
                       const int32_t* __restrict__ first,
                       const int32_t* __restrict__ work,
                       const int32_t* __restrict__ n_work,
-                      real4* __restrict__ sums, int T, int span, real eps2)
+                      real4* __restrict__ sums, int T, int span,
+                      const real* __restrict__ scal)     // [eps^2, ...]
 {
     walk_items<kBoth, false, false>(src, tgt, tgt_idx, first, work, n_work,
-                                    sums, nullptr, T, span, eps2);
+                                    sums, nullptr, T, span, scal[0]);
 }
 
 int k4_blocks_per_sm()
@@ -269,8 +271,8 @@ extern "C" int rakau_tiles_plan(const int64_t* m_cnt, const int64_t* p_cnt,
 // rakau_tiles_workspace(T, cap) bytes), and returns cudaGetLastError() of
 // the launches (0 = accepted). m_cnt / p_cnt: per-tile counts [C] (int64),
 // or null for whole rows. sms: the card's multiprocessors. acc [C, T, 3],
-// pot [C, T]: the sums times G. Every real pointer, eps2 and G are of the
-// library's scalar type.
+// pot [C, T]: the sums times G. scal [2] on the card holds eps^2 and G,
+// read by the kernels. Every real pointer is of the library's scalar type.
 extern "C" int rakau_tiles(const real* tgt, const int64_t* tgt_idx,
                            const real* m_pos, const real* m_mass,
                            const int64_t* m_cnt, const real* p_pos,
@@ -278,11 +280,12 @@ extern "C" int rakau_tiles(const real* tgt, const int64_t* tgt_idx,
                            const int64_t* p_cnt, int32_t* first,
                            int32_t* work, int32_t* n_work, void* ws,
                            real* acc, real* pot, int C, int T, int Sm,
-                           int Sp, int span, int cap, int sms, real eps2,
-                           real G, void* stream)
+                           int Sp, int span, int cap, int sms,
+                           const real* scal, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
     if (Sm < 0 || Sp < 0 || span < 1 || cap < 1 || ws == nullptr
+        || scal == nullptr
         || reinterpret_cast<uintptr_t>(ws) % 256 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -294,14 +297,14 @@ extern "C" int rakau_tiles(const real* tgt, const int64_t* tgt_idx,
     tiles_fused_kernel<<<grid, kThreads, 0, st>>>(
         TilesSrc{m_pos, m_mass, p_pos, p_mass, p_idx,
                  TilesCount{m_cnt, p_cnt, Sm, Sp}},
-        tgt, tgt_idx, first, work, n_work, sums, T, span, eps2);
+        tgt, tgt_idx, first, work, n_work, sums, T, span, scal);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const long long CT = static_cast<long long>(C) * T;
     rows_reduce_kernel<false>
         <<<static_cast<unsigned>((CT + kPackThreads - 1) / kPackThreads),
            kPackThreads, 0, st>>>(sums, nullptr, first, n_work, acc, pot, C,
-                                  T, G);
+                                  T, scal);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,7 +344,8 @@ extern "C" int rakau_tiles_pairwise_plan(const int64_t* cnt, int32_t* first,
 // the launches (0 = accepted). idx: the row's indices [C, S] for the
 // self-exclusion test (P2P), or null (M2P, no test). cnt: counts [C]
 // (int64) or null. acc [C, T, 3], pot [C, T]: the sums, without G. sms:
-// the card's multiprocessors. Every real pointer and eps2 are of the
+// the card's multiprocessors. scal on the card holds eps^2 first (the
+// kernel reads nothing else of it). Every real pointer is of the
 // library's scalar type.
 extern "C" int rakau_tiles_pairwise(const real* tgt, const int64_t* tgt_idx,
                                     const real* pos, const real* mass,
@@ -350,10 +354,11 @@ extern "C" int rakau_tiles_pairwise(const real* tgt, const int64_t* tgt_idx,
                                     int32_t* n_work, void* ws, real* acc,
                                     real* pot, int C, int T, int S,
                                     int block, int span, int cap, int sms,
-                                    real eps2, void* stream)
+                                    const real* scal, void* stream)
 {
     if (C <= 0 || T <= 0) return 0;
     if (bad_pairwise(S, block, span, cap) || ws == nullptr
+        || scal == nullptr
         || reinterpret_cast<uintptr_t>(ws) % 256 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -364,14 +369,14 @@ extern "C" int rakau_tiles_pairwise(const real* tgt, const int64_t* tgt_idx,
     const int grid = persistent_grid(cap, T, k4_blocks_per_sm(), sms);
     tiles_pairwise_kernel<<<grid, kThreads, 0, st>>>(
         PairSrc{pos, mass, idx, PairCount{cnt, S, row_block(S, block)}},
-        tgt, tgt_idx, first, work, n_work, sums, T, span, eps2);
+        tgt, tgt_idx, first, work, n_work, sums, T, span, scal);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const long long CT = static_cast<long long>(C) * T;
     rows_reduce_kernel<false>
         <<<static_cast<unsigned>((CT + kPackThreads - 1) / kPackThreads),
            kPackThreads, 0, st>>>(sums, nullptr, first, n_work, acc, pot, C,
-                                  T, real(1));
+                                  T, nullptr);
     return static_cast<int>(cudaGetLastError());
 }
 

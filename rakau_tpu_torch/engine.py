@@ -65,6 +65,7 @@ from . import build as _build
 from . import expansion
 from . import grid as gridmod
 from . import graphs, grid2, traversal, traversal2, traversal3, traversal4
+from . import particles as _particles
 from .build import TreeData, _quad_dim
 from .config import OVF_FIELDS, TreeConfig, fit_caps, fit_round_caps
 from .kernels import dispatch, pool, shared, tiles
@@ -107,6 +108,21 @@ def _run(graph: bool, fn, *args, **kw):
     if not graph:
         return fn(*args, **kw)
     return _GRAPHS(fn, *args, key=dispatch.capture_key(), **kw)
+
+
+def scalars(like, theta, eps, G) -> tuple:
+    """(theta, eps, scal) from theta, eps and G, numbers or tensors: theta
+    and eps as 0-dim tensors of like's dtype on its device (the
+    counterpart of the reference's `jnp.asarray(x, dt)`), and the kernels'
+    buffer scal = [eps^2, G, eps^2, 1] (kernels.shared.scalar_buffer),
+    made here once a call: the far fields take eps, the kernels and the
+    plain versions scal, and G is scal[1]. A graph takes them as inputs,
+    not in its key, so a call with a new theta, eps or G replays the graph
+    that the first call captured. A number is filled in on the device, as
+    dt is (particles.scalar_tensor). The functions below that take
+    (theta, eps, scal) take what this returns."""
+    theta, eps = (_particles.scalar_tensor(x, like) for x in (theta, eps))
+    return theta, eps, shared.scalar_buffer(eps, G, like)
 
 
 def build_tree(pos, mass, cfg: TreeConfig, box_size=None,
@@ -194,7 +210,7 @@ def _chunk_tiles(tiles, chunk: int):
     return sl[:5], (sl[5:] if len(sl) > 5 else None)
 
 
-def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
+def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, scal,
                    tpos, tidx, blo, bhi, tables, tcell, Lgrid, tcells=None,
                    cand=None, extra=None):
     """Traversal + far field for one chunk of C tiles. Returns (src, mask,
@@ -261,7 +277,7 @@ def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, G,
                 cfg.local_gamma)
             L = L + expansion.m2l(center, extra[0], extra[1], far_e, eps,
                                   order)
-        acc_l, pot_l = expansion.l2p(L, center, tpos, G, order)
+        acc_l, pot_l = expansion.l2p(L, center, tpos, scal[1], order)
     elif extra is not None:
         near_e = _every_tile(tvalid, extra)
     if extra is not None:
@@ -315,7 +331,7 @@ def _tile_sources(td: TreeData, cfg: TreeConfig, theta, blo, bhi):
     return il, _gather_sources(td, cfg, il)
 
 
-def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
+def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, scal,
                 tpos, tidx, blo, bhi, tables, tcell, Lgrid, mode="both",
                 tcells=None, cand=None, extra=None):
     """Traversal + far field + kernel for one chunk of C tiles. Returns
@@ -331,15 +347,15 @@ def _eval_chunk(td: TreeData, cfg: TreeConfig, theta, eps, G,
                              "and lmac engines; the lists path would "
                              "drop them")
         il, rows = _tile_sources(td, cfg, theta, blo, bhi)
-        acc, pot = dispatch.eval_tiles(cfg, tpos, tidx, *rows, eps, G,
+        acc, pot = dispatch.eval_tiles(cfg, tpos, tidx, *rows, scal,
                                        m2p_cnt=il.m2p_count,
                                        p2p_cnt=il.p2p_count)
         return acc, pot, il.overflow, il.maxima
     src, mask, acc_l, pot_l = _chunk_sources(
-        td, cfg, theta, eps, G, tpos, tidx, blo, bhi, tables, tcell, Lgrid,
+        td, cfg, theta, eps, scal, tpos, tidx, blo, bhi, tables, tcell, Lgrid,
         tcells, cand, extra)
     acc, pot = dispatch.eval_shared(
-        cfg, tpos, tidx, src.pos, src.mass, src.idx, mask, eps, G,
+        cfg, tpos, tidx, src.pos, src.mass, src.idx, mask, scal,
         mode=mode, src_quad=src.quad, src_cell=src.cell,
         tgt_cell=None if tcells is None else tcells[0])
     if acc_l is not None:
@@ -388,13 +404,13 @@ def _assemble_impl(td, cfg, acc_tiles, pot_tiles):
     return acc_flat[t_of_p, off], pot_flat[t_of_p, off]
 
 
-def _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u):
+def _add_grid2(td, cfg, eps, scal, Lgrid, acc_u, pot_u):
     """Add grid2's per-particle far field (L2P of the kept leaf locals)
     to a query's Morton-order sums, whatever its mode, as the reference
     does."""
     if cfg.farfield != "grid2":
         return acc_u, pot_u
-    acc_f, pot_f = grid2.far_field(td, cfg, eps, G, locals_=Lgrid)
+    acc_f, pot_f = grid2.far_field(td, cfg, eps, scal[1], locals_=Lgrid)
     return acc_u + acc_f, pot_u + pot_f
 
 
@@ -407,7 +423,9 @@ _QUERY_STATE_CACHE: dict = {}
 def _query_state(td, cfg, eps):
     # keyed and guarded on BOTH pos and mass identity: the tables embed
     # node mass/COM, so a tree sharing a position buffer with different
-    # masses must miss
+    # masses must miss; the far field depends on eps, whose value the key
+    # takes (a host read where the caller hands in a tensor: the public
+    # entries pass the number they were given)
     key = (id(td.pos), id(td.mass), cfg, float(eps))
     hit = _QUERY_STATE_CACHE.get(key)
     # id() can be reused after GC; verify the cached tree is the caller's
@@ -473,9 +491,9 @@ def kernel_inputs(td: TreeData, cfg: TreeConfig, theta, eps, chunk: int):
                        if sl[0] <= chunk][-1]
         cand = _slice_cand(td, cfg, theta,
                            tuple(t[start:start + K] for t in tiles), tables)
-    src, mask, _, _ = _chunk_sources(td, cfg, theta, eps, 1.0, tpos, tidx,
-                                     blo, bhi, tables, tcell, Lgrid, tcells,
-                                     cand)
+    src, mask, _, _ = _chunk_sources(
+        td, cfg, theta, eps, shared.scalar_buffer(eps, 1.0, td.pos), tpos,
+        tidx, blo, bhi, tables, tcell, Lgrid, tcells, cand)
     return (tpos, tidx, src.pos, src.mass, src.idx, mask, src.quad,
             src.cell, None if tcells is None else tcells[0])
 
@@ -562,7 +580,7 @@ def _gwalk_farfield(td: TreeData, cfg: TreeConfig, G, flat, Lgrid, acc,
     return acc, pot
 
 
-def _gwalk_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, tiles,
+def _gwalk_impl(td: TreeData, cfg: TreeConfig, theta, eps, scal, tiles,
                 Lgrid, mode: str = "both"):
     """gwalk query: one global walk, one pool, one kernel launch; with
     farfield="grid" the dense far field on top (no local_gamma gate: every
@@ -576,10 +594,11 @@ def _gwalk_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, tiles,
     flat, gl, pool, sched = _gwalk_sources(td, cfg, theta, tiles)
     acc, pot = dispatch.eval_pool(
         cfg, flat[0], flat[1], pool.pos, pool.mass, pool.idx, sched,
-        cfg.pool_window, cfg.pool_block, eps, G, mode=mode,
+        cfg.pool_window, cfg.pool_block, scal, mode=mode,
         pool_quad=pool.quad)
     if Lgrid is not None and cfg.farfield == "grid":
-        acc, pot = _gwalk_farfield(td, cfg, G, flat, Lgrid, acc, pot, mode)
+        acc, pot = _gwalk_farfield(td, cfg, scal[1], flat, Lgrid, acc, pot,
+                                   mode)
     acc_u, pot_u = _assemble_impl(td, cfg, acc, pot)
     ovf = torch.stack([gl.overflow[0], gl.overflow[1], pool.overflow,
                        gl.overflow[3]])
@@ -604,11 +623,14 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     """Fit the gwalk global caps and the per-round frontier caps from a
     dynamic-walk query (repeated with grown caps while one overflows).
     Returns the fitted config, gwalk_round_caps set: later queries run the
-    unrolled walk at the measured frontier sizes."""
+    unrolled walk at the measured frontier sizes. theta, eps and G are
+    numbers or 0-dim tensors; the sizing reads only the query's flags and
+    maxima."""
     cfg_dyn = cfg.with_(gwalk_round_caps=None)
+    theta_t, eps_t, scal = scalars(td.pos, theta, eps, G)
     for _ in range(max_retries):
         tiles, _, Lgrid = _query_state(td, cfg_dyn, eps)
-        _, _, ovf, mx, rcnt = _gwalk_impl(td, cfg_dyn, theta, eps, G,
+        _, _, ovf, mx, rcnt = _gwalk_impl(td, cfg_dyn, theta_t, eps_t, scal,
                                           tiles, Lgrid)
         flags = ovf.cpu().tolist()
         mx = mx.cpu().tolist()
@@ -626,7 +648,7 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     return fitted.with_(gwalk_round_caps=fit_round_caps(rcnt.cpu()))
 
 
-def _chunk_loop(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
+def _chunk_loop(td: TreeData, cfg: TreeConfig, theta, eps, scal, panels,
                 tables, Lgrid, mode: str = "both", extra=None, cand=None):
     """Every chunk of the tile panels (arrays [K, CH, ...]) in order.
     Returns acc [K * CH, T, D], pot, the overflow flags [4] OR-ed and the
@@ -637,7 +659,7 @@ def _chunk_loop(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
     accs, pots = [], []
     for i in range(panels[0].shape[0]):
         base, tcells = _chunk_tiles(panels, i)
-        a, p, o, m = _eval_chunk(td, cfg, theta, eps, G, *base[:4], tables,
+        a, p, o, m = _eval_chunk(td, cfg, theta, eps, scal, *base[:4], tables,
                                  base[4], Lgrid, mode=mode, tcells=tcells,
                                  cand=cand, extra=extra)
         accs.append(a)
@@ -647,7 +669,7 @@ def _chunk_loop(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
     return torch.cat(accs), torch.cat(pots), ovf, mx
 
 
-def _slice_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
+def _slice_impl(td: TreeData, cfg: TreeConfig, theta, eps, scal, panels,
                 tables, Lgrid, mode: str = "both", extra=None):
     """One slice of a query, the counterpart of the reference's
     `_slice_query_jit`: lmac's candidate table built from the slice's
@@ -657,7 +679,7 @@ def _slice_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
     cand = None
     if cfg.traversal_mode == "lmac" and _use_shared(cfg):
         cand = _slice_cand(td, cfg, theta, panels, tables)
-    acc, pot, ovf, mx = _chunk_loop(td, cfg, theta, eps, G, panels, tables,
+    acc, pot, ovf, mx = _chunk_loop(td, cfg, theta, eps, scal, panels, tables,
                                     Lgrid, mode, extra, cand)
     if cand is not None:
         ovf[3] |= cand.overflow
@@ -665,23 +687,23 @@ def _slice_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
     return acc, pot, ovf, mx
 
 
-def _tail_impl(td: TreeData, cfg: TreeConfig, eps, G, Lgrid, acc_tiles,
+def _tail_impl(td: TreeData, cfg: TreeConfig, eps, scal, Lgrid, acc_tiles,
                pot_tiles):
     """Assembly of the tiles' sums into Morton order, then grid2's
     per-particle far field (Lgrid: its leaf locals, None otherwise): the
     counterpart of `_assemble_jit` and `_far_jit`."""
     acc_u, pot_u = _assemble_impl(td, cfg, acc_tiles, pot_tiles)
-    return _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
+    return _add_grid2(td, cfg, eps, scal, Lgrid, acc_u, pot_u)
 
 
-def _gwalk_query(td: TreeData, cfg: TreeConfig, theta, eps, G, tiles,
+def _gwalk_query(td: TreeData, cfg: TreeConfig, theta, eps, scal, tiles,
                  Lgrid, mode: str = "both"):
     """A gwalk query whole (walk, pool, K2, far fields, assembly): the
     counterpart of `_gwalk_jit` and `_far_jit`. Returns (acc_u, pot_u,
     overflow [4], maxima [4])."""
-    acc_u, pot_u, ovf, mx = _gwalk_impl(td, cfg, theta, eps, G, tiles, Lgrid,
-                                        mode=mode)[:4]
-    acc_u, pot_u = _add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
+    acc_u, pot_u, ovf, mx = _gwalk_impl(td, cfg, theta, eps, scal, tiles,
+                                        Lgrid, mode=mode)[:4]
+    acc_u, pot_u = _add_grid2(td, cfg, eps, scal, Lgrid, acc_u, pot_u)
     return acc_u, pot_u, ovf, mx
 
 
@@ -693,9 +715,10 @@ def evaluated_chunks(n_chunks: int, tile_chunk: int,
     return sum(K for _, _, K in _slices(n_chunks, tile_chunk, slice_chunks))
 
 
-def run_chunks(td: TreeData, cfg: TreeConfig, theta, eps, G, state,
+def run_chunks(td: TreeData, cfg: TreeConfig, theta, eps, scal, state,
                first: int, last: int, slice_chunks: int = None,
-               mode: str = "both", extra=None, graph=None):
+               mode: str = "both", extra=None, graph=None,
+               rows: int = None):
     """The shared, lmac or lists chunk loop over chunks [first, last) of a
     query whose per-tree state (_query_state: tiles, tables, far field) is
     `state`, in slices of `slice_chunks` (_slices, over this range): each
@@ -707,26 +730,35 @@ def run_chunks(td: TreeData, cfg: TreeConfig, theta, eps, G, state,
     change no flag. The sums do not depend on the slicing; lmac's
     candidate table, whose overflow and row count ride the frontier slots
     (flag 3, maximum 2), follows it. Returns the tiles' acc [(last -
-    first) * CH, T, D] and pot, the overflow flags [4] and the maxima [4].
-    The single-device query runs every live chunk through it, each shard
-    of parallel.sharded its own range."""
+    first) * CH, T, D] and pot (with `rows`, that many rows: the rest
+    zeros), the overflow flags [4] and the maxima [4]. The single-device
+    query runs every live chunk through it, each shard of
+    parallel.sharded its own range. theta, eps and scal, as scalars
+    returns them, enter each slice's graph as inputs. Each slice's rows go into the
+    result as it comes, so that the slices' outputs are not held beside
+    it (2 GB of tile sums at 64M particles)."""
     graph = _use_graph(graph, td.pos, cfg)
     tiles, tables, Lgrid = state
     CH = tiles[0].shape[1]
+    if rows is None:
+        rows = (last - first) * CH
     if cfg.farfield != "grid":
         Lgrid = None        # read by the chunks with "grid" only
-    ovf = mx = None
-    accs, pots = [], []
+    ovf = mx = acc = pot = None
     for s, start, K in _slices(last - first, cfg.tile_chunk, slice_chunks):
-        s, start = s + first, start + first
-        a, p, o, m = _run(graph, _slice_impl, td, cfg, theta, eps, G,
-                          tuple(t[start:start + K] for t in tiles), tables,
+        a, p, o, m = _run(graph, _slice_impl, td, cfg, theta, eps, scal,
+                          tuple(t[first + start:first + start + K]
+                                for t in tiles), tables,
                           Lgrid, mode=mode, extra=extra)
-        accs.append(a[(s - start) * CH:])
-        pots.append(p[(s - start) * CH:])
+        if acc is None:
+            acc = a.new_zeros((rows,) + a.shape[1:])
+            pot = p.new_zeros((rows,) + p.shape[1:])
+        acc[s * CH:(start + K) * CH] = a[(s - start) * CH:]
+        pot[s * CH:(start + K) * CH] = p[(s - start) * CH:]
+        del a, p
         ovf = o if ovf is None else ovf | o
         mx = m if mx is None else torch.maximum(mx, m)
-    return torch.cat(accs), torch.cat(pots), ovf, mx
+    return acc, pot, ovf, mx
 
 
 def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
@@ -742,33 +774,35 @@ def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     these replays a CUDA graph (graph=None; graph=False runs eagerly,
     graph=True on CPU tensors raises ValueError); the per-tree state and
     the one host read (live_chunks) stay outside. theta, eps and G are
-    Python numbers. extra: optional (pos [E, D], mass [E]) sources added
-    to every tile, the LET imports (shared and lmac only: gwalk raises
-    NotImplementedError, as the reference does, and the lists path
+    numbers or 0-dim tensors, inputs of the graphs (scalars): a new value
+    captures nothing; the per-tree state takes eps's value in its key
+    (pass the number, which is read on the host). extra: optional
+    (pos [E, D], mass [E]) sources added to every tile, the LET imports
+    (shared and lmac only: gwalk raises NotImplementedError, as the
+    reference does, and the lists path
     ValueError)."""
     graph = _use_graph(graph, td.pos, cfg)
     if cfg.traversal_mode == "gwalk" and extra is not None:
         raise NotImplementedError(
             "LET imports ride the shared/lmac engines, not gwalk")
     tiles, tables, Lgrid = _query_state(td, cfg, eps)
+    theta, eps, scal = scalars(td.pos, theta, eps, G)
     if cfg.traversal_mode == "gwalk":
-        return _run(graph, _gwalk_query, td, cfg, theta, eps, G, tiles,
+        return _run(graph, _gwalk_query, td, cfg, theta, eps, scal, tiles,
                     Lgrid, mode=mode)
-    acc, pot, ovf, mx = run_chunks(td, cfg, theta, eps, G,
-                                   (tiles, tables, Lgrid), 0,
-                                   live_chunks(td, cfg), slice_chunks, mode,
-                                   extra, graph)
     # the padding chunks' rows as zeros (the reference's tail shape), so
     # that one tail serves every n_live
-    rows = tiles[0].shape[0] * tiles[0].shape[1] - acc.shape[0]
-    acc = F.pad(acc, (0, 0, 0, 0, 0, rows))
-    pot = F.pad(pot, (0, 0, 0, rows))
-    acc_u, pot_u = _run(graph, _tail_impl, td, cfg, eps, G,
+    acc, pot, ovf, mx = run_chunks(td, cfg, theta, eps, scal,
+                                   (tiles, tables, Lgrid), 0,
+                                   live_chunks(td, cfg), slice_chunks, mode,
+                                   extra, graph,
+                                   rows=tiles[0].shape[0] * tiles[0].shape[1])
+    acc_u, pot_u = _run(graph, _tail_impl, td, cfg, eps, scal,
                         Lgrid if cfg.farfield == "grid2" else None, acc, pot)
     return acc_u, pot_u, ovf, mx
 
 
-def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, G,
+def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, scal,
                 mode: str = "both", extra=None):
     """acc_pot_u's computation: tiles, tables and far field, every chunk of
     the tile capacity, the tail. Returns (acc_u, pot_u, ovf, maxima)."""
@@ -778,13 +812,13 @@ def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, G,
     tiles = _gather_tiles(td, cfg)
     Lgrid = _grid_farfield(td, cfg, eps)
     if cfg.traversal_mode == "gwalk":
-        return _gwalk_query(td, cfg, theta, eps, G, tiles, Lgrid, mode)
+        return _gwalk_query(td, cfg, theta, eps, scal, tiles, Lgrid, mode)
     tables = (_traversal_mod(cfg).make_tables(td, cfg)
               if _use_shared(cfg) else None)
     acc, pot, ovf, mx = _chunk_loop(
-        td, cfg, theta, eps, G, tiles, tables,
+        td, cfg, theta, eps, scal, tiles, tables,
         Lgrid if cfg.farfield == "grid" else None, mode, extra)
-    acc_u, pot_u = _tail_impl(td, cfg, eps, G,
+    acc_u, pot_u = _tail_impl(td, cfg, eps, scal,
                               Lgrid if cfg.farfield == "grid2" else None,
                               acc, pot)
     return acc_u, pot_u, ovf, mx
@@ -803,10 +837,13 @@ def acc_pot_u(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     its flags and maxima are the reference's). On the card the whole call
     is one CUDA graph (graph=None; graph=False runs eagerly, graph=True on
     CPU tensors raises). Its sums equal acc_pot_u_host's. theta, eps and
-    G are Python numbers; extra as in acc_pot_u_host (gwalk raises
-    NotImplementedError, the lists path ValueError)."""
+    G are numbers or 0-dim tensors, the graph's inputs (scalars); extra
+    as in acc_pot_u_host (gwalk raises NotImplementedError, the lists
+    path ValueError)."""
     graph = _use_graph(graph, td.pos, cfg)
-    acc_u, pot_u, ovf, mx = _run(graph, _query_impl, td, cfg, theta, eps, G,
+    theta, eps, scal = scalars(td.pos, theta, eps, G)
+    acc_u, pot_u, ovf, mx = _run(graph, _query_impl, td, cfg, theta, eps,
+                                 scal,
                                  mode=mode, extra=extra)
     if with_stats:
         return acc_u, pot_u, ovf, mx

@@ -22,6 +22,8 @@ from functools import lru_cache
 
 import torch
 
+from .particles import scalar_tensor
+
 
 @lru_cache(maxsize=None)
 def sym_indices(ndim: int):
@@ -57,10 +59,11 @@ def m2l_terms(Dv: torch.Tensor, m: torch.Tensor, eps, order: int = 3):
     """Per-source local-expansion contributions (no reduction).
 
     Dv [..., D]: source position minus expansion centre; m [...]: masked
-    source mass (0 = inert). Returns [..., NC]."""
+    source mass (0 = inert); eps a number or a 0-dim tensor, squared in
+    Dv's dtype as the reference squares it. Returns [..., NC]."""
     ndim = Dv.shape[-1]
     pairs, triples = sym_indices(ndim)
-    eps2 = float(eps) ** 2
+    eps2 = scalar_tensor(eps, Dv) ** 2
 
     d2 = (Dv * Dv).sum(-1) + eps2
     u2 = torch.where(d2 > 0, 1.0 / d2, 0.0)
@@ -105,7 +108,8 @@ def l2p(L, center, tgt_pos, G, order: int = 3):
     """Evaluate local expansions at target particles.
 
     L [C, NC]; center [C, D]; tgt_pos [C, T, D]; returns
-    (acc [C, T, D], pot [C, T]) scaled by G."""
+    (acc [C, T, D], pot [C, T]) scaled by G (a number or a 0-dim
+    tensor)."""
     ndim = tgt_pos.shape[-1]
     pairs, triples = sym_indices(ndim)
     s = tgt_pos - center[:, None, :]                        # [C, T, D]
@@ -149,7 +153,7 @@ def l2p(L, center, tgt_pos, G, order: int = 3):
                 g = g + (0.5 * mult) * T3(d, a, b) * s[..., a] * s[..., b]
             acc[d] = acc[d] + g
 
-    G = float(G)
+    G = scalar_tensor(G, L)
     return G * torch.stack(acc, dim=-1), -G * psi
 
 

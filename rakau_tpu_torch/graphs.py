@@ -10,22 +10,30 @@ leave the host as one.
 
 `GraphCache` keeps the captured graphs. A call's key is the function, the
 structure of its arguments with every non-tensor leaf in it (the
-`TreeConfig`, `mode`, the Python scalars theta, eps, G and a numeric
-box size that the launches bake in, the functions a whole call
+`TreeConfig`, `mode`, a numeric box size, the functions a whole call
 is given), the shape, dtype and device of every tensor leaf, and
-the caller's `key` (global switches the function reads). The first call
+the caller's `key` (global switches the function reads). theta, eps and G
+reach a graph as 0-dim tensors (`engine.scalars`), as the reference
+traces them: their values are inputs, so a new one replays. The first call
 with a key
   * runs the function eagerly once on a side stream (as the
     `torch.cuda.graphs` documentation requires before a capture): this
     builds the kernel libraries, fills the occupancy statics of `csrc/`
     and the constant tables (`device_constant`), and warms the allocator;
+  * hands the allocator's cached free blocks back to the card where they
+    exceed what the card has free (_hand_back_cache): a capture cannot;
   * captures it into a graph that draws on the cache's memory pool for
     its device (the graphs of a device never run at the same time, and
     each call clones its outputs before any other replay can reuse their
     memory);
-  * keeps the static input buffers, cloned from that call's tensors.
+  * keeps the static input buffers, cloned from that call's tensors; a
+    tensor that an earlier live graph of the cache was captured on gets
+    that graph's buffer (a query's slices and its tail, both captured on
+    the tree, hold one copy of it, not two: 4.9 GB at 64M particles).
 Every call copies its tensors into the static inputs, replays the graph
 and returns clones of the outputs: fresh tensors, as a jitted call's are.
+A shared buffer is always filled with the caller's data before the
+replay that reads it: graphs replay one at a time on a device.
 
 The kernel wrappers count their launches in plain dicts (`launches` of
 `kernels.shared`, `kernels.pool`, `kernels.tiles`), where they launch and
@@ -49,6 +57,7 @@ be baked into the graph.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import torch
 
@@ -140,6 +149,9 @@ class GraphCache:
         self.counters = tuple(counters)
         self._graphs: dict = {}
         self._pools: dict = {}
+        # static input buffers of the live graphs, by the tensor they were
+        # cloned from (device, address, shape, strides, dtype)
+        self._statics = weakref.WeakValueDictionary()
         self.reset_tally()
 
     def __len__(self):
@@ -159,7 +171,8 @@ class GraphCache:
 
     def pinned(self) -> list:
         """(function name, bytes of its static inputs and outputs) of each
-        graph, least recently used first; the pool comes on top."""
+        graph, least recently used first (a static input that graphs share
+        counts in each); the pool comes on top."""
         return [(k[0].__name__, sum(t.nbytes for t in g.inputs + g.outputs))
                 for k, g in self._graphs.items()]
 
@@ -204,14 +217,28 @@ class GraphCache:
     def _snapshot(self):
         return [dict(c) for c in self.counters]
 
+    def _static(self, t: torch.Tensor) -> torch.Tensor:
+        """The static input buffer for the caller's tensor t, holding t's
+        data: a live graph's, where one was captured on a tensor at t's
+        address with its layout (filled with t, which may be another
+        tensor since), else a new clone."""
+        k = (t.device, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+        s = self._statics.get(k)
+        if s is None:
+            s = self._statics[k] = t.clone()
+        else:
+            s.copy_(t)
+        return s
+
     def _capture(self, fn, template, tensors, dev) -> _Graph:
-        inputs = [t.clone() for t in tensors]
+        inputs = [self._static(t) for t in tensors]
         args, kwargs = _build(template, inputs)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             fn(*args, **kwargs)
         torch.cuda.current_stream(dev).wait_stream(side)
+        _hand_back_cache(dev)
         if dev not in self._pools:
             self._pools[dev] = torch.cuda.graph_pool_handle()
         before = self._snapshot()
@@ -228,6 +255,21 @@ class GraphCache:
         outputs: list = []
         out_template = _flatten(out, outputs)
         return _Graph(graph, inputs, out_template, outputs, counts)
+
+
+def _hand_back_cache(dev):
+    """Return the allocator's cached free blocks to the card when they
+    hold more than the card has free, between a warm-up and its capture.
+    A capture draws on the graph pool, and while it runs the allocator
+    cannot free cached blocks to make room (outside a capture it does so
+    before it fails): the warm-up has just left its peak there. At 64M
+    particles a query's capture ran out of memory so, beside a live build
+    graph, with most of the card's memory cached and unused."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = (torch.cuda.memory_reserved(dev)
+              - torch.cuda.memory_allocated(dev))
+    if cached > free:
+        torch.cuda.empty_cache()
 
 
 def capturing() -> bool:

@@ -516,20 +516,23 @@ def dense_far_field(pyr: Pyramid2, cfg, L0: int, box_size, eps,
     L_beta s0^{|beta|+1}; l2p_particles brings the units back).
 
     One level's kernels W are alive at a time. They depend on the level
-    through eps/s_l only, so with eps = 0 one W serves every level."""
+    through eps/s_l only; eps is a tensor inside a graph, so each level
+    makes its own (with eps = 0 the same W each time), as the reference's
+    traced eps does (`rakau_tpu.grid2.dense_far_field`). A Tree's or
+    acc_pot_u_host's query keeps the leaf locals per tree and eps
+    (engine._query_state): its warm calls do not run this."""
     ndim = cfg.ndim
     dtype = pyr.mom[0].dtype
     dev = pyr.mom[0].device
     NL = n_coeffs(ndim, p)
-    Lcur = W = None
+    Lcur = None
     shifts = _parity_shifts(ndim, p, "l2l", dtype, dev)
     for lvl in range(2, L0 + 1):
         G = 1 << lvl
-        if W is None or eps != 0:
-            W = None            # free the previous level's before the next
-            W = m2l_kernels(ndim, p, q, sep, box_size * (2.0 ** -lvl), eps,
-                            dtype, dev)
+        W = m2l_kernels(ndim, p, q, sep, box_size * (2.0 ** -lvl), eps,
+                        dtype, dev)
         Ll = _parity_conv(pyr.mom[lvl], W, ndim, G)
+        del W               # free this level's before the next
         if Lcur is not None:
             # L2L: parent expansions recentred to the children
             Lp = Lcur.reshape((G // 2,) * ndim + (NL,))

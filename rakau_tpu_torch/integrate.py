@@ -16,10 +16,13 @@ As in the reference, most functions come in twins:
 Both twins of a pair run the same ops on the same sums, so their results
 are equal bit for bit. `graph=None` takes the graphs on CUDA tensors and
 runs eagerly on CPU tensors; `graph=False` runs eagerly on the card too
-(the A/B); `graph=True` on CPU tensors raises ValueError. Python numbers
-(theta, eps, G, a numeric box_size) are part of a graph's key; dt, as in
-the reference's jitted steps, is an input: a 0-dim tensor on the state's
-device, so a new step size (or -dt) replays the same graph.
+(the A/B); `graph=True` on CPU tensors raises ValueError. A numeric
+box_size is part of a graph's key; theta, eps, G and dt, as in the
+reference's jitted calls, are inputs: 0-dim tensors of the state's dtype
+on its device, so a new opening angle, softening, G or step size (or -dt)
+replays the same graph. The _host twins hand theta, eps and G on as they
+were given: `engine.acc_pot_u_host` reads eps's value for its per-tree
+state and makes the tensors.
 
     rakau_tpu.integrate                  rakau_tpu_torch.integrate
     NBodyState                           NBodyState
@@ -66,8 +69,10 @@ class NBodyState(NamedTuple):
 # ------------------------------------------------------ the shared bodies
 # Each takes `build(pos, mass, cfg, box_size)` and `query(td, cfg, theta,
 # eps, G, mode=)`: build.build_tree and engine._query_impl in a whole
-# call (captured as one graph), _host_build and engine.acc_pot_u_host in
-# a _host twin. Each returns the builds' overflow flag last.
+# call (captured as one graph; theta, eps and G are what engine.scalars
+# returns, G the kernels' buffer scal), _host_build and
+# engine.acc_pot_u_host in a _host twin (the caller's numbers or
+# tensors). Each returns the builds' overflow flag last.
 
 def _acc_pot(pos, mass, cfg, theta, eps, G, box_size, build, query):
     td = build(pos, mass, cfg, box_size)
@@ -133,14 +138,19 @@ def _host_build(pos, mass, cfg, box_size, graph):
     return td
 
 
-def _scalars(pos, cfg, graph, box_size, *xs):
-    """(whether to use graphs, box_size on pos's device where a tensor,
-    then each of xs as a float): the arguments as a graph's key takes
-    them."""
+def _args(pos, cfg, graph, box_size):
+    """(whether to use graphs, box_size on pos's device where a tensor)."""
     if isinstance(box_size, torch.Tensor):
         box_size = box_size.to(pos.device)
-    return ((_engine._use_graph(graph, pos, cfg), box_size)
-            + tuple(float(x) for x in xs))
+    return _engine._use_graph(graph, pos, cfg), box_size
+
+
+def _scalars(pos, cfg, graph, box_size, theta, eps, G):
+    """_args, then theta, eps and the kernels' buffer scal on pos.device
+    (engine.scalars): the arguments of a whole twin as a graph's key
+    takes them, the three tensors its inputs."""
+    return (_args(pos, cfg, graph, box_size)
+            + _engine.scalars(pos, theta, eps, G))
 
 
 def _dt(dt, pos):
@@ -169,10 +179,10 @@ def acc_pot(pos, mass, cfg: TreeConfig, theta, eps, G=1.0, box_size=None,
     one CUDA graph. Returns acc [N, D] and pot [N] in the INPUT order, and
     the query's overflow flags [4]; raises after the call if the build
     overflowed."""
-    graph, box_size, theta, eps, G = _scalars(pos, cfg, graph, box_size,
+    graph, box_size, theta, eps, scal = _scalars(pos, cfg, graph, box_size,
                                               theta, eps, G)
     acc, pot, ovf, b_ovf = _whole(graph, _acc_pot, pos, mass, cfg, theta,
-                                  eps, G, box_size)
+                                  eps, scal, box_size)
     _check_build(b_ovf)
     return acc, pot, ovf
 
@@ -180,8 +190,7 @@ def acc_pot(pos, mass, cfg: TreeConfig, theta, eps, G=1.0, box_size=None,
 def acc_pot_host(pos, mass, cfg: TreeConfig, theta, eps, G=1.0,
                  box_size=None, graph=None):
     """acc_pot's _host twin: the build's graph, then the sliced query."""
-    graph, box_size, theta, eps, G = _scalars(pos, cfg, graph, box_size,
-                                              theta, eps, G)
+    graph, box_size = _args(pos, cfg, graph, box_size)
     return _acc_pot(pos, mass, cfg, theta, eps, G, box_size,
                     *_host(graph))[:3]
 
@@ -191,10 +200,10 @@ def leapfrog_step(state: NBodyState, dt, cfg: TreeConfig, theta, eps,
     """One KDK step with a rebuild for each force evaluation, the state
     kept in its input order, on the card one CUDA graph. Returns
     (new_state, overflow_flags [4])."""
-    graph, box_size, theta, eps, G = _scalars(state.pos, cfg, graph,
+    graph, box_size, theta, eps, scal = _scalars(state.pos, cfg, graph,
                                               box_size, theta, eps, G)
     new, ovf, b_ovf = _whole(graph, _step, state, _dt(dt, state.pos), cfg,
-                             theta, eps, G, box_size)
+                             theta, eps, scal, box_size)
     _check_build(b_ovf)
     return new, ovf
 
@@ -202,8 +211,7 @@ def leapfrog_step(state: NBodyState, dt, cfg: TreeConfig, theta, eps,
 def leapfrog_step_host(state: NBodyState, dt, cfg: TreeConfig, theta, eps,
                        G=1.0, box_size=None, graph=None):
     """leapfrog_step's _host twin."""
-    graph, box_size, theta, eps, G = _scalars(state.pos, cfg, graph,
-                                              box_size, theta, eps, G)
+    graph, box_size = _args(state.pos, cfg, graph, box_size)
     return _step(state, _dt(dt, state.pos), cfg, theta, eps, G, box_size,
                  *_host(graph))[:2]
 
@@ -216,11 +224,11 @@ def leapfrog_step_morton(state: NBodyState, dt, cfg: TreeConfig, theta,
     (new_state in the new Morton order, overflow_flags [4], step_perm):
     step_perm maps the new slots to the input order of `state` (compose
     across steps for the original order)."""
-    graph, box_size, theta, eps, G = _scalars(state.pos, cfg, graph,
+    graph, box_size, theta, eps, scal = _scalars(state.pos, cfg, graph,
                                               box_size, theta, eps, G)
     new, ovf, perm, b_ovf = _whole(graph, _step_morton, state,
-                                   _dt(dt, state.pos), cfg, theta, eps, G,
-                                   box_size)
+                                   _dt(dt, state.pos), cfg, theta, eps,
+                                   scal, box_size)
     _check_build(b_ovf)
     return new, ovf, perm
 
@@ -228,8 +236,7 @@ def leapfrog_step_morton(state: NBodyState, dt, cfg: TreeConfig, theta,
 def leapfrog_step_morton_host(state: NBodyState, dt, cfg: TreeConfig, theta,
                               eps, G=1.0, box_size=None, graph=None):
     """leapfrog_step_morton's _host twin."""
-    graph, box_size, theta, eps, G = _scalars(state.pos, cfg, graph,
-                                              box_size, theta, eps, G)
+    graph, box_size = _args(state.pos, cfg, graph, box_size)
     return _step_morton(state, _dt(dt, state.pos), cfg, theta, eps, G,
                         box_size, *_host(graph))[:3]
 
@@ -264,9 +271,9 @@ def total_energy(state: NBodyState, cfg: TreeConfig, theta, eps, G=1.0,
     potentials from a pots-only query, on the card one CUDA graph: the
     drift diagnostic at sizes where the exact sum is out of reach (pass a
     small theta). Raises on an overflowed build or query."""
-    graph, box_size, theta, eps, G = _scalars(state.pos, cfg, graph,
+    graph, box_size, theta, eps, scal = _scalars(state.pos, cfg, graph,
                                               box_size, theta, eps, G)
-    e, ovf, b_ovf = _whole(graph, _energy, state, cfg, theta, eps, G,
+    e, ovf, b_ovf = _whole(graph, _energy, state, cfg, theta, eps, scal,
                            box_size)
     _check_build(b_ovf)
     _check_energy_query(ovf)
@@ -276,8 +283,7 @@ def total_energy(state: NBodyState, cfg: TreeConfig, theta, eps, G=1.0,
 def total_energy_host(state: NBodyState, cfg: TreeConfig, theta, eps,
                       G=1.0, box_size=None, graph=None) -> float:
     """total_energy's _host twin."""
-    graph, box_size, theta, eps, G = _scalars(state.pos, cfg, graph,
-                                              box_size, theta, eps, G)
+    graph, box_size = _args(state.pos, cfg, graph, box_size)
     e, ovf, _ = _energy(state, cfg, theta, eps, G, box_size, *_host(graph))
     _check_energy_query(ovf)
     return float(e)

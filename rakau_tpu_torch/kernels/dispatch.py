@@ -103,11 +103,11 @@ def _kernel(cfg: TreeConfig, t) -> bool:
     return _on_card(t)
 
 
-def _eval(kernel, tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
+def _eval(kernel, tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, scal,
           mode, compensated, src_quad=None, src_cell=None, tgt_cell=None,
           grid_sep=0):
     name, prec = _variant
-    row = (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G)
+    row = (tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, scal)
     if name == "blocks":
         if (compensated or src_quad is not None or src_cell is not None
                 or mode != "both"):
@@ -127,7 +127,7 @@ def _eval(kernel, tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask, eps, G,
 
 
 def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
-                src_idx, mask, eps, G, mode: str = "both", src_quad=None,
+                src_idx, mask, scal, mode: str = "both", src_quad=None,
                 src_cell=None, tgt_cell=None):
     """Shared-candidate evaluation: sources [S, ...] common to the chunk's
     C tiles, per-tile mask [C, S]. mode: "both" | "acc" | "pot" (the
@@ -152,23 +152,23 @@ def eval_shared(cfg: TreeConfig, tgt_pos, tgt_idx, src_pos, src_mass,
                             device=tgt_pos.device))
     if src_quad is None:
         return _eval(kernel, tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
-                     mask, eps, G, mode, comp, None, src_cell, tgt_cell,
+                     mask, scal, mode, comp, None, src_cell, tgt_cell,
                      sep)
     U = src_quad.shape[0]
     cell_n = cell_p = None
     if src_cell is not None:
         cell_n, cell_p = src_cell[:U], src_cell[U:]
     a1, p1 = eval_shared(cfg, tgt_pos, tgt_idx, src_pos[U:], src_mass[U:],
-                         src_idx[U:], mask[:, U:].contiguous(), eps, G,
+                         src_idx[U:], mask[:, U:].contiguous(), scal,
                          mode=mode, src_cell=cell_p, tgt_cell=tgt_cell)
     a2, p2 = _eval(kernel, tgt_pos, tgt_idx, src_pos[:U], src_mass[:U],
-                   src_idx[:U], mask[:, :U].contiguous(), eps, G, mode,
+                   src_idx[:U], mask[:, :U].contiguous(), scal, mode,
                    comp, src_quad, cell_n, tgt_cell, sep)
     return a1 + a2, p1 + p2
 
 
 def eval_pool(cfg: TreeConfig, tgt_pos, tgt_idx, pool_pos, pool_mass,
-              pool_idx, sched, window: int, block: int, eps, G,
+              pool_idx, sched, window: int, block: int, scal,
               mode: str = "both", pool_quad=None):
     """gwalk pool evaluation (kernels/pool.py): tile g of tgt_pos
     [G, T, D] sums its scheduled pool segment (sched [G, 4]); one launch
@@ -178,13 +178,13 @@ def eval_pool(cfg: TreeConfig, tgt_pos, tgt_idx, pool_pos, pool_mass,
     fn = pool.eval_pool_fused if _kernel(cfg, tgt_pos) \
         else pool.eval_pool_plain
     return fn(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
-              window, eps, G, block,
+              window, scal, block,
               compensated=cfg.accum == "compensated", mode=mode,
               pool_quad=pool_quad)
 
 
 def eval_tiles(cfg: TreeConfig, tgt_pos, tgt_idx, m2p_pos, m2p_mass,
-               m2p_quad, p2p_pos, p2p_mass, p2p_idx, eps, G, m2p_cnt=None,
+               m2p_quad, p2p_pos, p2p_mass, p2p_idx, scal, m2p_cnt=None,
                p2p_cnt=None):
     """Far-field (M2P) plus near-field (P2P) sums of the per-tile lists
     (rows [C, Sm] and [C, Sp], counts [C]). Returns acc [C, T, D],
@@ -201,12 +201,12 @@ def eval_tiles(cfg: TreeConfig, tgt_pos, tgt_idx, m2p_pos, m2p_mass,
     kernel = _kernel(cfg, tgt_pos)
     if m2p_quad is not None:
         tiles.launches["xla_quad"] += 1
-        am, pm = tiles.eval_m2p(tgt_pos, m2p_pos, m2p_mass, eps, G,
+        am, pm = tiles.eval_m2p(tgt_pos, m2p_pos, m2p_mass, scal,
                                 src_quad=m2p_quad)
         ap, pp = tiles.eval_p2p(tgt_pos, tgt_idx, p2p_pos, p2p_mass,
-                                p2p_idx, eps, G)
+                                p2p_idx, scal)
         return am + ap, pm + pp
     return tiles.eval_tiles(tgt_pos, tgt_idx, m2p_pos, m2p_mass, None,
-                            p2p_pos, p2p_mass, p2p_idx, eps, G,
+                            p2p_pos, p2p_mass, p2p_idx, scal,
                             m2p_cnt=m2p_cnt, p2p_cnt=p2p_cnt,
                             fused=_tiles_fused, kernel=kernel)

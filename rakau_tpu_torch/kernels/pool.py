@@ -106,7 +106,7 @@ def granule_rows(sched, window: int, block: int, k: int,
 
 
 def eval_pool_plain(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
-                    window: int, eps, G, block: int,
+                    window: int, scal, block: int,
                     compensated: bool = False, mode: str = "both",
                     pool_quad=None, granule: int = GRANULE,
                     span: int = None):
@@ -117,7 +117,8 @@ def eval_pool_plain(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
     form_span), the spans in order. Never gathers a tile's whole window.
 
     tgt_pos [G, T, D], tgt_idx [G, T], pool planes [P, D] / [P] / [P]
-    (+ pool_quad [P, Q]), sched [G, 4] -> acc [G, T, D], pot [G, T]."""
+    (+ pool_quad [P, Q]), sched [G, 4], scal (shared.scalar_buffer) ->
+    acc [G, T, D], pot [G, T]."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
     if span is None:
@@ -126,7 +127,7 @@ def eval_pool_plain(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
         raise ValueError("span must be >= 0")
     Gt, T, D = tgt_pos.shape
     dev = tgt_pos.device
-    eps2 = torch.full((), eps, dtype=tgt_pos.dtype, device=dev) ** 2
+    eps2, G = shared.check_scalars(scal, tgt_pos)
     sums = {o: rows.SpanSums(like, compensated) for o, like in
             (("acc", tgt_pos), ("pot", tgt_pos[..., 0]))
             if mode in ("both", o)}
@@ -194,7 +195,7 @@ def pool_device_plan(sched, window: int, block: int, P: int,
 
 
 def eval_pool_fused(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
-                    window: int, eps, G, block: int,
+                    window: int, scal, block: int,
                     compensated: bool = False, mode: str = "both",
                     pool_quad=None):
     """The CUDA kernel (replaces `rakau_tpu.kernels.pallas.eval_pool` in
@@ -229,6 +230,7 @@ def eval_pool_fused(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
     if max(Gt * T, P) >= 2 ** 31:
         raise ValueError("the CUDA kernel takes sizes below 2^31")
     shared.check_devices(tgt_pos, named)
+    shared.check_scalars(scal, tgt_pos)
     if D == 2:
         (tgt_pos, pool_pos), pool_quad = shared.pad_to_3d(
             tgt_pos, pool_pos, quad=pool_quad)
@@ -254,7 +256,7 @@ def eval_pool_fused(tgt_pos, tgt_idx, pool_pos, pool_mass, pool_idx, sched,
             *(t.data_ptr() for t in plan), ws.data_ptr(), acc.data_ptr(),
             pot.data_ptr(), Gt, T, P, window // block, block, span, cap,
             _MODES[mode], int(compensated), shared.multiprocessors(dev),
-            shared.eps2_arg(eps, real), float(G), stream)
+            scal.data_ptr(), stream)
     shared.raise_on(err, lib, "pool")
     shared.count_launch(launches, _form(quad, compensated), D == 2, f64)
     return (acc if D == 3 else acc[..., :D].contiguous()), pot

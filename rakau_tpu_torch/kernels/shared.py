@@ -12,6 +12,9 @@ source j (position s_j, mass m_j, index si_j):
     w = m_j * mask[c, j] * inv_r
     pot_i = -G * sum_j w,  acc_i = G * sum_j w * inv_r^2 * d
 
+eps^2 and G reach every kernel and plain version in one tensor, scal =
+scalar_buffer(eps, G, like), which engine.scalars makes once a call.
+
 Padding sources sit far away (1e30 or the traversal's 4*box sentinel)
 with mass 0; r2 may overflow to inf there and inv_r is then 0, never NaN.
 mode "acc" / "pot" skips the other sum and returns it as zeros.
@@ -60,6 +63,7 @@ from typing import NamedTuple
 import torch
 
 from .. import scan_utils as su
+from ..particles import scalar_tensor
 from . import rows
 
 _MODES = {"both": 0, "acc": 1, "pot": 2}
@@ -126,7 +130,7 @@ def _quad_terms(dds, q, mk, inv_r, mode):
 
 
 def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                      eps, G, mode: str = "both", block: int = GRANULE,
+                      scal, mode: str = "both", block: int = GRANULE,
                       compensated: bool = False, src_quad=None,
                       src_cell=None, tgt_cell=None, grid_sep: int = 0,
                       span: int = SPAN, weight_mask: bool = False):
@@ -142,9 +146,9 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     only; the same sums wherever m_j * inv_r^3 is finite).
 
     tgt_pos [C, T, D], tgt_idx [C, T], src_pos [S, D], src_mass [S],
-    src_idx [S], mask [C, S] bool (+ src_quad [S, Q]; + integer
-    src_cell [S, D], tgt_cell [C, T, D] and grid_sep) -> acc [C, T, D],
-    pot [C, T]."""
+    src_idx [S], mask [C, S] bool, scal (scalar_buffer) (+ src_quad
+    [S, Q]; + integer src_cell [S, D], tgt_cell [C, T, D] and grid_sep)
+    -> acc [C, T, D], pot [C, T]."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}")
     if src_cell is None:
@@ -159,7 +163,7 @@ def eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     S = src_pos.shape[0]
     dtype = tgt_pos.dtype
     dev = tgt_pos.device
-    eps2 = torch.full((), eps, dtype=dtype, device=dev) ** 2
+    eps2, G = check_scalars(scal, tgt_pos)
     ids, cnt = active_blocks(mask, block)
     NG = ids.shape[1]
     pad = NG * block - S
@@ -259,7 +263,7 @@ def _bf16(x):
 
 
 def eval_shared_mma_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                          eps, G, mode: str = "both", prec: str = "x3",
+                          scal, mode: str = "both", prec: str = "x3",
                           src_cell=None, tgt_cell=None, grid_sep: int = 0,
                           granule: int = GRANULE, span: int = SPAN):
     """Plain version of the tensor-core form (counterpart of
@@ -302,7 +306,7 @@ def eval_shared_mma_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     S = src_pos.shape[0]
     dtype = tgt_pos.dtype
     dev = tgt_pos.device
-    eps2 = torch.full((), eps, dtype=dtype, device=dev) ** 2
+    eps2, G = check_scalars(scal, tgt_pos)
     p = tgt_pos[:, :1, :]                               # [C, 1, D]
     tp = tgt_pos - p
     tts = None
@@ -381,7 +385,7 @@ def eval_shared_mma_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
 
 
 def eval_shared_blocks_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
-                             mask, eps, G, block: int = BLOCK,
+                             mask, scal, block: int = BLOCK,
                              span: int = BLOCKS_SPAN):
     """Plain version of the block-plan form K5 (counterpart of
     `rakau_tpu.kernels.pallas.eval_shared`): monopole, fp32, both outputs,
@@ -394,7 +398,7 @@ def eval_shared_blocks_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
     if span < 1:
         raise ValueError("span must be >= 1")
     return eval_shared_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
-                             mask, eps, G, block=block, span=span,
+                             mask, scal, block=block, span=span,
                              weight_mask=True)
 
 
@@ -506,7 +510,6 @@ def build_library(name: str = "shared_fused", f64: bool = False,
 
 
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
-_REAL = object()    # the library's scalar type: c_float, or c_double in f64
 # per library: its functions' argument types, and the constants it must
 # report equal to this module's ("real_bytes": its scalar type's)
 _LIBRARIES = {
@@ -515,7 +518,7 @@ _LIBRARIES = {
                       "rakau_shared_fused_pack": [_VOIDP] * 6 + [_INT] * 6
                       + [_VOIDP],
                       "rakau_shared_fused": [_VOIDP] * 10 + [_INT] * 10
-                      + [_REAL, _REAL, _VOIDP],
+                      + [_VOIDP, _VOIDP],
                       "rakau_shared_fused_workspace": [_INT] * 7,
                       "rakau_shared_fused_grid": [_INT] * 10,
                       "rakau_shared_fused_blocks_per_sm": [_INT] * 5,
@@ -526,7 +529,7 @@ _LIBRARIES = {
                     "rakau_shared_mma_pack": [_VOIDP] * 4 + [_INT] * 5
                     + [_VOIDP],
                     "rakau_shared_mma": [_VOIDP] * 9 + [_INT] * 9
-                    + [_REAL, _REAL, _VOIDP],
+                    + [_VOIDP, _VOIDP],
                     "rakau_shared_mma_workspace": [_INT] * 5,
                     "rakau_shared_mma_grid": [_INT] * 9,
                     "rakau_shared_mma_blocks_per_sm": [_INT] * 4,
@@ -538,7 +541,7 @@ _LIBRARIES = {
                        "rakau_shared_blocks_pack": [_VOIDP] * 4 + [_INT] * 4
                        + [_VOIDP],
                        "rakau_shared_blocks": [_VOIDP] * 9 + [_INT] * 5
-                       + [_REAL, _REAL, _VOIDP],
+                       + [_VOIDP, _VOIDP],
                        "rakau_shared_blocks_workspace": [_INT] * 4,
                        "rakau_shared_blocks_grid": [_INT] * 5,
                        "rakau_shared_blocks_blocks_per_sm": [],
@@ -547,7 +550,7 @@ _LIBRARIES = {
                        "rakau_shared_blocks_step": []}, ("block",)),
     "pool": ({"rakau_pool_plan": [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP],
               "rakau_pool": [_VOIDP] * 13 + [_INT] * 10
-              + [_REAL, _REAL, _VOIDP],
+              + [_VOIDP, _VOIDP],
               "rakau_pool_workspace": [_INT] * 3,
               "rakau_pool_grid": [_INT] * 6,
               "rakau_pool_blocks_per_sm": [_INT] * 3,
@@ -555,7 +558,7 @@ _LIBRARIES = {
              ("granule", "real_bytes")),
     "tiles": ({"rakau_tiles_plan": [_VOIDP] * 5 + [_INT] * 5 + [_VOIDP],
                "rakau_tiles": [_VOIDP] * 15 + [_INT] * 7
-               + [_REAL, _REAL, _VOIDP],
+               + [_VOIDP, _VOIDP],
                "rakau_tiles_workspace": [_INT] * 2,
                "rakau_tiles_grid": [_INT] * 3,
                "rakau_tiles_blocks_per_sm": [],
@@ -563,7 +566,7 @@ _LIBRARIES = {
                "rakau_tiles_pairwise_plan": [_VOIDP] * 4 + [_INT] * 5
                + [_VOIDP],
                "rakau_tiles_pairwise": [_VOIDP] * 12 + [_INT] * 7
-               + [_REAL, _VOIDP],
+               + [_VOIDP, _VOIDP],
                "rakau_tiles_pairwise_grid": [_INT] * 3,
                "rakau_tiles_pairwise_blocks_per_sm": []},
               ("granule", "real_bytes")),
@@ -578,16 +581,15 @@ _RESTYPES = {"rakau_shared_fused_workspace": ctypes.c_size_t,
 F64_LIBRARIES = ("shared_fused", "pool", "tiles")
 
 
-def bind_library(path, name: str = "shared_fused", f64: bool = False):
-    """Load the built library at `path` (of csrc/<name>.cu, its float64
-    build with f64) and declare its functions' argument and result
-    types."""
-    real = ctypes.c_double if f64 else ctypes.c_float
+def bind_library(path, name: str = "shared_fused"):
+    """Load the built library at `path` (of csrc/<name>.cu, either build)
+    and declare its functions' argument and result types (the scalar
+    type's values reach the kernels through device pointers)."""
     lib = ctypes.CDLL(str(path))
     for fname, argtypes in _LIBRARIES[name][0].items():
         fn = getattr(lib, fname)
         fn.restype = _RESTYPES.get(fname, _INT)
-        fn.argtypes = [real if a is _REAL else a for a in argtypes]
+        fn.argtypes = argtypes
     lib.rakau_cuda_error_string.restype = ctypes.c_char_p
     lib.rakau_cuda_error_string.argtypes = [_INT]
     return lib
@@ -601,7 +603,7 @@ def _library(name: str = "shared_fused", f64: bool = False):
         if f64 and name not in F64_LIBRARIES:
             raise ValueError(f"{name} has no float64 build")
         consts = _LIBRARIES[name][1]
-        lib = bind_library(build_library(name, f64), name, f64)
+        lib = bind_library(build_library(name, f64), name)
         granule = rows.GRANULE if name in ("pool", "tiles") else GRANULE
         checks = [("block", (), BLOCK), ("granule", (), granule),
                   ("real_bytes", (), 8 if f64 else 4)]
@@ -618,9 +620,31 @@ def _library(name: str = "shared_fused", f64: bool = False):
     return _libs[key]
 
 
-def eps2_arg(eps, dtype):
-    """eps^2 in the kernels' scalar type, as the float handed to ctypes."""
-    return float(torch.tensor(eps, dtype=dtype) ** 2)
+def scalar_buffer(eps, G, like):
+    """The kernels' scalars [eps^2, G, eps^2, 1], of like's dtype on its
+    device (eps and G numbers or 0-dim tensors): eps rounded to the dtype,
+    then squared in it (the reference's `jnp.asarray(eps, dt) ** 2`).
+    Every kernel and plain version takes this buffer in place of eps and
+    G. A launch passes its address and the kernel reads eps^2 and G on the
+    card, so that a graph takes them as inputs: a new eps or G replays it.
+    K4, which applies no G, reads the last two. It is made once where eps
+    and G enter a call (engine.scalars), or once by a caller of the
+    kernels."""
+    eps2 = scalar_tensor(eps, like) ** 2
+    return torch.stack([eps2, scalar_tensor(G, like), eps2,
+                        torch.ones_like(eps2)])
+
+
+def check_scalars(scal, like):
+    """(eps^2, G) of scal, raising ValueError unless it is a
+    scalar_buffer for like: a contiguous [4] tensor of like's dtype on
+    like's device."""
+    if (not isinstance(scal, torch.Tensor) or tuple(scal.shape) != (4,)
+            or scal.dtype != like.dtype or scal.device != like.device
+            or not scal.is_contiguous()):
+        raise ValueError(f"scal must be scalar_buffer(eps, G, like): [4] "
+                         f"of {like.dtype} on {like.device}")
+    return scal[0], scal[1]
 
 
 def block_any(mask: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
@@ -832,7 +856,7 @@ def fused_device_plan(mask: torch.Tensor,
 
 
 def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                      eps, G, mode: str = "both", compensated: bool = False,
+                      scal, mode: str = "both", compensated: bool = False,
                       src_quad=None, src_cell=None, tgt_cell=None,
                       grid_sep: int = 0):
     """The CUDA kernel (replaces `rakau_tpu.kernels.pallas.
@@ -851,6 +875,7 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     C, T, S, D, f64 = _check_row(tgt_pos, tgt_idx, src_pos, src_mass,
                                  src_idx, mask, src_quad,
                                  src_cell if grid_sep else None, tgt_cell)
+    check_scalars(scal, tgt_pos)
     if D == 2:
         (tgt_pos, src_pos, src_cell, tgt_cell), src_quad = pad_to_3d(
             tgt_pos, src_pos, src_cell if grid_sep else None,
@@ -884,7 +909,7 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
             pot.data_ptr(),
             C, T, S, SPAN, _MODES[mode], int(compensated), int(quad),
             int(grid_sep), D, multiprocessors(dev),
-            eps2_arg(eps, tgt_pos.dtype), float(G), stream)
+            scal.data_ptr(), stream)
     raise_on(err, lib, "shared_fused")
     count_launch(launches, form_name(quad, compensated, bool(grid_sep)),
                  D == 2, f64)
@@ -892,7 +917,7 @@ def eval_shared_fused(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
 
 
 def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                    eps, G, mode: str = "both", prec: str = "x3",
+                    scal, mode: str = "both", prec: str = "x3",
                     src_cell=None, tgt_cell=None, grid_sep: int = 0):
     """The tensor-core CUDA kernel csrc/shared_mma.cu (replaces
     `rakau_tpu.kernels.pallas._shared_fused_kernel_mxu`): monopole, fp32
@@ -912,6 +937,7 @@ def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
     C, T, S, D, _ = _check_row(tgt_pos, tgt_idx, src_pos, src_mass, src_idx,
                                mask, None, src_cell if grid_sep else None,
                                tgt_cell, f32_only=True)
+    check_scalars(scal, tgt_pos)
     if D == 2:
         (tgt_pos, src_pos, src_cell, tgt_cell), _ = pad_to_3d(
             tgt_pos, src_pos, src_cell if grid_sep else None,
@@ -941,7 +967,7 @@ def eval_shared_mma(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
             plan.n_work.data_ptr(), ws.data_ptr(), acc.data_ptr(),
             pot.data_ptr(), C, T, S, SPAN, _MODES[mode], PRECS[prec],
             int(grid_sep), D, multiprocessors(dev),
-            eps2_arg(eps, torch.float32), float(G), stream)
+            scal.data_ptr(), stream)
     raise_on(err, lib, "shared_mma")
     count_launch(launches, "mma_cell" if grid_sep else "mma", D == 2, False)
     return (acc if D == 3 else acc[..., :D].contiguous()), pot
@@ -963,7 +989,7 @@ def blocks_device_plan(mask: torch.Tensor,
 
 
 def eval_shared_blocks(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
-                       eps, G, span: int = BLOCKS_SPAN):
+                       scal, span: int = BLOCKS_SPAN):
     """The block-plan CUDA kernel csrc/shared_blocks.cu, K5 (replaces
     `rakau_tpu.kernels.pallas.eval_shared`): monopole, fp32 sums, both
     outputs. Same arguments and results as eval_shared_blocks_plain at the
@@ -977,6 +1003,7 @@ def eval_shared_blocks(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
         raise ValueError("span must be >= 1")
     C, T, S, D, _ = _check_row(tgt_pos, tgt_idx, src_pos, src_mass,
                                src_idx, mask, f32_only=True)
+    check_scalars(scal, tgt_pos)
     if D == 2:
         (tgt_pos, src_pos), _ = pad_to_3d(tgt_pos, src_pos)
     acc, pot = _outputs(tgt_pos)
@@ -999,7 +1026,7 @@ def eval_shared_blocks(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, mask,
             plan.cnt.data_ptr(), plan.work.data_ptr(),
             plan.n_work.data_ptr(), ws.data_ptr(), acc.data_ptr(),
             pot.data_ptr(), C, T, S, span, multiprocessors(dev),
-            eps2_arg(eps, torch.float32), float(G), stream)
+            scal.data_ptr(), stream)
     raise_on(err, lib, "shared_blocks")
     count_launch(launches, "blocks", D == 2, False)
     return (acc if D == 3 else acc[..., :D].contiguous()), pot

@@ -123,11 +123,6 @@ def _row_plain(acc, pot, tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps2,
         pot += p
 
 
-def _eps2(eps, tgt_pos):
-    return torch.full((), eps, dtype=tgt_pos.dtype,
-                      device=tgt_pos.device) ** 2
-
-
 def tiles_granules(C: int, Sm: int, Sp: int, m2p_cnt=None, p2p_cnt=None,
                    granule: int = GRANULE, device=None):
     """K3's granules of each tile: (gm [C], gp [C]) int64, of the M2P row
@@ -168,7 +163,7 @@ def _granule_rows(pos, mass, idx, granule: int):
 
 
 def eval_tiles_plain(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
-                     p2p_idx, eps, G, m2p_cnt=None, p2p_cnt=None,
+                     p2p_idx, scal, m2p_cnt=None, p2p_cnt=None,
                      granule: int = GRANULE, span: int = SPAN):
     """Plain version of K3 (`rakau_tpu.kernels.pallas.eval_tiles_fused`),
     in K3's plan: per tile the M2P row's granules, then the P2P row's,
@@ -178,13 +173,14 @@ def eval_tiles_plain(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
 
     tgt_pos [C, T, D], tgt_idx [C, T], m2p_pos [C, Sm, D], m2p_mass
     [C, Sm], p2p_pos [C, Sp, D], p2p_mass [C, Sp], p2p_idx [C, Sp],
-    counts [C] -> acc [C, T, D], pot [C, T]."""
+    scal (shared.scalar_buffer), counts [C] -> acc [C, T, D],
+    pot [C, T]."""
     if span < 0:
         raise ValueError("span must be >= 0")
     C, T, D = tgt_pos.shape
     Sm, Sp = m2p_pos.shape[1], p2p_pos.shape[1]
     dev = tgt_pos.device
-    eps2 = _eps2(eps, tgt_pos)
+    eps2, G = shared.check_scalars(scal, tgt_pos)
     gm, gp = tiles_granules(C, Sm, Sp, m2p_cnt, p2p_cnt, granule, dev)
     ng = gm + gp
     mrow = _granule_rows(m2p_pos, m2p_mass, None, granule)
@@ -246,7 +242,7 @@ def pairwise_plan(C: int, S: int, cnt=None, block: int = BLOCK,
                           span, pairwise_capacity(C, S, span))
 
 
-def eval_pairwise_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
+def eval_pairwise_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, scal,
                         use_idx: bool, cnt=None, block: int = BLOCK,
                         granule: int = GRANULE, span: int = SPAN):
     """Plain version of one K4 launch (`rakau_tpu.kernels.pallas.
@@ -255,8 +251,9 @@ def eval_pairwise_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
     min(block, S) up to ceil(max(min(cnt, S), 1) / b), entries past the
     count inside them included) cut into granules of `granule`, one
     [C, T, granule] panel per granule position, added into spans of `span`
-    granules (0: one span a tile), the spans in order. No G factor.
-    Returns acc [C, T, D], pot [C, T]."""
+    granules (0: one span a tile), the spans in order. eps^2 from scal
+    (shared.scalar_buffer); no G factor. Returns acc [C, T, D],
+    pot [C, T]."""
     if span < 0:
         raise ValueError("span must be >= 0")
     C, T, D = tgt_pos.shape
@@ -270,7 +267,7 @@ def eval_pairwise_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
     lane = torch.arange(granule, device=dev)
     acc = rows.SpanSums(tgt_pos, False)
     pot = rows.SpanSums(tgt_pos[..., 0], False)
-    eps2 = _eps2(eps, tgt_pos)
+    eps2, _ = shared.check_scalars(scal, tgt_pos)
     for k in range(int(ng.max()) if C and S else 0):
         live = k < ng
         ent = min(k, top) * granule + lane                  # [granule]
@@ -285,13 +282,13 @@ def eval_pairwise_plain(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
 
 
 # ----------------------------------------- the reference's plain-op route
-def eval_p2p(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps, G,
+def eval_p2p(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, scal,
              block: int = 512):
     """Port of `rakau_tpu.kernels.xla.eval_p2p`: the near-field row [C, S]
     with self-exclusion by index, direct per-component differences, in
     blocks of `block` (padded with 1e30, mass 0, index -1). Returns
     acc [C, T, D], pot [C, T] times G."""
-    eps2 = _eps2(eps, tgt_pos)
+    eps2, G = shared.check_scalars(scal, tgt_pos)
     acc = torch.zeros_like(tgt_pos)
     pot = torch.zeros_like(tgt_pos[..., 0])
     _row_plain(acc, pot, tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps2,
@@ -332,7 +329,7 @@ def _quad_terms(t, s, q, inv_r):
     return dacc, dpot
 
 
-def eval_m2p(tgt_pos, src_pos, src_mass, eps, G, src_quad=None,
+def eval_m2p(tgt_pos, src_pos, src_mass, scal, src_quad=None,
              block: int = 1024):
     """Port of `rakau_tpu.kernels.xla.eval_m2p`: node monopoles (and with
     src_quad [C, S, Q] their quadrupoles) on a far-field row [C, S],
@@ -343,7 +340,7 @@ def eval_m2p(tgt_pos, src_pos, src_mass, eps, G, src_quad=None,
     sums in the working type, as the reference's HIGHEST-precision
     einsums. Returns acc [C, T, D], pot [C, T] times G."""
     D = tgt_pos.shape[-1]
-    eps2 = _eps2(eps, tgt_pos)
+    eps2, G = shared.check_scalars(scal, tgt_pos)
     center = tgt_pos.mean(1, keepdim=True)
     t = tgt_pos - center
     t2 = (t * t).sum(-1)
@@ -439,7 +436,7 @@ def tiles_device_plan(C: int, Sm: int, Sp: int, m2p_cnt=None, p2p_cnt=None,
 
 
 def eval_tiles_fused(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
-                     p2p_idx, eps, G, m2p_cnt=None, p2p_cnt=None):
+                     p2p_idx, scal, m2p_cnt=None, p2p_cnt=None):
     """K3, the CUDA kernel (replaces `rakau_tpu.kernels.pallas.
     eval_tiles_fused`): one launch for the chunk, both rows of each tile,
     the counts read on the device. Same arguments and results as
@@ -450,6 +447,7 @@ def eval_tiles_fused(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
     C, T, D, f64 = _check_tiles(tgt_pos, tgt_idx, (
         ("m2p", m2p_pos, m2p_mass, None, m2p_cnt),
         ("p2p", p2p_pos, p2p_mass, p2p_idx, p2p_cnt)))
+    shared.check_scalars(scal, tgt_pos)
     if D == 2:
         (tgt_pos, m2p_pos, p2p_pos), _ = shared.pad_to_3d(tgt_pos, m2p_pos,
                                                            p2p_pos)
@@ -473,8 +471,8 @@ def eval_tiles_fused(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
             p2p_mass.data_ptr(), p2p_idx.data_ptr(), _ptr(p2p_cnt),
             *(t.data_ptr() for t in plan), ws.data_ptr(), acc.data_ptr(),
             pot.data_ptr(), C, T, Sm, Sp, SPAN, cap,
-            shared.multiprocessors(dev), shared.eps2_arg(eps, tgt_pos.dtype),
-            float(G), stream)
+            shared.multiprocessors(dev),
+            scal.data_ptr(), stream)
     shared.raise_on(err, lib, "tiles")
     shared.count_launch(launches, "fused", D == 2, f64)
     return (acc if D == 3 else acc[..., :D].contiguous()), pot
@@ -500,16 +498,18 @@ def pairwise_device_plan(C: int, S: int, cnt=None, block: int = BLOCK,
     return plan
 
 
-def eval_pairwise(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
+def eval_pairwise(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, scal,
                   use_idx: bool, cnt=None, block: int = BLOCK):
     """One K4 launch, the CUDA kernel (replaces `rakau_tpu.kernels.pallas.
     _pairwise`): one row on K3's engine over K4's visited set. Same
     arguments and results as eval_pairwise_plain at its default plan (no G
-    factor), same tensor types as eval_tiles_fused. On the current stream,
-    with no host sync: the plan, the kernel and its span reduction (two
-    launches on the same inputs agree bit for bit)."""
+    factor: its launch reads scal's last two values, [eps^2, 1]), same
+    tensor types as eval_tiles_fused. On the current stream, with no host
+    sync: the plan, the kernel and its span reduction (two launches on
+    the same inputs agree bit for bit)."""
     C, T, D, f64 = _check_tiles(tgt_pos, tgt_idx, (
         ("src", src_pos, src_mass, src_idx if use_idx else None, cnt),))
+    shared.check_scalars(scal, tgt_pos)
     if block < 1:
         raise ValueError("block must be >= 1")
     if D == 2:
@@ -533,15 +533,15 @@ def eval_pairwise(tgt_pos, tgt_idx, src_pos, src_mass, src_idx, eps,
             src_mass.data_ptr(), src_idx.data_ptr() if use_idx else None,
             _ptr(cnt), *(t.data_ptr() for t in plan), ws.data_ptr(),
             acc.data_ptr(), pot.data_ptr(), C, T, S, block, SPAN, cap,
-            shared.multiprocessors(dev), shared.eps2_arg(eps, tgt_pos.dtype),
-            stream)
+            shared.multiprocessors(dev),
+            scal[2:].data_ptr(), stream)
     shared.raise_on(err, lib, "tiles (K4)")
     shared.count_launch(launches, "split", D == 2, f64)
     return (acc if D == 3 else acc[..., :D].contiguous()), pot
 
 
 def eval_tiles(tgt_pos, tgt_idx, m2p_pos, m2p_mass, m2p_quad, p2p_pos,
-               p2p_mass, p2p_idx, eps, G, m2p_cnt=None, p2p_cnt=None,
+               p2p_mass, p2p_idx, scal, m2p_cnt=None, p2p_cnt=None,
                block: int = BLOCK, fused: bool = True, kernel=None):
     """Counterpart of `rakau_tpu.kernels.pallas.eval_tiles`: monopole M2P
     + P2P of each tile's rows, times G. With kernel=True K3 is launched
@@ -559,10 +559,11 @@ def eval_tiles(tgt_pos, tgt_idx, m2p_pos, m2p_mass, m2p_quad, p2p_pos,
     if fused:
         fn = eval_tiles_fused if cuda else eval_tiles_plain
         return fn(tgt_pos, tgt_idx, m2p_pos, m2p_mass, p2p_pos, p2p_mass,
-                  p2p_idx, eps, G, m2p_cnt=m2p_cnt, p2p_cnt=p2p_cnt)
+                  p2p_idx, scal, m2p_cnt=m2p_cnt, p2p_cnt=p2p_cnt)
     fn = eval_pairwise if cuda else eval_pairwise_plain
-    am, pm = fn(tgt_pos, tgt_idx, m2p_pos, m2p_mass, None, eps,
+    am, pm = fn(tgt_pos, tgt_idx, m2p_pos, m2p_mass, None, scal,
                 use_idx=False, cnt=m2p_cnt, block=block)
-    ap, pp = fn(tgt_pos, tgt_idx, p2p_pos, p2p_mass, p2p_idx, eps,
+    ap, pp = fn(tgt_pos, tgt_idx, p2p_pos, p2p_mass, p2p_idx, scal,
                 use_idx=True, cnt=p2p_cnt, block=block)
+    G = scal[1]
     return G * (am + ap), G * (pm + pp)

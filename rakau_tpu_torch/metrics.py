@@ -227,10 +227,12 @@ def measure_kernel_roof(cfg: TreeConfig, n_src: int = 262144, reps: int = 8,
     squad = (torch.full((S, D * (D + 1) // 2), 1e-6, dtype=torch.float32,
                         device=dev) if cfg.multipole_order >= 2 else None)
 
+    scal = shared.scalar_buffer(0.0, 1.0, tgt)
+
     def run():
         return dispatch.eval_shared(cfg, tgt, tidx, src, smass, sidx, mask,
-                                    0.0, 1.0, src_cell=scell,
-                                    tgt_cell=tcell, src_quad=squad)
+                                    scal, src_cell=scell, tgt_cell=tcell,
+                                    src_quad=squad)
 
     with dispatch.shared_variant(variant, prec):
         run()

@@ -168,18 +168,19 @@ def _export_query(mesh: Mesh, tds: list, cfg_q, cfg_e, theta, eps, G,
     results (acc, pot; _local_query's order), the overflow flags [4], the
     export overflow and the export counts [ndev]."""
     ndev = mesh.size
+    scals = _mesh.to_shards(mesh, (theta, eps, G))
     with _stage(mesh, "export_walk"):
         dlo, dhi, ne = (_mesh.all_gather(x) for x in (lo, hi, ne))
         ex = _mesh.stage_map(mesh, _export_shard, [
-            (me, tds[me], cfg_e, theta, dlo[me], dhi[me], ne[me], export_cap,
-             boxes[me]) for me in range(ndev)], staged)
+            (me, tds[me], cfg_e, scals[me][0], dlo[me], dhi[me], ne[me],
+             export_cap, boxes[me]) for me in range(ndev)], staged)
     with _stage(mesh, "exchange"):
         imp_pos = _mesh.all_to_all([e[0] for e in ex])
         imp_mass = _mesh.all_to_all([e[1] for e in ex])
     with _stage(mesh, "local_query"):
         res = _mesh.stage_map(mesh, _local_query, [
-            (tds[me], imp_pos[me], imp_mass[me], cfg_q, theta, eps, G, query,
-             perms[me]) for me in range(ndev)], staged)
+            (tds[me], imp_pos[me], imp_mass[me], cfg_q) + scals[me]
+            + (query, perms[me]) for me in range(ndev)], staged)
     return ([r[0] for r in res], [r[1] for r in res], [r[2] for r in res],
             [e[3] for e in ex], [e[2] for e in ex])
 
@@ -202,7 +203,8 @@ def acc_pot_let(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
     shard's device, and with with_stats the export-count matrix [ndev,
     ndev] (exports[src, dst], the halo volume): all of them outputs of
     the graphs, read by the caller after the call. theta, eps and G are
-    numbers. stage_seconds() times acc_pot_let_host only: inside it this
+    numbers or 0-dim tensors, the graphs' inputs (engine.scalars).
+    stage_seconds() times acc_pot_let_host only: inside it this
     raises ValueError.
 
     phase0="distributed" (the default) runs the sample-sort assignment:
@@ -221,11 +223,11 @@ def acc_pot_let(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
     graph = _engine._use_graph(graph, pos, cfg)
     if isinstance(box_size, torch.Tensor):
         box_size = box_size.to(dev0)
-    args = (pos, mass, cfg, float(theta), float(eps), float(G), mesh,
-            box_size, (export_cap, export_node_cap, export_part_cap,
-                       export_leaf_cap, export_frontier_cap),
-            phase0, exchange_slack, splitter_samples, _build.build_tree,
-            _engine._query_impl)
+    caps = (export_cap, export_node_cap, export_part_cap, export_leaf_cap,
+            export_frontier_cap)
+    args = ((pos, mass, cfg) + _engine.scalars(pos, theta, eps, G)
+            + (mesh, box_size, caps, phase0, exchange_slack,
+               splitter_samples, _build.build_tree, _engine._query_impl))
     if _mesh.one_card(mesh):
         out = _engine._run(graph, _let, *args)
     else:
@@ -249,10 +251,10 @@ def acc_pot_let_host(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
     device (the stages run eagerly around those graphs). Returns what
     acc_pot_let returns, the same sums bit for bit; inside
     stage_seconds() each stage is timed."""
-    out = _let(pos, mass, cfg, float(theta), float(eps), float(G), mesh,
-               box_size, (export_cap, export_node_cap, export_part_cap,
-                          export_leaf_cap, export_frontier_cap),
-               phase0, exchange_slack, splitter_samples, _engine.build_tree,
+    out = _let(pos, mass, cfg, theta, eps, G, mesh, box_size,
+               (export_cap, export_node_cap, export_part_cap,
+                export_leaf_cap, export_frontier_cap), phase0,
+               exchange_slack, splitter_samples, _engine.build_tree,
                _engine.acc_pot_u_host, staged=False)
     return out if with_stats else out[:4]
 
@@ -298,8 +300,10 @@ def _collect(accs, pots, ovfs, flags, cnts, n: int, perm):
 def _let(pos, mass, cfg, theta, eps, G, mesh, box_size, caps, phase0,
          slack, samples, build, query, staged=None):
     """Both twins' pipeline, given `build(pos, mass, cfg, box_size)` and
-    `query(td, cfg, theta, eps, G, extra=)`, its per-shard stages run as
-    `staged` names (parallel.mesh). Returns (acc, pot, overflow,
+    `query(td, cfg, theta, eps, G, extra=)` (theta, eps and G as the
+    query takes them: engine.scalars' tensors, G the kernels' buffer, for
+    engine._query_impl), its per-shard stages run as `staged` names
+    (parallel.mesh). Returns (acc, pot, overflow,
     export_ovf, the export counts [ndev, ndev] on the first shard)."""
     if phase0 not in ("distributed", "global"):
         raise ValueError("phase0 must be 'distributed' or 'global'")

@@ -81,25 +81,25 @@ def _tiles_tables(td: TreeData, cfg: TreeConfig, ndev: int):
     return tiles, tables
 
 
-def _shard_chunks(td: TreeData, cfg: TreeConfig, theta, eps, G, panels,
+def _shard_chunks(td: TreeData, cfg: TreeConfig, theta, eps, scal, panels,
                   tables):
     """One shard's stage: its range of the chunks (acc, pot, flags)."""
-    return engine._chunk_loop(td, cfg, theta, eps, G, panels, tables,
+    return engine._chunk_loop(td, cfg, theta, eps, scal, panels, tables,
                               None)[:3]
 
 
-def _tail(td: TreeData, cfg: TreeConfig, eps, G, accs, pots, ovfs):
+def _tail(td: TreeData, cfg: TreeConfig, eps, scal, accs, pots, ovfs):
     """The last stage, on the first shard's device: the shards' tile sums
     in shard order through the tail (assembly, grid2's far field) and the
     flags OR-ed."""
     Lgrid = (engine._grid_farfield(td, cfg, eps)
              if cfg.farfield == "grid2" else None)
-    acc_u, pot_u = engine._tail_impl(td, cfg, eps, G, Lgrid, torch.cat(accs),
-                                     torch.cat(pots))
+    acc_u, pot_u = engine._tail_impl(td, cfg, eps, scal, Lgrid,
+                                     torch.cat(accs), torch.cat(pots))
     return acc_u, pot_u, torch.stack(ovfs).any(0)
 
 
-def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
+def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, scal, mesh: Mesh,
                 staged=None):
     """acc_pot_u_sharded's computation in three stages (`staged` as in
     parallel.mesh): the tiles and tables on the first shard's device; each
@@ -114,12 +114,13 @@ def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
     panels = _mesh.scatter(mesh, [tuple(t[r * K:(r + 1) * K] for t in tiles)
                                   for r in range(mesh.size)])
     sums = _mesh.stage_map(mesh, _shard_chunks, [
-        (td_r, cfg, theta, eps, G, panels_r, tables_r)
-        for td_r, panels_r, tables_r in zip(
-            _mesh.to_shards(mesh, td), panels,
+        (td_r, cfg) + scal_r + (panels_r, tables_r)
+        for td_r, scal_r, panels_r, tables_r in zip(
+            _mesh.to_shards(mesh, td),
+            _mesh.to_shards(mesh, (theta, eps, scal)), panels,
             _mesh.to_shards(mesh, tables))], staged)
     accs, pots, ovfs = (_mesh.gather(x, mesh.devices[0]) for x in zip(*sums))
-    return _mesh.on_first(mesh, _tail, staged, td, cfg, eps, G, accs, pots,
+    return _mesh.on_first(mesh, _tail, staged, td, cfg, eps, scal, accs, pots,
                           ovfs)
 
 
@@ -131,8 +132,8 @@ class _Query(NamedTuple):
     mesh: Mesh
     staged: Optional[bool] = None
 
-    def __call__(self, td, cfg, theta, eps, G):
-        return _query_impl(td, cfg, theta, eps, G, self.mesh,
+    def __call__(self, td, cfg, theta, eps, scal):
+        return _query_impl(td, cfg, theta, eps, scal, self.mesh,
                            self.staged) + (None,)
 
 
@@ -162,10 +163,10 @@ def acc_pot_u_sharded(td: TreeData, cfg: TreeConfig, theta, eps, G,
     grid2's far field is added once, on the first shard. On a one-card
     mesh the call is one CUDA graph, on several cards a CUDA graph a card
     and stage (graph as in the module's docstring). theta, eps and G are
-    numbers."""
+    numbers or 0-dim tensors, the graphs' inputs (engine.scalars)."""
     td = _mesh._to(td, mesh.devices[0])
     graph = engine._use_graph(graph, td.pos, cfg)
-    args = (td, cfg, float(theta), float(eps), float(G), mesh)
+    args = (td, cfg) + engine.scalars(td.pos, theta, eps, G) + (mesh,)
     if _mesh.one_card(mesh):
         return engine._run(graph, _query_impl, *args)
     return _query_impl(*args, staged=graph)
@@ -180,10 +181,10 @@ def acc_pot_sharded(pos, mass, cfg: TreeConfig, theta, eps, G, mesh: Mesh,
     capacity."""
     dev0 = mesh.devices[0]
     pos, mass = pos.to(dev0), mass.to(dev0)
-    graph, box_size, theta, eps, G = integrate._scalars(
+    graph, box_size, theta, eps, scal = integrate._scalars(
         pos, cfg, graph, box_size, theta, eps, G)
     acc, pot, ovf, b_ovf = _whole(graph, mesh, integrate._acc_pot, pos, mass,
-                                  cfg, theta, eps, G, box_size)
+                                  cfg, theta, eps, scal, box_size)
     integrate._check_build(b_ovf)
     return acc, pot, ovf
 
@@ -197,11 +198,11 @@ def leapfrog_step_sharded(state, dt, cfg: TreeConfig, theta, eps, G,
     shard's device, overflow flags [4]); raises after the call if a build
     overflowed."""
     state = _mesh._to(state, mesh.devices[0])
-    graph, box_size, theta, eps, G = integrate._scalars(
+    graph, box_size, theta, eps, scal = integrate._scalars(
         state.pos, cfg, graph, box_size, theta, eps, G)
     new, ovf, b_ovf = _whole(graph, mesh, integrate._step, state,
                              integrate._dt(dt, state.pos), cfg, theta, eps,
-                             G, box_size)
+                             scal, box_size)
     integrate._check_build(b_ovf)
     return new, ovf
 
@@ -215,10 +216,11 @@ def acc_pot_u_sharded_host(td: TreeData, cfg: TreeConfig, theta, eps, G,
     Returns what acc_pot_u_sharded returns."""
     if cfg.farfield == "grid":
         cfg = cfg.with_(farfield="local")
-    theta, eps, G = float(theta), float(eps), float(G)
     dev0 = mesh.devices[0]
     td = _mesh._to(td, dev0)
     tiles, tables, Lgrid = engine._query_state(td, cfg, eps)
+    theta, eps, scal = engine.scalars(td.pos, theta, eps, G)
+    scals = _mesh.to_shards(mesh, (theta, eps, scal))
     # the one host read of the query: how many chunks hold real tiles
     n_live = engine.live_chunks(td, cfg)
     tds = _mesh.to_shards(mesh, td)
@@ -231,8 +233,8 @@ def acc_pot_u_sharded_host(td: TreeData, cfg: TreeConfig, theta, eps, G,
             ovfs.append(torch.zeros(4, dtype=torch.bool,
                                     device=mesh.devices[r]))
             continue
-        a, p, o, _ = engine.run_chunks(tds[r], cfg, theta, eps, G,
-                                       states[r], first, last)
+        a, p, o, _ = engine.run_chunks(tds[r], cfg, *scals[r], states[r],
+                                       first, last)
         accs.append(a)
         pots.append(p)
         ovfs.append(o)
@@ -240,7 +242,7 @@ def acc_pot_u_sharded_host(td: TreeData, cfg: TreeConfig, theta, eps, G,
     acc_u, pot_u = engine._assemble_impl(
         td, cfg, torch.cat([a.to(dev0) for a in accs]),
         torch.cat([p.to(dev0) for p in pots]))
-    acc_u, pot_u = engine._add_grid2(td, cfg, eps, G, Lgrid, acc_u, pot_u)
+    acc_u, pot_u = engine._add_grid2(td, cfg, eps, scal, Lgrid, acc_u, pot_u)
     return acc_u, pot_u, ovf
 
 

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .build import TreeData
+from .particles import scalar_tensor
 from .config import MAC_BH, TreeConfig
 
 I64 = torch.int64
@@ -67,12 +68,12 @@ def box_point_dist2(lo, hi, p):
 def build_interaction_lists(td: TreeData, cfg: TreeConfig, theta,
                             box_lo, box_hi) -> InteractionLists:
     """One chunk's walk. box_lo / box_hi: [C, D] tile AABBs; theta a
-    Python number. Padding tiles (inverted boxes) take the root as an M2P
+    number or a 0-dim tensor. Padding tiles (inverted boxes) take the root as an M2P
     entry; their results are never read."""
     C = box_lo.shape[0]
     dtype = td.pos.dtype
     dev = td.pos.device
-    inv_theta = 1.0 / torch.full((), theta, dtype=dtype, device=dev)
+    inv_theta = 1.0 / scalar_tensor(theta, td.pos)
     lo = box_lo[:, None, :]
     hi = box_hi[:, None, :]
     fcap = cfg.frontier_cap

@@ -23,6 +23,7 @@ from . import scan_utils as su
 from .build import TreeData
 from .config import MAC_BH_GEOM, TreeConfig
 from .grid2 import particle_cells
+from .particles import scalar_tensor
 
 I64 = torch.int64
 
@@ -135,7 +136,7 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
     dtype = td.pos.dtype
     dev = td.pos.device
     n = td.pos.shape[0]
-    theta_inv = 1.0 / torch.full((), theta, dtype=dtype, device=dev)
+    theta_inv = 1.0 / scalar_tensor(theta, td.pos)
     lo = box_lo[:, None, :]
     hi = box_hi[:, None, :]
     if tables is None:

@@ -43,6 +43,7 @@ from . import scan_utils as su
 from .build import TreeData
 from .config import MAC_BH_GEOM, TreeConfig
 from .grid2 import particle_cells
+from .particles import scalar_tensor
 from .traversal2 import SharedSources, _grid_l0, _grid_sep
 
 I64 = torch.int64
@@ -144,16 +145,16 @@ def _box_dist2_max_pt(alo, ahi, blo, bhi):
     return d2
 
 
-def _clamp_theta(cfg: TreeConfig, theta, dtype, device, D: int):
-    """theta as a 0-d tensor, with the bh_geom monotonicity clamp: the
+def _clamp_theta(cfg: TreeConfig, theta, like, D: int):
+    """theta (a number or a 0-dim tensor) as a 0-d tensor of like's dtype
+    on its device, with the bh_geom monotonicity clamp: the
     partition argument needs A(t, parent) => A(t, child), which with
     bh_geom's delta holds only for theta <= 2/sqrt(D). Clamped here, not
     at the API, so that no direct caller can run a non-monotone
     acceptance; the clamp only tightens the MAC."""
-    theta = torch.full((), theta, dtype=dtype, device=device)
+    theta = scalar_tensor(theta, like)
     if cfg.mac == MAC_BH_GEOM:
-        theta = torch.minimum(theta, torch.full((), 2.0 / D ** 0.5,
-                                                dtype=dtype, device=device))
+        theta = torch.minimum(theta, scalar_tensor(2.0 / D ** 0.5, like))
     return theta
 
 
@@ -252,7 +253,7 @@ def build_group_candidates(td: TreeData, cfg: TreeConfig, theta,
     dev = td.pos.device
     D = box_lo.shape[1]
     n = td.pos.shape[0]
-    theta_inv = 1.0 / _clamp_theta(cfg, theta, dtype, dev, D)
+    theta_inv = 1.0 / _clamp_theta(cfg, theta, td.pos, D)
     M = tables.ff.shape[0]
     use_grid = cfg.farfield in ("grid", "grid2") and tables.L0 > 0
     L0 = tables.L0 if use_grid else 0
@@ -306,7 +307,7 @@ def build_shared_sources(td: TreeData, cfg: TreeConfig, theta,
     dtype = td.pos.dtype
     dev = td.pos.device
     n = td.pos.shape[0]
-    theta_inv = 1.0 / _clamp_theta(cfg, theta, dtype, dev, D)
+    theta_inv = 1.0 / _clamp_theta(cfg, theta, td.pos, D)
     if tables is None:
         tables = make_tables(td, cfg)
     if cand is not None:

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from . import scan_utils as su
 from .build import TreeData
 from .config import MAC_BH_GEOM, TreeConfig
+from .particles import scalar_tensor
 from .traversal2 import _grid_l0, _grid_sep
 
 I64 = torch.int64
@@ -81,7 +82,7 @@ def build_global_incidences(td: TreeData, cfg: TreeConfig, theta,
     dtype = td.pos.dtype
     dev = td.pos.device
     n = td.pos.shape[0]
-    theta_inv = 1.0 / torch.full((), theta, dtype=dtype, device=dev)
+    theta_inv = 1.0 / scalar_tensor(theta, td.pos)
     use_grid = cfg.farfield in ("grid", "grid2")
     L0 = _grid_l0(cfg, n) if use_grid else 0
     use_grid = use_grid and L0 > 0

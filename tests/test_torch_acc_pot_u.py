@@ -214,8 +214,9 @@ def test_slicing_changes_no_sum(name, monkeypatch):
     runs = {}
     for k in (1, 3, n_live):
         seen.clear()
-        runs[k] = engine.run_chunks(td, cfg, THETA, EPS, 1.0, state, 0,
-                                    n_live, slice_chunks=k)
+        runs[k] = engine.run_chunks(
+            td, cfg, *engine.scalars(td.pos, THETA, EPS, 1.0), state, 0,
+            n_live, slice_chunks=k)
         assert len(seen) == engine.evaluated_chunks(n_live, cfg.tile_chunk,
                                                     k)
     assert engine.evaluated_chunks(n_live, cfg.tile_chunk, 3) > n_live
@@ -312,8 +313,8 @@ def test_graph_true_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA"):
         engine.acc_pot_u_host(td, cfg, THETA, EPS, graph=True)
     with pytest.raises(ValueError, match="CUDA"):
-        engine.run_chunks(td, cfg, THETA, EPS, 1.0, state, 0, 1,
-                          graph=True)
+        engine.run_chunks(td, cfg, *engine.scalars(td.pos, THETA, EPS, 1.0),
+                          state, 0, 1, graph=True)
     with pytest.raises(ValueError, match="CUDA"):
         graphs.GraphCache()(torch.neg, torch.ones(3))
     # graph=False and None run eagerly on CPU tensors, to the same sums

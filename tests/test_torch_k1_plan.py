@@ -124,9 +124,9 @@ def test_compensated_sums_beat_fp32_at_every_granule_and_span():
     for block, span in PLANS:
         errs = {}
         for comp in (False, True):
-            _, p = shared.eval_shared_plain(*args, 0.0, 1.0, mode="pot",
-                                            block=block, span=span,
-                                            compensated=comp)
+            _, p = shared.eval_shared_plain(
+                *args, shared.scalar_buffer(0.0, 1.0, args[0]), mode="pot",
+                block=block, span=span, compensated=comp)
             errs[comp] = np.abs(p.numpy().astype(np.float64)
                                 - pot_ref).max()
         assert errs[True] <= errs[False], (block, span, errs)

@@ -81,14 +81,17 @@ def test_plain_matches_pallas_and_xla(mode, S, eps):
     case = make_case(S, S=S, eps=eps)
     targs = _torch_args(case)
     jargs = _jax_args(case)
-    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64)
+    got = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, block=64)
     want_p = pk.eval_shared_fused(*jargs, eps, 1.5, block=64,
                                   interpret=True, mode=mode)
     want_x = xk.eval_shared(*jargs, eps, 1.5, block=64, mode=mode)
     _close(got, want_p)
     _close(got, want_x)
     assert not got[0][2].any() and not got[1][2].any()     # empty tile
-    disp = dispatch.eval_shared(TreeConfig(), *targs, eps, 1.5, mode=mode)
+    disp = dispatch.eval_shared(
+        TreeConfig(), *targs, shared.scalar_buffer(eps, 1.5, targs[0]),
+        mode=mode)
     _close(disp, want_x)
 
 
@@ -105,11 +108,13 @@ def test_plain_block_size_does_not_change_the_sums(mode, quad):
     else:
         case = make_case(1)
     targs = _torch_args(case)
-    a = shared.eval_shared_plain(*targs, 0.01, 1.0, block=64, **kw)
+    a = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(0.01, 1.0, targs[0]), block=64, **kw)
     for block, span in ((1000, shared.SPAN), (64, 0), (32, 1),
                         (shared.GRANULE, shared.SPAN), (256, 3)):
-        b = shared.eval_shared_plain(*targs, 0.01, 1.0, block=block,
-                                     span=span, **kw)
+        b = shared.eval_shared_plain(
+            *targs, shared.scalar_buffer(0.01, 1.0, targs[0]), block=block,
+            span=span, **kw)
         for x, y in zip(a, b):
             np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-5,
                                        atol=1e-6)
@@ -137,7 +142,8 @@ def test_active_blocks_lists_live_blocks_in_order():
 def test_fused_wrapper_rejects_cpu_tensors():
     targs = _torch_args(make_case(3))
     with pytest.raises(ValueError, match="CUDA"):
-        shared.eval_shared_fused(*targs, 0.0, 1.0)
+        shared.eval_shared_fused(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -180,13 +186,13 @@ def test_plain_quad_matches_pallas_and_xla(mode, comp):
     case, quad = make_quad_case(5)
     eps = case[-1]
     targs, jargs = _torch_args(case), _jax_args(case)
-    got = shared.eval_shared_plain(*targs, 0.0, 1.5, mode=mode, block=64,
-                                   compensated=comp,
-                                   src_quad=torch.as_tensor(quad))
+    got = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(0.0, 1.5, targs[0]), mode=mode, block=64,
+        compensated=comp, src_quad=torch.as_tensor(quad))
     assert all(bool(torch.isfinite(x).all()) for x in got)
-    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
-                                   compensated=comp,
-                                   src_quad=torch.as_tensor(quad))
+    got = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, block=64,
+        compensated=comp, src_quad=torch.as_tensor(quad))
     jq = jnp.asarray(quad)
     want_p = pk.eval_shared_fused(*jargs, eps, 1.5, block=64, mode=mode,
                                   interpret=True, compensated=comp,
@@ -196,8 +202,9 @@ def test_plain_quad_matches_pallas_and_xla(mode, comp):
     _close(got, want_p)
     _close(got, want_x)
     # the quadrupole correction changes the answer
-    mono = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
-                                    compensated=comp)
+    mono = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, block=64,
+        compensated=comp)
     k = 1 if mode == "pot" else 0
     assert (got[k] - mono[k]).abs().max() > 1e-6
 
@@ -207,8 +214,9 @@ def test_plain_compensated_matches_pallas_and_xla(mode):
     case = make_case(6)
     eps = case[-1]
     targs, jargs = _torch_args(case), _jax_args(case)
-    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
-                                   compensated=True)
+    got = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, block=64,
+        compensated=True)
     _close(got, pk.eval_shared_fused(*jargs, eps, 1.5, block=64, mode=mode,
                                      interpret=True, compensated=True))
     _close(got, xk.eval_shared(*jargs, eps, 1.5, block=64, mode=mode,
@@ -232,10 +240,11 @@ def test_compensated_sum_is_closer_to_float64():
     d = src[None, None] - tpos.astype(np.float64)[:, :, None]
     pot_ref = -(mass[None, None] / np.linalg.norm(d, axis=-1)).sum(-1)
     errs = {}
+    targs = _torch_args(case)
     for comp in (False, True):
-        _, p = shared.eval_shared_plain(*_torch_args(case), 0.0, 1.0,
-                                        mode="pot", block=128,
-                                        compensated=comp)
+        _, p = shared.eval_shared_plain(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]), mode="pot",
+            block=128, compensated=comp)
         _, pj = xk.eval_shared(*_jax_args(case), 0.0, 1.0, block=128,
                                mode="pot", compensated=comp)
         np.testing.assert_allclose(p.numpy(), np.asarray(pj), rtol=1e-6)
@@ -256,8 +265,10 @@ def test_dispatch_splits_quad_and_particle_rows_like_jax(mode, accum):
                  for k, (q, c) in enumerate(zip(qcase, case)))
     eps = case[-1]
     cfg = TreeConfig(accum=accum)
-    got = dispatch.eval_shared(cfg, *_torch_args(case), eps, 1.5, mode=mode,
-                               src_quad=torch.as_tensor(quad))
+    targs = _torch_args(case)
+    got = dispatch.eval_shared(cfg, *targs,
+                               shared.scalar_buffer(eps, 1.5, targs[0]),
+                               mode=mode, src_quad=torch.as_tensor(quad))
     want = jdispatch.eval_shared(JaxConfig(accum=accum), *_jax_args(case),
                                  eps, 1.5, mode=mode,
                                  src_quad=jnp.asarray(quad))
@@ -267,8 +278,9 @@ def test_dispatch_splits_quad_and_particle_rows_like_jax(mode, accum):
 def test_dispatch_returns_zeros_for_an_empty_source_row():
     tpos, tidx, spos, smass, sidx, mask, _ = make_case(10)
     empty = (tpos, tidx, spos[:0], smass[:0], sidx[:0], mask[:, :0], 0.0)
-    acc, pot = dispatch.eval_shared(TreeConfig(accum="compensated"),
-                                    *_torch_args(empty), 0.0, 1.0)
+    targs = _torch_args(empty)
+    acc, pot = dispatch.eval_shared(TreeConfig(accum="compensated"), *targs,
+                                    shared.scalar_buffer(0.0, 1.0, targs[0]))
     assert acc.shape == tpos.shape and pot.shape == tpos.shape[:2]
     assert not acc.any() and not pot.any()
 
@@ -276,8 +288,9 @@ def test_dispatch_returns_zeros_for_an_empty_source_row():
 def test_fused_wrapper_checks_the_quad_operand():
     targs = _torch_args(make_case(11))
     with pytest.raises(ValueError, match="CUDA"):
-        shared.eval_shared_fused(*targs, 0.0, 1.0, compensated=True,
-                                 src_quad=torch.zeros(384, 6))
+        shared.eval_shared_fused(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]), compensated=True,
+            src_quad=torch.zeros(384, 6))
 
 
 # ------------------------------------------- K1c: the cell-separation test
@@ -315,8 +328,9 @@ def test_plain_cells_match_pallas_xla_and_bruteforce(mode, sep, comp):
                tgt_cell=torch.as_tensor(tcell).long(), grid_sep=sep)
     jkw = dict(src_cell=jnp.asarray(scell), tgt_cell=jnp.asarray(tcell),
                grid_sep=sep)
-    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
-                                   compensated=comp, **tkw)
+    got = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, block=64,
+        compensated=comp, **tkw)
     _close(got, pk.eval_shared_fused(*jargs, eps, 1.5, block=128, mode=mode,
                                      interpret=True, compensated=comp,
                                      **jkw))
@@ -324,9 +338,9 @@ def test_plain_cells_match_pallas_xla_and_bruteforce(mode, sep, comp):
                                compensated=comp, **jkw))
     # int32 cells give the same sums as int64 ones
     got32 = shared.eval_shared_plain(
-        *targs, eps, 1.5, mode=mode, block=64, compensated=comp,
-        src_cell=torch.as_tensor(scell), tgt_cell=torch.as_tensor(tcell),
-        grid_sep=sep)
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, block=64,
+        compensated=comp, src_cell=torch.as_tensor(scell),
+        tgt_cell=torch.as_tensor(tcell), grid_sep=sep)
     assert torch.equal(got[0], got32[0]) and torch.equal(got[1], got32[1])
     # brute force: every target its own tile, the covered pairs masked out
     tpos, tidx, spos, smass, sidx, mask, _ = case
@@ -334,11 +348,13 @@ def test_plain_cells_match_pallas_xla_and_bruteforce(mode, sep, comp):
     flat = (torch.as_tensor(tpos.reshape(C * T, 1, 3)),
             torch.as_tensor(tidx.reshape(C * T, 1).astype(np.int64)),
             targs[2], targs[3], targs[4], torch.as_tensor(pm))
-    want = shared.eval_shared_plain(*flat, eps, 1.5, mode=mode, block=64,
-                                    compensated=comp)
+    want = shared.eval_shared_plain(
+        *flat, shared.scalar_buffer(eps, 1.5, flat[0]), mode=mode, block=64,
+        compensated=comp)
     _close((got[0].reshape(C * T, 1, 3), got[1].reshape(C * T, 1)), want)
     # the test removes pairs: the answer differs from the untested sum
-    free = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64)
+    free = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, block=64)
     k = 1 if mode == "pot" else 0
     assert (got[k] - free[k]).abs().max() > 1e-3
 
@@ -357,11 +373,13 @@ def test_plain_quad_cells_match_pallas_and_xla(mode, comp):
     jkw = dict(src_cell=jnp.asarray(scell), tgt_cell=jnp.asarray(tcell),
                grid_sep=2, src_quad=jnp.asarray(quad))
     # the masked-out node on a target at eps = 0 stays finite
-    got = shared.eval_shared_plain(*targs, 0.0, 1.5, mode=mode, block=64,
-                                   compensated=comp, **tkw)
+    got = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(0.0, 1.5, targs[0]), mode=mode, block=64,
+        compensated=comp, **tkw)
     assert all(bool(torch.isfinite(x).all()) for x in got)
-    got = shared.eval_shared_plain(*targs, eps, 1.5, mode=mode, block=64,
-                                   compensated=comp, **tkw)
+    got = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, block=64,
+        compensated=comp, **tkw)
     _close(got, pk.eval_shared_fused(*jargs, eps, 1.5, block=128, mode=mode,
                                      interpret=True, compensated=comp,
                                      **jkw))
@@ -384,9 +402,10 @@ def test_dispatch_with_cells_and_quad_split_like_jax(mode, accum):
     for cs, q in ((case, None), (both, quad)):
         C, T, S = cs[0].shape[0], cs[0].shape[1], cs[2].shape[0]
         scell, tcell = make_cells(41, C, T, S)
+        targs = _torch_args(cs)
         got = dispatch.eval_shared(
-            TreeConfig(accum=accum, farfield="grid2", grid_sep=2),
-            *_torch_args(cs), eps, 1.5, mode=mode,
+            TreeConfig(accum=accum, farfield="grid2", grid_sep=2), *targs,
+            shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode,
             src_quad=None if q is None else torch.as_tensor(q),
             src_cell=torch.as_tensor(scell).long(),
             tgt_cell=torch.as_tensor(tcell).long())
@@ -402,16 +421,17 @@ def test_cell_operands_are_checked():
     targs = _torch_args(make_case(12))
     scell, tcell = make_cells(1, 4, 32, 384)
     with pytest.raises(ValueError, match="tgt_cell"):
-        shared.eval_shared_plain(*targs, 0.0, 1.0, grid_sep=2,
-                                 src_cell=torch.as_tensor(scell))
+        shared.eval_shared_plain(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]), grid_sep=2,
+            src_cell=torch.as_tensor(scell))
     with pytest.raises(ValueError, match="grid_sep"):
-        shared.eval_shared_fused(*targs, 0.0, 1.0,
-                                 src_cell=torch.as_tensor(scell),
-                                 tgt_cell=torch.as_tensor(tcell))
+        shared.eval_shared_fused(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]),
+            src_cell=torch.as_tensor(scell), tgt_cell=torch.as_tensor(tcell))
     with pytest.raises(ValueError, match="CUDA"):
-        shared.eval_shared_fused(*targs, 0.0, 1.0, grid_sep=2,
-                                 src_cell=torch.as_tensor(scell),
-                                 tgt_cell=torch.as_tensor(tcell))
+        shared.eval_shared_fused(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]), grid_sep=2,
+            src_cell=torch.as_tensor(scell), tgt_cell=torch.as_tensor(tcell))
     # every fused form has its name; the row's other two evaluators theirs
     assert set(shared.FORMS) == {
         shared.form_name(q, c, g) for q in (False, True)
@@ -576,8 +596,9 @@ def test_plain_mma_matches_the_pallas_mxu_kernel(monkeypatch, prec, cells,
     monkeypatch.setenv("RAKAU_MXU_PREC", prec)
     want = pk.eval_shared_fused(*jargs, eps, 1.5, block=64, interpret=True,
                                 mode=mode, **jkw)
-    got = shared.eval_shared_mma_plain(*targs, eps, 1.5, mode=mode,
-                                       prec=prec, granule=64, span=0, **tkw)
+    got = shared.eval_shared_mma_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), mode=mode, prec=prec,
+        granule=64, span=0, **tkw)
     _mma_close(got, want, prec)
     assert not got[0][2].any() and not got[1][2].any()      # empty tile
 
@@ -591,13 +612,14 @@ def test_plain_mma_matches_the_pallas_mxu_kernel(monkeypatch, prec, cells,
     off[0, 0] = False
     for span in spans:
         plan = dict(mode=mode, prec=prec, granule=granule, span=span, **tkw)
-        got = shared.eval_shared_mma_plain(*targs, eps, 1.5, **plan)
+        got = shared.eval_shared_mma_plain(
+            *targs, shared.scalar_buffer(eps, 1.5, targs[0]), **plan)
         _mma_close(got, want, prec)
         assert not got[0][2].any() and not got[1][2].any()  # empty tile
         # the planted self pairs (tile 0, targets 0..7) add nothing:
         # without them target (0, 0) keeps its sums bit for bit
-        bare = shared.eval_shared_mma_plain(*targs[:5], off, eps, 1.5,
-                                            **plan)
+        bare = shared.eval_shared_mma_plain(
+            *targs[:5], off, shared.scalar_buffer(eps, 1.5, targs[0]), **plan)
         assert torch.equal(bare[0][0, 0], got[0][0, 0])
         assert torch.equal(bare[1][0, 0], got[1][0, 0])
 
@@ -617,8 +639,9 @@ def test_plain_mma_matches_the_pallas_mxu_kernel_in_2d(monkeypatch, prec,
     want = pk.eval_shared_fused(*jargs, eps, 1.5, block=256, subblock=64,
                                 interpret=True, **jkw)
     for span in (0, 1, 3):
-        got = shared.eval_shared_mma_plain(*targs, eps, 1.5, prec=prec,
-                                           granule=64, span=span, **tkw)
+        got = shared.eval_shared_mma_plain(
+            *targs, shared.scalar_buffer(eps, 1.5, targs[0]), prec=prec,
+            granule=64, span=span, **tkw)
         assert got[0].shape == (4, 32, 2)
         _mma_close(got, want, prec)
         assert not got[0][2].any() and not got[1][2].any()  # empty tile
@@ -649,11 +672,13 @@ def test_plain_mma_plans_do_not_change_the_sums(prec, mode, cells):
         scell, tcell = make_cells(73, 4, 32, 700)
         kw.update(src_cell=torch.as_tensor(scell).long(),
                   tgt_cell=torch.as_tensor(tcell).long(), grid_sep=2)
-    a = shared.eval_shared_mma_plain(*targs, eps, 1.0, granule=64, span=1,
-                                     **kw)
+    a = shared.eval_shared_mma_plain(
+        *targs, shared.scalar_buffer(eps, 1.0, targs[0]), granule=64, span=1,
+        **kw)
     for granule, span in MMA_PLAN_GRID:
-        b = shared.eval_shared_mma_plain(*targs, eps, 1.0, granule=granule,
-                                         span=span, **kw)
+        b = shared.eval_shared_mma_plain(
+            *targs, shared.scalar_buffer(eps, 1.0, targs[0]), granule=granule,
+            span=span, **kw)
         for x, y, atol in zip(b, a, (2e-5, 1e-6)):
             np.testing.assert_allclose(
                 x.numpy(), y.numpy(), rtol=1e-5,
@@ -682,9 +707,11 @@ def test_plain_mma_self_pairs_add_nothing_at_every_plan(prec, cells):
             for mode in ("both", "acc", "pot"):
                 plan = dict(granule=granule, span=span, mode=mode, prec=prec,
                             **kw)
-                got = shared.eval_shared_mma_plain(*targs, eps, 1.5, **plan)
-                bare = shared.eval_shared_mma_plain(*targs[:5], off, eps,
-                                                    1.5, **plan)
+                got = shared.eval_shared_mma_plain(
+                    *targs, shared.scalar_buffer(eps, 1.5, targs[0]), **plan)
+                bare = shared.eval_shared_mma_plain(
+                    *targs[:5], off, shared.scalar_buffer(eps, 1.5, targs[0]),
+                    **plan)
                 assert torch.equal(bare[0][0, 0], got[0][0, 0])
                 assert torch.equal(bare[1][0, 0], got[1][0, 0])
                 assert torch.isfinite(got[0]).all()
@@ -711,8 +738,10 @@ def test_plain_mma_agrees_with_the_fused_form_on_a_tile(prec, tol):
             torch.as_tensor(rng.uniform(0.1, 1, S).astype(np.float32)),
             torch.as_tensor(sidx), torch.as_tensor(
                 rng.uniform(size=(C, S)) < 0.7))
-    want = shared.eval_shared_plain(*args, 0.05, 1.0)
-    got = shared.eval_shared_mma_plain(*args, 0.05, 1.0, prec=prec)
+    want = shared.eval_shared_plain(
+        *args, shared.scalar_buffer(0.05, 1.0, args[0]))
+    got = shared.eval_shared_mma_plain(
+        *args, shared.scalar_buffer(0.05, 1.0, args[0]), prec=prec)
     for g, w in zip(got, want):
         assert float((g - w).abs().max() / w.abs().max()) < tol
 
@@ -720,17 +749,21 @@ def test_plain_mma_agrees_with_the_fused_form_on_a_tile(prec, tol):
 def test_mma_operands_are_checked():
     targs = _torch_args(make_mma_case(64))
     with pytest.raises(ValueError, match="prec"):
-        shared.eval_shared_mma_plain(*targs, 0.0, 1.0, prec="tf32")
+        shared.eval_shared_mma_plain(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]), prec="tf32")
     with pytest.raises(ValueError, match="mode"):
-        shared.eval_shared_mma_plain(*targs, 0.0, 1.0, mode="force")
+        shared.eval_shared_mma_plain(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]), mode="force")
     with pytest.raises(ValueError, match="tgt_cell"):
         shared.eval_shared_mma_plain(
-            *targs, 0.0, 1.0, src_cell=torch.zeros((384, 3),
-                                                   dtype=torch.int64))
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]),
+            src_cell=torch.zeros((384, 3), dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        shared.eval_shared_mma(*targs, 0.0, 1.0)
+        shared.eval_shared_mma(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        shared.eval_shared_blocks(*targs, 0.0, 1.0)
+        shared.eval_shared_blocks(
+            *targs, shared.scalar_buffer(0.0, 1.0, targs[0]))
 
 
 # ----------------------------------------------- K5, the block-plan form
@@ -739,8 +772,8 @@ def test_plain_blocks_matches_pallas_shared_and_xla(span):
     case = make_case(65)
     eps = case[-1]
     targs, jargs = _torch_args(case), _jax_args(case)
-    got = shared.eval_shared_blocks_plain(*targs, eps, 1.5, block=64,
-                                          span=span)
+    got = shared.eval_shared_blocks_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), block=64, span=span)
     want_p = pk.eval_shared(*jargs, eps, 1.5, block=64, interpret=True)
     want_x = xk.eval_shared(*jargs, eps, 1.5, block=64)
     _close(got, want_p)
@@ -748,12 +781,14 @@ def test_plain_blocks_matches_pallas_shared_and_xla(span):
     assert not got[0][2].any() and not got[1][2].any()      # empty tile
     # the spans only regroup the per-block sums, and the mask as a weight
     # gives the dead gate's sums
-    one = shared.eval_shared_plain(*targs, eps, 1.5, block=64)
+    one = shared.eval_shared_plain(
+        *targs, shared.scalar_buffer(eps, 1.5, targs[0]), block=64)
     for g, w in zip(got, one):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
                                    atol=1e-6)
     with pytest.raises(ValueError, match="span"):
-        shared.eval_shared_blocks_plain(*targs, eps, 1.5, block=64, span=0)
+        shared.eval_shared_blocks_plain(
+            *targs, shared.scalar_buffer(eps, 1.5, targs[0]), block=64, span=0)
 
 
 def test_blocks_plan_is_fused_plan_at_the_block():
@@ -820,27 +855,39 @@ def test_selector_routes_cpu_tensors_to_the_selected_plain_version():
     case = make_mma_case(66)
     eps = case[-1]
     targs = _torch_args(case)
-    fused = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0)
+    fused = dispatch.eval_shared(
+        SEL_CFG, *targs, shared.scalar_buffer(eps, 1.0, targs[0]))
     with dispatch.shared_variant("mma", prec="bf16"):
-        got = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0, mode="acc")
-        want = shared.eval_shared_mma_plain(*targs, eps, 1.0, mode="acc",
-                                            prec="bf16")
+        got = dispatch.eval_shared(
+            SEL_CFG, *targs, shared.scalar_buffer(eps, 1.0, targs[0]),
+            mode="acc")
+        want = shared.eval_shared_mma_plain(
+            *targs, shared.scalar_buffer(eps, 1.0, targs[0]), mode="acc",
+            prec="bf16")
         assert torch.equal(got[0], want[0]) and not got[1].any()
         assert not torch.equal(got[0], fused[0])
         with dispatch.shared_variant("blocks"):
-            got = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0)
-            want = shared.eval_shared_blocks_plain(*targs, eps, 1.0)
+            got = dispatch.eval_shared(
+                SEL_CFG, *targs, shared.scalar_buffer(eps, 1.0, targs[0]))
+            want = shared.eval_shared_blocks_plain(
+                *targs, shared.scalar_buffer(eps, 1.0, targs[0]))
             assert torch.equal(got[0], want[0])
         # the outer selection is back
-        again = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0, mode="acc")
+        again = dispatch.eval_shared(
+            SEL_CFG, *targs, shared.scalar_buffer(eps, 1.0, targs[0]),
+            mode="acc")
         assert torch.equal(again[0], shared.eval_shared_mma_plain(
-            *targs, eps, 1.0, mode="acc", prec="bf16")[0])
-    back = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0)
+            *targs, shared.scalar_buffer(eps, 1.0, targs[0]), mode="acc",
+            prec="bf16")[0])
+    back = dispatch.eval_shared(
+        SEL_CFG, *targs, shared.scalar_buffer(eps, 1.0, targs[0]))
     assert torch.equal(back[0], fused[0]) and torch.equal(back[1], fused[1])
     # the default precision is x3
     with dispatch.shared_variant("mma"):
-        got = dispatch.eval_shared(SEL_CFG, *targs, eps, 1.0)
-    want = shared.eval_shared_mma_plain(*targs, eps, 1.0, prec="x3")
+        got = dispatch.eval_shared(
+            SEL_CFG, *targs, shared.scalar_buffer(eps, 1.0, targs[0]))
+    want = shared.eval_shared_mma_plain(
+        *targs, shared.scalar_buffer(eps, 1.0, targs[0]), prec="x3")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -852,22 +899,27 @@ def test_selector_mma_leaves_compensated_and_quadrupole_to_the_fused_form():
     quad_cfg = TreeConfig(farfield="m2p", multipole_order=2)
     U = 64
     q = torch.as_tensor(quad[:U])
-    want_c = dispatch.eval_shared(comp_cfg, *targs, eps, 1.0)
-    want_q = dispatch.eval_shared(quad_cfg, *targs, eps, 1.0, src_quad=q)
+    want_c = dispatch.eval_shared(
+        comp_cfg, *targs, shared.scalar_buffer(eps, 1.0, targs[0]))
+    want_q = dispatch.eval_shared(
+        quad_cfg, *targs, shared.scalar_buffer(eps, 1.0, targs[0]), src_quad=q)
     with dispatch.shared_variant("mma", prec="highest"):
-        got_c = dispatch.eval_shared(comp_cfg, *targs, eps, 1.0)
-        got_q = dispatch.eval_shared(quad_cfg, *targs, eps, 1.0, src_quad=q)
+        got_c = dispatch.eval_shared(
+            comp_cfg, *targs, shared.scalar_buffer(eps, 1.0, targs[0]))
+        got_q = dispatch.eval_shared(
+            quad_cfg, *targs, shared.scalar_buffer(eps, 1.0, targs[0]),
+            src_quad=q)
     # compensated: the fused form, bit for bit
     assert torch.equal(got_c[0], want_c[0]) and torch.equal(got_c[1],
                                                             want_c[1])
     # quadrupole: the node rows [0, U) stay fused, the particle rows go to
     # the tensor-core form
     a_n, p_n = shared.eval_shared_plain(
-        *targs[:2], *(t[:U] for t in targs[2:5]),
-        targs[5][:, :U].contiguous(), eps, 1.0, src_quad=q)
+        *targs[:2], *(t[:U] for t in targs[2:5]), targs[5][:, :U].contiguous(),
+        shared.scalar_buffer(eps, 1.0, targs[0]), src_quad=q)
     a_p, p_p = shared.eval_shared_mma_plain(
-        *targs[:2], *(t[U:] for t in targs[2:5]),
-        targs[5][:, U:].contiguous(), eps, 1.0, prec="highest")
+        *targs[:2], *(t[U:] for t in targs[2:5]), targs[5][:, U:].contiguous(),
+        shared.scalar_buffer(eps, 1.0, targs[0]), prec="highest")
     assert torch.equal(got_q[0], a_p + a_n) and torch.equal(got_q[1],
                                                             p_p + p_n)
     _close(got_q, [w.numpy() for w in want_q])
@@ -893,6 +945,8 @@ def test_selector_refuses_what_a_variant_does_not_compute():
                         (TreeConfig(farfield="m2p", multipole_order=2),
                          dict(src_quad=torch.zeros((64, 6))))):
             with pytest.raises(ValueError, match="blocks"):
-                dispatch.eval_shared(cfg, *targs, eps, 1.0, **kw)
+                dispatch.eval_shared(
+                    cfg, *targs, shared.scalar_buffer(eps, 1.0, targs[0]),
+                    **kw)
     # a failed call inside the block leaves the default selected
     assert dispatch._variant == ("fused", "x3")

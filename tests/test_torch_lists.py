@@ -21,7 +21,7 @@ from rakau_tpu.config import TreeConfig as JaxConfig
 from rakau_tpu_torch import Tree, build, engine, metrics
 from rakau_tpu_torch.convert import config_from_jax, treedata_from_numpy
 from rakau_tpu_torch.direct import direct_acc_pot_np
-from rakau_tpu_torch.kernels import tiles
+from rakau_tpu_torch.kernels import shared, tiles
 
 # pytest-xdist runs one worker per core; torch's own intra-op pool in
 # every worker would oversubscribe the cores (tens of times slower).
@@ -147,8 +147,9 @@ def test_tile_kernel_inputs_are_what_the_query_evaluates(diag_modes):
     assert inp[2].shape == (C, cfg.m2p_cap, 3)
     assert inp[5].shape == (C, cfg.p2p_src_cap, 3)
     assert inp[8].shape == inp[9].shape == (C,)
-    acc, pot = tiles.eval_tiles_plain(*inp[:4], *inp[5:8], 0.0, 1.0,
-                                      m2p_cnt=inp[8], p2p_cnt=inp[9])
+    acc, pot = tiles.eval_tiles_plain(
+        *inp[:4], *inp[5:8], shared.scalar_buffer(0.0, 1.0, inp[0]),
+        m2p_cnt=inp[8], p2p_cnt=inp[9])
     full, _, _, _ = engine.acc_pot_u_host(td, cfg, THETA, 0.0)
     tidx = inp[1]
     real = tidx < td.pos.shape[0]

@@ -82,8 +82,9 @@ def test_plain_matches_pallas(quad, comp, mode):
     tq = t[6] if quad else None
     jq = j[6] if quad else None
     for eps in (0.01, 0.0):
-        got = pool.eval_pool_plain(*t[:6], WINDOW, eps, 1.5, BLOCK,
-                                   compensated=comp, mode=mode, pool_quad=tq)
+        got = pool.eval_pool_plain(
+            *t[:6], WINDOW, shared.scalar_buffer(eps, 1.5, t[0]), BLOCK,
+            compensated=comp, mode=mode, pool_quad=tq)
         assert all(bool(torch.isfinite(x).all()) for x in got)
         want = pk.eval_pool(*j[:6], WINDOW, eps, 1.5, BLOCK,
                             compensated=comp, mode=mode, pool_quad=jq,
@@ -100,8 +101,9 @@ def test_plain_matches_pallas(quad, comp, mode):
             assert not got[0].any()
     if quad:
         # the quadrupole correction changes the answer
-        mono = pool.eval_pool_plain(*t[:6], WINDOW, 0.01, 1.5, BLOCK,
-                                    compensated=comp, mode=mode)
+        mono = pool.eval_pool_plain(
+            *t[:6], WINDOW, shared.scalar_buffer(0.01, 1.5, t[0]), BLOCK,
+            compensated=comp, mode=mode)
         k = 1 if mode == "pot" else 0
         assert (got[k] - mono[k]).abs().max() > 1e-6
 
@@ -111,11 +113,12 @@ def test_plain_matches_pallas(quad, comp, mode):
 def test_dispatch_sends_cpu_tensors_to_the_plain_version(quad, accum):
     t = _torch(make_case(3))
     tq = t[6] if quad else None
-    got = dispatch.eval_pool(TreeConfig(accum=accum), *t[:6], WINDOW, BLOCK,
-                             0.01, 2.0, pool_quad=tq)
-    want = pool.eval_pool_plain(*t[:6], WINDOW, 0.01, 2.0, BLOCK,
-                                compensated=accum == "compensated",
-                                pool_quad=tq)
+    got = dispatch.eval_pool(
+        TreeConfig(accum=accum), *t[:6], WINDOW, BLOCK,
+        shared.scalar_buffer(0.01, 2.0, t[0]), pool_quad=tq)
+    want = pool.eval_pool_plain(
+        *t[:6], WINDOW, shared.scalar_buffer(0.01, 2.0, t[0]), BLOCK,
+        compensated=accum == "compensated", pool_quad=tq)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -138,9 +141,11 @@ def test_compensated_sum_is_closer_to_float64():
     d = src[None, None] - tpos.astype(np.float64)[:, :, None]
     pot_ref = -(mass[None, None] / np.linalg.norm(d, axis=-1)).sum(-1)
     errs = {}
+    targs = _torch(case)
     for comp in (False, True):
-        _, p = pool.eval_pool_plain(*_torch(case), P, 0.0, 1.0, block,
-                                    compensated=comp, mode="pot")
+        _, p = pool.eval_pool_plain(
+            *targs, P, shared.scalar_buffer(0.0, 1.0, targs[0]), block,
+            compensated=comp, mode="pot")
         _, pj = pk.eval_pool(*(jnp.asarray(a) for a in case), P, 0.0, 1.0,
                              block, compensated=comp, mode="pot",
                              interpret=True)
@@ -152,10 +157,12 @@ def test_compensated_sum_is_closer_to_float64():
 def test_fused_wrapper_rejects_cpu_tensors():
     t = _torch(make_case(4))
     with pytest.raises(ValueError, match="CUDA"):
-        pool.eval_pool_fused(*t[:6], WINDOW, 0.0, 1.0, BLOCK)
+        pool.eval_pool_fused(
+            *t[:6], WINDOW, shared.scalar_buffer(0.0, 1.0, t[0]), BLOCK)
     with pytest.raises(ValueError, match="CUDA"):
-        pool.eval_pool_fused(*t[:6], WINDOW, 0.0, 1.0, BLOCK,
-                             compensated=True, pool_quad=t[6])
+        pool.eval_pool_fused(
+            *t[:6], WINDOW, shared.scalar_buffer(0.0, 1.0, t[0]), BLOCK,
+            compensated=True, pool_quad=t[6])
 
 
 def test_pool_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -232,8 +232,8 @@ def test_plain_pool_at_other_plans_matches_pallas(comp, quad, granule, span):
             for eps in (0.0, 0.01):
                 kw = dict(compensated=comp, mode=mode)
                 got = pool.eval_pool_plain(
-                    *t[:6], window, eps, 1.5, block,
-                    pool_quad=t[6] if quad else None, granule=granule,
+                    *t[:6], window, shared.scalar_buffer(eps, 1.5, t[0]),
+                    block, pool_quad=t[6] if quad else None, granule=granule,
                     span=span, **kw)
                 want = pk.eval_pool(*j[:6], window, eps, 1.5, block,
                                     pool_quad=j[6] if quad else None,
@@ -264,9 +264,9 @@ def test_compensated_plain_pool_is_closer_to_float64_at_every_plan(granule,
     pot_ref = -(mass[None, None] / np.linalg.norm(d, axis=-1)).sum(-1)
     errs = {}
     for comp in (False, True):
-        _, p = pool.eval_pool_plain(*case, P, 0.0, 1.0, block,
-                                    compensated=comp, mode="pot",
-                                    granule=granule, span=span)
+        _, p = pool.eval_pool_plain(
+            *case, P, shared.scalar_buffer(0.0, 1.0, case[0]), block,
+            compensated=comp, mode="pot", granule=granule, span=span)
         errs[comp] = np.abs(p.numpy().astype(np.float64) - pot_ref).max()
     assert errs[True] < errs[False]
 
@@ -310,9 +310,9 @@ def test_plain_tiles_at_other_plans_matches_pallas(ndim, granule, span):
     t, j = [_t(a) for a in case], [_j(a) for a in case]
     for eps in (0.0, 0.05):
         tp, ti, mp, mm, mcnt, pp, pm, pi, pcnt = t
-        got = tiles.eval_tiles_plain(tp, ti, mp, mm, pp, pm, pi, eps, 1.5,
-                                     m2p_cnt=mcnt, p2p_cnt=pcnt,
-                                     granule=granule, span=span)
+        got = tiles.eval_tiles_plain(
+            tp, ti, mp, mm, pp, pm, pi, shared.scalar_buffer(eps, 1.5, tp),
+            m2p_cnt=mcnt, p2p_cnt=pcnt, granule=granule, span=span)
         tp, ti, mp, mm, mcnt, pp, pm, pi, pcnt = j
         want = pk.eval_tiles(tp, ti, mp, mm, None, pp, pm, pi, eps, 1.5,
                              m2p_cnt=mcnt, p2p_cnt=pcnt, block=64,
@@ -388,8 +388,9 @@ def test_plain_pairwise_at_every_span_matches_pallas(span, use_idx):
     j = [_j(a) for a in case]
     eps = 0.0 if use_idx else 0.05
     for block in (64, 1000):
-        got = tiles.eval_pairwise_plain(*t, eps, use_idx, cnt=_t(cnt),
-                                        block=block, span=span)
+        got = tiles.eval_pairwise_plain(
+            *t, shared.scalar_buffer(eps, 1.0, t[0]), use_idx, cnt=_t(cnt),
+            block=block, span=span)
         want = pk._pairwise(*j, eps, use_idx=use_idx, cnt=_j(cnt),
                             block=block, interpret=True)
         assert all(bool(torch.isfinite(x).all()) for x in got)
@@ -398,6 +399,7 @@ def test_plain_pairwise_at_every_span_matches_pallas(span, use_idx):
         live = np.arange(S)[None] < np.clip(cnt, 0, S)[:, None]
         cut = list(t)
         cut[3] = torch.as_tensor(np.where(live, case[3], np.float32(0)))
-        short = tiles.eval_pairwise_plain(*cut, eps, use_idx, cnt=_t(cnt),
-                                          block=block, span=span)
+        short = tiles.eval_pairwise_plain(
+            *cut, shared.scalar_buffer(eps, 1.0, cut[0]), use_idx, cnt=_t(cnt),
+            block=block, span=span)
         assert float((short[1] - got[1]).abs().max()) > 1e-2

@@ -207,19 +207,22 @@ def _body(name):
     else:
         def whole(body, *args):
             return body(*args, build.build_tree, sharded._Query(mesh))
+    # theta, eps and G as the whole twins hand them to their bodies
+    scal = engine.scalars(pos, THETA, EPS, 1.0)
     bodies = {
         "acc_pot_u_sharded": lambda: sharded._query_impl(
-            td, cfg, THETA, EPS, 1.0, mesh, stages),
+            td, cfg, *scal, mesh, stages),
         "acc_pot_sharded": lambda: whole(
-            integrate._acc_pot, pos, mass, cfg, THETA, EPS, 1.0, BOX),
+            integrate._acc_pot, pos, mass, cfg, *scal, BOX),
         "leapfrog_step_sharded": lambda: whole(
-            integrate._step, state, integrate._dt(DT, pos), cfg, THETA, EPS,
-            1.0, BOX)}
+            integrate._step, state, integrate._dt(DT, pos), cfg, *scal,
+            BOX)}
     caps = (cap, 8192, 32768, 4096, 1024)
     for phase0 in ("distributed", "global"):
         bodies["acc_pot_let " + phase0] = (
             lambda phase0=phase0: let._let(
-                pos, mass, LET_CFG, LET_THETA, EPS, 1.0, mesh, 32.0, caps,
+                pos, mass, LET_CFG,
+                *engine.scalars(pos, LET_THETA, EPS, 1.0), mesh, 32.0, caps,
                 phase0, 2.0, 128, build.build_tree, engine._query_impl,
                 stages))
     return bodies[base]

@@ -69,8 +69,9 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
 
 def _port(case, eps, fused, block=32, G=1.0):
     tp, ti, mp, mm, mc, pp, pm, pi, pc = _t(case)
-    return tiles.eval_tiles(tp, ti, mp, mm, None, pp, pm, pi, eps, G,
-                            m2p_cnt=mc, p2p_cnt=pc, block=block, fused=fused)
+    return tiles.eval_tiles(
+        tp, ti, mp, mm, None, pp, pm, pi, shared.scalar_buffer(eps, G, tp),
+        m2p_cnt=mc, p2p_cnt=pc, block=block, fused=fused)
 
 
 def _pallas(case, eps, fused, block=32, G=1.0):
@@ -103,12 +104,13 @@ def test_xla_route_ports_match_xla(quad, ndim):
         Q = ndim * (ndim + 1) // 2
         q = (rng.standard_normal(mm.shape + (Q,)) * 0.01
              * mm[..., None]).astype(np.float32)
-    got = tiles.eval_m2p(*_t((tp, mp, mm)), 0.02, 1.5,
+    scal = shared.scalar_buffer(0.02, 1.5, torch.as_tensor(tp))
+    got = tiles.eval_m2p(*_t((tp, mp, mm)), scal,
                          src_quad=None if q is None else torch.as_tensor(q))
     want = xk.eval_m2p(*_j((tp, mp, mm)), 0.02, 1.5,
                        src_quad=None if q is None else jnp.asarray(q))
     _close(got, want)
-    _close(tiles.eval_p2p(*_t((tp, ti, pp, pm, pi)), 0.02, 1.5),
+    _close(tiles.eval_p2p(*_t((tp, ti, pp, pm, pi)), scal),
            xk.eval_p2p(*_j((tp, ti, pp, pm, pi)), 0.02, 1.5))
 
 
@@ -125,8 +127,9 @@ def test_fused_plain_is_the_xla_sum_with_counts_at_the_edges():
         case[pos] = np.where(live[..., None], case[pos], np.float32(1e30))
         case[mass] = np.where(live, case[mass], np.float32(0))
     tp, ti, mp, mm, _, pp, pm, pi, _ = _t(case)
-    am, pmt = tiles.eval_m2p(tp, mp, mm, 0.0, 1.0)
-    ap, ppt = tiles.eval_p2p(tp, ti, pp, pm, pi, 0.0, 1.0)
+    am, pmt = tiles.eval_m2p(tp, mp, mm, shared.scalar_buffer(0.0, 1.0, tp))
+    ap, ppt = tiles.eval_p2p(
+        tp, ti, pp, pm, pi, shared.scalar_buffer(0.0, 1.0, tp))
     want = (am + ap, pmt + ppt)
     for fused in (True, False):
         for block in (16, 32, 1024):
@@ -170,21 +173,26 @@ def test_dispatch_routes():
     tp, ti, mp, mm, mc, pp, pm, pi, pc = _t(case)
     cfg = TreeConfig()
     tiles.reset_launches()
-    got = dispatch.eval_tiles(cfg, tp, ti, mp, mm, None, pp, pm, pi, 0.0,
-                              1.0, m2p_cnt=mc, p2p_cnt=pc)
-    _close(got, tiles.eval_tiles_plain(tp, ti, mp, mm, pp, pm, pi, 0.0,
-                                       1.0, m2p_cnt=mc, p2p_cnt=pc))
+    got = dispatch.eval_tiles(
+        cfg, tp, ti, mp, mm, None, pp, pm, pi,
+        shared.scalar_buffer(0.0, 1.0, tp), m2p_cnt=mc, p2p_cnt=pc)
+    _close(got, tiles.eval_tiles_plain(
+        tp, ti, mp, mm, pp, pm, pi, shared.scalar_buffer(0.0, 1.0, tp),
+        m2p_cnt=mc, p2p_cnt=pc))
     with dispatch.tiles_variant("split"):
-        split = dispatch.eval_tiles(cfg, tp, ti, mp, mm, None, pp, pm, pi,
-                                    0.0, 1.0, m2p_cnt=mc, p2p_cnt=pc)
+        split = dispatch.eval_tiles(
+            cfg, tp, ti, mp, mm, None, pp, pm, pi,
+            shared.scalar_buffer(0.0, 1.0, tp), m2p_cnt=mc, p2p_cnt=pc)
     _close(split, got)
     q = torch.zeros(mm.shape + (6,))
-    quad = dispatch.eval_tiles(cfg, tp, ti, mp, mm, q, pp, pm, pi, 0.0, 1.0)
+    quad = dispatch.eval_tiles(
+        cfg, tp, ti, mp, mm, q, pp, pm, pi, shared.scalar_buffer(0.0, 1.0, tp))
     _close(quad, got)
     assert tiles.launches["xla_quad"] == 1
     assert tiles.launches["fused"] == tiles.launches["split"] == 0
     with pytest.raises(NotImplementedError):
-        tiles.eval_tiles(tp, ti, mp, mm, q, pp, pm, pi, 0.0, 1.0)
+        tiles.eval_tiles(
+            tp, ti, mp, mm, q, pp, pm, pi, shared.scalar_buffer(0.0, 1.0, tp))
     with pytest.raises(ValueError):
         with dispatch.tiles_variant("mma"):
             pass
@@ -200,12 +208,14 @@ def test_padding_is_exact_for_k3_and_k4():
     tp, ti, mp, mm, mc, pp, pm, pi, pc = case
     (tp3, mp3, pp3), _ = _pad(tp, mp, pp)
     for fused in (True, False):
-        want = tiles.eval_tiles(tp, ti, mp, mm, None, pp, pm, pi, 0.01, 1.0,
-                                m2p_cnt=mc, p2p_cnt=pc, block=32,
-                                fused=fused)
-        a3, p3 = tiles.eval_tiles(tp3, ti, mp3, mm, None, pp3, pm, pi, 0.01,
-                                  1.0, m2p_cnt=mc, p2p_cnt=pc, block=32,
-                                  fused=fused)
+        want = tiles.eval_tiles(
+            tp, ti, mp, mm, None, pp, pm, pi,
+            shared.scalar_buffer(0.01, 1.0, tp), m2p_cnt=mc, p2p_cnt=pc,
+            block=32, fused=fused)
+        a3, p3 = tiles.eval_tiles(
+            tp3, ti, mp3, mm, None, pp3, pm, pi,
+            shared.scalar_buffer(0.01, 1.0, tp3), m2p_cnt=mc, p2p_cnt=pc,
+            block=32, fused=fused)
         assert not a3[..., 2].any()
         torch.testing.assert_close(a3[..., :2], want[0], rtol=0, atol=0)
         torch.testing.assert_close(p3, want[1], rtol=0, atol=0)
@@ -247,10 +257,12 @@ def test_padding_is_exact_for_every_k1_form(comp, quad, cells):
         kw.update(src_cell=sc, tgt_cell=tc, grid_sep=2)
         kw3.update(src_cell=sc3, tgt_cell=tc3, grid_sep=2)
     for mode in ("both", "acc", "pot"):
-        want = shared.eval_shared_plain(tp, ti, sp, sm, si, mask, 0.01, 1.5,
-                                        mode=mode, **kw)
-        a3, p3 = shared.eval_shared_plain(tp3, ti, sp3, sm, si, mask, 0.01,
-                                          1.5, mode=mode, **kw3)
+        want = shared.eval_shared_plain(
+            tp, ti, sp, sm, si, mask, shared.scalar_buffer(0.01, 1.5, tp),
+            mode=mode, **kw)
+        a3, p3 = shared.eval_shared_plain(
+            tp3, ti, sp3, sm, si, mask, shared.scalar_buffer(0.01, 1.5, tp3),
+            mode=mode, **kw3)
         assert not a3[..., 2].any()
         torch.testing.assert_close(a3[..., :2], want[0], rtol=0, atol=0)
         torch.testing.assert_close(p3, want[1], rtol=0, atol=0)
@@ -261,8 +273,10 @@ def test_padding_is_exact_for_k2_k5_and_k6():
     (tp3, sp3, sc3, tc3), q3 = _pad(tp, sp, sc, tc, quad=q)
     for fn, kw in ((shared.eval_shared_blocks_plain, dict(span=1)),
                    (shared.eval_shared_mma_plain, dict(prec="highest"))):
-        want = fn(tp, ti, sp, sm, si, mask, 0.05, 1.0, **kw)
-        got = fn(tp3, ti, sp3, sm, si, mask, 0.05, 1.0, **kw)
+        want = fn(tp, ti, sp, sm, si, mask,
+                  shared.scalar_buffer(0.05, 1.0, tp), **kw)
+        got = fn(tp3, ti, sp3, sm, si, mask,
+                 shared.scalar_buffer(0.05, 1.0, tp3), **kw)
         torch.testing.assert_close(got[0][..., :2], want[0], rtol=0,
                                    atol=0)
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
@@ -272,11 +286,13 @@ def test_padding_is_exact_for_k2_k5_and_k6():
     for comp in (False, True):
         for quad in (None, q):
             kw = dict(compensated=comp, pool_quad=quad)
-            want = pool.eval_pool_plain(tp, ti, sp, sm, si, sched, window,
-                                        0.0, 1.0, block, **kw)
+            want = pool.eval_pool_plain(
+                tp, ti, sp, sm, si, sched, window,
+                shared.scalar_buffer(0.0, 1.0, tp), block, **kw)
             kw["pool_quad"] = None if quad is None else q3
-            got = pool.eval_pool_plain(tp3, ti, sp3, sm, si, sched, window,
-                                       0.0, 1.0, block, **kw)
+            got = pool.eval_pool_plain(
+                tp3, ti, sp3, sm, si, sched, window,
+                shared.scalar_buffer(0.0, 1.0, tp3), block, **kw)
             torch.testing.assert_close(got[0][..., :2], want[0], rtol=0,
                                        atol=0)
             torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
@@ -298,20 +314,24 @@ def test_wrappers_take_2d_and_float64_and_refuse_the_rest():
                 else x[..., :ndim]
         return {
             "k1": lambda: shared.eval_shared_fused(
-                pos(tp), ti, pos(sp), sm.to(dt), si, mask, 0.0, 1.0),
+                pos(tp), ti, pos(sp), sm.to(dt), si, mask,
+                shared.scalar_buffer(0.0, 1.0, pos(tp))),
             "k2": lambda: pool.eval_pool_fused(
-                pos(tp), ti, pos(sp), sm.to(dt), si, sched, 256, 0.0, 1.0,
-                128),
+                pos(tp), ti, pos(sp), sm.to(dt), si, sched, 256,
+                shared.scalar_buffer(0.0, 1.0, pos(tp)), 128),
             "k3": lambda: tiles.eval_tiles_fused(
-                pos(tp2), ti2, pos(mp2), mm2.to(dt), pos(pp2), pm2.to(dt),
-                pi2, 0.0, 1.0, m2p_cnt=mc2, p2p_cnt=pc2),
+                pos(tp2), ti2, pos(mp2), mm2.to(dt), pos(pp2), pm2.to(dt), pi2,
+                shared.scalar_buffer(0.0, 1.0, pos(tp2)), m2p_cnt=mc2,
+                p2p_cnt=pc2),
             "k4": lambda: tiles.eval_pairwise(
-                pos(tp2), ti2, pos(pp2), pm2.to(dt), pi2, 0.0, True,
-                cnt=pc2),
+                pos(tp2), ti2, pos(pp2), pm2.to(dt), pi2,
+                shared.scalar_buffer(0.0, 1.0, pos(tp2)), True, cnt=pc2),
             "k6": lambda: shared.eval_shared_mma(
-                pos(tp), ti, pos(sp), sm.to(dt), si, mask, 0.0, 1.0),
+                pos(tp), ti, pos(sp), sm.to(dt), si, mask,
+                shared.scalar_buffer(0.0, 1.0, pos(tp))),
             "k5": lambda: shared.eval_shared_blocks(
-                pos(tp), ti, pos(sp), sm.to(dt), si, mask, 0.0, 1.0),
+                pos(tp), ti, pos(sp), sm.to(dt), si, mask,
+                shared.scalar_buffer(0.0, 1.0, pos(tp))),
         }
 
     for dt in (torch.float32, torch.float64):

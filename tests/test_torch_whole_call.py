@@ -65,6 +65,14 @@ def _args(name, state, cfg):
     return (state, DT, cfg, THETA, EPS)
 
 
+def _body_args(name, state, cfg):
+    """The positional arguments of integrate.<name>'s body before
+    box_size, theta, eps and G as the whole call hands them to it
+    (engine.scalars: theta, eps and the kernels' buffer)."""
+    args = _args(name, state, cfg)
+    return args[:-2] + engine.scalars(state.pos, *args[-2:], 1.0)
+
+
 def _leaves(x):
     if isinstance(x, tuple):
         return [y for v in x for y in _leaves(v)]
@@ -247,8 +255,8 @@ def test_whole_call_reads_nothing_from_the_host(name, case, monkeypatch):
     first run), no host-to-device copy."""
     state = nbody_state_from_numpy(*_state(), "cpu")
     cfg = config_from_jax(_jcfg(case))
-    args = _args(name, state, cfg) + (1.0, BOX, build.build_tree,
-                                      engine._query_impl)
+    args = _body_args(name, state, cfg) + (BOX, build.build_tree,
+                                           engine._query_impl)
     if name in STEPS:
         # the wrappers pass dt as a tensor (integrate._dt)
         args = (args[0], integrate._dt(DT, state.pos)) + args[2:]
@@ -272,8 +280,8 @@ def test_build_overflow_raises_after_the_call(name, cap):
         getattr(integrate, name)(*args, box_size=BOX)
     if name in BODIES:
         # the whole call ran to its end and returned the builds' flag
-        out = BODIES[name](*args, 1.0, BOX, build.build_tree,
-                           engine._query_impl)
+        out = BODIES[name](*_body_args(name, state, cfg), BOX,
+                           build.build_tree, engine._query_impl)
         assert bool(out[-1])
 
 
