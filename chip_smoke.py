@@ -405,12 +405,27 @@ Phases, each printing one JSON line:
                plain version at those shapes (build ms, first call s, warm
                ms, evals/s, peak MB, caps grown, RMS, launches by form);
      ladder:   config #4 over four cards (only where there are four; a
-               line says it skipped otherwise): the _host twin of
-               sharded.acc_pot_sharded on a mesh of a shard a card at
-               2^23, 2^24 and 2^25 particles a card (first call, warm ms,
-               K1a and busy ms a card, peak MB a card, MB copied, RMS;
-               the first size bit-equal to one card), stopping at the
-               first size that does not fit (its allocation recorded).
+               line says it skipped otherwise), a shard a card, every
+               rung required (an out-of-memory error fails the run): the
+               replicated path, sharded.acc_pot_sharded_host at 2^23 and
+               2^24 particles a card (first call, caps grown, warm ms
+               and its K1a by bookkeeping, at 2^23 K1a and busy ms a card
+               from a profiled call, peak allocated and reserved MB,
+               graph pools and pins a card, MB copied, RMS), at 2^23 the
+               same call on one card (bit-equal, its peak beside card
+               0's) and the whole staged sharded.acc_pot_sharded (first
+               call with each card's capture seconds, pools and pins, a
+               warm call and its K1a, bit-equal to the _host twin); then
+               the LET, let.acc_pot_let_host (phase0 "distributed") at
+               2^16 a card (export_cap sized from one call's counts,
+               then confirmed; warm ms, K1a and busy ms a card, peaks,
+               MB copied, the export matrix and halo bytes, the
+               replicated _host twin on the same particles beside it:
+               its card 0 peak and force RMS, the LET's at most
+               LET_FORCE_RATIO x it), phase0 "global" within
+               LET_CROSS_MAX and the whole staged let.acc_pot_let
+               bit-equal (sums, flags, counts). Oracle at 256 targets on
+               every rung (LF_FORCE_RMS_MAX, CUBE_POT_RMS_MAX).
                Each group ends with a line {"phase": "group", "group":
                ..., "seconds": ...}.
 Then the whole command's seconds (phase total), the kernels' summary line
@@ -4734,11 +4749,14 @@ SHARD_RTOL, SHARD_ATOL_REL = 1e-5, 1e-6
 STEP_POS_ATOL_REL, STEP_VEL_ATOL_REL = 1e-6, 1e-5
 LET_SHARDS = 4
 # The LET runs at a sixteenth of the main N: its Morton-range domain
-# boxes overlap, so a shard exports about its whole range to the domain
-# that overlaps it (export counts of 64-66k of a shard's 65,536 rows at
-# 262,144), each shard imports ndev x export_cap rows, and the sizing runs
-# the whole LET once per cap step. 262,144 until the whole twins' checks
-# joined phase multi; cut to keep the script inside its time limit
+# boxes overlap (on this Plummer sphere, and on config #4's uniform cube
+# alike: the splitters cut a few cells off a neighbour's range, whose
+# bounding box spans it), so a shard exports about its whole range to the
+# domain that overlaps it (export counts of 64-66k of a shard's 65,536
+# rows at 262,144), each shard imports ndev x export_cap rows, and the
+# sizing runs the whole LET once per cap step. 262,144 until the whole
+# twins' checks joined phase multi; cut to keep the script inside its
+# time limit
 LET_N = 65536
 LET_CAPS = dict(export_cap=16384, export_node_cap=8192,
                 export_part_cap=32768, export_leaf_cap=4096,
@@ -6346,10 +6364,6 @@ DISK_FORCE_RMS_MAX, DISK_POT_RMS_MAX = disk_bound(0), disk_bound(1)
 # the cube (#1, #4) takes LF_FORCE_RMS_MAX, the uniform bound, and 2e-3
 # (the reference's own there on 16,384: 2.3-2.5e-3 / 1.2-1.7e-4)
 CUBE_POT_RMS_MAX = 2e-3
-# group ladder: #4's particles a card on four cards (2^25, 2^26 and 2^27
-# in all; 2^27 a card-count of four is 2^28 over a v5p-16's eight chips)
-LADDER_PER_CARD = (1 << 23, 1 << 24, 1 << 25)
-LADDER_CARDS = 4
 
 
 def grow_to_fit(cfg, flags, maxima):
@@ -6382,6 +6396,7 @@ def until_fits(query, cfg, what: str, base=None, tries: int = 4):
     flags [4], maxima [4] or None) and is run again with the flagged caps
     grown (grow_to_fit, or doubled without maxima) until no flag is set,
     as Tree._query does."""
+    from rakau_tpu_torch import engine
     from rakau_tpu_torch.config import OVF_FIELDS, grow_overflowed
     flagged = []
     cfg0 = cfg if base is None else base
@@ -6395,6 +6410,10 @@ def until_fits(query, cfg, what: str, base=None, tries: int = 4):
         flagged.append(ms / 1e3)
         cfg = (grow_overflowed(cfg, flags) if out[3] is None
                else grow_to_fit(cfg, flags, out[3].cpu().tolist()))
+        # the flagged configuration's graphs serve no later call: drop
+        # them before the grown one captures its own beside them
+        del out
+        engine.clear_graphs()
         emit("caps_grown", what=what, flags=flags, seconds=ms / 1e3,
              caps={f: getattr(cfg, f) for f in OVF_FIELDS})
     raise AssertionError(f"{what}: still overflowing after {tries} "
@@ -6704,97 +6723,378 @@ def configs(seed: int, dev) -> dict:
     return out
 
 
-def ladder(seed: int, dev0) -> dict:
-    """Phase group ladder: #4 over LADDER_CARDS cards, the _host twin of
-    sharded.acc_pot_sharded on a mesh of a shard a card (the build on card
-    0, each card's range of the live chunks in its sliced graphs), at each
-    size of LADDER_PER_CARD a card: first call, warm call, K1a and busy ms
-    a card (one profiled call), peak MB a card, MB the collectives copied,
-    the oracle at 256 targets; the first size bit-equal to the same call
-    on one card. The ladder stops at the first size whose memory does not
-    fit, with the allocation and its card recorded (the first size must
-    fit)."""
-    from rakau_tpu_torch import particles
+# ---------------------------------------------------------- phase ladder
+# BASELINE config #4 over four cards at its weak-scaling sizes: 2^28
+# particles over a v5p-16's eight chips is 2^25 a chip. The replicated
+# path (sharded.acc_pot_sharded, configs.py:184-206) builds all N on card
+# 0, so 2^25 a card (2^27 on card 0) is not run on it (PERF.md section 7);
+# the _host twin runs at each size of LADDER_PER_CARD, the whole staged
+# twin (one CUDA graph a card and stage) at the first.
+LADDER_CARDS = 4
+LADDER_PER_CARD = (1 << 23, 1 << 24)
+# config #4's caps as a four-card run grew them at 2^23 a card (m2p 4096
+# -> 8192, p2p_leaf 2048 -> 4096) beside CFG_CAPS[4]: each rung starts
+# from them, and a cap that still overflows grows again
+LADDER_CAPS = dict(CFG_CAPS[4], m2p_cap=8192, p2p_leaf_cap=4096)
+# The LET on #4's cube, phase0 "distributed". Its Morton-range domain
+# boxes overlap on the cube as on a Plummer sphere (the sample-sort
+# splitters cut a few cells off a neighbour's range, and their AABB spans
+# it), so a shard exports about its whole range to some neighbour and
+# imports E = ndev x export_cap >= 8 nl rows; every tile of the local
+# tree (3 nl rows with the exchange's slots) takes them all, a [64, E]
+# far/near gate and M2L a chunk: the time grows as nl^2. 2^16 a card
+# (262,144 in all) is what the group's time holds beside the replicated
+# path (PERF.md section 7 reckons 2^17 to 2^25 a card); the whole staged
+# twin runs at the first size.
+LET_LADDER_PER_CARD = (1 << 16,)
+
+
+def let_walk_caps(nl: int) -> dict:
+    """The export walk's caps for nl rows a shard on #4's cube, twice or
+    more what the walk measured there (2^14 to 2^18 rows a shard on the
+    CPU): particle rows up to ~1.02 nl (a shard exports about its whole
+    range), opened leaves up to nl / 16, frontier up to nl / 127,
+    accepted nodes under 2,000."""
+    return dict(export_node_cap=max(8192, nl // 16),
+                export_part_cap=1 << (2 * nl - 1).bit_length(),
+                export_leaf_cap=max(4096, nl // 4),
+                export_frontier_cap=max(1024, nl // 32))
+
+
+def reset_card_peaks(cards: int):
+    for d in range(cards):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def card_memory(cards: int) -> dict:
+    """Each card's peak allocated and reserved MiB since the last reset,
+    the MiB its graphs' pools hold now, and the MiB each of its graphs
+    pins (static inputs, outputs) by function."""
+    from rakau_tpu_torch import engine
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0):
+            pools[seg["device"]] = pools.get(seg["device"], 0) + seg[
+                "total_size"]
+    pinned = {}
+    for k, g in engine._GRAPHS._graphs.items():
+        by_fn = pinned.setdefault(k[2][0][2].index, {})
+        io = by_fn.setdefault(k[0].__name__, [0.0, 0.0])
+        io[0] += sum(t.nbytes for t in g.inputs) / MB
+        io[1] += sum(t.nbytes for t in g.outputs) / MB
+    return {"peak_mb_by_card": {d: torch.cuda.max_memory_allocated(d) / MB
+                                for d in range(cards)},
+            "peak_reserved_mb_by_card": {
+                d: torch.cuda.max_memory_reserved(d) / MB
+                for d in range(cards)},
+            "graph_pool_mb_by_card": {d: pools.get(d, 0) / MB
+                                      for d in range(cards)},
+            "pinned_in_out_mb_by_card": pinned}
+
+
+def ladder_oracle(pos, mass, seed: int) -> tuple:
+    """The sampled float64 oracle (card_oracle) at 256 targets, in passes
+    small enough beside what a rung keeps on card 0 at 2^26 particles."""
+    n = pos.shape[0]
+    samp = np.sort(np.random.default_rng(seed).choice(n, 256, replace=False))
+    return card_oracle(pos, mass, samp, chunk=max(1, (1 << 28) // n)) + (
+        samp,)
+
+
+def ladder_host(pos, mass, mesh, cfg0, what: str,
+                profile: bool = True) -> tuple:
+    """sharded.acc_pot_sharded_host on `mesh` from cfg0, caps grown where
+    flagged (until_fits): the first call, a warm call (MB the collectives
+    copied; its K1a by bookkeeping), with profile a profiled call (K1a
+    and busy ms a card), each bit-equal to the first. Returns (acc, pot,
+    the cfg that fit, the record)."""
     from rakau_tpu_torch.config import TreeConfig
     from rakau_tpu_torch.parallel import mesh as _mesh
+    from rakau_tpu_torch.parallel import sharded
+
+    def call(c):
+        return sharded.acc_pot_sharded_host(pos, mass, c, THETA, 0.0, 1.0,
+                                            mesh) + (None,)
+    (acc, pot, ovf, _), first_s, cfg, grown, flagged = until_fits(
+        call, cfg0, what, TreeConfig(**CFG4_KW))
+    _mesh.reset_copied()
+    ((a2, p2, _), warm_ms), booked = counted(
+        lambda: all_synced_ms(lambda: call(cfg)[:3]))
+    copied = sum(_mesh.copied.values())
+    outs, prof = [(a2, p2)], {"k1a_launches_booked": booked["K1"]["mono"]}
+    if profile:
+        (a3, p3, _), prof = card_profile(lambda: call(cfg)[:3])
+        outs.append((a3, p3))
+    if not all(torch.equal(a, acc) and torch.equal(p, pot) for a, p in outs):
+        raise AssertionError(f"{what}: two calls differ")
+    finite(what, acc, pot)
+    return acc, pot, cfg, dict(
+        first_call_s=first_s, warm_ms=warm_ms,
+        evals_per_s=pos.shape[0] / (warm_ms / 1e3), caps_grown=grown,
+        flagged_queries_s=flagged, overflow=ovf.tolist(),
+        mb_copied=copied / MB, **prof)
+
+
+def ladder_whole(pos, mass, mesh, cfg, host: tuple, cards: int) -> dict:
+    """The whole staged sharded.acc_pot_sharded on `mesh` (the build's
+    graph and the tiles and tables on card 0, each card's range of the
+    padded capacity chunks as one CUDA graph on that card, the tail on
+    card 0): its first call (the host seconds of each card's warm-ups and
+    captures, the graphs' pools and pins a card) and a warm call (its K1a
+    by bookkeeping), each bit-equal to the _host twin's sums (host). Not
+    profiled, for the group's time (a profile of its ~4,100 chunks'
+    kernels, like the 2^24 rung's, most likely takes minutes to read)."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.parallel import sharded
+
+    def call():
+        return sharded.acc_pot_sharded(pos, mass, cfg, THETA, 0.0, 1.0, mesh)
+    reset_card_peaks(cards)
+    engine._GRAPHS.reset_tally()
+    out, first_ms = all_synced_ms(call)
+    first = dict(first_call_s=first_ms / 1e3,
+                 capture_s_by_card=dict(engine._GRAPHS.capture_s),
+                 captures=engine._GRAPHS.captures, **card_memory(cards))
+    (out2, warm_ms), booked = counted(lambda: all_synced_ms(call))
+    for o in (out, out2):
+        if not (torch.equal(o[0], host[0]) and torch.equal(o[1], host[1])
+                and not o[2].any()):
+            raise AssertionError("ladder whole acc_pot_sharded: not "
+                                 "bit-equal to the _host twin")
+    return dict(first=first, warm_ms=warm_ms,
+                evals_per_s=pos.shape[0] / (warm_ms / 1e3),
+                k1a_launches_booked=booked["K1"]["mono"],
+                bit_equal_to_host=True)
+
+
+def ladder_replicated(seed: int, mesh, per_cards) -> list:
+    """The replicated path at each size of per_cards a card: the _host
+    twin (ladder_host; profiled at the first size only: profiled, the
+    2^24 rung spent ~264 s outside its timed calls, most likely reading
+    the profile) and the oracle; at the
+    first size the same call on one card (bit-equal; card 0's peak beside
+    it) and the whole staged twin (ladder_whole). Returns the rungs'
+    records."""
+    from rakau_tpu_torch import particles
+    from rakau_tpu_torch.parallel import sharded
+    cards = torch.cuda.device_count()
+    dev0 = mesh.devices[0]
+    cfg0 = config_of(4, CFG4_KW).with_(**LADDER_CAPS)
+    rungs = []
+    for i, per_card in enumerate(per_cards):
+        n = per_card * mesh.size
+        released()
+        reset_card_peaks(cards)
+        t = time.perf_counter()
+        gen = torch.Generator(device=dev0).manual_seed(seed + i)
+        pos, mass = particles.uniform_cube(n, generator=gen,
+                                           dtype=torch.float32)
+        acc, pot, cfg, rec = ladder_host(pos, mass, mesh, cfg0,
+                                         f"ladder {n}", profile=i == 0)
+        rung = {"path": "replicated", "twin": "_host", "n": n,
+                "per_card": per_card, "shards": mesh.size, **rec,
+                **card_memory(cards)}
+        if i == 0:
+            released()
+            one, one_ms = synced_ms(lambda: sharded.acc_pot_sharded_host(
+                pos, mass, cfg, THETA, 0.0, 1.0, sharded.default_mesh(1)))
+            if not (torch.equal(one[0], acc) and torch.equal(one[1], pot)):
+                raise AssertionError(f"ladder {n}: four cards and one card "
+                                     "differ")
+            rung.update(one_card_ms=one_ms, bit_equal_to_one_card=True,
+                        one_card_peak_mb=torch.cuda.max_memory_allocated(
+                            dev0) / MB)
+            del one
+            released()
+            rung["whole"] = ladder_whole(pos, mass, mesh, cfg, (acc, pot),
+                                         cards)
+        released()
+        a_o, p_o, samp = ladder_oracle(pos, mass, seed + 100 + i)
+        f_rms, p_rms = sampled_rms(acc, pot, a_o, p_o, samp, dev0)
+        rung.update(force_rms=f_rms, pot_rms=p_rms,
+                    seconds=time.perf_counter() - t)
+        emit("ladder_rung", **rung)
+        bounded(f"ladder {n}", f_rms, p_rms, LF_FORCE_RMS_MAX,
+                CUBE_POT_RMS_MAX)
+        rungs.append(rung)
+        del acc, pot, pos, mass
+    return rungs
+
+
+def let_fit(pos, mass, mesh, cfg, caps: dict, what: str) -> tuple:
+    """let.acc_pot_let_host with_stats, its export_cap sized from one
+    call's counts (the power of two above the largest; the walk's caps
+    doubled where the counts fit and the export overflow is set), the
+    query's caps doubled where flagged, until a call has no flag and no
+    export overflow. Returns (its output, seconds of the calls, caps,
+    cfg)."""
+    from rakau_tpu_torch.config import grow_overflowed
+    from rakau_tpu_torch.parallel import let
+    calls = []
+    for _ in range(4):
+        out, ms = all_synced_ms(lambda: let.acc_pot_let_host(
+            pos, mass, cfg, THETA, 0.0, 1.0, mesh, with_stats=True, **caps))
+        calls.append(ms / 1e3)
+        ovf, xo, cnt = out[2], bool(out[3]), out[4]
+        need = 1 << (int(cnt.max()) - 1).bit_length()
+        if not ovf.any() and not xo:
+            return out, calls, caps, cfg
+        emit("caps_grown", what=what, flags=ovf.tolist(), export_ovf=xo,
+             max_count=int(cnt.max()), seconds=ms / 1e3)
+        if need > caps["export_cap"]:
+            caps = dict(caps, export_cap=need)
+        elif xo:
+            # the counts fit: the walk itself overflowed its caps
+            caps = {k: v if k == "export_cap" else 2 * v
+                    for k, v in caps.items()}
+        cfg = grow_overflowed(cfg, ovf.tolist())
+    raise AssertionError(f"{what}: still overflowing at {caps}")
+
+
+def ladder_let(seed: int, mesh, per_cards) -> list:
+    """The LET (phase0 "distributed") at each size of per_cards a card on
+    #4's cube: let_fit from LET_CAPS' export_cap and let_walk_caps, a warm
+    call (MB copied), a profiled call (K1a and busy ms a card), peaks a
+    card, the export matrix and halo bytes; the replicated _host twin on
+    the same particles (its card 0 peak and force RMS beside the LET's);
+    the oracle. At the first size: phase0 "global" within LET_CROSS_MAX of
+    it and the whole staged let.acc_pot_let bit-equal to it."""
+    from rakau_tpu_torch import particles
+    from rakau_tpu_torch.config import OVF_FIELDS
+    from rakau_tpu_torch.parallel import let
+    from rakau_tpu_torch.parallel import mesh as _mesh
+    cards = torch.cuda.device_count()
+    dev0 = mesh.devices[0]
+    cfg0 = config_of(4, CFG4_KW).with_(**LADDER_CAPS)
+    rungs = []
+    for i, per_card in enumerate(per_cards):
+        n = per_card * mesh.size
+        released()
+        reset_card_peaks(cards)
+        t = time.perf_counter()
+        gen = torch.Generator(device=dev0).manual_seed(seed + i)
+        pos, mass = particles.uniform_cube(n, generator=gen,
+                                           dtype=torch.float32)
+        what = f"ladder let {n}"
+        out, fit_s, caps, cfg = let_fit(
+            pos, mass, mesh, cfg0,
+            dict(export_cap=LET_CAPS["export_cap"], **let_walk_caps(per_card)),
+            what)
+
+        def call():
+            return let.acc_pot_let_host(pos, mass, cfg, THETA, 0.0, 1.0,
+                                        mesh, with_stats=True, **caps)
+        _mesh.reset_copied()
+        out2, warm_ms = all_synced_ms(call)
+        copied = sum(_mesh.copied.values())
+        out3, prof = card_profile(call)
+        if not all(torch.equal(x, y) for o in (out2, out3)
+                   for x, y in zip(o, out)):
+            raise AssertionError(f"{what}: two calls differ")
+        finite(what, out[0], out[1])
+        cnt = out[4]
+        item = pos.element_size() * (pos.shape[1] + 1)
+        rung = {"path": "let", "twin": "_host", "phase0": "distributed",
+                "n": n, "per_card": per_card, "shards": mesh.size,
+                "fit_calls_s": fit_s, "caps_used": caps,
+                "query_caps": {f: getattr(cfg, f) for f in OVF_FIELDS},
+                "warm_ms": warm_ms, "evals_per_s": n / (warm_ms / 1e3),
+                "mb_copied": copied / MB, **prof, **card_memory(cards),
+                "export_counts": cnt.tolist(),
+                "max_count_over_range": int(cnt.max()) / per_card,
+                "import_slots": mesh.size * caps["export_cap"],
+                "halo_bytes": int(cnt.sum()) * item}
+        if i == 0:
+            g = let.acc_pot_let_host(pos, mass, cfg, THETA, 0.0, 1.0, mesh,
+                                     phase0="global", with_stats=True,
+                                     **caps)
+            rung["global_vs_distributed_rms"] = rel_rms(out[0], g[0])
+            if g[2].any() or g[3] or not (rung["global_vs_distributed_rms"]
+                                          < LET_CROSS_MAX):
+                raise AssertionError(f"{what} global: {rung}")
+            del g
+            released()
+            rung["whole"] = let_whole_staged(pos, mass, mesh, cfg, caps, out,
+                                             cards)
+        released()
+        reset_card_peaks(cards)
+        rep_acc, rep_pot, _, rep = ladder_host(
+            pos, mass, mesh, cfg0, f"{what} replicated", profile=False)
+        rung["replicated"] = dict(
+            warm_ms=rep["warm_ms"], peak_mb_by_card=card_memory(cards)[
+                "peak_mb_by_card"])
+        released()
+        a_o, p_o, samp = ladder_oracle(pos, mass, seed + 100 + i)
+        f_rms, p_rms = sampled_rms(out[0], out[1], a_o, p_o, samp, dev0)
+        rf_rms, _ = sampled_rms(rep_acc, rep_pot, a_o, p_o, samp, dev0)
+        rung.update(force_rms=f_rms, pot_rms=p_rms,
+                    replicated_force_rms=rf_rms,
+                    let_peak_below_replicated_card0=max(
+                        rung["peak_mb_by_card"].values())
+                    < rung["replicated"]["peak_mb_by_card"][0],
+                    seconds=time.perf_counter() - t)
+        emit("ladder_rung", **rung)
+        bounded(what, f_rms, p_rms, LF_FORCE_RMS_MAX, CUBE_POT_RMS_MAX)
+        if not f_rms <= LET_FORCE_RATIO * rf_rms:
+            raise AssertionError(f"{what}: force rms {f_rms:.3e} above "
+                                 f"{LET_FORCE_RATIO} x the replicated "
+                                 f"path's {rf_rms:.3e}")
+        rungs.append(rung)
+        del out, out2, out3, rep_acc, rep_pot, pos, mass
+    return rungs
+
+
+def let_whole_staged(pos, mass, mesh, cfg, caps, host, cards: int) -> dict:
+    """The whole staged let.acc_pot_let (each stage one CUDA graph a card,
+    the local queries over each shard's tile capacity): first call (host
+    seconds of each card's warm-ups and captures, pools and pins a card),
+    a warm call, each bit-equal to the _host twin's output (host: sums,
+    flags, export overflow, counts)."""
+    from rakau_tpu_torch import engine
+    from rakau_tpu_torch.parallel import let
+
+    def call():
+        return let.acc_pot_let(pos, mass, cfg, THETA, 0.0, 1.0, mesh,
+                               with_stats=True, **caps)
+    reset_card_peaks(cards)
+    engine._GRAPHS.reset_tally()
+    out, first_ms = all_synced_ms(call)
+    first = dict(first_call_s=first_ms / 1e3,
+                 capture_s_by_card=dict(engine._GRAPHS.capture_s),
+                 captures=engine._GRAPHS.captures, **card_memory(cards))
+    (out2, warm_ms), booked = counted(lambda: all_synced_ms(call))
+    for o in (out, out2):
+        if not all(torch.equal(x, y) for x, y in zip(o, host)):
+            raise AssertionError("ladder whole acc_pot_let: not bit-equal "
+                                 "to the _host twin")
+    return dict(first=first, warm_ms=warm_ms,
+                k1a_launches_booked=booked["K1"]["mono"],
+                bit_equal_to_host=True)
+
+
+def ladder(seed: int, dev0) -> dict:
+    """Phase group ladder: BASELINE config #4 on a mesh of a shard a card
+    over LADDER_CARDS cards (a skip line with fewer): the replicated path
+    at LADDER_PER_CARD a card (ladder_replicated; the whole staged twin at
+    the first), then the LET at LET_LADDER_PER_CARD a card (ladder_let;
+    its whole staged twin at the first). Every rung must fit and pass:
+    any failure, an out-of-memory error among them, fails the run."""
     from rakau_tpu_torch.parallel import sharded
     cards = torch.cuda.device_count()
     if cards < LADDER_CARDS:
         emit("ladder", skipped=f"needs {LADDER_CARDS} cards, {cards} here")
         return {}
     mesh = sharded.default_mesh(LADDER_CARDS)
-    cfg0 = config_of(4, CFG4_KW)
-    rungs = []
-    for i, per_card in enumerate(LADDER_PER_CARD):
-        n = per_card * LADDER_CARDS
-        released()
-        for d in range(cards):
-            torch.cuda.reset_peak_memory_stats(d)
-        rung = {"n": n, "per_card": per_card, "cards": LADDER_CARDS}
-        try:
-            gen = torch.Generator(device=dev0).manual_seed(seed + i)
-            pos, mass = particles.uniform_cube(n, generator=gen,
-                                               dtype=torch.float32)
-
-            def call(c):
-                return sharded.acc_pot_sharded_host(
-                    pos, mass, c, THETA, 0.0, 1.0, mesh) + (None,)
-            (acc, pot, _, _), first_s, cfg, grown, flagged = until_fits(
-                call, cfg0, f"ladder {n}", TreeConfig(**CFG4_KW))
-            _mesh.reset_copied()
-            (a2, p2, _), warm_ms = all_synced_ms(
-                lambda: sharded.acc_pot_sharded_host(pos, mass, cfg, THETA,
-                                                     0.0, 1.0, mesh))
-            copied = sum(_mesh.copied.values())
-            _, prof = card_profile(lambda: sharded.acc_pot_sharded_host(
-                pos, mass, cfg, THETA, 0.0, 1.0, mesh))
-            if not (torch.equal(a2, acc) and torch.equal(p2, pot)):
-                raise AssertionError(f"ladder {n}: two calls differ")
-            del a2, p2
-            finite(f"ladder {n}", acc, pot)
-            samp = np.sort(np.random.default_rng(seed + 100 + i).choice(
-                n, 256, replace=False))
-            a_o, p_o = card_oracle(pos, mass, samp)
-            f_rms, p_rms = sampled_rms(acc, pot, a_o, p_o, samp, dev0)
-            rung.update(first_call_s=first_s, warm_ms=warm_ms,
-                        evals_per_s=n / (warm_ms / 1e3), caps_grown=grown,
-                        flagged_queries_s=flagged, mb_copied=copied / MB,
-                        peak_mb_by_card={
-                            d: torch.cuda.max_memory_allocated(d) / MB
-                            for d in range(cards)},
-                        peak_reserved_mb_by_card={
-                            d: torch.cuda.max_memory_reserved(d) / MB
-                            for d in range(cards)},
-                        force_rms=f_rms, pot_rms=p_rms, **prof)
-            bounded(f"ladder {n}", f_rms, p_rms, LF_FORCE_RMS_MAX,
-                    CUBE_POT_RMS_MAX)
-            if i == 0:
-                released()
-                one, one_ms = synced_ms(lambda: sharded.acc_pot_sharded_host(
-                    pos, mass, cfg, THETA, 0.0, 1.0,
-                    sharded.default_mesh(1)))
-                if not (torch.equal(one[0], acc)
-                        and torch.equal(one[1], pot)):
-                    raise AssertionError(f"ladder {n}: four cards and one "
-                                         "card differ")
-                rung.update(one_card_ms=one_ms, bit_equal_to_one_card=True)
-                del one
-            del acc, pot, pos, mass
-        except torch.cuda.OutOfMemoryError as e:
-            if i == 0:
-                raise
-            rung["out_of_memory"] = str(e).splitlines()[0]
-            rung["peak_mb_by_card"] = {
-                d: torch.cuda.max_memory_allocated(d) / MB
-                for d in range(cards)}
-            emit("ladder_rung", **rung)
-            rungs.append(rung)
-            break
-        emit("ladder_rung", **rung)
-        rungs.append(rung)
+    part_s = {}
+    t = time.perf_counter()
+    rungs = ladder_replicated(seed, mesh, LADDER_PER_CARD)
+    part_s["replicated"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rungs += ladder_let(seed + 50, mesh, LET_LADDER_PER_CARD)
+    part_s["let"] = time.perf_counter() - t
     released()
-    emit("ladder", rungs=[r["n"] for r in rungs],
-         fits=[r["n"] for r in rungs if "out_of_memory" not in r])
+    emit("ladder", rungs=[(r["path"], r["per_card"]) for r in rungs],
+         part_s=part_s)
     return {"rungs": rungs}
 
 

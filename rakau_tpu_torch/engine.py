@@ -34,7 +34,8 @@ and eps only and are kept with the query state; the L2P runs per query.
 Imported sources (`extra=(pos, mass)`, the LET imports of
 parallel/let.py) join every valid tile's row in the shared and lmac
 queries, through the far/near gate of the tile expansions with "local"
-and "grid". The chunk loop (run_chunks) runs any range of chunks: the
+and "grid" (IMPORT_BLOCK rows a step, which bounds a chunk's [C, E]
+temporaries). The chunk loop (run_chunks) runs any range of chunks: the
 single-device query all live ones, each shard of parallel/sharded.py
 its own.
 
@@ -57,6 +58,8 @@ on CPU tensors raises.
 Results come back in internal Morton order (the `_u` view).
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -272,11 +275,8 @@ def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, scal,
             shift = torch.where(tv, center - ccenter, 0.0)
             L = L + torch.where(tv, expansion.l2l(Lg, shift, order), 0.0)
         if extra is not None:
-            far_e, near_e = expansion.far_split(
-                center, rad2, extra[0], extra[1], _every_tile(tvalid, extra),
-                cfg.local_gamma)
-            L = L + expansion.m2l(center, extra[0], extra[1], far_e, eps,
-                                  order)
+            L, near_e = _import_far_field(center, rad2, tvalid, extra, L,
+                                          eps, cfg)
         acc_l, pot_l = expansion.l2p(L, center, tpos, scal[1], order)
     elif extra is not None:
         near_e = _every_tile(tvalid, extra)
@@ -298,6 +298,35 @@ def _chunk_sources(td: TreeData, cfg: TreeConfig, theta, eps, scal,
 def _every_tile(tvalid, extra):
     """[C, E]: every import row for every valid tile."""
     return tvalid[:, None].expand(tvalid.shape[0], extra[0].shape[0])
+
+
+# Import rows whose far/near gate and M2L one step of _import_far_field
+# takes: its [C, block] temporaries (the M2L's [C, block, 20] terms among
+# them) stay near 2 GB at C = 64, where all E imports at once grow with E
+# (at E = 2^22, 21 GB for the terms alone).
+IMPORT_BLOCK = 1 << 18
+
+
+def _import_far_field(center, rad2, tvalid, extra, L, eps, cfg: TreeConfig):
+    """The imports' far field with "local" and "grid" (the reference's
+    rakau_tpu/engine.py:240-262): each valid tile's far imports by its
+    gate (expansion.far_split) added to its expansion L [C, NC] by M2L,
+    IMPORT_BLOCK imports a step. Returns (L, the near mask [C, E]). With
+    E <= IMPORT_BLOCK it is the reference's single step; above, the far
+    sums are taken block by block, which changes their rounding and not
+    what is summed."""
+    e_pos, e_mass = extra
+    block = IMPORT_BLOCK
+    nears = []
+    for b in range(0, max(e_pos.shape[0], 1), block):
+        pos_b, mass_b = e_pos[b:b + block], e_mass[b:b + block]
+        far_b, near_b = expansion.far_split(
+            center, rad2, pos_b, mass_b, _every_tile(tvalid, (pos_b,)),
+            cfg.local_gamma)
+        L = L + expansion.m2l(center, pos_b, mass_b, far_b, eps,
+                              cfg.local_order)
+        nears.append(near_b)
+    return L, torch.cat(nears, dim=1)
 
 
 def _gather_sources(td: TreeData, cfg: TreeConfig,
@@ -416,7 +445,11 @@ def _add_grid2(td, cfg, eps, scal, Lgrid, acc_u, pot_u):
 
 # Derived per-tree query state (tiles gather + traversal tables + grid far
 # field), reused across repeated queries on one tree. Entries pin device
-# memory, so only the last two trees are kept.
+# memory, so only the last two trees are kept, and an entry goes with its
+# tree: it holds the tree's positions and masses weakly and is dropped
+# when the positions are freed. A tree built for one call (the _host
+# twins of integrate and parallel) takes its state with it (at 2^26
+# particles on config #4's tree shape the tiles and tables are 4.4 GB).
 _QUERY_STATE_CACHE: dict = {}
 
 
@@ -429,14 +462,16 @@ def _query_state(td, cfg, eps):
     key = (id(td.pos), id(td.mass), cfg, float(eps))
     hit = _QUERY_STATE_CACHE.get(key)
     # id() can be reused after GC; verify the cached tree is the caller's
-    if hit is not None and hit[0] is td.pos and hit[1] is td.mass:
+    if hit is not None and hit[0]() is td.pos and hit[1]() is td.mass:
         return hit[2]
     tables = (_traversal_mod(cfg).make_tables(td, cfg)
               if _use_shared(cfg) else None)
     state = (_gather_tiles(td, cfg), tables, _grid_farfield(td, cfg, eps))
     while len(_QUERY_STATE_CACHE) >= 2:
         _QUERY_STATE_CACHE.pop(next(iter(_QUERY_STATE_CACHE)))
-    _QUERY_STATE_CACHE[key] = (td.pos, td.mass, state)
+    _QUERY_STATE_CACHE[key] = (weakref.ref(td.pos), weakref.ref(td.mass),
+                               state)
+    weakref.finalize(td.pos, _QUERY_STATE_CACHE.pop, key, None)
     return state
 
 

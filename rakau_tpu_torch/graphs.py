@@ -57,6 +57,7 @@ be baked into the graph.
 from __future__ import annotations
 
 import functools
+import time
 import weakref
 
 import torch
@@ -143,7 +144,9 @@ class GraphCache:
     `counters`: the
     launch-count dicts whose growth at capture the tally keeps (see the
     module's docstring): `captured` and `replayed`, one dict per counter,
-    and `captures`, the graphs captured, set to zero by reset_tally()."""
+    and `captures`, the graphs captured, and `capture_s`, the host
+    seconds of the first calls (warm-up and capture) by device, set to
+    zero by reset_tally()."""
 
     def __init__(self, counters=()):
         self.counters = tuple(counters)
@@ -168,6 +171,7 @@ class GraphCache:
         self.captured = [{} for _ in self.counters]
         self.replayed = [{} for _ in self.counters]
         self.captures = 0
+        self.capture_s: dict = {}
 
     def pinned(self) -> list:
         """(function name, bytes of its static inputs and outputs) of each
@@ -231,6 +235,7 @@ class GraphCache:
         return s
 
     def _capture(self, fn, template, tensors, dev) -> _Graph:
+        t0 = time.perf_counter()
         inputs = [self._static(t) for t in tensors]
         args, kwargs = _build(template, inputs)
         side = torch.cuda.Stream(dev)
@@ -252,6 +257,8 @@ class GraphCache:
                   for c, was in zip(self.counters, before)]
         _add(self.captured, counts)
         self.captures += 1
+        self.capture_s[str(dev)] = (self.capture_s.get(str(dev), 0.0)
+                                    + time.perf_counter() - t0)
         outputs: list = []
         out_template = _flatten(out, outputs)
         return _Graph(graph, inputs, out_template, outputs, counts)

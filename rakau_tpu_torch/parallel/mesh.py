@@ -182,6 +182,20 @@ def gather(xs: list, dev) -> list:
     return [_to(x, dev) for x in xs]
 
 
+def gather_cat(xs: list, dev) -> torch.Tensor:
+    """The shards' pieces concatenated along their first axis on `dev`,
+    each moved there and put in its place in one buffer as it comes: the
+    moved pieces are not all held beside the result (at 2^26 particles
+    the tiles' sums are 2.1 GB)."""
+    out = xs[0].new_empty((sum(x.shape[0] for x in xs),) + xs[0].shape[1:],
+                          device=dev)
+    off = 0
+    for x in xs:
+        out[off:off + x.shape[0]] = _move(x, dev)
+        off += x.shape[0]
+    return out
+
+
 def scatter(mesh: Mesh, xs: list) -> list:
     """xs[r] (a tensor, or a tuple of them) on shard r's device."""
     return [_to(x, dev) for x, dev in zip(xs, mesh.devices)]
@@ -207,4 +221,5 @@ def synchronize(mesh: Mesh):
 
 __all__ = ["Mesh", "default_mesh", "cards", "one_card", "stage_map",
            "on_first", "all_to_all", "all_gather", "pmax", "any", "gather",
-           "scatter", "to_shards", "copied", "reset_copied", "synchronize"]
+           "gather_cat", "scatter", "to_shards", "copied", "reset_copied",
+           "synchronize"]

@@ -88,14 +88,13 @@ def _shard_chunks(td: TreeData, cfg: TreeConfig, theta, eps, scal, panels,
                               None)[:3]
 
 
-def _tail(td: TreeData, cfg: TreeConfig, eps, scal, accs, pots, ovfs):
-    """The last stage, on the first shard's device: the shards' tile sums
-    in shard order through the tail (assembly, grid2's far field) and the
-    flags OR-ed."""
+def _tail(td: TreeData, cfg: TreeConfig, eps, scal, acc, pot, ovfs):
+    """The last stage, on the first shard's device: the tiles' sums (the
+    shards' in shard order, gathered) through the tail (assembly, grid2's
+    far field) and the flags OR-ed."""
     Lgrid = (engine._grid_farfield(td, cfg, eps)
              if cfg.farfield == "grid2" else None)
-    acc_u, pot_u = engine._tail_impl(td, cfg, eps, scal, Lgrid,
-                                     torch.cat(accs), torch.cat(pots))
+    acc_u, pot_u = engine._tail_impl(td, cfg, eps, scal, Lgrid, acc, pot)
     return acc_u, pot_u, torch.stack(ovfs).any(0)
 
 
@@ -119,9 +118,12 @@ def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, scal, mesh: Mesh,
             _mesh.to_shards(mesh, td),
             _mesh.to_shards(mesh, (theta, eps, scal)), panels,
             _mesh.to_shards(mesh, tables))], staged)
-    accs, pots, ovfs = (_mesh.gather(x, mesh.devices[0]) for x in zip(*sums))
-    return _mesh.on_first(mesh, _tail, staged, td, cfg, eps, scal, accs, pots,
-                          ovfs)
+    dev0 = mesh.devices[0]
+    accs, pots, ovfs = zip(*sums)
+    return _mesh.on_first(mesh, _tail, staged, td, cfg, eps, scal,
+                          _mesh.gather_cat(accs, dev0),
+                          _mesh.gather_cat(pots, dev0),
+                          _mesh.gather(ovfs, dev0))
 
 
 class _Query(NamedTuple):
@@ -239,9 +241,9 @@ def acc_pot_u_sharded_host(td: TreeData, cfg: TreeConfig, theta, eps, G,
         pots.append(p)
         ovfs.append(o)
     ovf = _mesh.any(ovfs)[0]
-    acc_u, pot_u = engine._assemble_impl(
-        td, cfg, torch.cat([a.to(dev0) for a in accs]),
-        torch.cat([p.to(dev0) for p in pots]))
+    acc_u, pot_u = engine._assemble_impl(td, cfg,
+                                         _mesh.gather_cat(accs, dev0),
+                                         _mesh.gather_cat(pots, dev0))
     acc_u, pot_u = engine._add_grid2(td, cfg, eps, scal, Lgrid, acc_u, pot_u)
     return acc_u, pot_u, ovf
 

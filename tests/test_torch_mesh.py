@@ -4,7 +4,8 @@ NumPy transposes and reductions at 1, 2 and 8 shards, to_shards, and
 default_mesh (CPU shards; no card here, so the card default raises); the
 grouping of shards by device, the stages run over it in shard order, the
 bytes the collectives copy between devices (CPU device labels, which
-torch keeps apart), and the graph cache's per-device keys and bound."""
+torch keeps apart), gather_cat's one buffer, and the graph cache's
+per-device keys and bound."""
 import numpy as np
 import pytest
 import torch
@@ -123,6 +124,22 @@ def test_collectives_count_the_bytes_they_copy():
     got = mesh.gather([x, x[:2]], torch.device("cpu", 1))
     assert torch.equal(got[1], x[:2])
     assert sum(mesh.copied.values()) == x.nbytes + x[:2].nbytes
+    mesh.reset_copied()
+
+
+def test_gather_cat_concatenates_in_shard_order():
+    """gather_cat: the shards' pieces concatenated on one device, equal to
+    torch.cat of the gathered pieces; the bytes moved to another device
+    label counted, pieces already on the device not."""
+    xs = [torch.tensor(x) for x in _shards(3, (4, 3), 30)]
+    xs[2] = xs[2][:2]
+    mesh.reset_copied()
+    assert torch.equal(mesh.gather_cat(xs, torch.device("cpu")),
+                       torch.cat(xs))
+    assert not mesh.copied
+    assert torch.equal(mesh.gather_cat(xs, torch.device("cpu", 1)),
+                       torch.cat(xs))
+    assert sum(mesh.copied.values()) == sum(x.nbytes for x in xs)
     mesh.reset_copied()
 
 

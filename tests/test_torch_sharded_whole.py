@@ -72,6 +72,23 @@ def _cloud():
     return _CLOUD["pos"], _CLOUD["mass"], _CLOUD["vel"]
 
 
+def _cube():
+    """BASELINE config #4's particles (benchmarks/configs.py:191): N
+    uniform in 0.999 of a unit cube, mass 1/N each (float32 CPU tensors,
+    from a seed; zero velocities)."""
+    rng = np.random.default_rng(41)
+    pos = torch.tensor(rng.uniform(-0.4995, 0.4995, (N, 3)).astype(
+        np.float32))
+    return pos, torch.full((N,), 1.0 / N), torch.zeros_like(pos)
+
+
+# config #4's configuration (configs.py:192-193) on its cube, through the
+# call configs.py makes (acc_pot_sharded, the box fitted to the particles)
+CUBE = "cube+config4"
+CUBE_CFG = TreeConfig(max_depth=10, max_leaf_n=64, ncrit=256, tile_chunk=64,
+                      p2p_leaf_cap=2048)
+
+
 def _mesh(ndev):
     return sharded.default_mesh(ndev, device="cpu")
 
@@ -87,10 +104,11 @@ def _equal(a, b) -> bool:
                for x, y in zip(_leaves(a), _leaves(b), strict=True))
 
 
-def _calls(name, cfg, mesh):
+def _calls(name, cfg, mesh, cloud=_cloud, box=BOX):
     """(whole twin, _host twin) of parallel.sharded's `name` as functions
-    of graph (the _host twin takes none), on CFG's particles."""
-    pos, mass, vel = _cloud()
+    of graph (the _host twin takes none), on the particles of `cloud`
+    (CFG's by default) in a box of `box` (None: fitted)."""
+    pos, mass, vel = cloud()
     if name == "acc_pot_u_sharded":
         td = build.build_tree(pos, mass, cfg)
         args = (td, cfg, THETA, EPS, 1.0, mesh)
@@ -104,15 +122,16 @@ def _calls(name, cfg, mesh):
                 1.0, mesh)
     whole = getattr(sharded, name)
     host = getattr(sharded, name + "_host")
-    return (lambda graph=None: whole(*args, box_size=BOX, graph=graph),
-            lambda: host(*args, box_size=BOX))
+    return (lambda graph=None: whole(*args, box_size=box, graph=graph),
+            lambda: host(*args, box_size=box))
 
 
 SHARDED = ("acc_pot_u_sharded", "acc_pot_sharded", "leapfrog_step_sharded")
 # grid2 (its far field added once, on the first shard) through the query;
 # the build and the step around it are those of the other configs
 PAIRS = [(name, case) for name in SHARDED for case in CONFIGS
-         if name == "acc_pot_u_sharded" or case != "shared+grid2"]
+         if name == "acc_pot_u_sharded" or case != "shared+grid2"] + [
+             ("acc_pot_sharded", CUBE)]
 
 
 # ------------------------------------------------- against the _host twins
@@ -122,8 +141,12 @@ def test_whole_twin_equals_its_host_twin(name, case, ndev):
     """The whole twin (every chunk of the tile capacity, padded to a
     multiple of the shard count and cut into equal ranges) and the _host
     twin (the live chunks, split) give the same results bit for bit, and
-    neither overflows."""
-    whole, host = _calls(name, CONFIGS[case], _mesh(ndev))
+    neither overflows; config #4's cube through acc_pot_sharded among
+    them."""
+    if case == CUBE:
+        whole, host = _calls(name, CUBE_CFG, _mesh(ndev), _cube, None)
+    else:
+        whole, host = _calls(name, CONFIGS[case], _mesh(ndev))
     w = whole(graph=False)
     h = host()
     assert not w[-1].any() and torch.equal(w[-1], h[-1])
