@@ -102,7 +102,7 @@ Phases, each printing one JSON line:
                the graph pool's memory; the sums bit for bit equal, flags
                and maxima equal (graph_ab; likewise after lmac_profile,
                gwalk_profile and lists_profile); then engine.acc_pot_u,
-               the whole query as one graph, on a tree of 262,144
+               the whole query as one graph, on a tree of 131,072
                Plummer particles (SMALL_N), against the eager query:
                equal sums, K1a launches = the tile capacity's chunks
                (acc_pot_u_check); the tree build replayed from its graph
@@ -121,7 +121,7 @@ Phases, each printing one JSON line:
                RuntimeError after the replay, the normal calls then
                replaying unchanged (overflow_refused); after the
                leapfrog's steps config #2's step three ways on a cold
-               sphere of 262,144 particles (SMALL_N) with the 1M
+               sphere of 131,072 particles (SMALL_N) with the 1M
                caps, the whole
                integrate.leapfrog_step_morton as one graph, the sliced
                leapfrog_step_morton_host and the same eagerly, pos, vel
@@ -282,7 +282,7 @@ Phases, each printing one JSON line:
                65,536 Plummer particles (shared+grid), the query under
                kernel_backend="xla" makes no hand launch and agrees with
                "auto" to 1e-5 force RMS, and "pallas" on a CPU copy of the
-               tree raises; parallel.sharded's _host twins on 262,144
+               tree raises; parallel.sharded's _host twins on 131,072
                Plummer particles (SMALL_N; the main caps) at 1, 2 and 4
                shards against the
                single-device query with farfield "local" (rtol 1e-5, atol
@@ -322,7 +322,7 @@ Phases, each printing one JSON line:
                over several cards (parallel/mesh.py: a CUDA graph a card
                and stage, the copies between cards between them), first
                on one card: sharded._query_impl(staged=True) at 4 shards
-               on a tree of 262,144 Plummer particles (SMALL_N; the
+               on a tree of 131,072 Plummer particles (SMALL_N; the
                main caps grown with "local") and
                let._let(staged=True) at 65,536 particles in both phase0
                modes, each against the same whole twin as one graph on
@@ -404,6 +404,31 @@ Phases, each printing one JSON line:
                shard, bit-equal to integrate.acc_pot_host, K1a against its
                plain version at those shapes (build ms, first call s, warm
                ms, evals/s, peak MB, caps grown, RMS, launches by form);
+     accuracy: lmac+grid2, the reference's accuracy engine, at its own
+               sizes on one card (every earlier graph released first):
+               lmac8m, 8,388,608 Plummer particles through octree(...,
+               LMAC_KW).accs_pots_o(0.75) (the Tree's cap growth,
+               tune_caps, the tuned caps' first query, 3 graphed warm
+               queries: K1c launches a warm query = the chunk
+               evaluations; grid level 6, tiles, chunks, slices, caps,
+               maxima and flags, peak memory; K1c against its plain
+               version on the first and last live chunk; the leaf locals
+               alone; the shared engine's first query on the same tree
+               beside it), lmac8m_l7, the same tree at grid level 7
+               through engine.acc_pot_u_host (the query state and the
+               leaf locals alone, with their peak memory; first and 3
+               warm queries), both against a float64 direct sum on the
+               card at 256 targets: force RMS < 5e-3, potential < 2e-3,
+               lmac8m's force RMS at most 1.1 x the shared engine's;
+               then the accuracy ladder at 1,048,576 (benchmarks/
+               ladder.py: rungs o4/s2 monopole, o6/s3 quadrupole, the
+               same through the shared traversal, o8/s3 and o8/s4
+               quadrupole with compensated sums; caps grown x4 on a flag
+               at most 3 times, then one graphed warm query, each K1
+               form once a chunk evaluation) against the float64 oracle
+               at 2,048 targets, held to ladder_bounds; K1c+K1d (rung b)
+               and K1c+K1d+K1b (rung d) against their plain versions on
+               chunk 0. Every result finite, no flag left;
      ladder:   config #4 over four cards (only where there are four; a
                line says it skipped otherwise), a shard a card, every
                rung required (an out-of-memory error fails the run): the
@@ -452,7 +477,7 @@ import torch
 # the phase groups that --phases selects, in the order they run (edge: the
 # edge phases; main: phases main through f1)
 PHASES = ("device", "build", "edge", "main", "multi", "multicard",
-          "leapfrog", "scale", "configs", "ladder")
+          "leapfrog", "scale", "configs", "accuracy", "ladder")
 THETA = 0.75
 # The checks whose point holds at any N (twins bit-equal to each other,
 # launches = the chunks each way, nothing captured in a steady state)
@@ -464,8 +489,9 @@ THETA = 0.75
 # config #2's step three ways and energy two ways (150 s at 1M), and
 # phase variants' whole queries on K6 and K5 (87 s at 1M); the main
 # query, its graphs, every accuracy bound and every kernel phase stay at
-# --n
-SMALL_N = 262144
+# --n. 262,144 until group accuracy (125 s on an H100 80GB HBM3 at
+# 700 W) needed the room
+SMALL_N = 131072
 TREE_KW = dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32,
                farfield="grid", m2p_cap=9728, p2p_leaf_cap=5888,
                p2p_src_cap=47104, frontier_cap=1024)
@@ -2671,17 +2697,28 @@ def pool_kernels(inputs, n: int, window: int, block: int, forms) -> dict:
     return out
 
 
+def sampled_errors(acc, pot, acc_o, pot_o, samp, dev) -> dict:
+    """Force and potential RMS and largest relative errors at the sampled
+    targets (acc may be None: its entries are then None)."""
+    idx = torch.as_tensor(samp, device=dev)
+    p = pot[idx].double().cpu().numpy()
+    p_rel = np.abs(p - pot_o) / np.abs(pot_o)
+    out = dict(force_rms=None, pot_rms=float(np.sqrt(np.mean(p_rel ** 2))),
+               force_max=None, pot_max=float(p_rel.max()))
+    if acc is not None:
+        a = acc[idx].double().cpu().numpy()
+        f_rel = (np.linalg.norm(a - acc_o, axis=1)
+                 / np.linalg.norm(acc_o, axis=1))
+        out.update(force_rms=float(np.sqrt(np.mean(f_rel ** 2))),
+                   force_max=float(f_rel.max()))
+    return out
+
+
 def sampled_rms(acc, pot, acc_o, pot_o, samp, dev):
     """RMS relative force and potential errors at the sampled targets
     (acc may be None)."""
-    idx = torch.as_tensor(samp, device=dev)
-    p = pot[idx].double().cpu().numpy()
-    p_rms = float(np.sqrt(np.mean((np.abs(p - pot_o) / np.abs(pot_o)) ** 2)))
-    if acc is None:
-        return None, p_rms
-    a = acc[idx].double().cpu().numpy()
-    f_rel = np.linalg.norm(a - acc_o, axis=1) / np.linalg.norm(acc_o, axis=1)
-    return float(np.sqrt(np.mean(f_rel ** 2))), p_rms
+    e = sampled_errors(acc, pot, acc_o, pot_o, samp, dev)
+    return e["force_rms"], e["pot_rms"]
 
 
 def synced_ms(fn):
@@ -6022,13 +6059,12 @@ def query_record(n, build_ms, first_s, warm, acc, pot, oracle, dev) -> dict:
     if acc.shape != (n, 3) or pot.shape != (n,):
         raise AssertionError(f"bad shapes {acc.shape} {pot.shape}")
     finite("scale query results", acc, pot)
-    f_rms, p_rms = sampled_rms(acc, pot, *oracle, dev)
     warm_ms = statistics.median(warm)
     return dict(n=n, theta=THETA, build_ms=build_ms, first_query_s=first_s,
                 warm_query_ms=warm_ms, warm_query_ms_all=warm,
                 warm_spread=(max(warm) - min(warm)) / warm_ms,
-                evals_per_s=n / (warm_ms / 1e3), force_rms=f_rms,
-                pot_rms=p_rms)
+                evals_per_s=n / (warm_ms / 1e3),
+                **sampled_errors(acc, pot, *oracle, dev))
 
 
 def scale_shared(pos, mass, oracle, dev) -> tuple:
@@ -6066,7 +6102,7 @@ def scale_shared(pos, mass, oracle, dev) -> tuple:
         **memory_mb())
     del acc, pot
     # K1a against its plain version on the first and the last live chunk
-    krow = kernel_row(td, cfg, chunks, n, False)
+    krow = kernel_row(td, cfg, chunks, n)
     rec["kernel"] = krow["chunks"]
     emit("scale_shared", **rec)
     if not (rec["force_rms"] < FORCE_RMS_MAX and rec["pot_rms"] < POT_RMS_MAX):
@@ -6389,13 +6425,15 @@ def config_of(k: int, kw: dict):
     return TreeConfig(**{**kw, **CFG_CAPS[k]})
 
 
-def until_fits(query, cfg, what: str, base=None, tries: int = 4):
+def until_fits(query, cfg, what: str, base=None, tries: int = 4,
+               grow=None):
     """(query(cfg)'s result, its seconds, the cfg that held every row, its
     caps that differ from those of `base` (configs.py's; default cfg),
     the flagged queries' seconds): query(cfg) returns (acc, pot, overflow
     flags [4], maxima [4] or None) and is run again with the flagged caps
-    grown (grow_to_fit, or doubled without maxima) until no flag is set,
-    as Tree._query does."""
+    grown until no flag is set, as Tree._query does, at most `tries`
+    queries in all: by grow(cfg, flags, maxima) where given, else by
+    grow_to_fit (doubled without maxima)."""
     from rakau_tpu_torch import engine
     from rakau_tpu_torch.config import OVF_FIELDS, grow_overflowed
     flagged = []
@@ -6408,14 +6446,16 @@ def until_fits(query, cfg, what: str, base=None, tries: int = 4):
                     {f: getattr(cfg, f) for f in OVF_FIELDS
                      if getattr(cfg, f) != getattr(cfg0, f)}, flagged)
         flagged.append(ms / 1e3)
-        cfg = (grow_overflowed(cfg, flags) if out[3] is None
-               else grow_to_fit(cfg, flags, out[3].cpu().tolist()))
+        mx = None if out[3] is None else out[3].cpu().tolist()
+        cfg = (grow(cfg, flags, mx) if grow is not None
+               else grow_overflowed(cfg, flags) if mx is None
+               else grow_to_fit(cfg, flags, mx))
         # the flagged configuration's graphs serve no later call: drop
         # them before the grown one captures its own beside them
         del out
         engine.clear_graphs()
         emit("caps_grown", what=what, flags=flags, seconds=ms / 1e3,
-             caps={f: getattr(cfg, f) for f in OVF_FIELDS})
+             maxima=mx, caps={f: getattr(cfg, f) for f in OVF_FIELDS})
     raise AssertionError(f"{what}: still overflowing after {tries} "
                          f"queries (flags {flags})")
 
@@ -6427,29 +6467,45 @@ def bounded(what, f_rms, p_rms, f_max, p_max):
                              f"{p_max})")
 
 
-def kernel_row(td, cfg, chunks, n, comp: bool) -> dict:
-    """K1 (K1a, or K1b with comp) against its plain version on the first
-    and the last live chunk of a query of td: the kernels line's row."""
+def kernel_row(td, cfg, chunks, n, theta: float = THETA,
+               quad: bool = False) -> dict:
+    """K1 against its plain version on the first and the last of a query
+    of td's `chunks` live chunks at theta, timed: the form the query
+    launches on the whole source row (K1a; K1b with compensated sums;
+    K1c, K1c+K1b with grid2's cell test), or with `quad` the quadrupole
+    form on the node rows [0, U) (K1c+K1d, K1c+K1d+K1b with grid2). The
+    kernels line's row, each chunk's record under "chunks"."""
     from rakau_tpu_torch import engine
     from rakau_tpu_torch.kernels import shared
-    kw = dict(compensated=comp)
+    comp = cfg.accum == "compensated"
     rows = []
     for ch in sorted({0, chunks - 1}):
-        inputs = engine.kernel_inputs(td, cfg, THETA, 0.0, ch)[:6]
-        err = compare(shared.eval_shared_fused(
-            *inputs, scal(0.0, 1.0, inputs[0]), **kw),
-                      shared.eval_shared_plain(
-                          *inputs, scal(0.0, 1.0, inputs[0]), **kw))
-        km = cuda_ms(lambda: shared.eval_shared_fused(
-            *inputs, scal(0.0, 1.0, inputs[0]), **kw), 10)
-        pm = cuda_ms(lambda: shared.eval_shared_plain(
-            *inputs, scal(0.0, 1.0, inputs[0]), **kw), 1)
-        b, b_by = bound(inputs, n, comp=comp)
-        rows.append(dict(chunk=ch, S=int(inputs[2].shape[0]),
+        inp = engine.kernel_inputs(td, cfg, theta, 0.0, ch)
+        args, squad, scell, tcell = inp[:6], inp[6], inp[7], inp[8]
+        del inp
+        kw = dict(compensated=comp)
+        if quad:
+            U = squad.shape[0]
+            args = args[:2] + tuple(t[:U] for t in args[2:5]) \
+                + (args[5][:, :U].contiguous(),)
+            kw["src_quad"] = squad
+        cells = None
+        if scell is not None:
+            cells = (scell[:args[2].shape[0]], tcell, cfg.grid_sep)
+            kw.update(src_cell=cells[0], tgt_cell=tcell,
+                      grid_sep=cfg.grid_sep)
+        s = scal(0.0, 1.0, args[0])
+        err = compare(shared.eval_shared_fused(*args, s, **kw),
+                      shared.eval_shared_plain(*args, s, **kw))
+        km = cuda_ms(lambda: shared.eval_shared_fused(*args, s, **kw), 10)
+        pm = cuda_ms(lambda: shared.eval_shared_plain(*args, s, **kw), 1)
+        b, b_by = bound(args + ((squad,) if quad else ()), n, quad=quad,
+                        comp=comp, cells=cells)
+        rows.append(dict(chunk=ch, S=int(args[2].shape[0]),
                          max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b,
                          bound_by=b_by, pct_of_bound=100 * b / km,
-                         **k1_shape(inputs, comp=comp)))
-        del inputs
+                         **k1_shape(args, comp, quad, cells)))
+        del args, squad, scell, tcell, kw, cells
     return {"chunks": rows,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": float(np.mean([r["ms"] for r in rows])),
@@ -6640,7 +6696,7 @@ def config3(seed: int, dev) -> tuple:
                live_chunks=engine.live_chunks(td2, cfg),
                chunk_evaluations=chunks, launches=nonzero(counts),
                force_rms=f_rms, pot_rms=p_rms, memory_mb=mem)
-    row = kernel_row(td2, cfg, engine.live_chunks(td2, cfg), n, True)
+    row = kernel_row(td2, cfg, engine.live_chunks(td2, cfg), n)
     rec["kernel"] = row
     emit("config3", **rec)
     bounded("config #3", f_rms, p_rms, DISK_FORCE_RMS_MAX, DISK_POT_RMS_MAX)
@@ -6696,7 +6752,7 @@ def config4(seed: int, dev) -> tuple:
                chunk_evaluations=chunks, launches=nonzero(counts),
                bit_equal_to_acc_pot_host=True, force_rms=f_rms,
                pot_rms=p_rms, **memory_mb())
-    row = kernel_row(td, cfg, engine.live_chunks(td, cfg), n, False)
+    row = kernel_row(td, cfg, engine.live_chunks(td, cfg), n)
     rec["kernel"] = row
     emit("config4", **rec)
     bounded("config #4", f_rms, p_rms, LF_FORCE_RMS_MAX, CUBE_POT_RMS_MAX)
@@ -6721,6 +6777,361 @@ def configs(seed: int, dev) -> dict:
     released()
     emit("configs", part_s=part_s, seconds=time.perf_counter() - t0)
     return out
+
+
+# -------------------------------------------------------- phase accuracy
+# lmac+grid2, the reference's accuracy engine (PLAN.md:298-305), at the
+# reference's own sizes on one card: the headline stage lmac8m of
+# benchmarks/tpu_session.py (:33-37 on bench.py:54-78), 8,388,608 Plummer
+# particles through LMAC_KW at theta 0.75, the grid level (6) by the
+# occupancy rule; lmac8m_l7, the same particles at grid level 7
+# (tpu_session.py:38-43); and the accuracy ladder at 1,048,576
+# (benchmarks/ladder.py's configuration, PLAN.md:279-294)
+ACC8M_N, ACC8M_L7 = 1 << 23, 7
+ACC_N, ACC_TARGETS = 1 << 20, 2048
+# ladder.py's rung configuration (ladder.py:73-86): lmac+grid2,
+# grid_multipole_order = local_order, a group table of 65,536 rows and
+# its 1M starting caps; frontier_cap 4096 on another traversal
+ACC_KW = dict(max_depth=14, max_leaf_n=32, ncrit=512, tile_chunk=32,
+              traversal_mode="lmac", farfield="grid2", frontier_cap=65536,
+              m2p_cap=16384, p2p_leaf_cap=16384, p2p_src_cap=131072)
+# the rungs, (local order p, grid multipole order q, grid_sep, theta,
+# multipole_order, other fields): o4/s2 monopole (a), o6/s3 quadrupole at
+# the headline theta (b) and the same through the shared traversal (c),
+# o8/s3 quadrupole with compensated sums at theta 0.5 (d; PLAN.md:284-290)
+# and o8/s4 at theta 0.4 (e; PLAN.md:233-234)
+ACC_RUNGS = {
+    "a": (4, 4, 2, 0.75, 0, {}),
+    "b": (6, 6, 3, 0.75, 2, {}),
+    "c": (6, 6, 3, 0.75, 2, dict(traversal_mode="shared",
+                                 frontier_cap=4096)),
+    "d": (8, 8, 3, 0.5, 2, dict(accum="compensated")),
+    "e": (8, 8, 4, 0.4, 2, dict(accum="compensated")),
+}
+# a rung's flagged capacities grow this many times over, at most this
+# many times (ladder.py:96-107)
+ACC_GROW, ACC_GROW_TRIES = 4, 3
+# the ladder's bounds on force RMS (ladder_bounds): (b) under the
+# reference's gate at the headline theta (PLAN.md:292-293), (d) under
+# ACC_D_MAX and under (b), (b) at most ACC_RATIO x (c), (e) at most
+# ACC_RATIO x (d), (a) under FORCE_RMS_MAX
+ACC_B_MAX, ACC_D_MAX, ACC_RATIO = 3e-4, 1e-4, 1.1
+
+
+def rung_kw(name: str) -> dict:
+    """Ladder rung `name`'s TreeConfig fields (its theta is
+    ACC_RUNGS[name][3])."""
+    p, q, sep, _, mpole, extra = ACC_RUNGS[name]
+    return {**ACC_KW, "local_order": p, "grid_multipole_order": q,
+            "grid_sep": sep, "multipole_order": mpole, **extra}
+
+
+def ladder_bounds(f: dict) -> dict:
+    """The ladder's bounds on the rungs' force RMS `f` ({rung: RMS}), each
+    whose rungs are all in f: {bound: held}."""
+    rules = ((f"a < {FORCE_RMS_MAX}", "a", lambda: f["a"] < FORCE_RMS_MAX),
+             (f"b < {ACC_B_MAX}", "b", lambda: f["b"] < ACC_B_MAX),
+             (f"b <= {ACC_RATIO} c", "bc",
+              lambda: f["b"] <= ACC_RATIO * f["c"]),
+             ("d < b", "bd", lambda: f["d"] < f["b"]),
+             (f"d < {ACC_D_MAX}", "d", lambda: f["d"] < ACC_D_MAX),
+             (f"e <= {ACC_RATIO} d", "de",
+              lambda: f["e"] <= ACC_RATIO * f["d"]))
+    return {text: bool(held()) for text, need, held in rules
+            if all(r in f for r in need)}
+
+
+def far_field_alone(td, cfg) -> dict:
+    """grid2's leaf locals of td at cfg's level and orders, made alone
+    between device syncs (the tables already made): ms, the allocator's
+    peak above what was held before (the pyramid, each level's M2L
+    kernels and convolution buffers, the L2L chain) and the locals' MB.
+    Resets the peak statistics."""
+    from rakau_tpu_torch import grid2
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (Lleaf, _), ms = synced_ms(lambda: grid2.leaf_locals(td, cfg, 0.0))
+    return dict(grid_level=grid2.effective_grid_level(cfg, td.pos.shape[0]),
+                leaf_locals_ms=ms,
+                leaf_locals_peak_mb=(torch.cuda.max_memory_allocated()
+                                     - base) / MB,
+                leaf_locals_mb=Lleaf.numel() * Lleaf.element_size() / MB)
+
+
+def acc_lmac8m(pos, mass, oracle, dev) -> tuple:
+    """Path lmac8m: octree(..., **LMAC_KW).accs_pots_o(THETA) on the
+    ACC8M_N particles: its first query (the Tree grows what overflows),
+    tune_caps, then the tuned caps' first query and WARM_REPS graphed warm
+    ones (timed_queries), K1c (mono_cell) launches a warm query = the
+    chunk evaluations and nothing else; the flags and maxima of the tuned
+    query (none set; the group table's rows under its cap); the accuracy
+    bounds; K1c against its plain version on chunk 0 and the last live
+    chunk; the leaf locals alone; then the shared engine's first query
+    with the same far field, level and theta on the same tree (its caps
+    grown where flagged, until_fits), lmac's force RMS at most
+    LMAC_SHARED_RATIO x its.
+    Returns the record, the tree and the K1c row."""
+    from rakau_tpu_torch import engine, grid2, octree
+    from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
+    from rakau_tpu_torch.kernels import shared
+    n = pos.shape[0]
+    released()
+    tree, build_ms = synced_ms(lambda: octree(coords=pos, masses=mass,
+                                              **LMAC_KW))
+    _, grow_ms = event_ms(lambda: tree.accs_pots_o(THETA))
+    grown = {f: getattr(tree.config, f) for f in OVF_FIELDS
+             if getattr(tree.config, f) != LMAC_KW[f]}
+    tree.tune_caps()
+    first_s, wrapper, warm, booked, (acc, pot) = timed_queries(
+        tree, shared.launches)
+    td, cfg = tree.tree_data, tree.config
+    chunks = engine.live_chunks(td, cfg)
+    evaluated = query_chunks(td, cfg)
+    for c in booked:
+        k1_launches(c, evaluated, ("mono_cell",), "lmac8m warm query")
+    _, _, ovf, mx = engine.acc_pot_u_host(td, cfg, THETA, 0.0)
+    ovf, mx = ovf.cpu().tolist(), mx.cpu().tolist()
+    rec = query_record(n, build_ms, first_s, warm, acc, pot, oracle, dev)
+    del acc, pot
+    rec.update(
+        farfield="grid2", local_order=cfg.local_order, grid_sep=cfg.grid_sep,
+        grid_level=grid2.effective_grid_level(cfg, n),
+        first_query_with_growth_s=grow_ms / 1e3, caps_grown=grown,
+        caps={f: getattr(cfg, f) for f in OVF_FIELDS}, maxima=mx,
+        overflow=ovf, n_nodes=tree.n_nodes, n_tiles=int(td.n_tiles),
+        live_chunks=chunks, chunk_evaluations=evaluated,
+        slices=len(engine._slices(chunks, cfg.tile_chunk)),
+        launches_per_warm_query=[c["K1"]["mono_cell"] for c in booked],
+        wrapper_launches=wrapper, **memory_mb())
+    if any(ovf) or not 0 < mx[2] < cfg.frontier_cap:
+        raise AssertionError(f"lmac8m: maxima {mx}, overflow {ovf}, group "
+                             f"table cap {cfg.frontier_cap}")
+    row = kernel_row(td, cfg, chunks, n)
+    rec["kernel"] = row.pop("chunks")
+    rec["far_field"] = far_field_alone(td, cfg)
+    # the shared engine beside it: the same far field, level and theta
+    released()
+    scfg = TreeConfig(**LMAC_KW).with_(traversal_mode="shared",
+                                       frontier_cap=TREE_KW["frontier_cap"])
+    (sacc, spot, _, _), s_s, scfg, _, s_flagged = until_fits(
+        lambda c: engine.acc_pot_u_host(td, c, THETA, 0.0), scfg,
+        "lmac8m shared")
+    s_err = sampled_errors(sacc[td.inv_perm], spot[td.inv_perm], *oracle,
+                           dev)
+    rec.update(shared_force_rms=s_err["force_rms"],
+               shared_pot_rms=s_err["pot_rms"],
+               shared_first_query_s=s_s + sum(s_flagged),
+               shared_flagged_s=s_flagged,
+               shared_caps={f: getattr(scfg, f) for f in OVF_FIELDS},
+               shared_grid_level=grid2.effective_grid_level(scfg, n),
+               force_rms_over_shared=rec["force_rms"] / s_err["force_rms"])
+    del sacc, spot
+    released()
+    emit("lmac8m", **rec)
+    bounded("lmac8m", rec["force_rms"], rec["pot_rms"], FORCE_RMS_MAX,
+            POT_RMS_MAX)
+    if not rec["force_rms"] <= LMAC_SHARED_RATIO * s_err["force_rms"]:
+        raise AssertionError(f"lmac8m force rms {rec['force_rms']:.3e} "
+                             f"above {LMAC_SHARED_RATIO} x the shared "
+                             f"engine's {s_err['force_rms']:.3e}")
+    return rec, tree, dict(launches=evaluated,
+                           **{k: row[k] for k in KERNEL_KEYS})
+
+
+def acc_lmac8m_l7(tree, oracle, dev) -> dict:
+    """Path lmac8m_l7: the lmac8m tree at grid level ACC8M_L7 (2,097,152
+    leaf cells: the M2L convolution at its largest) through
+    engine.acc_pot_u_host, as bench.py queries the tree it built, from
+    the lmac8m run's tuned caps (grown where flagged, until_fits):
+    the per-tree query state made alone (tiles, tables, leaf locals) and
+    the leaf locals alone with their peak memory, then the first query and
+    WARM_REPS graphed warm ones (K1c launches = the chunk evaluations),
+    the flags and maxima (none set), the accuracy bounds."""
+    from rakau_tpu_torch import engine, grid2
+    from rakau_tpu_torch.config import OVF_FIELDS
+    td = tree.tree_data
+    n = td.pos.shape[0]
+    released()
+    cfg0 = tree.config.with_(grid_level=ACC8M_L7)
+    _, state_ms = synced_ms(lambda: engine._query_state(td, cfg0, 0.0))
+    state_mb = memory_mb()
+    far = far_field_alone(td, cfg0)
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, _, mx), first_s, cfg, _, flagged = until_fits(
+        lambda c: engine.acc_pot_u_host(td, c, THETA, 0.0), cfg0,
+        "lmac8m_l7")
+    first_s += sum(flagged)
+    evaluated = query_chunks(td, cfg)
+    warm, booked = [], []
+    for _ in range(WARM_REPS):
+        ((acc, pot, ovf, _), ms), counts = counted(lambda: event_ms(
+            lambda: engine.acc_pot_u_host(td, cfg, THETA, 0.0)))
+        warm.append(ms)
+        booked.append(counts)
+        k1_launches(counts, evaluated, ("mono_cell",), "lmac8m_l7 warm "
+                    "query")
+    ovf = ovf.cpu().tolist()
+    acc, pot = acc[td.inv_perm], pot[td.inv_perm]
+    rec = query_record(n, None, first_s, warm, acc, pot, oracle, dev)
+    del acc, pot
+    chunks = engine.live_chunks(td, cfg)
+    rec.update(grid_level=grid2.effective_grid_level(cfg, n),
+               leaf_cells=(1 << ACC8M_L7) ** 3, tree="lmac8m's",
+               query_state_ms=state_ms,
+               query_state_peak_mb=state_mb["peak_allocated_mb"],
+               far_field=far, flagged_s=flagged,
+               caps={f: getattr(cfg, f) for f in OVF_FIELDS},
+               maxima=mx.cpu().tolist(),
+               overflow=ovf, live_chunks=chunks,
+               chunk_evaluations=evaluated,
+               slices=len(engine._slices(chunks, cfg.tile_chunk)),
+               launches_per_warm_query=[c["K1"]["mono_cell"]
+                                        for c in booked], **memory_mb())
+    released()
+    emit("lmac8m_l7", **rec)
+    if any(ovf):
+        raise AssertionError(f"lmac8m_l7: overflow {ovf}")
+    bounded("lmac8m_l7", rec["force_rms"], rec["pot_rms"], FORCE_RMS_MAX,
+            POT_RMS_MAX)
+    return rec
+
+
+def ladder_grow(cfg, flags, maxima):
+    """cfg with each flagged capacity ACC_GROW times over (ladder.py's
+    growth)."""
+    from rakau_tpu_torch.config import OVF_FIELDS
+    return cfg.with_(**{f: ACC_GROW * getattr(cfg, f)
+                        for f, hit in zip(OVF_FIELDS, flags) if hit})
+
+
+def rung_forms(cfg) -> tuple:
+    """The K1 forms a query of cfg (grid2) launches once a chunk
+    evaluation: the quadrupole one on the node rows and the monopole one
+    on the particle rows, or the monopole one on the whole row."""
+    comp = "_comp" if cfg.accum == "compensated" else ""
+    forms = (f"mono{comp}_cell",)
+    if cfg.multipole_order >= 2:
+        forms = (f"quad{comp}_cell",) + forms
+    return forms
+
+
+def accuracy_ladder(seed: int, dev) -> tuple:
+    """The accuracy ladder at ACC_N particles: for each rung of ACC_RUNGS
+    its configuration (rung_kw) on the tree engine.build_tree makes of the
+    particles (one a multipole order), engine.acc_pot_u_host grown as
+    ladder.py grows it (until_fits with ladder_grow, at most
+    ACC_GROW_TRIES times), then one graphed warm query counted
+    (each form of rung_forms once a chunk evaluation, nothing else); the
+    leaf locals alone; the float64 oracle at ACC_TARGETS targets; rung b's
+    and d's quadrupole form against its plain version on chunk 0. An
+    accuracy_rung line each, then the bounds (ladder_bounds). Returns the
+    records and the kernels line's rows."""
+    from rakau_tpu_torch import engine, particles
+    from rakau_tpu_torch.config import OVF_FIELDS, TreeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(ACC_N, generator=gen)
+    samp = np.sort(np.random.default_rng(seed + 1).choice(
+        ACC_N, ACC_TARGETS, replace=False))
+    (acc_o, pot_o, check), oracle_ms = synced_ms(lambda: sampled_oracle(
+        pos, mass, samp))
+    oracle = (acc_o, pot_o, samp)
+    trees, recs, rows = {}, {}, {}
+    for name, (p, q, sep, theta, mpole, extra) in ACC_RUNGS.items():
+        t0 = time.perf_counter()
+        released()
+        cfg0 = TreeConfig(**rung_kw(name))
+        if mpole not in trees:
+            trees[mpole] = synced_ms(lambda: engine.build_tree(pos, mass,
+                                                               cfg0))
+            if bool(trees[mpole][0].overflow):
+                raise AssertionError(f"rung {name}: the build overflowed")
+        td, build_ms = trees[mpole]
+        (_, _, _, mx), first_s, cfg, grown, flagged = until_fits(
+            lambda c: engine.acc_pot_u_host(td, c, theta, 0.0), cfg0,
+            f"accuracy rung {name}", tries=ACC_GROW_TRIES + 1,
+            grow=ladder_grow)
+        evaluated = query_chunks(td, cfg)
+        ((acc, pot, ovf, _), warm_ms), counts = counted(lambda: event_ms(
+            lambda: engine.acc_pot_u_host(td, cfg, theta, 0.0)))
+        k1_launches(counts, evaluated, rung_forms(cfg), f"rung {name} warm "
+                    "query")
+        ovf = ovf.cpu().tolist()
+        acc, pot = acc[td.inv_perm], pot[td.inv_perm]
+        finite(f"rung {name} result", acc, pot)
+        err = sampled_errors(acc, pot, *oracle, dev)
+        del acc, pot
+        rec = dict(rung=name, n=ACC_N, p=p, q=q, grid_sep=sep, theta=theta,
+                   multipole_order=mpole, accum=cfg.accum,
+                   traversal_mode=cfg.traversal_mode, **err,
+                   build_ms=build_ms, first_query_s=first_s + sum(flagged),
+                   flagged_s=flagged, warm_query_ms=warm_ms,
+                   caps={f: getattr(cfg, f) for f in OVF_FIELDS},
+                   caps_grown=grown, maxima=mx.cpu().tolist(),
+                   overflow=ovf, n_tiles=int(td.n_tiles),
+                   chunk_evaluations=evaluated,
+                   launches={f: counts["K1"][f] for f in rung_forms(cfg)},
+                   **memory_mb())
+        if any(ovf):
+            raise AssertionError(f"rung {name}: overflow {ovf}")
+        rec["far_field"] = far_field_alone(td, cfg)
+        if name in ("b", "d"):
+            row = kernel_row(td, cfg, 1, ACC_N, theta, quad=True)
+            rec["kernel"] = row.pop("chunks")
+            rows[name] = dict(launches=counts["K1"][rung_forms(cfg)[0]],
+                              **{k: row[k] for k in KERNEL_KEYS})
+        rec["seconds"] = time.perf_counter() - t0
+        emit("accuracy_rung", **rec)
+        recs[name] = rec
+    del trees, pos, mass
+    released()
+    held = ladder_bounds({r: recs[r]["force_rms"] for r in recs})
+    return recs, rows, dict(oracle_ms=oracle_ms, oracle_check=check,
+                            bounds=held)
+
+
+def accuracy(seed: int, dev) -> dict:
+    """Phase group accuracy: lmac8m and lmac8m_l7 on one set of ACC8M_N
+    Plummer particles (one sampled float64 oracle on the card, checked
+    against direct_acc_pot_np), then the accuracy ladder at ACC_N, every
+    earlier graph released first. Every path must be finite and end with
+    no flag set; the bounds of each path and of the ladder are held after
+    its records are printed. Returns the kernels' rows."""
+    from rakau_tpu_torch import particles
+    t0 = time.perf_counter()
+    released()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos, mass = particles.plummer(ACC8M_N, generator=gen)
+    samp = np.sort(np.random.default_rng(seed + 1).choice(
+        ACC8M_N, 256, replace=False))
+    (acc_o, pot_o, check), oracle_ms = synced_ms(lambda: sampled_oracle(
+        pos, mass, samp))
+    oracle = (acc_o, pot_o, samp)
+    part_s = {"oracle": time.perf_counter() - t0}
+    t = time.perf_counter()
+    rec8, tree, k1c = acc_lmac8m(pos, mass, oracle, dev)
+    part_s["lmac8m"] = time.perf_counter() - t
+    del pos, mass
+    t = time.perf_counter()
+    rec7 = acc_lmac8m_l7(tree, oracle, dev)
+    part_s["lmac8m_l7"] = time.perf_counter() - t
+    del tree
+    released()
+    t = time.perf_counter()
+    recs, rows, lrec = accuracy_ladder(seed + 2, dev)
+    part_s["ladder"] = time.perf_counter() - t
+    emit("accuracy", n=ACC8M_N, ladder_n=ACC_N, oracle_ms=oracle_ms,
+         oracle_check=check, ladder_oracle_ms=lrec["oracle_ms"],
+         ladder_oracle_check=lrec["oracle_check"],
+         force_rms={"lmac8m": rec8["force_rms"],
+                    "lmac8m_l7": rec7["force_rms"],
+                    **{r: v["force_rms"] for r, v in recs.items()}},
+         ladder_bounds=lrec["bounds"], part_s=part_s,
+         seconds=time.perf_counter() - t0)
+    broken = [b for b, held in lrec["bounds"].items() if not held]
+    if broken or len(lrec["bounds"]) != 6:
+        raise AssertionError(f"accuracy ladder: bounds {lrec['bounds']}")
+    return {"lmac8m": k1c, "rung_b": rows["b"], "rung_d": rows["d"]}
 
 
 # ---------------------------------------------------------- phase ladder
@@ -7109,8 +7520,8 @@ def main_config(pos, mass):
 def kernels_line(m: dict, lf: dict, forms: dict, big: dict) -> list:
     """The kernels line: every kernel form with its launches on the main
     path, time, plain time and bound (m: main_path's results; lf, forms:
-    phase leapfrog's and its energy kernels'; big: groups scale's and
-    configs' rows)."""
+    phase leapfrog's and its energy kernels'; big: groups scale's,
+    configs' and accuracy's rows)."""
     (launches, worst, k_ms, p_ms, b_ms, whole_rec, c_launches, c_forms,
      v_forms, v_launches, lv_forms, lv_launches, g_launches, q_launches, k2,
      t_launches, t_forms, f64_launches, f64_forms) = (m[k] for k in (
@@ -7213,7 +7624,14 @@ def kernels_line(m: dict, lf: dict, forms: dict, big: dict) -> list:
             ("config3", "K1b shared_fused (monopole, compensated, config #3 "
              f"at {CFG3_N:,})", SRC, REPLACES),
             ("config4", "K1a shared_fused (monopole, fp32, config #4 at "
-             f"{CFG4_N:,})", SRC, REPLACES)):
+             f"{CFG4_N:,})", SRC, REPLACES),
+            ("lmac8m", "K1c shared_fused (monopole, fp32, cell test, lmac8m "
+             f"at {ACC8M_N:,})", SRC, REPLACES),
+            ("rung_b", "K1c+K1d shared_fused (quadrupole, fp32, cell test, "
+             f"ladder rung b: order 6 at {ACC_N:,})", SRC, REPLACES),
+            ("rung_d", "K1c+K1d+K1b shared_fused (quadrupole, compensated, "
+             f"cell test, ladder rung d: order 8 at {ACC_N:,})", SRC,
+             REPLACES)):
         row = big[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, **row,
@@ -7329,6 +7747,10 @@ def main(argv=None) -> int:
     if "configs" in phases:
         big.update(configs(args.seed + 15, dev))
         group_done("configs")
+    # ---- lmac+grid2 at 8,388,608 and its accuracy ladder at 1M ----------
+    if "accuracy" in phases:
+        big.update(accuracy(args.seed + 19, dev))
+        group_done("accuracy")
     if "ladder" in phases:
         ladder(args.seed + 17, dev)
         group_done("ladder")
