@@ -56,6 +56,9 @@ eagerly on the card too (the A/B and the per-layer timing), `graph=True`
 on CPU tensors raises.
 
 Results come back in internal Morton order (the `_u` view).
+
+Under a profiler a query is the span `query` (utils.timing), holding
+`query_state`, `read.n_tiles`, a `slice` a slice replay and the `tail`.
 """
 from __future__ import annotations
 
@@ -72,6 +75,7 @@ from . import particles as _particles
 from .build import TreeData, _quad_dim
 from .config import OVF_FIELDS, TreeConfig, fit_caps, fit_round_caps
 from .kernels import dispatch, pool, shared, tiles
+from .utils.timing import read, span
 
 # The captured pieces of queries (graphs.py; graphs.SIZE of them, each
 # pinning a copy of its tree). clear_graphs() releases them.
@@ -459,20 +463,23 @@ def _query_state(td, cfg, eps):
     # masses must miss; the far field depends on eps, whose value the key
     # takes (a host read where the caller hands in a tensor: the public
     # entries pass the number they were given)
-    key = (id(td.pos), id(td.mass), cfg, float(eps))
-    hit = _QUERY_STATE_CACHE.get(key)
-    # id() can be reused after GC; verify the cached tree is the caller's
-    if hit is not None and hit[0]() is td.pos and hit[1]() is td.mass:
-        return hit[2]
-    tables = (_traversal_mod(cfg).make_tables(td, cfg)
-              if _use_shared(cfg) else None)
-    state = (_gather_tiles(td, cfg), tables, _grid_farfield(td, cfg, eps))
-    while len(_QUERY_STATE_CACHE) >= 2:
-        _QUERY_STATE_CACHE.pop(next(iter(_QUERY_STATE_CACHE)))
-    _QUERY_STATE_CACHE[key] = (weakref.ref(td.pos), weakref.ref(td.mass),
-                               state)
-    weakref.finalize(td.pos, _QUERY_STATE_CACHE.pop, key, None)
-    return state
+    with span("query_state"):
+        key = (id(td.pos), id(td.mass), cfg, float(eps))
+        hit = _QUERY_STATE_CACHE.get(key)
+        # id() can be reused after GC; verify the cached tree is the
+        # caller's
+        if hit is not None and hit[0]() is td.pos and hit[1]() is td.mass:
+            return hit[2]
+        tables = (_traversal_mod(cfg).make_tables(td, cfg)
+                  if _use_shared(cfg) else None)
+        state = (_gather_tiles(td, cfg), tables,
+                 _grid_farfield(td, cfg, eps))
+        while len(_QUERY_STATE_CACHE) >= 2:
+            _QUERY_STATE_CACHE.pop(next(iter(_QUERY_STATE_CACHE)))
+        _QUERY_STATE_CACHE[key] = (weakref.ref(td.pos),
+                                   weakref.ref(td.mass), state)
+        weakref.finalize(td.pos, _QUERY_STATE_CACHE.pop, key, None)
+        return state
 
 
 def live_chunks(td: TreeData, cfg: TreeConfig) -> int:
@@ -480,7 +487,8 @@ def live_chunks(td: TreeData, cfg: TreeConfig) -> int:
     tiles; one host read of n_tiles)."""
     TC = td.tile_begin.shape[0]
     CH = min(cfg.tile_chunk, TC)
-    return min(max(1, -(-int(td.n_tiles) // CH)), -(-TC // CH))
+    n_tiles = int(read(td.n_tiles, "n_tiles"))
+    return min(max(1, -(-n_tiles // CH)), -(-TC // CH))
 
 
 def _slices(n_live: int, tile_chunk: int, slice_chunks=None):
@@ -667,8 +675,8 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
         tiles, _, Lgrid = _query_state(td, cfg_dyn, eps)
         _, _, ovf, mx, rcnt = _gwalk_impl(td, cfg_dyn, theta_t, eps_t, scal,
                                           tiles, Lgrid)
-        flags = ovf.cpu().tolist()
-        mx = mx.cpu().tolist()
+        flags = read(ovf, "query_overflow").tolist()
+        mx = read(mx, "query_maxima").tolist()
         if not any(flags):
             break
         if flags[2] and mx[1] <= cfg_dyn.p2p_src_cap:
@@ -680,7 +688,8 @@ def tune_gwalk(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
                                    for f, hit in zip(OVF_FIELDS, flags)
                                    if hit})
     fitted = fit_caps(cfg_dyn, mx)
-    return fitted.with_(gwalk_round_caps=fit_round_caps(rcnt.cpu()))
+    return fitted.with_(gwalk_round_caps=fit_round_caps(
+        read(rcnt, "round_counts")))
 
 
 def _chunk_loop(td: TreeData, cfg: TreeConfig, theta, eps, scal, panels,
@@ -781,18 +790,19 @@ def run_chunks(td: TreeData, cfg: TreeConfig, theta, eps, scal, state,
         Lgrid = None        # read by the chunks with "grid" only
     ovf = mx = acc = pot = None
     for s, start, K in _slices(last - first, cfg.tile_chunk, slice_chunks):
-        a, p, o, m = _run(graph, _slice_impl, td, cfg, theta, eps, scal,
-                          tuple(t[first + start:first + start + K]
-                                for t in tiles), tables,
-                          Lgrid, mode=mode, extra=extra)
-        if acc is None:
-            acc = a.new_zeros((rows,) + a.shape[1:])
-            pot = p.new_zeros((rows,) + p.shape[1:])
-        acc[s * CH:(start + K) * CH] = a[(s - start) * CH:]
-        pot[s * CH:(start + K) * CH] = p[(s - start) * CH:]
-        del a, p
-        ovf = o if ovf is None else ovf | o
-        mx = m if mx is None else torch.maximum(mx, m)
+        with span("slice"):
+            a, p, o, m = _run(graph, _slice_impl, td, cfg, theta, eps, scal,
+                              tuple(t[first + start:first + start + K]
+                                    for t in tiles), tables,
+                              Lgrid, mode=mode, extra=extra)
+            if acc is None:
+                acc = a.new_zeros((rows,) + a.shape[1:])
+                pot = p.new_zeros((rows,) + p.shape[1:])
+            acc[s * CH:(start + K) * CH] = a[(s - start) * CH:]
+            pot[s * CH:(start + K) * CH] = p[(s - start) * CH:]
+            del a, p
+            ovf = o if ovf is None else ovf | o
+            mx = m if mx is None else torch.maximum(mx, m)
     return acc, pot, ovf, mx
 
 
@@ -820,21 +830,23 @@ def acc_pot_u_host(td: TreeData, cfg: TreeConfig, theta, eps, G=1.0,
     if cfg.traversal_mode == "gwalk" and extra is not None:
         raise NotImplementedError(
             "LET imports ride the shared/lmac engines, not gwalk")
-    tiles, tables, Lgrid = _query_state(td, cfg, eps)
-    theta, eps, scal = scalars(td.pos, theta, eps, G)
-    if cfg.traversal_mode == "gwalk":
-        return _run(graph, _gwalk_query, td, cfg, theta, eps, scal, tiles,
-                    Lgrid, mode=mode)
-    # the padding chunks' rows as zeros (the reference's tail shape), so
-    # that one tail serves every n_live
-    acc, pot, ovf, mx = run_chunks(td, cfg, theta, eps, scal,
-                                   (tiles, tables, Lgrid), 0,
-                                   live_chunks(td, cfg), slice_chunks, mode,
-                                   extra, graph,
-                                   rows=tiles[0].shape[0] * tiles[0].shape[1])
-    acc_u, pot_u = _run(graph, _tail_impl, td, cfg, eps, scal,
-                        Lgrid if cfg.farfield == "grid2" else None, acc, pot)
-    return acc_u, pot_u, ovf, mx
+    with span("query"):
+        tiles, tables, Lgrid = _query_state(td, cfg, eps)
+        theta, eps, scal = scalars(td.pos, theta, eps, G)
+        if cfg.traversal_mode == "gwalk":
+            return _run(graph, _gwalk_query, td, cfg, theta, eps, scal,
+                        tiles, Lgrid, mode=mode)
+        # the padding chunks' rows as zeros (the reference's tail shape),
+        # so that one tail serves every n_live
+        acc, pot, ovf, mx = run_chunks(
+            td, cfg, theta, eps, scal, (tiles, tables, Lgrid), 0,
+            live_chunks(td, cfg), slice_chunks, mode, extra, graph,
+            rows=tiles[0].shape[0] * tiles[0].shape[1])
+        with span("tail"):
+            acc_u, pot_u = _run(graph, _tail_impl, td, cfg, eps, scal,
+                                Lgrid if cfg.farfield == "grid2" else None,
+                                acc, pot)
+        return acc_u, pot_u, ovf, mx
 
 
 def _query_impl(td: TreeData, cfg: TreeConfig, theta, eps, scal,

@@ -32,6 +32,9 @@ with a key
     the tree, hold one copy of it, not two: 4.9 GB at 64M particles).
 Every call copies its tensors into the static inputs, replays the graph
 and returns clones of the outputs: fresh tensors, as a jitted call's are.
+A replay is the span `graph.replay` and a first call's warm-up and capture
+the span `graph.capture` (utils.timing), so that a profile puts the
+copies and clones apart from the graph's own launch.
 A shared buffer is always filled with the caller's data before the
 replay that reads it: graphs replay one at a time on a device.
 
@@ -61,6 +64,8 @@ import time
 import weakref
 
 import torch
+
+from .utils.timing import span
 
 # What a key holds for a tensor leaf; any other leaf must be hashable.
 _TENSOR = object()
@@ -133,10 +138,12 @@ class _Graph:
         self.counts = counts
 
     def replay(self, tensors):
-        for static, t in zip(self.inputs, tensors):
-            static.copy_(t)
-        self.graph.replay()
-        return _build(self.out_template, [o.clone() for o in self.outputs])
+        with span("graph.replay"):
+            for static, t in zip(self.inputs, tensors):
+                static.copy_(t)
+            self.graph.replay()
+            return _build(self.out_template,
+                          [o.clone() for o in self.outputs])
 
 
 class GraphCache:
@@ -202,7 +209,8 @@ class GraphCache:
         with torch.cuda.device(dev):
             g = self._graphs.pop(k, None)
             if g is None:
-                g = self._capture(fn, k[1], tensors, dev)
+                with span("graph.capture"):
+                    g = self._capture(fn, k[1], tensors, dev)
             self._keep(k, g)
             out = g.replay(tensors)
             _add(self.replayed, g.counts)

@@ -58,6 +58,7 @@ from . import direct as _direct
 from . import engine as _engine
 from . import particles as _particles
 from .config import TreeConfig, grow_overflowed
+from .utils.timing import read, span
 
 
 class NBodyState(NamedTuple):
@@ -118,14 +119,14 @@ def _energy(state, cfg, theta, eps, G, box_size, build, query):
 
 # ------------------------------------------------------------- the checks
 def _check_build(overflow):
-    if bool(overflow):
+    if bool(read(overflow, "build_overflow")):
         raise RuntimeError(
             "tree build overflowed its node or tile capacity; set "
             "cfg.node_cap / cfg.tile_cap larger")
 
 
 def _check_energy_query(ovf):
-    flags = ovf.cpu().tolist()
+    flags = read(ovf, "query_overflow").tolist()
     if any(flags):
         raise RuntimeError(
             f"total_energy: the query overflowed its capacities {flags} "
@@ -133,9 +134,10 @@ def _check_energy_query(ovf):
 
 
 def _host_build(pos, mass, cfg, box_size, graph):
-    td = _engine.build_tree(pos, mass, cfg, box_size, graph=graph)
-    _check_build(td.overflow)
-    return td
+    with span("build"):
+        td = _engine.build_tree(pos, mass, cfg, box_size, graph=graph)
+        _check_build(td.overflow)
+        return td
 
 
 def _args(pos, cfg, graph, box_size):
@@ -211,9 +213,10 @@ def leapfrog_step(state: NBodyState, dt, cfg: TreeConfig, theta, eps,
 def leapfrog_step_host(state: NBodyState, dt, cfg: TreeConfig, theta, eps,
                        G=1.0, box_size=None, graph=None):
     """leapfrog_step's _host twin."""
-    graph, box_size = _args(state.pos, cfg, graph, box_size)
-    return _step(state, _dt(dt, state.pos), cfg, theta, eps, G, box_size,
-                 *_host(graph))[:2]
+    with span("step"):
+        graph, box_size = _args(state.pos, cfg, graph, box_size)
+        return _step(state, _dt(dt, state.pos), cfg, theta, eps, G,
+                     box_size, *_host(graph))[:2]
 
 
 def leapfrog_step_morton(state: NBodyState, dt, cfg: TreeConfig, theta,
@@ -236,9 +239,10 @@ def leapfrog_step_morton(state: NBodyState, dt, cfg: TreeConfig, theta,
 def leapfrog_step_morton_host(state: NBodyState, dt, cfg: TreeConfig, theta,
                               eps, G=1.0, box_size=None, graph=None):
     """leapfrog_step_morton's _host twin."""
-    graph, box_size = _args(state.pos, cfg, graph, box_size)
-    return _step_morton(state, _dt(dt, state.pos), cfg, theta, eps, G,
-                        box_size, *_host(graph))[:3]
+    with span("step"):
+        graph, box_size = _args(state.pos, cfg, graph, box_size)
+        return _step_morton(state, _dt(dt, state.pos), cfg, theta, eps, G,
+                            box_size, *_host(graph))[:3]
 
 
 def leapfrog_step_morton_host_safe(state: NBodyState, dt, cfg: TreeConfig,
@@ -250,16 +254,16 @@ def leapfrog_step_morton_host_safe(state: NBodyState, dt, cfg: TreeConfig,
 
     Returns (new_state, overflow_flags (all False), step_perm, cfg,
     n_retries); callers thread the grown cfg into later steps so that the
-    growth is paid once."""
-    n_retries = 0
-    for _ in range(max_retries + 1):
-        new_state, ovf, perm = leapfrog_step_morton_host(
-            state, dt, cfg, theta, eps, G, box_size, graph)
-        flags = ovf.cpu().tolist()
-        if not any(flags):
-            return new_state, ovf, perm, cfg, n_retries
-        cfg = grow_overflowed(cfg, flags)
-        n_retries += 1
+    growth is paid once. The call is the span `step`, and each attempt,
+    a leapfrog_step_morton_host, a `step` inside it."""
+    with span("step"):
+        for n_retries in range(max_retries + 1):
+            new_state, ovf, perm = leapfrog_step_morton_host(
+                state, dt, cfg, theta, eps, G, box_size, graph)
+            flags = read(ovf, "step_overflow").tolist()
+            if not any(flags):
+                return new_state, ovf, perm, cfg, n_retries
+            cfg = grow_overflowed(cfg, flags)
     raise RuntimeError(
         f"leapfrog step still overflowing after {max_retries} cap "
         f"doublings (flags {flags})")

@@ -39,9 +39,9 @@ read, on a one-card mesh one CUDA graph and on a mesh over several cards
 one CUDA graph a card and stage, the collectives between them;
 `acc_pot_let_host` with engine.build_tree and engine.acc_pot_u_host(extra=)
 (one host read of n_tiles a shard, the live chunks in sliced graphs), its
-stages eager under each card's device. Inside `stage_seconds()`
-acc_pot_let_host synchronises the mesh around each stage and records its
-seconds.
+stages eager under each card's device. Each stage is the span
+`let.<stage>` (utils.timing); inside `stage_seconds()` acc_pot_let_host
+also synchronises the mesh around each stage and records its seconds.
 """
 from __future__ import annotations
 
@@ -56,6 +56,7 @@ from .. import morton, particles as _particles, traversal2
 from .. import scan_utils as su
 from ..config import TreeConfig
 from ..tree import _inverse
+from ..utils.timing import span
 from . import mesh as _mesh
 from .mesh import Mesh
 
@@ -78,14 +79,17 @@ def stage_seconds():
 
 @contextmanager
 def _stage(mesh: Mesh, name: str):
-    if _timing is None:
+    """A stage of the pipeline: always the span `let.<name>`; inside
+    stage_seconds() also synchronised and timed."""
+    with span("let." + name):
+        if _timing is None:
+            yield
+            return
+        _mesh.synchronize(mesh)
+        t0 = time.perf_counter()
         yield
-        return
-    _mesh.synchronize(mesh)
-    t0 = time.perf_counter()
-    yield
-    _mesh.synchronize(mesh)
-    _timing[name] = _timing.get(name, 0.0) + time.perf_counter() - t0
+        _mesh.synchronize(mesh)
+        _timing[name] = _timing.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _export_cfg(cfg: TreeConfig, node_cap: int, part_cap: int,

@@ -16,7 +16,8 @@ waits for the destination's, and the destination's current stream waits
 for the copy (events, no `torch.cuda.synchronize`). It goes peer to peer
 where `torch.cuda.can_device_access_peer` allows it, else through the
 CUDA driver's own path. `copied` keeps the bytes the collectives moved
-between devices.
+between devices, and each call of a collective is the span
+`mesh.<its name>` (utils.timing).
 
 The stages: `stage_map` runs a per-shard function over every shard and
 `on_first` a function on the first shard's device, in one of three ways
@@ -36,12 +37,14 @@ too.
 """
 from __future__ import annotations
 
+import functools
 from contextlib import nullcontext
 from typing import NamedTuple, Optional
 
 import torch
 
 from .. import engine
+from ..utils.timing import span
 
 
 class Mesh(NamedTuple):
@@ -141,6 +144,18 @@ def _move(x: torch.Tensor, dev) -> torch.Tensor:
     return y
 
 
+def _collective(fn):
+    """fn under the span `mesh.<fn's name>`."""
+    name = "mesh." + fn.__name__
+
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        with span(name):
+            return fn(*args, **kw)
+
+    return call
+
+
 def _to(x, dev):
     """x (a tensor, or a tuple or named tuple of them) on dev."""
     if isinstance(x, torch.Tensor):
@@ -151,6 +166,7 @@ def _to(x, dev):
     return x
 
 
+@_collective
 def all_to_all(xs: list) -> list:
     """xs[s]: [ndev, ...] on shard s. out[r] = stack over s of xs[s][r],
     on shard r's device (jax.lax.all_to_all(split_axis=0, concat_axis=0,
@@ -159,29 +175,34 @@ def all_to_all(xs: list) -> list:
             for r in range(len(xs))]
 
 
+@_collective
 def all_gather(xs: list) -> list:
     """out[r] = stack over s of xs[s], on shard r's device."""
     return [torch.stack([_move(x, dst.device) for x in xs]) for dst in xs]
 
 
+@_collective
 def pmax(xs: list) -> list:
     """Elementwise maximum over the shards, on every shard."""
     return [torch.stack([_move(x, dst.device) for x in xs]).amax(0)
             for dst in xs]
 
 
+@_collective
 def any(xs: list) -> list:  # noqa: A001 (the collective's name)
     """Elementwise logical OR over the shards (bool), on every shard."""
     return [torch.stack([_move(x, dst.device).bool() for x in xs]).any(0)
             for dst in xs]
 
 
+@_collective
 def gather(xs: list, dev) -> list:
     """Each shard's piece (a tensor, or a tuple of them) on `dev`, in shard
     order."""
     return [_to(x, dev) for x in xs]
 
 
+@_collective
 def gather_cat(xs: list, dev) -> torch.Tensor:
     """The shards' pieces concatenated along their first axis on `dev`,
     each moved there and put in its place in one buffer as it comes: the
@@ -196,11 +217,13 @@ def gather_cat(xs: list, dev) -> torch.Tensor:
     return out
 
 
+@_collective
 def scatter(mesh: Mesh, xs: list) -> list:
     """xs[r] (a tensor, or a tuple of them) on shard r's device."""
     return [_to(x, dev) for x, dev in zip(xs, mesh.devices)]
 
 
+@_collective
 def to_shards(mesh: Mesh, x) -> list:
     """The same tensor (or NamedTuple of tensors) on every shard's device:
     one copy per distinct device."""

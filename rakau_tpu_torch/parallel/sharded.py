@@ -43,6 +43,7 @@ import torch
 from .. import engine, integrate
 from ..build import TreeData
 from ..config import TreeConfig
+from ..utils.timing import span
 from . import mesh as _mesh
 from .mesh import Mesh, default_mesh
 
@@ -219,33 +220,38 @@ def acc_pot_u_sharded_host(td: TreeData, cfg: TreeConfig, theta, eps, G,
     if cfg.farfield == "grid":
         cfg = cfg.with_(farfield="local")
     dev0 = mesh.devices[0]
-    td = _mesh._to(td, dev0)
-    tiles, tables, Lgrid = engine._query_state(td, cfg, eps)
-    theta, eps, scal = engine.scalars(td.pos, theta, eps, G)
-    scals = _mesh.to_shards(mesh, (theta, eps, scal))
-    # the one host read of the query: how many chunks hold real tiles
-    n_live = engine.live_chunks(td, cfg)
-    tds = _mesh.to_shards(mesh, td)
-    # with "grid" gone, the chunk loop reads no far-field state (grid2's
-    # leaf locals stay on the first shard for the per-particle far field)
-    states = _mesh.to_shards(mesh, (tiles, tables, None))
-    accs, pots, ovfs = [], [], []
-    for r, (first, last) in enumerate(chunk_ranges(n_live, mesh.size)):
-        if first == last:
-            ovfs.append(torch.zeros(4, dtype=torch.bool,
-                                    device=mesh.devices[r]))
-            continue
-        a, p, o, _ = engine.run_chunks(tds[r], cfg, *scals[r], states[r],
-                                       first, last)
-        accs.append(a)
-        pots.append(p)
-        ovfs.append(o)
-    ovf = _mesh.any(ovfs)[0]
-    acc_u, pot_u = engine._assemble_impl(td, cfg,
-                                         _mesh.gather_cat(accs, dev0),
-                                         _mesh.gather_cat(pots, dev0))
-    acc_u, pot_u = engine._add_grid2(td, cfg, eps, scal, Lgrid, acc_u, pot_u)
-    return acc_u, pot_u, ovf
+    with span("query"):
+        td = _mesh._to(td, dev0)
+        tiles, tables, Lgrid = engine._query_state(td, cfg, eps)
+        theta, eps, scal = engine.scalars(td.pos, theta, eps, G)
+        scals = _mesh.to_shards(mesh, (theta, eps, scal))
+        # the one host read of the query: how many chunks hold real tiles
+        n_live = engine.live_chunks(td, cfg)
+        tds = _mesh.to_shards(mesh, td)
+        # with "grid" gone, the chunk loop reads no far-field state
+        # (grid2's leaf locals stay on the first shard for the
+        # per-particle far field)
+        states = _mesh.to_shards(mesh, (tiles, tables, None))
+        accs, pots, ovfs = [], [], []
+        for r, (first, last) in enumerate(chunk_ranges(n_live, mesh.size)):
+            if first == last:
+                ovfs.append(torch.zeros(4, dtype=torch.bool,
+                                        device=mesh.devices[r]))
+                continue
+            with span("shard"):
+                a, p, o, _ = engine.run_chunks(tds[r], cfg, *scals[r],
+                                               states[r], first, last)
+            accs.append(a)
+            pots.append(p)
+            ovfs.append(o)
+        ovf = _mesh.any(ovfs)[0]
+        with span("tail"):
+            acc_u, pot_u = engine._assemble_impl(
+                td, cfg, _mesh.gather_cat(accs, dev0),
+                _mesh.gather_cat(pots, dev0))
+            acc_u, pot_u = engine._add_grid2(td, cfg, eps, scal, Lgrid,
+                                             acc_u, pot_u)
+        return acc_u, pot_u, ovf
 
 
 def acc_pot_sharded_host(pos, mass, cfg: TreeConfig, theta, eps, G,
@@ -256,19 +262,21 @@ def acc_pot_sharded_host(pos, mass, cfg: TreeConfig, theta, eps, G,
     td = integrate._host_build(pos.to(dev0), mass.to(dev0), cfg, box_size,
                                graph=None)
     acc_u, pot_u, ovf = acc_pot_u_sharded_host(td, cfg, theta, eps, G, mesh)
-    return acc_u[td.inv_perm], pot_u[td.inv_perm], ovf
+    with span("reorder"):
+        return acc_u[td.inv_perm], pot_u[td.inv_perm], ovf
 
 
 def leapfrog_step_sharded_host(state, dt, cfg: TreeConfig, theta, eps, G,
                                mesh: Mesh, box_size=None):
     """leapfrog_step_sharded's _host twin."""
-    acc0, _, ovf0 = acc_pot_sharded_host(state.pos, state.mass, cfg, theta,
-                                         eps, G, mesh, box_size)
-    dev0 = acc0.device
-    vel_h = state.vel.to(dev0) + 0.5 * dt * acc0
-    pos1 = state.pos.to(dev0) + dt * vel_h
-    mass = state.mass.to(dev0)
-    acc1, _, ovf1 = acc_pot_sharded_host(pos1, mass, cfg, theta, eps, G,
-                                         mesh, box_size)
-    vel1 = vel_h + 0.5 * dt * acc1
-    return integrate.NBodyState(pos1, vel1, mass), ovf0 | ovf1
+    with span("step"):
+        acc0, _, ovf0 = acc_pot_sharded_host(state.pos, state.mass, cfg,
+                                             theta, eps, G, mesh, box_size)
+        dev0 = acc0.device
+        vel_h = state.vel.to(dev0) + 0.5 * dt * acc0
+        pos1 = state.pos.to(dev0) + dt * vel_h
+        mass = state.mass.to(dev0)
+        acc1, _, ovf1 = acc_pot_sharded_host(pos1, mass, cfg, theta, eps, G,
+                                             mesh, box_size)
+        vel1 = vel_h + 0.5 * dt * acc1
+        return integrate.NBodyState(pos1, vel1, mass), ovf0 | ovf1

@@ -25,7 +25,7 @@ from . import direct as _direct
 from . import engine as _engine
 from . import particles as _particles
 from .config import TreeConfig, fit_caps, grow_overflowed
-from .utils.timing import phase_timer
+from .utils.timing import read, span
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
 
@@ -121,9 +121,9 @@ class Tree:
         cfg = self._cfg
         n = pos.shape[0]
         for _ in range(self._max_retries):
-            with phase_timer("tree_build"):
+            with span("build"):
                 td = _engine.build_tree(pos, mass, cfg, self._box)
-                overflow = bool(td.overflow)
+                overflow = bool(read(td.overflow, "build_overflow"))
             if not overflow:
                 break
             cfg = cfg.with_(node_cap=2 * cfg.node_capacity(n),
@@ -149,13 +149,11 @@ class Tree:
                 f"theta <= {2.0 / cfg.ndim ** 0.5:.3f} "
                 f"(monotonicity bound); got {float(theta)}")
         for _ in range(self._max_retries):
-            with phase_timer("traverse+eval"):
-                acc, pot, ovf, mx = _engine.acc_pot_u_host(
-                    self._td, cfg, float(theta), float(eps), float(G),
-                    mode=mode)
-                flags = ovf.cpu().tolist()
+            acc, pot, ovf, mx = _engine.acc_pot_u_host(
+                self._td, cfg, float(theta), float(eps), float(G), mode=mode)
+            flags = read(ovf, "query_overflow").tolist()
             if not any(flags):
-                self._last_stats = mx.cpu().tolist()
+                self._last_stats = read(mx, "query_maxima").tolist()
                 return acc, pot
             # grow every overflowed capacity (never truncate silently)
             cfg = grow_overflowed(cfg, flags)
@@ -179,7 +177,8 @@ class Tree:
     def accs_pots_o(self, theta, eps=0.0, G=1.0):
         """Accelerations and potentials, original input order."""
         acc, pot = self._query(theta, eps, G)
-        return acc[self._inv_orig], pot[self._inv_orig]
+        with span("reorder"):
+            return acc[self._inv_orig], pot[self._inv_orig]
 
     def accs_u(self, theta, eps=0.0, G=1.0):
         """Accelerations only (the kernel skips the potential sums)."""
@@ -198,9 +197,8 @@ class Tree:
     # ------------------------------------------------- exact (direct sum)
     def exact_accs_pots_u(self, eps=0.0, G=1.0):
         """O(N^2) direct-sum oracle, Morton order."""
-        with phase_timer("direct_sum"):
-            return _direct.direct_acc_pot(self._td.pos, self._td.mass,
-                                          eps=eps, G=G)
+        return _direct.direct_acc_pot(self._td.pos, self._td.mass,
+                                      eps=eps, G=G)
 
     def exact_accs_pots_o(self, eps=0.0, G=1.0):
         acc, pot = self.exact_accs_pots_u(eps, G)
