@@ -3,13 +3,15 @@ generators (Plummer, uniform cube, cold sphere, disk galaxy).
 Counterpart of `rakau_tpu.particles`.
 
 The domain box is centred on the origin. Validation runs once at the API
-boundary (one host sync), never inside the query.
+boundary (one host read, `read.valid`), never inside the query.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from .utils.timing import read
 
 
 def auto_box_size(pos: torch.Tensor) -> torch.Tensor:
@@ -32,29 +34,31 @@ def scalar_tensor(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(x), dtype=like.dtype, device=like.device)
 
 
-def validate(pos: torch.Tensor, mass: torch.Tensor, box_size) -> dict:
-    """Violation flags (0-dim bool tensors): non-finite coordinates or
-    masses, coordinates outside the box, mismatched lengths."""
+def validate(pos: torch.Tensor, mass: torch.Tensor,
+             box_size) -> torch.Tensor:
+    """Violation flags [3] bool: non-finite coordinates, non-finite
+    masses, coordinates outside the box (mismatched lengths are the
+    caller's host check)."""
     half = scalar_tensor(box_size, pos) / 2
-    return {
-        "nonfinite_pos": (~torch.isfinite(pos)).any(),
-        "nonfinite_mass": (~torch.isfinite(mass)).any(),
-        "out_of_box": (pos.abs() >= half).any(),
-        "bad_shapes": torch.tensor(pos.shape[0] != mass.shape[0]),
-    }
+    return torch.stack([(~torch.isfinite(pos)).any(),
+                        (~torch.isfinite(mass)).any(),
+                        (pos.abs() >= half).any()])
 
 
 def raise_on_invalid(pos: torch.Tensor, mass: torch.Tensor, box_size):
+    """Raise ValueError on mismatched lengths (read on the host), or on any
+    flag of validate (one device read, `read.valid`)."""
     if pos.shape[0] != mass.shape[0]:
         raise ValueError(
             f"positions ({pos.shape[0]}) and masses ({mass.shape[0]}) "
             "must have the same length")
-    flags = {k: bool(v) for k, v in validate(pos, mass, box_size).items()}
-    if flags["nonfinite_pos"]:
+    nonfinite_pos, nonfinite_mass, out_of_box = read(
+        validate(pos, mass, box_size), "valid").tolist()
+    if nonfinite_pos:
         raise ValueError("non-finite coordinate detected")
-    if flags["nonfinite_mass"]:
+    if nonfinite_mass:
         raise ValueError("non-finite mass detected")
-    if flags["out_of_box"]:
+    if out_of_box:
         raise ValueError(
             "coordinate outside the origin-centered box of size "
             f"{float(box_size)} detected")

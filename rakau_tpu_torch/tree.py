@@ -217,39 +217,42 @@ class Tree:
         return self.exact_accs_pots_o(eps, G)[1]
 
     # ----------------------------------------------------------- updates
-    def _new_values(self, new, current):
-        vals = (new(current) if callable(new)
-                else _as_tensor(new, self._cfg.torch_dtype, self._device))
-        if vals.shape != current.shape:
-            raise ValueError(f"shape {tuple(vals.shape)} != "
-                             f"{tuple(current.shape)}")
-        return vals
+    def _update(self, new, which: str, ordered: bool):
+        """Replace `which` ("pos" or "mass") by `new`, validate, re-sort
+        and rebuild. `new` is a tensor in the input order where `ordered`,
+        else in Morton order, or a callable applied to the current values
+        in that order; either is checked against their shape."""
+        with span("update"):
+            cur = getattr(self._td, which)
+            if callable(new):
+                vals = new(cur[self._inv_orig] if ordered else cur)
+            else:
+                vals = _as_tensor(new, self._cfg.torch_dtype, self._device)
+            if vals.shape != cur.shape:
+                raise ValueError(f"shape {tuple(vals.shape)} != "
+                                 f"{tuple(cur.shape)}")
+            if ordered:
+                vals = vals[self._orig_perm]
+            pos, mass = ((vals, self._td.mass) if which == "pos"
+                         else (self._td.pos, vals))
+            _particles.raise_on_invalid(pos, mass, self._box)
+            self._rebuild(pos, mass)
 
     def update_positions_u(self, new_positions: Union[Callable, ArrayLike]):
         """Replace positions (Morton order, or a callable applied to the
         Morton-order positions), then re-sort and rebuild, composing
         permutations so `_o` views keep the original input order."""
-        pos = self._new_values(new_positions, self._td.pos)
-        _particles.raise_on_invalid(pos, self._td.mass, self._box)
-        self._rebuild(pos, self._td.mass)
+        self._update(new_positions, "pos", ordered=False)
 
     def update_positions_o(self, new_positions: Union[Callable, ArrayLike]):
-        pos_o = self._new_values(new_positions, self.positions_o)
-        pos_u = pos_o[self._orig_perm]
-        _particles.raise_on_invalid(pos_u, self._td.mass, self._box)
-        self._rebuild(pos_u, self._td.mass)
+        self._update(new_positions, "pos", ordered=True)
 
     def update_masses_u(self, new_masses: Union[Callable, ArrayLike]):
         """Replace masses (Morton order or callable) and rebuild."""
-        m = self._new_values(new_masses, self._td.mass)
-        _particles.raise_on_invalid(self._td.pos, m, self._box)
-        self._rebuild(self._td.pos, m)
+        self._update(new_masses, "mass", ordered=False)
 
     def update_masses_o(self, new_masses: Union[Callable, ArrayLike]):
-        m_o = self._new_values(new_masses, self.masses_o)
-        m_u = m_o[self._orig_perm]
-        _particles.raise_on_invalid(self._td.pos, m_u, self._box)
-        self._rebuild(self._td.pos, m_u)
+        self._update(new_masses, "mass", ordered=True)
 
     # --------------------------------------------------------- accessors
     @property

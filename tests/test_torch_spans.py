@@ -7,6 +7,7 @@ and stage_seconds() still times them; no span opens inside a capture."""
 from collections import Counter
 
 import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -89,6 +90,25 @@ def test_a_tree_query():
         "query", "query/query_state", "query/read.n_tiles", "query/slice",
         "query/tail", "read.query_overflow", "read.query_maxima", "reorder"}
     assert _reads(paths) == 3
+
+
+UPDATES = {
+    "update_positions_u": lambda t: t.positions_u * 0.99,
+    "update_positions_o": lambda t: t.positions_o * 0.99,
+    "update_masses_u": lambda t: t.masses_u * 2,
+    "update_masses_o": lambda t: t.masses_o * 2}
+
+
+@pytest.mark.parametrize("method", sorted(UPDATES))
+def test_a_tree_update(method):
+    pos, mass = _cloud()
+    t = octree(coords=pos, masses=mass, device="cpu", config=CFG)
+    new = UPDATES[method](t)
+    paths = _profiled(lambda: getattr(t, method)(new))
+    assert paths == Counter({"update": 1, "update/read.valid": 1,
+                             "update/build": 1,
+                             "update/build/read.build_overflow": 1})
+    assert _reads(paths) == 2
 
 
 def test_a_leapfrog_step():
